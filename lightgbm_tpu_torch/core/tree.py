@@ -1,0 +1,104 @@
+"""Tree prediction on raw feature values.
+
+The port of ``lightgbm_tpu/core/tree.py`` (Tree::Predict / GetLeaf,
+tree.h:203-260 and gbdt_prediction.cpp:9-83 of the reference). Prediction
+replays the splits in creation order: node ``t`` split leaf
+``split_leaf[t]``, so visiting nodes 0..L-2 in turn moves every row through
+exactly the decisions a traversal would make, each step one vectorized
+compare over all rows. Thresholds are real values, compared in float32 like
+the JAX package.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from .split import MISSING_NAN, MISSING_ZERO
+
+K_ZERO_THRESHOLD = 1e-35
+
+
+class PredictTree(NamedTuple):
+    """Per-tree arrays of replay prediction, stacked over trees [T, ...]."""
+    split_leaf: torch.Tensor     # [T, L-1] int64; -1 = unused node
+    split_feature: torch.Tensor  # [T, L-1] int64 real feature index
+    threshold: torch.Tensor      # [T, L-1] float32 real threshold
+    default_left: torch.Tensor   # [T, L-1] bool
+    missing_type: torch.Tensor   # [T, L-1] int64
+    leaf_value: torch.Tensor     # [T, L] float32
+
+
+def stack_predict_trees(trees: Sequence, device: torch.device) -> PredictTree:
+    """Pad host trees (HostTree or LoadedTree layout) to common shapes and
+    stack them on ``device``."""
+    max_nodes = max(max(t.num_leaves - 1, 1) for t in trees)
+    max_leaves = max(t.num_leaves for t in trees)
+
+    def stack(get, n, fill, dtype):
+        out = np.full((len(trees), n), fill, dtype)
+        for i, t in enumerate(trees):
+            a = np.asarray(get(t))
+            out[i, :len(a)] = a
+        return torch.as_tensor(out, device=device)
+
+    return PredictTree(
+        split_leaf=stack(lambda t: t.split_leaf, max_nodes, -1, np.int64),
+        split_feature=stack(lambda t: t.split_feature, max_nodes, 0,
+                            np.int64),
+        threshold=stack(lambda t: t.threshold.astype(np.float32), max_nodes,
+                        0.0, np.float32),
+        default_left=stack(lambda t: t.default_left, max_nodes, False, bool),
+        missing_type=stack(lambda t: t.missing_type, max_nodes, 0, np.int64),
+        leaf_value=stack(lambda t: t.leaf_value.astype(np.float32),
+                         max_leaves, 0.0, np.float32))
+
+
+def split_leaf_of_nodes(left_child: np.ndarray, num_nodes: int
+                        ) -> np.ndarray:
+    """The leaf each node split, for replay prediction: the end of the
+    node's left-child spine (Tree::Split keeps the split leaf's index on the
+    left child, tree.cpp:49-67)."""
+    out = np.full(num_nodes, -1, np.int32)
+    for t in range(num_nodes):
+        node = t
+        while left_child[node] >= 0:
+            node = left_child[node]
+        out[t] = ~left_child[node]
+    return out
+
+
+def decision_go_left(fval: torch.Tensor, threshold, default_left,
+                     missing_type) -> torch.Tensor:
+    """Tree::NumericalDecision on raw values (tree.h:212-243): NaN is
+    missing under MissingType::NaN; under MissingType::Zero both zero and
+    NaN are missing; otherwise NaN is treated as 0."""
+    is_nan = torch.isnan(fval)
+    fval_safe = torch.where(is_nan, torch.zeros_like(fval), fval)
+    is_zero = torch.abs(fval_safe) <= K_ZERO_THRESHOLD
+    use_default = torch.where(missing_type == MISSING_NAN, is_nan,
+                              (missing_type == MISSING_ZERO)
+                              & (is_zero | is_nan))
+    return torch.where(use_default, default_left, fval_safe <= threshold)
+
+
+def predict_forest_scores(trees: PredictTree, x: torch.Tensor
+                          ) -> torch.Tensor:
+    """[N] raw scores: the sum over trees, in tree order, of each tree's
+    leaf value for every row of x [N, F] float32."""
+    n = x.shape[0]
+    out = torch.zeros(n, dtype=torch.float32, device=x.device)
+    num_trees, num_nodes = trees.split_leaf.shape
+    for i in range(num_trees):
+        leaf_id = torch.zeros(n, dtype=torch.int64, device=x.device)
+        for t in range(num_nodes):
+            fval = x.index_select(1, trees.split_feature[i, t].view(1))[:, 0]
+            go_left = decision_go_left(fval, trees.threshold[i, t],
+                                       trees.default_left[i, t],
+                                       trees.missing_type[i, t])
+            move = ((leaf_id == trees.split_leaf[i, t]) & ~go_left
+                    & (trees.split_leaf[i, t] >= 0))
+            leaf_id = torch.where(move, t + 1, leaf_id)
+        out = out + trees.leaf_value[i][leaf_id]
+    return out

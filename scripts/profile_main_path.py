@@ -1,0 +1,124 @@
+"""Where one training iteration of the PyTorch port spends its time.
+
+Trains chip_smoke.py's main-path workload (bench.py's 1,000,000 x 28 data,
+numpy seed 0; binary, num_leaves=255, max_bin=255) on the CUDA device:
+one warm-up iteration, ``--iters`` timed iterations, then ``--iters`` more
+under torch.profiler. Prints the iteration wall time (timed without the
+profiler), the device busy time (kernels only) and idle share, the
+device time by kernel, the host time by operator, and the counts of
+kernel launches and device-to-host synchronisations, then one JSON line.
+
+    python3 scripts/profile_main_path.py [--rows N] [--iters K]
+
+Needs a CUDA device; exits non-zero without one.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import subprocess
+import sys
+import time
+import warnings
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rows", type=int, default=1_000_000)
+    ap.add_argument("--iters", type=int, default=1)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_main_path: needs a CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    import chip_smoke
+    import lightgbm_tpu_torch as lgb
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    x, y = chip_smoke.bench_data(args.rows)
+    ds = lgb.Dataset(x, label=y, params=chip_smoke.PARAMS).construct()
+    bst = lgb.Booster(params=chip_smoke.PARAMS, train_set=ds)
+    bst.update()                                   # warm-up iteration
+    torch.cuda.synchronize()
+    plain_ms = []                                  # without the profiler
+    for _ in range(args.iters):
+        t0 = time.perf_counter()
+        bst.update()
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.iters):
+            bst.update()
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3 / args.iters
+    wall_ms = sum(plain_ms) / len(plain_ms)
+    # one more iteration with CUDA's sync debug mode: every call site that
+    # makes the host wait for the device, once each
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        bst.update()
+        torch.cuda.set_sync_debug_mode("default")
+    sync_sites = collections.Counter(
+        "%s:%d" % (os.path.relpath(w.filename, root), w.lineno)
+        for w in caught if "synchroniz" in str(w.message))
+    avgs = prof.key_averages()
+    # kernels only: an operator's entry repeats the time of its kernels
+    dev = sorted((a for a in avgs if a.device_type == DeviceType.CUDA
+                  and a.self_device_time_total > 0),
+                 key=lambda a: -a.self_device_time_total)
+    busy_ms = sum(a.self_device_time_total for a in dev) / 1e3 / args.iters
+    host = sorted(avgs, key=lambda a: -a.self_cpu_time_total)
+
+    def count(*names):
+        return sum(a.count for a in avgs if a.key in names) // args.iters
+
+    splits = sum(t.num_leaves_actual - 1 for t in bst.models[1:])
+    splits //= max(len(bst.models) - 1, 1)
+    hist_ms = sum(a.self_device_time_total for a in dev
+                  if "hist_" in a.key) / 1e3 / args.iters
+    print("card: %s" % card)
+    print("iteration wall %.1f ms (%s; %.1f ms under the profiler), device "
+          "busy %.1f ms (idle share %.3f), %d splits -> %.3f ms per split"
+          % (wall_ms, " ".join("%.1f" % t for t in plain_ms), prof_ms,
+             busy_ms, 1 - busy_ms / wall_ms, splits,
+             wall_ms / max(splits, 1)))
+    print("device time by kernel (ms per iteration, calls):")
+    for a in dev[:12]:
+        print("  %9.3f %6d  %s" % (a.self_device_time_total / 1e3
+                                   / args.iters, a.count // args.iters,
+                                   a.key[:90]))
+    print("host time by operator (ms per iteration, calls):")
+    for a in host[:15]:
+        print("  %9.3f %6d  %s" % (a.self_cpu_time_total / 1e3 / args.iters,
+                                   a.count // args.iters, a.key[:90]))
+    summary = {
+        "card": card, "rows": args.rows, "iters": args.iters,
+        "iteration_ms": wall_ms, "iteration_ms_each": plain_ms,
+        "iteration_ms_profiled": prof_ms, "device_busy_ms": busy_ms,
+        "idle_share": 1 - busy_ms / wall_ms, "splits": splits,
+        "histogram_kernel_ms": hist_ms,
+        "kernel_launches": count("cudaLaunchKernel", "cuLaunchKernel",
+                                 "cudaLaunchKernelExC"),
+        "syncs": count("cudaStreamSynchronize", "cudaDeviceSynchronize"),
+        "memcpy_calls": count("cudaMemcpyAsync"),
+    }
+    print("host-device synchronisations by call site (one iteration):")
+    for site, n in sync_sites.most_common(12):
+        print("  %6d  %s" % (n, site))
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -38,6 +38,12 @@ def pytest_configure(config):
         "slow: heavy tests (long training runs, multi-device meshes, "
         "fuzz sweeps) excluded from the tier-1 fast suite so it fits the "
         "870s budget; run the full suite with -m '' or just -m slow")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device and nvcc (the PyTorch port's kernels); "
+        "skips with a reason where there is none; on a GPU machine without "
+        "JAX run python -m pytest tests/test_torch_kernels_cuda.py "
+        "--noconftest")
 
 
 @pytest.fixture
