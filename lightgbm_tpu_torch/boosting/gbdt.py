@@ -2,11 +2,13 @@
 
 The port of ``lightgbm_tpu/boosting/gbdt.py`` (gbdt.cpp Init :45-115,
 TrainOneIter :333-412, UpdateScore :451-470 of the reference) for the slice
-the port covers: binary objective, dense numerical features, leaf-wise exact
-growth on one device. Each iteration computes gradients on the device, grows
-one tree (``core/grow.py``), adds its shrunk leaf values to the training
-scores through the per-row leaf ids, and keeps the tree on the host as a
-``HostTree`` with real-valued thresholds.
+the port covers: binary objective, dense numerical features, one device,
+and the three growth modes of ``tree_growth``: leaf-wise ``exact``
+(``core/grow.py``), ``frontier`` waves (``core/grow_frontier.py``) and
+top-K ``batched`` steps (``core/grow_batched.py``). Each iteration
+computes gradients on the device, grows one tree, adds its shrunk leaf
+values to the training scores through the per-row leaf ids, and keeps the
+tree on the host as a ``HostTree`` with real-valued thresholds.
 
 Every option outside the slice raises ``NotImplementedError`` from
 ``check_slice`` before anything is built, naming the later slice of the
@@ -23,12 +25,18 @@ import torch
 from ..config import Config
 from ..core import tree as tree_mod
 from ..core.grow import GrowParams, TreeArrays, grow_tree
+from ..core.grow_batched import grow_tree_batched
+from ..core.grow_frontier import grow_tree_frontier
 from ..core.histogram import HIST_IMPLS
 from ..core.split import FeatureMeta, SplitParams
 from ..io.dataset import BinnedDataset
 from ..log import Log, outside_slice
 from ..metrics import Metric
 from ..objectives import ObjectiveFunction
+
+# the grower of each tree_growth (config.TREE_GROW_MODES)
+GROWERS = {"exact": grow_tree, "frontier": grow_tree_frontier,
+           "batched": grow_tree_batched}
 
 
 class HostTree:
@@ -92,8 +100,18 @@ def check_slice(cfg: Config) -> None:
         (cfg.gpu_use_dp or str(cfg.tpu_hist_dtype).lower()
          in ("float64", "f64", "double"), "f64 histograms (gpu_use_dp)",
          "ROADMAP Queue 1 #3"),
-        (cfg.tree_growth != "exact", "tree_growth=%s" % cfg.tree_growth,
-         "ROADMAP Queue 1 #9 and #14"),
+        (cfg.tree_growth == "batched"
+         and cfg.tpu_batched_part in ("true", "1"),
+         "tpu_batched_part=true (partitioned batched growth)",
+         "ROADMAP Queue 2 #4"),
+        # the JAX package packs bins for frontier growth only, and its auto
+        # resolves to none off a TPU (core/binpack.py:97-117)
+        (cfg.tree_growth == "frontier"
+         and cfg.tpu_bin_packing not in ("auto", "none"),
+         "tpu_bin_packing=%s (packed bin words)" % cfg.tpu_bin_packing,
+         "ROADMAP Queue 1 #7"),
+        (bool(cfg.obs_modelstats), "obs_modelstats (model statistics)",
+         "ROADMAP Queue 1 #15"),
         (cfg.tree_learner != "serial" or bool(cfg.mesh_shape)
          or cfg.num_machines > 1, "a device mesh (tree_learner=%s)"
          % cfg.tree_learner, "ROADMAP Queue 1 #13"),
@@ -178,7 +196,12 @@ class GBDT:
                 min_data_in_leaf=cfg.min_data_in_leaf,
                 min_sum_hessian_in_leaf=cfg.min_sum_hessian_in_leaf,
                 min_gain_to_split=cfg.min_gain_to_split),
-            hist_impl=resolve_hist_impl(cfg))
+            hist_impl=resolve_hist_impl(cfg),
+            batch_splits=cfg.tree_batch_splits,
+            batched_pack=bool(cfg.tpu_batched_pack))
+        # one place decides which grower runs (gbdt.py:1150-1160 of the
+        # JAX package)
+        self._grow = GROWERS[cfg.tree_growth]
         scores = np.zeros(ds.num_data, np.float32)
         self._init_scores_provided = ds.metadata.init_score is not None
         if self._init_scores_provided:
@@ -223,10 +246,10 @@ class GBDT:
             return True
         self._boost_from_average()
         grad, hess = self.objective.get_gradients(self.scores)
-        tree, leaf_id = grow_tree(self.xb, grad, hess, self._sample_mask,
-                                  self.feature_meta,
-                                  self._sample_feature_mask(),
-                                  self.grow_params)
+        tree, leaf_id = self._grow(self.xb, grad, hess, self._sample_mask,
+                                   self.feature_meta,
+                                   self._sample_feature_mask(),
+                                   self.grow_params)
         if tree.num_leaves <= 1:
             Log.warning("Stopped training because there are no more leaves "
                         "that meet the split requirements")

@@ -3,9 +3,10 @@
 The port of ``lightgbm_tpu/core/grow.py`` ``grow_tree`` for one device with
 the row partition and without EFB (SerialTreeLearner::Train,
 serial_tree_learner.cpp:169-233, and Tree::Split, tree.cpp:49-67 of the
-reference). The root histogram comes from ``build_histogram`` over all rows;
-every split then runs the fused partition and two-child histogram pass
-(``core/partition.py``) and searches both children in one batched call.
+reference). The root (``root_split``, shared with the wave growers) takes
+one histogram over all rows; every split then runs the fused partition
+and two-child histogram pass (``core/partition.py``) and searches both
+children in one batched call.
 
 The JAX package runs ``num_leaves - 1`` masked steps inside one compiled
 loop. PyTorch runs eagerly, so this is a Python loop over splits. Each
@@ -21,12 +22,12 @@ becomes leaf ``t + 1``. Child pointers use the ``~leaf`` encoding.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .histogram import build_histogram, stack_vals
+from .histogram import hist_tile_vals, stack_vals
 from .partition import (init_partition, leaf_id_from_partition,
                         partition_and_hist)
 from .split import (BestSplit, FeatureMeta, K_MIN_SCORE, MISSING_NAN,
@@ -40,6 +41,12 @@ class GrowParams(NamedTuple):
     max_depth: int
     split: SplitParams
     hist_impl: str = "auto"  # core/histogram.py: auto | plain
+    # tree_growth=batched (core/grow_batched.py): split up to this many of
+    # the highest-gain leaves per step
+    batch_splits: int = 16
+    # tpu_batched_pack: the batched step runs the slot kernel over child
+    # slots instead of the parent-slot pass
+    batched_pack: bool = False
 
 
 class TreeArrays(NamedTuple):
@@ -62,6 +69,126 @@ class TreeArrays(NamedTuple):
     leaf_parent: np.ndarray      # [L] int32
     leaf_depth: np.ndarray       # [L] int32
     num_leaves: int
+
+
+class DeviceTree(NamedTuple):
+    """The TreeArrays fields as tensors on the device, for the wave growers
+    that commit many splits per step without reading back: internal-node
+    fields [L-1], leaf fields [L]. Integer fields are int64. The leaf count
+    is kept by the host."""
+    split_feature: torch.Tensor
+    threshold_bin: torch.Tensor
+    default_left: torch.Tensor
+    missing_type: torch.Tensor
+    left_child: torch.Tensor
+    right_child: torch.Tensor
+    split_gain: torch.Tensor
+    internal_value: torch.Tensor
+    internal_weight: torch.Tensor
+    internal_count: torch.Tensor
+    split_leaf: torch.Tensor
+    leaf_value: torch.Tensor
+    leaf_weight: torch.Tensor
+    leaf_count: torch.Tensor
+    leaf_parent: torch.Tensor
+    leaf_depth: torch.Tensor
+
+
+def empty_tree(num_leaves: int, device: torch.device) -> DeviceTree:
+    """A tree with one leaf and no nodes (``lightgbm_tpu/core/grow.py``
+    ``empty_tree``): children and split leaves -1, everything else 0."""
+    l = num_leaves
+    i64 = dict(dtype=torch.int64, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    return DeviceTree(
+        split_feature=torch.zeros(l - 1, **i64),
+        threshold_bin=torch.zeros(l - 1, **i64),
+        default_left=torch.zeros(l - 1, dtype=torch.bool, device=device),
+        missing_type=torch.zeros(l - 1, **i64),
+        left_child=torch.full((l - 1,), -1, **i64),
+        right_child=torch.full((l - 1,), -1, **i64),
+        split_gain=torch.zeros(l - 1, **f32),
+        internal_value=torch.zeros(l - 1, **f32),
+        internal_weight=torch.zeros(l - 1, **f32),
+        internal_count=torch.zeros(l - 1, **f32),
+        split_leaf=torch.full((l - 1,), -1, **i64),
+        leaf_value=torch.zeros(l, **f32),
+        leaf_weight=torch.zeros(l, **f32),
+        leaf_count=torch.zeros(l, **f32),
+        leaf_parent=torch.full((l,), -1, **i64),
+        leaf_depth=torch.zeros(l, **i64))
+
+
+def _empty_best(num_leaves: int, device: torch.device) -> BestSplit:
+    """The per-leaf best-split table: gain -inf (no split) everywhere."""
+    z = torch.zeros(num_leaves, dtype=torch.float32, device=device)
+    zi = torch.zeros(num_leaves, dtype=torch.int64, device=device)
+    return BestSplit(
+        gain=torch.full_like(z, K_MIN_SCORE), feature=zi, threshold=zi.clone(),
+        default_left=torch.zeros_like(zi, dtype=torch.bool),
+        **{k: z.clone() for k in BestSplit._fields[4:]})
+
+
+def propagate_monotone_bounds(mono, left_output, right_output, p_min, p_max):
+    """Monotone constraint propagation (serial_tree_learner.cpp:790-847):
+    children inherit the parent's output bounds; a monotone split feature
+    pins the shared boundary at the midpoint of the two child outputs.
+    Returns (l_min, l_max, r_min, r_max)."""
+    mid = (left_output + right_output) * 0.5
+    l_min = torch.where(mono < 0, torch.maximum(p_min, mid), p_min)
+    l_max = torch.where(mono > 0, torch.minimum(p_max, mid), p_max)
+    r_min = torch.where(mono > 0, torch.maximum(p_min, mid), p_min)
+    r_max = torch.where(mono < 0, torch.minimum(p_max, mid), p_max)
+    return l_min, l_max, r_min, r_max
+
+
+def to_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """Copy device tensors to the host in one transfer: packed into one
+    float64 tensor (exact for float32 values and for integers below 2^53),
+    then split and cast back to each tensor's dtype."""
+    if not tensors:
+        return []
+    flat = torch.cat([t.reshape(-1).to(torch.float64)
+                      for t in tensors]).cpu().numpy()
+    out, at = [], 0
+    for t in tensors:
+        n = t.numel()
+        dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
+        out.append(flat[at:at + n].astype(dtype).reshape(tuple(t.shape)))
+        at += n
+    return out
+
+
+def tree_to_host(tree: DeviceTree, num_leaves: int) -> TreeArrays:
+    """A finished device tree as host TreeArrays, in one transfer."""
+    host = dict(zip(DeviceTree._fields, to_host(list(tree))))
+    int32 = ("split_feature", "threshold_bin", "missing_type", "left_child",
+             "right_child", "split_leaf", "leaf_parent", "leaf_depth")
+    for k in int32:
+        host[k] = host[k].astype(np.int32)
+    return TreeArrays(num_leaves=num_leaves, **host)
+
+
+def root_split(xb: torch.Tensor, vals: torch.Tensor, meta: FeatureMeta,
+               feature_mask: torch.Tensor, params: GrowParams):
+    """The root of a wave-grown tree, as in exact growth: returns the
+    empty device tree with leaf 0 set, the best-split table with the
+    root's best split, and the root histogram [F, B, 3]."""
+    l = params.num_leaves
+    sp = params.split
+    dev = xb.device
+    root = vals.sum(dim=0)                                   # (g, h, count)
+    hist_root = hist_tile_vals(xb, vals, params.num_bins, params.hist_impl)
+    tree = empty_tree(l, dev)
+    tree.leaf_value[0] = calculate_leaf_output(root[0], root[1], sp.lambda_l1,
+                                               sp.lambda_l2, sp.max_delta_step)
+    tree.leaf_weight[0] = root[1]
+    tree.leaf_count[0] = root[2]
+    best = _empty_best(l, dev)
+    b0 = find_best_split(hist_root[None], meta, sp, root[0:1], root[1:2],
+                         root[2:3], feature_mask)
+    _set_best(best, slice(0, 1), b0)
+    return tree, best, hist_root
 
 
 def _bin_go_left(col: torch.Tensor, threshold, default_left, missing_type,
@@ -97,39 +224,16 @@ def grow_tree(xb: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     b = params.num_bins
     sp = params.split
     dev = xb.device
-    f32 = dict(dtype=torch.float32, device=dev)
 
     vals = stack_vals(grad, hess, sample_mask)               # [N, 3]
-    root = vals.sum(dim=0)                                   # (g, h, count)
-    hist_root = build_histogram(xb, grad, hess, sample_mask, b,
-                                params.hist_impl)
-
-    # leaf and node values stay on the device; the structure is host ints
-    leaf_value = torch.zeros(l, **f32)
-    leaf_weight = torch.zeros(l, **f32)
-    leaf_count = torch.zeros(l, **f32)
-    node_f = {k: torch.zeros(l - 1, **f32)
-              for k in ("split_gain", "internal_value", "internal_weight",
-                        "internal_count")}
-    node_i = {k: torch.zeros(l - 1, dtype=torch.int64, device=dev)
-              for k in ("split_feature", "threshold_bin", "missing_type")}
-    node_default_left = torch.zeros(l - 1, dtype=torch.bool, device=dev)
+    # split values stay on the device; the structure is host ints, which
+    # replace the device tree's structure fields when the tree is done
+    tree, best, _ = root_split(xb, vals, meta, feature_mask, params)
     left_child = np.full(l - 1, -1, np.int32)
     right_child = np.full(l - 1, -1, np.int32)
     split_leaf = np.full(l - 1, -1, np.int32)
     leaf_parent = np.full(l, -1, np.int32)
     leaf_depth = np.zeros(l, np.int32)
-
-    leaf_value[0] = calculate_leaf_output(root[0], root[1], sp.lambda_l1,
-                                          sp.lambda_l2, sp.max_delta_step)
-    leaf_weight[0] = root[1]
-    leaf_count[0] = root[2]
-
-    best = find_best_split(hist_root[None], meta, sp, root[0:1], root[1:2],
-                           root[2:3], feature_mask)
-    best = BestSplit(*[torch.cat([a, torch.full((l - 1,), K_MIN_SCORE, **f32)
-                                  if i == 0 else a.new_zeros(l - 1)])
-                       for i, a in enumerate(best)])
     part = init_partition(n, l, dev)
     # index tensors of the two children, made without a host-to-device copy
     slot_ids = torch.arange(l, device=dev)
@@ -177,25 +281,24 @@ def grow_tree(xb: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         leaf_depth[[leaf, right_leaf]] = depth
         num_leaves += 1
 
-        node_i["split_feature"][node] = cur.feature
-        node_i["threshold_bin"][node] = cur.threshold
-        node_i["missing_type"][node] = missing_type
-        node_default_left[node] = cur.default_left
-        node_f["split_gain"][node] = cur.gain
-        node_f["internal_value"][node] = calculate_leaf_output(
+        tree.split_feature[node] = cur.feature
+        tree.threshold_bin[node] = cur.threshold
+        tree.missing_type[node] = missing_type
+        tree.default_left[node] = cur.default_left
+        tree.split_gain[node] = cur.gain
+        tree.internal_value[node] = calculate_leaf_output(
             cur.left_sum_grad + cur.right_sum_grad,
             cur.left_sum_hess + cur.right_sum_hess,
             sp.lambda_l1, sp.lambda_l2, sp.max_delta_step)
-        node_f["internal_weight"][node] = (cur.left_sum_hess
-                                           + cur.right_sum_hess)
-        node_f["internal_count"][node] = cur.left_count + cur.right_count
+        tree.internal_weight[node] = cur.left_sum_hess + cur.right_sum_hess
+        tree.internal_count[node] = cur.left_count + cur.right_count
         children = torch.stack((slot_ids[leaf], slot_ids[right_leaf]))
-        leaf_value[children] = torch.stack([cur.left_output,
-                                            cur.right_output])
-        leaf_weight[children] = torch.stack([cur.left_sum_hess,
-                                             cur.right_sum_hess])
-        leaf_count[children] = torch.stack([cur.left_count,
-                                            cur.right_count])
+        tree.leaf_value[children] = torch.stack([cur.left_output,
+                                                 cur.right_output])
+        tree.leaf_weight[children] = torch.stack([cur.left_sum_hess,
+                                                  cur.right_sum_hess])
+        tree.leaf_count[children] = torch.stack([cur.left_count,
+                                                 cur.right_count])
 
         # ---- best splits of both children, one batched search -----------
         b2 = find_best_split(
@@ -208,22 +311,7 @@ def grow_tree(xb: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         _set_best(best, children, b2)
 
     leaf_id = leaf_id_from_partition(part, n, l)
-    host = {k: v.cpu().numpy() for k, v in
-            dict(leaf_value=leaf_value, leaf_weight=leaf_weight,
-                 leaf_count=leaf_count, default_left=node_default_left,
-                 **node_f, **node_i).items()}
-    tree = TreeArrays(
-        split_feature=host["split_feature"].astype(np.int32),
-        threshold_bin=host["threshold_bin"].astype(np.int32),
-        default_left=host["default_left"],
-        missing_type=host["missing_type"].astype(np.int32),
+    return tree_to_host(tree, num_leaves)._replace(
         left_child=left_child, right_child=right_child,
-        split_gain=host["split_gain"],
-        internal_value=host["internal_value"],
-        internal_weight=host["internal_weight"],
-        internal_count=host["internal_count"],
-        split_leaf=split_leaf,
-        leaf_value=host["leaf_value"], leaf_weight=host["leaf_weight"],
-        leaf_count=host["leaf_count"], leaf_parent=leaf_parent,
-        leaf_depth=leaf_depth, num_leaves=num_leaves)
-    return tree, leaf_id
+        split_leaf=split_leaf, leaf_parent=leaf_parent,
+        leaf_depth=leaf_depth), leaf_id

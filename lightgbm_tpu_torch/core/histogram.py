@@ -8,7 +8,12 @@ The port of ``lightgbm_tpu/core/histogram.py`` (``build_histogram``,
     hist[f, b, k] = sum_n [xb[n, f] == b] * vals[n, k]          [F, B, K]
 
 with K = 3 channels (grad*mask, hess*mask, mask) for one histogram, or
-K = 6 for both children of a split (``core/partition.py``).
+K = 6 for both children of a split (``core/partition.py``). The wave
+growers (``core/grow_frontier.py``, ``core/grow_batched.py``) add a slot
+axis, ``[S, F, B, K]`` in one pass, from
+``lightgbm_tpu/core/histogram.py`` ``build_histogram_frontier`` and the
+slot kernels' entry points (``build_histogram_slots``,
+``build_histogram_slots6``).
 
 ``impl`` mirrors the JAX package's ``tpu_hist_impl`` switch:
 
@@ -77,3 +82,82 @@ def build_histogram(xb: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     """(grad, hess, count) histograms of every feature over all rows:
     xb [N, F] uint8; grad, hess, mask [N] float32 -> [F, B, 3]."""
     return hist_tile_vals(xb, stack_vals(grad, hess, mask), num_bins, impl)
+
+
+# ---- per-slot histograms (the wave growers) ------------------------------
+#
+#     hist[s, f, b, k] = sum_n [min(slot[n], S-1) == s] [xb[n, f] == b] v[n, k]
+#
+# with slot -1 (any negative) marking a row that adds nothing, as the TPU
+# slot kernels clamp and mask (histogram_pallas.py:234, :475).
+
+
+def hist_slots_plain(xb: torch.Tensor, slot: torch.Tensor,
+                     vals: torch.Tensor, num_bins: int,
+                     num_slots: int) -> torch.Tensor:
+    """Plain version: one ``index_add_`` over ``slot*F*B + f*B + bin``.
+    Inactive rows go to one spare slot past the end that is dropped, so
+    nothing is read back to pick the active rows.
+
+    xb [n, F] uint8 with every bin < num_bins; slot [n] int; vals [n, K]
+    -> [S, F, B, K] in the dtype of ``vals``.
+    """
+    n, f = xb.shape
+    k = vals.shape[1]
+    s = torch.where(slot >= 0, slot.to(torch.int64).clamp(max=num_slots - 1),
+                    num_slots)
+    offs = torch.arange(f, device=xb.device, dtype=torch.int64) * num_bins
+    flat = ((s * (f * num_bins))[:, None] + offs + xb.to(torch.int64))
+    src = vals.unsqueeze(1).expand(n, f, k).reshape(n * f, k)
+    hist = torch.zeros(((num_slots + 1) * f * num_bins, k), dtype=vals.dtype,
+                       device=xb.device)
+    hist.index_add_(0, flat.reshape(-1), src)
+    return hist[:num_slots * f * num_bins].reshape(num_slots, f, num_bins, k)
+
+
+def hist_slots6_plain(xb: torch.Tensor, slot: torch.Tensor, sel: torch.Tensor,
+                      vals3: torch.Tensor, num_bins: int,
+                      num_slots: int) -> torch.Tensor:
+    """Plain version of the parent-slot pass: channels vals3 * sel then
+    vals3 * (1 - sel), both children of every parent slot ->
+    [S, F, B, 6]."""
+    s = sel.to(vals3.dtype)[:, None]
+    return hist_slots_plain(xb, slot, torch.cat([vals3 * s, vals3 * (1.0 - s)],
+                                                dim=1), num_bins, num_slots)
+
+
+def hist_slots(xb: torch.Tensor, slot: torch.Tensor, vals: torch.Tensor,
+               num_bins: int, num_slots: int,
+               impl: str = "auto") -> torch.Tensor:
+    """[N, F] bins + [N] slot ids + stacked [N, 3] values -> [S, F, B, 3]:
+    the slot kernel for a CUDA tensor under ``auto``, else the plain
+    version."""
+    if _use_kernel(impl, xb):
+        return kernels.build_histogram_slots_cuda(
+            xb, slot.to(torch.int32).contiguous(), vals, num_bins, num_slots)
+    return hist_slots_plain(xb, slot, vals, num_bins, num_slots)
+
+
+def hist_slots6(xb: torch.Tensor, slot: torch.Tensor, sel: torch.Tensor,
+                vals3: torch.Tensor, num_bins: int, num_slots: int,
+                impl: str = "auto") -> torch.Tensor:
+    """Parent slots + go-left selector -> [S, F, B, 6] (left channels,
+    then right), dispatched as ``hist_slots``."""
+    if _use_kernel(impl, xb):
+        return kernels.build_histogram_slots6_cuda(
+            xb, slot.to(torch.int32).contiguous(),
+            sel.to(torch.float32).contiguous(), vals3, num_bins, num_slots)
+    return hist_slots6_plain(xb, slot, sel, vals3, num_bins, num_slots)
+
+
+def build_histogram_frontier(xb: torch.Tensor, slot: torch.Tensor,
+                             grad: torch.Tensor, hess: torch.Tensor,
+                             mask: torch.Tensor, num_bins: int,
+                             num_slots: int,
+                             impl: str = "auto") -> torch.Tensor:
+    """Histograms of every live frontier leaf in one pass over the rows
+    (``lightgbm_tpu/core/histogram.py:189``): slot [N] in [0, num_slots)
+    or -1; grad, hess, mask [N] float32 -> [num_slots, F, B, 3]
+    (sum_grad, sum_hess, count)."""
+    return hist_slots(xb, slot, stack_vals(grad, hess, mask), num_bins,
+                      num_slots, impl)

@@ -12,7 +12,7 @@ kept bit-for-bit where it matters for split parity:
 - missing handling: MissingType None / Zero (zero bin doubles as missing) /
   NaN (dedicated last bin).
 
-Numerical features only: categorical binning is outside slice 1 of the port.
+Numerical features only: categorical binning is outside the port so far.
 
 Host-side (NumPy): binning runs once per dataset; the binned int matrix is the
 device-resident artifact everything else trains on.

@@ -65,9 +65,9 @@ class Log:
 
 
 def outside_slice(what: str, where: str = "") -> NotImplementedError:
-    """The error for an option that slice 1 of the port does not cover;
-    ``where`` names the ROADMAP item that brings it."""
-    return NotImplementedError("%s is outside slice 1 of the PyTorch port%s"
+    """The error for an option that the port's slices so far (1 and 2) do
+    not cover; ``where`` names the ROADMAP item that brings it."""
+    return NotImplementedError("%s is outside slice 2 of the PyTorch port%s"
                                % (what, " (%s)" % where if where else ""))
 
 

@@ -1,14 +1,19 @@
 """Where one training iteration of the PyTorch port spends its time.
 
 Trains chip_smoke.py's main-path workload (bench.py's 1,000,000 x 28 data,
-numpy seed 0; binary, num_leaves=255, max_bin=255) on the CUDA device:
-one warm-up iteration, ``--iters`` timed iterations, then ``--iters`` more
-under torch.profiler. Prints the iteration wall time (timed without the
-profiler), the device busy time (kernels only) and idle share, the
-device time by kernel, the host time by operator, and the counts of
-kernel launches and device-to-host synchronisations, then one JSON line.
+numpy seed 0; binary, num_leaves=255, max_bin=255) on the CUDA device,
+under one growth mode (``--growth``: chip_smoke.GROWTH_PARAMS, exact,
+frontier or batched with tree_batch_splits=16): one warm-up iteration,
+``--iters`` timed iterations, then ``--iters`` more under torch.profiler.
+Prints the iteration wall time (timed without the profiler), the device
+busy time (kernels only) and idle share, the device time by kernel, the
+host time by operator, the counts of kernel launches and device-to-host
+synchronisations, and the port's own kernels' launches per iteration
+(one slot-kernel launch per frontier wave or batched step), then one
+JSON line.
 
-    python3 scripts/profile_main_path.py [--rows N] [--iters K]
+    python3 scripts/profile_main_path.py [--growth MODE] [--rows N] \
+        [--iters K]
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -24,10 +29,18 @@ import time
 import warnings
 
 
+# the device functions of core/csrc: histogram.cu, then hist_slots.cu
+OWN_KERNELS = ("hist_partial_kernel", "hist_reduce_kernel", "count_kernel",
+               "scan_kernel", "scatter_kernel", "piece_hist_kernel",
+               "piece_reduce_kernel")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--iters", type=int, default=1)
+    ap.add_argument("--growth", choices=("exact", "frontier", "batched"),
+                    default="exact")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -44,16 +57,20 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     x, y = chip_smoke.bench_data(args.rows)
-    ds = lgb.Dataset(x, label=y, params=chip_smoke.PARAMS).construct()
-    bst = lgb.Booster(params=chip_smoke.PARAMS, train_set=ds)
+    params = dict(chip_smoke.PARAMS, **chip_smoke.GROWTH_PARAMS[args.growth])
+    ds = lgb.Dataset(x, label=y, params=params).construct()
+    bst = lgb.Booster(params=params, train_set=ds)
     bst.update()                                   # warm-up iteration
     torch.cuda.synchronize()
+    chip_smoke.reset_counts()
     plain_ms = []                                  # without the profiler
     for _ in range(args.iters):
         t0 = time.perf_counter()
         bst.update()
         torch.cuda.synchronize()
         plain_ms.append((time.perf_counter() - t0) * 1e3)
+    own_launches = {k: v / args.iters
+                    for k, v in chip_smoke.read_counts().items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -85,9 +102,17 @@ def main() -> int:
 
     splits = sum(t.num_leaves_actual - 1 for t in bst.models[1:])
     splits //= max(len(bst.models) - 1, 1)
-    hist_ms = sum(a.self_device_time_total for a in dev
-                  if "hist_" in a.key) / 1e3 / args.iters
+    # the port's own kernels: the launches of histogram.cu and hist_slots.cu
+    own = [a for a in dev if "at::native" not in a.key
+           and any("::%s" % k in a.key for k in OWN_KERNELS)]
+    hist_ms = sum(a.self_device_time_total for a in own) / 1e3 / args.iters
     print("card: %s" % card)
+    print("growth %s; the port's kernels per iteration: %s; their device "
+          "time %.3f ms:" % (args.growth, own_launches, hist_ms))
+    for a in own:
+        print("  %9.3f %6d  %s" % (a.self_device_time_total / 1e3
+                                   / args.iters, a.count // args.iters,
+                                   a.key[:90]))
     print("iteration wall %.1f ms (%s; %.1f ms under the profiler), device "
           "busy %.1f ms (idle share %.3f), %d splits -> %.3f ms per split"
           % (wall_ms, " ".join("%.1f" % t for t in plain_ms), prof_ms,
@@ -103,7 +128,8 @@ def main() -> int:
         print("  %9.3f %6d  %s" % (a.self_cpu_time_total / 1e3 / args.iters,
                                    a.count // args.iters, a.key[:90]))
     summary = {
-        "card": card, "rows": args.rows, "iters": args.iters,
+        "card": card, "growth": args.growth, "rows": args.rows,
+        "iters": args.iters, "own_kernel_launches": own_launches,
         "iteration_ms": wall_ms, "iteration_ms_each": plain_ms,
         "iteration_ms_profiled": prof_ms, "device_busy_ms": busy_ms,
         "idle_share": 1 - busy_ms / wall_ms, "splits": splits,

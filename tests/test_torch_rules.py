@@ -49,6 +49,13 @@ def test_no_jax_or_jax_package_import(path):
         assert not any(_forbidden(n) for n in names), (path, node.lineno)
 
 
+def test_the_scan_covers_the_wave_growers():
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for module in ("core/grow.py", "core/grow_frontier.py",
+                   "core/grow_batched.py", "core/kernels.py"):
+        assert os.path.join("lightgbm_tpu_torch", module) in scanned
+
+
 def test_importing_the_port_leaves_jax_out():
     mods = ["lightgbm_tpu_torch"] + [
         "lightgbm_tpu_torch." + os.path.relpath(p, PORT)[:-3]
@@ -99,8 +106,12 @@ OUTSIDE_SLICE = {
     "forced_splits": ({"forcedsplits_filename": "forced.json"}, None),
     "cegb": ({"cegb_penalty_split": 0.5}, None),
     "gpu_use_dp": ({"gpu_use_dp": True}, None),
-    "tree_growth_frontier": ({"tree_growth": "frontier"}, None),
-    "tree_growth_batched": ({"tree_growth": "batched"}, None),
+    # frontier and batched growth are in the slice; packed bin words and
+    # the partitioned batched step are not
+    "tree_growth_frontier": ({"tree_growth": "frontier",
+                              "tpu_bin_packing": "byte"}, None),
+    "tree_growth_batched": ({"tree_growth": "batched",
+                             "tpu_batched_part": "true"}, None),
     "mesh": ({"tree_learner": "data"}, None),
     "pallas_impl": ({"tpu_hist_impl": "pallas"}, None),
 }
@@ -119,6 +130,6 @@ def test_outside_the_slice_raises(option):
     if data == "classes":
         y = np.arange(len(y)) % 3
     ds = tlgb.Dataset(x, label=y, device="cpu")
-    with pytest.raises(NotImplementedError, match="outside slice 1"):
+    with pytest.raises(NotImplementedError, match="outside slice 2"):
         tlgb.train(dict(params, objective=params.get("objective", "binary"),
                         verbosity=-1), ds, num_boost_round=1, device="cpu")
