@@ -14,8 +14,12 @@ and prints no result line):
    library yardstick and the memory bound: the histogram kernel
    (histogram.cu) at the root and split shapes of exact growth, the slot
    kernel (hist_slots.cu, K=3) at 1,000,000 x 28 x 255 bins with half the
-   rows active at S = 16, 128 and 254 slots, and its K=6 parent-slot
-   variant at S = 16;
+   rows active at S = 16, 128 and 254 slots, its K=6 parent-slot variant
+   at S = 16, the partitioned-layout kernel (hist_part.cu) on the layout
+   of 1,000,000 rows at 255 leaves (745 tiles of 2,048 rows) with about
+   half the row-holding tiles in 15 runs at S = 16, and the in-tile
+   partition (repack.cu) at 1,048,576 x 128 bytes, 512-row tiles, 30% of
+   the rows going left, which must come back byte-equal;
 4. the main paths at full width, one per growth mode: bench.py's workload
    (1,000,000 x 28, numpy seed 0), objective=binary, num_leaves=255,
    max_bin=255, through ``lightgbm_tpu_torch.train`` for 5 iterations on
@@ -23,18 +27,22 @@ and prints no result line):
      4a ``tree_growth=exact`` (the histogram kernel),
      4b ``tree_growth=frontier`` (the slot kernel, one launch per wave),
      4c ``tree_growth=batched``, ``tree_batch_splits=16`` (the K=6 slot
+        kernel, one launch per step),
+     4d the same with ``tpu_batched_part=true`` (the partitioned-layout
         kernel, one launch per step);
    every kernel's launch count is reset just before each path and read
    just after, each path must launch its kernels, and its train AUC is
    held against the JAX package's on the same data and parameters;
 5. the kernel path against the plain path on the card (200,000 rows, 2
-   iterations) for exact, frontier, batched and batched with
+   iterations) for exact, frontier, batched, batched with
    ``tpu_batched_pack=true`` (which launches the slot kernel on its
-   batched branch): trees identical up to f32 gain ties
+   batched branch) and batched_part: trees identical up to f32 gain ties
    (tests/test_parity.py's rule), and raw predictions within 1e-5 when
    the trees are identical;
 6. a ``kernels`` JSON line, the card line, and the result line
-   ``{"ok": true, "device": {...}}``.
+   ``{"ok": true, "device": {...}}``. No grower calls the in-tile
+   partition (nor does the JAX package's), so its entry's path launches
+   are 0 and its phase-3 calls are its only launches.
 
 Exits non-zero without a result when no CUDA device is available.
 """
@@ -52,8 +60,10 @@ import torch
 
 import lightgbm_tpu_torch as lgb
 from lightgbm_tpu_torch import device as port_device
+from lightgbm_tpu_torch.core import grow_batched_part
 from lightgbm_tpu_torch.core import histogram as hist
 from lightgbm_tpu_torch.core import kernels
+from lightgbm_tpu_torch.core import repack
 from lightgbm_tpu_torch.metrics import auc
 
 # Train AUC of the JAX package (lightgbm_tpu) on phase 4's data and
@@ -61,7 +71,8 @@ from lightgbm_tpu_torch.metrics import auc
 #   JAX_PLATFORMS=cpu python scripts/jax_reference_auc.py --growth MODE
 JAX_REFERENCE_AUC = {"exact": 0.962396956613171,
                      "frontier": 0.9551457678522898,
-                     "batched": 0.9622125789247733}
+                     "batched": 0.9622125789247733,
+                     "batched_part": 0.9622125789247733}
 AUC_TOLERANCE = 2e-3
 
 MAIN_ROWS, NUM_FEATURES, NUM_ITERS = 1_000_000, 28, 5
@@ -71,7 +82,10 @@ PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
 GROWTH_PARAMS = {"exact": {"tree_growth": "exact"},
                  "frontier": {"tree_growth": "frontier"},
                  "batched": {"tree_growth": "batched",
-                             "tree_batch_splits": 16}}
+                             "tree_batch_splits": 16},
+                 "batched_part": {"tree_growth": "batched",
+                                  "tree_batch_splits": 16,
+                                  "tpu_batched_part": "true"}}
 COMPARE_ROWS, COMPARE_ITERS = 200_000, 2
 
 # histogram shapes of the main path: the root (K=3 over every row) and the
@@ -85,6 +99,10 @@ HIST_REL_TOL, HIST_ABS_TOL = 1e-5, 1e-6   # |d| <= rel * sum_bin|v| + abs
 SLOT_SHAPES = [(1_000_000, 28, 255, 3, 16), (1_000_000, 28, 255, 3, 128),
                (1_000_000, 28, 255, 3, 254), (1_000_000, 28, 255, 6, 16)]
 SLOT_ACTIVE = 0.5             # share of rows in a slot
+# the partitioned-layout kernel: the layout of MAIN_ROWS rows at 255 leaves,
+# S = tree_batch_splits; the in-tile partition: rows, width, tile, left share
+PART_SLOTS = 16
+REPACK_SHAPE = (1_048_576, 128, 512, 0.3)
 MEM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 L2_FLUSH_BYTES = 64 << 20     # more than the 50 MB L2
@@ -256,15 +274,146 @@ def check_slot_kernels(dev, flush):
     return rows
 
 
+def part_layout(r, n, num_leaves, f, b, n_slots):
+    """A partitioned layout of ``n`` rows at ``num_leaves`` leaves, made with
+    numpy: about half of the row-holding tiles in contiguous runs of every
+    slot but S // 2, an inactive tile after each run, each run ending in
+    zero-valued segment padding. Returns numpy (xb_fm, sel, vals3,
+    tile_slot, tile_first) and the row tile."""
+    tile = grow_batched_part.PART_TILE
+    np_ = grow_batched_part._part_capacity(n, num_leaves, tile)
+    n_tiles = np_ // tile
+    xb_fm = r.randint(0, b, (f, np_)).astype(np.uint8)
+    sel = (r.rand(np_) < 0.5).astype(np.float32)
+    vals3 = r.randn(3, np_).astype(np.float32)
+    owners = [s for s in r.permutation(n_slots) if s != n_slots // 2
+              or n_slots <= 2]
+    active = -(-n // tile) // 2
+    cuts = np.sort(r.choice(np.arange(1, active), len(owners) - 1,
+                            replace=False))
+    bounds = np.concatenate([[0], cuts, [active]]).astype(int)
+    tile_slot = np.full(n_tiles, -1, np.int32)
+    t = 0
+    for s, a, z in zip(owners, bounds[:-1], bounds[1:]):
+        tile_slot[t:t + z - a] = s
+        end = (t + z - a) * tile
+        vals3[:, end - r.randint(1, tile):end] = 0.0
+        t += z - a + 1
+    prev = np.concatenate([[-2], tile_slot[:-1]])
+    first = ((tile_slot >= 0) & (tile_slot != prev)).astype(np.int32)
+    return (xb_fm, sel, vals3, tile_slot, first), tile
+
+
+def check_part_kernel(dev, flush):
+    """Phase 3: the partitioned-layout kernel against its plain version."""
+    s, f, b = PART_SLOTS, NUM_FEATURES, 255
+    arrays, tile = part_layout(np.random.RandomState(11), MAIN_ROWS, 255, f,
+                               b, s)
+    xb_fm, sel, vals3, tile_slot, first = [torch.as_tensor(a, device=dev)
+                                           for a in arrays]
+
+    def kernel():
+        return kernels.build_histogram_part_tiles_cuda(
+            xb_fm, sel, vals3, tile_slot, first, b, s, tile)
+
+    def plain(vals=vals3):
+        return hist.hist_part_tiles(xb_fm, sel, vals, tile_slot, first, b, s,
+                                    tile, "plain")
+    got, want, absum = kernel(), plain(), plain(vals3.abs())
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    bad = int((err > HIST_REL_TOL * absum + HIST_ABS_TOL).sum())
+    if bad or got[s // 2].any():
+        raise AssertionError("part kernel disagrees with the plain version "
+                             "in %d cells (absent slot nonzero: %s)"
+                             % (bad, bool(got[s // 2].any())))
+    # the library yardstick: one index_add_ over a prebuilt combined
+    # (slot, child, feature, bin) index of the active tiles' rows
+    row_slot = tile_slot.to(torch.int64).repeat_interleave(tile)
+    act = torch.nonzero(row_slot >= 0).squeeze(1)
+    n_act = int(act.numel())
+    child = (sel.index_select(0, act) == 0).to(torch.int64)
+    flat = (((row_slot.index_select(0, act) * 2 + child)[:, None] * f
+             + torch.arange(f, device=dev)) * b
+            + xb_fm.index_select(1, act).t().to(torch.int64)).reshape(-1)
+    src = vals3.index_select(1, act).t().unsqueeze(1).expand(
+        n_act, f, 3).reshape(-1, 3).contiguous()
+    active_tiles = int((tile_slot >= 0).sum())
+    bound_ms, bound_by = bound(
+        kernels.part_hist_bytes(active_tiles, len(arrays[3]), tile, f, b, s),
+        n_act * f * 6)
+    row = {"Np": int(xb_fm.shape[1]), "tiles": len(arrays[3]),
+           "active_tiles": active_tiles, "F": f, "B": b, "S": s,
+           "max_abs_err": float(err.max()),
+           "ms": time_ms(kernel, flush), "plain_ms": time_ms(plain, flush),
+           "library_ms": time_ms(lambda: torch.zeros(
+               (2 * s * f * b, 3), device=dev).index_add_(0, flat, src),
+               flush),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    log("part Np=%d tiles=%d active=%d F=%d B=%d S=%d: max_abs_err=%.3g "
+        "kernel %.4f ms, plain %.4f ms, index_add_ %.4f ms, bound %.4f ms "
+        "(%s)" % (row["Np"], row["tiles"], active_tiles, f, b, s,
+                  row["max_abs_err"], row["ms"], row["plain_ms"],
+                  row["library_ms"], bound_ms, bound_by))
+    return [row]
+
+
+def check_partition_kernel(dev, flush):
+    """Phase 3: the in-tile partition against its plain version, byte for
+    byte."""
+    n, c, tile, p_left = REPACK_SHAPE
+    r = np.random.RandomState(13)
+    rows = torch.as_tensor(r.randint(0, 256, (n, c)).astype(np.uint8),
+                           device=dev)
+    gl = torch.as_tensor(r.rand(n) < p_left, device=dev)
+
+    def kernel():
+        return kernels.partition_tiles_cuda(rows, gl, tile)
+
+    def plain():
+        return repack.partition_tiles(rows, gl, tile, "plain")
+    (got, got_cnt), (want, want_cnt) = kernel(), plain()
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(got_cnt, want_cnt)):
+        raise AssertionError("partition kernel is not byte-equal to the "
+                             "plain version")
+    # the library yardstick: the gather the JAX grower moves rows with, on
+    # a prebuilt permutation (each tile's go-left rows first, stably)
+    key = torch.arange(n, device=dev) // tile * 2 + (~gl).to(torch.int64)
+    perm = torch.argsort(key, stable=True)
+    if not torch.equal(rows.index_select(0, perm), want):
+        raise AssertionError("the yardstick's permutation is not the "
+                             "partition")
+    bound_ms, bound_by = bound(kernels.partition_bytes(n, c, tile), 0)
+    row = {"n": n, "C": c, "row_tile": tile, "p_left": p_left,
+           "max_abs_err": 0.0,
+           "ms": time_ms(kernel, flush), "plain_ms": time_ms(plain, flush),
+           "library_ms": time_ms(lambda: rows.index_select(0, perm), flush),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    log("partition n=%d C=%d tile=%d: byte-equal, kernel %.4f ms, plain "
+        "%.4f ms, index_select %.4f ms, bound %.4f ms (%s)"
+        % (n, c, tile, row["ms"], row["plain_ms"], row["library_ms"],
+           bound_ms, bound_by))
+    return [row]
+
+
 # the kernel wrappers, each with its launch count
 COUNTED = (kernels.build_histogram_cuda, kernels.build_histogram_slots_cuda,
-           kernels.build_histogram_slots6_cuda)
+           kernels.build_histogram_slots6_cuda,
+           kernels.build_histogram_part_tiles_cuda,
+           kernels.partition_tiles_cuda)
 # the kernels each main path must launch
 PATH_KERNELS = {
     "exact": ("build_histogram_cuda",),
     "frontier": ("build_histogram_cuda", "build_histogram_slots_cuda"),
     "batched": ("build_histogram_cuda", "build_histogram_slots6_cuda"),
+    "batched_part": ("build_histogram_cuda",
+                     "build_histogram_part_tiles_cuda"),
 }
+# the wrapper launched once per wave or step of a wave path
+WAVE_KERNEL = {"frontier": "build_histogram_slots_cuda",
+               "batched": "build_histogram_slots6_cuda",
+               "batched_part": "build_histogram_part_tiles_cuda"}
 
 
 def reset_counts() -> None:
@@ -280,11 +429,22 @@ def drive_path(growth: str, ds, x, y):
     """Phase 4: one growth mode's main path at full width, with the launch
     counts set to 0 just before and read just after."""
     params = dict(PARAMS, **GROWTH_PARAMS[growth])
-    reset_counts()
-    t0 = time.perf_counter()
-    bst = lgb.train(params, ds, num_boost_round=NUM_ITERS)
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
+    # the partitioned grower's steps, each of which calls hist_part_tiles
+    steps = []
+    dispatch = grow_batched_part.hist_part_tiles
+
+    def counted(*args):
+        steps.append(1)
+        return dispatch(*args)
+    grow_batched_part.hist_part_tiles = counted
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        bst = lgb.train(params, ds, num_boost_round=NUM_ITERS)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        grow_batched_part.hist_part_tiles = dispatch
     t0 = time.perf_counter()
     prob = bst.predict(x)
     predict_s = time.perf_counter() - t0
@@ -292,8 +452,7 @@ def drive_path(growth: str, ds, x, y):
     train_auc = auc(prob, y)
     leaves = [t.num_leaves_actual for t in bst.models]
     # one slot-kernel launch per frontier wave or batched step
-    waves = {"frontier": launches["build_histogram_slots_cuda"],
-             "batched": launches["build_histogram_slots6_cuda"]}.get(growth)
+    waves = launches[WAVE_KERNEL[growth]] if growth in WAVE_KERNEL else None
     log("path %s: train %.2f s (%d iterations, %.3f s per iteration), "
         "predict %.3f s, trees %s leaves%s" % (
             growth, train_s, len(bst.models), train_s / len(bst.models),
@@ -305,6 +464,14 @@ def drive_path(growth: str, ds, x, y):
     for name in PATH_KERNELS[growth]:
         if launches[name] <= 0:
             raise AssertionError("path %s never launched %s" % (growth, name))
+    if launches["build_histogram_cuda"] < len(bst.models):
+        raise AssertionError("path %s built fewer root histograms than "
+                             "trees" % growth)
+    if growth == "batched_part" and launches[WAVE_KERNEL[growth]] != \
+            len(steps):
+        raise AssertionError("path batched_part launched the part kernel "
+                             "%d times in %d steps"
+                             % (launches[WAVE_KERNEL[growth]], len(steps)))
     if prob.shape != (len(x),) or not np.isfinite(prob).all():
         raise AssertionError("predictions are not finite [n] probabilities")
     if len(bst.models) != NUM_ITERS:
@@ -330,6 +497,8 @@ COMPARE_RUNS = [
     ("batched", GROWTH_PARAMS["batched"], "build_histogram_slots6_cuda"),
     ("batched_pack", dict(GROWTH_PARAMS["batched"], tpu_batched_pack=True),
      "build_histogram_slots_cuda"),
+    ("batched_part", GROWTH_PARAMS["batched_part"],
+     "build_histogram_part_tiles_cuda"),
 ]
 
 
@@ -436,6 +605,8 @@ def main() -> int:
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     hist_rows = check_histogram_kernel(dev, flush)
     slot_rows = check_slot_kernels(dev, flush)
+    part_rows = check_part_kernel(dev, flush)
+    repack_rows = check_partition_kernel(dev, flush)
     del flush
 
     # ---- 4. the main paths at full width -------------------------------
@@ -470,7 +641,19 @@ def main() -> int:
         kernel_entry("hist_slots6",
                      "lightgbm_tpu_torch/core/csrc/hist_slots.cu",
                      "lightgbm_tpu/core/histogram_pallas.py:175",
-                     launches("build_histogram_slots6_cuda"), k6, k6[0])],
+                     launches("build_histogram_slots6_cuda"), k6, k6[0]),
+        kernel_entry("hist_part", "lightgbm_tpu_torch/core/csrc/hist_part.cu",
+                     "lightgbm_tpu/core/histogram_pallas.py:264",
+                     launches("build_histogram_part_tiles_cuda"), part_rows,
+                     part_rows[0]),
+        dict(kernel_entry("partition_tiles",
+                          "lightgbm_tpu_torch/core/csrc/repack.cu",
+                          "lightgbm_tpu/core/repack_pallas.py:31",
+                          launches("partition_tiles_cuda"), repack_rows,
+                          repack_rows[0]),
+             note="no grower calls partition_tiles (the JAX package's do "
+                  "not either), so no path launches it; its phase-3 calls "
+                  "are its only launches")],
         "paths": paths}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

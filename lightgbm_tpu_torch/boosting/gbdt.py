@@ -5,7 +5,9 @@ TrainOneIter :333-412, UpdateScore :451-470 of the reference) for the slice
 the port covers: binary objective, dense numerical features, one device,
 and the three growth modes of ``tree_growth``: leaf-wise ``exact``
 (``core/grow.py``), ``frontier`` waves (``core/grow_frontier.py``) and
-top-K ``batched`` steps (``core/grow_batched.py``). Each iteration
+top-K ``batched`` steps (``core/grow_batched.py``, or
+``core/grow_batched_part.py`` over rows kept grouped by leaf with
+``tpu_batched_part=true``). Each iteration
 computes gradients on the device, grows one tree, adds its shrunk leaf
 values to the training scores through the per-row leaf ids, and keeps the
 tree on the host as a ``HostTree`` with real-valued thresholds.
@@ -26,6 +28,7 @@ from ..config import Config
 from ..core import tree as tree_mod
 from ..core.grow import GrowParams, TreeArrays, grow_tree
 from ..core.grow_batched import grow_tree_batched
+from ..core.grow_batched_part import grow_tree_batched_part
 from ..core.grow_frontier import grow_tree_frontier
 from ..core.histogram import HIST_IMPLS
 from ..core.split import FeatureMeta, SplitParams
@@ -100,10 +103,6 @@ def check_slice(cfg: Config) -> None:
         (cfg.gpu_use_dp or str(cfg.tpu_hist_dtype).lower()
          in ("float64", "f64", "double"), "f64 histograms (gpu_use_dp)",
          "ROADMAP Queue 1 #3"),
-        (cfg.tree_growth == "batched"
-         and cfg.tpu_batched_part in ("true", "1"),
-         "tpu_batched_part=true (partitioned batched growth)",
-         "ROADMAP Queue 2 #4"),
         # the JAX package packs bins for frontier growth only, and its auto
         # resolves to none off a TPU (core/binpack.py:97-117)
         (cfg.tree_growth == "frontier"
@@ -121,6 +120,15 @@ def check_slice(cfg: Config) -> None:
     for bad, what, where in rules:
         if bad:
             raise outside_slice(what, where)
+
+
+def batched_part_on(cfg: Config) -> bool:
+    """The JAX package's policy for partitioned batched growth
+    (gbdt.py:587-609 there, one device): ``true`` turns it on under
+    ``tree_growth=batched``; ``auto`` and ``false`` leave it off; under
+    ``exact`` or ``frontier`` the option is ignored."""
+    return cfg.tree_growth == "batched" and cfg.tpu_batched_part in ("true",
+                                                                     "1")
 
 
 def resolve_hist_impl(cfg: Config) -> str:
@@ -198,10 +206,12 @@ class GBDT:
                 min_gain_to_split=cfg.min_gain_to_split),
             hist_impl=resolve_hist_impl(cfg),
             batch_splits=cfg.tree_batch_splits,
-            batched_pack=bool(cfg.tpu_batched_pack))
+            batched_pack=bool(cfg.tpu_batched_pack),
+            batched_part=batched_part_on(cfg))
         # one place decides which grower runs (gbdt.py:1150-1160 of the
         # JAX package)
-        self._grow = GROWERS[cfg.tree_growth]
+        self._grow = (grow_tree_batched_part if self.grow_params.batched_part
+                      else GROWERS[cfg.tree_growth])
         scores = np.zeros(ds.num_data, np.float32)
         self._init_scores_provided = ds.metadata.init_score is not None
         if self._init_scores_provided:

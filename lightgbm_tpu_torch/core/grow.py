@@ -47,6 +47,9 @@ class GrowParams(NamedTuple):
     # tpu_batched_pack: the batched step runs the slot kernel over child
     # slots instead of the parent-slot pass
     batched_pack: bool = False
+    # tpu_batched_part: the batched step keeps the rows grouped by leaf
+    # (core/grow_batched_part.py)
+    batched_part: bool = False
 
 
 class TreeArrays(NamedTuple):

@@ -13,7 +13,9 @@ growers (``core/grow_frontier.py``, ``core/grow_batched.py``) add a slot
 axis, ``[S, F, B, K]`` in one pass, from
 ``lightgbm_tpu/core/histogram.py`` ``build_histogram_frontier`` and the
 slot kernels' entry points (``build_histogram_slots``,
-``build_histogram_slots6``).
+``build_histogram_slots6``). The partitioned batched grower
+(``core/grow_batched_part.py``) takes the slot of each row from its row
+tile instead (``hist_part_tiles``, from ``build_histogram_part_tiles``).
 
 ``impl`` mirrors the JAX package's ``tpu_hist_impl`` switch:
 
@@ -148,6 +150,44 @@ def hist_slots6(xb: torch.Tensor, slot: torch.Tensor, sel: torch.Tensor,
             xb, slot.to(torch.int32).contiguous(),
             sel.to(torch.float32).contiguous(), vals3, num_bins, num_slots)
     return hist_slots6_plain(xb, slot, sel, vals3, num_bins, num_slots)
+
+
+def hist_part_tiles_plain(xb_fm: torch.Tensor, sel: torch.Tensor,
+                          vals3: torch.Tensor, tile_slot: torch.Tensor,
+                          tile_first: torch.Tensor, num_bins: int,
+                          n_slots: int, row_tile: int) -> torch.Tensor:
+    """Plain version of the partitioned-layout pass: every row takes its
+    tile's slot, then the parent-slot pass runs over the row-major view.
+    ``tile_first`` is implied by ``tile_slot`` and not read."""
+    row_slot = tile_slot.repeat_interleave(row_tile)
+    return hist_slots6_plain(xb_fm.t(), row_slot, sel, vals3.t(), num_bins,
+                             n_slots)
+
+
+def hist_part_tiles(xb_fm: torch.Tensor, sel: torch.Tensor,
+                    vals3: torch.Tensor, tile_slot: torch.Tensor,
+                    tile_first: torch.Tensor, num_bins: int, n_slots: int,
+                    row_tile: int, impl: str = "auto") -> torch.Tensor:
+    """Both children of every splitting leaf over the partitioned layout
+    (``build_histogram_part_tiles``, histogram_pallas.py:327), in the JAX
+    layout: xb_fm [F, Np] uint8 feature-major, rows grouped into
+    ``row_tile``-aligned leaf segments (Np a multiple of row_tile); sel
+    [Np] go-left selector; vals3 [3, Np] (g*m, h*m, m); tile_slot [T]
+    each tile's slot in [0, S) or -1 (tile skipped), every slot's tiles
+    one contiguous run; tile_first [T] the first tile of each run ->
+    [S, F, B, 6], channels vals3 * sel then vals3 * (1 - sel).
+
+    A slot that owns no tile comes out zero on both routes. That is
+    stricter than the TPU kernel, which leaves such a slot's block
+    uninitialised. Dispatched as ``hist_slots``."""
+    if _use_kernel(impl, xb_fm):
+        return kernels.build_histogram_part_tiles_cuda(
+            xb_fm, sel.to(torch.float32).contiguous(), vals3,
+            tile_slot.to(torch.int32).contiguous(),
+            tile_first.to(torch.int32).contiguous(), num_bins, n_slots,
+            row_tile)
+    return hist_part_tiles_plain(xb_fm, sel, vals3, tile_slot, tile_first,
+                                 num_bins, n_slots, row_tile)
 
 
 def build_histogram_frontier(xb: torch.Tensor, slot: torch.Tensor,

@@ -3,14 +3,15 @@
 Trains chip_smoke.py's main-path workload (bench.py's 1,000,000 x 28 data,
 numpy seed 0; binary, num_leaves=255, max_bin=255) on the CUDA device,
 under one growth mode (``--growth``: chip_smoke.GROWTH_PARAMS, exact,
-frontier or batched with tree_batch_splits=16): one warm-up iteration,
+frontier, batched with tree_batch_splits=16, or batched_part, the same
+with tpu_batched_part=true): one warm-up iteration,
 ``--iters`` timed iterations, then ``--iters`` more under torch.profiler.
 Prints the iteration wall time (timed without the profiler), the device
 busy time (kernels only) and idle share, the device time by kernel, the
 host time by operator, the counts of kernel launches and device-to-host
 synchronisations, and the port's own kernels' launches per iteration
-(one slot-kernel launch per frontier wave or batched step), then one
-JSON line.
+(one slot-kernel or part-kernel launch per frontier wave or batched
+step), then one JSON line.
 
     python3 scripts/profile_main_path.py [--growth MODE] [--rows N] \
         [--iters K]
@@ -29,26 +30,28 @@ import time
 import warnings
 
 
-# the device functions of core/csrc: histogram.cu, then hist_slots.cu
+# the device functions of core/csrc: histogram.cu, hist_slots.cu,
+# hist_part.cu, then repack.cu
 OWN_KERNELS = ("hist_partial_kernel", "hist_reduce_kernel", "count_kernel",
                "scan_kernel", "scatter_kernel", "piece_hist_kernel",
-               "piece_reduce_kernel")
+               "piece_reduce_kernel", "part_plan_kernel", "part_hist_kernel",
+               "part_reduce_kernel", "partition_tile_kernel")
 
 
 def main() -> int:
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    import chip_smoke
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--iters", type=int, default=1)
-    ap.add_argument("--growth", choices=("exact", "frontier", "batched"),
+    ap.add_argument("--growth", choices=sorted(chip_smoke.GROWTH_PARAMS),
                     default="exact")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("profile_main_path: needs a CUDA device", file=sys.stderr)
         return 2
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    sys.path.insert(0, root)
-    import chip_smoke
     import lightgbm_tpu_torch as lgb
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -102,7 +105,7 @@ def main() -> int:
 
     splits = sum(t.num_leaves_actual - 1 for t in bst.models[1:])
     splits //= max(len(bst.models) - 1, 1)
-    # the port's own kernels: the launches of histogram.cu and hist_slots.cu
+    # the port's own kernels: the launches of the core/csrc libraries
     own = [a for a in dev if "at::native" not in a.key
            and any("::%s" % k in a.key for k in OWN_KERNELS)]
     hist_ms = sum(a.self_device_time_total for a in own) / 1e3 / args.iters

@@ -3,7 +3,7 @@
 Trains chip_smoke.py's main-path workload (``chip_smoke.bench_data`` and
 ``chip_smoke.PARAMS``: bench.py's 1,000,000 x 28 data, numpy seed 0;
 binary, num_leaves=255, max_bin=255) on the CUDA device under one growth
-mode, one warm-up iteration and then ``--iters`` timed ones, each ended by
+mode (chip_smoke.GROWTH_PARAMS), one warm-up iteration and then ``--iters`` timed ones, each ended by
 a device synchronise. Prints one JSON line: the card's name and power
 limit, the growth mode, each iteration's milliseconds and their median.
 
@@ -28,11 +28,6 @@ import statistics
 import subprocess
 import sys
 import time
-
-# the growth modes and their parameters over chip_smoke.PARAMS
-GROWTH = {"exact": {"tree_growth": "exact"},
-          "frontier": {"tree_growth": "frontier"},
-          "batched": {"tree_growth": "batched", "tree_batch_splits": 16}}
 
 
 def load_port(checkout: str, name: str):
@@ -74,8 +69,11 @@ def time_in_turns(ports, x, y, params, iters: int, device: str):
 
 
 def main() -> int:
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke
     ap = argparse.ArgumentParser()
-    ap.add_argument("--growth", choices=sorted(GROWTH), default="exact")
+    ap.add_argument("--growth", choices=sorted(chip_smoke.GROWTH_PARAMS),
+                    default="exact")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--against", default=None,
@@ -85,15 +83,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("time_iterations: needs a CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.getcwd())
-    import chip_smoke
     import lightgbm_tpu_torch
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     x, y = chip_smoke.bench_data(args.rows)
-    params = dict(chip_smoke.PARAMS, **GROWTH[args.growth])
+    params = dict(chip_smoke.PARAMS, **chip_smoke.GROWTH_PARAMS[args.growth])
     ports = [lightgbm_tpu_torch]
     names = [os.getcwd()]
     if args.against:

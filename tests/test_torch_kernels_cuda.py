@@ -1,6 +1,8 @@
 """The port's CUDA kernels on a card, against their plain PyTorch versions:
-the histogram kernel (``histogram.cu``) and the two slot kernels
-(``hist_slots.cu``), alone and on the training paths that launch them.
+the histogram kernel (``histogram.cu``), the two slot kernels
+(``hist_slots.cu``), the partitioned-layout kernel (``hist_part.cu``) and
+the in-tile partition (``repack.cu``), alone and on the training paths
+that launch them.
 
 These tests need a CUDA device and ``nvcc``: a hand-written CUDA kernel has
 no CPU or interpret mode, so they are marked ``cuda`` and skip without one.
@@ -211,6 +213,128 @@ def test_cuda_wave_training_goes_through_the_slot_kernels(cuda_device, growth,
     before = wrapper.launches
     bst = tlgb.train(params, tlgb.Dataset(x, label=y), num_boost_round=2)
     assert wrapper.launches - before >= 2 * 4      # >= 4 waves a tree
+    plain = tlgb.train(dict(params, tpu_hist_impl="plain"),
+                       tlgb.Dataset(x, label=y), num_boost_round=2)
+    for name in ("split_feature", "threshold_bin", "left_child",
+                 "right_child"):
+        np.testing.assert_array_equal(getattr(bst.models[0], name),
+                                      getattr(plain.models[0], name))
+    np.testing.assert_allclose(bst.predict(x, raw_score=True),
+                               plain.predict(x, raw_score=True), rtol=0,
+                               atol=1e-4)
+
+
+def _part_layout(n_rows, num_leaves, f, b, n_slots, seed):
+    """chip_smoke.py's partitioned layout of ``n_rows`` rows at
+    ``num_leaves`` leaves: numpy (xb_fm, sel, vals3, tile_slot,
+    tile_first) and the row tile. The file runs from the root of the
+    checkout, where chip_smoke.py lies."""
+    import chip_smoke
+    arrays, tile = chip_smoke.part_layout(np.random.RandomState(seed),
+                                          n_rows, num_leaves, f, b, n_slots)
+    return (*arrays, tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [16, 1])
+def test_part_kernel_matches_plain(cuda_device, s):
+    """|kernel - plain| <= 1e-5 * sum|v| + 1e-6 on the layout of 100,003
+    rows at 255 leaves; a slot without a tile comes out zero; one launch."""
+    b = 255
+    *arrays, row_tile = _part_layout(100_003, 255, 28, b, s, seed=s)
+    before = kernels.build_histogram_part_tiles_cuda.launches
+    got = th.hist_part_tiles(*_to(cuda_device, *arrays), b, s, row_tile,
+                             "auto").cpu().numpy()
+    assert kernels.build_histogram_part_tiles_cuda.launches == before + 1
+    cpu = [torch.as_tensor(a) for a in arrays]
+    want = th.hist_part_tiles_plain(*cpu, b, s, row_tile).numpy()
+    absum = th.hist_part_tiles_plain(cpu[0], cpu[1], cpu[2].abs(), *cpu[3:],
+                                     b, s, row_tile).numpy()
+    assert got.shape == (s, 28, b, 6)
+    assert (np.abs(got - want) <= 1e-5 * absum + 1e-6).all()
+    if s > 2:
+        assert not got[s // 2].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [128, 256])
+def test_partition_kernel_is_byte_exact(cuda_device, c):
+    from lightgbm_tpu_torch.core.repack import (partition_tiles,
+                                                partition_tiles_plain)
+    r = np.random.RandomState(c)
+    n, tile = 64 * 512, 512
+    rows = r.randint(0, 256, (n, c)).astype(np.uint8)
+    gl = r.rand(n) < 0.3
+    gl[:tile] = False                                 # a tile with no left
+    gl[tile:2 * tile] = True                          # a tile of lefts only
+    before = kernels.partition_tiles_cuda.launches
+    out, cnt = partition_tiles(*_to(cuda_device, rows, gl), row_tile=tile)
+    assert kernels.partition_tiles_cuda.launches == before + 1
+    want, want_cnt = partition_tiles_plain(torch.as_tensor(rows),
+                                           torch.as_tensor(gl), tile)
+    np.testing.assert_array_equal(out.cpu().numpy(), want.numpy())
+    np.testing.assert_array_equal(cnt.cpu().numpy(), want_cnt.numpy())
+
+
+@pytest.mark.cuda
+def test_part_and_partition_kernels_reject_what_they_do_not_take(
+        cuda_device):
+    *arrays, row_tile = _part_layout(20_000, 3, 4, 16, 2, seed=0)
+    xb_fm, sel, vals3, ts, first = _to(cuda_device, *arrays)
+    part = kernels.build_histogram_part_tiles_cuda
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        part(xb_fm, sel.cpu(), vals3, ts, first, 16, 2, row_tile)
+    with pytest.raises(ValueError, match="row_tile"):
+        part(xb_fm, sel, vals3, ts, first, 16, 2, 1000)
+    with pytest.raises(ValueError, match="vals3"):
+        part(xb_fm, sel, vals3[:2].contiguous(), ts, first, 16, 2, row_tile)
+    with pytest.raises(ValueError, match="tile_slot"):
+        part(xb_fm, sel, vals3, ts.long(), first, 16, 2, row_tile)
+    with pytest.raises(ValueError, match="contiguous"):
+        part(xb_fm.t().contiguous().t(), sel, vals3, ts, first, 16, 2,
+             row_tile)
+    with pytest.raises(ValueError, match="num_bins"):
+        part(xb_fm, sel, vals3, ts, first, 257, 2, row_tile)
+    with pytest.raises(ValueError, match="n_slots"):
+        part(xb_fm, sel, vals3, ts, first, 16, 0, row_tile)
+    rows = torch.zeros((1024, 128), dtype=torch.uint8, device=cuda_device)
+    gl = torch.zeros(1024, dtype=torch.bool, device=cuda_device)
+    repack = kernels.partition_tiles_cuda
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        repack(rows, gl.cpu(), 512)
+    with pytest.raises(ValueError, match="go_left"):
+        repack(rows, gl.to(torch.uint8), 512)
+    with pytest.raises(ValueError, match="row_tile"):
+        repack(rows, gl, 300)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        repack(rows[:, :40].contiguous(), gl, 512)
+
+
+@pytest.mark.cuda
+def test_cuda_part_training_launches_the_part_kernel_once_a_step(
+        cuda_device, monkeypatch):
+    """``tpu_batched_part=true`` training on the card launches the part
+    kernel once for each step of the grower and builds the plain path's
+    first tree up to f32 ties; raw predictions agree with the plain
+    path's."""
+    from lightgbm_tpu_torch.core import grow_batched_part as tgp
+    steps = []
+    real = tgp.hist_part_tiles
+
+    def counted(*args):
+        steps.append(1)
+        return real(*args)
+
+    monkeypatch.setattr(tgp, "hist_part_tiles", counted)
+    r = np.random.RandomState(4)
+    x = r.randn(20_000, 8)
+    y = (x[:, 0] + 0.5 * x[:, 1] * x[:, 2] + 0.3 * r.randn(len(x)) > 0)
+    params = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
+              "tree_growth": "batched", "tpu_batched_part": "true"}
+    before = kernels.build_histogram_part_tiles_cuda.launches
+    bst = tlgb.train(params, tlgb.Dataset(x, label=y), num_boost_round=2)
+    assert kernels.build_histogram_part_tiles_cuda.launches - before == \
+        len(steps) >= 2 * 2
     plain = tlgb.train(dict(params, tpu_hist_impl="plain"),
                        tlgb.Dataset(x, label=y), num_boost_round=2)
     for name in ("split_feature", "threshold_bin", "left_child",

@@ -52,7 +52,8 @@ def test_no_jax_or_jax_package_import(path):
 def test_the_scan_covers_the_wave_growers():
     scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
     for module in ("core/grow.py", "core/grow_frontier.py",
-                   "core/grow_batched.py", "core/kernels.py"):
+                   "core/grow_batched.py", "core/grow_batched_part.py",
+                   "core/repack.py", "core/kernels.py"):
         assert os.path.join("lightgbm_tpu_torch", module) in scanned
 
 
@@ -106,12 +107,13 @@ OUTSIDE_SLICE = {
     "forced_splits": ({"forcedsplits_filename": "forced.json"}, None),
     "cegb": ({"cegb_penalty_split": 0.5}, None),
     "gpu_use_dp": ({"gpu_use_dp": True}, None),
-    # frontier and batched growth are in the slice; packed bin words and
-    # the partitioned batched step are not
+    # frontier, batched and partitioned batched growth are in the slice;
+    # packed bin words and model statistics on the partitioned step are not
     "tree_growth_frontier": ({"tree_growth": "frontier",
                               "tpu_bin_packing": "byte"}, None),
     "tree_growth_batched": ({"tree_growth": "batched",
-                             "tpu_batched_part": "true"}, None),
+                             "tpu_batched_part": "true",
+                             "obs_modelstats": True}, None),
     "mesh": ({"tree_learner": "data"}, None),
     "pallas_impl": ({"tpu_hist_impl": "pallas"}, None),
 }
@@ -130,6 +132,6 @@ def test_outside_the_slice_raises(option):
     if data == "classes":
         y = np.arange(len(y)) % 3
     ds = tlgb.Dataset(x, label=y, device="cpu")
-    with pytest.raises(NotImplementedError, match="outside slice 2"):
+    with pytest.raises(NotImplementedError, match="outside slice 3"):
         tlgb.train(dict(params, objective=params.get("objective", "binary"),
                         verbosity=-1), ds, num_boost_round=1, device="cpu")

@@ -160,7 +160,7 @@ def test_frontier_split_set_is_exact_growths_without_a_cap():
 
 
 @pytest.mark.parametrize("option,growth", [
-    ({"tpu_batched_part": "true"}, "batched"),
+    ({"tpu_batched_part": "true", "tree_learner": "data"}, "batched"),
     ({"tpu_bin_packing": "byte"}, "frontier"),
     ({"tpu_bin_packing": "nibble"}, "frontier"),
     ({"obs_modelstats": True}, "frontier"),
