@@ -12,12 +12,14 @@ and prints no result line):
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes, and time kernel, plain version, the one-call
    library yardstick and the memory bound: the histogram kernel
-   (histogram.cu) at the root and split shapes of exact growth, the slot
-   kernel (hist_slots.cu, K=3) at 1,000,000 x 28 x 255 bins with half the
-   rows active at S = 16, 128 and 254 slots, its K=6 parent-slot variant
-   at S = 16, the partitioned-layout kernel (hist_part.cu) on the layout
-   of 1,000,000 rows at 255 leaves (745 tiles of 2,048 rows) with about
-   half the row-holding tiles in 15 runs at S = 16, and the in-tile
+   (histogram.cu), both of its variants, at the root and at five split
+   shapes of exact growth (512 to 262,144 rows), with the profiler's
+   device time beside the event-timed one and an exact count channel,
+   the slot kernel (hist_slots.cu, K=3) at 1,000,000 x 28 x 255 bins with
+   half the rows active at S = 16, 128 and 254 slots, its K=6 parent-slot
+   variant at S = 16, the partitioned-layout kernel (hist_part.cu) on the
+   layout of 1,000,000 rows at 255 leaves (745 tiles of 2,048 rows) with
+   about half the row-holding tiles in 15 runs at S = 16, and the in-tile
    partition (repack.cu) at 1,048,576 x 128 bytes, 512-row tiles, 30% of
    the rows going left, which must come back byte-equal;
 4. the main paths at full width, one per growth mode: bench.py's workload
@@ -89,9 +91,11 @@ GROWTH_PARAMS = {"exact": {"tree_growth": "exact"},
 COMPARE_ROWS, COMPARE_ITERS = 200_000, 2
 
 # histogram shapes of the main path: the root (K=3 over every row) and the
-# fused two-child pass of a split (K=6) at a small and a large leaf
-HIST_SHAPES = [(1_000_000, 28, 255, 3), (4_096, 28, 255, 6),
-               (262_144, 28, 255, 6)]
+# fused two-child pass of a split (K=6) at the leaf sizes exact growth
+# meets (its median split pass has ~7,400 rows)
+HIST_SHAPES = [(1_000_000, 28, 255, 3), (512, 28, 255, 6),
+               (4_096, 28, 255, 6), (16_384, 28, 255, 6),
+               (65_536, 28, 255, 6), (262_144, 28, 255, 6)]
 HIST_REL_TOL, HIST_ABS_TOL = 1e-5, 1e-6   # |d| <= rel * sum_bin|v| + abs
 # slot histogram shapes (n, F, B, K, S): the frontier's waves at 255
 # leaves (S = the wave's splits, up to 254) and the batched step's
@@ -155,50 +159,130 @@ def bound(nbytes: int, ops: int):
             "bytes" if by_bytes >= by_ops else "operations")
 
 
+def host_ms(fn, reps: int = 200) -> float:
+    """Wall time of one call in a run of back-to-back calls that ends in a
+    synchronise: the wrapper's host time where that exceeds the device
+    time, the device time otherwise."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def device_ms(fn, flush, names, reps: int = 10):
+    """Mean device time of one call, from torch.profiler: the kernels whose
+    name holds one of ``names`` and the memsets, with the L2 evicted before
+    each call (by a fill kernel, which is not counted). None when the
+    profiler recorded fewer kernels than calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.fill_(1.0)
+            fn()
+        torch.cuda.synchronize()
+    ours = [a for a in prof.key_averages()
+            if a.device_type == DeviceType.CUDA
+            and ("Memset" in a.key or any(n in a.key for n in names))]
+    if sum(a.count for a in ours if "Memset" not in a.key) < reps:
+        return None                   # the profiler lost events: not measured
+    return sum(a.self_device_time_total for a in ours) / 1e3 / reps
+
+
+def fmt(ms) -> str:
+    return "not measured" if ms is None else "%.4f" % ms
+
+
+HIST_KERNEL_NAMES = ("hist_direct_kernel", "hist_block_kernel")
+
+
+def hist_inputs(r, n, f, b, k):
+    """Bins and values as the main path stacks them (``stack_vals``): grad,
+    hess and a 0/1 count channel, about 10% of the rows masked out; at K=6
+    each row's triple goes to the left or the right child."""
+    xb = r.randint(0, b, (n, f)).astype(np.uint8)
+    m = (r.rand(n) < 0.9).astype(np.float32)
+    vals = np.stack([r.randn(n) * m, r.rand(n) * m, m], axis=1)
+    if k == 6:
+        left = (r.rand(n) < 0.5)[:, None]
+        vals = np.concatenate([vals * left, vals * ~left], axis=1)
+    return xb, vals.astype(np.float32)
+
+
 def check_histogram_kernel(dev, flush):
-    """Phase 3: the histogram kernel against its plain version."""
+    """Phase 3: the histogram kernel against its plain version, each variant
+    at every shape (the plan's choice is the one the main path runs)."""
     rows = []
     for n, f, b, k in HIST_SHAPES:
-        r = np.random.RandomState(n + k)
-        xb = torch.as_tensor(r.randint(0, b, (n, f)).astype(np.uint8),
-                             device=dev)
-        vals = r.randn(n, k).astype(np.float32)
-        if k == 6:
-            left = r.rand(n) < 0.5
-            vals[:, :3] *= left[:, None]
-            vals[:, 3:] *= ~left[:, None]
+        xb_np, vals = hist_inputs(np.random.RandomState(n + k), n, f, b, k)
+        xb = torch.as_tensor(xb_np, device=dev)
         v = torch.as_tensor(vals, device=dev)
-        got = kernels.build_histogram_cuda(xb, v, b)
         want = hist.hist_tile_vals(xb, v, b, "plain")
         absum = hist.hist_tile_vals(xb, v.abs(), b, "plain")
-        torch.cuda.synchronize()
-        err = (got - want).abs()
-        bad = int((err > HIST_REL_TOL * absum + HIST_ABS_TOL).sum())
-        if bad:
-            raise AssertionError("histogram kernel disagrees with the plain "
-                                 "version in %d cells at n=%d K=%d"
-                                 % (bad, n, k))
+        picked = kernels.hist_launch_plan(
+            n, f, b, k, torch.cuda.get_device_properties(dev)
+            .multi_processor_count).variant
+        err, variants = None, {}
+        for variant in kernels.HIST_VARIANTS:
+            def call(variant=variant):
+                return kernels.build_histogram_cuda(xb, v, b, variant)
+            got = call()
+            torch.cuda.synchronize()
+            d = (got - want).abs()
+            bad = int((d > HIST_REL_TOL * absum + HIST_ABS_TOL).sum())
+            counts_exact = torch.equal(got[..., 2::3], want[..., 2::3])
+            if bad or not counts_exact:
+                raise AssertionError(
+                    "histogram kernel (%s) disagrees with the plain version "
+                    "in %d cells at n=%d K=%d (count channel exact: %s)"
+                    % (variant, bad, n, k, counts_exact))
+            variants[variant] = {
+                "ms": time_ms(call, flush),
+                "device_ms": device_ms(call, flush, HIST_KERNEL_NAMES)}
+            if variant == picked:
+                err = d
         flat = (xb.to(torch.int64)
                 + torch.arange(f, device=dev) * b).reshape(-1)
         src = v.unsqueeze(1).expand(n, f, k).reshape(n * f, k).contiguous()
+
+        def library():
+            return torch.zeros((f * b, k), device=dev).index_add_(0, flat,
+                                                                   src)
         bound_ms, bound_by = bound(kernels.hist_bytes(n, f, b, k), n * f * k)
         row = {
-            "n": n, "F": f, "B": b, "K": k,
+            "n": n, "F": f, "B": b, "K": k, "variant": picked,
             "max_abs_err": float(err.max()),
-            "ms": time_ms(lambda: kernels.build_histogram_cuda(xb, v, b),
-                          flush),
+            # the plan's variant, as the main path calls it
+            "ms": variants[picked]["ms"],
+            "device_ms": variants[picked]["device_ms"],
+            "host_ms": host_ms(lambda: kernels.build_histogram_cuda(xb, v,
+                                                                    b)),
+            "variants": variants,
             "plain_ms": time_ms(lambda: hist.hist_tile_vals(
                 xb, v, b, "plain"), flush),
-            "library_ms": time_ms(lambda: torch.zeros(
-                (f * b, k), device=dev).index_add_(0, flat, src), flush),
+            "library_ms": time_ms(library, flush),
+            "library_host_ms": host_ms(library),
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
-        log("hist n=%d F=%d B=%d K=%d: max_abs_err=%.3g kernel %.4f ms, "
-            "plain %.4f ms, index_add_ %.4f ms, bound %.4f ms (%s)"
-            % (n, f, b, k, row["max_abs_err"], row["ms"], row["plain_ms"],
-               row["library_ms"], row["bound_ms"], row["bound_by"]))
+        log("hist n=%d F=%d B=%d K=%d (%s): max_abs_err=%.3g, count channel "
+            "exact, kernel %.4f ms (device %s, host %.4f; variants, event "
+            "/ device ms: %s), plain %.4f ms, index_add_ %.4f ms (host "
+            "%.4f), bound %.4f ms (%s)"
+            % (n, f, b, k, picked, row["max_abs_err"], row["ms"],
+               fmt(row["device_ms"]), row["host_ms"],
+               ", ".join("%s %.4f / %s" % (name, t["ms"],
+                                            fmt(t["device_ms"]))
+                         for name, t in variants.items()),
+               row["plain_ms"], row["library_ms"], row["library_host_ms"],
+               row["bound_ms"], row["bound_by"]))
         rows.append(row)
-        del xb, v, got, want, absum, flat, src
+        del xb, v, got, want, absum, flat, src, err, d
     return rows
 
 

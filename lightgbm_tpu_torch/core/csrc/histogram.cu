@@ -11,122 +11,360 @@
 //
 // Bound on this card: bytes. The function must read n*F + 4*n*K bytes and
 // write 4*F*B*K; it does n*F*K additions, far below any compute roof. At
-// the root shape (n=1e6, F=28, K=3) that is 40 MB, ~12 us at 3.35 TB/s.
+// the root shape (n=1e6, F=28, K=3) that is 40 MB, ~12 us at 3.35 TB/s; a
+// split pass of 4,096 rows moves 0.3 MB, ~0.1 us, so there the launch and
+// the grid's fill bound it instead.
 //
-// Design, simple and exact first (the TPU kernel's digit-factorised MXU
-// contraction has no counterpart worth copying here):
-//   pass 1  each block owns a tile of Ft features and a contiguous slice of
-//           rows. It keeps an [Ft, B, K] f32 sub-histogram in shared memory
-//           (at most 48 KB, so no opt-in is needed and several blocks share
-//           an SM), reads each of its rows once, and adds the row's K values
-//           into the bin of each of its features with shared-memory atomics
-//           (the workgroup-local histogram of the reference's
-//           ocl/histogram256.cl). Zero values are skipped: in the K=6 split
-//           pass a row feeds only one child, so half the channels are zero.
-//           The block then writes its sub-histogram to partial [R, F, B, K].
-//   pass 2  one thread per output cell sums the R partials in a fixed order.
-// No global atomics, so the only run-to-run variation is the order of the
-// shared-memory atomics inside a block; accumulation stays f32 throughout
-// (tighter than the TPU kernel's two-term bf16 split). What bounds it for
-// now is the partial round trip (R*F*B*K*4 bytes written and read again)
-// and shared-atomic throughput, not the n*F + 4*n*K bytes of the bound;
-// wgmma/TMA or a feature-major layout are later work.
+// One call is a memset of `out` and one kernel, of one of two variants
+// that the caller's plan picks by the number of rows (core/kernels.py
+// hist_launch_plan; HIST_DIRECT_MAX_ROWS = 8,192, where the two variants'
+// device times cross on the H100 between 4,096 and 16,384 rows):
+//
+//   direct  (n <= 8,192: about half of exact growth's split passes)  a
+//           grid that scales with n*F. Each thread reads aligned 4-byte
+//           words of the flat [n*F] bin array (neighbouring threads on
+//           neighbouring words), takes the four (row, feature) elements of
+//           its word and adds each row's values straight into `out` with
+//           global atomics. No sub-histogram to zero or flush, no partial.
+//           Bound by the rate at which the L2 serves scattered reductions.
+//   block   (n > 8,192: the root and the larger splits)  one block of 1,024
+//           threads per SM. It keeps the whole [F, B, K] f32 histogram in
+//           dynamic shared memory (171 KB at F=28, B=255, K=6; the launcher
+//           opts in above 48 KB), in as many replicas as fit (two at K=3;
+//           warp w adds into replica w % R), reads its contiguous slice of
+//           rows once as aligned words in the same way, and at the end adds
+//           the sum of its replicas' non-zero cells into `out` with
+//           coalesced 16-byte global atomics. Scratch in device memory:
+//           none. Where F*B*K*4 bytes exceed the 227 KB a block may hold,
+//           blocks split the features into tiles and each reads the rows
+//           again (not on the main path: F=28). Bound by the shared f32
+//           atomics.
+//
+// Atomics, from `cuobjdump -sass` of this library (sm_90a, CUDA 12.8):
+//   direct  each triple is REDG.E.ADD.F32x2.FTZ.RN.STRONG.GPU (its
+//           8-byte-aligned pair) and REDG.E.ADD.F32.FTZ.RN.STRONG.GPU (the
+//           third channel): native reductions, executed at the L2;
+//   block   the shared adds are compare-and-swap loops (LDS, FADD,
+//           ATOMS.CAST.SPIN, branch), three a row; the flush is
+//           REDG.E.ADD.F32x4.FTZ.RN.STRONG.GPU.
+// Tried on the H100 and dropped, slower at every shape: a 64-bit
+// compare-and-swap over a channel pair in shared memory (ATOMS.CAS.64;
+// two loops a row instead of three, but ~2x slower at the root), and
+// warps that each own one feature's cells and add without atomics, lanes
+// taking turns where their bins meet (__match_any_sync). Reading 16 bytes
+// a thread in the block variant gained ~4% at the root and lost at 16k
+// rows. The global f32 atomics flush subnormal values to zero, within the
+// stated tolerance of 1e-5 * sum_bin|v| + 1e-6.
+//
+// Channels: at K=6 a row feeds one child, so one of its two triples is
+// zero. The row picks the non-zero triple by address (offset 0 when the
+// left triple has a non-zero value, else 3), so every lane runs the same
+// atomics whichever side it goes; a row whose values are all zero
+// (masked out) adds nothing, and a row with both triples non-zero (outside
+// the partition's contract, but the function allows it) adds the right
+// triple in a second, rarely taken branch.
+//
+// Order of additions: neither variant fixes it. Shared atomics within a
+// block, the flush of the blocks into `out` and the direct variant's
+// global atomics all land in whatever order the hardware serves them, so
+// a cell's f32 sum may differ by a few ulps from run to run (chip_smoke.py
+// phase 5 holds the trees to the f32 tie rule). A channel of 0/1 values
+// (the count) stays exact in any order below 2^24 rows.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kDirectThreads = 128;
+constexpr int kBlockThreads = 1024;
+
+// One row's values as the atomics take them: the triple `a0..a2` at
+// channel offset `off` (the non-zero one at K=6), and at K=6 the right
+// triple `c0..c2` when both are non-zero.
+template <int K>
+struct RowVals {
+  float a0, a1, a2, c0, c1, c2;
+  int off;
+  bool any, both;
+};
 
 template <int K>
-__global__ void __launch_bounds__(kThreads)
-hist_partial_kernel(const uint8_t* __restrict__ x,
-                    const float* __restrict__ vals,
-                    float* __restrict__ partial,
-                    int n, int num_features, int num_bins,
-                    int feature_tile, int rows_per_block) {
-  extern __shared__ float sh[];
-  const int f0 = blockIdx.x * feature_tile;
-  const int ft = min(feature_tile, num_features - f0);
-  const int r = blockIdx.y;
-  const int cells = ft * num_bins * K;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) sh[i] = 0.f;
-  __syncthreads();
-
-  const long long row0 = (long long)r * rows_per_block;
-  const long long row1 = min((long long)n, row0 + rows_per_block);
-  for (long long row = row0 + threadIdx.x; row < row1; row += blockDim.x) {
-    float v[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) v[k] = vals[row * K + k];
-    const uint8_t* xr = x + row * (long long)num_features + f0;
-    for (int j = 0; j < ft; ++j) {
-      const int b = xr[j];
-      if (b >= num_bins) continue;
-      float* cell = sh + (j * num_bins + b) * K;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        if (v[k] != 0.f) atomicAdd(cell + k, v[k]);
-      }
-    }
+__device__ __forceinline__ void load_row(const float* __restrict__ vals,
+                                         unsigned row, RowVals<K>& r) {
+  const float* v = vals + (size_t)row * K;
+  const float v0 = __ldg(v), v1 = __ldg(v + 1), v2 = __ldg(v + 2);
+  const bool left = v0 != 0.f || v1 != 0.f || v2 != 0.f;
+  if (K == 3) {
+    r.a0 = v0; r.a1 = v1; r.a2 = v2;
+    r.off = 0;
+    r.any = left;
+    r.both = false;
+  } else {
+    const float w0 = __ldg(v + 3), w1 = __ldg(v + 4), w2 = __ldg(v + 5);
+    const bool right = w0 != 0.f || w1 != 0.f || w2 != 0.f;
+    r.a0 = left ? v0 : w0; r.a1 = left ? v1 : w1; r.a2 = left ? v2 : w2;
+    r.c0 = w0; r.c1 = w1; r.c2 = w2;
+    r.off = left ? 0 : 3;
+    r.any = left || right;
+    r.both = left && right;
   }
-  __syncthreads();
-
-  // [F, B, K] is feature-major, so this block's features are one
-  // contiguous run of `cells` floats inside partial[r]
-  float* dst = partial + ((long long)r * num_features + f0) * num_bins * K;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) dst[i] = sh[i];
 }
 
-__global__ void __launch_bounds__(kThreads)
-hist_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out,
-                   int num_row_blocks, long long cells) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= cells) return;
-  float s = 0.f;
-  for (int r = 0; r < num_row_blocks; ++r) s += partial[r * cells + i];
-  out[i] = s;
+// Adds row r's values into the cell whose channel 0 is hist[cell] (hist
+// 8-byte aligned), the triple at channel offset r.off.
+//   shared  three scalar atomics (each a LDS, FADD, ATOMS.CAST.SPIN loop);
+//   global  the triple's 8-byte-aligned pair as one vector reduction and the
+//           third channel as a scalar one. The triple starts at an even float
+//           (K=6 left; K=3 even cells), so the pair is channels 0-1, or at an
+//           odd one (K=6 right; K=3 odd cells), so it is channels 1-2. Every
+//           lane runs the same two reductions, with per-lane addresses and
+//           values selected without a branch.
+template <int K, bool SHARED>
+__device__ __forceinline__ void add_cell(float* hist, size_t cell,
+                                         const RowVals<K>& r) {
+  if (!r.any) return;
+  const size_t at = cell + r.off;
+  float* p = hist + at;
+  if (SHARED) {
+    atomicAdd(p, r.a0);
+    atomicAdd(p + 1, r.a1);
+    atomicAdd(p + 2, r.a2);
+    if (K == 6 && r.both) {
+      atomicAdd(hist + cell + 3, r.c0);
+      atomicAdd(hist + cell + 4, r.c1);
+      atomicAdd(hist + cell + 5, r.c2);
+    }
+  } else {
+    const bool even = (at & 1) == 0;
+    atomicAdd(reinterpret_cast<float2*>(even ? p : p + 1),
+              make_float2(even ? r.a0 : r.a1, even ? r.a1 : r.a2));
+    atomicAdd(even ? p + 2 : p, even ? r.a2 : r.a0);
+    // the right triple of a row that feeds both (channel 3 is odd)
+    if (K == 6 && r.both) {
+      atomicAdd(reinterpret_cast<float2*>(hist + cell + 4),
+                make_float2(r.c1, r.c2));
+      atomicAdd(hist + cell + 3, r.c0);
+    }
+  }
+}
+
+// Adds the elements e in [e0, e1) of the flat [n * F] bin array whose
+// feature lies in [f0, f0 + fw) into hist ([fw, B, K] cells). The range is
+// cut into aligned 4-byte words; thread t of nt takes the words t, t + nt,
+// ..., loading the next one before it adds the current one (an aligned word
+// that holds a byte of the array lies in the array's allocation, and its
+// bytes outside the range are skipped). A word that runs into the next row
+// loads that row's values up front too.
+template <int K, bool SHARED>
+__device__ __forceinline__ void add_range(const uint8_t* __restrict__ x,
+                                          const float* __restrict__ vals,
+                                          float* hist, unsigned e0,
+                                          unsigned e1, int num_features,
+                                          int f0, int fw, int num_bins,
+                                          unsigned t, unsigned nt) {
+  if (e0 >= e1) return;
+  const unsigned long long base = reinterpret_cast<uintptr_t>(x);
+  const unsigned long long first = (base + e0) & ~3ull;
+  const unsigned words = (unsigned)((base + e1 - first + 3) >> 2);
+  const unsigned last_row = (e1 - 1) / num_features;
+  const unsigned* w4 = reinterpret_cast<const unsigned*>(first);
+  unsigned cur = t < words ? __ldg(w4 + t) : 0u;
+  for (unsigned w = t; w < words; w += nt) {
+    const unsigned next = w + nt < words ? __ldg(w4 + w + nt) : 0u;
+    const long long e = (long long)(first + 4ull * w) - (long long)base;
+    const int q0 = e < (long long)e0 ? (int)((long long)e0 - e) : 0;
+    const unsigned e_first = (unsigned)(e + q0);
+    unsigned row = e_first / num_features;
+    int f = (int)(e_first - row * num_features);
+    RowVals<K> r, rn;
+    load_row<K>(vals, row, r);
+    const bool crosses = f + (4 - q0) > num_features && row < last_row;
+    if (crosses) load_row<K>(vals, row + 1, rn);
+    bool use_rn = crosses;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (q < q0) continue;
+      if (e + q >= (long long)e1) break;
+      const int b = (cur >> (8 * q)) & 0xff;
+      const int j = f - f0;
+      if ((unsigned)j < (unsigned)fw && b < num_bins)
+        add_cell<K, SHARED>(hist, ((size_t)j * num_bins + b) * K, r);
+      if (++f == num_features) {
+        f = 0;
+        ++row;
+        if (use_rn) {
+          r = rn;
+          use_rn = false;
+        } else if (q < 3 && e + q + 1 < (long long)e1) {
+          load_row<K>(vals, row, r);   // F < 4: a word spans 3+ rows
+        }
+      }
+    }
+    cur = next;
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(kDirectThreads)
+hist_direct_kernel(const uint8_t* __restrict__ x,
+                   const float* __restrict__ vals, float* __restrict__ out,
+                   int n, int num_features, int num_bins) {
+  add_range<K, false>(x, vals, out, 0, (unsigned)n * num_features,
+                      num_features, 0, num_features, num_bins,
+                      blockIdx.x * blockDim.x + threadIdx.x,
+                      gridDim.x * blockDim.x);
+}
+
+// Zeroes `floats` floats (a multiple of 4) of shared memory.
+__device__ __forceinline__ void zero_shared(float4* sh4, int floats) {
+  for (int i = threadIdx.x; i < floats / 4; i += blockDim.x)
+    sh4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// Adds the sum of `replicas` shared [fw, B, K] histograms (`stride` floats
+// apart, a multiple of 4) into out's cells of features [f0, f0 + fw),
+// 16 bytes at a time where they are 16-byte aligned, skipping zeros: one
+// coalesced vector reduction per non-zero group of four cells.
+template <int K>
+__device__ __forceinline__ void flush(const float* sh, int stride,
+                                      int replicas, float* __restrict__ out,
+                                      int f0, int fw, int num_bins) {
+  // [F, B, K] is feature-major, so the tile is one contiguous run of cells
+  float* dst = out + (size_t)f0 * num_bins * K;
+  const int cells = fw * num_bins * K;
+  const int c4 = ((size_t)f0 * num_bins * K) % 4 == 0 ? cells / 4 : 0;
+  const float4* sh4 = reinterpret_cast<const float4*>(sh);
+  for (int i = threadIdx.x; i < c4; i += blockDim.x) {
+    float4 s = sh4[i];
+    for (int r = 1; r < replicas; ++r) {
+      const float4 t = sh4[r * (stride / 4) + i];
+      s.x += t.x; s.y += t.y; s.z += t.z; s.w += t.w;
+    }
+    if (s.x != 0.f || s.y != 0.f || s.z != 0.f || s.w != 0.f)
+      atomicAdd(reinterpret_cast<float4*>(dst) + i, s);
+  }
+  for (int i = c4 * 4 + threadIdx.x; i < cells; i += blockDim.x) {
+    float s = sh[i];
+    for (int r = 1; r < replicas; ++r) s += sh[r * stride + i];
+    if (s != 0.f) atomicAdd(dst + i, s);
+  }
+}
+
+// floats of one shared [feature_tile, B, K] replica, a multiple of 4 so
+// that every replica starts 16-byte aligned
+template <int K>
+__device__ __forceinline__ int replica_floats(int feature_tile,
+                                              int num_bins) {
+  return (feature_tile * num_bins * K + 3) & ~3;
+}
+
+template <int K>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+hist_block_kernel(const uint8_t* __restrict__ x,
+                  const float* __restrict__ vals, float* __restrict__ out,
+                  int n, int num_features, int num_bins, int feature_tile,
+                  int rows_per_block, int replicas) {
+  extern __shared__ float4 sh4[];
+  float* sh = reinterpret_cast<float*>(sh4);
+  const int f0 = blockIdx.x * feature_tile;
+  const int fw = min(feature_tile, num_features - f0);
+  const int stride = replica_floats<K>(feature_tile, num_bins);
+  zero_shared(sh4, stride * replicas);
+  __syncthreads();
+
+  const unsigned row0 = blockIdx.y * (unsigned)rows_per_block;
+  const unsigned row1 = min((unsigned)n, row0 + rows_per_block);
+  float* mine = sh + (threadIdx.x / 32 % replicas) * stride;
+  add_range<K, true>(x, vals, mine, row0 * num_features,
+                     row1 * num_features, num_features, f0, fw, num_bins,
+                     threadIdx.x, blockDim.x);
+  __syncthreads();
+  flush<K>(sh, stride, replicas, out, f0, fw, num_bins);
+}
+
+// the largest dynamic shared memory each block kernel (K=3, K=6) was opted
+// in to, by device (an opt-in holds for the current device only)
+constexpr int kMaxDevices = 64;
+size_t g_smem_opt_in[kMaxDevices][2] = {};
+
+// Opts `fn` in to `smem` bytes of dynamic shared memory where that is
+// above the default 48 KB and above what it was opted in to before.
+cudaError_t opt_in(const void* fn, int which, size_t smem) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  size_t& opted = g_smem_opt_in[dev][which];
+  if (smem > 48 * 1024 && smem > opted) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    opted = smem;
+  }
+  return cudaSuccess;
+}
+
+template <int K>
+cudaError_t launch(int variant, const uint8_t* x, const float* v, float* out,
+                   int n, int num_features, int num_bins, int grid_x,
+                   int grid_y, int feature_tile, int rows_per_block,
+                   int replicas, size_t smem, cudaStream_t s) {
+  if (variant == 0) {
+    hist_direct_kernel<K><<<grid_x, kDirectThreads, 0, s>>>(
+        x, v, out, n, num_features, num_bins);
+  } else {
+    const cudaError_t err = opt_in(
+        reinterpret_cast<const void*>(hist_block_kernel<K>), K == 6, smem);
+    if (err != cudaSuccess) return err;
+    hist_block_kernel<K><<<dim3(grid_x, grid_y), kBlockThreads, smem, s>>>(
+        x, v, out, n, num_features, num_bins, feature_tile, rows_per_block,
+        replicas);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch both passes on `stream`. partial must hold
-// num_row_blocks * F * B * K floats and out F * B * K floats. Returns the
-// first CUDA error (cudaGetLastError after each launch), 0 on success.
-int lgbt_hist_launch(const void* x, const void* vals, void* partial,
-                     void* out, int n, int num_features, int num_bins, int k,
-                     int feature_tile, int num_row_blocks, int rows_per_block,
+// variant: 0 direct, 1 block. Zeroes out (F * B * K floats) on `stream`
+// and launches the variant there: direct with grid_x blocks of 128
+// threads; block with (grid_x feature tiles, grid_y row slices) blocks of
+// 1,024 threads and smem_bytes of dynamic shared memory (replicas copies
+// of a [feature_tile, B, K] f32 histogram, each padded to 16 bytes).
+// Needs n * F < 2^31. Returns the first CUDA error (of the memset, the
+// opt-in or the launch), 0 on success.
+int lgbt_hist_launch(const void* x, const void* vals, void* out, int n,
+                     int num_features, int num_bins, int k, int variant,
+                     int grid_x, int grid_y, int feature_tile,
+                     int rows_per_block, int replicas, long long smem_bytes,
                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n < 0 || num_features <= 0 || num_bins <= 0 || num_bins > 256 ||
-      feature_tile <= 0 || num_row_blocks <= 0 || rows_per_block <= 0)
+  if (n <= 0 || num_features <= 0 || num_bins <= 0 || num_bins > 256 ||
+      (k != 3 && k != 6) || grid_x <= 0 || grid_y <= 0 || variant < 0 ||
+      variant > 1 || (long long)n * num_features >= (1ll << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (size_t)feature_tile * num_bins * k * sizeof(float);
-  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((num_features + feature_tile - 1) / feature_tile,
-                  num_row_blocks);
+  if (variant == 1 &&
+      (feature_tile <= 0 || rows_per_block <= 0 || replicas <= 0 ||
+       smem_bytes != replicas * (((long long)feature_tile * num_bins * k +
+                                  3) / 4 * 16) ||
+       (long long)grid_x * feature_tile < num_features ||
+       (long long)grid_y * rows_per_block < n))
+    return static_cast<int>(cudaErrorInvalidValue);
   const uint8_t* xb = static_cast<const uint8_t*>(x);
   const float* v = static_cast<const float*>(vals);
-  float* p = static_cast<float*>(partial);
-  if (k == 3) {
-    hist_partial_kernel<3><<<grid, kThreads, smem, s>>>(
-        xb, v, p, n, num_features, num_bins, feature_tile, rows_per_block);
-  } else if (k == 6) {
-    hist_partial_kernel<6><<<grid, kThreads, smem, s>>>(
-        xb, v, p, n, num_features, num_bins, feature_tile, rows_per_block);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaGetLastError();
+  float* o = static_cast<float*>(out);
+  cudaError_t err = cudaMemsetAsync(
+      o, 0, (size_t)num_features * num_bins * k * sizeof(float), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long cells = (long long)num_features * num_bins * k;
-  const long long blocks = (cells + kThreads - 1) / kThreads;
-  hist_reduce_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
-      p, static_cast<float*>(out), num_row_blocks, cells);
-  return static_cast<int>(cudaGetLastError());
+  err = k == 3 ? launch<3>(variant, xb, v, o, n, num_features, num_bins,
+                           grid_x, grid_y, feature_tile, rows_per_block,
+                           replicas, (size_t)smem_bytes, s)
+               : launch<6>(variant, xb, v, o, n, num_features, num_bins,
+                           grid_x, grid_y, feature_tile, rows_per_block,
+                           replicas, (size_t)smem_bytes, s);
+  return static_cast<int>(err);
 }
 
 const char* lgbt_error_string(int err) {

@@ -12,7 +12,8 @@ imported.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -26,7 +27,14 @@ REPACK_LIBRARY = ("lgbt_repack", ["repack.cu"])
 LIBRARIES = dict([HIST_LIBRARY, SLOTS_LIBRARY, PART_LIBRARY, REPACK_LIBRARY])
 HIST_SMEM_BUDGET = 48 * 1024     # bytes of shared memory per block
 HIST_MIN_ROWS_PER_BLOCK = 1024   # below this a block is mostly set-up
-HIST_MAX_ROW_BLOCKS = 256        # caps the [R, F, B, K] partial scratch
+# histogram.cu: the direct variant up to this many rows, the block variant
+# above; on the H100 their device times cross between 4,096 and 16,384
+# rows (chip_smoke.py phase 3 times both at every shape)
+HIST_DIRECT_MAX_ROWS = 8_192
+HIST_DIRECT_THREADS = 128
+HIST_BLOCK_THREADS = 1024
+HIST_SMEM_OPT_IN = 232_448       # sm_90: 227 KB a block, opted in
+HIST_MAX_REPLICAS = 4            # copies of the block's sub-histogram
 # slot and partitioned kernels: row chunks per SM (about half the rows are
 # active) and the cap on chunks, which bounds the [C + S - 1, F, B, K]
 # partial
@@ -41,9 +49,9 @@ def _hist_lib() -> ctypes.CDLL:
     lib = load_library(*HIST_LIBRARY)
     if not getattr(lib, "_lgbt_bound", False):
         lib.lgbt_hist_launch.argtypes = [
-            _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-            _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
-            _c_void_p]
+            _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int,
+            _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
+            ctypes.c_longlong, _c_void_p]
         lib.lgbt_hist_launch.restype = _c_int
         lib.lgbt_error_string.argtypes = [_c_int]
         lib.lgbt_error_string.restype = ctypes.c_char_p
@@ -51,30 +59,107 @@ def _hist_lib() -> ctypes.CDLL:
     return lib
 
 
+class HistPlan(NamedTuple):
+    """One histogram.cu call: the variant, its grid (``grid_x`` blocks of
+    ``threads``; for ``block``, ``grid_x`` feature tiles of
+    ``feature_tile`` features by ``grid_y`` row slices of
+    ``rows_per_block`` rows) and the block variant's dynamic shared
+    memory, ``replicas`` copies of a [feature_tile, B, K] f32 histogram."""
+    variant: str
+    threads: int
+    grid_x: int
+    grid_y: int
+    feature_tile: int
+    rows_per_block: int
+    replicas: int
+    smem_bytes: int
+
+
+HIST_VARIANTS = ("direct", "block")
+
+
+def _pad16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+@functools.lru_cache(maxsize=4096)
 def hist_launch_plan(n: int, num_features: int, num_bins: int, k: int,
-                     sm_count: int) -> Tuple[int, int, int]:
-    """(feature_tile, row_blocks, rows_per_block) for one histogram call:
-    the widest feature tile whose [Ft, B, K] f32 sub-histogram fits the
-    shared-memory budget, then enough row slices to give the card about
-    four blocks per SM, none shorter than HIST_MIN_ROWS_PER_BLOCK rows."""
-    ft = max(1, min(num_features, HIST_SMEM_BUDGET // (num_bins * k * 4)))
+                     sm_count: int, variant: Optional[str] = None) -> HistPlan:
+    """The plan of one ``histogram.cu`` call over n >= 1 rows.
+
+    ``direct`` runs at n <= HIST_DIRECT_MAX_ROWS (about half of exact
+    growth's split passes): one thread per aligned 4-byte word of the flat
+    [n * F] bin array adds each element's triple straight into the output
+    with global atomics (a REDG.E.ADD.F32x2 and a REDG.E.ADD.F32 in the
+    SASS, served at the L2), so the grid scales with n * F (225 blocks at
+    4,096 x 28) and nothing is zeroed or flushed but the output. It is
+    bound by the L2's rate for scattered reductions and, at the smallest
+    n, by the launch. ``block`` runs above: one block of 1,024 threads an
+    SM (``sm_count`` row slices, split further into feature tiles only
+    where F * B * K * 4 bytes exceed the 227 KB opt-in) holds the
+    histogram of its features in shared memory, in as many replicas as
+    fit (up to HIST_MAX_REPLICAS), and adds its non-zero cells into the
+    output once (REDG.E.ADD.F32x4). It is bound by the shared f32
+    atomics, compare-and-swap loops on this card (ATOMS.CAST.SPIN).
+    Neither uses device-memory scratch. Both add in an order that varies
+    from run to run, so a cell's f32 sum may move by a few ulps between
+    runs; 0/1 channels stay exact. ``variant`` forces one (chip_smoke.py
+    and the card's tests run both at every shape)."""
+    if variant is None:
+        variant = "direct" if n <= HIST_DIRECT_MAX_ROWS else "block"
+    if variant == "direct":
+        words = -(-n * num_features // 4) + 1     # +1: a misaligned start
+        return HistPlan("direct", HIST_DIRECT_THREADS,
+                        -(-words // HIST_DIRECT_THREADS), 1, num_features,
+                        n, 1, 0)
+    if variant != "block":
+        raise ValueError("variant must be one of %s, got %r"
+                         % ("/".join(HIST_VARIANTS), variant))
+    feature_bytes = num_bins * k * 4
+    ft = max(1, min(num_features, HIST_SMEM_OPT_IN // feature_bytes))
     tiles = -(-num_features // ft)
-    r = min(max(1, -(-n // HIST_MIN_ROWS_PER_BLOCK)),
-            max(1, -(-4 * sm_count // tiles)), HIST_MAX_ROW_BLOCKS)
-    rows_per_block = max(1, -(-n // r))
-    return ft, r, rows_per_block
+    ft = -(-num_features // tiles)                # equal tiles
+    replica_bytes = _pad16(ft * feature_bytes)
+    replicas = max(1, min(HIST_MAX_REPLICAS,
+                          HIST_SMEM_OPT_IN // replica_bytes))
+    r = min(max(1, -(-sm_count // tiles)), n)
+    rows_per_block = -(-n // r)
+    return HistPlan("block", HIST_BLOCK_THREADS, tiles,
+                    -(-n // rows_per_block), ft, rows_per_block, replicas,
+                    replicas * replica_bytes)
+
+
+_SM_COUNT: Dict[int, int] = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    """The SM count of a CUDA device, read once per device."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    count = _SM_COUNT.get(idx)
+    if count is None:
+        count = torch.cuda.get_device_properties(idx).multi_processor_count
+        _SM_COUNT[idx] = count
+    return count
 
 
 def build_histogram_cuda(xb: torch.Tensor, vals: torch.Tensor,
-                         num_bins: int) -> torch.Tensor:
+                         num_bins: int,
+                         variant: Optional[str] = None) -> torch.Tensor:
     """out[f, b, k] = sum_n [xb[n, f] == b] * vals[n, k] on the card.
 
     xb [n, F] uint8 contiguous; vals [n, K] float32 contiguous, K in {3, 6};
-    both on one CUDA device; 1 <= num_bins <= 256. Returns [F, B, K] f32.
+    both on one CUDA device; 1 <= num_bins <= 256; n * F < 2^31. Returns
+    [F, B, K] f32. One memset and one kernel launch, of the variant
+    ``hist_launch_plan`` picks (``variant`` forces one), counted once in
+    ``build_histogram_cuda.launches``. At K=6 a row may feed both triples,
+    but the kernel is fastest when it feeds one (the partition's case).
+    The order of the f32 additions varies from run to run (atomics);
+    a channel of 0/1 values is exact.
     """
-    if xb.device.type != "cuda" or vals.device != xb.device:
+    dev = xb.device
+    if dev.type != "cuda" or vals.device != dev:
         raise ValueError("build_histogram_cuda takes CUDA tensors on one "
-                         "device, got %s and %s" % (xb.device, vals.device))
+                         "device, got %s and %s" % (dev, vals.device))
     if xb.dtype != torch.uint8 or xb.dim() != 2:
         raise ValueError("xb must be a 2-D uint8 tensor, got %s %s"
                          % (xb.dtype, tuple(xb.shape)))
@@ -91,18 +176,18 @@ def build_histogram_cuda(xb: torch.Tensor, vals: torch.Tensor,
     k = vals.shape[1]
     if f == 0 or n == 0:
         return torch.zeros((f, num_bins, k), dtype=torch.float32,
-                           device=xb.device)
-    if n >= 2 ** 31:
-        raise ValueError("build_histogram_cuda takes fewer than 2^31 rows")
+                           device=dev)
+    if n * f >= 2 ** 31:
+        raise ValueError("build_histogram_cuda takes fewer than 2^31 bins "
+                         "(n * F)")
+    plan = hist_launch_plan(n, f, num_bins, k, _sm_count(dev), variant)
     lib = _hist_lib()
-    sm_count = torch.cuda.get_device_properties(xb.device).multi_processor_count
-    ft, r, rows_per_block = hist_launch_plan(n, f, num_bins, k, sm_count)
-    partial = torch.empty((r, f, num_bins, k), dtype=torch.float32,
-                          device=xb.device)
-    out = torch.empty((f, num_bins, k), dtype=torch.float32, device=xb.device)
+    out = torch.empty((f, num_bins, k), dtype=torch.float32, device=dev)
     rc = lib.lgbt_hist_launch(
-        xb.data_ptr(), vals.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        n, f, num_bins, k, ft, r, rows_per_block, current_stream(xb.device))
+        xb.data_ptr(), vals.data_ptr(), out.data_ptr(), n, f, num_bins, k,
+        HIST_VARIANTS.index(plan.variant), plan.grid_x, plan.grid_y,
+        plan.feature_tile, plan.rows_per_block, plan.replicas,
+        plan.smem_bytes, current_stream(dev))
     if rc != 0:
         raise RuntimeError("histogram kernel launch failed: CUDA error %d (%s)"
                            % (rc, lib.lgbt_error_string(rc).decode()))
@@ -194,7 +279,7 @@ def _launch_slots(wrapper, xb, slot, vals, sel, num_bins: int, n_slots: int,
     if f == 0 or n == 0:
         return torch.zeros(out_shape, dtype=torch.float32, device=xb.device)
     lib = _slots_lib()
-    sm_count = torch.cuda.get_device_properties(xb.device).multi_processor_count
+    sm_count = _sm_count(xb.device)
     ft, chunks, rows_per_chunk = slot_hist_launch_plan(n, f, num_bins, k,
                                                        sm_count)
     # counts [S], offsets [S + 1], cursors [S], perm [n]
@@ -356,7 +441,7 @@ def build_histogram_part_tiles_cuda(xb_fm: torch.Tensor, sel: torch.Tensor,
     if t + 3 * n_slots >= 2 ** 31:
         raise ValueError("%s takes fewer than 2^31 tiles and slots" % name)
     lib = _part_lib()
-    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    sm_count = _sm_count(dev)
     ft, chunks, per = part_hist_launch_plan(t, f, num_bins, sm_count)
     # run_of_tile [T], slot_run [S], run_c0 [S], run_c1 [S]
     ints = torch.empty(t + 3 * n_slots, dtype=torch.int32, device=dev)

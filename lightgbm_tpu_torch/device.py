@@ -120,5 +120,10 @@ def load_library(name: str, files: List[str]) -> ctypes.CDLL:
 
 
 def current_stream(device: Optional[torch.device] = None) -> int:
-    """PyTorch's current CUDA stream as the integer a C launcher takes."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """PyTorch's current CUDA stream of ``device`` (default: the current
+    device) as the integer a C launcher takes, read through the raw-stream
+    call that Triton's launcher uses too (``torch.cuda.current_stream``
+    builds a Stream object on every call)."""
+    if device is None or device.index is None:
+        return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -32,7 +32,7 @@ import warnings
 
 # the device functions of core/csrc: histogram.cu, hist_slots.cu,
 # hist_part.cu, then repack.cu
-OWN_KERNELS = ("hist_partial_kernel", "hist_reduce_kernel", "count_kernel",
+OWN_KERNELS = ("hist_direct_kernel", "hist_block_kernel", "count_kernel",
                "scan_kernel", "scatter_kernel", "piece_hist_kernel",
                "piece_reduce_kernel", "part_plan_kernel", "part_hist_kernel",
                "part_reduce_kernel", "partition_tile_kernel")
@@ -105,9 +105,11 @@ def main() -> int:
 
     splits = sum(t.num_leaves_actual - 1 for t in bst.models[1:])
     splits //= max(len(bst.models) - 1, 1)
-    # the port's own kernels: the launches of the core/csrc libraries
-    own = [a for a in dev if "at::native" not in a.key
-           and any("::%s" % k in a.key for k in OWN_KERNELS)]
+    # the port's own kernels: the launches of the core/csrc libraries, and
+    # the memsets their launchers issue (PyTorch zeroes with fill kernels)
+    own = [a for a in dev if a.key.startswith("Memset") or (
+        "at::native" not in a.key
+        and any("::%s" % k in a.key for k in OWN_KERNELS))]
     hist_ms = sum(a.self_device_time_total for a in own) / 1e3 / args.iters
     print("card: %s" % card)
     print("growth %s; the port's kernels per iteration: %s; their device "

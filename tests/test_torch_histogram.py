@@ -90,12 +90,68 @@ def test_dispatch_never_falls_back():
                                   th.hist_tile_vals(xt, vt, 8, "auto"))
 
 
+PLAN_ROWS = (1, 17, 512, 4096, 7434, 65_536, 262_144, 1_000_000)
+
+
 def test_launch_plan_fits_shared_memory():
-    """The wrapper's plan keeps each block's [Ft, B, K] f32 sub-histogram
-    within the 48 KB budget and covers every row and feature."""
-    for n, f, b, k in [(1_000_000, 28, 255, 3), (4096, 28, 255, 6),
-                       (262_144, 28, 255, 6), (17, 5, 16, 3)]:
-        ft, r, rows = kernels.hist_launch_plan(n, f, b, k, sm_count=132)
-        assert ft * b * k * 4 <= kernels.HIST_SMEM_BUDGET
-        assert r * rows >= n and (r - 1) * rows < n
-        assert 1 <= r <= kernels.HIST_MAX_ROW_BLOCKS
+    """For every variant the plan picks at exact growth's shapes (and a
+    forced other one), the grid covers every row and feature, shared
+    memory stays within what the variant requests and the card allows,
+    the grid fills 132 SMs from 4,096 rows on, and no variant keeps
+    device-memory scratch (a partial would have to stay under 10% of the
+    function's bytes at n >= 262,144)."""
+    sms = 132
+    for f, b, k in [(28, 255, 3), (28, 255, 6), (28, 256, 6), (5, 16, 3),
+                    (1, 255, 6), (64, 255, 6)]:
+        for n in PLAN_ROWS:
+            picked = kernels.hist_launch_plan(n, f, b, k, sm_count=sms)
+            assert picked.variant == ("direct" if n <= kernels.
+                                      HIST_DIRECT_MAX_ROWS else "block")
+            for plan in (picked, *(kernels.hist_launch_plan(
+                    n, f, b, k, sm_count=sms, variant=v)
+                    for v in kernels.HIST_VARIANTS)):
+                if plan.variant == "direct":
+                    assert plan.smem_bytes == 0
+                    assert plan.threads == kernels.HIST_DIRECT_THREADS
+                    # one thread a 4-byte word, plus one for a misaligned
+                    # start
+                    assert plan.grid_x * plan.threads * 4 >= n * f + 3
+                    blocks = plan.grid_x
+                else:
+                    assert plan.threads == kernels.HIST_BLOCK_THREADS
+                    # replicas of 16-byte-aligned [Ft, B, K] f32
+                    # histograms
+                    replica = -(-plan.feature_tile * b * k * 4 // 16) * 16
+                    assert plan.smem_bytes == plan.replicas * replica
+                    assert plan.smem_bytes <= kernels.HIST_SMEM_OPT_IN
+                    assert 1 <= plan.replicas <= kernels.HIST_MAX_REPLICAS
+                    assert plan.grid_x * plan.feature_tile >= f > \
+                        (plan.grid_x - 1) * plan.feature_tile
+                    assert plan.grid_y * plan.rows_per_block >= n > \
+                        (plan.grid_y - 1) * plan.rows_per_block
+                    blocks = plan.grid_x * plan.grid_y
+                if n >= 4096 and f == 28 and plan is picked:
+                    assert blocks >= sms
+            # whole rows in one tile whenever the histogram fits a block
+            if picked.variant == "block" and f * b * k * 4 <= \
+                    kernels.HIST_SMEM_OPT_IN:
+                assert picked.grid_x == 1 and picked.feature_tile == f
+    with pytest.raises(ValueError, match="variant"):
+        kernels.hist_launch_plan(10, 3, 8, 3, sm_count=sms, variant="tiled")
+
+
+def test_profile_script_names_every_histogram_kernel():
+    """scripts/profile_main_path.py sums the port's kernels by name, so it
+    must know every __global__ function of core/csrc/histogram.cu."""
+    import re
+    from pathlib import Path
+    root = Path(__file__).resolve().parent.parent
+    src = (root / "lightgbm_tpu_torch" / "core" / "csrc" /
+           "histogram.cu").read_text()
+    names = re.findall(r"__global__\s+void\s+"
+                       r"(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", src)
+    assert names
+    script = (root / "scripts" / "profile_main_path.py").read_text()
+    own = re.search(r"OWN_KERNELS = \((.*?)\)", script, re.S).group(1)
+    for name in names:
+        assert '"%s"' % name in own

@@ -45,14 +45,51 @@ def _inputs(n, f, b, k, seed):
     return xb, vals
 
 
+def _edge_inputs(case, n, f, b, seed):
+    """K=6 values with an edge in the rows' sides: every row left, every
+    row right, a third of the rows masked out (all six values zero), or
+    some rows feeding both triples (outside the partition's contract)."""
+    xb, vals = _inputs(n, f, b, 6, seed)
+    if case == "all_left":
+        vals[:, 3:] = 0
+        vals[:, :3] = np.abs(vals[:, :3]) + 1
+    elif case == "all_right":
+        vals[:, :3] = 0
+        vals[:, 3:] = np.abs(vals[:, 3:]) + 1
+    elif case == "masked":
+        vals[np.random.RandomState(seed).rand(n) < 0.3] = 0
+    elif case == "both":
+        vals[::7] = np.random.RandomState(seed).randn(len(vals[::7]), 6)
+    return xb, vals
+
+
+def _count_channels(vals):
+    """Make channel 2 (and 5) a 0/1 count, as the main path stacks it."""
+    k = vals.shape[1]
+    for c in range(2, k, 3):
+        vals[:, c] = (vals[:, c] != 0)
+    return vals
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,f,b,k", [(100_003, 28, 255, 3),
-                                     (100_003, 28, 255, 6),
-                                     (17, 5, 16, 3), (4096, 3, 256, 6)])
-def test_cuda_kernel_matches_plain(cuda_device, n, f, b, k):
-    """|kernel - plain| <= 1e-5 * sum_bin|v| + 1e-6 in every cell, and the
-    dispatch counts one launch."""
-    xb, vals = _inputs(n, f, b, k, seed=n + k)
+@pytest.mark.parametrize("n,f,b,k,case", [
+    (100_003, 28, 255, 3, None), (100_003, 28, 255, 6, None),
+    (17, 5, 16, 3, None), (4096, 3, 256, 6, None),
+    (1, 28, 255, 6, None), (512, 28, 255, 6, None),
+    (7434, 28, 255, 6, None), (65_536, 28, 255, 6, None),
+    (7434, 28, 255, 6, "all_left"), (7434, 28, 255, 6, "all_right"),
+    (7434, 28, 255, 6, "masked"), (100_003, 28, 255, 6, "masked"),
+    (7434, 28, 255, 6, "both"), (100_003, 28, 255, 6, "both"),
+    (7434, 28, 256, 6, None), (100_003, 28, 256, 6, None),
+    (7434, 1, 255, 6, None), (100_003, 1, 255, 3, None)])
+def test_cuda_kernel_matches_plain(cuda_device, n, f, b, k, case):
+    """|kernel - plain| <= 1e-5 * sum_bin|v| + 1e-6 in every cell, the
+    count channel exact, and the dispatch counts one launch."""
+    if case is None:
+        xb, vals = _inputs(n, f, b, k, seed=n + k)
+    else:
+        xb, vals = _edge_inputs(case, n, f, b, seed=n + k)
+    vals = _count_channels(vals)
     x = torch.as_tensor(xb, device=cuda_device)
     v = torch.as_tensor(vals, device=cuda_device)
     before = kernels.build_histogram_cuda.launches
@@ -63,6 +100,33 @@ def test_cuda_kernel_matches_plain(cuda_device, n, f, b, k):
                           torch.as_tensor(np.abs(vals)), b).numpy()
     assert got.shape == (f, b, k)
     assert (np.abs(got - want) <= 1e-5 * absum + 1e-6).all()
+    np.testing.assert_array_equal(got[..., 2::3], want[..., 2::3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["direct", "block"])
+@pytest.mark.parametrize("n,f,b,k,offset", [
+    (1, 28, 255, 6, 0), (4096, 28, 255, 6, 1), (100_003, 28, 255, 3, 3),
+    (20_001, 64, 255, 6, 0), (20_001, 100, 255, 3, 2), (3001, 5, 16, 3, 1)])
+def test_cuda_kernel_variants_match_plain(cuda_device, variant, n, f, b, k,
+                                          offset):
+    """Each variant of histogram.cu, forced, at any n: bins that start
+    ``offset`` bytes past an aligned address (a misaligned first word),
+    and features that need more than one tile of the block variant's
+    shared memory (F = 64 at K=6, F = 100 at K=3)."""
+    xb, vals = _inputs(n, f, b, k, seed=n + f + k)
+    vals = _count_channels(vals)
+    buf = torch.empty(n * f + offset, dtype=torch.uint8, device=cuda_device)
+    x = buf[offset:].view(n, f)
+    x.copy_(torch.as_tensor(xb))
+    assert x.is_contiguous() and x.data_ptr() % 4 == offset % 4
+    v = torch.as_tensor(vals, device=cuda_device)
+    got = kernels.build_histogram_cuda(x, v, b, variant).cpu().numpy()
+    want = th.hist_plain(torch.as_tensor(xb), torch.as_tensor(vals), b).numpy()
+    absum = th.hist_plain(torch.as_tensor(xb),
+                          torch.as_tensor(np.abs(vals)), b).numpy()
+    assert (np.abs(got - want) <= 1e-5 * absum + 1e-6).all()
+    np.testing.assert_array_equal(got[..., 2::3], want[..., 2::3])
 
 
 @pytest.mark.cuda
