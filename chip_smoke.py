@@ -16,8 +16,10 @@ and prints no result line):
    shapes of exact growth (512 to 262,144 rows), with the profiler's
    device time beside the event-timed one and an exact count channel,
    the slot kernel (hist_slots.cu, K=3) at 1,000,000 x 28 x 255 bins with
-   half the rows active at S = 16, 128 and 254 slots, its K=6 parent-slot
-   variant at S = 16, the partitioned-layout kernel (hist_part.cu) on the
+   half the rows active at S = 2, 16, 128 and 254 slots and its K=6
+   parent-slot variant at S = 16, each with the profiler's device time by
+   launch, the wrapper's host time and an exact count channel, the
+   partitioned-layout kernel (hist_part.cu) on the
    layout of 1,000,000 rows at 255 leaves (745 tiles of 2,048 rows) with
    about half the row-holding tiles in 15 runs at S = 16, and the in-tile
    partition (repack.cu) at 1,048,576 x 128 bytes, 512-row tiles, 30% of
@@ -52,6 +54,7 @@ from __future__ import annotations
 
 import collections
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -98,10 +101,12 @@ HIST_SHAPES = [(1_000_000, 28, 255, 3), (512, 28, 255, 6),
                (65_536, 28, 255, 6), (262_144, 28, 255, 6)]
 HIST_REL_TOL, HIST_ABS_TOL = 1e-5, 1e-6   # |d| <= rel * sum_bin|v| + abs
 # slot histogram shapes (n, F, B, K, S): the frontier's waves at 255
-# leaves (S = the wave's splits, up to 254) and the batched step's
-# parent-slot pass (K=6, S = tree_batch_splits = 16)
-SLOT_SHAPES = [(1_000_000, 28, 255, 3, 16), (1_000_000, 28, 255, 3, 128),
-               (1_000_000, 28, 255, 3, 254), (1_000_000, 28, 255, 6, 16)]
+# leaves (S = the wave's splits, from the first waves' 1 or 2 up to 254)
+# and the batched step's parent-slot pass (K=6, S = tree_batch_splits =
+# 16)
+SLOT_SHAPES = [(1_000_000, 28, 255, 3, 2), (1_000_000, 28, 255, 3, 16),
+               (1_000_000, 28, 255, 3, 128), (1_000_000, 28, 255, 3, 254),
+               (1_000_000, 28, 255, 6, 16)]
 SLOT_ACTIVE = 0.5             # share of rows in a slot
 # the partitioned-layout kernel: the layout of MAIN_ROWS rows at 255 leaves,
 # S = tree_batch_splits; the in-tile partition: rows, width, tile, left share
@@ -172,11 +177,17 @@ def host_ms(fn, reps: int = 200) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def device_ms(fn, flush, names, reps: int = 10):
-    """Mean device time of one call, from torch.profiler: the kernels whose
-    name holds one of ``names`` and the memsets, with the L2 evicted before
-    each call (by a fill kernel, which is not counted). None when the
-    profiler recorded fewer kernels than calls."""
+# a kernel of core/csrc as the profiler names it: its function in the
+# sources' anonymous namespace
+OWN_KERNEL_KEY = re.compile(r"^(?:void )?\(anonymous namespace\)::(\w+)")
+
+
+def device_split(fn, flush, reps: int = 10):
+    """Mean device time of one call by launch, from torch.profiler:
+    {kernel function of core/csrc or "memset": ms}, with the L2 evicted
+    before each call (by a fill kernel of PyTorch's, which is not counted).
+    None when the profiler recorded fewer of the port's kernels than
+    calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -187,19 +198,35 @@ def device_ms(fn, flush, names, reps: int = 10):
             flush.fill_(1.0)
             fn()
         torch.cuda.synchronize()
-    ours = [a for a in prof.key_averages()
-            if a.device_type == DeviceType.CUDA
-            and ("Memset" in a.key or any(n in a.key for n in names))]
-    if sum(a.count for a in ours if "Memset" not in a.key) < reps:
+    split, kernels_seen = collections.Counter(), 0
+    for a in prof.key_averages():
+        if a.device_type != DeviceType.CUDA:
+            continue
+        own = OWN_KERNEL_KEY.match(a.key)
+        if own:
+            kernels_seen += a.count
+            split[own.group(1)] += a.self_device_time_total / 1e3 / reps
+        elif "Memset" in a.key:
+            split["memset"] += a.self_device_time_total / 1e3 / reps
+    if kernels_seen < reps:
         return None                   # the profiler lost events: not measured
-    return sum(a.self_device_time_total for a in ours) / 1e3 / reps
+    return dict(split)
+
+
+def device_ms(fn, flush, reps: int = 10):
+    """Mean device time of one call (the port's kernels and the memsets),
+    from ``device_split``; None where that is not measured."""
+    split = device_split(fn, flush, reps)
+    return None if split is None else sum(split.values())
 
 
 def fmt(ms) -> str:
     return "not measured" if ms is None else "%.4f" % ms
 
 
-HIST_KERNEL_NAMES = ("hist_direct_kernel", "hist_block_kernel")
+def fmt_split(split) -> str:
+    return "not measured" if split is None else ", ".join(
+        "%s %.4f" % kv for kv in sorted(split.items()))
 
 
 def hist_inputs(r, n, f, b, k):
@@ -244,7 +271,7 @@ def check_histogram_kernel(dev, flush):
                     % (variant, bad, n, k, counts_exact))
             variants[variant] = {
                 "ms": time_ms(call, flush),
-                "device_ms": device_ms(call, flush, HIST_KERNEL_NAMES)}
+                "device_ms": device_ms(call, flush)}
             if variant == picked:
                 err = d
         flat = (xb.to(torch.int64)
@@ -286,75 +313,117 @@ def check_histogram_kernel(dev, flush):
     return rows
 
 
+def slot_inputs(dev, n, f, b, k, s):
+    """Bins, slots with SLOT_ACTIVE of the rows active (slot S // 2 absent
+    where S > 2), values as the main path stacks them (grad, hess and a
+    count channel of ones) and a go-left selector, made with numpy from a
+    seed."""
+    r = np.random.RandomState(n + 7 * s + k)
+    xb = r.randint(0, b, (n, f)).astype(np.uint8)
+    slot = r.randint(0, s, n).astype(np.int32)
+    if s > 2:
+        slot[slot == s // 2] = s - 1
+    slot[r.rand(n) >= SLOT_ACTIVE] = -1
+    vals = np.stack([r.randn(n), r.rand(n), np.ones(n)], axis=1)
+    sel = (r.rand(n) < 0.5).astype(np.float32)
+    return [torch.as_tensor(a, device=dev)
+            for a in (xb, slot, vals.astype(np.float32), sel)]
+
+
+def slot_call(kern, xb, slot, v, sel, b, s, k):
+    """One call of the K=3 or K=6 slot wrapper of ``kern`` (a kernels
+    module: this checkout's, or another's when comparing two)."""
+    if k == 3:
+        return kern.build_histogram_slots_cuda(xb, slot, v, b, s)
+    return kern.build_histogram_slots6_cuda(xb, slot, sel, v, b, s)
+
+
+def slot_plain(xb, slot, v, sel, b, s, k):
+    if k == 3:
+        return hist.hist_slots(xb, slot, v, b, s, "plain")
+    return hist.hist_slots6(xb, slot, sel, v, b, s, "plain")
+
+
+def check_slot_result(got, want, absum, s, k) -> float:
+    """Raises unless |got - want| <= 1e-5 * sum|v| + 1e-6 in every cell,
+    the count channels are exact and (S > 2) slot S // 2 is zero; returns
+    the largest difference."""
+    err = (got - want).abs()
+    bad = int((err > HIST_REL_TOL * absum + HIST_ABS_TOL).sum())
+    counts_exact = torch.equal(got[..., 2::3], want[..., 2::3])
+    absent = s > 2 and bool(got[s // 2].any())
+    if bad or not counts_exact or absent:
+        raise AssertionError("slot kernel K=%d disagrees with the plain "
+                             "version in %d cells at S=%d (count channel "
+                             "exact: %s, absent slot nonzero: %s)"
+                             % (k, bad, s, counts_exact, absent))
+    return float(err.max())
+
+
+def slot_library(xb, slot, v, sel, b, s, k):
+    """The library yardstick of a slot shape: one index_add_ over a
+    prebuilt combined (slot, feature, bin) index of the active rows.
+    Returns the call and the active-row count."""
+    f, dev = xb.shape[1], xb.device
+    src_rows = v if k == 3 else torch.cat(
+        [v * sel[:, None], v * (1 - sel[:, None])], dim=1)
+    act = torch.nonzero(slot >= 0).squeeze(1)
+    n_active = int(act.numel())
+    flat = ((slot.index_select(0, act).to(torch.int64)[:, None] * f
+             + torch.arange(f, device=dev)) * b
+            + xb.index_select(0, act).to(torch.int64)).reshape(-1)
+    src = src_rows.index_select(0, act).unsqueeze(1).expand(
+        n_active, f, k).reshape(-1, k).contiguous()
+
+    def library():
+        return torch.zeros((s * f * b, k), device=dev).index_add_(0, flat,
+                                                                   src)
+    return library, n_active
+
+
 def check_slot_kernels(dev, flush):
-    """Phase 3: both slot kernels against their plain versions. Inputs: bins,
-    slots with SLOT_ACTIVE of the rows active and slot S // 2 absent,
-    values and a go-left selector, made with numpy from a seed."""
+    """Phase 3: both slot kernels against their plain versions
+    (``slot_inputs``), each timed with events, by launch with the profiler,
+    and back to back on the host."""
     rows = []
     for n, f, b, k, s in SLOT_SHAPES:
-        r = np.random.RandomState(n + 7 * s + k)
-        xb = torch.as_tensor(r.randint(0, b, (n, f)).astype(np.uint8),
-                             device=dev)
-        slot_np = r.randint(0, s, n).astype(np.int32)
-        slot_np[slot_np == s // 2] = s - 1
-        slot_np[r.rand(n) >= SLOT_ACTIVE] = -1
-        slot = torch.as_tensor(slot_np, device=dev)
-        v = torch.as_tensor(r.randn(n, 3).astype(np.float32), device=dev)
-        sel = torch.as_tensor((r.rand(n) < 0.5).astype(np.float32),
-                              device=dev)
-        if k == 3:
-            def kernel():
-                return kernels.build_histogram_slots_cuda(xb, slot, v, b, s)
+        xb, slot, v, sel = slot_inputs(dev, n, f, b, k, s)
 
-            def plain(vals=v):
-                return hist.hist_slots(xb, slot, vals, b, s, "plain")
-            src_rows = v
-        else:
-            def kernel():
-                return kernels.build_histogram_slots6_cuda(xb, slot, sel, v,
-                                                           b, s)
+        def kernel():
+            return slot_call(kernels, xb, slot, v, sel, b, s, k)
 
-            def plain(vals=v):
-                return hist.hist_slots6(xb, slot, sel, vals, b, s, "plain")
-            src_rows = torch.cat([v * sel[:, None], v * (1 - sel[:, None])],
-                                 dim=1)
+        def plain(vals=v):
+            return slot_plain(xb, slot, vals, sel, b, s, k)
         got, want, absum = kernel(), plain(), plain(v.abs())
         torch.cuda.synchronize()
-        err = (got - want).abs()
-        bad = int((err > HIST_REL_TOL * absum + HIST_ABS_TOL).sum())
-        if bad or got[s // 2].any():
-            raise AssertionError("slot kernel K=%d disagrees with the plain "
-                                 "version in %d cells at S=%d (absent slot "
-                                 "nonzero: %s)" % (k, bad, s,
-                                                   bool(got[s // 2].any())))
-        # the library yardstick: one index_add_ over a prebuilt combined
-        # (slot, feature, bin) index of the active rows
-        act = torch.nonzero(slot >= 0).squeeze(1)
-        n_active = int(act.numel())
-        flat = ((slot.index_select(0, act).to(torch.int64)[:, None] * f
-                 + torch.arange(f, device=dev)) * b
-                + xb.index_select(0, act).to(torch.int64)).reshape(-1)
-        src = src_rows.index_select(0, act).unsqueeze(1).expand(
-            n_active, f, k).reshape(-1, k).contiguous()
+        max_err = check_slot_result(got, want, absum, s, k)
+        library, n_active = slot_library(xb, slot, v, sel, b, s, k)
         bound_ms, bound_by = bound(
             kernels.slot_hist_bytes(n, n_active, f, b, k, s),
             n_active * f * k)
+        split = device_split(kernel, flush)
         row = {
             "n": n, "active": n_active, "F": f, "B": b, "K": k, "S": s,
-            "max_abs_err": float(err.max()),
+            "max_abs_err": max_err,
             "ms": time_ms(kernel, flush),
+            "device_ms": None if split is None else sum(split.values()),
+            "device_split": split,
+            "host_ms": host_ms(kernel),
             "plain_ms": time_ms(plain, flush),
-            "library_ms": time_ms(lambda: torch.zeros(
-                (s * f * b, k), device=dev).index_add_(0, flat, src), flush),
+            "library_ms": time_ms(library, flush),
+            "library_host_ms": host_ms(library),
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
-        log("slots n=%d active=%d F=%d B=%d K=%d S=%d: max_abs_err=%.3g "
-            "kernel %.4f ms, plain %.4f ms, index_add_ %.4f ms, bound %.4f "
-            "ms (%s)" % (n, n_active, f, b, k, s, row["max_abs_err"],
-                         row["ms"], row["plain_ms"], row["library_ms"],
-                         bound_ms, bound_by))
+        log("slots n=%d active=%d F=%d B=%d K=%d S=%d: max_abs_err=%.3g, "
+            "count channel exact, kernel %.4f ms (device %s: %s; host "
+            "%.4f), plain %.4f ms, index_add_ %.4f ms (host %.4f), bound "
+            "%.4f ms (%s)" % (n, n_active, f, b, k, s, max_err, row["ms"],
+                              fmt(row["device_ms"]), fmt_split(split),
+                              row["host_ms"], row["plain_ms"],
+                              row["library_ms"], row["library_host_ms"],
+                              bound_ms, bound_by))
         rows.append(row)
-        del xb, slot, v, sel, src_rows, got, want, absum, flat, src
+        del xb, slot, v, sel, got, want, absum, library
     return rows
 
 

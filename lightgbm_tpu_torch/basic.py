@@ -30,7 +30,7 @@ from .objectives import create_objective
 def _to_2d_float(data) -> np.ndarray:
     """Dense ndarray / list / numeric DataFrame -> float64 [N, F]."""
     if hasattr(data, "tocsc") and hasattr(data, "nnz"):
-        raise outside_slice("sparse input")
+        raise outside_slice("sparse input", "ROADMAP Queue 1 #16")
     if hasattr(data, "dtypes") and hasattr(data, "columns"):
         if any(str(t) == "category" for t in data.dtypes):
             raise outside_slice("categorical (pandas category) columns")

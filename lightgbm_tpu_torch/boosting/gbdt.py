@@ -108,7 +108,7 @@ def check_slice(cfg: Config) -> None:
         (cfg.tree_growth == "frontier"
          and cfg.tpu_bin_packing not in ("auto", "none"),
          "tpu_bin_packing=%s (packed bin words)" % cfg.tpu_bin_packing,
-         "ROADMAP Queue 1 #7"),
+         "ROADMAP Queue 1 #9"),
         (bool(cfg.obs_modelstats), "obs_modelstats (model statistics)",
          "ROADMAP Queue 1 #15"),
         (cfg.tree_learner != "serial" or bool(cfg.mesh_shape)

@@ -26,7 +26,6 @@ REPACK_LIBRARY = ("lgbt_repack", ["repack.cu"])
 # every library of the port: {name: source files under core/csrc}
 LIBRARIES = dict([HIST_LIBRARY, SLOTS_LIBRARY, PART_LIBRARY, REPACK_LIBRARY])
 HIST_SMEM_BUDGET = 48 * 1024     # bytes of shared memory per block
-HIST_MIN_ROWS_PER_BLOCK = 1024   # below this a block is mostly set-up
 # histogram.cu: the direct variant up to this many rows, the block variant
 # above; on the H100 their device times cross between 4,096 and 16,384
 # rows (chip_smoke.py phase 3 times both at every shape)
@@ -35,11 +34,17 @@ HIST_DIRECT_THREADS = 128
 HIST_BLOCK_THREADS = 1024
 HIST_SMEM_OPT_IN = 232_448       # sm_90: 227 KB a block, opted in
 HIST_MAX_REPLICAS = 4            # copies of the block's sub-histogram
-# slot and partitioned kernels: row chunks per SM (about half the rows are
-# active) and the cap on chunks, which bounds the [C + S - 1, F, B, K]
+# the partitioned kernel: row chunks per SM (about half the rows are
+# active) and the cap on chunks, which bounds the [C + S - 1, F, B, 6]
 # partial
 SLOT_CHUNKS_PER_SM = 8
 SLOT_MAX_CHUNKS = 512
+# hist_slots.cu: rows of one count or scatter block (~4 blocks of 512
+# threads an SM at 1M rows), and the hist pass's one block of 1,024
+# threads an SM with up to two replicas of a slot's histogram
+SLOT_SORT_ROWS = 2048
+SLOT_SORT_SLOTS = 4096           # slots one count or scatter block covers
+SLOT_MAX_REPLICAS = 2
 
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -209,8 +214,8 @@ def _slots_lib() -> ctypes.CDLL:
     if not getattr(lib, "_lgbt_bound", False):
         lib.lgbt_hist_slots_launch.argtypes = [
             _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-            _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
-            _c_int, _c_int, _c_void_p]
+            _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
+            _c_int, _c_int, _c_int, ctypes.c_longlong, _c_void_p]
         lib.lgbt_hist_slots_launch.restype = _c_int
         lib.lgbt_slots_error_string.argtypes = [_c_int]
         lib.lgbt_slots_error_string.restype = ctypes.c_char_p
@@ -227,19 +232,54 @@ def _equal_feature_tiles(num_features: int, num_bins: int,
     return -(-num_features // tiles), tiles
 
 
+class SlotPlan(NamedTuple):
+    """One hist_slots.cu call: ``sort_blocks`` count and scatter blocks of
+    ``rows_per_sort_block`` rows for each of ``slot_windows`` windows of
+    SLOT_SORT_SLOTS slots, then ``hist_blocks`` blocks of 1,024 threads
+    for each of the ``tiles`` feature tiles of ``feature_tile`` features,
+    each with ``smem_bytes`` of dynamic shared memory: ``replicas`` copies
+    of a slot's [feature_tile, B, K] f32 histogram, each after a lead of
+    up to 3 floats and padded to 16 bytes."""
+    sort_blocks: int
+    rows_per_sort_block: int
+    slot_windows: int
+    hist_blocks: int
+    tiles: int
+    feature_tile: int
+    replicas: int
+    smem_bytes: int
+
+
+def _slot_replica_bytes(feature_tile: int, num_bins: int, k: int) -> int:
+    """Bytes of one shared replica (hist_slots.cu replica_floats)."""
+    return 4 * ((feature_tile * num_bins * k + 3 + 3) & ~3)
+
+
+@functools.lru_cache(maxsize=4096)
 def slot_hist_launch_plan(n: int, num_features: int, num_bins: int, k: int,
-                          sm_count: int) -> Tuple[int, int, int]:
-    """(feature_tile, chunks, rows_per_chunk) for one slot histogram call:
-    equal feature tiles whose [Ft, B, K] f32 sub-histogram fits
-    HIST_SMEM_BUDGET, then the rows (sorted by slot) cut into chunks that
-    give the card about SLOT_CHUNKS_PER_SM blocks per SM, none shorter
-    than HIST_MIN_ROWS_PER_BLOCK rows. Sized from n, not from the active
-    rows, so nothing is read back."""
-    ft, tiles = _equal_feature_tiles(num_features, num_bins, k)
-    c = min(max(1, -(-n // HIST_MIN_ROWS_PER_BLOCK)),
-            max(1, -(-SLOT_CHUNKS_PER_SM * sm_count // tiles)),
-            SLOT_MAX_CHUNKS)
-    return ft, c, max(1, -(-n // c))
+                          n_slots: int, sm_count: int) -> SlotPlan:
+    """The plan of one slot histogram call over n >= 1 rows and any
+    n_slots >= 1: the count and scatter blocks cover the n rows in
+    SLOT_SORT_ROWS-row blocks, once for each window of SLOT_SORT_SLOTS
+    slots (one window up to 4,096 slots); the hist pass keeps a slot's
+    histogram of a whole feature tile (all F = 28 features at K = 3 and
+    6) in opted-in shared memory, in as many replicas as fit up to
+    SLOT_MAX_REPLICAS, with one block an SM (``sm_count`` blocks over the
+    tiles) that each take an equal share of the sorted active rows, so
+    one plan serves S = 1 (one segment over every SM) and S = 254 alike.
+    Sized from n, not from the active rows, so nothing is read back."""
+    feature_bytes = num_bins * k * 4
+    ft = max(1, min(num_features, (HIST_SMEM_OPT_IN - 16) // feature_bytes))
+    tiles = -(-num_features // ft)
+    ft = -(-num_features // tiles)                # equal tiles
+    replica_bytes = _slot_replica_bytes(ft, num_bins, k)
+    replicas = max(1, min(SLOT_MAX_REPLICAS,
+                          HIST_SMEM_OPT_IN // replica_bytes))
+    sort_blocks = -(-n // SLOT_SORT_ROWS)
+    return SlotPlan(sort_blocks, -(-n // sort_blocks),
+                    -(-n_slots // SLOT_SORT_SLOTS),
+                    min(max(1, -(-sm_count // tiles)), n), tiles, ft,
+                    replicas, replicas * replica_bytes)
 
 
 def _check_slot_inputs(name: str, xb: torch.Tensor, slot: torch.Tensor,
@@ -266,33 +306,33 @@ def _check_slot_inputs(name: str, xb: torch.Tensor, slot: torch.Tensor,
         raise ValueError("num_bins must be in [1, 256], got %d" % num_bins)
     if n_slots < 1:
         raise ValueError("n_slots must be >= 1, got %d" % n_slots)
-    if n + 3 * n_slots + 1 >= 2 ** 31:
-        raise ValueError("%s takes fewer than 2^31 rows and slots" % name)
+    if n + 3 * n_slots + 1 >= 2 ** 31 or n * xb.shape[1] >= 2 ** 31:
+        raise ValueError("%s takes fewer than 2^31 rows and slots, and "
+                         "fewer than 2^31 bins (n * F)" % name)
 
 
 def _launch_slots(wrapper, xb, slot, vals, sel, num_bins: int, n_slots: int,
                   k: int) -> torch.Tensor:
-    """Launch hist_slots.cu's pass (count, scan, scatter, hist, reduce)
-    and count the launch on ``wrapper``."""
+    """Launch hist_slots.cu's pass (two memsets, then count, scan,
+    scatter and hist) and count the launch on ``wrapper``."""
     n, f = xb.shape
     out_shape = (n_slots, f, num_bins, k)
     if f == 0 or n == 0:
         return torch.zeros(out_shape, dtype=torch.float32, device=xb.device)
     lib = _slots_lib()
-    sm_count = _sm_count(xb.device)
-    ft, chunks, rows_per_chunk = slot_hist_launch_plan(n, f, num_bins, k,
-                                                       sm_count)
+    plan = slot_hist_launch_plan(n, f, num_bins, k, n_slots,
+                                 _sm_count(xb.device))
     # counts [S], offsets [S + 1], cursors [S], perm [n]
     ints = torch.empty(3 * n_slots + 1 + n, dtype=torch.int32,
                        device=xb.device)
-    partial = torch.empty((chunks + n_slots - 1, f, num_bins, k),
-                          dtype=torch.float32, device=xb.device)
     out = torch.empty(out_shape, dtype=torch.float32, device=xb.device)
     rc = lib.lgbt_hist_slots_launch(
         xb.data_ptr(), slot.data_ptr(), vals.data_ptr(),
         sel.data_ptr() if sel is not None else None, ints.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), n, f, num_bins, n_slots, k, ft,
-        chunks, rows_per_chunk, current_stream(xb.device))
+        out.data_ptr(), n, f, num_bins, n_slots, k, plan.sort_blocks,
+        plan.rows_per_sort_block, plan.slot_windows, plan.hist_blocks,
+        plan.feature_tile, plan.replicas, plan.smem_bytes,
+        current_stream(xb.device))
     if rc != 0:
         raise RuntimeError("slot histogram kernel launch failed: CUDA error "
                            "%d (%s)" % (rc, lib.lgbt_slots_error_string(rc)
@@ -308,7 +348,12 @@ def build_histogram_slots_cuda(xb: torch.Tensor, slot: torch.Tensor,
     * vals[n, k] on the card; rows with a negative slot add nothing.
 
     xb [n, F] uint8, slot [n] int32, vals [n, 3] float32, all contiguous
-    on one CUDA device; 1 <= num_bins <= 256. Returns [S, F, B, 3] f32.
+    on one CUDA device; 1 <= num_bins <= 256; n * F < 2^31; any S >= 1.
+    Returns [S, F, B, 3] f32. Two memsets and four launches of the plan
+    ``slot_hist_launch_plan`` gives, counted once in
+    ``build_histogram_slots_cuda.launches``. The order of the f32
+    additions varies from run to run (atomics); a channel of 0/1 values
+    is exact.
     """
     _check_slot_inputs("build_histogram_slots_cuda", xb, slot, vals,
                        num_bins, n_slots)

@@ -113,7 +113,7 @@ class BinnedDataset:
         dataset_loader.cpp:700-820), with the JAX package's sampling, so the
         mappers and the bin matrix are byte-identical to its own."""
         if hasattr(data, "tocsc") and hasattr(data, "nnz"):
-            raise outside_slice("sparse input", "ROADMAP Queue 1 #1")
+            raise outside_slice("sparse input", "ROADMAP Queue 1 #16")
         data = np.asarray(data)
         if data.ndim != 2:
             raise LightGBMError("Data should be 2-D, got shape %s"
@@ -184,7 +184,7 @@ class BinnedDataset:
             raise outside_slice(
                 "training on packed small-feature pairs (they form on this "
                 "data; enable_nbit_packing=false keeps them apart)",
-                "ROADMAP Queue 1 #9")
+                "ROADMAP Queue 1 #4")
 
         cols = [self.bin_mappers[j].values_to_bins(data64[:, j]).astype(np.uint8)
                 for j in self.used_features]

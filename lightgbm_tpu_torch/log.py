@@ -65,9 +65,10 @@ class Log:
 
 
 def outside_slice(what: str, where: str = "") -> NotImplementedError:
-    """The error for an option that the port's slices so far (1 to 3) do
-    not cover; ``where`` names the ROADMAP item that brings it."""
-    return NotImplementedError("%s is outside slice 3 of the PyTorch port%s"
+    """The error for an option that the port does not cover yet; ``where``
+    names the ROADMAP item that brings it."""
+    return NotImplementedError("%s is outside what the PyTorch port covers "
+                               "so far%s"
                                % (what, " (%s)" % where if where else ""))
 
 

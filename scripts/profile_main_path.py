@@ -33,9 +33,9 @@ import warnings
 # the device functions of core/csrc: histogram.cu, hist_slots.cu,
 # hist_part.cu, then repack.cu
 OWN_KERNELS = ("hist_direct_kernel", "hist_block_kernel", "count_kernel",
-               "scan_kernel", "scatter_kernel", "piece_hist_kernel",
-               "piece_reduce_kernel", "part_plan_kernel", "part_hist_kernel",
-               "part_reduce_kernel", "partition_tile_kernel")
+               "scan_kernel", "scatter_kernel", "slot_hist_kernel",
+               "part_plan_kernel", "part_hist_kernel", "part_reduce_kernel",
+               "partition_tile_kernel")
 
 
 def main() -> int:

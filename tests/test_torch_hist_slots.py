@@ -118,21 +118,70 @@ def test_slot_dispatch_never_falls_back():
         th.hist_slots6(x, s, se, v, 8, 4, "auto"))
 
 
-@pytest.mark.parametrize("n,s,k", [(1_000_000, 254, 3), (1_000_000, 128, 3),
-                                   (1_000_000, 16, 6), (1_000_000, 32, 3),
-                                   (1_000_000, 1, 3), (17, 5, 6)])
-def test_slot_launch_plan_fits_and_covers(n, s, k):
-    """Each block's [Ft, B, K] f32 sub-histogram fits the shared-memory
-    budget, the grid covers every feature and every sorted row, and the
-    [C + S - 1, F, B, K] partial scratch stays within the output plus
-    SLOT_MAX_CHUNKS pieces."""
-    f, b = 28, 255
-    ft, c, rows = kernels.slot_hist_launch_plan(n, f, b, k, sm_count=132)
-    assert ft * b * k * 4 <= kernels.HIST_SMEM_BUDGET
-    assert 1 <= ft <= f and -(-f // ft) * ft - f < ft
-    assert c * rows >= n and (c - 1) * rows < n
-    assert 1 <= c <= kernels.SLOT_MAX_CHUNKS
-    assert c + s - 1 <= s + kernels.SLOT_MAX_CHUNKS
+@pytest.mark.parametrize("k", [3, 6])
+@pytest.mark.parametrize("n,f,s", [
+    (1_000_000, 28, 1), (1_000_000, 28, 2), (1_000_000, 28, 16),
+    (1_000_000, 28, 128), (1_000_000, 28, 254), (1_000_000, 28, 4095),
+    (17, 28, 5), (20_001, 100, 9_000)])
+def test_slot_launch_plan_fits_and_covers(n, f, s, k):
+    """The hist pass's replicas of a slot's [Ft, B, K] f32 histogram fit
+    the 227 KB a block may opt in to (all 28 features in one tile at K=3
+    and K=6), its grid fills the card, and the count and scatter grid
+    covers every row and every slot; the plan does not depend on S
+    otherwise."""
+    b, sm = 255, 132
+    p = kernels.slot_hist_launch_plan(n, f, b, k, s, sm_count=sm)
+    assert p.smem_bytes == p.replicas * 4 * ((p.feature_tile * b * k + 6)
+                                             // 4 * 4)
+    assert p.smem_bytes <= kernels.HIST_SMEM_OPT_IN == 232_448
+    assert 1 <= p.replicas <= kernels.SLOT_MAX_REPLICAS
+    assert p.tiles * p.feature_tile >= f > (p.tiles - 1) * p.feature_tile
+    if f == 28:
+        assert p.tiles == 1 and p.replicas == (2 if k == 3 else 1)
+    assert p.hist_blocks * p.tiles >= min(sm, n)
+    assert p.sort_blocks * p.rows_per_sort_block >= n
+    assert (p.sort_blocks - 1) * p.rows_per_sort_block < n
+    assert p.rows_per_sort_block <= kernels.SLOT_SORT_ROWS
+    assert p.slot_windows * kernels.SLOT_SORT_SLOTS >= s
+    assert (p.slot_windows - 1) * kernels.SLOT_SORT_SLOTS < s
+    assert p._replace(slot_windows=1) == kernels.slot_hist_launch_plan(
+        n, f, b, k, 1, sm_count=sm)
+
+
+def test_part_launch_plan_is_unchanged():
+    """hist_part.cu keeps its plan (feature tiles of the 48 KB budget, row
+    tiles in SLOT_CHUNKS_PER_SM chunks an SM) at the main path's layout of
+    745 tiles."""
+    assert kernels.part_hist_launch_plan(745, 28, 255, 132) == (7, 249, 3)
+
+
+def test_sort_window_matches_the_kernel():
+    """The plan's slot windows are the count and scatter blocks' shared
+    counters: SLOT_SORT_SLOTS must be hist_slots.cu's kSortSlots."""
+    import re
+    from pathlib import Path
+    src = (Path(__file__).resolve().parent.parent / "lightgbm_tpu_torch" /
+           "core" / "csrc" / "hist_slots.cu").read_text()
+    assert int(re.search(r"kSortSlots = (\d+);", src).group(1)) == \
+        kernels.SLOT_SORT_SLOTS
+
+
+def test_profile_script_names_every_slot_kernel():
+    """scripts/profile_main_path.py sums the port's kernels by name, so it
+    must know every __global__ function of core/csrc/hist_slots.cu."""
+    import re
+    from pathlib import Path
+    root = Path(__file__).resolve().parent.parent
+    src = (root / "lightgbm_tpu_torch" / "core" / "csrc" /
+           "hist_slots.cu").read_text()
+    names = re.findall(r"__global__\s+void\s+"
+                       r"(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", src)
+    assert sorted(names) == ["count_kernel", "scan_kernel", "scatter_kernel",
+                             "slot_hist_kernel"]
+    script = (root / "scripts" / "profile_main_path.py").read_text()
+    own = re.search(r"OWN_KERNELS = \((.*?)\)", script, re.S).group(1)
+    for name in names:
+        assert '"%s"' % name in own
 
 
 def test_slot_bytes_count_the_active_rows():

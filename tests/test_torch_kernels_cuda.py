@@ -176,15 +176,18 @@ def test_cuda_training_goes_through_the_kernel(cuda_device):
 
 
 def _slot_inputs(n, f, b, n_slots, seed, active=0.5):
-    """Bins, slots (about ``active`` of the rows in a slot, one slot left
-    absent, a few rows past the last slot), values and a selector."""
+    """Bins, slots (about ``active`` of the rows in a slot, slot S // 2
+    left absent where S > 2, a few rows past the last slot), values with a
+    count channel of ones, and a 0/1 selector."""
     r = np.random.RandomState(seed)
     xb = r.randint(0, b, (n, f)).astype(np.uint8)
     slot = r.randint(0, n_slots, n).astype(np.int32)
-    slot[slot == n_slots // 2] = n_slots - 1          # an absent slot
+    if n_slots > 2:
+        slot[slot == n_slots // 2] = n_slots - 1      # an absent slot
     slot[r.rand(n) >= active] = -1
     slot[:3] = n_slots + 5                            # folds into S - 1
     vals = r.randn(n, 3).astype(np.float32)
+    vals[:, 2] = 1.0
     sel = (r.rand(n) < 0.5).astype(np.float32)
     return xb, slot, vals, sel
 
@@ -193,15 +196,46 @@ def _to(dev, *arrays):
     return [torch.as_tensor(a, device=dev) for a in arrays]
 
 
+def _bins_at(dev, xb, offset):
+    """xb on the card as a contiguous view ``offset`` bytes past an aligned
+    address (rows that do not start on a 4-byte word)."""
+    n, f = xb.shape
+    buf = torch.empty(n * f + offset, dtype=torch.uint8, device=dev)
+    x = buf[offset:].view(n, f)
+    x.copy_(torch.as_tensor(xb))
+    assert x.is_contiguous() and x.data_ptr() % 4 == offset % 4
+    return x
+
+
+def _check_slots(got, want, absum, s):
+    """|kernel - plain| <= 1e-5 * sum|v| + 1e-6 in every cell, the count
+    channels exact, the absent slot zero."""
+    assert (np.abs(got - want) <= 1e-5 * absum + 1e-6).all()
+    np.testing.assert_array_equal(got[..., 2::3], want[..., 2::3])
+    if s > 2:
+        assert not got[s // 2].any()
+
+
+# (n, F, B, S, share of rows active, byte offset of the bins): S = 1 and 2
+# are the first waves (one segment spread over every block), 254 the last
+# of a 255-leaf tree, 1,023 and 5,000 past it (5,000 takes two windows of
+# the sort's 4,096 slots), 0.99 active the tpu_batched_pack step
+SLOT_CASES = [(100_003, 28, 255, 254, 0.5, 0), (100_003, 28, 255, 16, 0.5, 0),
+              (200_003, 28, 255, 1, 0.5, 0), (200_003, 28, 255, 2, 0.5, 0),
+              (100_003, 28, 255, 1023, 0.5, 0),
+              (100_003, 28, 255, 32, 0.99, 0), (20_001, 5, 16, 5000, 0.9, 0),
+              (30_001, 28, 255, 16, 0.5, 1), (30_001, 13, 256, 7, 0.5, 3),
+              (4096, 5, 64, 1, 0.5, 0), (17, 3, 16, 7, 0.5, 0)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,f,b,s", [(100_003, 28, 255, 254),
-                                     (100_003, 28, 255, 16),
-                                     (4096, 5, 64, 1), (17, 3, 16, 7)])
-def test_slot_kernel_matches_plain(cuda_device, n, f, b, s):
-    """|kernel - plain| <= 1e-5 * sum|v| + 1e-6 in every cell, the absent
-    slot comes out zero, and the dispatch counts one launch."""
-    xb, slot, vals, sel = _slot_inputs(n, f, b, s, seed=n + s)
-    x, sl, v = _to(cuda_device, xb, slot, vals)
+@pytest.mark.parametrize("n,f,b,s,active,offset", SLOT_CASES)
+def test_slot_kernel_matches_plain(cuda_device, n, f, b, s, active, offset):
+    """The K=3 kernel against its plain version (``_check_slots``); slots
+    past the last fold into S - 1; the dispatch counts one launch."""
+    xb, slot, vals, sel = _slot_inputs(n, f, b, s, seed=n + s, active=active)
+    x = _bins_at(cuda_device, xb, offset)
+    sl, v = _to(cuda_device, slot, vals)
     before = kernels.build_histogram_slots_cuda.launches
     got = th.hist_slots(x, sl, v, b, s, "auto").cpu().numpy()
     assert kernels.build_histogram_slots_cuda.launches == before + 1
@@ -209,16 +243,24 @@ def test_slot_kernel_matches_plain(cuda_device, n, f, b, s):
     want = th.hist_slots_plain(*cpu, b, s).numpy()
     absum = th.hist_slots_plain(cpu[0], cpu[1], cpu[2].abs(), b, s).numpy()
     assert got.shape == (s, f, b, 3)
-    assert (np.abs(got - want) <= 1e-5 * absum + 1e-6).all()
-    if s > 2:
-        assert not got[s // 2].any()
+    _check_slots(got, want, absum, s)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,f,b,s", [(100_003, 28, 255, 16),
-                                     (4096, 5, 64, 3)])
-def test_slot6_kernel_matches_plain(cuda_device, n, f, b, s):
-    xb, slot, vals, sel = _slot_inputs(n, f, b, s, seed=n + 6 * s)
+@pytest.mark.parametrize("n,f,b,s,active,sel_kind", [
+    (100_003, 28, 255, 16, 0.5, "0/1"), (200_003, 28, 255, 1, 0.5, "0/1"),
+    (100_003, 28, 255, 16, 0.99, "0/1"), (100_003, 28, 255, 254, 0.5, "0/1"),
+    (30_001, 28, 255, 16, 0.5, "fractional"), (4096, 5, 64, 3, 0.5, "0/1")])
+def test_slot6_kernel_matches_plain(cuda_device, n, f, b, s, active,
+                                    sel_kind):
+    """The K=6 kernel against its plain version (``_check_slots``), with a
+    0/1 selector (one child's triple a row) or a fractional one (both)."""
+    xb, slot, vals, sel = _slot_inputs(n, f, b, s, seed=n + 6 * s,
+                                       active=active)
+    if sel_kind == "fractional":
+        sel = np.random.RandomState(s).rand(n).astype(np.float32)
+        sel[::3] = np.round(sel[::3])
+        vals[:, 2] = 0.0       # no count channel: its halves are not 0/1
     x, sl, v, se = _to(cuda_device, xb, slot, vals, sel)
     before = kernels.build_histogram_slots6_cuda.launches
     got = th.hist_slots6(x, sl, se, v, b, s, "auto").cpu().numpy()
@@ -227,9 +269,7 @@ def test_slot6_kernel_matches_plain(cuda_device, n, f, b, s):
     want = th.hist_slots6_plain(*cpu, b, s).numpy()
     absum = th.hist_slots6_plain(*cpu[:3], cpu[3].abs(), b, s).numpy()
     assert got.shape == (s, f, b, 6)
-    assert (np.abs(got - want) <= 1e-5 * absum + 1e-6).all()
-    if s > 2:
-        assert not got[s // 2].any()
+    _check_slots(got, want, absum, s)
 
 
 @pytest.mark.cuda

@@ -119,6 +119,41 @@ OUTSIDE_SLICE = {
 }
 
 
+# refusals raised while the data are binned or the options checked, each
+# citing the ROADMAP Queue 1 item that brings what it refuses
+REFUSALS = {
+    "packed_words": ({"tree_growth": "frontier", "tpu_bin_packing": "byte"},
+                     "#9"),
+    "sparse_input": ({}, "#16"),
+    "sparse_matrix_binning": ({}, "#16"),
+    "small_feature_pairs": ({"enable_bundle": False}, "#4"),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(REFUSALS))
+def test_refusals_cite_their_roadmap_item(kind):
+    params, item = REFUSALS[kind]
+    x, y = _data()
+    if kind.startswith("sparse"):
+        import scipy.sparse
+        x = scipy.sparse.csr_matrix(x)
+    if kind == "small_feature_pairs":
+        # a 0/1 and a 0/1/2 column: the JAX package packs them into one
+        r = np.random.RandomState(3)
+        x = np.column_stack([x, r.randint(0, 2, len(x)),
+                             r.randint(0, 3, len(x))])
+    with pytest.raises(NotImplementedError,
+                       match=r"\(ROADMAP Queue 1 %s\)$" % item):
+        if kind == "sparse_matrix_binning":
+            # the binning entry point itself, below the Dataset's check
+            from lightgbm_tpu_torch.config import Config
+            from lightgbm_tpu_torch.io.dataset import BinnedDataset
+            BinnedDataset.from_matrix(x, Config({}), label=y)
+        tlgb.train(dict(params, objective="binary", verbosity=-1),
+                   tlgb.Dataset(x, label=y, device="cpu"),
+                   num_boost_round=1, device="cpu")
+
+
 @pytest.mark.parametrize("option", sorted(OUTSIDE_SLICE))
 def test_outside_the_slice_raises(option):
     params, data = OUTSIDE_SLICE[option]
@@ -132,6 +167,6 @@ def test_outside_the_slice_raises(option):
     if data == "classes":
         y = np.arange(len(y)) % 3
     ds = tlgb.Dataset(x, label=y, device="cpu")
-    with pytest.raises(NotImplementedError, match="outside slice 3"):
+    with pytest.raises(NotImplementedError, match="outside what the PyTorch port covers"):
         tlgb.train(dict(params, objective=params.get("objective", "binary"),
                         verbosity=-1), ds, num_boost_round=1, device="cpu")
