@@ -20,8 +20,11 @@ and prints no result line):
    parent-slot variant at S = 16, each with the profiler's device time by
    launch, the wrapper's host time and an exact count channel, the
    partitioned-layout kernel (hist_part.cu) on the
-   layout of 1,000,000 rows at 255 leaves (745 tiles of 2,048 rows) with
-   about half the row-holding tiles in 15 runs at S = 16, and the in-tile
+   layout of 1,000,000 rows at 255 leaves (745 tiles of 2,048 rows) at the
+   four shapes of a 255-leaf tree's steps (PART_SHAPES: S = 1 and 16 with
+   every row-holding tile active, S = 16 with a half and an eighth of
+   them), each with the profiler's device time by launch, the wrapper's
+   host time and an exact count channel, and the in-tile
    partition (repack.cu) at 1,048,576 x 128 bytes, 512-row tiles, 30% of
    the rows going left, which must come back byte-equal;
 4. the main paths at full width, one per growth mode: bench.py's workload
@@ -108,9 +111,13 @@ SLOT_SHAPES = [(1_000_000, 28, 255, 3, 2), (1_000_000, 28, 255, 3, 16),
                (1_000_000, 28, 255, 3, 128), (1_000_000, 28, 255, 3, 254),
                (1_000_000, 28, 255, 6, 16)]
 SLOT_ACTIVE = 0.5             # share of rows in a slot
-# the partitioned-layout kernel: the layout of MAIN_ROWS rows at 255 leaves,
-# S = tree_batch_splits; the in-tile partition: rows, width, tile, left share
-PART_SLOTS = 16
+# the partitioned-layout kernel on the layout of MAIN_ROWS rows at 255
+# leaves: (label, S, share of the row-holding tiles active), the steps of a
+# K=16 tree: A its first step, B the step where S reaches 16, C the middle
+# steps, D the late ones (16 splits among 100+ leaves)
+PART_SHAPES = [("A", 1, 1.0), ("B", 16, 1.0), ("C", 16, 0.5),
+               ("D", 16, 0.125)]
+# the in-tile partition: rows, width, tile, left share
 REPACK_SHAPE = (1_048_576, 128, 512, 0.3)
 MEM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
@@ -427,21 +434,24 @@ def check_slot_kernels(dev, flush):
     return rows
 
 
-def part_layout(r, n, num_leaves, f, b, n_slots):
+def part_layout(r, n, num_leaves, f, b, n_slots, share=0.5):
     """A partitioned layout of ``n`` rows at ``num_leaves`` leaves, made with
-    numpy: about half of the row-holding tiles in contiguous runs of every
-    slot but S // 2, an inactive tile after each run, each run ending in
-    zero-valued segment padding. Returns numpy (xb_fm, sel, vals3,
+    numpy: ``share`` of the row-holding tiles in contiguous runs of every
+    slot but S // 2 (of as many slots as there are such tiles), an inactive
+    tile after each run, each run ending in zero-valued segment padding.
+    Values as the main path stacks them: grad, hess and a count channel of
+    ones, all zero on the padding. Returns numpy (xb_fm, sel, vals3,
     tile_slot, tile_first) and the row tile."""
     tile = grow_batched_part.PART_TILE
     np_ = grow_batched_part._part_capacity(n, num_leaves, tile)
     n_tiles = np_ // tile
     xb_fm = r.randint(0, b, (f, np_)).astype(np.uint8)
     sel = (r.rand(np_) < 0.5).astype(np.float32)
-    vals3 = r.randn(3, np_).astype(np.float32)
+    vals3 = np.stack([r.randn(np_), r.rand(np_),
+                      np.ones(np_)]).astype(np.float32)
+    active = max(1, int(round(-(-n // tile) * share)))
     owners = [s for s in r.permutation(n_slots) if s != n_slots // 2
-              or n_slots <= 2]
-    active = -(-n // tile) // 2
+              or n_slots <= 2][:active]
     cuts = np.sort(r.choice(np.arange(1, active), len(owners) - 1,
                             replace=False))
     bounds = np.concatenate([[0], cuts, [active]]).astype(int)
@@ -457,31 +467,50 @@ def part_layout(r, n, num_leaves, f, b, n_slots):
     return (xb_fm, sel, vals3, tile_slot, first), tile
 
 
-def check_part_kernel(dev, flush):
-    """Phase 3: the partitioned-layout kernel against its plain version."""
-    s, f, b = PART_SLOTS, NUM_FEATURES, 255
-    arrays, tile = part_layout(np.random.RandomState(11), MAIN_ROWS, 255, f,
-                               b, s)
-    xb_fm, sel, vals3, tile_slot, first = [torch.as_tensor(a, device=dev)
-                                           for a in arrays]
+def part_inputs(dev, s, share):
+    """chip_smoke's part layout of MAIN_ROWS rows at 255 leaves on ``dev``:
+    torch (xb_fm, sel, vals3, tile_slot, tile_first) and the row tile."""
+    arrays, tile = part_layout(np.random.RandomState(11 + s), MAIN_ROWS, 255,
+                               NUM_FEATURES, 255, s, share)
+    return [torch.as_tensor(a, device=dev) for a in arrays], tile
 
-    def kernel():
-        return kernels.build_histogram_part_tiles_cuda(
-            xb_fm, sel, vals3, tile_slot, first, b, s, tile)
 
-    def plain(vals=vals3):
-        return hist.hist_part_tiles(xb_fm, sel, vals, tile_slot, first, b, s,
-                                    tile, "plain")
-    got, want, absum = kernel(), plain(), plain(vals3.abs())
-    torch.cuda.synchronize()
+def part_call(kern, inputs, b, s, tile):
+    """One call of the part wrapper of ``kern`` (a kernels module: this
+    checkout's, or another's when comparing two)."""
+    return kern.build_histogram_part_tiles_cuda(*inputs, b, s, tile)
+
+
+def part_plain(inputs, b, s, tile, vals=None):
+    xb_fm, sel, vals3, tile_slot, first = inputs
+    return hist.hist_part_tiles(xb_fm, sel, vals3 if vals is None else vals,
+                                tile_slot, first, b, s, tile, "plain")
+
+
+def check_part_result(got, want, absum, tile_slot, s) -> float:
+    """Raises unless |got - want| <= 1e-5 * sum|v| + 1e-6 in every cell,
+    the count channels are exact and every slot that owns no tile (S // 2
+    where S > 2) is zero; returns the largest difference."""
     err = (got - want).abs()
     bad = int((err > HIST_REL_TOL * absum + HIST_ABS_TOL).sum())
-    if bad or got[s // 2].any():
+    counts_exact = torch.equal(got[..., 2::3], want[..., 2::3])
+    owned = torch.zeros(s, dtype=torch.bool, device=got.device)
+    owned[tile_slot[tile_slot >= 0].clamp(max=s - 1).long()] = True
+    absent = bool(got[~owned].any())
+    if bad or not counts_exact or absent:
         raise AssertionError("part kernel disagrees with the plain version "
-                             "in %d cells (absent slot nonzero: %s)"
-                             % (bad, bool(got[s // 2].any())))
-    # the library yardstick: one index_add_ over a prebuilt combined
-    # (slot, child, feature, bin) index of the active tiles' rows
+                             "in %d cells at S=%d (count channel exact: %s, "
+                             "absent slot nonzero: %s)"
+                             % (bad, s, counts_exact, absent))
+    return float(err.max())
+
+
+def part_library(inputs, b, s, tile):
+    """The library yardstick of a part shape: one index_add_ over a prebuilt
+    combined (slot, child, feature, bin) index of the active tiles' rows.
+    Returns the call, the active tiles and the active rows."""
+    xb_fm, sel, vals3, tile_slot, _ = inputs
+    f, dev = xb_fm.shape[0], xb_fm.device
     row_slot = tile_slot.to(torch.int64).repeat_interleave(tile)
     act = torch.nonzero(row_slot >= 0).squeeze(1)
     n_act = int(act.numel())
@@ -491,24 +520,60 @@ def check_part_kernel(dev, flush):
             + xb_fm.index_select(1, act).t().to(torch.int64)).reshape(-1)
     src = vals3.index_select(1, act).t().unsqueeze(1).expand(
         n_act, f, 3).reshape(-1, 3).contiguous()
-    active_tiles = int((tile_slot >= 0).sum())
-    bound_ms, bound_by = bound(
-        kernels.part_hist_bytes(active_tiles, len(arrays[3]), tile, f, b, s),
-        n_act * f * 6)
-    row = {"Np": int(xb_fm.shape[1]), "tiles": len(arrays[3]),
-           "active_tiles": active_tiles, "F": f, "B": b, "S": s,
-           "max_abs_err": float(err.max()),
-           "ms": time_ms(kernel, flush), "plain_ms": time_ms(plain, flush),
-           "library_ms": time_ms(lambda: torch.zeros(
-               (2 * s * f * b, 3), device=dev).index_add_(0, flat, src),
-               flush),
-           "bound_ms": bound_ms, "bound_by": bound_by}
-    log("part Np=%d tiles=%d active=%d F=%d B=%d S=%d: max_abs_err=%.3g "
-        "kernel %.4f ms, plain %.4f ms, index_add_ %.4f ms, bound %.4f ms "
-        "(%s)" % (row["Np"], row["tiles"], active_tiles, f, b, s,
-                  row["max_abs_err"], row["ms"], row["plain_ms"],
-                  row["library_ms"], bound_ms, bound_by))
-    return [row]
+
+    def library():
+        return torch.zeros((2 * s * f * b, 3), device=dev).index_add_(
+            0, flat, src)
+    return library, int((tile_slot >= 0).sum()), n_act
+
+
+def check_part_kernel(dev, flush):
+    """Phase 3: the partitioned-layout kernel against its plain version at
+    each of PART_SHAPES, timed with events, by launch with the profiler,
+    and back to back on the host."""
+    rows = []
+    f, b = NUM_FEATURES, 255
+    for label, s, share in PART_SHAPES:
+        inputs, tile = part_inputs(dev, s, share)
+
+        def kernel():
+            return part_call(kernels, inputs, b, s, tile)
+
+        def plain(vals=None):
+            return part_plain(inputs, b, s, tile, vals)
+        got, want, absum = kernel(), plain(), plain(inputs[2].abs())
+        torch.cuda.synchronize()
+        max_err = check_part_result(got, want, absum, inputs[3], s)
+        library, active_tiles, n_act = part_library(inputs, b, s, tile)
+        n_tiles = int(inputs[3].numel())
+        bound_ms, bound_by = bound(
+            kernels.part_hist_bytes(active_tiles, n_tiles, tile, f, b, s),
+            n_act * f * 6)
+        split = device_split(kernel, flush)
+        row = {
+            "shape": label, "Np": int(inputs[0].shape[1]), "tiles": n_tiles,
+            "active_tiles": active_tiles, "F": f, "B": b, "S": s,
+            "max_abs_err": max_err,
+            "ms": time_ms(kernel, flush),
+            "device_ms": None if split is None else sum(split.values()),
+            "device_split": split,
+            "host_ms": host_ms(kernel),
+            "plain_ms": time_ms(plain, flush),
+            "library_ms": time_ms(library, flush),
+            "library_host_ms": host_ms(library),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        log("part %s Np=%d tiles=%d active=%d F=%d B=%d S=%d: "
+            "max_abs_err=%.3g, count channel exact, kernel %.4f ms (device "
+            "%s: %s; host %.4f), plain %.4f ms, index_add_ %.4f ms (host "
+            "%.4f), bound %.4f ms (%s)"
+            % (label, row["Np"], n_tiles, active_tiles, f, b, s, max_err,
+               row["ms"], fmt(row["device_ms"]), fmt_split(split),
+               row["host_ms"], row["plain_ms"], row["library_ms"],
+               row["library_host_ms"], bound_ms, bound_by))
+        rows.append(row)
+        del inputs, got, want, absum, library
+    return rows
 
 
 def check_partition_kernel(dev, flush):
@@ -798,7 +863,7 @@ def main() -> int:
         kernel_entry("hist_part", "lightgbm_tpu_torch/core/csrc/hist_part.cu",
                      "lightgbm_tpu/core/histogram_pallas.py:264",
                      launches("build_histogram_part_tiles_cuda"), part_rows,
-                     part_rows[0]),
+                     next(r for r in part_rows if r["shape"] == "C")),
         dict(kernel_entry("partition_tiles",
                           "lightgbm_tpu_torch/core/csrc/repack.cu",
                           "lightgbm_tpu/core/repack_pallas.py:31",

@@ -25,7 +25,6 @@ PART_LIBRARY = ("lgbt_hist_part", ["hist_part.cu"])
 REPACK_LIBRARY = ("lgbt_repack", ["repack.cu"])
 # every library of the port: {name: source files under core/csrc}
 LIBRARIES = dict([HIST_LIBRARY, SLOTS_LIBRARY, PART_LIBRARY, REPACK_LIBRARY])
-HIST_SMEM_BUDGET = 48 * 1024     # bytes of shared memory per block
 # histogram.cu: the direct variant up to this many rows, the block variant
 # above; on the H100 their device times cross between 4,096 and 16,384
 # rows (chip_smoke.py phase 3 times both at every shape)
@@ -34,11 +33,6 @@ HIST_DIRECT_THREADS = 128
 HIST_BLOCK_THREADS = 1024
 HIST_SMEM_OPT_IN = 232_448       # sm_90: 227 KB a block, opted in
 HIST_MAX_REPLICAS = 4            # copies of the block's sub-histogram
-# the partitioned kernel: row chunks per SM (about half the rows are
-# active) and the cap on chunks, which bounds the [C + S - 1, F, B, 6]
-# partial
-SLOT_CHUNKS_PER_SM = 8
-SLOT_MAX_CHUNKS = 512
 # hist_slots.cu: rows of one count or scatter block (~4 blocks of 512
 # threads an SM at 1M rows), and the hist pass's one block of 1,024
 # threads an SM with up to two replicas of a slot's histogram
@@ -223,15 +217,6 @@ def _slots_lib() -> ctypes.CDLL:
     return lib
 
 
-def _equal_feature_tiles(num_features: int, num_bins: int,
-                         k: int) -> Tuple[int, int]:
-    """(feature_tile, tiles): the fewest equal feature tiles whose
-    [Ft, B, K] f32 sub-histogram fits HIST_SMEM_BUDGET."""
-    tiles = -(-num_features // max(1, min(
-        num_features, HIST_SMEM_BUDGET // (num_bins * k * 4))))
-    return -(-num_features // tiles), tiles
-
-
 class SlotPlan(NamedTuple):
     """One hist_slots.cu call: ``sort_blocks`` count and scatter blocks of
     ``rows_per_sort_block`` rows for each of ``slot_windows`` windows of
@@ -403,8 +388,8 @@ def _part_lib() -> ctypes.CDLL:
     if not getattr(lib, "_lgbt_bound", False):
         lib.lgbt_hist_part_launch.argtypes = [
             _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-            _c_void_p, ctypes.c_longlong, _c_int, _c_int, _c_int, _c_int,
-            _c_int, _c_int, _c_int, _c_int, _c_void_p]
+            ctypes.c_longlong, _c_int, _c_int, _c_int, _c_int, _c_int,
+            _c_int, _c_int, ctypes.c_longlong, _c_void_p]
         lib.lgbt_hist_part_launch.restype = _c_int
         lib.lgbt_part_error_string.argtypes = [_c_int]
         lib.lgbt_part_error_string.restype = ctypes.c_char_p
@@ -412,19 +397,43 @@ def _part_lib() -> ctypes.CDLL:
     return lib
 
 
+class PartPlan(NamedTuple):
+    """One hist_part.cu call: ``hist_blocks`` blocks of 1,024 threads for
+    each of the ``tiles`` feature tiles of ``feature_tile`` features, each
+    with ``smem_bytes`` of dynamic shared memory (a [feature_tile, B, 6]
+    f32 histogram after a lead of up to 3 floats, padded to 16 bytes, then
+    a [feature_tile, B] uint32 of left and right 16-bit counts), and the
+    list's int32 scratch of ``scratch_ints``."""
+    hist_blocks: int
+    tiles: int
+    feature_tile: int
+    smem_bytes: int
+    scratch_ints: int
+
+
+def _part_hist_floats(feature_tile: int, num_bins: int) -> int:
+    """Floats of the shared histogram (hist_part.cu hist_floats)."""
+    return (feature_tile * num_bins * 6 + 3 + 3) & ~3
+
+
+@functools.lru_cache(maxsize=4096)
 def part_hist_launch_plan(n_tiles: int, num_features: int, num_bins: int,
-                          sm_count: int) -> Tuple[int, int, int]:
-    """(feature_tile, chunks, tiles_per_chunk) for one partitioned-layout
-    call: equal feature tiles whose [Ft, B, 6] f32 sub-histogram fits
-    HIST_SMEM_BUDGET, then the row tiles cut into runs of consecutive
-    tiles that give the card about SLOT_CHUNKS_PER_SM blocks per SM, at
-    most SLOT_MAX_CHUNKS of them. Sized from the tile count, which the
-    host knows, so nothing is read back."""
-    ft, tiles = _equal_feature_tiles(num_features, num_bins, 6)
-    c = min(n_tiles, max(1, -(-SLOT_CHUNKS_PER_SM * sm_count // tiles)),
-            SLOT_MAX_CHUNKS)
-    per = -(-n_tiles // c)
-    return ft, -(-n_tiles // per), per
+                          sm_count: int) -> PartPlan:
+    """The plan of one partitioned-layout call over n_tiles row tiles: the
+    fewest equal feature tiles whose shared histogram and counts fit the
+    227 KB opt-in (one at F = 28, B = 255), one block an SM for each, and
+    the
+    plan kernel's list of the active tiles and their slots (1 + 2T ints).
+    The blocks take equal shares of the active rows, which the card
+    counts, so the plan depends on neither S nor the active tiles and
+    nothing is read back."""
+    feature_bytes = 4 * num_bins * 7              # 6 f32 cells, 1 count
+    ft = max(1, min(num_features, (HIST_SMEM_OPT_IN - 24) // feature_bytes))
+    tiles = -(-num_features // ft)
+    ft = -(-num_features // tiles)                # equal tiles
+    return PartPlan(sm_count, tiles, ft,
+                    4 * (_part_hist_floats(ft, num_bins) + ft * num_bins),
+                    1 + 2 * n_tiles)
 
 
 def build_histogram_part_tiles_cuda(xb_fm: torch.Tensor, sel: torch.Tensor,
@@ -483,21 +492,17 @@ def build_histogram_part_tiles_cuda(xb_fm: torch.Tensor, sel: torch.Tensor,
     out_shape = (n_slots, f, num_bins, 6)
     if f == 0 or np_ == 0:
         return torch.zeros(out_shape, dtype=torch.float32, device=dev)
-    if t + 3 * n_slots >= 2 ** 31:
-        raise ValueError("%s takes fewer than 2^31 tiles and slots" % name)
+    if 2 * t + 1 >= 2 ** 31:
+        raise ValueError("%s takes fewer than 2^30 tiles" % name)
     lib = _part_lib()
-    sm_count = _sm_count(dev)
-    ft, chunks, per = part_hist_launch_plan(t, f, num_bins, sm_count)
-    # run_of_tile [T], slot_run [S], run_c0 [S], run_c1 [S]
-    ints = torch.empty(t + 3 * n_slots, dtype=torch.int32, device=dev)
-    partial = torch.empty((chunks + n_slots - 1, f, num_bins, 6),
-                          dtype=torch.float32, device=dev)
+    plan = part_hist_launch_plan(t, f, num_bins, _sm_count(dev))
+    ints = torch.empty(plan.scratch_ints, dtype=torch.int32, device=dev)
     out = torch.empty(out_shape, dtype=torch.float32, device=dev)
     rc = lib.lgbt_hist_part_launch(
         xb_fm.data_ptr(), sel.data_ptr(), vals3.data_ptr(),
-        tile_slot.data_ptr(), ints.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), np_, f, num_bins, n_slots, row_tile, t, ft, chunks,
-        per, current_stream(dev))
+        tile_slot.data_ptr(), ints.data_ptr(), out.data_ptr(), np_, f,
+        num_bins, n_slots, row_tile, t, plan.feature_tile, plan.hist_blocks,
+        plan.smem_bytes, current_stream(dev))
     if rc != 0:
         raise RuntimeError("partitioned histogram kernel launch failed: CUDA "
                            "error %d (%s)"

@@ -34,7 +34,7 @@ import warnings
 # hist_part.cu, then repack.cu
 OWN_KERNELS = ("hist_direct_kernel", "hist_block_kernel", "count_kernel",
                "scan_kernel", "scatter_kernel", "slot_hist_kernel",
-               "part_plan_kernel", "part_hist_kernel", "part_reduce_kernel",
+               "part_list_kernel", "part_run_hist_kernel",
                "partition_tile_kernel")
 
 

@@ -127,17 +127,64 @@ def test_part_dispatch_never_falls_back():
 @pytest.mark.parametrize("n_tiles,s", [(745, 16), (745, 1), (50, 16),
                                        (1, 1), (4000, 254)])
 def test_part_launch_plan_fits_and_covers(n_tiles, s):
-    """Each block's [Ft, B, 6] sub-histogram fits the shared-memory budget,
-    the grid covers every feature and every tile, and the
-    [C + S - 1, F, B, 6] partial stays within the output plus
-    SLOT_MAX_CHUNKS pieces."""
-    f, b = 28, 255
-    ft, c, per = kernels.part_hist_launch_plan(n_tiles, f, b, sm_count=132)
-    assert ft * b * 6 * 4 <= kernels.HIST_SMEM_BUDGET
-    assert 1 <= ft <= f and -(-f // ft) * ft - f < ft
-    assert c * per >= n_tiles and (c - 1) * per < n_tiles
-    assert 1 <= c <= kernels.SLOT_MAX_CHUNKS
-    assert c + s - 1 <= s + kernels.SLOT_MAX_CHUNKS
+    """The block's [Ft, B, 6] histogram (after a lead of up to 3 floats,
+    padded to 16 bytes) and its [Ft, B] counts fit the 227 KB opt-in, the
+    equal feature tiles cover F
+    once, the grid is one block an SM for each feature tile whatever S
+    and the active tiles are, and the list holds A and each tile's entry
+    and slot."""
+    f, b, sm = 28, 255, 132
+    plan = kernels.part_hist_launch_plan(n_tiles, f, b, sm_count=sm)
+    assert plan.smem_bytes <= 232_448
+    assert plan.smem_bytes >= 4 * (plan.feature_tile * b * 7 + 3)
+    assert plan.smem_bytes % 16 == 0
+    assert plan.tiles == 1 and plan.feature_tile == f
+    assert plan.hist_blocks * plan.tiles == sm
+    assert plan.scratch_ints == 1 + 2 * n_tiles
+    for wide in (64, 100, 1000):
+        p = kernels.part_hist_launch_plan(n_tiles, wide, b, sm_count=sm)
+        assert p.smem_bytes <= 232_448
+        assert p.tiles * p.feature_tile >= wide
+        assert (p.tiles - 1) * p.feature_tile < wide
+        assert p.hist_blocks == sm
+
+
+def test_profile_script_names_every_part_kernel():
+    """scripts/profile_main_path.py sums the port's kernels by name, so it
+    must know every __global__ function of core/csrc/hist_part.cu: one
+    list launch and one histogram launch a call."""
+    import re
+    from pathlib import Path
+    root = Path(__file__).resolve().parent.parent
+    src = (root / "lightgbm_tpu_torch" / "core" / "csrc" /
+           "hist_part.cu").read_text()
+    names = re.findall(r"__global__\s+void\s+"
+                       r"(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", src)
+    assert sorted(names) == ["part_list_kernel", "part_run_hist_kernel"]
+    script = (root / "scripts" / "profile_main_path.py").read_text()
+    own = re.search(r"OWN_KERNELS = \((.*?)\)", script, re.S).group(1)
+    for name in names:
+        assert '"%s"' % name in own
+
+
+def test_part_plan_matches_the_kernel():
+    """The plan's shared-memory bytes are what hist_part.cu's launcher
+    takes: hist_floats (the feature tile's F * B * 6 floats after a lead of
+    up to 3, rounded up to 4 floats) and one uint32 count a (feature,
+    bin)."""
+    import re
+    from pathlib import Path
+    src = (Path(__file__).resolve().parent.parent / "lightgbm_tpu_torch" /
+           "core" / "csrc" / "hist_part.cu").read_text()
+    assert re.search(r"return \(feature_tile \* num_bins \* kChannels \+ 3"
+                     r" \+ 3\) & ~3;", src)
+    assert re.search(r"smem_bytes != 4ll \* \(hist_floats\(feature_tile, "
+                     r"num_bins\) \+\s+feature_tile \* num_bins\)", src)
+    for f, b in ((28, 255), (3, 63), (64, 255), (1, 1), (5, 256),
+                 (1000, 255)):
+        p = kernels.part_hist_launch_plan(10, f, b, sm_count=7)
+        floats = (p.feature_tile * b * 6 + 3 + 3) & ~3
+        assert p.smem_bytes == 4 * (floats + p.feature_tile * b) <= 232_448
 
 
 def test_part_bytes_count_the_active_tiles():

@@ -149,10 +149,12 @@ def test_slot_launch_plan_fits_and_covers(n, f, s, k):
 
 
 def test_part_launch_plan_is_unchanged():
-    """hist_part.cu keeps its plan (feature tiles of the 48 KB budget, row
-    tiles in SLOT_CHUNKS_PER_SM chunks an SM) at the main path's layout of
-    745 tiles."""
-    assert kernels.part_hist_launch_plan(745, 28, 255, 132) == (7, 249, 3)
+    """hist_part.cu's plan at the main path's layout of 745 tiles: one
+    block an SM, one feature tile of all 28 features in 199,936 bytes of
+    opted-in shared memory (the histogram and its counts), and the list's
+    1 + 2 * 745 ints."""
+    assert kernels.part_hist_launch_plan(745, 28, 255, 132) == \
+        kernels.PartPlan(132, 1, 28, 199_936, 1_491)
 
 
 def test_sort_window_matches_the_kernel():

@@ -328,24 +328,54 @@ def test_cuda_wave_training_goes_through_the_slot_kernels(cuda_device, growth,
                                atol=1e-4)
 
 
-def _part_layout(n_rows, num_leaves, f, b, n_slots, seed):
+def _part_layout(n_rows, num_leaves, f, b, n_slots, seed, share=0.5):
     """chip_smoke.py's partitioned layout of ``n_rows`` rows at
-    ``num_leaves`` leaves: numpy (xb_fm, sel, vals3, tile_slot,
-    tile_first) and the row tile. The file runs from the root of the
-    checkout, where chip_smoke.py lies."""
+    ``num_leaves`` leaves with ``share`` of the row-holding tiles active:
+    numpy (xb_fm, sel, vals3, tile_slot, tile_first) and the row tile. The
+    file runs from the root of the checkout, where chip_smoke.py lies."""
     import chip_smoke
     arrays, tile = chip_smoke.part_layout(np.random.RandomState(seed),
-                                          n_rows, num_leaves, f, b, n_slots)
+                                          n_rows, num_leaves, f, b, n_slots,
+                                          share)
     return (*arrays, tile)
 
 
+# (case, F, B, S, share of the row-holding tiles active) at 100,003 rows:
+# chip_smoke.py's shapes A-D of a 255-leaf tree's steps, a selector
+# strictly between 0 and 1, F = 64 (two feature tiles), B = 63 and F = 3
+# (a slot stride of 1,134 floats, not a multiple of 4), S = 254 with tiles
+# past the last slot, skewed bins (80-98% of each feature's rows at bin 0)
+# held to a float64 reference, and count values of 1 and 2 (integer and
+# float counting in one cell)
+PART_CASES = [("A", 28, 255, 1, 1.0), ("B", 28, 255, 16, 1.0),
+              ("C", 28, 255, 16, 0.5), ("D", 28, 255, 16, 0.125),
+              ("fractional", 28, 255, 16, 0.5), ("wide", 64, 255, 16, 0.5),
+              ("stride", 3, 63, 16, 0.5), ("many", 28, 255, 254, 0.5),
+              ("skewed", 28, 255, 2, 0.5), ("counts12", 28, 255, 16, 0.5)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("s", [16, 1])
-def test_part_kernel_matches_plain(cuda_device, s):
+@pytest.mark.parametrize("case,f,b,s,share", PART_CASES)
+def test_part_kernel_matches_plain(cuda_device, case, f, b, s, share):
     """|kernel - plain| <= 1e-5 * sum|v| + 1e-6 on the layout of 100,003
-    rows at 255 leaves; a slot without a tile comes out zero; one launch."""
-    b = 255
-    *arrays, row_tile = _part_layout(100_003, 255, 28, b, s, seed=s)
+    rows at 255 leaves, the count channels exact, a slot without a tile
+    zero; one launch."""
+    xb_fm, sel, vals3, ts, first, row_tile = _part_layout(
+        100_003, 255, f, b, s, seed=s + f, share=share)
+    r = np.random.RandomState(s)
+    if case == "fractional":
+        sel = r.rand(sel.size).astype(np.float32)
+        sel[::3] = np.round(sel[::3])
+        vals3[2] = 0.0         # no count channel: its halves are not 0/1
+    elif case == "many":
+        live = np.flatnonzero(ts >= 0)
+        ts[live[-3:]] = s + 5                          # folds into S - 1
+    elif case == "skewed":
+        for k in range(f):
+            xb_fm[k, r.rand(xb_fm.shape[1]) < 0.8 + 0.18 * k / f] = 0
+    elif case == "counts12":
+        vals3[2, (vals3[2] != 0) & (r.rand(sel.size) < 0.3)] = 2.0
+    arrays = (xb_fm, sel, vals3, ts, first)
     before = kernels.build_histogram_part_tiles_cuda.launches
     got = th.hist_part_tiles(*_to(cuda_device, *arrays), b, s, row_tile,
                              "auto").cpu().numpy()
@@ -354,10 +384,41 @@ def test_part_kernel_matches_plain(cuda_device, s):
     want = th.hist_part_tiles_plain(*cpu, b, s, row_tile).numpy()
     absum = th.hist_part_tiles_plain(cpu[0], cpu[1], cpu[2].abs(), *cpu[3:],
                                      b, s, row_tile).numpy()
-    assert got.shape == (s, 28, b, 6)
-    assert (np.abs(got - want) <= 1e-5 * absum + 1e-6).all()
-    if s > 2:
-        assert not got[s // 2].any()
+    assert got.shape == (s, f, b, 6)
+    if case == "skewed":
+        # ~80,000 terms a cell: the plain f32 sum is no reference there
+        want = th.hist_part_tiles_plain(cpu[0], cpu[1].double(),
+                                        cpu[2].double(), *cpu[3:], b, s,
+                                        row_tile).numpy()
+    _check_slots(got, want, absum, s)
+    owned = np.zeros(s, bool)
+    owned[np.minimum(ts[ts >= 0], s - 1)] = True
+    assert not got[~owned].any()
+
+
+@pytest.mark.cuda
+def test_part_kernel_caps_its_pieces(cuda_device):
+    """A block's share of 9M rows over the card's SMs passes 65,532 rows,
+    where the kernel's 16-bit counts would wrap: with every row of feature
+    0 in bin 0, the count channels stay exact. Held to a float64
+    reference: a cell sums ~4.5M terms, past what a plain f32 sum keeps
+    within 1e-5 * sum|v|."""
+    b, s = 16, 1
+    xb_fm, sel, vals3, ts, first, row_tile = _part_layout(
+        9_000_003, 3, 2, b, s, seed=9, share=1.0)
+    xb_fm[0] = 0
+    arrays = (xb_fm, sel, vals3, ts, first)
+    got = th.hist_part_tiles(*_to(cuda_device, *arrays), b, s, row_tile,
+                             "auto").cpu().numpy()
+    cpu = [torch.as_tensor(a) for a in arrays]
+    want = th.hist_part_tiles_plain(cpu[0], cpu[1].double(), cpu[2].double(),
+                                    *cpu[3:], b, s, row_tile).numpy()
+    absum = th.hist_part_tiles_plain(cpu[0], cpu[1].double(),
+                                     cpu[2].double().abs(), *cpu[3:], b, s,
+                                     row_tile).numpy()
+    live = (np.repeat(ts, row_tile) >= 0) & (vals3[2] != 0)
+    assert want[0, 0, 0, 2] + want[0, 0, 0, 5] == live.sum() > 8_990_000
+    _check_slots(got, want, absum, s)
 
 
 @pytest.mark.cuda
