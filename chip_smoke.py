@@ -40,13 +40,30 @@ and prints no result line):
    every kernel's launch count is reset just before each path and read
    just after, each path must launch its kernels, and its train AUC is
    held against the JAX package's on the same data and parameters;
+   then the regression paths, one per growth mode, on the same features
+   with bench.py's target before its threshold (``x0 + x1*x2 +
+   0.5*sin(3*x3) + 0.3*noise``) and the same parameters:
+     4e ``exact``, ``objective=regression``, with a validation set of
+        250,000 rows drawn the same way from seed 1, early stopping after
+        5 rounds and ``evals_result``,
+     4f ``frontier``, ``huber``,
+     4g ``batched`` (K=16), ``quantile`` with ``alpha=0.9`` (leaf
+        renewal),
+     4h ``batched_part`` (K=16), ``regression_l1`` (leaf renewal);
+   each path's train metric, and 4e's valid l2 at every iteration, are
+   held within 1e-3 relative of the JAX package's, and 4e's valid scores
+   held on the card against ``predict(x_valid, raw_score=True)`` within
+   1e-5; each path reports its seconds per iteration and the event-timed
+   ms per iteration of renewal (4g, 4h) or of the valid-set update (4e),
+   and renewal alone is timed at 1,000,000 rows and 255 leaves;
 5. the kernel path against the plain path on the card (200,000 rows, 2
    iterations) for exact, frontier, batched, batched with
    ``tpu_batched_pack=true`` (which launches the slot kernel on its
    batched branch) and batched_part: trees identical up to f32 gain ties
    (tests/test_parity.py's rule), and raw predictions within 1e-5 when
    the trees are identical;
-6. a ``kernels`` JSON line, the card line, and the result line
+6. a ``kernels`` JSON line (each kernel's launches summed over every
+   path of phase 4), the card line, and the result line
    ``{"ok": true, "device": {...}}``. No grower calls the in-tile
    partition (nor does the JAX package's), so its entry's path launches
    are 0 and its phase-3 calls are its only launches.
@@ -68,9 +85,11 @@ import torch
 
 import lightgbm_tpu_torch as lgb
 from lightgbm_tpu_torch import device as port_device
+from lightgbm_tpu_torch.boosting import gbdt as port_gbdt
 from lightgbm_tpu_torch.core import grow_batched_part
 from lightgbm_tpu_torch.core import histogram as hist
 from lightgbm_tpu_torch.core import kernels
+from lightgbm_tpu_torch.core import renew
 from lightgbm_tpu_torch.core import repack
 from lightgbm_tpu_torch.metrics import auc
 
@@ -95,6 +114,31 @@ GROWTH_PARAMS = {"exact": {"tree_growth": "exact"},
                                   "tree_batch_splits": 16,
                                   "tpu_batched_part": "true"}}
 COMPARE_ROWS, COMPARE_ITERS = 200_000, 2
+
+# the regression paths of phase 4: a growth mode and an objective each; 4e
+# also trains with a validation set of VALID_ROWS rows (seed 1)
+REGRESSION_PATHS = {
+    "4e": ("exact", {"objective": "regression"}),
+    "4f": ("frontier", {"objective": "huber"}),
+    "4g": ("batched", {"objective": "quantile", "alpha": 0.9}),
+    "4h": ("batched_part", {"objective": "regression_l1"}),
+}
+VALID_ROWS, EARLY_STOPPING_ROUNDS = 250_000, 5
+# The JAX package's train metric on each regression path, and on 4e its
+# valid l2 after each iteration, taken on the CPU backend with
+#   JAX_PLATFORMS=cpu python scripts/jax_reference_auc.py --growth MODE \
+#       --objective OBJECTIVE [--valid]
+JAX_REFERENCE_METRIC = {
+    "4e": {"train": 1.474158701936864,
+           "valid": [2.0017803431570758, 1.8299561090062133,
+                     1.6875908384732028, 1.5720299450563882,
+                     1.4791569537015317]},
+    "4f": {"train": 0.5470938477922707},
+    "4g": {"train": 0.18716961910357854},
+    "4h": {"train": 0.8175396265150078},
+}
+METRIC_REL_TOL = 1e-3
+VALID_SCORE_TOL = 1e-5
 
 # histogram shapes of the main path: the root (K=3 over every row) and the
 # fused two-child pass of a split (K=6) at the leaf sizes exact growth
@@ -136,13 +180,26 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bench_data(n: int, f: int = NUM_FEATURES, seed: int = 0):
-    """bench.py's workload (bench.py:162-165)."""
+def regression_data(n: int, f: int = NUM_FEATURES, seed: int = 0):
+    """bench.py's features and its target before the threshold
+    (bench.py:162-165)."""
     r = np.random.RandomState(seed)
     x = r.randn(n, f).astype(np.float32)
-    y = ((x[:, 0] + x[:, 1] * x[:, 2] + 0.5 * np.sin(x[:, 3] * 3)
-          + 0.3 * r.randn(n)) > 0).astype(np.float32)
-    return x, y
+    t = (x[:, 0] + x[:, 1] * x[:, 2] + 0.5 * np.sin(x[:, 3] * 3)
+         + 0.3 * r.randn(n))
+    return x, t
+
+
+def bench_data(n: int, f: int = NUM_FEATURES, seed: int = 0):
+    """bench.py's workload (bench.py:162-165)."""
+    x, t = regression_data(n, f, seed)
+    return x, (t > 0).astype(np.float32)
+
+
+def workload(objective: str, n: int):
+    """The main path's rows and labels for ``objective``: bench.py's 0/1
+    labels for binary, its target before the threshold otherwise."""
+    return bench_data(n) if objective == "binary" else regression_data(n)
 
 
 def time_ms(fn, flush, reps: int = 20) -> float:
@@ -707,6 +764,139 @@ def drive_path(growth: str, ds, x, y):
             "launches": launches}
 
 
+class EventTimer:
+    """A function wrapped in CUDA events: the summed time from the start
+    event before each call to the end event after it, read after a
+    synchronise (the device time of the call's work plus any gap while the
+    host issued it)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.events = []
+
+    def __call__(self, *args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.fn(*args)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+    def total_ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def drive_regression_path(label: str, ds, valid):
+    """Phase 4e-4h: one regression path at full width, with the launch
+    counts set to 0 just before and read just after; renewal and the
+    valid-set update timed with events."""
+    growth, extra = REGRESSION_PATHS[label]
+    params = dict(PARAMS, **GROWTH_PARAMS[growth], **extra)
+    ref = JAX_REFERENCE_METRIC[label]
+    renew_timer = EventTimer(port_gbdt.renew_leaf_values)
+    valid_timer = EventTimer(port_gbdt.GBDT._update_valid_scores)
+    update_valid = port_gbdt.GBDT._update_valid_scores
+    kwargs, evals = {}, {}
+    if "valid" in ref:
+        kwargs = {"valid_sets": [valid[0]], "evals_result": evals,
+                  "early_stopping_rounds": EARLY_STOPPING_ROUNDS,
+                  "verbose_eval": False}
+    port_gbdt.renew_leaf_values = renew_timer
+    port_gbdt.GBDT._update_valid_scores = \
+        lambda impl, ht: valid_timer(impl, ht)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        bst = lgb.train(params, ds, num_boost_round=NUM_ITERS, **kwargs)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        port_gbdt.renew_leaf_values = renew_timer.fn
+        port_gbdt.GBDT._update_valid_scores = update_valid
+    launches = read_counts()
+    trees = len(bst.models)
+    (_, metric, train_value, _), = bst.eval_train()
+    out = {"growth": growth, "params": extra, "train_s": train_s,
+           "s_per_iter": train_s / trees, "metric": metric,
+           "train": train_value, "jax_train": ref["train"],
+           "leaves": [t.num_leaves_actual for t in bst.models],
+           "launches": launches,
+           "renew_ms_per_iter": (renew_timer.total_ms() / trees
+                                 if renew_timer.events else None),
+           "valid_update_ms_per_iter": (valid_timer.total_ms() / trees
+                                        if valid_timer.events else None)}
+    log("path %s (%s, %s): train %.2f s (%d iterations, %.3f s per "
+        "iteration), trees %s leaves, train %s %.6f (JAX package %s), "
+        "renewal %s ms per iteration, valid update %s ms per iteration, "
+        "launches %s" % (label, growth, extra["objective"], train_s, trees,
+                         out["s_per_iter"], out["leaves"], metric,
+                         train_value, ref["train"],
+                         fmt(out["renew_ms_per_iter"]),
+                         fmt(out["valid_update_ms_per_iter"]), launches))
+    for name in PATH_KERNELS[growth]:
+        if launches[name] <= 0:
+            raise AssertionError("path %s never launched %s" % (label, name))
+    if trees != NUM_ITERS:
+        raise AssertionError("path %s: expected %d trees, got %d"
+                             % (label, NUM_ITERS, trees))
+    if (renew_timer.events != []) != (extra["objective"] in (
+            "quantile", "regression_l1", "mape")):
+        raise AssertionError("path %s: renewal ran %d times"
+                             % (label, len(renew_timer.events)))
+    checks = [("train " + metric, train_value, ref["train"])]
+    if "valid" in ref:
+        xv = valid[1]
+        scores = bst._impl.scores_of(1)
+        raw = bst.predict(xv, raw_score=True)
+        out["valid"] = evals["valid_0"][metric]
+        out["jax_valid"] = ref["valid"]
+        out["valid_score_max_diff"] = float(np.abs(scores - raw).max())
+        log("path %s: valid %s %s (JAX package %s), device valid scores "
+            "against predict: max diff %.3g, best iteration %d"
+            % (label, metric, out["valid"], ref["valid"],
+               out["valid_score_max_diff"], bst.best_iteration))
+        if out["valid_score_max_diff"] > VALID_SCORE_TOL:
+            raise AssertionError("path %s: device valid scores differ from "
+                                 "predict by %.3g" % (
+                                     label, out["valid_score_max_diff"]))
+        if len(out["valid"]) != len(ref["valid"]):
+            raise AssertionError("path %s: %d valid evaluations, the JAX "
+                                 "package %d" % (label, len(out["valid"]),
+                                                 len(ref["valid"])))
+        checks += [("valid %s at iteration %d" % (metric, i + 1), v, r)
+                   for i, (v, r) in enumerate(zip(out["valid"],
+                                                  ref["valid"]))]
+    gaps = [abs(v - r) / abs(r) for _, v, r in checks]
+    out["max_rel_gap"] = max(gaps)
+    for (what, value, want), gap in zip(checks, gaps):
+        if gap > METRIC_REL_TOL:
+            raise AssertionError("path %s: %s %.6f is %.3g relative from "
+                                 "the JAX package's %.6f"
+                                 % (label, what, value, gap, want))
+    return out
+
+
+def time_renewal(dev) -> dict:
+    """Renewal alone at the main path's size: 1,000,000 rows in 255 leaves,
+    unit weights, every row in the sample, and the stable sort of 1M
+    float32 residuals it starts with; event-timed medians, L2 evicted."""
+    r = np.random.RandomState(17)
+    resid = torch.as_tensor(r.randn(MAIN_ROWS).astype(np.float32), device=dev)
+    leaf_id = torch.as_tensor(r.randint(0, 255, MAIN_ROWS), device=dev)
+    ones = torch.ones(MAIN_ROWS, device=dev)
+    orig = torch.zeros(255, device=dev)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    out = {"renew_ms": time_ms(lambda: renew.renew_leaf_values(
+        resid, ones, leaf_id, ones, 255, 0.9, orig), flush),
+        "sort_ms": time_ms(lambda: torch.sort(resid, stable=True), flush)}
+    log("renewal alone, %d rows, 255 leaves: %.4f ms; one stable sort of "
+        "the residuals %.4f ms" % (MAIN_ROWS, out["renew_ms"],
+                                   out["sort_ms"]))
+    return out
+
+
 # phase 5: (label, parameters over PARAMS, the wrapper the kernel run must
 # launch)
 COMPARE_RUNS = [
@@ -835,6 +1025,18 @@ def main() -> int:
                                           *x.shape))
     paths = {g: drive_path(g, ds, x, y) for g in GROWTH_PARAMS}
     del ds
+    x, t = regression_data(MAIN_ROWS)
+    xv, tv = regression_data(VALID_ROWS, seed=1)
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(x, label=t, params=PARAMS).construct()
+    valid = ds.create_valid(xv, label=tv).construct()
+    log("binning: %.2f s for %d x %d and the valid set's %d rows"
+        % (time.perf_counter() - t0, *x.shape, len(xv)))
+    for label in REGRESSION_PATHS:
+        paths[label] = drive_regression_path(label, ds, (valid, xv))
+    del ds, valid
+    renewal = time_renewal(dev)
+    x, y = bench_data(MAIN_ROWS)
 
     # ---- 5. kernel path against plain path -----------------------------
     xs, ys = x[:COMPARE_ROWS], y[:COMPARE_ROWS]
@@ -872,7 +1074,7 @@ def main() -> int:
              note="no grower calls partition_tiles (the JAX package's do "
                   "not either), so no path launches it; its phase-3 calls "
                   "are its only launches")],
-        "paths": paths}), flush=True)
+        "paths": paths, "renewal": renewal}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

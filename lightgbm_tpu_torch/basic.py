@@ -3,7 +3,9 @@
 The port of ``lightgbm_tpu/basic.py`` (``Dataset`` :83, ``Booster`` :441;
 the reference's python-package/lightgbm/basic.py) for the slice's
 arguments. A ``Dataset`` holds the raw matrix until ``construct()`` bins it
-on the host; a ``Booster`` trains on, or predicts from, one device.
+on the host (a validation set with the training set's mappers, through
+``reference``); a ``Booster`` trains on, or predicts from, one device, and
+evaluates its training and validation sets.
 
 Device policy: ``Dataset``, ``Booster`` and ``train`` take ``device``.
 ``None`` means CUDA; without a CUDA device they raise unless the caller
@@ -23,7 +25,7 @@ from .device import DeviceLike, resolve_device
 from .io import model_text
 from .io.dataset import BinnedDataset
 from .log import LightGBMError, check, outside_slice
-from .metrics import create_metric
+from .metrics import create_metric, default_metric_for_objective
 from .objectives import create_objective
 
 
@@ -61,26 +63,29 @@ class Dataset:
                  free_raw_data: bool = True, device: DeviceLike = None):
         if group is not None:
             raise outside_slice("query groups (ranking)")
-        if reference is not None:
-            raise outside_slice("validation sets (a Dataset with a reference)")
         if categorical_feature not in ("auto", None, []):
             raise outside_slice("categorical features")
         self.device = resolve_device(device)
         self.data = data
         self.label = label
+        self.reference = reference
         self.weight = weight
         self.init_score = init_score
         self.feature_name = feature_name
         self.params = copy.deepcopy(params) if params else {}
         self.free_raw_data = free_raw_data
         self._binned: Optional[BinnedDataset] = None
+        self._predictor: Optional[_InnerPredictor] = None
 
     def construct(self) -> "Dataset":
-        """Bin the raw matrix on the host (basic.py _lazy_init:693-800)."""
+        """Bin the raw matrix on the host (basic.py _lazy_init:693-800); a
+        validation set takes its reference's mappers."""
         if self._binned is not None:
             return self
         if isinstance(self.data, str):
             raise outside_slice("loading data from files")
+        ref_binned = (None if self.reference is None
+                      else self.reference.construct()._binned)
         names = (list(self.feature_name)
                  if isinstance(self.feature_name, (list, tuple)) else None)
         if names is None and hasattr(self.data, "columns"):
@@ -88,9 +93,23 @@ class Dataset:
         self._binned = BinnedDataset.from_matrix(
             _to_2d_float(self.data), Config(self.params),
             label=_to_1d(self.label), weight=_to_1d(self.weight),
-            init_score=_to_1d(self.init_score), feature_names=names)
+            init_score=_to_1d(self.init_score), feature_names=names,
+            reference=ref_binned)
         if self.free_raw_data:
             self.data = None
+        return self
+
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, silent=False, params=None) -> "Dataset":
+        """basic.py:843: a validation set binned with this Dataset's
+        mappers, on its device."""
+        return Dataset(data, label=label, reference=self, weight=weight,
+                       group=group, init_score=init_score, silent=silent,
+                       params=params or self.params, device=self.device)
+
+    def _set_predictor(self, predictor: Optional["_InnerPredictor"]
+                       ) -> "Dataset":
+        self._predictor = predictor
         return self
 
     def num_data(self) -> int:
@@ -106,6 +125,25 @@ class Dataset:
         return self.construct()._binned.metadata.label
 
 
+class _InnerPredictor:
+    """Continued training (basic.py:346): an init model that gives a new
+    run its init scores and its first trees."""
+
+    def __init__(self, booster: "Booster"):
+        self.booster = booster
+
+    def predict_raw(self, x: np.ndarray) -> np.ndarray:
+        return self.booster.predict(x, raw_score=True)
+
+    def models(self) -> List:
+        """The init model's trees, capped like ``predict_raw``: at its best
+        iteration where it has one, so that the merged trees are the ones
+        the init scores came from."""
+        models = self.booster._impl.models
+        best = self.booster.best_iteration
+        return models[:best] if best > 0 else models
+
+
 class Booster:
     """Booster in LightGBM (basic.py:1578), on one device."""
 
@@ -117,7 +155,11 @@ class Booster:
         self.params = copy.deepcopy(params) if params else {}
         self.device = resolve_device(device)
         self.best_iteration = -1
+        self.best_score: Dict[str, Dict[str, float]] = {}
         self._train_set: Optional[Dataset] = None
+        self._valid_sets: List[Dataset] = []
+        self.name_valid_sets: List[str] = []
+        self.train_set_name = "training"
         self._feature_names_loaded: List[str] = []
         self._feature_infos_loaded: List[str] = []
         if train_set is not None:
@@ -149,15 +191,34 @@ class Booster:
                              % (train_set.device, self.device))
         if train_set._binned is None:
             train_set.params = {**train_set.params, **self.params}
+        predictor = train_set._predictor
+        init_raw = None
+        if predictor is not None:
+            # continued training: the init model's raw predictions seed the
+            # scores (basic.py:495-499 of the JAX package)
+            check(train_set.data is not None,
+                  "continued training needs the training set's raw data: "
+                  "pass an unconstructed Dataset or free_raw_data=False")
+            init_raw = predictor.predict_raw(_to_2d_float(train_set.data))
         train_set.construct()
+        if init_raw is not None:
+            train_set._binned.metadata.set_init_score(init_raw)
         self._train_set = train_set
         self.config = Config(self.params)
         objective = create_objective(self.config)
-        names = list(self.config.metric) or ["binary_logloss"]
-        metrics = [m for m in (create_metric(n, self.config) for n in names
-                               if n and n != "None") if m]
+        names = list(self.config.metric)
+        if not names:
+            default = default_metric_for_objective(self.config.objective)
+            names = [default] if default else []
+        self._metric_names = [n for n in names if n and n != "None"]
+        metrics = [m for m in (create_metric(n, self.config)
+                               for n in self._metric_names) if m]
         self._impl = GBDT(self.config, train_set._binned, objective, metrics,
                           self.device)
+        if predictor is not None:
+            # the booster is self-contained: the init model's trees come
+            # first (LGBM_BoosterMerge -> GBDT::MergeFrom, gbdt.h:53)
+            self._impl.merge_init_models(predictor.models())
 
     def _init_from_forest(self, models: List, feature_names: List[str],
                           feature_infos: List[str]) -> None:
@@ -180,17 +241,50 @@ class Booster:
                 if ":" in tok:
                     k, v = tok.split(":", 1)
                     self.params.setdefault(k, v)
+                elif tok == "sqrt":
+                    self.params.setdefault("reg_sqrt", True)
         self._init_from_forest(parsed["trees"], parsed["feature_names"],
                                parsed["feature_infos"])
 
     # ------------------------------------------------------------ training
+    def add_valid(self, data: Dataset, name: str) -> "Booster":
+        """basic.py:1804: evaluate ``data`` (binned with the training set's
+        mappers) after every iteration."""
+        check(isinstance(data, Dataset), "Validation data should be Dataset")
+        if data.device != self.device:
+            raise ValueError("the validation Dataset is on %s but the "
+                             "Booster on %s" % (data.device, self.device))
+        if data.reference is None:
+            data.reference = self._train_set
+        data.construct()
+        metrics = [m for m in (create_metric(n, self.config)
+                               for n in self._metric_names) if m]
+        self._impl.add_valid_data(data._binned, metrics)
+        self._valid_sets.append(data)
+        self.name_valid_sets.append(name)
+        return self
+
     def update(self, train_set: Optional[Dataset] = None, fobj=None) -> bool:
         """One boosting round (basic.py:1843). Returns True if stopped."""
         if fobj is not None:
-            raise outside_slice("custom objectives (fobj)")
+            raise outside_slice("custom objectives (fobj)",
+                                "ROADMAP Queue 1 #19")
         if train_set is not None and train_set is not self._train_set:
             raise outside_slice("resetting the training data")
         return self._impl.train_one_iter()
+
+    def rollback_one_iter(self) -> "Booster":
+        """basic.py:1934: drop the last iteration's tree."""
+        self._impl.rollback_one_iter()
+        return self
+
+    def reset_parameter(self, params: Dict[str, Any]) -> "Booster":
+        """basic.py reset_parameter: change parameters between iterations
+        (the learning rate of the next trees)."""
+        self.params.update(params)
+        self.config.set(params)
+        self._impl.shrinkage_rate = self.config.learning_rate
+        return self
 
     def current_iteration(self) -> int:
         return self._impl.current_iteration
@@ -202,10 +296,38 @@ class Booster:
         return len(self._feature_names())
 
     def eval_train(self, feval=None):
+        return self._inner_eval(self.train_set_name, 0, feval)
+
+    def eval_valid(self, feval=None):
+        out = []
+        for i, name in enumerate(self.name_valid_sets):
+            out.extend(self._inner_eval(name, i + 1, feval))
+        return out
+
+    def eval(self, data: Dataset, name: str, feval=None):
+        if data is self._train_set:
+            return self.eval_train(feval)
+        for i, vs in enumerate(self._valid_sets):
+            if data is vs:
+                return self._inner_eval(name, i + 1, feval)
+        raise LightGBMError("Data should be a validation set added via "
+                            "add_valid")
+
+    def _inner_eval(self, name: str, data_idx: int, feval=None):
+        """(name, metric, value, bigger_better) of the booster's metrics on
+        the training set (0) or a valid set, then of ``feval(raw scores,
+        Dataset)``, which returns one such triple after the name or a list
+        of them."""
+        out = [(name, m, v, bb)
+               for _, m, v, bb in self._impl.get_eval_at(data_idx)]
         if feval is not None:
-            raise outside_slice("feval")
-        return [("training", m, v, bb)
-                for _, m, v, bb in self._impl.get_eval_at(0)]
+            ds = (self._train_set if data_idx == 0
+                  else self._valid_sets[data_idx - 1])
+            res = feval(self._impl.scores_of(data_idx), ds)
+            for r in (res if isinstance(res, list)
+                      else [] if res is None else [res]):
+                out.append((name, r[0], r[1], r[2]))
+        return out
 
     # ------------------------------------------------------------ prediction
     def predict(self, data, num_iteration: Optional[int] = None,

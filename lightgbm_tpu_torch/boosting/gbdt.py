@@ -1,25 +1,28 @@
 """GBDT training driver.
 
 The port of ``lightgbm_tpu/boosting/gbdt.py`` (gbdt.cpp Init :45-115,
-TrainOneIter :333-412, UpdateScore :451-470 of the reference) for the slice
-the port covers: binary objective, dense numerical features, one device,
-and the three growth modes of ``tree_growth``: leaf-wise ``exact``
-(``core/grow.py``), ``frontier`` waves (``core/grow_frontier.py``) and
-top-K ``batched`` steps (``core/grow_batched.py``, or
-``core/grow_batched_part.py`` over rows kept grouped by leaf with
-``tpu_batched_part=true``). Each iteration
-computes gradients on the device, grows one tree, adds its shrunk leaf
-values to the training scores through the per-row leaf ids, and keeps the
-tree on the host as a ``HostTree`` with real-valued thresholds.
+TrainOneIter :333-412, UpdateScore :451-470, RollbackOneIter :414-430 of
+the reference) for the slice the port covers: the regression family and
+binary objectives, dense numerical features, one device, and the growth
+modes of ``tree_growth``: leaf-wise ``exact`` (``core/grow.py``),
+``frontier`` waves (``core/grow_frontier.py``) and top-K ``batched`` steps
+(``core/grow_batched.py``, or ``core/grow_batched_part.py`` over rows kept
+grouped by leaf with ``tpu_batched_part=true``). Each iteration computes
+gradients on the device, grows one tree, renews its leaf values where the
+objective asks for it (L1, quantile, MAPE: ``core/renew.py``), adds its
+shrunk leaf values to the training scores through the per-row leaf ids and
+to each validation set's scores through a binned replay of the tree
+(``core/tree.py``), and keeps the tree on the host as a ``HostTree`` with
+real-valued thresholds.
 
 Every option outside the slice raises ``NotImplementedError`` from
-``check_slice`` before anything is built, naming the later slice of the
-port that brings it: the port never builds a different tree than the one
-asked for.
+``check_slice`` before anything is built, naming the ROADMAP item that
+brings it: the port never builds a different tree than the one asked for.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import copy
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,11 +34,12 @@ from ..core.grow_batched import grow_tree_batched
 from ..core.grow_batched_part import grow_tree_batched_part
 from ..core.grow_frontier import grow_tree_frontier
 from ..core.histogram import HIST_IMPLS
+from ..core.renew import renew_leaf_values
 from ..core.split import FeatureMeta, SplitParams
 from ..io.dataset import BinnedDataset
 from ..log import Log, outside_slice
 from ..metrics import Metric
-from ..objectives import ObjectiveFunction
+from ..objectives import LATER_OBJECTIVES, ObjectiveFunction
 
 # the grower of each tree_growth (config.TREE_GROW_MODES)
 GROWERS = {"exact": grow_tree, "frontier": grow_tree_frontier,
@@ -81,9 +85,9 @@ class HostTree:
 def check_slice(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for any option outside the slice."""
     rules = [
-        (cfg.objective != "binary" or cfg.num_class > 1,
+        (cfg.objective in LATER_OBJECTIVES or cfg.num_class > 1,
          "objective=%s num_class=%d" % (cfg.objective, cfg.num_class),
-         "ROADMAP Queue 1 #2: other objectives and multiclass"),
+         "ROADMAP Queue 1 #2: multiclass, cross-entropy and lambdarank"),
         (cfg.boosting == "goss", "boosting=goss",
          "ROADMAP Queue 1 #7: GOSS"),
         (cfg.boosting == "dart", "boosting=dart",
@@ -181,6 +185,9 @@ class GBDT:
         self.shrinkage_rate = config.learning_rate
         self._stopped = False
         self.init_score_offset = 0.0
+        self.valid_metrics: List[List[Metric]] = []
+        # each valid set's binned matrix and running scores on the device
+        self._valid: List[Dict[str, torch.Tensor]] = []
         if train_data is not None:
             self._setup_train(train_data)
 
@@ -222,6 +229,53 @@ class GBDT:
         self._rng = np.random.RandomState(cfg.feature_fraction_seed)
         self._sample_mask = torch.ones(ds.num_data, dtype=torch.float32,
                                        device=dev)
+        # RenewTreeOutput (L1, quantile, MAPE): the percentile, the label
+        # space the gradients see and the weights of the refit
+        obj = self.objective
+        self._renew_alpha = (float(obj.renew_percentile())
+                             if hasattr(obj, "renew_percentile") else None)
+        if self._renew_alpha is not None:
+            self._renew_label = getattr(obj, "trans_label", obj.label)
+            rw = obj.label_weight if obj.name == "mape" else obj.weights
+            self._renew_weight = (torch.ones_like(obj.label) if rw is None
+                                  else rw)
+
+    def add_valid_data(self, ds: BinnedDataset,
+                       metrics: List[Metric]) -> None:
+        """A validation set binned with the training set's mappers, with its
+        scores held on the device (gbdt.cpp AddValidDataset)."""
+        for m in metrics:
+            m.init(ds.metadata, ds.num_data)
+        scores = np.zeros(ds.num_data, np.float32)
+        if ds.metadata.init_score is not None:
+            scores[:] = np.asarray(ds.metadata.init_score,
+                                   np.float32).reshape(-1)[:ds.num_data]
+        cache = {"xb": torch.as_tensor(ds.X_binned, device=self.device),
+                 "scores": torch.as_tensor(scores, device=self.device)}
+        if self.models and ds.metadata.init_score is None:
+            # the trees so far, merged init-model trees included; the first
+            # one carries the folded init score (score_updater.hpp:32-51)
+            for ht in self.models:
+                cache["scores"] += self._tree_output(
+                    ht, self._binned_tree(ht), cache["xb"])
+        self.valid_metrics.append(metrics)
+        self._valid.append(cache)
+
+    def merge_init_models(self, models: List) -> None:
+        """Continued training: start from copies of an init model's trees
+        (GBDT::MergeFrom, gbdt.h:53). Their bin thresholds are taken anew
+        from their real thresholds with this training set's mappers, which
+        gives back a tree's own bins when it was trained on these mappers,
+        and the bins of a loaded tree, whose model text has none."""
+        ds = self.train_data
+        merged = copy.deepcopy(list(models))
+        for ht in merged:
+            for i in range(max(int(ht.num_leaves_actual) - 1, 0)):
+                mapper = ds.bin_mappers[int(ht.split_feature[i])]
+                ht.threshold_bin[i] = mapper.values_to_bins(
+                    np.array([ht.threshold[i]]))[0]
+        self.models = merged
+        self.iter_ = len(merged)
 
     # ------------------------------------------------------------ training
     def _boost_from_average(self) -> None:
@@ -234,6 +288,9 @@ class GBDT:
         init = np.float32(self.objective.boost_from_score(0))
         if init != 0:
             self.scores = self.scores + torch.tensor(init, device=self.device)
+            for cache in self._valid:
+                cache["scores"] = cache["scores"] + torch.tensor(
+                    init, device=self.device)
         self.init_score_offset = float(init)
         self.boost_from_average_done = True
 
@@ -272,10 +329,22 @@ class GBDT:
             self._stopped = True
             return True
         leaf_value = torch.as_tensor(tree.leaf_value, device=self.device)
+        if self._renew_alpha is not None:
+            # refit the leaves to the weighted percentile of the residuals
+            # against the pre-update scores (gbdt.py:1330-1351 of the JAX
+            # package); only leaf_value changes
+            leaf_value = renew_leaf_values(
+                self._renew_label - self.scores, self._renew_weight, leaf_id,
+                self._sample_mask, self.config.num_leaves, self._renew_alpha,
+                leaf_value)
+            tree = tree._replace(leaf_value=leaf_value.cpu().numpy())
         self.scores = self.scores + leaf_value[leaf_id] * float(
             self.shrinkage_rate)
         ht = self._extract_host_tree(tree)
         ht.shrink(self.shrinkage_rate)
+        # valid scores take the shrunk tree before the init-score fold:
+        # _boost_from_average added the init score to them already
+        self._update_valid_scores(ht)
         if not self.models and abs(self.init_score_offset) > 1e-15:
             # fold the init score into the first tree so the saved model is
             # self-contained (AddBias, gbdt.cpp:374-376)
@@ -312,20 +381,76 @@ class GBDT:
         ht.leaf_count[:] = np.round(t.leaf_count)
         return ht
 
+    # ------------------------------------------------------------ scoring
+    def _binned_tree(self, ht) -> tree_mod.BinnedTree:
+        """Host tree -> its bin-space table for the training set's layout,
+        which every valid set shares."""
+        ds = self.train_data
+        feats = [int(f) for f in
+                 ht.split_feature[:max(int(ht.num_leaves_actual) - 1, 0)]]
+        return tree_mod.binned_tree(
+            ht, np.array([max(ds.inner_feature_index(f), 0) for f in feats],
+                         np.int64),
+            np.array([ds.bin_mappers[f].num_bin for f in feats], np.int64),
+            np.array([ds.bin_mappers[f].default_bin for f in feats],
+                     np.int64), self.device)
+
+    def _tree_output(self, ht, binned: tree_mod.BinnedTree,
+                     xb: torch.Tensor) -> torch.Tensor:
+        """[N] float32 output of host tree ``ht`` (``binned`` its bin-space
+        table) for every row of the binned matrix ``xb``."""
+        leaf = tree_mod.replay_leaves_binned(binned, xb)
+        lv = torch.as_tensor(ht.leaf_value.astype(np.float32),
+                             device=self.device)
+        return lv[leaf]
+
+    def _update_valid_scores(self, ht: HostTree) -> None:
+        """Add a new tree's output to each valid set's scores
+        (ScoreUpdater::AddScore)."""
+        if not self._valid:
+            return
+        binned = self._binned_tree(ht)
+        for cache in self._valid:
+            cache["scores"] = cache["scores"] + self._tree_output(
+                ht, binned, cache["xb"])
+
+    def rollback_one_iter(self) -> None:
+        """GBDT::RollbackOneIter (gbdt.cpp:414-430): drop the last tree and
+        take its output back out of the training and valid scores."""
+        if not self.models:
+            return
+        ht = self.models.pop()
+        binned = self._binned_tree(ht)
+        self.scores = self.scores - self._tree_output(ht, binned, self.xb)
+        for cache in self._valid:
+            cache["scores"] = cache["scores"] - self._tree_output(
+                ht, binned, cache["xb"])
+        self.iter_ -= 1
+
     # ------------------------------------------------------------ evaluation
+    def scores_of(self, data_idx: int) -> np.ndarray:
+        """[N] raw scores on the host: the training set's (0) or valid set
+        ``data_idx - 1``'s."""
+        scores = (self.scores if data_idx == 0
+                  else self._valid[data_idx - 1]["scores"])
+        return scores.cpu().numpy()
+
     def get_eval_at(self, data_idx: int) -> List[Tuple[str, str, float,
                                                        bool]]:
-        """Training-set metrics as (data_name, metric_name, value,
-        bigger_better) (gbdt.cpp OutputMetric:476-533)."""
-        if data_idx != 0:
-            raise outside_slice("validation sets", "ROADMAP Queue 1 #7")
-        scores = self.scores.cpu().numpy()
+        """Metrics of the training set (0) or a valid set (1..) as
+        (data_name, metric_name, value, bigger_better) (gbdt.cpp
+        OutputMetric:476-533)."""
+        scores = self.scores_of(data_idx)
+        if data_idx == 0:
+            name, metrics = "training", self.train_metrics
+        else:
+            name = "valid_%d" % (data_idx - 1)
+            metrics = self.valid_metrics[data_idx - 1]
         out = []
-        for m in self.train_metrics:
-            for name, v in zip(m.names, m.eval(scores,
-                                               self.objective.convert_output)):
-                out.append(("training", name, v,
-                            m.factor_to_bigger_better > 0))
+        for m in metrics:
+            for mname, v in zip(m.names,
+                                m.eval(scores, self.objective.convert_output)):
+                out.append((name, mname, v, m.factor_to_bigger_better > 0))
         return out
 
     # ------------------------------------------------------------ prediction

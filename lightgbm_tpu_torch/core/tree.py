@@ -7,6 +7,12 @@ replays the splits in creation order: node ``t`` split leaf
 exactly the decisions a traversal would make, each step one vectorized
 compare over all rows. Thresholds are real values, compared in float32 like
 the JAX package.
+
+``replay_leaves_binned`` finds the leaf of every row of a binned matrix
+instead (the JAX package's ``_replay_leaves_binned_impl``,
+boosting/gbdt.py:2417, for numerical splits): it walks the tree from the
+root, one gather and compare per depth level, and serves the valid-set
+scores, rollback and continued training.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from .grow import _bin_go_left
 from .split import MISSING_NAN, MISSING_ZERO
 
 K_ZERO_THRESHOLD = 1e-35
@@ -102,3 +109,55 @@ def predict_forest_scores(trees: PredictTree, x: torch.Tensor
             leaf_id = torch.where(move, t + 1, leaf_id)
         out = out + trees.leaf_value[i][leaf_id]
     return out
+
+
+class BinnedTree(NamedTuple):
+    """One host tree's splits in bin space, as tensors on the device."""
+    nodes: torch.Tensor   # [L-1, 8] int64: column, threshold bin,
+    #                       default_left, missing type, num_bin, default
+    #                       bin, left child, right child (~leaf for leaves)
+    depth: int            # levels from the root to the deepest leaf
+
+
+def tree_depth(left_child: np.ndarray, right_child: np.ndarray,
+               num_nodes: int) -> int:
+    """Edges on the longest root-to-leaf path (0 for a single leaf)."""
+    if num_nodes <= 0:
+        return 0
+    depth, level = 0, [0]
+    while level:
+        depth += 1
+        level = [c for node in level
+                 for c in (left_child[node], right_child[node]) if c >= 0]
+    return depth
+
+
+def binned_tree(ht, columns: np.ndarray, num_bin: np.ndarray,
+                default_bin: np.ndarray, device: torch.device) -> BinnedTree:
+    """The bin-space table of host tree ``ht`` (HostTree or LoadedTree
+    layout); ``columns``, ``num_bin`` and ``default_bin`` give each of its
+    nodes' split feature's column of the binned matrix and bin layout."""
+    nn = max(int(ht.num_leaves_actual) - 1, 0)
+    table = np.stack([
+        columns[:nn], ht.threshold_bin[:nn], ht.default_left[:nn],
+        ht.missing_type[:nn], num_bin[:nn], default_bin[:nn],
+        ht.left_child[:nn], ht.right_child[:nn]], axis=1).astype(np.int64)
+    return BinnedTree(
+        nodes=torch.as_tensor(table.reshape(nn, 8), device=device),
+        depth=tree_depth(ht.left_child, ht.right_child, nn))
+
+
+def replay_leaves_binned(tree: BinnedTree, xb: torch.Tensor) -> torch.Tensor:
+    """[N] int64 leaf of every row of the binned matrix ``xb`` [N, C]."""
+    n = xb.shape[0]
+    node = torch.zeros(n, dtype=torch.int64, device=xb.device)
+    if tree.depth == 0:
+        return node
+    for _ in range(tree.depth):
+        at = tree.nodes.index_select(0, node.clamp(min=0))      # [N, 8]
+        binv = xb.gather(1, at[:, 0:1])[:, 0]
+        go_left = _bin_go_left(binv, at[:, 1], at[:, 2].bool(), at[:, 3],
+                               at[:, 4], at[:, 5])
+        node = torch.where(node >= 0,
+                           torch.where(go_left, at[:, 6], at[:, 7]), node)
+    return ~node

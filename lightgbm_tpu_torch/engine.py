@@ -1,17 +1,22 @@
 """Training entry point.
 
-The port of ``lightgbm_tpu/engine.py`` ``train`` (:22; the reference's
-python-package/lightgbm/engine.py:19) for the slice's arguments: train on
-one device for ``num_boost_round`` iterations and return the Booster.
-Validation sets, custom objectives and metrics, callbacks, early stopping,
-continued training and learning-rate schedules are later slices and raise.
+The port of ``lightgbm_tpu/engine.py`` ``train`` (:22, its ``_train_once``
+:99-290; the reference's python-package/lightgbm/engine.py:19, boost loop
+:211-236): train on one device with validation sets, ``feval``, callbacks,
+early stopping, learning-rate schedules and continued training from an
+``init_model``. Callbacks run before and after each iteration,
+``EarlyStopException`` unwinds the loop and sets ``best_iteration``, and
+``evals_result`` records the history. Custom objectives (``fobj``),
+checkpoints and ``cv`` raise, naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
+import collections
 import copy
 from typing import Any, Callable, Dict, List, Optional, Union
 
-from .basic import Booster, Dataset
+from . import callback
+from .basic import Booster, Dataset, _InnerPredictor
 from .device import DeviceLike
 from .log import outside_slice
 
@@ -46,20 +51,84 @@ def train(params: Dict[str, Any], train_set: Dataset,
                   "early_stopping"):
         if params.get(alias) is not None:
             early_stopping_rounds = int(params.pop(alias))
-    later = [("valid_sets", valid_sets), ("fobj", fobj), ("feval", feval),
-             ("init_model", init_model),
-             ("early_stopping_rounds", early_stopping_rounds),
-             ("evals_result", evals_result),
-             ("learning_rates", learning_rates), ("callbacks", callbacks)]
-    for name, value in later:
-        if value:
-            raise outside_slice(name)
+    if fobj is not None:
+        raise outside_slice("custom objectives (fobj)", "ROADMAP Queue 1 #19")
     if categorical_feature not in ("auto", None, []):
         raise outside_slice("categorical features", "ROADMAP Queue 1 #4")
     if feature_name != "auto":
         train_set.feature_name = feature_name
+    if isinstance(init_model, str):
+        init_model = Booster(model_file=init_model, device=device)
+    # set on every call, so a Dataset reused without an init model does not
+    # keep an earlier run's
+    train_set._set_predictor(None if init_model is None
+                             else _InnerPredictor(init_model))
+
     booster = Booster(params=params, train_set=train_set, device=device)
-    for _ in range(num_boost_round):
-        if booster.update():
+    if booster.config.checkpoint_dir or booster.config.resume:
+        raise outside_slice("checkpoints and resume", "ROADMAP Queue 1 #12")
+    is_valid_contain_train = False
+    if valid_sets is not None:
+        if isinstance(valid_sets, Dataset):
+            valid_sets = [valid_sets]
+        names = valid_names or ["valid_%d" % i for i in range(len(valid_sets))]
+        for vs, name in zip(valid_sets, names):
+            if vs is train_set:
+                is_valid_contain_train = True
+                booster.train_set_name = name
+                continue
+            booster.add_valid(vs, name)
+
+    cbs = list(callbacks or [])
+    if early_stopping_rounds is not None and early_stopping_rounds > 0:
+        cbs.append(callback.early_stopping(
+            early_stopping_rounds,
+            first_metric_only=bool(booster.config.first_metric_only)))
+    if verbose_eval is True:
+        cbs.append(callback.print_evaluation())
+    elif isinstance(verbose_eval, int) and verbose_eval:
+        cbs.append(callback.print_evaluation(verbose_eval))
+    if evals_result is not None:
+        cbs.append(callback.record_evaluation(evals_result))
+    if learning_rates is not None:
+        cbs.append(callback.reset_parameter(learning_rate=learning_rates))
+    # sorted stably, so callbacks of equal order run as registered
+    cbs_before = sorted((c for c in cbs
+                         if getattr(c, "before_iteration", False)),
+                        key=lambda c: getattr(c, "order", 0))
+    cbs_after = sorted((c for c in cbs
+                        if not getattr(c, "before_iteration", False)),
+                       key=lambda c: getattr(c, "order", 0))
+
+    begin = booster.current_iteration()
+    end = begin + num_boost_round
+    evaluation_result_list = []
+    for i in range(begin, end):
+        for cb in cbs_before:
+            cb(callback.CallbackEnv(model=booster, params=params, iteration=i,
+                                    begin_iteration=begin, end_iteration=end,
+                                    evaluation_result_list=None))
+        stopped = booster.update()
+        evaluation_result_list = []
+        if is_valid_contain_train:
+            evaluation_result_list.extend(booster.eval_train(feval))
+        evaluation_result_list.extend(booster.eval_valid(feval))
+        try:
+            for cb in cbs_after:
+                cb(callback.CallbackEnv(
+                    model=booster, params=params, iteration=i,
+                    begin_iteration=begin, end_iteration=end,
+                    evaluation_result_list=evaluation_result_list))
+        except callback.EarlyStopException as stop:
+            booster.best_iteration = stop.best_iteration + 1
+            evaluation_result_list = stop.best_score
             break
+        if stopped:
+            break
+
+    booster.best_score = collections.defaultdict(dict)
+    for data_name, eval_name, score, _ in evaluation_result_list or []:
+        booster.best_score[data_name][eval_name] = score
+    if booster.best_iteration <= 0:
+        booster.best_iteration = booster.current_iteration()
     return booster

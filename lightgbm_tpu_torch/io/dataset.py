@@ -107,11 +107,15 @@ class BinnedDataset:
                     weight: Optional[Sequence[float]] = None,
                     init_score: Optional[Sequence[float]] = None,
                     feature_names: Optional[List[str]] = None,
-                    categorical_feature: Optional[Union[str, List]] = None
+                    categorical_feature: Optional[Union[str, List]] = None,
+                    reference: Optional["BinnedDataset"] = None
                     ) -> "BinnedDataset":
         """Bin a dense raw [N, F] matrix (DatasetLoader::CostructFromSampleData,
         dataset_loader.cpp:700-820), with the JAX package's sampling, so the
-        mappers and the bin matrix are byte-identical to its own."""
+        mappers and the bin matrix are byte-identical to its own. A
+        validation set passes the training set as ``reference`` and reuses
+        its mappers, used features and names (dataset.py:212-219 of the JAX
+        package)."""
         if hasattr(data, "tocsc") and hasattr(data, "nnz"):
             raise outside_slice("sparse input", "ROADMAP Queue 1 #16")
         data = np.asarray(data)
@@ -125,6 +129,17 @@ class BinnedDataset:
         self.num_total_features = f
         self.max_bin = config.max_bin
         self.feature_names = feature_names or ["Column_%d" % i for i in range(f)]
+        if reference is not None:
+            check(f == reference.num_total_features,
+                  "The number of features in data (%d) is not the same as "
+                  "it was in training data (%d)"
+                  % (f, reference.num_total_features))
+            self.bin_mappers = reference.bin_mappers
+            self.used_features = reference.used_features
+            self.feature_names = reference.feature_names
+            self._bin_columns(data64)
+            self._set_metadata(n, label, weight, init_score)
+            return self
 
         def column_nonzeros(j):
             col = data64[:, j]
@@ -186,16 +201,23 @@ class BinnedDataset:
                 "data; enable_nbit_packing=false keeps them apart)",
                 "ROADMAP Queue 1 #4")
 
+        self._bin_columns(data64)
+        self._set_metadata(n, label, weight, init_score)
+        return self
+
+    def _bin_columns(self, data64: np.ndarray) -> None:
+        """The uint8 bin matrix of the used features' columns."""
         cols = [self.bin_mappers[j].values_to_bins(data64[:, j]).astype(np.uint8)
                 for j in self.used_features]
         self.X_binned = (np.ascontiguousarray(np.stack(cols, axis=1)) if cols
-                         else np.zeros((n, 0), dtype=np.uint8))
+                         else np.zeros((len(data64), 0), dtype=np.uint8))
+
+    def _set_metadata(self, n, label, weight, init_score) -> None:
         self.metadata = Metadata(n)
         if label is not None:
             self.metadata.set_label(label)
         self.metadata.set_weight(weight)
         self.metadata.set_init_score(init_score)
-        return self
 
     # ------------------------------------------------------------ accessors
     @property

@@ -61,12 +61,18 @@ def tree_to_string(ht, tree_index: int) -> str:
 
 
 def objective_to_string(objective, config) -> str:
-    """ObjectiveFunction::ToString of the slice's objective."""
+    """ObjectiveFunction::ToString of the slice's objectives (each
+    objective's ToString; model_text.py:124-141 of the JAX package)."""
     if objective is None:
         return "custom"
-    if objective.name == "binary":
+    name = objective.name
+    if name == "binary":
         return "binary sigmoid:%s" % _fmt(config.sigmoid)
-    return objective.name
+    if name == "regression" and config.reg_sqrt:
+        return "regression sqrt"
+    if name == "quantile":
+        return "quantile alpha:%s" % _fmt(config.alpha)
+    return name
 
 
 def model_to_string(booster, feature_names: List[str],

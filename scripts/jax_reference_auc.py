@@ -1,18 +1,26 @@
-"""Train AUC of the JAX package on chip_smoke.py's main-path workload.
+"""The JAX package's metrics on chip_smoke.py's main-path workloads.
 
-chip_smoke.py holds the PyTorch port's AUC on this workload against a
-constant taken from the JAX package (the port may not import JAX). This
-script is how those constants are taken: chip_smoke.py's data (bench.py's
-1,000,000 x 28, numpy seed 0) and parameters (binary, num_leaves=255,
-max_bin=255) under one growth mode (chip_smoke.GROWTH_PARAMS: ``tree_growth`` exact,
-frontier, batched with ``tree_batch_splits=16``, or batched_part, the
-same with ``tpu_batched_part=true``), 5
-iterations, then the AUC of the predicted probabilities on the training
-rows, with the same AUC function.
+chip_smoke.py holds the PyTorch port's train metrics against constants
+taken from the JAX package (the port may not import JAX). This script is
+how those constants are taken: chip_smoke.py's data (bench.py's
+1,000,000 x 28, numpy seed 0) and parameters (num_leaves=255, max_bin=255)
+under one growth mode (chip_smoke.GROWTH_PARAMS: ``tree_growth`` exact,
+frontier, batched with ``tree_batch_splits=16``, or batched_part, the same
+with ``tpu_batched_part=true``), 5 iterations.
+
+- ``--objective binary`` (the default): bench.py's 0/1 labels; prints the
+  AUC of the predicted probabilities on the training rows, with
+  chip_smoke's AUC function.
+- ``--objective`` one of the regression family (regression, huber,
+  quantile, regression_l1, ...): bench.py's target before its threshold
+  (``chip_smoke.regression_data``); prints the objective's own train
+  metric. With ``--valid`` it also trains with chip_smoke's validation
+  set (250,000 rows drawn the same way from seed 1, early stopping after
+  5 rounds) and prints the valid metric after each iteration.
 
     JAX_PLATFORMS=cpu python scripts/jax_reference_auc.py \
-        [--growth exact|frontier|batched|batched_part] [--rows N] \
-        [--iters K]
+        [--growth exact|frontier|batched|batched_part] \
+        [--objective OBJECTIVE] [--valid] [--rows N] [--iters K]
 
 It runs on the CPU backend and prints one JSON line.
 """
@@ -35,6 +43,8 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--growth", choices=sorted(chip_smoke.GROWTH_PARAMS),
                     default="exact")
+    ap.add_argument("--objective", default="binary")
+    ap.add_argument("--valid", action="store_true")
     args = ap.parse_args()
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -42,17 +52,36 @@ def main() -> int:
 
     import lightgbm_tpu as lgb
 
-    x, y = chip_smoke.bench_data(args.rows)
-    params = dict(chip_smoke.PARAMS, **chip_smoke.GROWTH_PARAMS[args.growth])
+    params = dict(chip_smoke.PARAMS, objective=args.objective,
+                  **chip_smoke.GROWTH_PARAMS[args.growth])
+    out = {"growth": args.growth, "objective": args.objective,
+           "rows": args.rows, "iters": args.iters}
     t0 = time.time()
-    bst = lgb.train(params, lgb.Dataset(x, label=y),
-                    num_boost_round=args.iters)
-    p = bst.predict(x)
-    print(json.dumps({"growth": args.growth, "rows": args.rows,
-                      "iters": args.iters,
-                      "auc": chip_smoke.auc(np.asarray(p, np.float64), y),
-                      "backend": jax.default_backend(),
-                      "seconds": time.time() - t0}))
+    if args.objective == "binary":
+        x, y = chip_smoke.bench_data(args.rows)
+        bst = lgb.train(params, lgb.Dataset(x, label=y),
+                        num_boost_round=args.iters)
+        out["auc"] = chip_smoke.auc(np.asarray(bst.predict(x), np.float64), y)
+    else:
+        x, y = chip_smoke.regression_data(args.rows)
+        train = lgb.Dataset(x, label=y)
+        kwargs = {}
+        if args.valid:
+            xv, yv = chip_smoke.regression_data(chip_smoke.VALID_ROWS,
+                                                seed=1)
+            kwargs = {"valid_sets": [train.create_valid(xv, label=yv)],
+                      "early_stopping_rounds":
+                          chip_smoke.EARLY_STOPPING_ROUNDS,
+                      "evals_result": {}, "verbose_eval": False}
+        bst = lgb.train(params, train, num_boost_round=args.iters, **kwargs)
+        (_, name, value, _), = bst.eval_train()
+        out["metric"] = name
+        out["train"] = value
+        if args.valid:
+            out["valid"] = kwargs["evals_result"]["valid_0"][name]
+            out["best_iteration"] = bst.best_iteration
+    out.update(backend=jax.default_backend(), seconds=time.time() - t0)
+    print(json.dumps(out))
     return 0
 
 

@@ -13,8 +13,13 @@ synchronisations, and the port's own kernels' launches per iteration
 (one slot-kernel or part-kernel launch per frontier wave or batched
 step), then one JSON line.
 
+With ``--objective`` (regression, huber, quantile, regression_l1, ...) it
+trains that objective on bench.py's target before its threshold
+(``chip_smoke.regression_data``) instead of the binary labels, so the
+regression paths' renewal and score updates show in the profile.
+
     python3 scripts/profile_main_path.py [--growth MODE] [--rows N] \
-        [--iters K]
+        [--iters K] [--objective OBJECTIVE]
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -47,6 +52,9 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=1)
     ap.add_argument("--growth", choices=sorted(chip_smoke.GROWTH_PARAMS),
                     default="exact")
+    ap.add_argument("--objective", default="binary",
+                    help="binary (bench.py's labels) or one of the "
+                    "regression family (its target before the threshold)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -59,8 +67,9 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    x, y = chip_smoke.bench_data(args.rows)
-    params = dict(chip_smoke.PARAMS, **chip_smoke.GROWTH_PARAMS[args.growth])
+    x, y = chip_smoke.workload(args.objective, args.rows)
+    params = dict(chip_smoke.PARAMS, objective=args.objective,
+                  **chip_smoke.GROWTH_PARAMS[args.growth])
     ds = lgb.Dataset(x, label=y, params=params).construct()
     bst = lgb.Booster(params=params, train_set=ds)
     bst.update()                                   # warm-up iteration
@@ -133,7 +142,8 @@ def main() -> int:
         print("  %9.3f %6d  %s" % (a.self_cpu_time_total / 1e3 / args.iters,
                                    a.count // args.iters, a.key[:90]))
     summary = {
-        "card": card, "growth": args.growth, "rows": args.rows,
+        "card": card, "growth": args.growth, "objective": args.objective,
+        "rows": args.rows,
         "iters": args.iters, "own_kernel_launches": own_launches,
         "iteration_ms": wall_ms, "iteration_ms_each": plain_ms,
         "iteration_ms_profiled": prof_ms, "device_busy_ms": busy_ms,

@@ -14,7 +14,11 @@ same process, trains the same data with it, and times the two in turns
 (A B B A A B ...), so that both see the same host, allocator and card:
 
     python3 scripts/time_iterations.py [--growth MODE] [--iters K] \
-        [--rows N] [--against OTHER_CHECKOUT]
+        [--rows N] [--objective OBJECTIVE] [--against OTHER_CHECKOUT]
+
+``--objective`` (binary by default) trains one of the regression family
+on bench.py's target before its threshold instead
+(``chip_smoke.regression_data``).
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -74,6 +78,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--growth", choices=sorted(chip_smoke.GROWTH_PARAMS),
                     default="exact")
+    ap.add_argument("--objective", default="binary",
+                    help="binary (bench.py's labels) or one of the "
+                    "regression family (its target before the threshold)")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--against", default=None,
@@ -88,15 +95,17 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    x, y = chip_smoke.bench_data(args.rows)
-    params = dict(chip_smoke.PARAMS, **chip_smoke.GROWTH_PARAMS[args.growth])
+    x, y = chip_smoke.workload(args.objective, args.rows)
+    params = dict(chip_smoke.PARAMS, objective=args.objective,
+                  **chip_smoke.GROWTH_PARAMS[args.growth])
     ports = [lightgbm_tpu_torch]
     names = [os.getcwd()]
     if args.against:
         ports.append(load_port(args.against, "lightgbm_tpu_torch_against"))
         names.append(os.path.abspath(args.against))
     times = time_in_turns(ports, x, y, params, args.iters, "cuda")
-    print(json.dumps({"card": card, "growth": args.growth, "rows": args.rows,
+    print(json.dumps({"card": card, "growth": args.growth,
+                      "objective": args.objective, "rows": args.rows,
                       "runs": [{"checkout": n, "iteration_ms": t,
                                 "median_ms": statistics.median(t)}
                                for n, t in zip(names, times)]}))

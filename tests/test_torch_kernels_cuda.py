@@ -2,7 +2,9 @@
 the histogram kernel (``histogram.cu``), the two slot kernels
 (``hist_slots.cu``), the partitioned-layout kernel (``hist_part.cu``) and
 the in-tile partition (``repack.cu``), alone and on the training paths
-that launch them.
+that launch them; and the regression slice's device work on the card
+against the same calls on the CPU: leaf renewal (``core/renew.py``) and
+the binned replay that keeps the valid-set scores (``core/tree.py``).
 
 These tests need a CUDA device and ``nvcc``: a hand-written CUDA kernel has
 no CPU or interpret mode, so they are marked ``cuda`` and skip without one.
@@ -509,3 +511,97 @@ def test_cuda_part_training_launches_the_part_kernel_once_a_step(
     np.testing.assert_allclose(bst.predict(x, raw_score=True),
                                plain.predict(x, raw_score=True), rtol=0,
                                atol=1e-4)
+
+
+def _renew_inputs(n, leaves, seed, weights):
+    r = np.random.RandomState(seed)
+    resid = np.round(r.randn(n), 3).astype(np.float32)
+    leaf_id = r.randint(0, leaves - 1, n)
+    mask = (r.rand(n) < 0.9).astype(np.float32)
+    w = (r.randint(1, 4, n) if weights == "int" else r.rand(n) * 2) \
+        .astype(np.float32)
+    return resid, w, leaf_id, mask, r.randn(leaves).astype(np.float32)
+
+
+# float32 weights: how far apart, in the leaf's float64 cumulative weight,
+# the card's and the CPU's picks may lie. Near the end of 1M rows the
+# running f32 sum is ~9e5, where one add rounds by up to 0.031; across a
+# leaf's ~3,500 rows the two summation orders drift apart by ~2 units.
+RENEW_F32_SLACK = 8.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["int", "f32"])
+@pytest.mark.parametrize("alpha", [0.5, 0.9])
+def test_renewal_on_the_card_matches_the_cpu(cuda_device, alpha, weights):
+    """One segmented weighted percentile over 1M rows and 255 leaves.
+    Integer weights sum exactly, so the card picks the CPU's residual in
+    every leaf. With float32 weights the card's parallel cumsum rounds
+    otherwise than the CPU's sequential one, so each pick is held to lie
+    within RENEW_F32_SLACK of the other in the leaf's exact cumulative
+    weight."""
+    from lightgbm_tpu_torch.core.renew import renew_leaf_values
+    resid, w, leaf_id, mask, orig = _renew_inputs(1_000_000, 255, 3, weights)
+    args = [torch.as_tensor(a) for a in (resid, w, leaf_id, mask)]
+    want = renew_leaf_values(*args, 255, alpha, torch.as_tensor(orig))
+    got = renew_leaf_values(*[a.to(cuda_device) for a in args], 255, alpha,
+                            torch.as_tensor(orig, device=cuda_device)).cpu()
+    if weights == "int":
+        assert torch.equal(got, want)
+        return
+    assert got[-1] == want[-1] == orig[-1]          # the empty leaf
+    for leaf in range(254):
+        rows = (leaf_id == leaf) & (mask > 0)
+        order = np.argsort(resid[rows], kind="stable")
+        vals = resid[rows][order]
+        cum = np.concatenate([[0.0], np.cumsum(w[rows][order],
+                                               dtype=np.float64)])
+
+        def span(v):
+            """[cumulative weight before, through] the value's ties."""
+            return (cum[np.searchsorted(vals, v, "left")],
+                    cum[np.searchsorted(vals, v, "right")])
+        (a_lo, a_hi), (b_lo, b_hi) = span(float(got[leaf])), \
+            span(float(want[leaf]))
+        assert a_hi > a_lo and b_hi > b_lo, leaf    # both are the leaf's
+        assert max(a_lo - b_hi, b_lo - a_hi) <= RENEW_F32_SLACK, leaf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective", ["regression", "regression_l1",
+                                       "quantile"])
+def test_valid_scores_and_renewal_on_the_card(cuda_device, objective):
+    """Training with a validation set on the card: its device scores are
+    the model's raw predictions on the validation rows, the binned replay
+    finds the CPU's leaves, and the trees and metrics are the CPU's."""
+    from lightgbm_tpu_torch.core import tree as ttree
+    r = np.random.RandomState(6)
+    x, xv = r.randn(50_000, 8), r.randn(20_000, 8)
+    y = x[:, 0] + x[:, 1] * x[:, 2] + 0.3 * r.randn(len(x))
+    yv = xv[:, 0] + xv[:, 1] * xv[:, 2] + 0.3 * r.randn(len(xv))
+    params = {"objective": objective, "num_leaves": 63, "verbosity": -1}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ds = tlgb.Dataset(x, y, device=dev)
+        ev = {}
+        bst = tlgb.train(params, ds, num_boost_round=3,
+                         valid_sets=[ds.create_valid(xv, yv)],
+                         evals_result=ev, verbose_eval=False, device=dev)
+        out[dev] = (bst, ev)
+    (gb, gev), (cb, cev) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(gb._impl.scores_of(1),
+                               gb.predict(xv, raw_score=True), rtol=0,
+                               atol=1e-5)
+    xb = gb._impl._valid[0]["xb"]
+    for ht in gb.models:
+        bt = gb._impl._binned_tree(ht)
+        on_cpu = ttree.replay_leaves_binned(bt._replace(nodes=bt.nodes.cpu()),
+                                            xb.cpu())
+        assert torch.equal(ttree.replay_leaves_binned(bt, xb).cpu(), on_cpu)
+    np.testing.assert_array_equal(gb.models[0].split_feature,
+                                  cb.models[0].split_feature)
+    np.testing.assert_allclose(gb.models[0].leaf_value,
+                               cb.models[0].leaf_value, rtol=0, atol=5e-5)
+    metric = list(cev["valid_0"])[0]
+    np.testing.assert_allclose(gev["valid_0"][metric],
+                               cev["valid_0"][metric], rtol=1e-3)

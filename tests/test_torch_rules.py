@@ -101,7 +101,7 @@ OUTSIDE_SLICE = {
     "dart": ({"boosting": "dart"}, None),
     "rf": ({"boosting": "rf", "bagging_freq": 1,
             "bagging_fraction": 0.5}, None),
-    "regression": ({"objective": "regression"}, None),
+    "xentropy": ({"objective": "xentropy"}, None),
     "multiclass": ({"objective": "multiclass", "num_class": 3}, "classes"),
     "monotone": ({"monotone_constraints": [1, 0, 0, 0]}, None),
     "forced_splits": ({"forcedsplits_filename": "forced.json"}, None),
@@ -127,6 +127,8 @@ REFUSALS = {
     "sparse_input": ({}, "#16"),
     "sparse_matrix_binning": ({}, "#16"),
     "small_feature_pairs": ({"enable_bundle": False}, "#4"),
+    "fobj": ({}, "#19"),
+    "checkpoint_callback": ({}, "#12"),
 }
 
 
@@ -149,9 +151,14 @@ def test_refusals_cite_their_roadmap_item(kind):
             from lightgbm_tpu_torch.config import Config
             from lightgbm_tpu_torch.io.dataset import BinnedDataset
             BinnedDataset.from_matrix(x, Config({}), label=y)
+        extra = {}
+        if kind == "fobj":
+            extra["fobj"] = lambda preds, data: (preds, np.ones_like(preds))
+        if kind == "checkpoint_callback":
+            extra["callbacks"] = [tlgb.callback.checkpoint("checkpoints")]
         tlgb.train(dict(params, objective="binary", verbosity=-1),
                    tlgb.Dataset(x, label=y, device="cpu"),
-                   num_boost_round=1, device="cpu")
+                   num_boost_round=1, device="cpu", **extra)
 
 
 @pytest.mark.parametrize("option", sorted(OUTSIDE_SLICE))
