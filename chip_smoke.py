@@ -56,12 +56,31 @@ and prints no result line):
    1e-5; each path reports its seconds per iteration and the event-timed
    ms per iteration of renewal (4g, 4h) or of the valid-set update (4e),
    and renewal alone is timed at 1,000,000 rows and 255 leaves;
+   then the bundled paths, binary with default ``enable_bundle`` and
+   ``enable_nbit_packing``, on HIGGS-shaped data with its four b-tag
+   columns and 8 one-hot blocks of 32 (``bundled_data``: 1,000,000 x 284,
+   stored as 34 columns, 8 EFB bundles of 65 bins and 2 packed b-tag
+   pairs of 9 codes, B = 255), one per growth mode:
+     4i ``exact``, with a 250,000-row validation set (seed 1),
+     4j ``frontier``, 4k ``batched`` (K=16), 4l ``batched_part`` (K=16);
+   before them phase 3 runs again on the stored matrix: the root pass
+   (histogram.cu, K=3), both slot kernels at S = 16 with half the rows
+   active and the partitioned-layout pass at S = 16 with every tile
+   active (two feature tiles at C = 34), each held to its plain version
+   computed in float64 (a cell at a bundle's bin 0 sums ~500,000 terms),
+   timed against the f32 plain version, its bound and one index_add_;
+   each bundled path prints C and B, its bundles and pairs, its kernels'
+   plans (feature tiles, replicas), its launches and the splits of its 5
+   trees on bundled and on packed features, and must reach the JAX
+   package's train AUC within 2e-3, split at least once on a bundled and
+   once on a packed feature, and (4i) keep valid scores within 1e-5 of
+   ``predict(raw_score=True)``;
 5. the kernel path against the plain path on the card (200,000 rows, 2
    iterations) for exact, frontier, batched, batched with
    ``tpu_batched_pack=true`` (which launches the slot kernel on its
    batched branch) and batched_part: trees identical up to f32 gain ties
    (tests/test_parity.py's rule), and raw predictions within 1e-5 when
-   the trees are identical;
+   the trees are identical; on bench.py's data and on the bundled data;
 6. a ``kernels`` JSON line (each kernel's launches summed over every
    path of phase 4), the card line, and the result line
    ``{"ok": true, "device": {...}}``. No grower calls the in-tile
@@ -114,6 +133,31 @@ GROWTH_PARAMS = {"exact": {"tree_growth": "exact"},
                                   "tree_batch_splits": 16,
                                   "tpu_batched_part": "true"}}
 COMPARE_ROWS, COMPARE_ITERS = 200_000, 2
+
+# the bundled paths of phase 4 (binary, default enable_bundle and
+# enable_nbit_packing, on ``bundled_data``): a growth mode each; 4i also
+# keeps a validation set of VALID_ROWS rows (seed 1)
+BUNDLED_PATHS = {"4i": "exact", "4j": "frontier", "4k": "batched",
+                 "4l": "batched_part"}
+# Train AUC of the JAX package on the bundled paths' data and parameters,
+# taken on the CPU backend with
+#   JAX_PLATFORMS=cpu python scripts/jax_reference_auc.py --data bundled \
+#       --growth MODE
+JAX_BUNDLED_AUC = {"exact": 0.8860030454736421,
+                   "frontier": 0.8201924279870435,
+                   "batched": 0.8571368810544411,
+                   "batched_part": 0.8571368810544411}
+# slots of the bundled shapes of the slot and part kernels (phase 3)
+BUNDLED_SLOTS = 16
+# phase 5 on the bundled data: raw predictions of identical trees within
+# this. A bundled feature's default bin is rebuilt as the leaf's total
+# minus its other bins, so a split there carries the f32 rounding of the
+# leaf totals down to the leaves under it: one ulp of a 200,000-row root's
+# sum of |g| (ulp(1e5) = 7.8e-3 in a gradient sum) over a 20-row leaf's
+# hessian (>= 4.8 in the second tree) is 1.6e-3 of its value, 1.6e-4 after
+# shrinkage; this allows about three such ulps in each of the two trees
+# (measured on an H100: 2.8e-4 to 4.0e-4)
+BUNDLED_RAW_TOL = 1e-3
 
 # the regression paths of phase 4: a growth mode and an objective each; 4e
 # also trains with a validation set of VALID_ROWS rows (seed 1)
@@ -194,6 +238,60 @@ def bench_data(n: int, f: int = NUM_FEATURES, seed: int = 0):
     """bench.py's workload (bench.py:162-165)."""
     x, t = regression_data(n, f, seed)
     return x, (t > 0).astype(np.float32)
+
+
+# HIGGS's jet b-tag columns (0-based features 8, 12, 16, 20 of its 28) take
+# three values; these are HIGGS's own, their shares this synthetic's choice
+BTAG_FEATURES = (8, 12, 16, 20)
+BTAG_VALUES = (0.0, 1.0865, 2.1731)
+BTAG_SHARES = (0.5, 0.25, 0.25)
+ONEHOT_GROUPS, ONEHOT_WIDTH = 8, 32
+
+
+def bundled_data(n: int, seed: int = 0, groups: int = ONEHOT_GROUPS,
+                 width: int = ONEHOT_WIDTH):
+    """HIGGS with its b-tags plus one-hot categoricals: bench.py's 28
+    standard-normal features with the four b-tag columns replaced by their
+    three values, then ``groups`` one-hot blocks of ``width`` float32
+    columns (a row has no category with probability 0.5, else one uniform
+    over ``width``). The label thresholds bench.py's target plus the
+    effects of the first four blocks' categories (drawn from seed 5) and
+    of the first b-tag. Default binning bundles each block into one stored
+    column (EFB) and pairs the b-tags two to a column."""
+    r = np.random.RandomState(seed)
+    x = r.randn(n, NUM_FEATURES).astype(np.float32)
+    noise = r.randn(n)
+    effects = np.random.RandomState(5)
+    btag = np.asarray(BTAG_VALUES, np.float32)
+    for j in BTAG_FEATURES:
+        x[:, j] = btag[r.choice(3, n, p=BTAG_SHARES)]
+    onehot = np.zeros((n, groups * width), np.float32)
+    eff = np.zeros(n)
+    rows = np.arange(n)
+    for g in range(groups):
+        cat = np.where(r.rand(n) < 0.5, -1, r.randint(0, width, n))
+        has = cat >= 0
+        onehot[rows[has], g * width + cat[has]] = 1.0
+        if g < 4:
+            eff += np.where(has, effects.randn(width)[np.maximum(cat, 0)],
+                            0.0)
+    y = (x[:, 0] + x[:, 1] * x[:, 2] + 0.5 * np.sin(3 * x[:, 3]) + eff
+         + 0.4 * (x[:, 8] > 1) + 0.3 * noise > 0)
+    return np.hstack([x, onehot]), y.astype(np.float32)
+
+
+def splits_on_layout(models, ds) -> dict:
+    """Splits of ``models`` on features that share a stored column of the
+    binned dataset ``ds``: in an EFB bundle and in a packed pair."""
+    feats = [int(f) for t in models
+             for f in t.split_feature[:t.num_leaves_actual - 1]]
+    bundled, packed = set(), set()
+    for cols, is_packed in zip(ds.col_features, ds.col_packed):
+        if len(cols) > 1:
+            (packed if is_packed else bundled).update(cols)
+    return {"splits": len(feats),
+            "bundled": sum(f in bundled for f in feats),
+            "packed": sum(f in packed for f in feats)}
 
 
 def workload(objective: str, n: int):
@@ -377,13 +475,14 @@ def check_histogram_kernel(dev, flush):
     return rows
 
 
-def slot_inputs(dev, n, f, b, k, s):
-    """Bins, slots with SLOT_ACTIVE of the rows active (slot S // 2 absent
-    where S > 2), values as the main path stacks them (grad, hess and a
-    count channel of ones) and a go-left selector, made with numpy from a
-    seed."""
+def slot_inputs(dev, n, f, b, k, s, xb=None):
+    """Bins (``xb``, or uniform ones), slots with SLOT_ACTIVE of the rows
+    active (slot S // 2 absent where S > 2), values as the main path
+    stacks them (grad, hess and a count channel of ones) and a go-left
+    selector, made with numpy from a seed."""
     r = np.random.RandomState(n + 7 * s + k)
-    xb = r.randint(0, b, (n, f)).astype(np.uint8)
+    if xb is None:
+        xb = r.randint(0, b, (n, f)).astype(np.uint8)
     slot = r.randint(0, s, n).astype(np.int32)
     if s > 2:
         slot[slot == s // 2] = s - 1
@@ -524,11 +623,18 @@ def part_layout(r, n, num_leaves, f, b, n_slots, share=0.5):
     return (xb_fm, sel, vals3, tile_slot, first), tile
 
 
-def part_inputs(dev, s, share):
+def part_inputs(dev, s, share, stored=None):
     """chip_smoke's part layout of MAIN_ROWS rows at 255 leaves on ``dev``:
-    torch (xb_fm, sel, vals3, tile_slot, tile_first) and the row tile."""
+    torch (xb_fm, sel, vals3, tile_slot, tile_first) and the row tile.
+    With ``stored`` ([MAIN_ROWS, C] uint8) the layout's bins are its rows,
+    repeated over the padded layout, instead of uniform ones."""
+    f = NUM_FEATURES if stored is None else stored.shape[1]
     arrays, tile = part_layout(np.random.RandomState(11 + s), MAIN_ROWS, 255,
-                               NUM_FEATURES, 255, s, share)
+                               f, 255, s, share)
+    if stored is not None:
+        np_ = arrays[0].shape[1]
+        arrays = (np.ascontiguousarray(
+            stored[np.arange(np_) % len(stored)].T),) + tuple(arrays[1:])
     return [torch.as_tensor(a, device=dev) for a in arrays], tile
 
 
@@ -672,6 +778,146 @@ def check_partition_kernel(dev, flush):
     return [row]
 
 
+def plan_lines(n: int, c: int, b: int, sm: int) -> dict:
+    """Each histogram kernel's plan at ``n`` rows over ``c`` stored columns
+    of ``b`` bins, by wrapper: feature tiles, replicas, shared bytes."""
+    root = kernels.hist_launch_plan(n, c, b, 3, sm)
+    split = kernels.hist_launch_plan(max(n // 4, 1), c, b, 6, sm)
+    slots3 = kernels.slot_hist_launch_plan(n, c, b, 3, BUNDLED_SLOTS, sm)
+    slots6 = kernels.slot_hist_launch_plan(n, c, b, 6, BUNDLED_SLOTS, sm)
+    tiles = grow_batched_part._part_capacity(n, 255,
+                                             grow_batched_part.PART_TILE)
+    part = kernels.part_hist_launch_plan(
+        tiles // grow_batched_part.PART_TILE, c, b, sm)
+
+    def one(p, replicas):
+        return {"feature_tiles": p.grid_x if isinstance(p, kernels.HistPlan)
+                else p.tiles, "feature_tile": p.feature_tile,
+                "replicas": replicas, "smem_bytes": p.smem_bytes}
+    return {"build_histogram_cuda": {
+                "K=3 root": one(root, root.replicas),
+                "K=6 exact's split passes (block)": one(split,
+                                                        split.replicas)},
+            "build_histogram_slots_cuda": {"K=3": one(slots3,
+                                                      slots3.replicas)},
+            "build_histogram_slots6_cuda": {"K=6": one(slots6,
+                                                       slots6.replicas)},
+            "build_histogram_part_tiles_cuda": {"K=6": one(part, 1)}}
+
+
+def held_to_f64(got, want64, absum64, what: str) -> float:
+    """Raises unless |got - want| <= 1e-5 * sum|v| + 1e-6 in every cell
+    against the plain version computed in float64, with the count channels
+    exact; returns the largest difference."""
+    err = (got.double() - want64).abs()
+    bad = int((err > HIST_REL_TOL * absum64 + HIST_ABS_TOL).sum())
+    counts_exact = torch.equal(got[..., 2::3].double(), want64[..., 2::3])
+    if bad or not counts_exact:
+        raise AssertionError("%s disagrees with its plain version at the "
+                             "bundled shape in %d cells (count channel "
+                             "exact: %s)" % (what, bad, counts_exact))
+    return float(err.max())
+
+
+def check_bundled_kernels(dev, flush, stored: np.ndarray):
+    """Phase 3 on the bundled workload's stored matrix (``stored`` [N, C]
+    uint8, N = MAIN_ROWS): the root pass (histogram.cu, K=3), the slot
+    kernels at S = BUNDLED_SLOTS with half the rows active (K=3 and K=6)
+    and the partitioned-layout pass at S = BUNDLED_SLOTS with every tile
+    active. Each is held to its plain version in float64, timed with
+    events against the f32 plain version, its bound and one index_add_;
+    returns {kernel: [row]}."""
+    n, c = stored.shape
+    b = 255
+    xb = torch.as_tensor(stored, device=dev)
+    skew = float((xb == 0).double().mean())
+    out = {}
+
+    def finish(name, label, row, max_err, kernel, plain, library, nbytes,
+               ops):
+        bound_ms, bound_by = bound(nbytes, ops)
+        row.update(data="bundled", max_abs_err=max_err,
+                   ms=time_ms(kernel, flush), plain_ms=time_ms(plain, flush),
+                   library_ms=time_ms(library, flush), bound_ms=bound_ms,
+                   bound_by=bound_by, share_at_bin0=skew)
+        log("bundled %s (%s): max_abs_err=%.3g against float64, count "
+            "channel exact, kernel %.4f ms, plain %.4f ms, index_add_ %.4f "
+            "ms, bound %.4f ms (%s); %.3f of the stored bytes are 0"
+            % (name, label, max_err, row["ms"], row["plain_ms"],
+               row["library_ms"], bound_ms, bound_by, skew))
+        out[name] = [row]
+
+    # ---- histogram.cu: the root, every row, K=3 ------------------------
+    r = np.random.RandomState(21)
+    m = (r.rand(n) < 0.9).astype(np.float32)
+    v = torch.as_tensor(np.stack([r.randn(n) * m, r.rand(n) * m, m],
+                                 axis=1).astype(np.float32), device=dev)
+    got = kernels.build_histogram_cuda(xb, v, b)
+    max_err = held_to_f64(got, hist.hist_tile_vals(xb, v.double(), b,
+                                                   "plain"),
+                          hist.hist_tile_vals(xb, v.double().abs(), b,
+                                              "plain"), "histogram.cu")
+    flat = (xb.to(torch.int64) + torch.arange(c, device=dev) * b).reshape(-1)
+    src = v.unsqueeze(1).expand(n, c, 3).reshape(n * c, 3).contiguous()
+    finish("histogram", "root %d x %d, K=3" % (n, c),
+           {"n": n, "C": c, "B": b, "K": 3}, max_err,
+           lambda: kernels.build_histogram_cuda(xb, v, b),
+           lambda: hist.hist_tile_vals(xb, v, b, "plain"),
+           lambda: torch.zeros((c * b, 3), device=dev).index_add_(0, flat,
+                                                                  src),
+           kernels.hist_bytes(n, c, b, 3), n * c * 3)
+    del v, got, flat, src
+
+    # ---- hist_slots.cu: S = 16, half the rows active, K=3 and K=6 ------
+    s = BUNDLED_SLOTS
+    for k, name in ((3, "hist_slots"), (6, "hist_slots6")):
+        _, slot, v, sel = slot_inputs(dev, n, c, b, k, s, xb=stored)
+        got = slot_call(kernels, xb, slot, v, sel, b, s, k)
+        want64 = slot_plain(xb, slot, v.double(), sel, b, s, k)
+        absum64 = slot_plain(xb, slot, v.double().abs(), sel, b, s, k)
+        max_err = held_to_f64(got, want64, absum64, "hist_slots.cu K=%d" % k)
+        if bool(got[s // 2].any()):
+            raise AssertionError("slot kernel K=%d: an absent slot is not "
+                                 "zero at the bundled shape" % k)
+        library, n_active = slot_library(xb, slot, v, sel, b, s, k)
+        finish(name, "%d x %d, S=%d, %d active, K=%d" % (n, c, s, n_active,
+                                                         k),
+               {"n": n, "active": n_active, "C": c, "B": b, "K": k, "S": s},
+               max_err,
+               lambda: slot_call(kernels, xb, slot, v, sel, b, s, k),
+               lambda: slot_plain(xb, slot, v, sel, b, s, k), library,
+               kernels.slot_hist_bytes(n, n_active, c, b, k, s),
+               n_active * c * k)
+        del slot, v, sel, got, want64, absum64, library
+
+    # ---- hist_part.cu: S = 16, every row-holding tile active -----------
+    inputs, tile = part_inputs(dev, s, 1.0, stored=stored)
+    xb_fm, sel, vals3, tile_slot, first = inputs
+    got = part_call(kernels, inputs, b, s, tile)
+    want64 = hist.hist_part_tiles_plain(xb_fm, sel.double(), vals3.double(),
+                                        tile_slot, first, b, s, tile)
+    absum64 = hist.hist_part_tiles_plain(xb_fm, sel.double(),
+                                         vals3.double().abs(), tile_slot,
+                                         first, b, s, tile)
+    max_err = held_to_f64(got, want64, absum64, "hist_part.cu")
+    library, active_tiles, n_act = part_library(inputs, b, s, tile)
+    n_tiles = int(tile_slot.numel())
+    plan = kernels.part_hist_launch_plan(n_tiles, c, b,
+                                         kernels._sm_count(dev))
+    finish("hist_part", "Np %d (%d tiles, %d active), S=%d, %d feature "
+           "tiles of %d" % (xb_fm.shape[1], n_tiles, active_tiles, s,
+                            plan.tiles, plan.feature_tile),
+           {"Np": int(xb_fm.shape[1]), "tiles": n_tiles,
+            "active_tiles": active_tiles, "C": c, "B": b, "S": s,
+            "feature_tiles": plan.tiles, "feature_tile": plan.feature_tile},
+           max_err, lambda: part_call(kernels, inputs, b, s, tile),
+           lambda: part_plain(inputs, b, s, tile), library,
+           kernels.part_hist_bytes(active_tiles, n_tiles, tile, c, b, s),
+           n_act * c * 6)
+    del inputs, got, want64, absum64, library, xb
+    return out
+
+
 # the kernel wrappers, each with its launch count
 COUNTED = (kernels.build_histogram_cuda, kernels.build_histogram_slots_cuda,
            kernels.build_histogram_slots6_cuda,
@@ -700,11 +946,10 @@ def read_counts():
     return {w.__name__: w.launches for w in COUNTED}
 
 
-def drive_path(growth: str, ds, x, y):
-    """Phase 4: one growth mode's main path at full width, with the launch
-    counts set to 0 just before and read just after."""
-    params = dict(PARAMS, **GROWTH_PARAMS[growth])
-    # the partitioned grower's steps, each of which calls hist_part_tiles
+def train_counted(params, ds, **kwargs):
+    """Train NUM_ITERS iterations with the launch counts set to 0 just
+    before and read just after; returns (booster, train seconds, launches,
+    the partitioned grower's steps, each of which calls hist_part_tiles)."""
     steps = []
     dispatch = grow_batched_part.hist_part_tiles
 
@@ -715,15 +960,39 @@ def drive_path(growth: str, ds, x, y):
     try:
         reset_counts()
         t0 = time.perf_counter()
-        bst = lgb.train(params, ds, num_boost_round=NUM_ITERS)
+        bst = lgb.train(params, ds, num_boost_round=NUM_ITERS, **kwargs)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
     finally:
         grow_batched_part.hist_part_tiles = dispatch
+    return bst, train_s, read_counts(), len(steps)
+
+
+def check_path_launches(label: str, growth: str, bst, launches,
+                        steps: int) -> None:
+    """Raises unless the path launched each of its kernels, a root pass a
+    tree and (batched_part) one part pass a step."""
+    for name in PATH_KERNELS[growth]:
+        if launches[name] <= 0:
+            raise AssertionError("path %s never launched %s" % (label, name))
+    if launches["build_histogram_cuda"] < len(bst.models):
+        raise AssertionError("path %s built fewer root histograms than "
+                             "trees" % label)
+    if growth == "batched_part" and launches[WAVE_KERNEL[growth]] != steps:
+        raise AssertionError("path %s launched the part kernel %d times in "
+                             "%d steps" % (label,
+                                           launches[WAVE_KERNEL[growth]],
+                                           steps))
+
+
+def drive_path(growth: str, ds, x, y):
+    """Phase 4: one growth mode's main path at full width, with the launch
+    counts set to 0 just before and read just after."""
+    params = dict(PARAMS, **GROWTH_PARAMS[growth])
+    bst, train_s, launches, steps = train_counted(params, ds)
     t0 = time.perf_counter()
     prob = bst.predict(x)
     predict_s = time.perf_counter() - t0
-    launches = read_counts()
     train_auc = auc(prob, y)
     leaves = [t.num_leaves_actual for t in bst.models]
     # one slot-kernel launch per frontier wave or batched step
@@ -736,17 +1005,7 @@ def drive_path(growth: str, ds, x, y):
             if waves is not None else ""))
     log("path %s: train AUC %.6f (JAX package %.6f), launches %s"
         % (growth, train_auc, JAX_REFERENCE_AUC[growth], launches))
-    for name in PATH_KERNELS[growth]:
-        if launches[name] <= 0:
-            raise AssertionError("path %s never launched %s" % (growth, name))
-    if launches["build_histogram_cuda"] < len(bst.models):
-        raise AssertionError("path %s built fewer root histograms than "
-                             "trees" % growth)
-    if growth == "batched_part" and launches[WAVE_KERNEL[growth]] != \
-            len(steps):
-        raise AssertionError("path batched_part launched the part kernel "
-                             "%d times in %d steps"
-                             % (launches[WAVE_KERNEL[growth]], len(steps)))
+    check_path_launches(growth, growth, bst, launches, steps)
     if prob.shape != (len(x),) or not np.isfinite(prob).all():
         raise AssertionError("predictions are not finite [n] probabilities")
     if len(bst.models) != NUM_ITERS:
@@ -762,6 +1021,78 @@ def drive_path(growth: str, ds, x, y):
             "waves_per_tree": (waves / len(bst.models)
                                if waves is not None else None),
             "launches": launches}
+
+
+def drive_bundled_path(label: str, ds, x, y, valid=None):
+    """Phase 4i-4l: one growth mode on the bundled workload at full width,
+    with the launch counts set to 0 just before and read just after; 4i
+    also keeps ``valid`` (Dataset, rows), whose device scores must be the
+    model's raw predictions."""
+    growth = BUNDLED_PATHS[label]
+    params = dict(PARAMS, **GROWTH_PARAMS[growth])
+    binned = ds._binned
+    c, b = binned.num_columns, binned.max_col_bins()
+    kwargs = {} if valid is None else {"valid_sets": [valid[0]],
+                                       "verbose_eval": False}
+    bst, train_s, launches, steps = train_counted(params, ds, **kwargs)
+    trees = len(bst.models)
+    t0 = time.perf_counter()
+    prob = bst.predict(x)
+    predict_s = time.perf_counter() - t0
+    train_auc = auc(prob, y)
+    splits = splits_on_layout(bst.models, binned)
+    plans = plan_lines(binned.num_data, c, b,
+                       kernels._sm_count(torch.device("cuda", 0)))
+    waves = launches[WAVE_KERNEL[growth]] if growth in WAVE_KERNEL else None
+    out = {"growth": growth, "C": c, "B": b,
+           "bundles": sum(len(f) > 1 and not p for f, p in
+                          zip(binned.col_features, binned.col_packed)),
+           "pairs": sum(binned.col_packed), "train_s": train_s,
+           "s_per_iter": train_s / trees, "predict_s": predict_s,
+           "auc": train_auc, "jax_auc": JAX_BUNDLED_AUC[growth],
+           "leaves": [t.num_leaves_actual for t in bst.models],
+           "waves_per_tree": None if waves is None else waves / trees,
+           "splits_on": splits, "launches": launches,
+           "plans": {w: plans[w] for w in PATH_KERNELS[growth]}}
+    log("path %s (%s, bundled): C=%d B=%d, %d bundles, %d pairs; train %.2f "
+        "s (%d iterations, %.3f s per iteration), predict %.3f s, trees %s "
+        "leaves%s" % (label, growth, c, b, out["bundles"], out["pairs"],
+                      train_s, trees, out["s_per_iter"], predict_s,
+                      out["leaves"], "" if waves is None else
+                      ", %.1f waves per tree" % out["waves_per_tree"]))
+    for wrapper in PATH_KERNELS[growth]:
+        for what, plan in plans[wrapper].items():
+            log("path %s: plan of %s %s: %s" % (label, wrapper, what, plan))
+    log("path %s: train AUC %.6f (JAX package %.6f), %d splits, %d on "
+        "bundled and %d on packed features, launches %s"
+        % (label, train_auc, out["jax_auc"], splits["splits"],
+           splits["bundled"], splits["packed"], launches))
+    check_path_launches(label, growth, bst, launches, steps)
+    if trees != NUM_ITERS:
+        raise AssertionError("path %s: expected %d trees, got %d"
+                             % (label, NUM_ITERS, trees))
+    if prob.shape != (len(x),) or not np.isfinite(prob).all():
+        raise AssertionError("path %s: predictions are not finite [n] "
+                             "probabilities" % label)
+    if abs(train_auc - out["jax_auc"]) > AUC_TOLERANCE:
+        raise AssertionError("path %s: train AUC %.6f is more than %g from "
+                             "the JAX package's %.6f"
+                             % (label, train_auc, AUC_TOLERANCE,
+                                out["jax_auc"]))
+    if splits["bundled"] < 1 or splits["packed"] < 1:
+        raise AssertionError("path %s: no split on a bundled or on a packed "
+                             "feature (%s)" % (label, splits))
+    if valid is not None:
+        scores = bst._impl.scores_of(1)
+        raw = bst.predict(valid[1], raw_score=True)
+        out["valid_score_max_diff"] = float(np.abs(scores - raw).max())
+        log("path %s: device valid scores of %d rows against predict: max "
+            "diff %.3g" % (label, len(raw), out["valid_score_max_diff"]))
+        if out["valid_score_max_diff"] > VALID_SCORE_TOL:
+            raise AssertionError("path %s: device valid scores differ from "
+                                 "predict by %.3g"
+                                 % (label, out["valid_score_max_diff"]))
+    return out
 
 
 class EventTimer:
@@ -910,8 +1241,9 @@ COMPARE_RUNS = [
 ]
 
 
-def compare_paths(ds, xs):
-    """Phase 5: kernel path against plain path for each growth mode."""
+def compare_paths(ds, xs, raw_tol: float = 1e-5):
+    """Phase 5: kernel path against plain path for each growth mode; raw
+    predictions within ``raw_tol`` where the trees are identical."""
     out = {}
     for label, extra, wrapper in COMPARE_RUNS:
         forests = {}
@@ -935,7 +1267,7 @@ def compare_paths(ds, xs):
                 label, "identical" if identical
                 else "equal up to f32 gain ties", raw_diff, wrapper,
                 counts[wrapper]))
-        if identical and raw_diff > 1e-5:
+        if identical and raw_diff > raw_tol:
             raise AssertionError("%s: identical trees but raw predictions "
                                  "differ by %.3g" % (label, raw_diff))
         out[label] = {"identical": identical, "max_raw_diff": raw_diff}
@@ -1036,18 +1368,49 @@ def main() -> int:
         paths[label] = drive_regression_path(label, ds, (valid, xv))
     del ds, valid
     renewal = time_renewal(dev)
-    x, y = bench_data(MAIN_ROWS)
+
+    # ---- 4i-4l. the bundled workload, its kernels first ----------------
+    x_bundled, y_bundled = bundled_data(MAIN_ROWS)
+    xv, yv = bundled_data(VALID_ROWS, seed=1)
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(x_bundled, label=y_bundled, params=PARAMS).construct()
+    binning_s = time.perf_counter() - t0
+    valid = ds.create_valid(xv, label=yv).construct()
+    log("binning: %.2f s for %d x %d (%d stored columns, B=%d), the valid "
+        "set's %d rows %.2f s more" % (binning_s, *x_bundled.shape,
+                                       ds._binned.num_columns,
+                                       ds._binned.max_col_bins(), len(xv),
+                                       time.perf_counter() - t0 - binning_s))
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    bundled_rows = check_bundled_kernels(dev, flush, ds._binned.X_binned)
+    del flush
+    for label in BUNDLED_PATHS:
+        paths[label] = drive_bundled_path(
+            label, ds, x_bundled, y_bundled, (valid, xv) if label == "4i" else None)
+        paths[label]["binning_s"] = binning_s
+        log("path %s: %.3f s per iteration, binning %.2f s"
+            % (label, paths[label]["s_per_iter"], binning_s))
+    del ds, valid
 
     # ---- 5. kernel path against plain path -----------------------------
+    x, y = bench_data(MAIN_ROWS)
     xs, ys = x[:COMPARE_ROWS], y[:COMPARE_ROWS]
     compare_paths(lgb.Dataset(xs, label=ys, params=PARAMS).construct(), xs)
+    xs, ys = x_bundled[:COMPARE_ROWS], y_bundled[:COMPARE_ROWS]
+    log("kernel vs plain path on the bundled data (%d rows):" % len(xs))
+    compare_paths(lgb.Dataset(xs, label=ys, params=PARAMS).construct(), xs,
+                  BUNDLED_RAW_TOL)
 
     # ---- 6. result lines -----------------------------------------------
     def launches(name):
         return sum(p["launches"][name] for p in paths.values())
 
-    k3 = [r for r in slot_rows if r["K"] == 3]
-    k6 = [r for r in slot_rows if r["K"] == 6]
+    # each kernel's shapes: the dense ones, headline first, then the
+    # bundled workload's
+    hist_rows += bundled_rows["histogram"]
+    part_rows += bundled_rows["hist_part"]
+    k3 = [r for r in slot_rows if r["K"] == 3] + bundled_rows["hist_slots"]
+    k6 = [r for r in slot_rows if r["K"] == 6] + bundled_rows["hist_slots6"]
     print(json.dumps({"kernels": [
         kernel_entry("histogram", "lightgbm_tpu_torch/core/csrc/histogram.cu",
                      "lightgbm_tpu/core/histogram_pallas.py:67",
@@ -1057,7 +1420,7 @@ def main() -> int:
                      "lightgbm_tpu_torch/core/csrc/hist_slots.cu",
                      "lightgbm_tpu/core/histogram_pallas.py:384",
                      launches("build_histogram_slots_cuda"), k3,
-                     max(k3, key=lambda r: r["S"])),
+                     max(k3, key=lambda r: (r.get("data") is None, r["S"]))),
         kernel_entry("hist_slots6",
                      "lightgbm_tpu_torch/core/csrc/hist_slots.cu",
                      "lightgbm_tpu/core/histogram_pallas.py:175",
@@ -1065,7 +1428,7 @@ def main() -> int:
         kernel_entry("hist_part", "lightgbm_tpu_torch/core/csrc/hist_part.cu",
                      "lightgbm_tpu/core/histogram_pallas.py:264",
                      launches("build_histogram_part_tiles_cuda"), part_rows,
-                     next(r for r in part_rows if r["shape"] == "C")),
+                     next(r for r in part_rows if r.get("shape") == "C")),
         dict(kernel_entry("partition_tiles",
                           "lightgbm_tpu_torch/core/csrc/repack.cu",
                           "lightgbm_tpu/core/repack_pallas.py:31",

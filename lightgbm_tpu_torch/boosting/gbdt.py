@@ -3,11 +3,13 @@
 The port of ``lightgbm_tpu/boosting/gbdt.py`` (gbdt.cpp Init :45-115,
 TrainOneIter :333-412, UpdateScore :451-470, RollbackOneIter :414-430 of
 the reference) for the slice the port covers: the regression family and
-binary objectives, dense numerical features, one device, and the growth
-modes of ``tree_growth``: leaf-wise ``exact`` (``core/grow.py``),
-``frontier`` waves (``core/grow_frontier.py``) and top-K ``batched`` steps
-(``core/grow_batched.py``, or ``core/grow_batched_part.py`` over rows kept
-grouped by leaf with ``tpu_batched_part=true``). Each iteration computes
+binary objectives, numerical features stored as the JAX package stores
+them (EFB bundles and packed small-feature pairs share columns), one
+device, and the growth modes of ``tree_growth``: leaf-wise ``exact``
+(``core/grow.py``), ``frontier`` waves (``core/grow_frontier.py``) and
+top-K ``batched`` steps (``core/grow_batched.py``, or
+``core/grow_batched_part.py`` over rows kept grouped by leaf with
+``tpu_batched_part=true``). Each iteration computes
 gradients on the device, grows one tree, renews its leaf values where the
 objective asks for it (L1, quantile, MAPE: ``core/renew.py``), adds its
 shrunk leaf values to the training scores through the per-row leaf ids and
@@ -146,6 +148,9 @@ def resolve_hist_impl(cfg: Config) -> str:
 
 def _feature_meta(ds: BinnedDataset, cfg: Config,
                   device: torch.device) -> FeatureMeta:
+    """Per-feature metadata and stored layout on the device
+    (``_feature_meta_from_dataset``, gbdt.py:127-170 of the JAX
+    package)."""
     mappers = [ds.bin_mappers[j] for j in ds.used_features]
     penalty = np.ones(len(mappers), np.float32)
     if cfg.feature_contri:
@@ -157,11 +162,17 @@ def _feature_meta(ds: BinnedDataset, cfg: Config,
     def as_long(vals):
         return torch.as_tensor(np.asarray(vals, np.int64), device=device)
 
+    (feat_col, feat_offset, feat_bundled, pack_div, pack_mod,
+     pack_partner) = ds.feature_layout()
     return FeatureMeta(
         num_bin=as_long([m.num_bin for m in mappers]),
         missing_type=as_long([m.missing_type for m in mappers]),
         default_bin=as_long([m.default_bin for m in mappers]),
-        penalty=torch.as_tensor(penalty, device=device))
+        penalty=torch.as_tensor(penalty, device=device),
+        col=as_long(feat_col), offset=as_long(feat_offset),
+        bundled=torch.as_tensor(feat_bundled, device=device),
+        pack_div=as_long(pack_div), pack_mod=as_long(pack_mod),
+        pack_partner=as_long(pack_partner))
 
 
 class GBDT:
@@ -196,9 +207,13 @@ class GBDT:
         check_slice(cfg)
         dev = self.device
         self.num_data = ds.num_data
-        self.xb = torch.as_tensor(ds.X_binned, device=dev)
+        self.xb = torch.as_tensor(ds.X_binned, device=dev)     # [N, C]
         self.feature_meta = _feature_meta(ds, cfg, dev)
-        self.num_bins = max(ds.max_num_bin(), 2)
+        # histograms span the stored columns' bins, the split search the
+        # features' (gbdt.py:482-483 of the JAX package)
+        self.num_bins = max(ds.max_col_bins(), 2)
+        num_feat_bins = max(ds.max_num_bin(), 2)
+        _, _, _, _, pack_mod, pack_partner = ds.feature_layout()
         self.objective.init(ds.metadata, dev)
         for m in self.train_metrics:
             m.init(ds.metadata, ds.num_data)
@@ -214,7 +229,11 @@ class GBDT:
             hist_impl=resolve_hist_impl(cfg),
             batch_splits=cfg.tree_batch_splits,
             batched_pack=bool(cfg.tpu_batched_pack),
-            batched_part=batched_part_on(cfg))
+            batched_part=batched_part_on(cfg),
+            with_efb=ds.has_bundles or ds.has_packed,
+            num_feat_bins=num_feat_bins,
+            pack_j=int(pack_partner.max(initial=1)),
+            packed_features=tuple(int(i) for i in np.nonzero(pack_mod)[0]))
         # one place decides which grower runs (gbdt.py:1150-1160 of the
         # JAX package)
         self._grow = (grow_tree_batched_part if self.grow_params.batched_part
@@ -266,7 +285,8 @@ class GBDT:
         (GBDT::MergeFrom, gbdt.h:53). Their bin thresholds are taken anew
         from their real thresholds with this training set's mappers, which
         gives back a tree's own bins when it was trained on these mappers,
-        and the bins of a loaded tree, whose model text has none."""
+        and the bins of a loaded tree, whose model text has none. They are
+        feature bins: ``_binned_tree`` places them in the stored columns."""
         ds = self.train_data
         merged = copy.deepcopy(list(models))
         for ht in merged:
@@ -383,14 +403,19 @@ class GBDT:
 
     # ------------------------------------------------------------ scoring
     def _binned_tree(self, ht) -> tree_mod.BinnedTree:
-        """Host tree -> its bin-space table for the training set's layout,
-        which every valid set shares."""
+        """Host tree -> its bin-space table for the training set's stored
+        layout, which every valid set shares: each node's stored column
+        and how to decode it (gbdt.py:2454-2468 of the JAX package)."""
         ds = self.train_data
         feats = [int(f) for f in
                  ht.split_feature[:max(int(ht.num_leaves_actual) - 1, 0)]]
+        inner = np.array([max(ds.inner_feature_index(f), 0) for f in feats],
+                         np.int64)
+        feat_col, feat_offset, _, pack_div, pack_mod, _ = \
+            ds.feature_layout()
         return tree_mod.binned_tree(
-            ht, np.array([max(ds.inner_feature_index(f), 0) for f in feats],
-                         np.int64),
+            ht, feat_col[inner], feat_offset[inner], pack_div[inner],
+            pack_mod[inner],
             np.array([ds.bin_mappers[f].num_bin for f in feats], np.int64),
             np.array([ds.bin_mappers[f].default_bin for f in feats],
                      np.int64), self.device)

@@ -1,7 +1,7 @@
 """Batched growth: split the top-K leaves of the frontier per step.
 
 The port of ``lightgbm_tpu/core/grow_batched.py`` (``tree_growth=batched``)
-for one device without EFB or categorical features, and the wave
+for one device without categorical features, and the wave
 bookkeeping that it shares with the frontier grower
 (``core/grow_frontier.py``): ``wave_plan``, ``wave_route``,
 ``interleave_lr``, ``apply_split_wave``, ``search_children`` and
@@ -12,6 +12,10 @@ of the positive ones at once, routes every row through its leaf's split
 by per-row gathers of the split's descriptor (``wave_route``, as the
 frontier grower does), builds all 2K children's histograms in one
 pass, and searches the 2K children in one batched ``find_best_split``.
+Histograms stay over the stored columns; with EFB bundles or packed pairs
+the routing decodes each row's stored byte and ``search_children`` expands
+the children's column histograms into per-feature views first (JAX
+``core/grow_batched.py:169-205, 280-290``).
 This is approximate best-first; K = 1 is the exact algorithm, node
 numbering included: rank ``i`` of a step with ``nl`` leaves makes node
 ``nl - 1 + i`` and right leaf ``nl + i`` (tree.cpp:49-67 when one leaf
@@ -45,6 +49,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from .grow import (DeviceTree, GrowParams, TreeArrays, _bin_go_left,
+                   decode_bundle_value, expand_hist,
                    propagate_monotone_bounds, root_split, tree_to_host)
 from .histogram import hist_slots, hist_slots6, stack_vals
 from .split import (BestSplit, FeatureMeta, K_MIN_SCORE,
@@ -88,31 +93,41 @@ def wave_plan(best: BestSplit, num_leaves: int, k: int) -> WavePlan:
 
 
 def wave_route(xb: torch.Tensor, leaf_id: torch.Tensor, plan: WavePlan,
-               meta: FeatureMeta):
+               meta: FeatureMeta, with_efb: bool = False):
     """Route every row through its leaf's split. Returns (new leaf_id,
     active [N] bool: the row's leaf splits, rs [N] its split's rank,
     go_left [N])."""
     r_r = plan.rank_of_leaf.index_select(0, leaf_id)
     active = r_r >= 0
     rs = r_r.clamp(min=0)
-    go_left = _route_rows_gather(xb, rs, plan.cur, meta)
+    go_left = _route_rows_gather(xb, rs, plan.cur, meta, with_efb)
     new_leaf_id = torch.where(active & ~go_left,
                               plan.right_leaf.index_select(0, rs), leaf_id)
     return new_leaf_id, active, rs, go_left
 
 
 def _route_rows_gather(xb: torch.Tensor, rs: torch.Tensor, cur: BestSplit,
-                       meta: FeatureMeta) -> torch.Tensor:
+                       meta: FeatureMeta, with_efb: bool = False
+                       ) -> torch.Tensor:
     """Per-row go-left decisions by per-row gathers of each row's split
-    descriptor. xb [N, F]; rs [N] per-row split rank into ``cur`` (0 for
-    rows in no splitting leaf, whose answer the caller masks)."""
+    descriptor. xb [N, C] stored columns; rs [N] per-row split rank into
+    ``cur`` (0 for rows in no splitting leaf, whose answer the caller
+    masks). With ``with_efb`` the split feature's stored column is read
+    and decoded into its own bin."""
     fk = cur.feature.index_select(0, rs)                      # [N]
-    colv = torch.gather(xb, 1, fk[:, None])[:, 0]
+    stored_col = meta.col.index_select(0, fk) if with_efb else fk
+    colv = torch.gather(xb, 1, stored_col[:, None])[:, 0]
+    num_bin_r = meta.num_bin.index_select(0, fk)
+    default_bin_r = meta.default_bin.index_select(0, fk)
+    if with_efb:
+        colv = decode_bundle_value(
+            colv, meta.offset.index_select(0, fk), num_bin_r, default_bin_r,
+            meta.pack_div.index_select(0, fk),
+            meta.pack_mod.index_select(0, fk))
     return _bin_go_left(colv, cur.threshold.index_select(0, rs),
                         cur.default_left.index_select(0, rs),
-                        meta.missing_type.index_select(0, fk),
-                        meta.num_bin.index_select(0, fk),
-                        meta.default_bin.index_select(0, fk))
+                        meta.missing_type.index_select(0, fk), num_bin_r,
+                        default_bin_r)
 
 
 def apply_split_wave(tree: DeviceTree, leaf_min: torch.Tensor,
@@ -178,14 +193,15 @@ def apply_split_wave(tree: DeviceTree, leaf_min: torch.Tensor,
 
 
 def search_children(ch_hist: torch.Tensor, cur: BestSplit, ch_ok, meta,
-                    sp, feature_mask) -> BestSplit:
-    """Best splits of the 2K children [2K, F, B, 3] (interleaved), in one
-    batched search; a child past ``max_depth`` gets gain -inf."""
-    b2k = find_best_split(
-        ch_hist, meta, sp,
-        interleave_lr(cur.left_sum_grad, cur.right_sum_grad),
-        interleave_lr(cur.left_sum_hess, cur.right_sum_hess),
-        interleave_lr(cur.left_count, cur.right_count), feature_mask)
+                    params: GrowParams, feature_mask) -> BestSplit:
+    """Best splits of the 2K children's column histograms [2K, C, B, 3]
+    (interleaved), expanded to per-feature views first, in one batched
+    search; a child past ``max_depth`` gets gain -inf."""
+    sg = interleave_lr(cur.left_sum_grad, cur.right_sum_grad)
+    sh = interleave_lr(cur.left_sum_hess, cur.right_sum_hess)
+    cnt = interleave_lr(cur.left_count, cur.right_count)
+    b2k = find_best_split(expand_hist(ch_hist, sg, sh, cnt, meta, params),
+                          meta, params.split, sg, sh, cnt, feature_mask)
     return b2k._replace(gain=torch.where(ch_ok, b2k.gain, K_MIN_SCORE))
 
 
@@ -207,7 +223,7 @@ def grow_tree_batched(xb: torch.Tensor, grad: torch.Tensor,
     """Grow one tree, splitting up to ``params.batch_splits`` frontier
     leaves per step; returns (tree on the host, per-row leaf id on the
     device), as ``grow.grow_tree``."""
-    n, f = xb.shape
+    n, c = xb.shape
     l = params.num_leaves
     b = params.num_bins
     sp = params.split
@@ -227,7 +243,8 @@ def grow_tree_batched(xb: torch.Tensor, grad: torch.Tensor,
             break
         k = min(live, kb, l - nl)
         plan = wave_plan(best, nl, k)
-        leaf_id, active, rs, go_left = wave_route(xb, leaf_id, plan, meta)
+        leaf_id, active, rs, go_left = wave_route(xb, leaf_id, plan, meta,
+                                                  params.with_efb)
 
         # ---- all 2k children's histograms in one pass -------------------
         if params.batched_pack:
@@ -238,15 +255,15 @@ def grow_tree_batched(xb: torch.Tensor, grad: torch.Tensor,
         else:
             h6 = hist_slots6(xb, torch.where(active, rs, -1).to(torch.int32),
                              go_left.to(torch.float32), vals, b, k,
-                             params.hist_impl)               # [k, F, B, 6]
+                             params.hist_impl)               # [k, C, B, 6]
             ch_hist = torch.stack([h6[..., :3], h6[..., 3:]],
-                                  dim=1).reshape(2 * k, f, b, 3)
+                                  dim=1).reshape(2 * k, c, b, 3)
 
         ch_ok = apply_split_wave(tree, leaf_min, leaf_max, plan.cur,
                                  plan.gleaf, plan.node, plan.right_leaf, nl,
                                  meta, sp, params.max_depth)
         scatter_child_best(best, search_children(ch_hist, plan.cur, ch_ok,
-                                                 meta, sp, feature_mask),
+                                                 meta, params, feature_mask),
                            plan.gleaf, plan.right_leaf)
         nl += k
     return tree_to_host(tree, nl), leaf_id

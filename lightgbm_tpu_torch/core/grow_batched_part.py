@@ -2,12 +2,12 @@
 grouped by leaf (``tree_growth=batched`` with ``tpu_batched_part=true``).
 
 The port of ``lightgbm_tpu/core/grow_batched_part.py`` for one device
-without EFB or categorical features. The algorithm is batched growth's
+without categorical features. The algorithm is batched growth's
 (``core/grow_batched.py``: the same ranking, node numbering, wave commit
 and child search, which this module reuses); only the layout of the rows
 differs, so only the order of the additions inside a histogram does.
 
-The rows live in a feature-major ``[F, Np]`` copy of the bins and a
+The rows live in a column-major ``[C, Np]`` copy of the stored columns and a
 ``[3, Np]`` copy of the values, grouped by leaf into segments that start on
 a ``PART_TILE``-row boundary (the DataPartition invariant,
 data_partition.hpp:20-37): every row tile belongs to at most one leaf. Each
@@ -16,7 +16,8 @@ step
 - ranks the leaves and commits the first ``k = min(live, K, L - nl)`` of
   them, as ``grow_tree_batched`` does (one read a step, the live count);
 - routes every row through its leaf's split with a per-row gather of its
-  split column's byte (``xb_fm[feature, row]``);
+  split feature's stored byte (``xb_fm[col, row]``), decoded into the
+  feature's bin where EFB bundles or packed pairs share columns;
 - builds both children of every splitting leaf in one pass over the OLD
   layout, with each tile taking its leaf's slot (``hist_part_tiles``, the
   port of ``_hist_part_kernel``): tiles of leaves that do not split are
@@ -74,7 +75,7 @@ def grow_tree_batched_part(xb: torch.Tensor, grad: torch.Tensor,
     """Grow one tree as ``grow_tree_batched`` does over the partitioned
     layout; returns (tree on the host, per-row leaf id on the device, in
     the original row order)."""
-    n, f = xb.shape
+    n, c = xb.shape
     l = params.num_leaves
     b = params.num_bins
     sp = params.split
@@ -90,7 +91,7 @@ def grow_tree_batched_part(xb: torch.Tensor, grad: torch.Tensor,
     leaf_max = torch.full((l,), float("inf"), device=dev)
 
     # ---- the first layout: leaf 0 holds rows [0, n) ----------------------
-    xb_fm = torch.zeros((f, np_cap), dtype=torch.uint8, device=dev)
+    xb_fm = torch.zeros((c, np_cap), dtype=torch.uint8, device=dev)
     xb_fm[:, :n] = xb.t()
     vals3 = torch.zeros((3, np_cap), dtype=torch.float32, device=dev)
     vals3[:, :n] = vals.t()
@@ -115,7 +116,8 @@ def grow_tree_batched_part(xb: torch.Tensor, grad: torch.Tensor,
                              plan.rank_of_leaf.index_select(0, safe_rl), -1)
         active = slot_r >= 0
         rs = slot_r.clamp(min=0)
-        go_left = _route_rows_gather(xb_fm.t(), rs, plan.cur, meta)
+        go_left = _route_rows_gather(xb_fm.t(), rs, plan.cur, meta,
+                                     params.with_efb)
 
         # ---- segmented left counts from one cumsum ----------------------
         gl_cum = torch.cumsum((active & go_left).to(torch.int64), 0)
@@ -152,9 +154,9 @@ def grow_tree_batched_part(xb: torch.Tensor, grad: torch.Tensor,
         first = (slot_at >= 0) & (slot_at != prev)
         h6 = hist_part_tiles(xb_fm, go_left.to(torch.float32), vals3,
                              slot_at, first, b, k, tile,
-                             params.hist_impl)                # [k, F, B, 6]
+                             params.hist_impl)                # [k, C, B, 6]
         ch_hist = torch.stack([h6[..., :3], h6[..., 3:]],
-                              dim=1).reshape(2 * k, f, b, 3)
+                              dim=1).reshape(2 * k, c, b, 3)
         # both routes zero a slot with no tile, so this mask changes nothing
         # on one device; it is the mask a data-parallel shard needs before
         # its histograms are summed across devices
@@ -171,12 +173,13 @@ def grow_tree_batched_part(xb: torch.Tensor, grad: torch.Tensor,
         orig = orig.index_select(0, perm)
         leaf_begin, leaf_count = begin_new, counts_new
 
-        # ---- the wave's tree bookkeeping and its children's search -----
+        # ---- the wave's tree bookkeeping and its children's search
+        # (expanded to per-feature views first, JAX :118-130, 198) ------
         ch_ok = apply_split_wave(tree, leaf_min, leaf_max, plan.cur, gleaf,
                                  plan.node, right_leaf, nl, meta, sp,
                                  params.max_depth)
         scatter_child_best(best, search_children(ch_hist, plan.cur, ch_ok,
-                                                 meta, sp, feature_mask),
+                                                 meta, params, feature_mask),
                            gleaf, right_leaf)
         nl += k
 

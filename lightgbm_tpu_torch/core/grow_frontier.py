@@ -1,7 +1,7 @@
 """Frontier-wave growth: O(depth) passes over the rows per tree.
 
 The port of ``lightgbm_tpu/core/grow_frontier.py`` (``tree_growth=frontier``)
-for one device, one class, the serial learner, without EFB, categorical
+for one device, one class, the serial learner, without categorical
 features or packed words. Each wave splits every frontier leaf whose best
 split has positive gain, ranked by gain (rank ``i`` of a wave with ``nl``
 leaves makes node ``nl - 1 + i`` and right leaf ``nl + i``, the numbering of
@@ -14,9 +14,13 @@ leaves makes node ``nl - 1 + i`` and right leaf ``nl + i``, the numbering of
   child, each row carrying its split's rank iff it lands in the smaller
   child (``wave_slots``);
 - the larger sibling is the parent's histogram, kept in a per-leaf pool
-  ``[L, F, B, 3]``, minus the smaller one (``derive_child_hists``);
+  ``[L, C, B, 3]`` over the stored columns, minus the smaller one
+  (``derive_child_hists``);
 - the 2K children are searched in one batched ``find_best_split``
-  (``wave_commit``).
+  (``wave_commit``), their column histograms expanded to per-feature
+  views just before it where EFB bundles or packed pairs share columns
+  (JAX ``core/grow_frontier.py:139-170``); the routing decodes the
+  stored bytes (``:202-235``).
 
 A 255-leaf tree takes about as many waves as its depth, instead of 254
 split steps. When the leaf cap never binds, the splits are those of exact
@@ -56,7 +60,7 @@ from .split import BestSplit, FeatureMeta
 
 class FrontierState(NamedTuple):
     leaf_id: torch.Tensor     # [N] int64
-    hist_pool: torch.Tensor   # [L, F, B, 3] per-leaf histograms
+    hist_pool: torch.Tensor   # [L, C, B, 3] per-leaf column histograms
     best: BestSplit           # per-leaf best split, fields [L]
     tree: DeviceTree
     leaf_min: torch.Tensor    # [L] f32 monotone lower bound
@@ -75,8 +79,8 @@ def wave_slots(cur: BestSplit, active: torch.Tensor, go_left: torch.Tensor,
 
 def derive_child_hists(parent_hist: torch.Tensor, hist_small: torch.Tensor,
                        left_small: torch.Tensor):
-    """Sibling subtraction: [K, F, B, 3] smaller children + their parents
-    -> (left [K, ...], right [K, ...], interleaved [2K, F, B, 3])."""
+    """Sibling subtraction: [K, C, B, 3] smaller children + their parents
+    -> (left [K, ...], right [K, ...], interleaved [2K, C, B, 3])."""
     hist_large = parent_hist - hist_small
     ls = left_small[:, None, None, None]
     hist_left = torch.where(ls, hist_small, hist_large)
@@ -103,8 +107,7 @@ def wave_commit(s: FrontierState, plan: WavePlan, num_leaves: int,
                              num_leaves, meta, params.split,
                              params.max_depth)
     scatter_child_best(s.best, search_children(ch_hist, plan.cur, ch_ok,
-                                               meta, params.split,
-                                               feature_mask),
+                                               meta, params, feature_mask),
                        plan.gleaf, plan.right_leaf)
 
 
@@ -144,10 +147,11 @@ def grow_tree_frontier(xb: torch.Tensor, grad: torch.Tensor,
             break
         k = min(live, l - nl)
         plan = wave_plan(s.best, nl, k)
-        leaf_id, active, rs, go_left = wave_route(xb, s.leaf_id, plan, meta)
+        leaf_id, active, rs, go_left = wave_route(xb, s.leaf_id, plan, meta,
+                                                  params.with_efb)
         left_small, slot = wave_slots(plan.cur, active, go_left, rs)
         hist_small = hist_slots(xb, slot, vals, params.num_bins, k,
-                                params.hist_impl)             # [k, F, B, 3]
+                                params.hist_impl)             # [k, C, B, 3]
         s = s._replace(leaf_id=leaf_id)
         wave_commit(s, plan, nl, left_small, hist_small, meta, params,
                     feature_mask)

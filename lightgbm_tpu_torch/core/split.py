@@ -23,7 +23,7 @@ one call.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -42,6 +42,19 @@ class FeatureMeta(NamedTuple):
     missing_type: torch.Tensor  # [F] int64
     default_bin: torch.Tensor   # [F] int64
     penalty: torch.Tensor       # [F] float32 feature_contri multiplier
+    # stored layout (io/dataset.py feature_layout; feature_group.h:35-50):
+    # the feature's stored column and bin offset there (EFB); None is the
+    # identity layout, which the growers read when GrowParams.with_efb is
+    # off
+    col: Optional[torch.Tensor] = None        # [F] int64
+    offset: Optional[torch.Tensor] = None     # [F] int64
+    bundled: Optional[torch.Tensor] = None    # [F] bool
+    # joint-coded pairs: feature bin = (stored // pack_div) % pack_mod;
+    # pack_partner = the pair-mate's bin count (the marginalisation
+    # width); div 1 / mod 0 = unpacked
+    pack_div: Optional[torch.Tensor] = None      # [F] int64
+    pack_mod: Optional[torch.Tensor] = None      # [F] int64
+    pack_partner: Optional[torch.Tensor] = None  # [F] int64
 
 
 class SplitParams(NamedTuple):

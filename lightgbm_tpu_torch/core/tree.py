@@ -10,9 +10,11 @@ the JAX package.
 
 ``replay_leaves_binned`` finds the leaf of every row of a binned matrix
 instead (the JAX package's ``_replay_leaves_binned_impl``,
-boosting/gbdt.py:2417, for numerical splits): it walks the tree from the
-root, one gather and compare per depth level, and serves the valid-set
-scores, rollback and continued training.
+boosting/gbdt.py:2416-2468, for numerical splits): it walks the tree from
+the root, one gather, decode and compare per depth level, and serves the
+valid-set scores, rollback and continued training. Each node reads its
+split feature's stored column and decodes the byte into the feature's
+bin (``decode_bundle_value``: identity for a column of its own).
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from .grow import _bin_go_left
+from .grow import _bin_go_left, decode_bundle_value
 from .split import MISSING_NAN, MISSING_ZERO
 
 K_ZERO_THRESHOLD = 1e-35
@@ -113,9 +115,10 @@ def predict_forest_scores(trees: PredictTree, x: torch.Tensor
 
 class BinnedTree(NamedTuple):
     """One host tree's splits in bin space, as tensors on the device."""
-    nodes: torch.Tensor   # [L-1, 8] int64: column, threshold bin,
+    nodes: torch.Tensor   # [L-1, 11] int64: stored column, threshold bin,
     #                       default_left, missing type, num_bin, default
-    #                       bin, left child, right child (~leaf for leaves)
+    #                       bin, left child, right child (~leaf for
+    #                       leaves), bin offset, pack_div, pack_mod
     depth: int            # levels from the root to the deepest leaf
 
 
@@ -132,30 +135,35 @@ def tree_depth(left_child: np.ndarray, right_child: np.ndarray,
     return depth
 
 
-def binned_tree(ht, columns: np.ndarray, num_bin: np.ndarray,
-                default_bin: np.ndarray, device: torch.device) -> BinnedTree:
+def binned_tree(ht, columns: np.ndarray, offset: np.ndarray,
+                pack_div: np.ndarray, pack_mod: np.ndarray,
+                num_bin: np.ndarray, default_bin: np.ndarray,
+                device: torch.device) -> BinnedTree:
     """The bin-space table of host tree ``ht`` (HostTree or LoadedTree
-    layout); ``columns``, ``num_bin`` and ``default_bin`` give each of its
-    nodes' split feature's column of the binned matrix and bin layout."""
+    layout): for each of its nodes, the split feature's stored column, how
+    to decode it (bin offset, ``pack_div``, ``pack_mod``: 0, 1, 0 for a
+    column of its own) and its bin layout (``num_bin``, ``default_bin``)."""
     nn = max(int(ht.num_leaves_actual) - 1, 0)
     table = np.stack([
         columns[:nn], ht.threshold_bin[:nn], ht.default_left[:nn],
         ht.missing_type[:nn], num_bin[:nn], default_bin[:nn],
-        ht.left_child[:nn], ht.right_child[:nn]], axis=1).astype(np.int64)
+        ht.left_child[:nn], ht.right_child[:nn], offset[:nn],
+        pack_div[:nn], pack_mod[:nn]], axis=1).astype(np.int64)
     return BinnedTree(
-        nodes=torch.as_tensor(table.reshape(nn, 8), device=device),
+        nodes=torch.as_tensor(table.reshape(nn, 11), device=device),
         depth=tree_depth(ht.left_child, ht.right_child, nn))
 
 
 def replay_leaves_binned(tree: BinnedTree, xb: torch.Tensor) -> torch.Tensor:
-    """[N] int64 leaf of every row of the binned matrix ``xb`` [N, C]."""
+    """[N] int64 leaf of every row of the stored matrix ``xb`` [N, C]."""
     n = xb.shape[0]
     node = torch.zeros(n, dtype=torch.int64, device=xb.device)
     if tree.depth == 0:
         return node
     for _ in range(tree.depth):
-        at = tree.nodes.index_select(0, node.clamp(min=0))      # [N, 8]
-        binv = xb.gather(1, at[:, 0:1])[:, 0]
+        at = tree.nodes.index_select(0, node.clamp(min=0))      # [N, 11]
+        binv = decode_bundle_value(xb.gather(1, at[:, 0:1])[:, 0], at[:, 8],
+                                   at[:, 4], at[:, 5], at[:, 9], at[:, 10])
         go_left = _bin_go_left(binv, at[:, 1], at[:, 2].bool(), at[:, 3],
                                at[:, 4], at[:, 5])
         node = torch.where(node >= 0,

@@ -4,17 +4,19 @@ The port's own copy of ``lightgbm_tpu/io/bundle.py``, a re-design of the
 reference's bundling (src/io/dataset.cpp:67-177
 FindGroups/FastFeatureBundling, include/LightGBM/feature_group.h:35-50).
 Mutually-exclusive sparse features share one stored uint8 column; each
-sub-feature owns a bin range inside the column. The port only runs the
-grouping to learn whether bundles WOULD form: training on bundled columns
-is a later slice, so ``io/dataset.py`` raises when one does.
+sub-feature owns a bin range inside the column (``bundle_offsets``).
+``io/dataset.py`` builds the stored columns from the bundles, and the
+growers decode and expand them (``core/grow.py`` ``decode_bundle_value``,
+``expand_hist``).
 
 Encoding per bundled column (bin_offsets_ analog):
   value 0                      -> every sub-feature at its default bin
   value in [off_k, off_k+nb_k) -> sub-feature k at bin (value - off_k),
                                    everyone else at their default bin
 Offsets start at 1 and each range is the sub-feature's full bin count, so
-in the JAX package decode is one subtract + range check and histogram
-expansion is a static gather (``expand_hist``).
+decode is one subtract + range check and histogram expansion is a static
+gather. A sub-feature's default-bin histogram entry is rebuilt from the
+leaf totals, the Dataset::FixHistogram idea (dataset.h:411-412).
 
 The grouping itself is greedy conflict-bounded graph coloring like the
 reference: features are processed in descending nonzero count; a feature
@@ -24,7 +26,7 @@ within max_conflict_rate, and whose total bin count stays <= 256 (uint8).
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -100,3 +102,17 @@ def find_bundles(nz_sample_rows: Sequence[np.ndarray], sample_n: int,
     out.extend([j] for j in singles)
     return out
 
+
+
+def bundle_offsets(bundle: List[int],
+                   num_bins: Sequence[int]) -> Tuple[List[int], int]:
+    """Per-sub-feature bin offsets inside a bundled column and the column's
+    total encoded bin count. Singletons use identity encoding (offset 0)."""
+    if len(bundle) == 1:
+        return [0], int(num_bins[bundle[0]])
+    offsets = []
+    pos = 1                                # bin 0 = shared all-defaults
+    for j in bundle:
+        offsets.append(pos)
+        pos += int(num_bins[j])
+    return offsets, pos

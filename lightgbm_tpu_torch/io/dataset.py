@@ -6,11 +6,15 @@ dense ``[num_data, num_columns] uint8`` bin matrix plus the per-feature
 mappers. The bin matrix is built on the host with numpy and moved to the
 device once, by the boosting driver.
 
-This slice trains on numerical, unbundled columns only. The EFB grouping
-and the small-pair packing still run, exactly as in the JAX package, so
-that the port can tell when either WOULD change the stored layout; it then
-raises ``NotImplementedError`` instead of silently training on a different
-layout.
+The stored columns are the JAX package's layout, byte for byte: EFB
+(``io/bundle.py``) packs mutually-exclusive sparse features into shared
+columns, and small-feature pairs (``_pack_small_pairs``, the
+Dense4bitsBin idea) share a joint-coded column where that does not widen
+the histogram. ``col_features`` / ``col_offsets`` / ``col_num_bin`` /
+``col_packed`` record the layout (feature_group.h:35-50 bin_offsets_
+analog) and ``feature_layout`` gives the per-feature view the growers
+decode with. ``tpu_bin_packing=nibble`` (dataset-wide pairing) is outside
+the slice.
 """
 from __future__ import annotations
 
@@ -20,8 +24,8 @@ import numpy as np
 
 from ..config import Config
 from ..log import Log, LightGBMError, check, outside_slice
-from .binning import BinMapper
-from .bundle import find_bundles
+from .binning import BinMapper, BinType
+from .bundle import bundle_offsets, find_bundles
 
 
 class Metadata:
@@ -73,21 +77,6 @@ def _parse_categorical(categorical_feature, feature_names: List[str]) -> List[in
     return sorted(set(out))
 
 
-def _small_pairs_would_form(mappers: List[BinMapper], used: List[int],
-                            col_num_bin: List[int], pair_cap: int) -> bool:
-    """Whether ``BinnedDataset._pack_small_pairs`` of the JAX package would
-    joint-code any pair of small numerical features into one column (the
-    same greedy widest-with-narrowest walk, without building anything)."""
-    b_max = int(pair_cap) or max(col_num_bin, default=0)
-    cand = sorted((mappers[j].num_bin for j in used
-                   if mappers[j].num_bin <= 16), reverse=True)
-    while len(cand) >= 2:
-        widest = cand.pop(0)
-        if widest * cand[-1] <= b_max:
-            return True
-    return False
-
-
 class BinnedDataset:
     """The training artifact: bin matrix + mappers + metadata (dataset.h:278)."""
 
@@ -96,7 +85,16 @@ class BinnedDataset:
         self.num_total_features: int = 0
         self.bin_mappers: List[BinMapper] = []
         self.used_features: List[int] = []
-        self.X_binned: Optional[np.ndarray] = None      # [num_data, F] uint8
+        self.X_binned: Optional[np.ndarray] = None      # [num_data, C] uint8
+        # EFB layout (feature_group.h:35-50): stored column -> member
+        # original features + their bin offsets; singletons have offsets
+        # == [0] (raw encoding). With no bundling these mirror
+        # used_features 1:1. Joint-coded pairs of small features
+        # (Dense4bitsBin analog) store bin_a * num_bin_b + bin_b.
+        self.col_features: List[List[int]] = []
+        self.col_offsets: List[List[int]] = []
+        self.col_num_bin: List[int] = []
+        self.col_packed: List[bool] = []
         self.metadata = Metadata()
         self.feature_names: List[str] = []
         self.max_bin: int = 255
@@ -114,8 +112,8 @@ class BinnedDataset:
         dataset_loader.cpp:700-820), with the JAX package's sampling, so the
         mappers and the bin matrix are byte-identical to its own. A
         validation set passes the training set as ``reference`` and reuses
-        its mappers, used features and names (dataset.py:212-219 of the JAX
-        package)."""
+        its mappers, used features, names and stored layout (dataset.py:
+        212-219 of the JAX package)."""
         if hasattr(data, "tocsc") and hasattr(data, "nnz"):
             raise outside_slice("sparse input", "ROADMAP Queue 1 #16")
         data = np.asarray(data)
@@ -137,6 +135,10 @@ class BinnedDataset:
             self.bin_mappers = reference.bin_mappers
             self.used_features = reference.used_features
             self.feature_names = reference.feature_names
+            self.col_features = reference.col_features
+            self.col_offsets = reference.col_offsets
+            self.col_num_bin = reference.col_num_bin
+            self.col_packed = reference.col_packed
             self._bin_columns(data64)
             self._set_metadata(n, label, weight, init_score)
             return self
@@ -181,36 +183,84 @@ class BinnedDataset:
         if not self.used_features:
             Log.warning("There are no meaningful features, as all feature "
                         "values are constant.")
-        num_bins = [self.bin_mappers[j].num_bin for j in self.used_features]
+        # ---- EFB grouping (dataset.cpp:67-177 analog) --------------------
         if config.enable_bundle and len(self.used_features) > 1:
             bundles = find_bundles(
                 [nz_sample[j] for j in self.used_features], sample_cnt,
-                num_bins, config.max_conflict_rate,
+                [self.bin_mappers[j].num_bin for j in self.used_features],
+                config.max_conflict_rate,
                 sparse_threshold=config.sparse_threshold)
-            if any(len(b) > 1 for b in bundles):
+            # bundle entries index into used_features; map back
+            bundles = [[self.used_features[i] for i in b] for b in bundles]
+        else:
+            bundles = [[j] for j in self.used_features]
+        self.col_features = bundles
+        self.col_offsets, self.col_num_bin = [], []
+        num_bin_of = {j: self.bin_mappers[j].num_bin
+                      for j in self.used_features}
+        for b in bundles:
+            offs, total = bundle_offsets(b, num_bin_of)
+            self.col_offsets.append(offs)
+            self.col_num_bin.append(total)
+        n_bundled = sum(1 for b in bundles if len(b) > 1)
+        if n_bundled:
+            Log.info("EFB: %d features bundled into %d columns "
+                     "(%d multi-feature bundles)",
+                     len(self.used_features), len(bundles), n_bundled)
+        self.col_packed = [False] * len(self.col_features)
+        # the JAX package pairs on one device with the serial learner only
+        # (a mesh shards the feature axis assuming an identity layout)
+        if config.enable_nbit_packing and \
+                config.tree_learner == "serial" and not config.mesh_shape:
+            if config.tpu_bin_packing == "nibble":
                 raise outside_slice(
-                    "training on EFB bundles (they form on this data; "
-                    "enable_bundle=false keeps the columns apart)",
-                    "ROADMAP Queue 1 #4")
-        if config.enable_nbit_packing and config.tree_learner == "serial" \
-                and not config.mesh_shape and _small_pairs_would_form(
-                    self.bin_mappers, self.used_features, num_bins,
-                    256 if config.tpu_bin_packing == "nibble" else 0):
-            raise outside_slice(
-                "training on packed small-feature pairs (they form on this "
-                "data; enable_nbit_packing=false keeps them apart)",
-                "ROADMAP Queue 1 #4")
+                    "tpu_bin_packing=nibble (small-feature pairs coded "
+                    "dataset-wide, widening the histogram)",
+                    "ROADMAP Queue 1 #9")
+            # auto and none resolve to plain uint8 columns off a TPU, as
+            # does byte (core/binpack.py:97-117 of the JAX package): the
+            # conservative cap, B never grows past the widest column
+            self._pack_small_pairs()
 
         self._bin_columns(data64)
         self._set_metadata(n, label, weight, init_score)
         return self
 
     def _bin_columns(self, data64: np.ndarray) -> None:
-        """The uint8 bin matrix of the used features' columns."""
-        cols = [self.bin_mappers[j].values_to_bins(data64[:, j]).astype(np.uint8)
-                for j in self.used_features]
+        """The uint8 stored columns (dataset.py:316-350 of the JAX
+        package): a feature's own bins in a singleton column, ``offset +
+        bin`` of the non-default bins in a bundle (features in bundle
+        order, so a later feature wins a conflicting row), ``bin_a *
+        num_bin_b + bin_b`` in a packed pair."""
+        n = len(data64)
+
+        def full_bin_column(j):
+            return self.bin_mappers[j].values_to_bins(
+                data64[:, j]).astype(np.uint8)
+
+        cols = []
+        for ci, (feats, offs) in enumerate(zip(self.col_features,
+                                               self.col_offsets)):
+            if self._col_is_packed(ci):
+                ja, jb = feats
+                nb_b = self.bin_mappers[jb].num_bin
+                colb = (full_bin_column(ja).astype(np.uint16) * nb_b
+                        + full_bin_column(jb)).astype(np.uint8)
+            elif len(feats) == 1 and offs[0] == 0:
+                colb = full_bin_column(feats[0])
+            else:
+                colb = np.zeros(n, np.uint8)
+                for off, j in zip(offs, feats):
+                    m = self.bin_mappers[j]
+                    col = data64[:, j]
+                    rows = np.flatnonzero(~((col >= -1e-35)
+                                            & (col <= 1e-35)))
+                    bins = m.values_to_bins(col[rows])
+                    sel = bins != m.default_bin
+                    colb[rows[sel]] = (off + bins[sel]).astype(np.uint8)
+            cols.append(colb)
         self.X_binned = (np.ascontiguousarray(np.stack(cols, axis=1)) if cols
-                         else np.zeros((len(data64), 0), dtype=np.uint8))
+                         else np.zeros((n, 0), dtype=np.uint8))
 
     def _set_metadata(self, n, label, weight, init_score) -> None:
         self.metadata = Metadata(n)
@@ -241,6 +291,114 @@ class BinnedDataset:
     def max_num_bin(self) -> int:
         return max((self.feature_num_bin(i) for i in range(self.num_features)),
                    default=1)
+
+    # ------------------------------------------------------------ EFB layout
+    @property
+    def num_columns(self) -> int:
+        """Stored bin-matrix columns (== num_features when nothing is
+        bundled or packed)."""
+        return len(self.col_features)
+
+    def max_col_bins(self) -> int:
+        """Largest encoded bin count of any stored column (histogram B)."""
+        return max(self.col_num_bin, default=1)
+
+    @property
+    def has_bundles(self) -> bool:
+        return any(len(b) > 1 and not self._col_is_packed(ci)
+                   for ci, b in enumerate(self.col_features))
+
+    def _col_is_packed(self, ci: int) -> bool:
+        return ci < len(self.col_packed) and self.col_packed[ci]
+
+    @property
+    def has_packed(self) -> bool:
+        return any(self.col_packed)
+
+    def _pack_small_pairs(self) -> None:
+        """Joint-code pairs of small singleton numerical features into one
+        stored column (value = bin_a * num_bin_b + bin_b), the
+        Dense4bitsBin idea (dense_nbits_bin.hpp:38-82) re-shaped for the
+        [N, C] uint8 matrix: two features share a column whose joint
+        histogram is marginalised per feature at split-search time. A pair
+        forms only when it fits the dataset's existing histogram width, so
+        B never grows (the JAX package's ``pair_cap`` 0)."""
+        b_max = max(self.col_num_bin, default=0)
+        cand = [ci for ci in range(len(self.col_features))
+                if len(self.col_features[ci]) == 1
+                and not self.col_packed[ci]
+                and self.bin_mappers[self.col_features[ci][0]].bin_type
+                != BinType.CATEGORICAL
+                and self.bin_mappers[self.col_features[ci][0]].num_bin <= 16]
+        # widest first, paired greedily while the product fits b_max
+        cand.sort(key=lambda ci:
+                  -self.bin_mappers[self.col_features[ci][0]].num_bin)
+        drop = set()
+        pairs = 0
+        while len(cand) >= 2:
+            ca = cand.pop(0)
+            cb = cand.pop()          # widest with narrowest
+            ja = self.col_features[ca][0]
+            jb = self.col_features[cb][0]
+            nb_a = self.bin_mappers[ja].num_bin
+            nb_b = self.bin_mappers[jb].num_bin
+            if nb_a * nb_b > b_max:
+                # the widest can pair with no one (cb is the narrowest);
+                # drop it and keep pairing the rest
+                cand.append(cb)
+                continue
+            self.col_features[ca] = [ja, jb]
+            self.col_offsets[ca] = [0, 0]
+            self.col_num_bin[ca] = nb_a * nb_b
+            self.col_packed[ca] = True
+            drop.add(cb)
+            pairs += 1
+        if drop:
+            keep = [i for i in range(len(self.col_features))
+                    if i not in drop]
+            self.col_features = [self.col_features[i] for i in keep]
+            self.col_offsets = [self.col_offsets[i] for i in keep]
+            self.col_num_bin = [self.col_num_bin[i] for i in keep]
+            self.col_packed = [self.col_packed[i] for i in keep]
+            Log.info("nbit packing: %d small-feature pairs share a column "
+                     "(%d stored columns)", pairs, len(self.col_features))
+
+    def feature_layout(self):
+        """Per used-feature (inner index) storage arrays:
+        (feat_col, feat_offset, feat_bundled, pack_div, pack_mod,
+        pack_partner): where each feature lives in the stored matrix, at
+        which bin offset (EFB), and how to extract it from a joint-coded
+        pair column: feature bin = (value // div) % mod, with ``partner``
+        the other feature's bin count (the marginalisation width).
+        div/mod are 1/0 for unpacked features."""
+        fcount = self.num_features
+        feat_col = np.zeros(fcount, np.int32)
+        feat_offset = np.zeros(fcount, np.int32)
+        feat_bundled = np.zeros(fcount, bool)
+        pack_div = np.ones(fcount, np.int32)
+        pack_mod = np.zeros(fcount, np.int32)
+        pack_partner = np.ones(fcount, np.int32)
+        inner = {j: i for i, j in enumerate(self.used_features)}
+        for ci, (feats, offs) in enumerate(zip(self.col_features,
+                                               self.col_offsets)):
+            if self._col_is_packed(ci):
+                ja, jb = feats
+                nb_a = self.bin_mappers[ja].num_bin
+                nb_b = self.bin_mappers[jb].num_bin
+                ia, ib = inner[ja], inner[jb]
+                feat_col[ia] = feat_col[ib] = ci
+                pack_div[ia], pack_mod[ia] = nb_b, nb_a
+                pack_partner[ia] = nb_b
+                pack_div[ib], pack_mod[ib] = 1, nb_b
+                pack_partner[ib] = nb_a
+                continue
+            for off, j in zip(offs, feats):
+                i = inner[j]
+                feat_col[i] = ci
+                feat_offset[i] = off
+                feat_bundled[i] = len(feats) > 1
+        return (feat_col, feat_offset, feat_bundled, pack_div, pack_mod,
+                pack_partner)
 
     def get_feature_infos(self) -> List[str]:
         """Model-file ``feature_infos`` strings ([min:max] per feature)."""

@@ -10,7 +10,10 @@ with ``tpu_batched_part=true``), 5 iterations.
 
 - ``--objective binary`` (the default): bench.py's 0/1 labels; prints the
   AUC of the predicted probabilities on the training rows, with
-  chip_smoke's AUC function.
+  chip_smoke's AUC function. ``--data bundled`` takes chip_smoke's
+  bundled workload instead (``chip_smoke.bundled_data``: 1,000,000 x 284,
+  HIGGS's b-tags plus one-hot blocks, which default binning stores as EFB
+  bundles and packed pairs), the data of its paths 4i-4l.
 - ``--objective`` one of the regression family (regression, huber,
   quantile, regression_l1, ...): bench.py's target before its threshold
   (``chip_smoke.regression_data``); prints the objective's own train
@@ -20,7 +23,8 @@ with ``tpu_batched_part=true``), 5 iterations.
 
     JAX_PLATFORMS=cpu python scripts/jax_reference_auc.py \
         [--growth exact|frontier|batched|batched_part] \
-        [--objective OBJECTIVE] [--valid] [--rows N] [--iters K]
+        [--objective OBJECTIVE] [--valid] [--data dense|bundled] \
+        [--rows N] [--iters K]
 
 It runs on the CPU backend and prints one JSON line.
 """
@@ -45,6 +49,7 @@ def main() -> int:
                     default="exact")
     ap.add_argument("--objective", default="binary")
     ap.add_argument("--valid", action="store_true")
+    ap.add_argument("--data", choices=("dense", "bundled"), default="dense")
     args = ap.parse_args()
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -55,14 +60,20 @@ def main() -> int:
     params = dict(chip_smoke.PARAMS, objective=args.objective,
                   **chip_smoke.GROWTH_PARAMS[args.growth])
     out = {"growth": args.growth, "objective": args.objective,
-           "rows": args.rows, "iters": args.iters}
+           "data": args.data, "rows": args.rows, "iters": args.iters}
     t0 = time.time()
     if args.objective == "binary":
-        x, y = chip_smoke.bench_data(args.rows)
+        x, y = (chip_smoke.bundled_data(args.rows) if args.data == "bundled"
+                else chip_smoke.bench_data(args.rows))
         bst = lgb.train(params, lgb.Dataset(x, label=y),
                         num_boost_round=args.iters)
         out["auc"] = chip_smoke.auc(np.asarray(bst.predict(x), np.float64), y)
+        if args.data == "bundled":
+            out["splits_on"] = chip_smoke.splits_on_layout(
+                bst._impl.models, bst._impl.train_data)
     else:
+        if args.data != "dense":
+            ap.error("--data bundled takes the binary objective")
         x, y = chip_smoke.regression_data(args.rows)
         train = lgb.Dataset(x, label=y)
         kwargs = {}

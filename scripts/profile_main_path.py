@@ -17,9 +17,13 @@ With ``--objective`` (regression, huber, quantile, regression_l1, ...) it
 trains that objective on bench.py's target before its threshold
 (``chip_smoke.regression_data``) instead of the binary labels, so the
 regression paths' renewal and score updates show in the profile.
+``--data bundled`` trains the binary labels of chip_smoke.py's bundled
+workload instead (``chip_smoke.bundled_data``: HIGGS's b-tags and 8
+one-hot blocks of 32, 284 features stored in 34 columns), its paths
+4i-4l.
 
     python3 scripts/profile_main_path.py [--growth MODE] [--rows N] \
-        [--iters K] [--objective OBJECTIVE]
+        [--iters K] [--objective OBJECTIVE] [--data dense|bundled]
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -55,7 +59,10 @@ def main() -> int:
     ap.add_argument("--objective", default="binary",
                     help="binary (bench.py's labels) or one of the "
                     "regression family (its target before the threshold)")
+    ap.add_argument("--data", choices=("dense", "bundled"), default="dense")
     args = ap.parse_args()
+    if args.data == "bundled" and args.objective != "binary":
+        ap.error("--data bundled takes the binary objective")
     import torch
     if not torch.cuda.is_available():
         print("profile_main_path: needs a CUDA device", file=sys.stderr)
@@ -67,7 +74,8 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    x, y = chip_smoke.workload(args.objective, args.rows)
+    x, y = (chip_smoke.bundled_data(args.rows) if args.data == "bundled"
+            else chip_smoke.workload(args.objective, args.rows))
     params = dict(chip_smoke.PARAMS, objective=args.objective,
                   **chip_smoke.GROWTH_PARAMS[args.growth])
     ds = lgb.Dataset(x, label=y, params=params).construct()
@@ -143,7 +151,7 @@ def main() -> int:
                                    a.count // args.iters, a.key[:90]))
     summary = {
         "card": card, "growth": args.growth, "objective": args.objective,
-        "rows": args.rows,
+        "data": args.data, "rows": args.rows,
         "iters": args.iters, "own_kernel_launches": own_launches,
         "iteration_ms": wall_ms, "iteration_ms_each": plain_ms,
         "iteration_ms_profiled": prof_ms, "device_busy_ms": busy_ms,

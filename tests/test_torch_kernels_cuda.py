@@ -605,3 +605,115 @@ def test_valid_scores_and_renewal_on_the_card(cuda_device, objective):
     metric = list(cev["valid_0"])[0]
     np.testing.assert_allclose(gev["valid_0"][metric],
                                cev["valid_0"][metric], rtol=1e-3)
+
+
+def _bundled_stored(n, seed):
+    """A stored matrix of the bundled workload's shape (chip_smoke.py
+    ``bundled_data``): C = 34 columns of B = 255 bins, the first 8 of them
+    EFB bundle columns of 65 codes with half their rows at bin 0 (no member
+    of the bundle non-zero)."""
+    r = np.random.RandomState(seed)
+    xb = r.randint(0, 255, (n, 34)).astype(np.uint8)
+    for c in range(8):
+        col = r.randint(1, 65, n).astype(np.uint8)
+        col[r.rand(n) < 0.5] = 0
+        xb[:, c] = col
+    return xb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["histogram", "slots", "slots6", "part"])
+def test_kernels_at_the_bundled_shape(cuda_device, kernel):
+    """Each histogram kernel on the skewed stored matrix of the bundled
+    workload, held to its plain version computed in float64 (a bin-0 cell
+    of a bundle sums ~50,000 terms): |d| <= 1e-5 * sum|v| + 1e-6, count
+    channels exact, one launch. At C = 34, B = 255 the part kernel's plan
+    takes two feature tiles."""
+    n, b, s = 100_003, 255, 16
+    xb = _bundled_stored(n, seed=5)
+    c = xb.shape[1]
+    if kernel == "histogram":
+        _, vals = _inputs(n, c, b, 3, seed=7)
+        vals = _count_channels(vals)
+        wrapper = kernels.build_histogram_cuda
+        before = wrapper.launches
+        got = th.hist_tile_vals(*_to(cuda_device, xb, vals), b, "auto")
+        cpu = [torch.as_tensor(a) for a in (xb, vals)]
+        want = th.hist_plain(cpu[0], cpu[1].double(), b).numpy()
+        absum = th.hist_plain(cpu[0], cpu[1].double().abs(), b).numpy()
+    elif kernel in ("slots", "slots6"):
+        _, slot, vals, sel = _slot_inputs(n, c, b, s, seed=8)
+        cpu = [torch.as_tensor(a) for a in (xb, slot, vals, sel)]
+        dev = _to(cuda_device, xb, slot, vals, sel)
+        if kernel == "slots":
+            wrapper = kernels.build_histogram_slots_cuda
+            before = wrapper.launches
+            got = th.hist_slots(dev[0], dev[1], dev[2], b, s, "auto")
+            want = th.hist_slots_plain(cpu[0], cpu[1], cpu[2].double(), b,
+                                       s).numpy()
+            absum = th.hist_slots_plain(cpu[0], cpu[1], cpu[2].double().abs(),
+                                        b, s).numpy()
+        else:
+            wrapper = kernels.build_histogram_slots6_cuda
+            before = wrapper.launches
+            got = th.hist_slots6(dev[0], dev[1], dev[3], dev[2], b, s,
+                                 "auto")
+            want = th.hist_slots6_plain(cpu[0], cpu[1], cpu[3],
+                                        cpu[2].double(), b, s).numpy()
+            absum = th.hist_slots6_plain(cpu[0], cpu[1], cpu[3],
+                                         cpu[2].double().abs(), b, s).numpy()
+    else:
+        xb_fm, sel, vals3, ts, first, row_tile = _part_layout(
+            n, 255, c, b, s, seed=9, share=1.0)
+        xb_fm = np.ascontiguousarray(xb[np.arange(xb_fm.shape[1]) % n].T)
+        plan = kernels.part_hist_launch_plan(len(ts), c, b, 132)
+        assert (plan.tiles, plan.feature_tile) == (2, 17)
+        arrays = (xb_fm, sel, vals3, ts, first)
+        wrapper = kernels.build_histogram_part_tiles_cuda
+        before = wrapper.launches
+        got = th.hist_part_tiles(*_to(cuda_device, *arrays), b, s, row_tile,
+                                 "auto")
+        cpu = [torch.as_tensor(a) for a in arrays]
+        want = th.hist_part_tiles_plain(cpu[0], cpu[1].double(),
+                                        cpu[2].double(), *cpu[3:], b, s,
+                                        row_tile).numpy()
+        absum = th.hist_part_tiles_plain(cpu[0], cpu[1].double(),
+                                         cpu[2].double().abs(), *cpu[3:], b,
+                                         s, row_tile).numpy()
+    assert wrapper.launches == before + 1
+    got = got.cpu().numpy()
+    assert got.shape == want.shape
+    assert (np.abs(got - want) <= 1e-5 * absum + 1e-6).all()
+    np.testing.assert_array_equal(got[..., 2::3], want[..., 2::3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("growth,counter", [
+    ({}, "build_histogram_cuda"),
+    ({"tree_growth": "frontier"}, "build_histogram_slots_cuda"),
+    ({"tree_growth": "batched"}, "build_histogram_slots6_cuda"),
+    ({"tree_growth": "batched", "tpu_batched_part": "true"},
+     "build_histogram_part_tiles_cuda")])
+def test_bundled_training_on_the_card(cuda_device, growth, counter):
+    """Training on the bundled workload (chip_smoke.py ``bundled_data`` at
+    20,000 rows, 3 one-hot blocks of 8) on the card: EFB bundles and
+    packed b-tag pairs on, the grower's kernel launched, and the trees of
+    the same run on the CPU up to f32 gain ties (chip_smoke.py's rule);
+    raw predictions within 1e-4 where the trees are identical."""
+    import chip_smoke
+    x, y = chip_smoke.bundled_data(20_000, groups=3, width=8)
+    params = dict({"objective": "binary", "num_leaves": 31,
+                   "min_data_in_leaf": 40, "verbosity": -1}, **growth)
+    wrapper = getattr(kernels, counter)
+    before = wrapper.launches
+    bst = tlgb.train(params, tlgb.Dataset(x, label=y), num_boost_round=3)
+    assert wrapper.launches > before
+    ds = bst._impl.train_data
+    assert ds.has_bundles and ds.has_packed
+    assert bst._impl.grow_params.with_efb
+    cpu = tlgb.train(params, tlgb.Dataset(x, label=y, device="cpu"),
+                     num_boost_round=3, device="cpu")
+    if chip_smoke.trees_match(bst.models, cpu.models):
+        np.testing.assert_allclose(bst.predict(x, raw_score=True),
+                                   cpu.predict(x, raw_score=True), rtol=0,
+                                   atol=1e-4)

@@ -95,7 +95,6 @@ def _data(n=400):
 
 OUTSIDE_SLICE = {
     "categorical": ({"categorical_feature": "0"}, None),
-    "efb_bundles": ({}, "sparse"),
     "bagging": ({"bagging_freq": 1, "bagging_fraction": 0.5}, None),
     "goss": ({"boosting": "goss"}, None),
     "dart": ({"boosting": "dart"}, None),
@@ -126,7 +125,8 @@ REFUSALS = {
                      "#9"),
     "sparse_input": ({}, "#16"),
     "sparse_matrix_binning": ({}, "#16"),
-    "small_feature_pairs": ({"enable_bundle": False}, "#4"),
+    # dataset-wide pairing (the JAX package's nibble cap) stays refused
+    "nibble_pairs": ({"tpu_bin_packing": "nibble"}, "#9"),
     "fobj": ({}, "#19"),
     "checkpoint_callback": ({}, "#12"),
 }
@@ -139,11 +139,8 @@ def test_refusals_cite_their_roadmap_item(kind):
     if kind.startswith("sparse"):
         import scipy.sparse
         x = scipy.sparse.csr_matrix(x)
-    if kind == "small_feature_pairs":
-        # a 0/1 and a 0/1/2 column: the JAX package packs them into one
-        r = np.random.RandomState(3)
-        x = np.column_stack([x, r.randint(0, 2, len(x)),
-                             r.randint(0, 3, len(x))])
+    if kind == "nibble_pairs":
+        x = _small_pair_data(x)
     with pytest.raises(NotImplementedError,
                        match=r"\(ROADMAP Queue 1 %s\)$" % item):
         if kind == "sparse_matrix_binning":
@@ -161,16 +158,53 @@ def test_refusals_cite_their_roadmap_item(kind):
                    num_boost_round=1, device="cpu", **extra)
 
 
+def _small_pair_data(x):
+    """A 0/1 and a 0/1/2 column beside ``x``: the JAX package packs them
+    into one stored column."""
+    r = np.random.RandomState(3)
+    return np.column_stack([x, r.randint(0, 2, len(x)),
+                            r.randint(0, 3, len(x))])
+
+
+def _exclusive_sparse_data(n=400):
+    """Mutually exclusive sparse columns: EFB bundles them."""
+    r = np.random.RandomState(2)
+    x = np.zeros((n, 6))
+    which = r.randint(0, 6, n)
+    x[np.arange(n), which] = r.rand(n) + 1
+    return x
+
+
+# data on which the port once refused to train (EFB bundles and packed
+# small-feature pairs form under default parameters); it trains now, on
+# the JAX package's stored layout
+NOW_TRAINED = {
+    "efb_bundles": ({}, "bundles"),
+    "small_feature_pairs": ({"enable_bundle": False}, "pairs"),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(NOW_TRAINED))
+def test_bundles_and_small_pairs_train(kind):
+    params, layout = NOW_TRAINED[kind]
+    x, y = _data()
+    x = _exclusive_sparse_data() if layout == "bundles" \
+        else _small_pair_data(x)
+    bst = tlgb.train(dict(params, objective="binary", verbosity=-1),
+                     tlgb.Dataset(x, label=y, device="cpu"),
+                     num_boost_round=2, device="cpu")
+    ds = bst._impl.train_data
+    assert (ds.has_bundles, ds.has_packed) == (layout == "bundles",
+                                               layout == "pairs")
+    assert ds.num_columns < ds.num_features
+    assert len(bst.models) == 2
+    assert np.isfinite(bst.predict(x)).all()
+
+
 @pytest.mark.parametrize("option", sorted(OUTSIDE_SLICE))
 def test_outside_the_slice_raises(option):
     params, data = OUTSIDE_SLICE[option]
     x, y = _data()
-    if data == "sparse":
-        # mutually exclusive sparse columns: EFB would bundle them
-        r = np.random.RandomState(2)
-        x = np.zeros((400, 6))
-        which = r.randint(0, 6, 400)
-        x[np.arange(400), which] = r.rand(400) + 1
     if data == "classes":
         y = np.arange(len(y)) % 3
     ds = tlgb.Dataset(x, label=y, device="cpu")
