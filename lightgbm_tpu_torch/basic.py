@@ -5,7 +5,10 @@ the reference's python-package/lightgbm/basic.py) for the slice's
 arguments. A ``Dataset`` holds the raw matrix until ``construct()`` bins it
 on the host (a validation set with the training set's mappers, through
 ``reference``); a ``Booster`` trains on, or predicts from, one device, and
-evaluates its training and validation sets.
+evaluates its training and validation sets. A pandas ``DataFrame``'s
+``category`` columns are categorical features coded by the training
+frame's category order, which the model text keeps in its
+``pandas_categorical`` line.
 
 Device policy: ``Dataset``, ``Booster`` and ``train`` take ``device``.
 ``None`` means CUDA; without a CUDA device they raise unless the caller
@@ -29,14 +32,46 @@ from .metrics import create_metric, default_metric_for_objective
 from .objectives import create_objective
 
 
+def _is_frame(data) -> bool:
+    return hasattr(data, "dtypes") and hasattr(data, "columns")
+
+
+def _pandas_frame_to_array(df, pandas_categorical=None):
+    """DataFrame -> (float64 array, its category columns' names, their
+    category lists) (basic.py:29-59 of the JAX package; the reference's
+    _data_from_pandas, python-package/lightgbm/basic.py:255).
+
+    A ``category`` column becomes its integer codes, NaN where missing or
+    unseen. Training records each column's category order; prediction and
+    validation sets pass it back, so a raw category maps to the same code
+    wherever the model is used. The frame's own methods do the work: this
+    module never imports pandas."""
+    cat_cols = [c for c in df.columns if str(df[c].dtype) == "category"]
+    if pandas_categorical is not None:
+        # a frame that lost its category dtypes would be read as raw codes
+        check(len(pandas_categorical) == len(cat_cols),
+              "train and predict data have different categorical columns")
+    if not cat_cols:
+        return df.values.astype(np.float64), [], pandas_categorical
+    df = df.copy(deep=False)
+    if pandas_categorical is None:     # training: record category order
+        pandas_categorical = [list(df[c].cat.categories) for c in cat_cols]
+    else:                              # prediction: the trained order
+        for c, cats in zip(cat_cols, pandas_categorical):
+            df[c] = df[c].cat.set_categories(cats)
+    for c in cat_cols:
+        codes = df[c].cat.codes.astype(np.float64)
+        df[c] = codes.where(codes >= 0, np.nan)
+    return (df.values.astype(np.float64), [str(c) for c in cat_cols],
+            pandas_categorical)
+
+
 def _to_2d_float(data) -> np.ndarray:
-    """Dense ndarray / list / numeric DataFrame -> float64 [N, F]."""
+    """Dense ndarray / list / DataFrame -> float64 [N, F]."""
     if hasattr(data, "tocsc") and hasattr(data, "nnz"):
         raise outside_slice("sparse input", "ROADMAP Queue 1 #16")
-    if hasattr(data, "dtypes") and hasattr(data, "columns"):
-        if any(str(t) == "category" for t in data.dtypes):
-            raise outside_slice("categorical (pandas category) columns")
-        data = data.values
+    if _is_frame(data):
+        data = _pandas_frame_to_array(data)[0]
     arr = np.asarray(data, dtype=np.float64)
     if arr.ndim == 1:
         arr = arr.reshape(1, -1)
@@ -52,6 +87,17 @@ def _to_1d(x) -> Optional[np.ndarray]:
     return np.asarray(x, dtype=np.float64).reshape(-1)
 
 
+def _category_json(v):
+    """A numpy category value as JSON: a numeric category must stay
+    numeric, or ``set_categories`` matches nothing when the model is
+    loaded."""
+    if isinstance(v, np.integer):
+        return int(v)
+    if isinstance(v, np.floating):
+        return float(v)
+    return str(v)
+
+
 class Dataset:
     """Dataset in LightGBM (basic.py:656): lazily binned training data."""
 
@@ -62,9 +108,8 @@ class Dataset:
                  params: Optional[Dict[str, Any]] = None,
                  free_raw_data: bool = True, device: DeviceLike = None):
         if group is not None:
-            raise outside_slice("query groups (ranking)")
-        if categorical_feature not in ("auto", None, []):
-            raise outside_slice("categorical features")
+            raise outside_slice("query groups (ranking)",
+                                "ROADMAP Queue 1 #2")
         self.device = resolve_device(device)
         self.data = data
         self.label = label
@@ -72,10 +117,12 @@ class Dataset:
         self.weight = weight
         self.init_score = init_score
         self.feature_name = feature_name
+        self.categorical_feature = categorical_feature
         self.params = copy.deepcopy(params) if params else {}
         self.free_raw_data = free_raw_data
         self._binned: Optional[BinnedDataset] = None
         self._predictor: Optional[_InnerPredictor] = None
+        self.pandas_categorical = None
 
     def construct(self) -> "Dataset":
         """Bin the raw matrix on the host (basic.py _lazy_init:693-800); a
@@ -83,18 +130,33 @@ class Dataset:
         if self._binned is not None:
             return self
         if isinstance(self.data, str):
-            raise outside_slice("loading data from files")
+            raise outside_slice("loading data from files",
+                                "ROADMAP Queue 1 #16")
         ref_binned = (None if self.reference is None
                       else self.reference.construct()._binned)
         names = (list(self.feature_name)
                  if isinstance(self.feature_name, (list, tuple)) else None)
         if names is None and hasattr(self.data, "columns"):
             names = [str(c) for c in self.data.columns]
+        data, frame_cats = self.data, []
+        if _is_frame(data):
+            if self.pandas_categorical is None and self.reference is not None:
+                # a valid set codes categories in the training set's order
+                self.pandas_categorical = self.reference.pandas_categorical
+            data, frame_cats, self.pandas_categorical = \
+                _pandas_frame_to_array(data, self.pandas_categorical)
+        cat = (None if self.categorical_feature in ("auto", None)
+               else self.categorical_feature)
+        if frame_cats:
+            # a frame's category columns are categorical whether or not
+            # they are listed (the reference's auto-detection)
+            cat = list(cat) if cat else []
+            cat.extend(c for c in frame_cats if c not in cat)
         self._binned = BinnedDataset.from_matrix(
-            _to_2d_float(self.data), Config(self.params),
+            _to_2d_float(data), Config(self.params),
             label=_to_1d(self.label), weight=_to_1d(self.weight),
             init_score=_to_1d(self.init_score), feature_names=names,
-            reference=ref_binned)
+            categorical_feature=cat, reference=ref_binned)
         if self.free_raw_data:
             self.data = None
         return self
@@ -106,6 +168,14 @@ class Dataset:
         return Dataset(data, label=label, reference=self, weight=weight,
                        group=group, init_score=init_score, silent=silent,
                        params=params or self.params, device=self.device)
+
+    def set_categorical_feature(self, categorical_feature) -> "Dataset":
+        """basic.py:402 of the JAX package: the categorical features,
+        before the data are binned."""
+        check(self._binned is None,
+              "Cannot set categorical feature after dataset was constructed")
+        self.categorical_feature = categorical_feature
+        return self
 
     def _set_predictor(self, predictor: Optional["_InnerPredictor"]
                        ) -> "Dataset":
@@ -162,6 +232,7 @@ class Booster:
         self.train_set_name = "training"
         self._feature_names_loaded: List[str] = []
         self._feature_infos_loaded: List[str] = []
+        self.pandas_categorical = None
         if train_set is not None:
             check(isinstance(train_set, Dataset),
                   "Training data should be Dataset instance")
@@ -199,11 +270,12 @@ class Booster:
             check(train_set.data is not None,
                   "continued training needs the training set's raw data: "
                   "pass an unconstructed Dataset or free_raw_data=False")
-            init_raw = predictor.predict_raw(_to_2d_float(train_set.data))
+            init_raw = predictor.predict_raw(train_set.data)
         train_set.construct()
         if init_raw is not None:
             train_set._binned.metadata.set_init_score(init_raw)
         self._train_set = train_set
+        self.pandas_categorical = train_set.pandas_categorical
         self.config = Config(self.params)
         objective = create_objective(self.config)
         names = list(self.config.metric)
@@ -231,10 +303,22 @@ class Booster:
         self._feature_infos_loaded = list(feature_infos)
 
     def _init_from_string(self, model_str: str) -> None:
+        # the pandas_categorical sidecar, 'null' or absent in models that
+        # had no category columns (basic.py:526-533 of the JAX package)
+        for line in model_str.splitlines()[::-1]:
+            if line.startswith("pandas_categorical:"):
+                try:
+                    self.pandas_categorical = json.loads(
+                        line[len("pandas_categorical:"):])
+                except ValueError:
+                    pass
+                break
         parsed = model_text.parse_model_string(model_str)
         tokens = parsed["objective"].split()
-        if parsed["num_tree_per_iteration"] != 1 or parsed["average_output"]:
-            raise outside_slice("multiclass or averaged (RF) models")
+        if parsed["num_tree_per_iteration"] != 1:
+            raise outside_slice("multiclass models", "ROADMAP Queue 1 #2")
+        if parsed["average_output"]:
+            raise outside_slice("averaged (RF) models", "ROADMAP Queue 1 #7")
         if tokens:
             self.params.setdefault("objective", tokens[0])
             for tok in tokens[1:]:
@@ -265,13 +349,26 @@ class Booster:
         return self
 
     def update(self, train_set: Optional[Dataset] = None, fobj=None) -> bool:
-        """One boosting round (basic.py:1843). Returns True if stopped."""
-        if fobj is not None:
-            raise outside_slice("custom objectives (fobj)",
-                                "ROADMAP Queue 1 #19")
+        """One boosting round (basic.py:1843). Returns True if stopped.
+
+        ``fobj(raw training scores, training Dataset)`` returns the
+        gradients and hessians of a custom objective in numpy; they take the
+        objective's place for this round (basic.py:577-618 of the JAX
+        package)."""
         if train_set is not None and train_set is not self._train_set:
-            raise outside_slice("resetting the training data")
-        return self._impl.train_one_iter()
+            raise outside_slice("resetting the training data",
+                                "ROADMAP Queue 1 #20")
+        if fobj is None:
+            return self._impl.train_one_iter()
+        return self._impl.train_one_iter(*self._custom_gradients(fobj))
+
+    def _custom_gradients(self, fobj):
+        """``fobj``'s gradients and hessians of the training scores, on
+        the booster's device: the scores' copy to the host, the call, and
+        the two copies back, each blocking."""
+        grad, hess = fobj(self._impl.scores_of(0), self._train_set)
+        return (self._impl.device_gradients(grad, "grad"),
+                self._impl.device_gradients(hess, "hess"))
 
     def rollback_one_iter(self) -> "Booster":
         """basic.py:1934: drop the last iteration's tree."""
@@ -339,7 +436,10 @@ class Booster:
             raise LightGBMError("Cannot use Dataset instance for prediction, "
                                 "please use raw data instead")
         if pred_leaf or pred_contrib or kwargs.get("pred_early_stop"):
-            raise outside_slice("pred_leaf, pred_contrib and pred_early_stop")
+            raise outside_slice("pred_leaf, pred_contrib and pred_early_stop",
+                                "ROADMAP Queue 1 #8")
+        if _is_frame(data) and self.pandas_categorical is not None:
+            data = _pandas_frame_to_array(data, self.pandas_categorical)[0]
         if num_iteration is None and self.best_iteration > 0:
             num_iteration = self.best_iteration
         return self._impl.predict(_to_2d_float(data),
@@ -366,8 +466,10 @@ class Booster:
             self._impl, self._feature_names(), self._feature_infos(),
             num_iteration=num_iteration, start_iteration=start_iteration,
             parameters=param_dict_to_str(self.params))
-        # the reference's python package appends this sidecar line
-        return out + "\npandas_categorical:%s\n" % json.dumps(None)
+        # the reference's python package appends this sidecar line, so raw
+        # pandas categories survive save and load (_dump_pandas_categorical)
+        return out + "\npandas_categorical:%s\n" % json.dumps(
+            self.pandas_categorical, default=_category_json)
 
     def save_model(self, filename: str, num_iteration: Optional[int] = None,
                    start_iteration: int = 0) -> "Booster":

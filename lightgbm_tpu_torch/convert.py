@@ -5,10 +5,13 @@ For a GBDT the weights are the forest and the bin mappers.
 numpy arrays per tree, holding the fields of the JAX package's HostTree
 (``split_feature``, ``threshold``, ``threshold_bin``, ``default_left``,
 ``missing_type``, ``left_child``, ``right_child``, ``leaf_value``,
-``internal_value``, ``shrinkage``; ``split_gain``, ``leaf_count`` and
-``internal_count`` when present). ``bin_mappers_from_numpy`` does the same
-for the BinMapper fields, and ``booster_from_numpy`` puts both behind a
-predict-only ``Booster``. Nothing here imports the JAX package: a caller
+``internal_value``, ``shrinkage``; ``split_gain``, ``leaf_count``,
+``internal_count``, and the categorical ``is_categorical``, ``cat_bitset``
+(raw category values, as many 32-bit words as the model needs) and
+``cat_bitset_bin`` when present). ``bin_mappers_from_numpy`` does the same
+for the BinMapper fields, categorical mappers' ``bin_2_categorical``
+included, and ``booster_from_numpy`` puts both behind a predict-only
+``Booster``. Nothing here imports the JAX package: a caller
 that holds a JAX-trained model reads its trees into numpy first.
 """
 from __future__ import annotations
@@ -21,7 +24,7 @@ from .basic import Booster
 from .boosting.gbdt import HostTree
 from .core.tree import split_leaf_of_nodes
 from .device import DeviceLike
-from .io.binning import BinMapper
+from .io.binning import BinMapper, BinType
 
 _TREE_FIELDS = ("split_feature", "threshold", "threshold_bin",
                 "default_left", "missing_type", "left_child", "right_child",
@@ -44,11 +47,18 @@ def forest_from_numpy(trees: Sequence[Mapping[str, Any]]) -> List[HostTree]:
         nn = int(np.count_nonzero(right != -1))
         ht.num_leaves_actual = nn + 1
         for name in _TREE_FIELDS + ("split_gain", "leaf_count",
-                                    "internal_count"):
+                                    "internal_count", "is_categorical",
+                                    "cat_bitset_bin"):
             if name in arrays:
                 dst = getattr(ht, name)
                 src = np.asarray(arrays[name])
                 dst[:len(src)] = src.astype(dst.dtype)
+        if "cat_bitset" in arrays:
+            # the raw bitset is as wide as the model's largest category
+            src = np.asarray(arrays["cat_bitset"], np.uint32)
+            ht.cat_bitset = np.zeros((len(ht.is_categorical),
+                                      max(8, src.shape[1])), np.uint32)
+            ht.cat_bitset[:len(src), :src.shape[1]] = src
         ht.shrinkage = float(arrays.get("shrinkage", 1.0))
         ht.split_leaf[:nn] = split_leaf_of_nodes(ht.left_child, nn)
         out.append(ht)
@@ -58,8 +68,8 @@ def forest_from_numpy(trees: Sequence[Mapping[str, Any]]) -> List[HostTree]:
 def bin_mappers_from_numpy(mappers: Sequence[Mapping[str, Any]]
                            ) -> List[BinMapper]:
     """One BinMapper per dict of its fields (num_bin, missing_type,
-    bin_type, is_trivial, sparse_rate, bin_upper_bound, min_val, max_val,
-    default_bin); categorical mappers raise."""
+    bin_type, is_trivial, sparse_rate, bin_upper_bound, bin_2_categorical,
+    min_val, max_val, default_bin)."""
     out = []
     for d in mappers:
         out.append(BinMapper.from_dict({
@@ -69,6 +79,8 @@ def bin_mappers_from_numpy(mappers: Sequence[Mapping[str, Any]]
             "is_trivial": bool(d["is_trivial"]),
             "sparse_rate": float(d.get("sparse_rate", 0.0)),
             "bin_upper_bound": np.asarray(d["bin_upper_bound"], np.float64),
+            "bin_2_categorical": [int(v) for v in
+                                  d.get("bin_2_categorical", [])],
             "min_val": float(d["min_val"]),
             "max_val": float(d["max_val"]),
             "default_bin": int(d["default_bin"]),
@@ -83,8 +95,10 @@ def booster_from_numpy(trees: Sequence[Mapping[str, Any]],
                        device: DeviceLike = None) -> Booster:
     """A predict-only Booster on ``device`` from numpy trees and mappers."""
     bms = bin_mappers_from_numpy(mappers)
-    infos = ["none" if m.is_trivial else "[%r:%r]" % (m.min_val, m.max_val)
-             for m in bms]
+    infos = ["none" if m.is_trivial
+             else ":".join(str(c) for c in sorted(m.bin_2_categorical))
+             if m.bin_type == BinType.CATEGORICAL
+             else "[%r:%r]" % (m.min_val, m.max_val) for m in bms]
     names = feature_names or ["Column_%d" % i for i in range(len(bms))]
     return Booster.from_forest(forest_from_numpy(trees), names, infos,
                                params=dict(params) if params else None,

@@ -1,8 +1,8 @@
 """Batched growth: split the top-K leaves of the frontier per step.
 
 The port of ``lightgbm_tpu/core/grow_batched.py`` (``tree_growth=batched``)
-for one device without categorical features, and the wave
-bookkeeping that it shares with the frontier grower
+for one device, categorical features included, and the wave bookkeeping
+that it shares with the frontier grower
 (``core/grow_frontier.py``): ``wave_plan``, ``wave_route``,
 ``interleave_lr``, ``apply_split_wave``, ``search_children`` and
 ``scatter_child_best``.
@@ -15,7 +15,8 @@ pass, and searches the 2K children in one batched ``find_best_split``.
 Histograms stay over the stored columns; with EFB bundles or packed pairs
 the routing decodes each row's stored byte and ``search_children`` expands
 the children's column histograms into per-feature views first (JAX
-``core/grow_batched.py:169-205, 280-290``).
+``core/grow_batched.py:169-205, 280-290``); a categorical split routes a
+row by its bin's bit in the split's bitset.
 This is approximate best-first; K = 1 is the exact algorithm, node
 numbering included: rank ``i`` of a step with ``nl`` leaves makes node
 ``nl - 1 + i`` and right leaf ``nl + i`` (tree.cpp:49-67 when one leaf
@@ -52,7 +53,7 @@ from .grow import (DeviceTree, GrowParams, TreeArrays, _bin_go_left,
                    decode_bundle_value, expand_hist,
                    propagate_monotone_bounds, root_split, tree_to_host)
 from .histogram import hist_slots, hist_slots6, stack_vals
-from .split import (BestSplit, FeatureMeta, K_MIN_SCORE,
+from .split import (BestSplit, CAT_WORDS, FeatureMeta, K_MIN_SCORE,
                     calculate_leaf_output, find_best_split)
 
 
@@ -93,27 +94,30 @@ def wave_plan(best: BestSplit, num_leaves: int, k: int) -> WavePlan:
 
 
 def wave_route(xb: torch.Tensor, leaf_id: torch.Tensor, plan: WavePlan,
-               meta: FeatureMeta, with_efb: bool = False):
+               meta: FeatureMeta, with_efb: bool = False,
+               with_cat: bool = False):
     """Route every row through its leaf's split. Returns (new leaf_id,
     active [N] bool: the row's leaf splits, rs [N] its split's rank,
     go_left [N])."""
     r_r = plan.rank_of_leaf.index_select(0, leaf_id)
     active = r_r >= 0
     rs = r_r.clamp(min=0)
-    go_left = _route_rows_gather(xb, rs, plan.cur, meta, with_efb)
+    go_left = _route_rows_gather(xb, rs, plan.cur, meta, with_efb, with_cat)
     new_leaf_id = torch.where(active & ~go_left,
                               plan.right_leaf.index_select(0, rs), leaf_id)
     return new_leaf_id, active, rs, go_left
 
 
 def _route_rows_gather(xb: torch.Tensor, rs: torch.Tensor, cur: BestSplit,
-                       meta: FeatureMeta, with_efb: bool = False
-                       ) -> torch.Tensor:
+                       meta: FeatureMeta, with_efb: bool = False,
+                       with_cat: bool = False) -> torch.Tensor:
     """Per-row go-left decisions by per-row gathers of each row's split
     descriptor. xb [N, C] stored columns; rs [N] per-row split rank into
     ``cur`` (0 for rows in no splitting leaf, whose answer the caller
     masks). With ``with_efb`` the split feature's stored column is read
-    and decoded into its own bin."""
+    and decoded into its own bin; with ``with_cat`` a categorical split
+    reads its bitset word for each row's bin, one [N] gather from the
+    flat [K * 8] words (JAX ``core/grow_batched.py:170-212``)."""
     fk = cur.feature.index_select(0, rs)                      # [N]
     stored_col = meta.col.index_select(0, fk) if with_efb else fk
     colv = torch.gather(xb, 1, stored_col[:, None])[:, 0]
@@ -124,10 +128,15 @@ def _route_rows_gather(xb: torch.Tensor, rs: torch.Tensor, cur: BestSplit,
             colv, meta.offset.index_select(0, fk), num_bin_r, default_bin_r,
             meta.pack_div.index_select(0, fk),
             meta.pack_mod.index_select(0, fk))
+    cat_args = ()
+    if with_cat:
+        words = cur.cat_bitset.reshape(-1)
+        cat_args = (cur.is_categorical.index_select(0, rs),
+                    lambda wi: words.index_select(0, rs * CAT_WORDS + wi))
     return _bin_go_left(colv, cur.threshold.index_select(0, rs),
                         cur.default_left.index_select(0, rs),
                         meta.missing_type.index_select(0, fk), num_bin_r,
-                        default_bin_r)
+                        default_bin_r, *cat_args)
 
 
 def apply_split_wave(tree: DeviceTree, leaf_min: torch.Tensor,
@@ -161,6 +170,9 @@ def apply_split_wave(tree: DeviceTree, leaf_min: torch.Tensor,
     tree.threshold_bin[node] = cur.threshold
     tree.default_left[node] = cur.default_left
     tree.missing_type[node] = meta.missing_type.index_select(0, cur.feature)
+    if sp.cat_features:
+        tree.is_categorical[node] = cur.is_categorical
+        tree.cat_bitset[node] = cur.cat_bitset
     tree.split_gain[node] = cur.gain
     tree.internal_value[node] = calculate_leaf_output(
         cur.left_sum_grad + cur.right_sum_grad,
@@ -243,8 +255,9 @@ def grow_tree_batched(xb: torch.Tensor, grad: torch.Tensor,
             break
         k = min(live, kb, l - nl)
         plan = wave_plan(best, nl, k)
-        leaf_id, active, rs, go_left = wave_route(xb, leaf_id, plan, meta,
-                                                  params.with_efb)
+        leaf_id, active, rs, go_left = wave_route(
+            xb, leaf_id, plan, meta, params.with_efb,
+            bool(sp.cat_features))
 
         # ---- all 2k children's histograms in one pass -------------------
         if params.batched_pack:

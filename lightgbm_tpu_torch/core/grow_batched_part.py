@@ -1,11 +1,12 @@
 """Partitioned batched growth: the top-K leaves per step over rows kept
 grouped by leaf (``tree_growth=batched`` with ``tpu_batched_part=true``).
 
-The port of ``lightgbm_tpu/core/grow_batched_part.py`` for one device
-without categorical features. The algorithm is batched growth's
-(``core/grow_batched.py``: the same ranking, node numbering, wave commit
-and child search, which this module reuses); only the layout of the rows
-differs, so only the order of the additions inside a histogram does.
+The port of ``lightgbm_tpu/core/grow_batched_part.py`` for one device,
+categorical features included. The algorithm is batched growth's
+(``core/grow_batched.py``: the same ranking, node numbering, wave commit,
+routing and child search, which this module reuses); only the layout of
+the rows differs, so only the order of the additions inside a histogram
+does.
 
 The rows live in a column-major ``[C, Np]`` copy of the stored columns and a
 ``[3, Np]`` copy of the values, grouped by leaf into segments that start on
@@ -117,7 +118,8 @@ def grow_tree_batched_part(xb: torch.Tensor, grad: torch.Tensor,
         active = slot_r >= 0
         rs = slot_r.clamp(min=0)
         go_left = _route_rows_gather(xb_fm.t(), rs, plan.cur, meta,
-                                     params.with_efb)
+                                     params.with_efb,
+                                     bool(sp.cat_features))
 
         # ---- segmented left counts from one cumsum ----------------------
         gl_cum = torch.cumsum((active & go_left).to(torch.int64), 0)

@@ -1,11 +1,12 @@
 """Frontier-wave growth: O(depth) passes over the rows per tree.
 
 The port of ``lightgbm_tpu/core/grow_frontier.py`` (``tree_growth=frontier``)
-for one device, one class, the serial learner, without categorical
-features or packed words. Each wave splits every frontier leaf whose best
-split has positive gain, ranked by gain (rank ``i`` of a wave with ``nl``
-leaves makes node ``nl - 1 + i`` and right leaf ``nl + i``, the numbering of
-``core/grow_batched.py``), until the tree has ``num_leaves`` leaves:
+for one device, one class, the serial learner, without packed words,
+categorical features included. Each wave splits every frontier leaf whose
+best split has positive gain, ranked by gain (rank ``i`` of a wave with
+``nl`` leaves makes node ``nl - 1 + i`` and right leaf ``nl + i``, the
+numbering of ``core/grow_batched.py``), until the tree has ``num_leaves``
+leaves:
 
 - every row is routed through its leaf's split by per-row gathers of the
   split's descriptor (``_route_rows_gather``, ``wave_route``);
@@ -147,8 +148,9 @@ def grow_tree_frontier(xb: torch.Tensor, grad: torch.Tensor,
             break
         k = min(live, l - nl)
         plan = wave_plan(s.best, nl, k)
-        leaf_id, active, rs, go_left = wave_route(xb, s.leaf_id, plan, meta,
-                                                  params.with_efb)
+        leaf_id, active, rs, go_left = wave_route(
+            xb, s.leaf_id, plan, meta, params.with_efb,
+            bool(params.split.cat_features))
         left_small, slot = wave_slots(plan.cur, active, go_left, rs)
         hist_small = hist_slots(xb, slot, vals, params.num_bins, k,
                                 params.hist_impl)             # [k, C, B, 3]

@@ -3,11 +3,12 @@
 The port of ``lightgbm_tpu/engine.py`` ``train`` (:22, its ``_train_once``
 :99-290; the reference's python-package/lightgbm/engine.py:19, boost loop
 :211-236): train on one device with validation sets, ``feval``, callbacks,
-early stopping, learning-rate schedules and continued training from an
-``init_model``. Callbacks run before and after each iteration,
-``EarlyStopException`` unwinds the loop and sets ``best_iteration``, and
-``evals_result`` records the history. Custom objectives (``fobj``),
-checkpoints and ``cv`` raise, naming the ROADMAP item that brings them.
+early stopping, learning-rate schedules, continued training from an
+``init_model``, custom objectives (``fobj``, which sets
+``objective="none"``) and categorical features. Callbacks run before and
+after each iteration, ``EarlyStopException`` unwinds the loop and sets
+``best_iteration``, and ``evals_result`` records the history.
+Checkpoints and ``cv`` raise, naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -52,11 +53,11 @@ def train(params: Dict[str, Any], train_set: Dataset,
         if params.get(alias) is not None:
             early_stopping_rounds = int(params.pop(alias))
     if fobj is not None:
-        raise outside_slice("custom objectives (fobj)", "ROADMAP Queue 1 #19")
-    if categorical_feature not in ("auto", None, []):
-        raise outside_slice("categorical features", "ROADMAP Queue 1 #4")
+        params["objective"] = "none"
     if feature_name != "auto":
         train_set.feature_name = feature_name
+    if categorical_feature != "auto":
+        train_set.categorical_feature = categorical_feature
     if isinstance(init_model, str):
         init_model = Booster(model_file=init_model, device=device)
     # set on every call, so a Dataset reused without an init model does not
@@ -108,7 +109,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
             cb(callback.CallbackEnv(model=booster, params=params, iteration=i,
                                     begin_iteration=begin, end_iteration=end,
                                     evaluation_result_list=None))
-        stopped = booster.update()
+        stopped = booster.update(fobj=fobj)
         evaluation_result_list = []
         if is_valid_contain_train:
             evaluation_result_list.extend(booster.eval_train(feval))

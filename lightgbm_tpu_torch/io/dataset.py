@@ -14,7 +14,9 @@ the histogram. ``col_features`` / ``col_offsets`` / ``col_num_bin`` /
 ``col_packed`` record the layout (feature_group.h:35-50 bin_offsets_
 analog) and ``feature_layout`` gives the per-feature view the growers
 decode with. ``tpu_bin_packing=nibble`` (dataset-wide pairing) is outside
-the slice.
+the slice. Categorical features (``categorical_feature``) are binned by
+category; they never join a small-feature pair, and join an EFB bundle by
+the JAX package's rule, as any feature sparse enough does.
 """
 from __future__ import annotations
 
@@ -148,11 +150,9 @@ class BinnedDataset:
             rows = np.flatnonzero(~((col >= -1e-35) & (col <= 1e-35)))
             return rows, col[rows]
 
-        cat_idx = _parse_categorical(
+        cat_idx = set(_parse_categorical(
             categorical_feature if categorical_feature is not None
-            else config.categorical_feature, self.feature_names)
-        if cat_idx:
-            raise outside_slice("categorical features", "ROADMAP Queue 1 #4")
+            else config.categorical_feature, self.feature_names))
         sample_cnt = min(n, config.bin_construct_sample_cnt)
         sample_pos = None
         if sample_cnt < n:
@@ -175,6 +175,8 @@ class BinnedDataset:
                 max_bin=config.max_bin,
                 min_data_in_bin=config.min_data_in_bin,
                 min_split_data=config.min_data_in_leaf,
+                bin_type=(BinType.CATEGORICAL if j in cat_idx
+                          else BinType.NUMERICAL),
                 use_missing=config.use_missing,
                 zero_as_missing=config.zero_as_missing)
             self.bin_mappers.append(mapper)
@@ -401,12 +403,16 @@ class BinnedDataset:
                 pack_partner)
 
     def get_feature_infos(self) -> List[str]:
-        """Model-file ``feature_infos`` strings ([min:max] per feature)."""
+        """Model-file ``feature_infos`` strings: [min:max] of a numerical
+        feature, the sorted categories of a categorical one."""
         infos = []
         for j in range(self.num_total_features):
             m = self.bin_mappers[j] if j < len(self.bin_mappers) else None
             if m is None or m.is_trivial:
                 infos.append("none")
+            elif m.bin_type == BinType.CATEGORICAL:
+                infos.append(":".join(str(c)
+                                      for c in sorted(m.bin_2_categorical)))
             else:
                 infos.append("[%s:%s]" % (repr(m.min_val), repr(m.max_val)))
         return infos

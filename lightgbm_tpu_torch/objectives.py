@@ -329,10 +329,11 @@ LATER_OBJECTIVES = ("multiclass", "multiclassova", "xentropy", "xentlambda",
 
 def create_objective(config: Config) -> Optional[ObjectiveFunction]:
     """Factory (objective_function.cpp:11-42) for the regression family and
-    binary."""
+    binary; None for ``objective="none"`` (a custom objective's gradients
+    come from ``fobj``)."""
     name = config.objective
     if name in ("none", "", None):
-        raise outside_slice("custom objectives (fobj)", "ROADMAP Queue 1 #19")
+        return None
     if name in LATER_OBJECTIVES:
         raise outside_slice("objective=%s" % name, "ROADMAP Queue 1 #2")
     if name not in _OBJECTIVES:

@@ -13,7 +13,15 @@ with ``tpu_batched_part=true``), 5 iterations.
   chip_smoke's AUC function. ``--data bundled`` takes chip_smoke's
   bundled workload instead (``chip_smoke.bundled_data``: 1,000,000 x 284,
   HIGGS's b-tags plus one-hot blocks, which default binning stores as EFB
-  bundles and packed pairs), the data of its paths 4i-4l.
+  bundles and packed pairs), the data of its paths 4i-4l; ``--data
+  categorical`` takes its categorical workload
+  (``chip_smoke.categorical_data``: 1,000,000 x 32, four integer id
+  columns passed as ``categorical_feature``), the data of its paths
+  4m-4p.
+- ``--fobj logistic``: bench.py's 0/1 labels trained through a custom
+  objective that returns the logistic gradients ``(p - y, p (1 - p))``
+  in numpy, ``metric=auc``, the call of chip_smoke's path 4q; prints the
+  AUC of the raw scores on the training rows.
 - ``--objective`` one of the regression family (regression, huber,
   quantile, regression_l1, ...): bench.py's target before its threshold
   (``chip_smoke.regression_data``); prints the objective's own train
@@ -23,7 +31,8 @@ with ``tpu_batched_part=true``), 5 iterations.
 
     JAX_PLATFORMS=cpu python scripts/jax_reference_auc.py \
         [--growth exact|frontier|batched|batched_part] \
-        [--objective OBJECTIVE] [--valid] [--data dense|bundled] \
+        [--objective OBJECTIVE] [--valid] \
+        [--data dense|bundled|categorical] [--fobj logistic] \
         [--rows N] [--iters K]
 
 It runs on the CPU backend and prints one JSON line.
@@ -49,7 +58,9 @@ def main() -> int:
                     default="exact")
     ap.add_argument("--objective", default="binary")
     ap.add_argument("--valid", action="store_true")
-    ap.add_argument("--data", choices=("dense", "bundled"), default="dense")
+    ap.add_argument("--data", choices=("dense", "bundled", "categorical"),
+                    default="dense")
+    ap.add_argument("--fobj", choices=("logistic",))
     args = ap.parse_args()
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -62,18 +73,36 @@ def main() -> int:
     out = {"growth": args.growth, "objective": args.objective,
            "data": args.data, "rows": args.rows, "iters": args.iters}
     t0 = time.time()
-    if args.objective == "binary":
-        x, y = (chip_smoke.bundled_data(args.rows) if args.data == "bundled"
-                else chip_smoke.bench_data(args.rows))
+    if args.fobj:
+        if args.data != "dense" or args.objective != "binary":
+            ap.error("--fobj takes bench.py's binary labels")
+        x, y = chip_smoke.bench_data(args.rows)
+        params.update(chip_smoke.FOBJ_PARAMS)
         bst = lgb.train(params, lgb.Dataset(x, label=y),
+                        num_boost_round=args.iters,
+                        fobj=chip_smoke.logistic_fobj)
+        out.update(fobj=args.fobj, auc=chip_smoke.auc(
+            np.asarray(bst.predict(x), np.float64), y))
+    elif args.objective == "binary":
+        data = {"dense": chip_smoke.bench_data,
+                "bundled": chip_smoke.bundled_data,
+                "categorical": chip_smoke.categorical_data}[args.data]
+        x, y = data(args.rows)
+        cat = (chip_smoke.CATEGORICAL_FEATURES
+               if args.data == "categorical" else "auto")
+        bst = lgb.train(params, lgb.Dataset(x, label=y,
+                                            categorical_feature=cat),
                         num_boost_round=args.iters)
         out["auc"] = chip_smoke.auc(np.asarray(bst.predict(x), np.float64), y)
+        if args.data == "categorical":
+            out["splits_on"] = chip_smoke.categorical_splits(
+                bst._impl.models)
         if args.data == "bundled":
             out["splits_on"] = chip_smoke.splits_on_layout(
                 bst._impl.models, bst._impl.train_data)
     else:
         if args.data != "dense":
-            ap.error("--data bundled takes the binary objective")
+            ap.error("--data %s takes the binary objective" % args.data)
         x, y = chip_smoke.regression_data(args.rows)
         train = lgb.Dataset(x, label=y)
         kwargs = {}

@@ -20,10 +20,13 @@ regression paths' renewal and score updates show in the profile.
 ``--data bundled`` trains the binary labels of chip_smoke.py's bundled
 workload instead (``chip_smoke.bundled_data``: HIGGS's b-tags and 8
 one-hot blocks of 32, 284 features stored in 34 columns), its paths
-4i-4l.
+4i-4l; ``--data categorical`` its categorical workload
+(``chip_smoke.categorical_data``: 28 features and four id columns passed
+as ``categorical_feature``), its paths 4m-4p.
 
     python3 scripts/profile_main_path.py [--growth MODE] [--rows N] \
-        [--iters K] [--objective OBJECTIVE] [--data dense|bundled]
+        [--iters K] [--objective OBJECTIVE] \
+        [--data dense|bundled|categorical]
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -59,10 +62,11 @@ def main() -> int:
     ap.add_argument("--objective", default="binary",
                     help="binary (bench.py's labels) or one of the "
                     "regression family (its target before the threshold)")
-    ap.add_argument("--data", choices=("dense", "bundled"), default="dense")
+    ap.add_argument("--data", choices=("dense", "bundled", "categorical"),
+                    default="dense")
     args = ap.parse_args()
-    if args.data == "bundled" and args.objective != "binary":
-        ap.error("--data bundled takes the binary objective")
+    if args.data != "dense" and args.objective != "binary":
+        ap.error("--data %s takes the binary objective" % args.data)
     import torch
     if not torch.cuda.is_available():
         print("profile_main_path: needs a CUDA device", file=sys.stderr)
@@ -75,10 +79,15 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     x, y = (chip_smoke.bundled_data(args.rows) if args.data == "bundled"
+            else chip_smoke.categorical_data(args.rows)
+            if args.data == "categorical"
             else chip_smoke.workload(args.objective, args.rows))
     params = dict(chip_smoke.PARAMS, objective=args.objective,
                   **chip_smoke.GROWTH_PARAMS[args.growth])
-    ds = lgb.Dataset(x, label=y, params=params).construct()
+    cat = (chip_smoke.CATEGORICAL_FEATURES if args.data == "categorical"
+           else "auto")
+    ds = lgb.Dataset(x, label=y, params=params,
+                     categorical_feature=cat).construct()
     bst = lgb.Booster(params=params, train_set=ds)
     bst.update()                                   # warm-up iteration
     torch.cuda.synchronize()

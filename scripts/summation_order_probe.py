@@ -1,0 +1,115 @@
+"""How much two summation orders of the same histograms move the port's
+categorical trees.
+
+Trains the port on chip_smoke.py's categorical workload
+(``chip_smoke.categorical_data``, its id columns passed as
+``categorical_feature``) twice under one growth mode, on the CPU with the
+plain histogram versions: once as they are (float32 sums), once with every
+histogram accumulated in float64 and rounded to float32. Nothing else
+differs. Prints, per tree, the first node where the two trees part,
+whether both split the same rows there (``chip_smoke.parting_tie``), how
+far apart the gains of the splits before it and of the parting node are,
+the trees' gain sums and their relative difference, then both forests'
+train AUC.
+
+    python scripts/summation_order_probe.py [--growth MODE] [--rows N] \
+        [--iters K] [--threads T]
+
+This is what chip_smoke.py's phase 5 rule for categorical data rests on:
+the kernel path and the plain path are two summation orders.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+
+def main() -> int:
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.core import grow, grow_batched, grow_frontier
+    from lightgbm_tpu_torch.core import histogram as hist
+    from lightgbm_tpu_torch.core import partition
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--growth", choices=sorted(chip_smoke.GROWTH_PARAMS),
+                    default="exact")
+    ap.add_argument("--rows", type=int, default=200_000)
+    ap.add_argument("--iters", type=int, default=2)
+    ap.add_argument("--threads", type=int, default=1,
+                    help="CPU threads (1 keeps each sum's order fixed)")
+    args = ap.parse_args()
+    torch.set_num_threads(args.threads)
+    x, y = chip_smoke.categorical_data(args.rows)
+    params = dict(chip_smoke.PARAMS, **chip_smoke.GROWTH_PARAMS[args.growth])
+    ds = lgb.Dataset(x, label=y, params=params, device="cpu",
+                     categorical_feature=chip_smoke.CATEGORICAL_FEATURES)
+    ds.construct()
+    tile, slots = hist.hist_tile_vals, hist.hist_slots
+    slots6, part = hist.hist_slots6, hist.hist_part_tiles
+
+    def f64_tile(xb, v, b, impl="auto"):
+        return tile(xb, v.double(), b, impl).float()
+
+    def f64_slots(xb, s, v, b, k, impl="auto"):
+        return slots(xb, s, v.double(), b, k, impl).float()
+
+    def f64_slots6(xb, s, sel, v, b, k, impl="auto"):
+        return slots6(xb, s, sel, v.double(), b, k, impl).float()
+
+    def f64_part(xb, sel, v, ts, first, b, k, t, impl="auto"):
+        return part(xb, sel, v.double(), ts, first, b, k, t, impl).float()
+
+    forests = {}
+    for label in ("float32", "float64"):
+        if label == "float64":
+            grow.hist_tile_vals = partition.hist_tile_vals = f64_tile
+            grow_frontier.hist_slots = grow_batched.hist_slots = f64_slots
+            grow_batched.hist_slots6 = f64_slots6
+            from lightgbm_tpu_torch.core import grow_batched_part
+            grow_batched_part.hist_part_tiles = f64_part
+        forests[label] = lgb.train(params, ds, num_boost_round=args.iters,
+                                   device="cpu")
+    a, b = forests["float32"].models, forests["float64"].models
+    out = {"growth": args.growth, "rows": args.rows, "trees": []}
+    for i, (ta, tb) in enumerate(zip(a, b)):
+        nn = min(ta.num_leaves_actual, tb.num_leaves_actual) - 1
+        parted = np.flatnonzero(
+            (ta.split_feature[:nn] != tb.split_feature[:nn])
+            | (ta.threshold_bin[:nn] != tb.threshold_bin[:nn])
+            | (ta.cat_bitset_bin[:nn] != tb.cat_bitset_bin[:nn]).any(axis=1))
+        ga, gb = float(ta.split_gain[:nn].sum()), float(
+            tb.split_gain[:nn].sum())
+        first = int(parted[0]) if len(parted) else nn
+        rel = (np.abs(ta.split_gain[:nn] - tb.split_gain[:nn])
+               / np.maximum(np.abs(tb.split_gain[:nn]), 1e-30))
+        row = {"tree": i, "first_parting_node":
+               first if first < nn else None,
+               "parting_tie": chip_smoke.parting_tie(ta, tb, nn),
+               "shared_gain_rel_max": float(rel[:first].max(initial=0.0)),
+               "parting_gain_rel": (float(rel[first]) if first < nn
+                                    else None),
+               "gain_sum": [ga, gb], "gain_rel": abs(ga - gb) / abs(gb)}
+        out["trees"].append(row)
+        print("tree %d: parts at node %s (%s); the nodes before it split "
+              "alike with gains up to %.3g apart, the parting node's %s "
+              "apart; gain sums %.4f and %.4f, %.3g apart"
+              % (i, row["first_parting_node"], row["parting_tie"],
+                 row["shared_gain_rel_max"], row["parting_gain_rel"], ga, gb,
+                 row["gain_rel"]))
+    out["auc"] = {k: chip_smoke.auc(f.predict(x, raw_score=True), y)
+                  for k, f in forests.items()}
+    print("train AUC, float32 sums %.6f, float64 sums %.6f"
+          % (out["auc"]["float32"], out["auc"]["float64"]))
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

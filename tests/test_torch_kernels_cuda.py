@@ -717,3 +717,75 @@ def test_bundled_training_on_the_card(cuda_device, growth, counter):
         np.testing.assert_allclose(bst.predict(x, raw_score=True),
                                    cpu.predict(x, raw_score=True), rtol=0,
                                    atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("growth,counter", [
+    ({}, "build_histogram_cuda"),
+    ({"tree_growth": "frontier"}, "build_histogram_slots_cuda"),
+    ({"tree_growth": "batched"}, "build_histogram_slots6_cuda"),
+    ({"tree_growth": "batched", "tpu_batched_pack": True},
+     "build_histogram_slots_cuda"),
+    ({"tree_growth": "batched", "tpu_batched_part": "true"},
+     "build_histogram_part_tiles_cuda")])
+def test_categorical_training_on_the_card(cuda_device, growth, counter):
+    """Training on the categorical workload (chip_smoke.py
+    ``categorical_data`` at 20,000 rows, four id columns) on the card: the
+    grower's kernel launched, categorical splits made, and the trees of
+    the same run on the CPU up to f32 gain ties (chip_smoke.py's rule, the
+    bin bitsets included); raw predictions within 1e-5 where the trees are
+    identical, and the valid scores on the card the model's
+    predictions."""
+    import chip_smoke
+    x, y = chip_smoke.categorical_data(20_000)
+    xv, yv = chip_smoke.categorical_data(5_000, seed=1)
+    params = dict({"objective": "binary", "num_leaves": 31,
+                   "min_data_in_leaf": 40, "verbosity": -1}, **growth)
+    cat = chip_smoke.CATEGORICAL_FEATURES
+    wrapper = getattr(kernels, counter)
+    before = wrapper.launches
+    tr = tlgb.Dataset(x, label=y, categorical_feature=cat)
+    bst = tlgb.train(params, tr, num_boost_round=3,
+                     valid_sets=[tr.create_valid(xv, label=yv)],
+                     verbose_eval=False)
+    assert wrapper.launches > before
+    assert chip_smoke.categorical_splits(bst.models)["categorical"] > 0
+    np.testing.assert_allclose(bst._impl.scores_of(1),
+                               bst.predict(xv, raw_score=True), rtol=0,
+                               atol=1e-5)
+    cpu = tlgb.train(params, tlgb.Dataset(x, label=y, categorical_feature=cat,
+                                          device="cpu"),
+                     num_boost_round=3, device="cpu")
+    if chip_smoke.trees_match(bst.models, cpu.models, categorical=True):
+        np.testing.assert_allclose(bst.predict(x, raw_score=True),
+                                   cpu.predict(x, raw_score=True), rtol=0,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_raw_bitsets_past_255_predict_on_the_card(cuda_device):
+    """Category ids past 255 route through the raw bitset on the card as on
+    the CPU: ids in the bitset, ids out of it, a truncated id, NaN, a
+    negative id and an id past the bitset's width."""
+    r = np.random.RandomState(4)
+    n = 6_000
+    x = r.randn(n, 4)
+    k = r.randint(0, 12, n)
+    x[:, 3] = 300 + 977 * k
+    y = (x[:, 0] + np.random.RandomState(9).randn(12)[k] > 0).astype(float)
+    params = {"objective": "binary", "num_leaves": 15, "verbosity": -1}
+    bst = tlgb.train(params, tlgb.Dataset(x, label=y, categorical_feature=[3],
+                                          device="cpu"),
+                     num_boost_round=3, device="cpu")
+    import chip_smoke
+    assert chip_smoke.categorical_splits(bst.models)["max_category"] >= 256
+    card = tlgb.Booster(model_str=bst.model_to_string())
+    xt = x.copy()
+    xt[::6, 3] = np.nan
+    xt[1::6, 3] = -300.0
+    xt[2::6, 3] = 300.5
+    xt[3::6, 3] = 1e9
+    xt[4::6, 3] = 301.0
+    np.testing.assert_allclose(card.predict(xt, raw_score=True),
+                               bst.predict(xt, raw_score=True), rtol=0,
+                               atol=1e-6)

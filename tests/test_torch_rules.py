@@ -94,7 +94,6 @@ def _data(n=400):
 
 
 OUTSIDE_SLICE = {
-    "categorical": ({"categorical_feature": "0"}, None),
     "bagging": ({"bagging_freq": 1, "bagging_fraction": 0.5}, None),
     "goss": ({"boosting": "goss"}, None),
     "dart": ({"boosting": "dart"}, None),
@@ -127,9 +126,51 @@ REFUSALS = {
     "sparse_matrix_binning": ({}, "#16"),
     # dataset-wide pairing (the JAX package's nibble cap) stays refused
     "nibble_pairs": ({"tpu_bin_packing": "nibble"}, "#9"),
-    "fobj": ({}, "#19"),
     "checkpoint_callback": ({}, "#12"),
+    # refusals of the user-facing Dataset and Booster
+    "query_groups": ({}, "#2"),
+    "data_file": ({}, "#16"),
+    "multiclass_model_text": ({}, "#2"),
+    "averaged_model_text": ({}, "#7"),
+    "reset_training_data": ({}, "#20"),
+    "pred_leaf": ({}, "#8"),
 }
+
+
+def _refused_call(kind, params, x, y):
+    """The call that ``kind`` refuses."""
+    if kind == "sparse_matrix_binning":
+        # the binning entry point itself, below the Dataset's check
+        from lightgbm_tpu_torch.config import Config
+        from lightgbm_tpu_torch.io.dataset import BinnedDataset
+        return BinnedDataset.from_matrix(x, Config({}), label=y)
+    if kind == "query_groups":
+        return tlgb.Dataset(x, label=y, group=[len(y)], device="cpu")
+    if kind == "data_file":
+        return tlgb.Dataset("train.csv", device="cpu").construct()
+    params = dict(params, objective="binary", verbosity=-1)
+    if kind in ("multiclass_model_text", "averaged_model_text",
+                "reset_training_data", "pred_leaf"):
+        bst = tlgb.train(params, tlgb.Dataset(x, label=y, device="cpu"),
+                         num_boost_round=1, device="cpu")
+        text = bst.model_to_string()
+        if kind == "multiclass_model_text":
+            text = text.replace("num_tree_per_iteration=1",
+                                "num_tree_per_iteration=3")
+            return tlgb.Booster(model_str=text, device="cpu")
+        if kind == "averaged_model_text":
+            text = text.replace("label_index=0", "label_index=0\n"
+                                "average_output")
+            return tlgb.Booster(model_str=text, device="cpu")
+        if kind == "reset_training_data":
+            return bst.update(train_set=tlgb.Dataset(x, label=y,
+                                                     device="cpu"))
+        return bst.predict(x, pred_leaf=True)
+    extra = {}
+    if kind == "checkpoint_callback":
+        extra["callbacks"] = [tlgb.callback.checkpoint("checkpoints")]
+    return tlgb.train(params, tlgb.Dataset(x, label=y, device="cpu"),
+                      num_boost_round=1, device="cpu", **extra)
 
 
 @pytest.mark.parametrize("kind", sorted(REFUSALS))
@@ -143,19 +184,22 @@ def test_refusals_cite_their_roadmap_item(kind):
         x = _small_pair_data(x)
     with pytest.raises(NotImplementedError,
                        match=r"\(ROADMAP Queue 1 %s\)$" % item):
-        if kind == "sparse_matrix_binning":
-            # the binning entry point itself, below the Dataset's check
-            from lightgbm_tpu_torch.config import Config
-            from lightgbm_tpu_torch.io.dataset import BinnedDataset
-            BinnedDataset.from_matrix(x, Config({}), label=y)
-        extra = {}
-        if kind == "fobj":
-            extra["fobj"] = lambda preds, data: (preds, np.ones_like(preds))
-        if kind == "checkpoint_callback":
-            extra["callbacks"] = [tlgb.callback.checkpoint("checkpoints")]
-        tlgb.train(dict(params, objective="binary", verbosity=-1),
-                   tlgb.Dataset(x, label=y, device="cpu"),
-                   num_boost_round=1, device="cpu", **extra)
+        _refused_call(kind, params, x, y)
+
+
+def test_every_refusal_cites_a_roadmap_item():
+    """Every ``outside_slice`` call in the port names the ROADMAP Queue 1
+    item that brings what it refuses."""
+    uncited = []
+    for path in _port_sources():
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Call)
+                    and getattr(node.func, "id", None) == "outside_slice"
+                    and len(node.args) + len(node.keywords) < 2):
+                uncited.append("%s:%d" % (os.path.relpath(path, ROOT),
+                                          node.lineno))
+    assert not uncited, uncited
 
 
 def _small_pair_data(x):
@@ -182,6 +226,35 @@ NOW_TRAINED = {
     "efb_bundles": ({}, "bundles"),
     "small_feature_pairs": ({"enable_bundle": False}, "pairs"),
 }
+
+
+# options the port once refused: categorical features (the JAX package's
+# categorical split, ROADMAP Queue 1 #4) and custom objectives (#19)
+NOW_TRAINS = {
+    "categorical": ({"categorical_feature": "0"}, None),
+    "fobj": ({}, lambda preds, data: (preds - data.get_label(),
+                                      np.ones_like(preds))),
+}
+
+
+@pytest.mark.parametrize("option", sorted(NOW_TRAINS))
+def test_categorical_features_and_fobj_train(option):
+    params, fobj = NOW_TRAINS[option]
+    x, y = _data()
+    if option == "categorical":
+        x = x.copy()
+        x[:, 0] = (x[:, 0] > 0) + 2 * (x[:, 1] > 0.5)
+    bst = tlgb.train(dict(params, objective="binary", verbosity=-1),
+                     tlgb.Dataset(x, label=y, device="cpu"),
+                     num_boost_round=2, fobj=fobj, device="cpu")
+    assert len(bst.models) == 2
+    if option == "categorical":
+        assert bst._impl.grow_params.split.cat_features == (0,)
+        assert any(t.is_categorical[:t.num_leaves_actual - 1].any()
+                   for t in bst.models)
+    else:
+        assert bst._impl.objective is None
+    assert np.isfinite(bst.predict(x)).all()
 
 
 @pytest.mark.parametrize("kind", sorted(NOW_TRAINED))
