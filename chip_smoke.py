@@ -94,16 +94,35 @@ and prints no result line):
    bitset and its largest category sent left (one path at least must send
    an id of 256 or more); 4m keeps valid scores within 1e-5 of
    ``predict(raw_score=True)`` and its model text, reloaded, predicts the
-   1,000,000 rows within 1e-6; every path of 4a-4d and 4m-4q also trains
-   one more iteration under torch.profiler and prints its CUDA kernel
-   launches and synchronisations;
+   1,000,000 rows within 1e-6;
+   then the multiclass paths, ``num_class=5`` on ``multiclass_data``
+   (500,000 x 28: bench.py's features, its target cut at its quintiles
+   into 5 balanced classes; the shape at which the JAX package measured
+   multiclass on its own chip), 5 trees an iteration, one a class:
+     4r ``exact``, ``multiclass``, with a 125,000-row validation set
+        (seed 1), early stopping after 5 rounds and a model-text reload,
+     4s ``frontier``, ``multiclassova``, 4t ``batched`` (K=16) and 4u
+        ``batched_part`` (K=16), ``multiclass``;
+   each path's train ``multi_logloss`` (``multi_error`` printed beside
+   it), and 4r's valid ``multi_logloss`` at every iteration, are held
+   within 1e-3 relative of the JAX package's (4u to 4t's constant), every
+   class tree must split, 4r's valid scores must be within 1e-5 of
+   ``predict(raw_score=True)`` and its reloaded model text within 1e-6,
+   and each path prints its seconds, launches and syncs an iteration
+   beside the dense binary path of the same mode;
+   every path of 4a-4d and 4m-4u also trains one more iteration under
+   torch.profiler and prints its CUDA kernel launches and
+   synchronisations;
 5. the kernel path against the plain path on the card (200,000 rows, 2
    iterations) for exact, frontier, batched, batched with
    ``tpu_batched_pack=true`` (which launches the slot kernel on its
-   batched branch) and batched_part: trees identical up to f32 gain ties
-   (tests/test_parity.py's rule), and raw predictions within 1e-5 when
-   the trees are identical; on bench.py's data, on the bundled data and
-   on the categorical data;
+   batched branch) and batched_part, the plain path's histograms summed
+   in float64 (``GrowParams.plain_f64_sums``; a single running f32 sum a
+   cell, as ``index_add_`` keeps, drifts on bins of many rows): trees
+   identical up to f32 gain ties (tests/test_parity.py's rule), and raw
+   predictions within 1e-5 when the trees are identical; on bench.py's
+   data, on the bundled data, on the categorical data, and batched
+   multiclass (4t's call) on the multiclass data;
 6. a ``kernels`` JSON line (each kernel's launches summed over every
    path of phase 4), the card line, and the result line
    ``{"ok": true, "device": {...}}``. No grower calls the in-tile
@@ -137,12 +156,17 @@ from lightgbm_tpu_torch.io.binning import BinType
 from lightgbm_tpu_torch.metrics import auc
 
 # Train AUC of the JAX package (lightgbm_tpu) on phase 4's data and
-# parameters for each growth mode, taken on the CPU backend with
-#   JAX_PLATFORMS=cpu python scripts/jax_reference_auc.py --growth MODE
-JAX_REFERENCE_AUC = {"exact": 0.962396956613171,
-                     "frontier": 0.9551457678522898,
-                     "batched": 0.9622125789247733,
-                     "batched_part": 0.9622125789247733}
+# parameters for each growth mode, taken on the CPU backend with chunked
+# histogram sums (``matmul``: the default ``scatter`` keeps one running f32
+# sum a cell, which drifts on bins of many rows; the kernels sum in blocks)
+# by
+#   JAX_PLATFORMS=cpu python scripts/jax_reference_auc.py --growth MODE \
+#       --hist-impl matmul
+# batched_part holds to batched's constant, as before
+JAX_REFERENCE_AUC = {"exact": 0.9623968698328734,
+                     "frontier": 0.9551473493737143,
+                     "batched": 0.9622066718465125,
+                     "batched_part": 0.9622066718465125}
 AUC_TOLERANCE = 2e-3
 
 MAIN_ROWS, NUM_FEATURES, NUM_ITERS = 1_000_000, 28, 5
@@ -164,31 +188,48 @@ COMPARE_ROWS, COMPARE_ITERS = 200_000, 2
 BUNDLED_PATHS = {"4i": "exact", "4j": "frontier", "4k": "batched",
                  "4l": "batched_part"}
 # Train AUC of the JAX package on the bundled paths' data and parameters,
-# taken on the CPU backend with
+# taken on the CPU backend with chunked histogram sums by
 #   JAX_PLATFORMS=cpu python scripts/jax_reference_auc.py --data bundled \
-#       --growth MODE
-JAX_BUNDLED_AUC = {"exact": 0.8860030454736421,
-                   "frontier": 0.8201924279870435,
-                   "batched": 0.8571368810544411,
-                   "batched_part": 0.8571368810544411}
+#       --growth MODE --hist-impl matmul
+JAX_BUNDLED_AUC = {"exact": 0.8854787837277004,
+                   "frontier": 0.8201513043682455,
+                   "batched": 0.8571510037666036,
+                   "batched_part": 0.8571510037666036}
 # slots of the bundled shapes of the slot and part kernels (phase 3)
 BUNDLED_SLOTS = 16
 # phase 5 on the bundled data: raw predictions of identical trees within
-# this. A bundled feature's default bin is rebuilt as the leaf's total
-# minus its other bins, so a split there carries the f32 rounding of the
-# leaf totals down to the leaves under it: one ulp of a 200,000-row root's
-# sum of |g| (ulp(1e5) = 7.8e-3 in a gradient sum) over a 20-row leaf's
-# hessian (>= 4.8 in the second tree) is 1.6e-3 of its value, 1.6e-4 after
-# shrinkage; this allows about three such ulps in each of the two trees
-# (measured on an H100: 2.8e-4 to 4.0e-4)
-BUNDLED_RAW_TOL = 1e-3
+# this, against the f32 plain path. A bundled feature's default bin is
+# rebuilt as the leaf's total minus its other bins, so a split there
+# carries the f32 rounding of the leaf totals down to the leaves under it:
+# one ulp of a 200,000-row root's sum of |g| (ulp(1e5) = 7.8e-3 in a
+# gradient sum) over a 20-row leaf's hessian (>= 4.8 in the second tree) is
+# 1.6e-3 of its value, 1.6e-4 after shrinkage; a bin-0 cell of a bundle
+# holds ~100,000 rows, where the f32 plain path's single running sum
+# drifts too (measured on an H100: 2.8e-4 to 4.0e-4 in PR 9, 2.7e-4 to
+# 3.0e-4 in PR 11; against the float64 path 1.7e-5 to 4.2e-5)
+BUNDLED_RAW_TOL = 6e-4
+# phase 5 against the plain path with float64 histogram sums, every data
+# set: raw predictions of identical trees within this. The split search
+# takes a right child's sums as its leaf's total minus a float32 prefix
+# sum of its bins, so two summation orders of the same cells (the kernels'
+# blocks, the float64 sums rounded once) move a small leaf's gradient sum
+# by an ulp of its ancestors' (ulp(5e4) = 3.9e-3), and a 20-row leaf of
+# the second tree, whose hessian can be below 1, carries that into its
+# value (measured on an H100: 1.1e-4 to 1.4e-4 on bench.py's data, 1.7e-5
+# to 4.2e-5 on the bundled data, 2.7e-4 on the multiclass data; the f32
+# plain path's trees part at a tie on bench.py's data, so there its 1e-5
+# is never reached)
+F64_RAW_TOL = 5e-4
 # phase 5 on data with categorical features: the most two runs' gains may
 # differ at the node where their trees part on one leaf (``parting_tie``).
 # The summation order alone moves the gains of splits both runs share by up
 # to 6.7e-2 on the categorical data at COMPARE_ROWS, and the parting nodes'
 # by 3e-5 to 8.6e-3 (scripts/summation_order_probe.py, f32 against float64
 # histogram sums, exact, frontier and batched); a kernel that sums wrong
-# moves them by far more
+# moves them by far more. Against the float64 plain path too, exact and
+# frontier part at such a tie (a one-vs-rest split and its mirror: the
+# same rows, gains 1.5e-6 and 2.7e-6 apart on an H100), so the positional
+# rule alone does not hold there
 CAT_TIE_GAIN_REL = 0.1
 
 # the categorical paths of phase 4 (binary on ``categorical_data``, its id
@@ -198,17 +239,20 @@ CAT_TIE_GAIN_REL = 0.1
 CATEGORICAL_PATHS = {"4m": "exact", "4n": "frontier", "4o": "batched",
                      "4p": "batched_part"}
 # Train AUC of the JAX package on the categorical paths' data and
-# parameters, taken on the CPU backend with
+# parameters, taken on the CPU backend with chunked histogram sums (no f32
+# drift; the default scatter path's single running sums gave frontier
+# 0.9041706457162489) by
 #   JAX_PLATFORMS=cpu python scripts/jax_reference_auc.py \
-#       --data categorical --growth MODE
-JAX_CATEGORICAL_AUC = {"exact": 0.9200018967709394,
-                       "frontier": 0.9041706457162489,
-                       "batched": 0.9188284083566514,
-                       "batched_part": 0.9188284083566514}
+#       --data categorical --growth MODE --hist-impl matmul
+JAX_CATEGORICAL_AUC = {"exact": 0.920127942240841,
+                       "frontier": 0.9026731717792262,
+                       "batched": 0.9189803266249152,
+                       "batched_part": 0.9189803266249152}
 # Train AUC of the JAX package on path 4q's call (exact growth on bench.py's
 # data, ``fobj=logistic_fobj``, FOBJ_PARAMS), taken on the CPU backend with
-#   JAX_PLATFORMS=cpu python scripts/jax_reference_auc.py --fobj logistic
-JAX_FOBJ_AUC = 0.9624023777617651
+#   JAX_PLATFORMS=cpu python scripts/jax_reference_auc.py --fobj logistic \
+#       --hist-impl matmul
+JAX_FOBJ_AUC = 0.9624021520089908
 MODEL_TEXT_TOL = 1e-6
 
 # the regression paths of phase 4: a growth mode and an objective each; 4e
@@ -223,18 +267,47 @@ VALID_ROWS, EARLY_STOPPING_ROUNDS = 250_000, 5
 # The JAX package's train metric on each regression path, and on 4e its
 # valid l2 after each iteration, taken on the CPU backend with
 #   JAX_PLATFORMS=cpu python scripts/jax_reference_auc.py --growth MODE \
-#       --objective OBJECTIVE [--valid]
+#       --objective OBJECTIVE [--valid] --hist-impl matmul
 JAX_REFERENCE_METRIC = {
-    "4e": {"train": 1.474158701936864,
-           "valid": [2.0017803431570758, 1.8299561090062133,
-                     1.6875908384732028, 1.5720299450563882,
-                     1.4791569537015317]},
-    "4f": {"train": 0.5470938477922707},
+    "4e": {"train": 1.4741587178358107,
+           "valid": [2.0017803309553637, 1.8299560803091888,
+                     1.6875908146658127, 1.572029931702,
+                     1.4791569630139199]},
+    "4f": {"train": 0.5470970065769092},
     "4g": {"train": 0.18716961910357854},
     "4h": {"train": 0.8175396265150078},
 }
 METRIC_REL_TOL = 1e-3
 VALID_SCORE_TOL = 1e-5
+
+# the multiclass paths of phase 4 (``multiclass_data``: MULTICLASS_ROWS x 28
+# in NUM_CLASS classes, the shape at which the JAX package measured
+# multiclass on its own chip): a growth mode and an objective each; 4r also
+# trains with a validation set of MULTICLASS_VALID_ROWS rows (seed 1), early
+# stopping and a model-text reload
+MULTICLASS_PATHS = {"4r": ("exact", "multiclass"),
+                    "4s": ("frontier", "multiclassova"),
+                    "4t": ("batched", "multiclass"),
+                    "4u": ("batched_part", "multiclass")}
+MULTICLASS_OBJECTIVES = ("multiclass", "multiclassova")
+NUM_CLASS, MULTICLASS_ROWS, MULTICLASS_VALID_ROWS = 5, 500_000, 125_000
+# The JAX package's train multi_logloss on each multiclass path, and on 4r
+# its valid multi_logloss after each iteration, taken on the CPU backend
+# with chunked histogram sums (``matmul``, no f32 drift) by
+#   JAX_PLATFORMS=cpu python scripts/jax_reference_auc.py --growth MODE \
+#       --objective OBJECTIVE --num-class 5 --hist-impl matmul [--valid]
+# 4u holds batched_part to 4t's constant: batched_part grows batched's
+# trees, and the JAX package on the CPU vmaps the classes and there runs
+# its unpartitioned batched step
+JAX_MULTICLASS_METRIC = {
+    "4r": {"train": 1.228678822517395,
+           "valid": [1.5083937644958496, 1.4234932661056519,
+                     1.351672887802124, 1.2891716957092285,
+                     1.2346508502960205]},
+    "4s": {"train": 1.1551284790039062},
+    "4t": {"train": 1.2298247814178467},
+}
+JAX_MULTICLASS_METRIC["4u"] = JAX_MULTICLASS_METRIC["4t"]
 
 # histogram shapes of the main path: the root (K=3 over every row) and the
 # fused two-child pass of a split (K=6) at the leaf sizes exact growth
@@ -268,6 +341,11 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def log_phase(t_start: float, name: str) -> None:
+    """The seconds since ``t_start`` as phase ``name`` begins."""
+    log("(%.1f s) %s" % (time.perf_counter() - t_start, name))
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -290,6 +368,14 @@ def bench_data(n: int, f: int = NUM_FEATURES, seed: int = 0):
     """bench.py's workload (bench.py:162-165)."""
     x, t = regression_data(n, f, seed)
     return x, (t > 0).astype(np.float32)
+
+
+def multiclass_data(n: int, seed: int = 0, num_class: int = 5):
+    """bench.py's 28 features with ``regression_data``'s target cut at its
+    own quantiles into ``num_class`` balanced classes 0..num_class-1."""
+    x, t = regression_data(n, seed=seed)
+    cuts = np.quantile(t, np.arange(1, num_class) / num_class)
+    return x, np.searchsorted(cuts, t).astype(np.float32)
 
 
 # HIGGS's jet b-tag columns (0-based features 8, 12, 16, 20 of its 28) take
@@ -424,8 +510,23 @@ def splits_on_layout(models, ds) -> dict:
 
 def workload(objective: str, n: int):
     """The main path's rows and labels for ``objective``: bench.py's 0/1
-    labels for binary, its target before the threshold otherwise."""
-    return bench_data(n) if objective == "binary" else regression_data(n)
+    labels for binary, its target cut into NUM_CLASS classes for the
+    multiclass objectives (``multiclass_data``), its target before the
+    threshold otherwise."""
+    if objective == "binary":
+        return bench_data(n)
+    if objective in MULTICLASS_OBJECTIVES:
+        return multiclass_data(n)
+    return regression_data(n)
+
+
+def objective_params(objective: str) -> dict:
+    """What an objective adds to PARAMS: for multiclass the class count and
+    both multiclass metrics."""
+    if objective in MULTICLASS_OBJECTIVES:
+        return {"num_class": NUM_CLASS,
+                "metric": "multi_logloss,multi_error"}
+    return {}
 
 
 def time_ms(fn, flush, reps: int = 20) -> float:
@@ -1163,8 +1264,9 @@ def iteration_counts(label: str, bst, fobj=None) -> dict:
     them."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # CUDA activity alone records the runtime's launch and sync calls: the
+    # same counts as with CPU activity, at a third of the time
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         bst.update(fobj=fobj)
         torch.cuda.synchronize()
     avgs = prof.key_averages()
@@ -1371,6 +1473,97 @@ def drive_fobj_path(ds, x, y):
     return out
 
 
+def drive_multiclass_path(label: str, ds, x, valid=None):
+    """Phase 4r-4u: one multiclass path at full width (NUM_CLASS trees an
+    iteration, one a class), with the launch counts set to 0 just before
+    and read just after; 4r also keeps ``valid`` (Dataset, rows), with
+    early stopping, whose device scores must be the model's raw
+    predictions, and round-trips its model text."""
+    growth, objective = MULTICLASS_PATHS[label]
+    params = dict(PARAMS, objective=objective, **objective_params(objective),
+                  **GROWTH_PARAMS[growth])
+    ref = JAX_MULTICLASS_METRIC[label]
+    kwargs, evals = {}, {}
+    if valid is not None:
+        kwargs = {"valid_sets": [valid[0]], "evals_result": evals,
+                  "early_stopping_rounds": EARLY_STOPPING_ROUNDS,
+                  "verbose_eval": False}
+    bst, train_s, launches, steps = train_counted(params, ds, **kwargs)
+    trees = len(bst.models)
+    t0 = time.perf_counter()
+    prob = bst.predict(x)
+    predict_s = time.perf_counter() - t0
+    train = {name: value for _, name, value, _ in bst.eval_train()}
+    waves = launches[WAVE_KERNEL[growth]] if growth in WAVE_KERNEL else None
+    out = {"growth": growth, "objective": objective, "train_s": train_s,
+           "s_per_iter": train_s / NUM_ITERS, "predict_s": predict_s,
+           "train": train, "jax_train": ref["train"],
+           "leaves": [t.num_leaves_actual for t in bst.models],
+           "waves_per_tree": None if waves is None else waves / trees,
+           "launches": launches}
+    log("path %s (%s, %s, %d classes): train %.2f s (%d iterations, %d "
+        "trees, %.3f s per iteration), predict %.3f s, trees %s leaves%s"
+        % (label, growth, objective, NUM_CLASS, train_s, NUM_ITERS, trees,
+           out["s_per_iter"], predict_s, out["leaves"], "" if waves is None
+           else ", %.1f waves per tree" % out["waves_per_tree"]))
+    log("path %s: train multi_logloss %.6f (JAX package %.6f), multi_error "
+        "%.6f; launches %s" % (label, train["multi_logloss"], ref["train"],
+                               train["multi_error"], launches))
+    check_path_launches(label, growth, bst, launches, steps)
+    if trees != NUM_ITERS * NUM_CLASS:
+        raise AssertionError("path %s: expected %d trees, got %d"
+                             % (label, NUM_ITERS * NUM_CLASS, trees))
+    if any(n < 2 for n in out["leaves"]):
+        raise AssertionError("path %s: a class tree did not split (%s)"
+                             % (label, out["leaves"]))
+    if prob.shape != (len(x), NUM_CLASS) or not np.isfinite(prob).all():
+        raise AssertionError("path %s: predictions are not finite [n, %d] "
+                             "probabilities" % (label, NUM_CLASS))
+    checks = [("train multi_logloss", train["multi_logloss"], ref["train"])]
+    if valid is not None:
+        xv = valid[1]
+        scores = bst._impl.scores_of(1)
+        raw = bst.predict(xv, raw_score=True)
+        out["valid"] = evals["valid_0"]["multi_logloss"]
+        out["jax_valid"] = ref["valid"]
+        out["valid_score_max_diff"] = float(np.abs(scores - raw).max())
+        loaded = lgb.Booster(model_str=bst.model_to_string())
+        out["model_text_max_diff"] = float(np.abs(
+            loaded.predict(x, raw_score=True)
+            - bst.predict(x, raw_score=True)).max())
+        log("path %s: valid multi_logloss %s (JAX package %s), best "
+            "iteration %d; device valid scores of %d rows against predict: "
+            "max diff %.3g; the model text reloaded predicts the %d rows "
+            "within %.3g" % (label, out["valid"], ref["valid"],
+                             bst.best_iteration, len(raw),
+                             out["valid_score_max_diff"], len(x),
+                             out["model_text_max_diff"]))
+        if out["valid_score_max_diff"] > VALID_SCORE_TOL:
+            raise AssertionError("path %s: device valid scores differ from "
+                                 "predict by %.3g"
+                                 % (label, out["valid_score_max_diff"]))
+        if out["model_text_max_diff"] > MODEL_TEXT_TOL:
+            raise AssertionError("path %s: the reloaded model text predicts "
+                                 "%.3g away" % (label,
+                                                out["model_text_max_diff"]))
+        if len(out["valid"]) != len(ref["valid"]):
+            raise AssertionError("path %s: %d valid evaluations, the JAX "
+                                 "package %d" % (label, len(out["valid"]),
+                                                 len(ref["valid"])))
+        checks += [("valid multi_logloss at iteration %d" % (i + 1), v, r)
+                   for i, (v, r) in enumerate(zip(out["valid"],
+                                                  ref["valid"]))]
+    gaps = [abs(v - r) / abs(r) for _, v, r in checks]
+    out["max_rel_gap"] = max(gaps)
+    for (what, value, want), gap in zip(checks, gaps):
+        if gap > METRIC_REL_TOL:
+            raise AssertionError("path %s: %s %.6f is %.3g relative from "
+                                 "the JAX package's %.6f"
+                                 % (label, what, value, gap, want))
+    out.update(iteration_counts(label, bst))
+    return out
+
+
 class EventTimer:
     """A function wrapped in CUDA events: the summed time from the start
     event before each call to the end event after it, read after a
@@ -1517,50 +1710,82 @@ COMPARE_RUNS = [
 ]
 
 
-def compare_paths(ds, xs, ys, raw_tol: float = 1e-5):
-    """Phase 5: kernel path against plain path for each growth mode; raw
-    predictions within ``raw_tol`` where the trees are identical, and the
-    two forests' AUC on ``xs`` within AUC_TOLERANCE of each other where
-    they part at a categorical tie (``trees_match``, on data with
-    categorical features)."""
+def train_compared(params, ds, plain_f64_sums: bool):
+    """COMPARE_ITERS iterations of a Booster on ``ds``, the plain
+    histograms summed in float64 with ``plain_f64_sums``
+    (``GrowParams.plain_f64_sums``: one running f32 sum per cell, as
+    ``index_add_`` keeps it, drifts on bins of many rows, where the
+    kernels and float64 sums agree)."""
+    bst = lgb.Booster(params=params, train_set=ds)
+    impl = bst._impl
+    impl.grow_params = impl.grow_params._replace(
+        plain_f64_sums=plain_f64_sums)
+    for _ in range(COMPARE_ITERS):
+        bst.update()
+    return bst
+
+
+# phase 5's plain paths, by whether their histograms sum in float64
+PLAIN_PATHS = {False: "plain", True: "plain_f64"}
+
+
+def compare_paths(ds, xs, ys, raw_tol: float = 1e-5, runs=COMPARE_RUNS,
+                  plains=(False, True)):
+    """Phase 5: for each growth mode of ``runs``, the kernel path against
+    the plain path with float64 histogram sums (no drift) and, on the data
+    phase 5 has held the kernels to from the start, against the f32 plain
+    path too (one running sum a cell; ``plains`` says which). Trees equal
+    up to f32 gain ties (``trees_match``) against each; where they are
+    identical, raw predictions within ``raw_tol`` of the f32 plain path's
+    and within F64_RAW_TOL of the float64 path's; where they part at a
+    categorical tie (data with categorical features), the two forests' AUC
+    on ``xs`` within AUC_TOLERANCE of each other."""
     categorical = bool(ds._binned is not None and any(
         m.bin_type == BinType.CATEGORICAL for m in ds._binned.bin_mappers))
     out = {}
-    for label, extra, wrapper in COMPARE_RUNS:
+    for label, extra, wrapper in runs:
         forests = {}
-        for impl in ("plain", "auto"):
+        for name, impl, f64 in (("kernel", "auto", False),) + tuple(
+                (PLAIN_PATHS[f64], "plain", f64) for f64 in plains):
             reset_counts()
-            forests[impl] = lgb.train(dict(PARAMS, tpu_hist_impl=impl,
-                                           **extra),
-                                      ds, num_boost_round=COMPARE_ITERS)
+            forests[name] = train_compared(
+                dict(PARAMS, tpu_hist_impl=impl, **extra), ds, f64)
             counts = read_counts()
             if (counts[wrapper] > 0) != (impl == "auto"):
                 raise AssertionError("%s %s path: %s launched %d times"
-                                     % (label, impl, wrapper,
+                                     % (label, name, wrapper,
                                         counts[wrapper]))
-        ties = []
-        identical = trees_match(forests["auto"].models,
-                                forests["plain"].models, ties, categorical)
-        raw = {impl: f.predict(xs, raw_score=True)
-               for impl, f in forests.items()}
-        raw_diff = float(np.abs(raw["auto"] - raw["plain"]).max())
-        parted = any(t["after_parting_tie"] for t in ties)
-        aucs = {impl: auc(r, ys) for impl, r in raw.items()}
-        log("kernel vs plain path, %s: trees %s, max raw prediction diff "
-            "%.3g, AUC %.6f against %.6f, %s launches %d" % (
-                label, "identical" if identical
-                else "parted at a categorical tie" if parted
-                else "equal up to f32 gain ties", raw_diff, aucs["auto"],
-                aucs["plain"], wrapper, counts[wrapper]))
-        if identical and raw_diff > raw_tol:
-            raise AssertionError("%s: identical trees but raw predictions "
-                                 "differ by %.3g" % (label, raw_diff))
-        if parted and abs(aucs["auto"] - aucs["plain"]) > AUC_TOLERANCE:
-            raise AssertionError("%s: after a categorical tie the kernel "
-                                 "and plain paths' AUC differ by more than "
-                                 "%g" % (label, AUC_TOLERANCE))
-        out[label] = {"identical": identical, "max_raw_diff": raw_diff,
-                      "ties": ties, "auc": aucs}
+            if impl == "auto":
+                launches = counts[wrapper]
+        raw = {name: f.predict(xs, raw_score=True)
+               for name, f in forests.items()}
+        aucs = ({name: auc(r, ys) for name, r in raw.items()} if categorical
+                else None)
+        out[label] = {"launches": launches, "auc": aucs}
+        for f64 in plains:
+            name, tol = PLAIN_PATHS[f64], F64_RAW_TOL if f64 else raw_tol
+            ties = []
+            identical = trees_match(forests["kernel"].models,
+                                    forests[name].models, ties, categorical)
+            raw_diff = float(np.abs(raw["kernel"] - raw[name]).max())
+            parted = any(t["after_parting_tie"] for t in ties)
+            log("kernel vs %s path, %s: trees %s, max raw prediction diff "
+                "%.3g%s, %s launches %d" % (
+                    name, label, "identical" if identical
+                    else "parted at a categorical tie" if parted
+                    else "equal up to f32 gain ties", raw_diff,
+                    ", AUC %.6f against %.6f" % (aucs["kernel"], aucs[name])
+                    if aucs else "", wrapper, launches))
+            if identical and raw_diff > tol:
+                raise AssertionError("%s: identical trees but raw "
+                                     "predictions differ from the %s path's "
+                                     "by %.3g" % (label, name, raw_diff))
+            if parted and abs(aucs["kernel"] - aucs[name]) > AUC_TOLERANCE:
+                raise AssertionError("%s: after a categorical tie the kernel "
+                                     "and %s paths' AUC differ by more than "
+                                     "%g" % (label, name, AUC_TOLERANCE))
+            out[label][name] = {"identical": identical,
+                                "max_raw_diff": raw_diff, "ties": ties}
     return out
 
 
@@ -1671,6 +1896,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    t_start = time.perf_counter()
     # ---- 1. the card ---------------------------------------------------
     card = card_line()
     dev = torch.device("cuda", 0)
@@ -1679,6 +1905,7 @@ def main() -> int:
                                            torch.version.cuda,
                                            sys.version.split()[0]))
 
+    log_phase(t_start, "2. build every kernel from the sources")
     # ---- 2. build every kernel from the sources ------------------------
     t0 = time.perf_counter()
     builds = port_device.build_libraries(dict(kernels.LIBRARIES))
@@ -1690,6 +1917,7 @@ def main() -> int:
                 log("  ptxas %s: %s" % (rec.name, line.strip()))
         log("  %s built in %.2f s" % (rec.name, rec.seconds))
 
+    log_phase(t_start, "3. kernels against plain, timed")
     # ---- 3. kernels against plain, timed -------------------------------
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     hist_rows = check_histogram_kernel(dev, flush)
@@ -1698,6 +1926,7 @@ def main() -> int:
     repack_rows = check_partition_kernel(dev, flush)
     del flush
 
+    log_phase(t_start, "4. the main paths at full width")
     # ---- 4. the main paths at full width -------------------------------
     x, y = bench_data(MAIN_ROWS)
     t0 = time.perf_counter()
@@ -1719,6 +1948,7 @@ def main() -> int:
     del ds, valid
     renewal = time_renewal(dev)
 
+    log_phase(t_start, "4i-4l. the bundled workload, its kernels first")
     # ---- 4i-4l. the bundled workload, its kernels first ----------------
     x_bundled, y_bundled = bundled_data(MAIN_ROWS)
     xv, yv = bundled_data(VALID_ROWS, seed=1)
@@ -1743,6 +1973,7 @@ def main() -> int:
             % (label, paths[label]["s_per_iter"], binning_s))
     del ds, valid
 
+    log_phase(t_start, "4m-4p. the categorical workload, its root pass first")
     # ---- 4m-4p. the categorical workload, its root pass first ----------
     x_cat, y_cat = categorical_data(MAIN_ROWS)
     xv, yv = categorical_data(VALID_ROWS, seed=1)
@@ -1783,6 +2014,33 @@ def main() -> int:
                 d["launches_per_iter"], c["syncs_per_iter"],
                 d["syncs_per_iter"]))
 
+    log_phase(t_start, "4r-4u. the multiclass workload")
+    # ---- 4r-4u. the multiclass workload --------------------------------
+    x_mc, y_mc = multiclass_data(MULTICLASS_ROWS)
+    xv, yv = multiclass_data(MULTICLASS_VALID_ROWS, seed=1)
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(x_mc, label=y_mc, params=PARAMS).construct()
+    binning_s = time.perf_counter() - t0
+    valid = ds.create_valid(xv, label=yv).construct()
+    log("binning: %.2f s for %d x %d in %d classes, the valid set's %d rows "
+        "%.2f s more" % (binning_s, *x_mc.shape, NUM_CLASS, len(xv),
+                         time.perf_counter() - t0 - binning_s))
+    for label in MULTICLASS_PATHS:
+        paths[label] = drive_multiclass_path(
+            label, ds, x_mc, (valid, xv) if label == "4r" else None)
+        paths[label]["binning_s"] = binning_s
+    del ds, valid
+    for label, (dense, _) in MULTICLASS_PATHS.items():
+        m, d = paths[label], paths[dense]
+        log("path %s against %s (the same growth, dense binary): %.3f "
+            "against %.3f s per iteration (%.2fx), %d against %d launches "
+            "and %d against %d syncs an iteration" % (
+                label, dense, m["s_per_iter"], d["s_per_iter"],
+                m["s_per_iter"] / d["s_per_iter"], m["launches_per_iter"],
+                d["launches_per_iter"], m["syncs_per_iter"],
+                d["syncs_per_iter"]))
+
+    log_phase(t_start, "5. kernel path against plain path")
     # ---- 5. kernel path against plain path -----------------------------
     x, y = bench_data(MAIN_ROWS)
     xs, ys = x[:COMPARE_ROWS], y[:COMPARE_ROWS]
@@ -1801,7 +2059,17 @@ def main() -> int:
                               categorical_feature=CATEGORICAL_FEATURES)
                   .construct(), xs, ys,
                   BUNDLED_RAW_TOL if cat_bundled else 1e-5)
+    xs, ys = x_mc[:COMPARE_ROWS], y_mc[:COMPARE_ROWS]
+    log("kernel vs plain path on the multiclass data (%d rows, %d "
+        "classes):" % (len(xs), NUM_CLASS))
+    compare_paths(lgb.Dataset(xs, label=ys, params=PARAMS).construct(), xs,
+                  ys, runs=[("4t batched, multiclass",
+                             dict(GROWTH_PARAMS["batched"],
+                                  objective="multiclass",
+                                  **objective_params("multiclass")),
+                             "build_histogram_slots6_cuda")], plains=(True,))
 
+    log_phase(t_start, "6. result lines")
     # ---- 6. result lines -----------------------------------------------
     def launches(name):
         return sum(p["launches"][name] for p in paths.values())

@@ -10,6 +10,11 @@ evaluates its training and validation sets. A pandas ``DataFrame``'s
 frame's category order, which the model text keeps in its
 ``pandas_categorical`` line.
 
+A multiclass booster (``num_class`` K) predicts [N, K] and hands ``fobj``
+and ``feval`` its scores as K * N values, class-major, as the reference's
+python package does. The JAX package's methods that the port does not
+cover yet exist and raise, naming the ROADMAP item that brings them.
+
 Device policy: ``Dataset``, ``Booster`` and ``train`` take ``device``.
 ``None`` means CUDA; without a CUDA device they raise unless the caller
 passes ``device="cpu"``. Nothing falls back to the CPU on its own.
@@ -85,6 +90,23 @@ def _to_1d(x) -> Optional[np.ndarray]:
     if hasattr(x, "values"):
         x = x.values
     return np.asarray(x, dtype=np.float64).reshape(-1)
+
+
+def _not_ported(name: str, item: str):
+    """A method of the JAX package's that the port lacks: it raises
+    ``outside_slice``, citing ROADMAP Queue 1 ``item``."""
+    def method(self, *args, **kwargs):
+        raise outside_slice("%s.%s" % (type(self).__name__, name),
+                            "ROADMAP Queue 1 %s" % item)
+    method.__name__ = name
+    method.__doc__ = "Not ported yet (ROADMAP Queue 1 %s): raises." % item
+    return method
+
+
+def _class_major(scores: np.ndarray) -> np.ndarray:
+    """Raw scores as ``fobj`` and ``feval`` take them: [N] for one class,
+    K * N values class-major for K (basic.py:611 of the JAX package)."""
+    return scores if scores.ndim == 1 else scores.reshape(-1, order="F")
 
 
 def _category_json(v):
@@ -194,6 +216,24 @@ class Dataset:
     def get_label(self):
         return self.construct()._binned.metadata.label
 
+    def get_weight(self):
+        return self.construct()._binned.metadata.weight
+
+    def get_init_score(self):
+        return self.construct()._binned.metadata.init_score
+
+    subset = _not_ported("subset", "#17")
+    set_label = _not_ported("set_label", "#17")
+    set_weight = _not_ported("set_weight", "#17")
+    set_group = _not_ported("set_group", "#17")
+    set_init_score = _not_ported("set_init_score", "#17")
+    set_reference = _not_ported("set_reference", "#17")
+    set_field = _not_ported("set_field", "#17")
+    get_field = _not_ported("get_field", "#17")
+    # a Dataset of the port holds no query groups (``group=`` refuses)
+    get_group = _not_ported("get_group", "#2")
+    save_binary = _not_ported("save_binary", "#16")
+
 
 class _InnerPredictor:
     """Continued training (basic.py:346): an init model that gives a new
@@ -209,9 +249,10 @@ class _InnerPredictor:
         """The init model's trees, capped like ``predict_raw``: at its best
         iteration where it has one, so that the merged trees are the ones
         the init scores came from."""
-        models = self.booster._impl.models
+        impl = self.booster._impl
         best = self.booster.best_iteration
-        return models[:best] if best > 0 else models
+        return (impl.models[:best * impl.num_tree_per_iteration] if best > 0
+                else impl.models)
 
 
 class Booster:
@@ -273,7 +314,7 @@ class Booster:
             init_raw = predictor.predict_raw(train_set.data)
         train_set.construct()
         if init_raw is not None:
-            train_set._binned.metadata.set_init_score(init_raw)
+            train_set._binned.metadata.set_init_score(_class_major(init_raw))
         self._train_set = train_set
         self.pandas_categorical = train_set.pandas_categorical
         self.config = Config(self.params)
@@ -288,6 +329,11 @@ class Booster:
         self._impl = GBDT(self.config, train_set._binned, objective, metrics,
                           self.device)
         if predictor is not None:
+            init_k = predictor.booster.num_model_per_iteration()
+            check(init_k == self._impl.num_tree_per_iteration,
+                  "init model has %d trees per iteration but the new "
+                  "parameters produce %d"
+                  % (init_k, self._impl.num_tree_per_iteration))
             # the booster is self-contained: the init model's trees come
             # first (LGBM_BoosterMerge -> GBDT::MergeFrom, gbdt.h:53)
             self._impl.merge_init_models(predictor.models())
@@ -315,8 +361,6 @@ class Booster:
                 break
         parsed = model_text.parse_model_string(model_str)
         tokens = parsed["objective"].split()
-        if parsed["num_tree_per_iteration"] != 1:
-            raise outside_slice("multiclass models", "ROADMAP Queue 1 #2")
         if parsed["average_output"]:
             raise outside_slice("averaged (RF) models", "ROADMAP Queue 1 #7")
         if tokens:
@@ -327,8 +371,11 @@ class Booster:
                     self.params.setdefault(k, v)
                 elif tok == "sqrt":
                     self.params.setdefault("reg_sqrt", True)
+        if parsed["num_class"] > 1:
+            self.params["num_class"] = parsed["num_class"]
         self._init_from_forest(parsed["trees"], parsed["feature_names"],
                                parsed["feature_infos"])
+        self._impl.num_tree_per_iteration = parsed["num_tree_per_iteration"]
 
     # ------------------------------------------------------------ training
     def add_valid(self, data: Dataset, name: str) -> "Booster":
@@ -364,14 +411,15 @@ class Booster:
 
     def _custom_gradients(self, fobj):
         """``fobj``'s gradients and hessians of the training scores, on
-        the booster's device: the scores' copy to the host, the call, and
-        the two copies back, each blocking."""
-        grad, hess = fobj(self._impl.scores_of(0), self._train_set)
-        return (self._impl.device_gradients(grad, "grad"),
-                self._impl.device_gradients(hess, "hess"))
+        the booster's device and class-major: the scores' copy to the host,
+        the call, and the two copies back, each blocking."""
+        grad, hess = fobj(_class_major(self._impl.scores_of(0)),
+                          self._train_set)
+        return (self._impl.device_gradients(grad, "grad").reshape(-1),
+                self._impl.device_gradients(hess, "hess").reshape(-1))
 
     def rollback_one_iter(self) -> "Booster":
-        """basic.py:1934: drop the last iteration's tree."""
+        """basic.py:1934: drop the last iteration's trees, one a class."""
         self._impl.rollback_one_iter()
         return self
 
@@ -388,6 +436,10 @@ class Booster:
 
     def num_trees(self) -> int:
         return len(self._impl.models)
+
+    def num_model_per_iteration(self) -> int:
+        """Trees an iteration: K for a K-class multiclass model, else 1."""
+        return self._impl.num_tree_per_iteration
 
     def num_feature(self) -> int:
         return len(self._feature_names())
@@ -420,7 +472,7 @@ class Booster:
         if feval is not None:
             ds = (self._train_set if data_idx == 0
                   else self._valid_sets[data_idx - 1])
-            res = feval(self._impl.scores_of(data_idx), ds)
+            res = feval(_class_major(self._impl.scores_of(data_idx)), ds)
             for r in (res if isinstance(res, list)
                       else [] if res is None else [res]):
                 out.append((name, r[0], r[1], r[2]))
@@ -488,3 +540,13 @@ class Booster:
     @property
     def models(self) -> List[HostTree]:
         return self._impl.models
+
+    dump_model = _not_ported("dump_model", "#17")
+    get_split_value_histogram = _not_ported("get_split_value_histogram",
+                                            "#17")
+    get_leaf_output = _not_ported("get_leaf_output", "#17")
+    refit = _not_ported("refit", "#15")
+    reset_training_data = _not_ported("reset_training_data", "#20")
+    as_serving_bundle = _not_ported("as_serving_bundle", "#10")
+    set_network = _not_ported("set_network", "#13")
+    free_network = _not_ported("free_network", "#13")

@@ -11,7 +11,9 @@ numpy arrays per tree, holding the fields of the JAX package's HostTree
 ``cat_bitset_bin`` when present). ``bin_mappers_from_numpy`` does the same
 for the BinMapper fields, categorical mappers' ``bin_2_categorical``
 included, and ``booster_from_numpy`` puts both behind a predict-only
-``Booster``. Nothing here imports the JAX package: a caller
+``Booster``: with ``num_class`` K > 1 its trees are a multiclass forest,
+K an iteration (tree ``i`` is class ``i % K``), and it predicts [N, K].
+Nothing here imports the JAX package: a caller
 that holds a JAX-trained model reads its trees into numpy first.
 """
 from __future__ import annotations
@@ -92,14 +94,25 @@ def booster_from_numpy(trees: Sequence[Mapping[str, Any]],
                        mappers: Sequence[Mapping[str, Any]],
                        params: Optional[Mapping[str, Any]] = None,
                        feature_names: Optional[List[str]] = None,
-                       device: DeviceLike = None) -> Booster:
-    """A predict-only Booster on ``device`` from numpy trees and mappers."""
+                       device: DeviceLike = None,
+                       num_class: int = 1) -> Booster:
+    """A predict-only Booster on ``device`` from numpy trees and mappers;
+    ``num_class`` > 1 makes it multiclass (objective ``multiclass`` unless
+    ``params`` names another)."""
+    params = dict(params) if params else None
+    if num_class > 1:
+        params = dict(params or {}, num_class=num_class)
+        params.setdefault("objective", "multiclass")
     bms = bin_mappers_from_numpy(mappers)
     infos = ["none" if m.is_trivial
              else ":".join(str(c) for c in sorted(m.bin_2_categorical))
              if m.bin_type == BinType.CATEGORICAL
              else "[%r:%r]" % (m.min_val, m.max_val) for m in bms]
     names = feature_names or ["Column_%d" % i for i in range(len(bms))]
-    return Booster.from_forest(forest_from_numpy(trees), names, infos,
-                               params=dict(params) if params else None,
-                               device=device)
+    booster = Booster.from_forest(forest_from_numpy(trees), names, infos,
+                                  params=params, device=device)
+    k = booster.num_model_per_iteration()
+    if len(trees) % k:
+        raise ValueError("%d trees do not make whole iterations of %d "
+                         "classes" % (len(trees), k))
+    return booster

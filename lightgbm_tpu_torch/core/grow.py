@@ -50,6 +50,9 @@ class GrowParams(NamedTuple):
     max_depth: int
     split: SplitParams
     hist_impl: str = "auto"  # core/histogram.py: auto | plain
+    # the plain histograms sum in float64 (core/histogram.py f64_sums; set
+    # by chip_smoke.py and the tests, not by a Config parameter)
+    plain_f64_sums: bool = False
     # tree_growth=batched (core/grow_batched.py): split up to this many of
     # the highest-gain leaves per step
     batch_splits: int = 16
@@ -295,7 +298,8 @@ def root_split(xb: torch.Tensor, vals: torch.Tensor, meta: FeatureMeta,
     sp = params.split
     dev = xb.device
     root = vals.sum(dim=0)                                   # (g, h, count)
-    hist_root = hist_tile_vals(xb, vals, params.num_bins, params.hist_impl)
+    hist_root = hist_tile_vals(xb, vals, params.num_bins, params.hist_impl,
+                               params.plain_f64_sums)
     tree = empty_tree(l, dev)
     tree.leaf_value[0] = calculate_leaf_output(root[0], root[1], sp.lambda_l1,
                                                sp.lambda_l2, sp.max_delta_step)
@@ -410,7 +414,7 @@ def grow_tree(xb: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
 
         part, hist_left, hist_right = partition_and_hist(
             part, leaf, right_leaf, begin, count, xb, vals, go_left_rows, b,
-            params.hist_impl)
+            params.hist_impl, params.plain_f64_sums)
 
         # ---- tree bookkeeping (Tree::Split, tree.cpp:49-67) -------------
         node = t

@@ -191,7 +191,7 @@ def apply_split_wave(tree: DeviceTree, leaf_min: torch.Tensor,
     tree.leaf_depth[both] = torch.cat([depth, depth])
 
     # monotone constraints are outside the slice (every feature is 0), so
-    # the bounds stay (-inf, inf); they are carried for Queue 1 #5
+    # the bounds stay (-inf, inf); they are carried for Queue 1 #4
     mono = torch.zeros_like(cur.feature)
     l_min, l_max, r_min, r_max = propagate_monotone_bounds(
         mono, cur.left_output, cur.right_output,
@@ -264,11 +264,12 @@ def grow_tree_batched(xb: torch.Tensor, grad: torch.Tensor,
             slot = rs * 2 + (~go_left).to(torch.int64)       # child slot
             ch_hist = hist_slots(xb, torch.where(active, slot, -1)
                                  .to(torch.int32), vals, b, 2 * k,
-                                 params.hist_impl)
+                                 params.hist_impl, params.plain_f64_sums)
         else:
             h6 = hist_slots6(xb, torch.where(active, rs, -1).to(torch.int32),
                              go_left.to(torch.float32), vals, b, k,
-                             params.hist_impl)               # [k, C, B, 6]
+                             params.hist_impl,
+                             params.plain_f64_sums)          # [k, C, B, 6]
             ch_hist = torch.stack([h6[..., :3], h6[..., 3:]],
                                   dim=1).reshape(2 * k, c, b, 3)
 

@@ -155,8 +155,8 @@ def grow_tree_batched_part(xb: torch.Tensor, grad: torch.Tensor,
         prev = torch.cat([slot_at.new_full((1,), -2), slot_at[:-1]])
         first = (slot_at >= 0) & (slot_at != prev)
         h6 = hist_part_tiles(xb_fm, go_left.to(torch.float32), vals3,
-                             slot_at, first, b, k, tile,
-                             params.hist_impl)                # [k, C, B, 6]
+                             slot_at, first, b, k, tile, params.hist_impl,
+                             params.plain_f64_sums)           # [k, C, B, 6]
         ch_hist = torch.stack([h6[..., :3], h6[..., 3:]],
                               dim=1).reshape(2 * k, c, b, 3)
         # both routes zero a slot with no tile, so this mask changes nothing

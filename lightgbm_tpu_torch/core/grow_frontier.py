@@ -41,9 +41,14 @@ has at most ``2^(d - 1)`` leaves shallower than ``d``. Everything else
 stays on the device, with the lanes cut to the committed prefix of the
 ranking as in ``core/grow_batched.py``.
 
+Multiclass (ROADMAP Queue 1 #2) calls this grower once a class, in class
+order (``boosting/gbdt.py``). The JAX package's class-batched
+``grow_tree_frontier_classes`` is not ported and needs no port: its
+docstring states that each class's structure equals its solo run, and
+sequential growth is that run.
+
 Not ported: ``wave_hist_entry`` and ``wave_fused_entry`` (the JAX cost
-model's pricing entries), ``grow_tree_frontier_classes`` (multiclass,
-ROADMAP Queue 1 #3), the learners of a device mesh, streaming, and the
+model's pricing entries), the learners of a device mesh, streaming, and the
 health and model-statistics accumulators (``obs_modelstats`` raises).
 """
 from __future__ import annotations
@@ -153,7 +158,8 @@ def grow_tree_frontier(xb: torch.Tensor, grad: torch.Tensor,
             bool(params.split.cat_features))
         left_small, slot = wave_slots(plan.cur, active, go_left, rs)
         hist_small = hist_slots(xb, slot, vals, params.num_bins, k,
-                                params.hist_impl)             # [k, C, B, 3]
+                                params.hist_impl,
+                                params.plain_f64_sums)        # [k, C, B, 3]
         s = s._replace(leaf_id=leaf_id)
         wave_commit(s, plan, nl, left_small, hist_small, meta, params,
                     feature_mask)

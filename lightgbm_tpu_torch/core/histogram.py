@@ -26,6 +26,14 @@ tile instead (``hist_part_tiles``, from ``build_histogram_part_tiles``).
 
 A CUDA tensor never falls back to the plain version when the kernel fails:
 the kernel's error propagates.
+
+``f64_sums`` makes a plain version accumulate in float64 and round to the
+values' dtype at the end (``GrowParams.plain_f64_sums``; internal, not a
+``Config`` parameter). By default a plain version is one ``index_add_``, a
+single running float32 sum per cell, as the JAX package's CPU scatter
+path is; on a cell of a million rows that sum drifts by 1e-2 relative,
+where the kernels, which sum in blocks, and float64 sums agree. The
+kernels ignore it.
 """
 from __future__ import annotations
 
@@ -36,21 +44,27 @@ from . import kernels
 HIST_IMPLS = ("auto", "plain")
 
 
-def hist_plain(xb: torch.Tensor, vals: torch.Tensor,
-               num_bins: int) -> torch.Tensor:
+def _sums(vals: torch.Tensor, f64_sums: bool) -> torch.Tensor:
+    return vals.double() if f64_sums else vals
+
+
+def hist_plain(xb: torch.Tensor, vals: torch.Tensor, num_bins: int,
+               f64_sums: bool = False) -> torch.Tensor:
     """Plain version: one flat ``index_add_`` over ``f * B + xb[n, f]``.
 
     xb [n, F] uint8 with every bin < num_bins; vals [n, K] float ->
-    [F, B, K] in the dtype of ``vals``.
+    [F, B, K] in the dtype of ``vals``, summed in float64 with
+    ``f64_sums``.
     """
     n, f = xb.shape
     k = vals.shape[1]
     offs = torch.arange(f, device=xb.device, dtype=torch.int64) * num_bins
     flat = (xb.to(torch.int64) + offs).reshape(-1)
-    src = vals.unsqueeze(1).expand(n, f, k).reshape(n * f, k)
-    hist = torch.zeros((f * num_bins, k), dtype=vals.dtype, device=xb.device)
+    acc = _sums(vals, f64_sums)
+    src = acc.unsqueeze(1).expand(n, f, k).reshape(n * f, k)
+    hist = torch.zeros((f * num_bins, k), dtype=acc.dtype, device=xb.device)
     hist.index_add_(0, flat, src)
-    return hist.reshape(f, num_bins, k)
+    return hist.reshape(f, num_bins, k).to(vals.dtype)
 
 
 def _use_kernel(impl: str, xb: torch.Tensor) -> bool:
@@ -61,12 +75,13 @@ def _use_kernel(impl: str, xb: torch.Tensor) -> bool:
 
 
 def hist_tile_vals(xb_rows: torch.Tensor, vals: torch.Tensor, num_bins: int,
-                   impl: str = "auto") -> torch.Tensor:
+                   impl: str = "auto", f64_sums: bool = False
+                   ) -> torch.Tensor:
     """[rows, F] bins + pre-stacked [rows, K] values -> [F, B, K] (the
     fused two-child pass of ``core/partition.py`` gives K = 6)."""
     if _use_kernel(impl, xb_rows):
         return kernels.build_histogram_cuda(xb_rows, vals, num_bins)
-    return hist_plain(xb_rows, vals, num_bins)
+    return hist_plain(xb_rows, vals, num_bins, f64_sums)
 
 
 def stack_vals(grad: torch.Tensor, hess: torch.Tensor,
@@ -96,13 +111,14 @@ def build_histogram(xb: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
 
 def hist_slots_plain(xb: torch.Tensor, slot: torch.Tensor,
                      vals: torch.Tensor, num_bins: int,
-                     num_slots: int) -> torch.Tensor:
+                     num_slots: int, f64_sums: bool = False) -> torch.Tensor:
     """Plain version: one ``index_add_`` over ``slot*F*B + f*B + bin``.
     Inactive rows go to one spare slot past the end that is dropped, so
     nothing is read back to pick the active rows.
 
     xb [n, F] uint8 with every bin < num_bins; slot [n] int; vals [n, K]
-    -> [S, F, B, K] in the dtype of ``vals``.
+    -> [S, F, B, K] in the dtype of ``vals``, summed in float64 with
+    ``f64_sums``.
     """
     n, f = xb.shape
     k = vals.shape[1]
@@ -110,64 +126,70 @@ def hist_slots_plain(xb: torch.Tensor, slot: torch.Tensor,
                     num_slots)
     offs = torch.arange(f, device=xb.device, dtype=torch.int64) * num_bins
     flat = ((s * (f * num_bins))[:, None] + offs + xb.to(torch.int64))
-    src = vals.unsqueeze(1).expand(n, f, k).reshape(n * f, k)
-    hist = torch.zeros(((num_slots + 1) * f * num_bins, k), dtype=vals.dtype,
+    acc = _sums(vals, f64_sums)
+    src = acc.unsqueeze(1).expand(n, f, k).reshape(n * f, k)
+    hist = torch.zeros(((num_slots + 1) * f * num_bins, k), dtype=acc.dtype,
                        device=xb.device)
     hist.index_add_(0, flat.reshape(-1), src)
-    return hist[:num_slots * f * num_bins].reshape(num_slots, f, num_bins, k)
+    return hist[:num_slots * f * num_bins].reshape(
+        num_slots, f, num_bins, k).to(vals.dtype)
 
 
 def hist_slots6_plain(xb: torch.Tensor, slot: torch.Tensor, sel: torch.Tensor,
                       vals3: torch.Tensor, num_bins: int,
-                      num_slots: int) -> torch.Tensor:
+                      num_slots: int, f64_sums: bool = False) -> torch.Tensor:
     """Plain version of the parent-slot pass: channels vals3 * sel then
     vals3 * (1 - sel), both children of every parent slot ->
     [S, F, B, 6]."""
     s = sel.to(vals3.dtype)[:, None]
     return hist_slots_plain(xb, slot, torch.cat([vals3 * s, vals3 * (1.0 - s)],
-                                                dim=1), num_bins, num_slots)
+                                                dim=1), num_bins, num_slots,
+                            f64_sums)
 
 
 def hist_slots(xb: torch.Tensor, slot: torch.Tensor, vals: torch.Tensor,
-               num_bins: int, num_slots: int,
-               impl: str = "auto") -> torch.Tensor:
+               num_bins: int, num_slots: int, impl: str = "auto",
+               f64_sums: bool = False) -> torch.Tensor:
     """[N, F] bins + [N] slot ids + stacked [N, 3] values -> [S, F, B, 3]:
     the slot kernel for a CUDA tensor under ``auto``, else the plain
     version."""
     if _use_kernel(impl, xb):
         return kernels.build_histogram_slots_cuda(
             xb, slot.to(torch.int32).contiguous(), vals, num_bins, num_slots)
-    return hist_slots_plain(xb, slot, vals, num_bins, num_slots)
+    return hist_slots_plain(xb, slot, vals, num_bins, num_slots, f64_sums)
 
 
 def hist_slots6(xb: torch.Tensor, slot: torch.Tensor, sel: torch.Tensor,
                 vals3: torch.Tensor, num_bins: int, num_slots: int,
-                impl: str = "auto") -> torch.Tensor:
+                impl: str = "auto", f64_sums: bool = False) -> torch.Tensor:
     """Parent slots + go-left selector -> [S, F, B, 6] (left channels,
     then right), dispatched as ``hist_slots``."""
     if _use_kernel(impl, xb):
         return kernels.build_histogram_slots6_cuda(
             xb, slot.to(torch.int32).contiguous(),
             sel.to(torch.float32).contiguous(), vals3, num_bins, num_slots)
-    return hist_slots6_plain(xb, slot, sel, vals3, num_bins, num_slots)
+    return hist_slots6_plain(xb, slot, sel, vals3, num_bins, num_slots,
+                             f64_sums)
 
 
 def hist_part_tiles_plain(xb_fm: torch.Tensor, sel: torch.Tensor,
                           vals3: torch.Tensor, tile_slot: torch.Tensor,
                           tile_first: torch.Tensor, num_bins: int,
-                          n_slots: int, row_tile: int) -> torch.Tensor:
+                          n_slots: int, row_tile: int,
+                          f64_sums: bool = False) -> torch.Tensor:
     """Plain version of the partitioned-layout pass: every row takes its
     tile's slot, then the parent-slot pass runs over the row-major view.
     ``tile_first`` is implied by ``tile_slot`` and not read."""
     row_slot = tile_slot.repeat_interleave(row_tile)
     return hist_slots6_plain(xb_fm.t(), row_slot, sel, vals3.t(), num_bins,
-                             n_slots)
+                             n_slots, f64_sums)
 
 
 def hist_part_tiles(xb_fm: torch.Tensor, sel: torch.Tensor,
                     vals3: torch.Tensor, tile_slot: torch.Tensor,
                     tile_first: torch.Tensor, num_bins: int, n_slots: int,
-                    row_tile: int, impl: str = "auto") -> torch.Tensor:
+                    row_tile: int, impl: str = "auto",
+                    f64_sums: bool = False) -> torch.Tensor:
     """Both children of every splitting leaf over the partitioned layout
     (``build_histogram_part_tiles``, histogram_pallas.py:327), in the JAX
     layout: xb_fm [F, Np] uint8 feature-major, rows grouped into
@@ -187,7 +209,7 @@ def hist_part_tiles(xb_fm: torch.Tensor, sel: torch.Tensor,
             tile_first.to(torch.int32).contiguous(), num_bins, n_slots,
             row_tile)
     return hist_part_tiles_plain(xb_fm, sel, vals3, tile_slot, tile_first,
-                                 num_bins, n_slots, row_tile)
+                                 num_bins, n_slots, row_tile, f64_sums)
 
 
 def build_histogram_frontier(xb: torch.Tensor, slot: torch.Tensor,

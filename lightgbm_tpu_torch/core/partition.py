@@ -44,7 +44,7 @@ def partition_and_hist(part: RowPartition, leaf: int, right_leaf: int,
                        vals: torch.Tensor,
                        go_left_from_rows: Callable[[torch.Tensor],
                                                    torch.Tensor],
-                       num_bins: int, impl: str
+                       num_bins: int, impl: str, f64_sums: bool = False
                        ) -> Tuple[RowPartition, torch.Tensor, torch.Tensor]:
     """Split ``leaf`` (rows ``order[begin:begin + count]``) into ``leaf``
     and ``right_leaf`` and price both children in the same pass.
@@ -60,7 +60,7 @@ def partition_and_hist(part: RowPartition, leaf: int, right_leaf: int,
     go_left = go_left_from_rows(rows)
     is_l = go_left.to(v.dtype)[:, None]
     v6 = torch.cat([v * is_l, v * (1.0 - is_l)], dim=1)      # [count, 6]
-    hist = hist_tile_vals(rows, v6, num_bins, impl)
+    hist = hist_tile_vals(rows, v6, num_bins, impl, f64_sums)
 
     # left rows keep their order from the front of the range; right rows
     # fill it from the end backwards (the JAX scatter placement)

@@ -5,8 +5,14 @@ tree.h:203-260 and gbdt_prediction.cpp:9-83 of the reference). Prediction
 replays the splits in creation order: node ``t`` split leaf
 ``split_leaf[t]``, so visiting nodes 0..L-2 in turn moves every row through
 exactly the decisions a traversal would make, each step one vectorized
-compare over all rows. Thresholds are real values, compared in float32 like
-the JAX package. A categorical node holds a bitset of raw category values
+compare over all rows. Feature values and thresholds are compared in
+float64, as Tree::NumericalDecision compares them, so every row goes where
+the binning of training sent it (the binned replay's leaf). The JAX
+package compares in float32; a value within a float32 rounding of a
+threshold can go the other way there (8 of 125,000 valid rows in 25 trees
+of chip_smoke.py's path 4r, whose data are float32, because a threshold's
+nearest float32 lay above it). A categorical node holds a bitset of raw
+category values
 as wide as the model's largest category needs (Tree cat_threshold_,
 tree.h:276-291), stored as int32 words on the device: a 60,000-id column
 takes ~1,875 words a node.
@@ -37,7 +43,7 @@ class PredictTree(NamedTuple):
     """Per-tree arrays of replay prediction, stacked over trees [T, ...]."""
     split_leaf: torch.Tensor     # [T, L-1] int64; -1 = unused node
     split_feature: torch.Tensor  # [T, L-1] int64 real feature index
-    threshold: torch.Tensor      # [T, L-1] float32 real threshold
+    threshold: torch.Tensor      # [T, L-1] float64 real threshold
     default_left: torch.Tensor   # [T, L-1] bool
     missing_type: torch.Tensor   # [T, L-1] int64
     cat_bitset: torch.Tensor     # [T, L-1, W] int32 raw-category words
@@ -72,8 +78,7 @@ def stack_predict_trees(trees: Sequence, device: torch.device) -> PredictTree:
         split_leaf=stack(lambda t: t.split_leaf, max_nodes, -1, np.int64),
         split_feature=stack(lambda t: t.split_feature, max_nodes, 0,
                             np.int64),
-        threshold=stack(lambda t: t.threshold.astype(np.float32), max_nodes,
-                        0.0, np.float32),
+        threshold=stack(lambda t: t.threshold, max_nodes, 0.0, np.float64),
         default_left=stack(lambda t: t.default_left, max_nodes, False, bool),
         missing_type=stack(lambda t: t.missing_type, max_nodes, 0, np.int64),
         cat_bitset=torch.as_tensor(bitsets.view(np.int32), device=device),
@@ -128,7 +133,7 @@ def categorical_go_left(fval: torch.Tensor,
 def predict_forest_scores(trees: PredictTree, x: torch.Tensor
                           ) -> torch.Tensor:
     """[N] raw scores: the sum over trees, in tree order, of each tree's
-    leaf value for every row of x [N, F] float32."""
+    leaf value for every row of x [N, F] float64."""
     n = x.shape[0]
     out = torch.zeros(n, dtype=torch.float32, device=x.device)
     num_trees, num_nodes = trees.split_leaf.shape

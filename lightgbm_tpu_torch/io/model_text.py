@@ -83,12 +83,19 @@ def tree_to_string(ht, tree_index: int) -> str:
 
 def objective_to_string(objective, config) -> str:
     """ObjectiveFunction::ToString of the slice's objectives (each
-    objective's ToString; model_text.py:124-141 of the JAX package)."""
+    objective's ToString; model_text.py:124-141 of the JAX package). A
+    multiclass header also writes ``num_class`` and
+    ``num_tree_per_iteration``, which ``parse_model_string`` reads back."""
     if objective is None:
         return "custom"
     name = objective.name
     if name == "binary":
         return "binary sigmoid:%s" % _fmt(config.sigmoid)
+    if name == "multiclass":
+        return "multiclass num_class:%d" % config.num_class
+    if name == "multiclassova":
+        return "multiclassova num_class:%d sigmoid:%s" % (
+            config.num_class, _fmt(config.sigmoid))
     if name == "regression" and config.reg_sqrt:
         return "regression sqrt"
     if name == "quantile":

@@ -1,11 +1,13 @@
 """Evaluation metrics on the host.
 
 The port's own copy of the pointwise metrics of ``lightgbm_tpu/metrics.py``
-(regression_metric.hpp and binary_metric.hpp of the reference): the
-regression family, ``binary_logloss``, ``binary_error`` and ``auc``.
+(regression_metric.hpp, binary_metric.hpp and multiclass_metric.hpp of
+the reference): the regression family, ``binary_logloss``,
+``binary_error``, ``auc``, ``multi_logloss`` and ``multi_error``.
 Metrics run in NumPy in float64 on scores pulled from the device once per
-evaluation, off the training hot path. The multiclass, cross-entropy and
-ranking metrics raise ``NotImplementedError``.
+evaluation, off the training hot path; a multiclass metric takes [N, K]
+scores. The cross-entropy and ranking metrics raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -210,6 +212,48 @@ class AUCMetric(Metric):
         return [auc(score, self.label, self.weights)]
 
 
+class MultiLoglossMetric(Metric):
+    """multiclass_metric.hpp multi_logloss: the (weighted) mean of -log of
+    the true class's converted score, clipped at 1e-15."""
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.names = ["multi_logloss"]
+        self.factor_to_bigger_better = -1.0
+        self.num_class = config.num_class
+
+    def eval(self, score, convert_output=None) -> List[float]:
+        p = np.asarray(score, np.float64).reshape(-1, self.num_class)
+        if convert_output is not None:
+            p = np.asarray(convert_output(p))
+        idx = self.label.astype(np.int64)
+        pt = np.clip(p[np.arange(len(idx)), idx], 1e-15, None)
+        losses = -np.log(pt)
+        if self.weights is not None:
+            return [float(np.sum(losses * self.weights) / self.sum_weights)]
+        return [float(np.mean(losses))]
+
+
+class MultiErrorMetric(Metric):
+    """multiclass_metric.hpp multi_error: the (weighted) share of rows
+    whose highest raw score is not their class (the first highest on a
+    tie)."""
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.names = ["multi_error"]
+        self.factor_to_bigger_better = -1.0
+        self.num_class = config.num_class
+
+    def eval(self, score, convert_output=None) -> List[float]:
+        p = np.asarray(score, np.float64).reshape(-1, self.num_class)
+        pred = np.argmax(p, axis=1)
+        err = (pred != self.label.astype(np.int64)).astype(np.float64)
+        if self.weights is not None:
+            return [float(np.sum(err * self.weights) / self.sum_weights)]
+        return [float(np.mean(err))]
+
+
 _METRIC_ALIASES = {
     "l1": "l1", "mean_absolute_error": "l1", "mae": "l1",
     "regression_l1": "l1",
@@ -222,10 +266,12 @@ _METRIC_ALIASES = {
     "binary_logloss": "binary_logloss", "binary": "binary_logloss",
     "binary_error": "binary_error",
     "auc": "auc",
+    "multi_logloss": "multi_logloss", "multiclass": "multi_logloss",
+    "softmax": "multi_logloss", "multiclassova": "multi_logloss",
+    "multi_error": "multi_error",
 }
 # the JAX package's other metrics and their aliases, not ported yet
-LATER_METRICS = ("multi_logloss", "multiclass", "softmax", "multiclassova",
-                 "multi_error", "xentropy", "cross_entropy", "xentlambda",
+LATER_METRICS = ("xentropy", "cross_entropy", "xentlambda",
                  "cross_entropy_lambda", "kldiv", "kullback_leibler", "ndcg",
                  "lambdarank", "map", "mean_average_precision", "topavg",
                  "topavgdiff")
@@ -237,6 +283,7 @@ _METRICS = {
     "gamma_deviance": GammaDevianceMetric, "tweedie": TweedieMetric,
     "binary_logloss": BinaryLoglossMetric, "binary_error": BinaryErrorMetric,
     "auc": AUCMetric,
+    "multi_logloss": MultiLoglossMetric, "multi_error": MultiErrorMetric,
 }
 
 

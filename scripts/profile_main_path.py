@@ -16,7 +16,10 @@ step), then one JSON line.
 With ``--objective`` (regression, huber, quantile, regression_l1, ...) it
 trains that objective on bench.py's target before its threshold
 (``chip_smoke.regression_data``) instead of the binary labels, so the
-regression paths' renewal and score updates show in the profile.
+regression paths' renewal and score updates show in the profile;
+``--objective multiclass`` (or ``multiclassova``) trains chip_smoke.py's
+multiclass workload (``chip_smoke.multiclass_data``: 500,000 rows by
+default, 5 classes, 5 trees an iteration), its paths 4r-4u.
 ``--data bundled`` trains the binary labels of chip_smoke.py's bundled
 workload instead (``chip_smoke.bundled_data``: HIGGS's b-tags and 8
 one-hot blocks of 32, 284 features stored in 34 columns), its paths
@@ -25,7 +28,7 @@ one-hot blocks of 32, 284 features stored in 34 columns), its paths
 as ``categorical_feature``), its paths 4m-4p.
 
     python3 scripts/profile_main_path.py [--growth MODE] [--rows N] \
-        [--iters K] [--objective OBJECTIVE] \
+        [--iters K] [--objective binary|multiclass|OBJECTIVE] \
         [--data dense|bundled|categorical]
 
 Needs a CUDA device; exits non-zero without one.
@@ -55,16 +58,22 @@ def main() -> int:
     sys.path.insert(0, root)
     import chip_smoke
     ap = argparse.ArgumentParser()
-    ap.add_argument("--rows", type=int, default=1_000_000)
+    ap.add_argument("--rows", type=int,
+                    help="rows (1,000,000; multiclass 500,000)")
     ap.add_argument("--iters", type=int, default=1)
     ap.add_argument("--growth", choices=sorted(chip_smoke.GROWTH_PARAMS),
                     default="exact")
     ap.add_argument("--objective", default="binary",
-                    help="binary (bench.py's labels) or one of the "
+                    help="binary (bench.py's labels), multiclass or "
+                    "multiclassova (its target in 5 classes) or one of the "
                     "regression family (its target before the threshold)")
     ap.add_argument("--data", choices=("dense", "bundled", "categorical"),
                     default="dense")
     args = ap.parse_args()
+    if args.rows is None:
+        args.rows = (chip_smoke.MULTICLASS_ROWS
+                     if args.objective in chip_smoke.MULTICLASS_OBJECTIVES
+                     else chip_smoke.MAIN_ROWS)
     if args.data != "dense" and args.objective != "binary":
         ap.error("--data %s takes the binary objective" % args.data)
     import torch
@@ -83,6 +92,7 @@ def main() -> int:
             if args.data == "categorical"
             else chip_smoke.workload(args.objective, args.rows))
     params = dict(chip_smoke.PARAMS, objective=args.objective,
+                  **chip_smoke.objective_params(args.objective),
                   **chip_smoke.GROWTH_PARAMS[args.growth])
     cat = (chip_smoke.CATEGORICAL_FEATURES if args.data == "categorical"
            else "auto")
@@ -129,8 +139,10 @@ def main() -> int:
     def count(*names):
         return sum(a.count for a in avgs if a.key in names) // args.iters
 
-    splits = sum(t.num_leaves_actual - 1 for t in bst.models[1:])
-    splits //= max(len(bst.models) - 1, 1)
+    # splits an iteration (of every class's tree), after the warm-up's
+    k = bst.num_model_per_iteration()
+    splits = sum(t.num_leaves_actual - 1 for t in bst.models[k:])
+    splits //= max(len(bst.models) // k - 1, 1)
     # the port's own kernels: the launches of the core/csrc libraries, and
     # the memsets their launchers issue (PyTorch zeroes with fill kernels)
     own = [a for a in dev if a.key.startswith("Memset") or (

@@ -34,9 +34,6 @@ def main() -> int:
 
     import chip_smoke
     import lightgbm_tpu_torch as lgb
-    from lightgbm_tpu_torch.core import grow, grow_batched, grow_frontier
-    from lightgbm_tpu_torch.core import histogram as hist
-    from lightgbm_tpu_torch.core import partition
     ap = argparse.ArgumentParser()
     ap.add_argument("--growth", choices=sorted(chip_smoke.GROWTH_PARAMS),
                     default="exact")
@@ -51,31 +48,15 @@ def main() -> int:
     ds = lgb.Dataset(x, label=y, params=params, device="cpu",
                      categorical_feature=chip_smoke.CATEGORICAL_FEATURES)
     ds.construct()
-    tile, slots = hist.hist_tile_vals, hist.hist_slots
-    slots6, part = hist.hist_slots6, hist.hist_part_tiles
-
-    def f64_tile(xb, v, b, impl="auto"):
-        return tile(xb, v.double(), b, impl).float()
-
-    def f64_slots(xb, s, v, b, k, impl="auto"):
-        return slots(xb, s, v.double(), b, k, impl).float()
-
-    def f64_slots6(xb, s, sel, v, b, k, impl="auto"):
-        return slots6(xb, s, sel, v.double(), b, k, impl).float()
-
-    def f64_part(xb, sel, v, ts, first, b, k, t, impl="auto"):
-        return part(xb, sel, v.double(), ts, first, b, k, t, impl).float()
-
     forests = {}
     for label in ("float32", "float64"):
-        if label == "float64":
-            grow.hist_tile_vals = partition.hist_tile_vals = f64_tile
-            grow_frontier.hist_slots = grow_batched.hist_slots = f64_slots
-            grow_batched.hist_slots6 = f64_slots6
-            from lightgbm_tpu_torch.core import grow_batched_part
-            grow_batched_part.hist_part_tiles = f64_part
-        forests[label] = lgb.train(params, ds, num_boost_round=args.iters,
-                                   device="cpu")
+        bst = lgb.Booster(params=params, train_set=ds, device="cpu")
+        # the plain histograms' accumulation (GrowParams.plain_f64_sums)
+        bst._impl.grow_params = bst._impl.grow_params._replace(
+            plain_f64_sums=label == "float64")
+        for _ in range(args.iters):
+            bst.update()
+        forests[label] = bst
     a, b = forests["float32"].models, forests["float64"].models
     out = {"growth": args.growth, "rows": args.rows, "trees": []}
     for i, (ta, tb) in enumerate(zip(a, b)):

@@ -18,7 +18,9 @@ same process, trains the same data with it, and times the two in turns
 
 ``--objective`` (binary by default) trains one of the regression family
 on bench.py's target before its threshold instead
-(``chip_smoke.regression_data``).
+(``chip_smoke.regression_data``), or ``multiclass``/``multiclassova`` on
+chip_smoke.py's multiclass workload (``chip_smoke.multiclass_data``: the
+target in 5 classes, 500,000 rows by default).
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -79,13 +81,19 @@ def main() -> int:
     ap.add_argument("--growth", choices=sorted(chip_smoke.GROWTH_PARAMS),
                     default="exact")
     ap.add_argument("--objective", default="binary",
-                    help="binary (bench.py's labels) or one of the "
+                    help="binary (bench.py's labels), multiclass or "
+                    "multiclassova (its target in 5 classes) or one of the "
                     "regression family (its target before the threshold)")
     ap.add_argument("--iters", type=int, default=5)
-    ap.add_argument("--rows", type=int, default=1_000_000)
+    ap.add_argument("--rows", type=int,
+                    help="rows (1,000,000; multiclass 500,000)")
     ap.add_argument("--against", default=None,
                     help="another checkout whose port is timed in turns")
     args = ap.parse_args()
+    if args.rows is None:
+        args.rows = (chip_smoke.MULTICLASS_ROWS
+                     if args.objective in chip_smoke.MULTICLASS_OBJECTIVES
+                     else chip_smoke.MAIN_ROWS)
     import torch
     if not torch.cuda.is_available():
         print("time_iterations: needs a CUDA device", file=sys.stderr)
@@ -97,6 +105,7 @@ def main() -> int:
                           text=True, check=True).stdout.strip()
     x, y = chip_smoke.workload(args.objective, args.rows)
     params = dict(chip_smoke.PARAMS, objective=args.objective,
+                  **chip_smoke.objective_params(args.objective),
                   **chip_smoke.GROWTH_PARAMS[args.growth])
     ports = [lightgbm_tpu_torch]
     names = [os.getcwd()]

@@ -2,9 +2,10 @@
 the histogram kernel (``histogram.cu``), the two slot kernels
 (``hist_slots.cu``), the partitioned-layout kernel (``hist_part.cu``) and
 the in-tile partition (``repack.cu``), alone and on the training paths
-that launch them; and the regression slice's device work on the card
-against the same calls on the CPU: leaf renewal (``core/renew.py``) and
-the binned replay that keeps the valid-set scores (``core/tree.py``).
+that launch them (binary, bundled, categorical and multiclass training);
+and the regression slice's device work on the card against the same calls
+on the CPU: leaf renewal (``core/renew.py``) and the binned replay that
+keeps the valid-set scores (``core/tree.py``).
 
 These tests need a CUDA device and ``nvcc``: a hand-written CUDA kernel has
 no CPU or interpret mode, so they are marked ``cuda`` and skip without one.
@@ -760,6 +761,56 @@ def test_categorical_training_on_the_card(cuda_device, growth, counter):
         np.testing.assert_allclose(bst.predict(x, raw_score=True),
                                    cpu.predict(x, raw_score=True), rtol=0,
                                    atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective,growth,counter", [
+    ("multiclass", {}, "build_histogram_cuda"),
+    ("multiclassova", {"tree_growth": "frontier"},
+     "build_histogram_slots_cuda"),
+    ("multiclass", {"tree_growth": "batched"}, "build_histogram_slots6_cuda"),
+    ("multiclass", {"tree_growth": "batched", "tpu_batched_part": "true"},
+     "build_histogram_part_tiles_cuda")])
+def test_multiclass_training_on_the_card(cuda_device, objective, growth,
+                                         counter):
+    """Multiclass on the card (chip_smoke.py ``multiclass_data`` at 20,000
+    rows, 5 classes): 5 trees an iteration, each launching the grower's
+    kernel; the valid scores on the card the model's [N, 5] predictions;
+    the model text reloaded predicts the same; the trees of the same run
+    on the CPU up to f32 gain ties (chip_smoke.py's rule), and raw
+    predictions within 1e-4 where the trees are identical, as on the
+    bundled data: the kernels and the CPU's plain version sum in other
+    orders, and a small leaf's value carries an ulp of its ancestors'
+    sums (chip_smoke.py ``F64_RAW_TOL``; measured 2.3e-5 for one-vs-all
+    under frontier growth)."""
+    import chip_smoke
+    x, y = chip_smoke.multiclass_data(20_000)
+    xv, yv = chip_smoke.multiclass_data(5_000, seed=1)
+    params = dict({"objective": objective, "num_leaves": 31,
+                   "min_data_in_leaf": 40, "verbosity": -1},
+                  **chip_smoke.objective_params(objective), **growth)
+    k = chip_smoke.NUM_CLASS
+    wrapper = getattr(kernels, counter)
+    before = wrapper.launches
+    tr = tlgb.Dataset(x, label=y)
+    bst = tlgb.train(params, tr, num_boost_round=3,
+                     valid_sets=[tr.create_valid(xv, label=yv)],
+                     verbose_eval=False)
+    assert wrapper.launches - before >= 3 * k
+    assert len(bst.models) == 3 * k
+    raw = bst.predict(xv, raw_score=True)
+    assert raw.shape == (len(xv), k)
+    np.testing.assert_allclose(bst._impl.scores_of(1), raw, rtol=0,
+                               atol=1e-5)
+    loaded = tlgb.Booster(model_str=bst.model_to_string())
+    np.testing.assert_allclose(loaded.predict(xv, raw_score=True), raw,
+                               rtol=0, atol=1e-6)
+    cpu = tlgb.train(params, tlgb.Dataset(x, label=y, device="cpu"),
+                     num_boost_round=3, device="cpu")
+    if chip_smoke.trees_match(bst.models, cpu.models):
+        np.testing.assert_allclose(bst.predict(x, raw_score=True),
+                                   cpu.predict(x, raw_score=True), rtol=0,
+                                   atol=1e-4)
 
 
 @pytest.mark.cuda

@@ -236,7 +236,7 @@ def test_slot_count_is_the_committed_splits(monkeypatch, growth, module, fn):
     real = getattr(module, fn)
 
     def spy(xb, slot, *rest):
-        num_slots = rest[-2]
+        num_slots = rest[-3]           # (..., num_slots, impl, f64_sums)
         assert int(slot.max()) < num_slots and int(slot.min()) >= -1
         calls.append(num_slots)
         return real(xb, slot, *rest)
