@@ -110,7 +110,36 @@ and prints no result line):
    ``predict(raw_score=True)`` and its reloaded model text within 1e-6,
    and each path prints its seconds, launches and syncs an iteration
    beside the dense binary path of the same mode;
-   every path of 4a-4d and 4m-4u also trains one more iteration under
+   then the ranking paths, ``lambdarank`` on ``ranking_data`` (500,000 x
+   28 in 5,013 consecutive queries of 50-150 docs, relevance 0-4 cut at
+   the global quantiles 0.5/0.8/0.95/0.99 of bench.py's target plus a
+   per-query offset), metrics ndcg, map, topavg and topavgdiff at 1, 3
+   and 5:
+     4v ``exact``, with a 125,000-row validation set (seed 1) with its
+        own groups, early stopping and a model-text reload,
+     4w ``frontier``, 4x ``batched`` (K=16), 4y ``batched_part`` (K=16);
+   each path also trains on the plain path with float64 histogram sums
+   (deterministic), whose train ndcg@1/3/5 and map@5, and 4v's valid
+   ndcg@5 at every iteration, are held within 1e-3 relative of the JAX
+   package's (4y to 4x's constant; topavg and topavgdiff printed beside
+   them); the kernel run is held to the same within 1e-3 where its trees
+   are the plain run's (raw predictions within F64_RAW_TOL), and within
+   RANK_PARTED_REL_TOL where, after tree 0, they part (the kernels'
+   summation order moves leaf values by ~1e-6, which reorders a query's
+   docs whose scores lie that close); 4v's valid scores must be within
+   1e-5 of ``predict(raw_score=True)`` and its reloaded text within 1e-6; then the cross-entropy paths on ``xentropy_data``
+   (bench.py's 1,000,000 x 28 with labels sigmoid(t)): 4z ``frontier``
+   ``xentropy`` (metrics xentropy and kldiv) and 4za ``batched`` (K=16)
+   ``xentlambda`` with weights uniform in [0.5, 1.5], each train metric
+   held within 1e-3 relative; each of 4v-4za must split in every tree
+   and prints its seconds, launches and syncs an iteration beside the
+   dense binary path of the same mode, its binning seconds and its
+   gradient's device ms an iteration (CUDA events); then the lambdarank
+   gradient at MSLR-WEB30K's shape (31,531 queries of 1-1,251 docs, ~120
+   on average) on the card, timed, its peak memory read and held under
+   its cap, and held to a float64 per-query version on a sample of
+   queries with the longest one, within 1e-4 of each query's sum of |g|;
+   every path of 4a-4d and 4m-4za also trains one more iteration under
    torch.profiler and prints its CUDA kernel launches and
    synchronisations;
 5. the kernel path against the plain path on the card (200,000 rows, 2
@@ -146,13 +175,16 @@ import torch
 
 import lightgbm_tpu_torch as lgb
 from lightgbm_tpu_torch import device as port_device
+from lightgbm_tpu_torch import objectives as port_objectives
 from lightgbm_tpu_torch.boosting import gbdt as port_gbdt
+from lightgbm_tpu_torch.config import Config
 from lightgbm_tpu_torch.core import grow_batched_part
 from lightgbm_tpu_torch.core import histogram as hist
 from lightgbm_tpu_torch.core import kernels
 from lightgbm_tpu_torch.core import renew
 from lightgbm_tpu_torch.core import repack
 from lightgbm_tpu_torch.io.binning import BinType
+from lightgbm_tpu_torch.io.dataset import Metadata
 from lightgbm_tpu_torch.metrics import auc
 
 # Train AUC of the JAX package (lightgbm_tpu) on phase 4's data and
@@ -309,6 +341,110 @@ JAX_MULTICLASS_METRIC = {
 }
 JAX_MULTICLASS_METRIC["4u"] = JAX_MULTICLASS_METRIC["4t"]
 
+# the ranking paths of phase 4 (lambdarank on ``ranking_data``: RANKING_ROWS
+# x 28 in ~5,000 queries): a growth mode each; 4v also trains with a
+# validation set of RANKING_VALID_ROWS rows (seed 1) with its own groups,
+# early stopping and a model-text reload
+RANKING_PATHS = {"4v": "exact", "4w": "frontier", "4x": "batched",
+                 "4y": "batched_part"}
+RANKING_ROWS, RANKING_VALID_ROWS = 500_000, 125_000
+RANKING_PARAMS = {"objective": "lambdarank",
+                  "metric": "ndcg,map,topavg,topavgdiff",
+                  "eval_at": [1, 3, 5]}
+# the metrics a ranking path is held to (the fork's topavg and topavgdiff
+# are printed beside the JAX package's)
+RANKING_HELD = ("ndcg@1", "ndcg@3", "ndcg@5", "map@5")
+# A ranking path's kernel run beside the same path's plain run with float64
+# histogram sums, which is deterministic. The kernels' f32 atomics add in
+# another order each run, which moves leaf values by ~1e-6 (tree 0 of 4x
+# on an H100); where two leaves' values lie that close, a query's docs in
+# them swap ranks, every pair of theirs gets another lambda, and the next
+# trees part from the plain run's. Six kernel runs of 4x on one card gave
+# the JAX package's metrics three times and, after such a parting, ndcg@1
+# 7.95e-3 from them the other three (ndcg@3 2.9e-3, ndcg@5 1.8e-3); the
+# plain run gave the JAX package's every time. So the plain run is held to
+# the JAX constants within METRIC_REL_TOL; the kernel run is too where its
+# trees are the plain run's, and where they part (never at tree 0, whose
+# gradients are the same), within RANK_PARTED_REL_TOL
+RANK_PARTED_REL_TOL = 2e-2
+# the cross-entropy paths of phase 4 (``xentropy_data``: bench.py's
+# MAIN_ROWS x 28 with labels sigmoid(t)): a growth mode, the parameters
+# over PARAMS and whether the rows are weighted
+XENTROPY_PATHS = {
+    "4z": ("frontier", {"objective": "xentropy",
+                        "metric": "xentropy,kldiv"}, False),
+    "4za": ("batched", {"objective": "xentlambda"}, True),
+}
+# The JAX package's train metrics on each ranking path, and on 4v its valid
+# ndcg@5 after each iteration and its best iteration, taken on the CPU
+# backend with chunked histogram sums by
+#   JAX_PLATFORMS=cpu python scripts/jax_reference_auc.py --data ranking \
+#       --growth MODE --hist-impl matmul [--valid]
+# 4y holds batched_part to 4x's constant: batched_part grows batched's trees
+JAX_RANKING_METRIC = {
+    "4v": {"train": {"ndcg@1": 0.8865863041805594,
+                     "ndcg@3": 0.9125385135134905,
+                     "ndcg@5": 0.9253591660621158,
+                     "map@1": 0.9998005186515061,
+                     "map@3": 0.9996841545315511,
+                     "map@5": 0.9992486202540057,
+                     "topavg@1": 0.035108717334929186,
+                     "topavg@3": 0.03637209920872412,
+                     "topavg@5": 0.03622581288649489,
+                     "topavgdiff@1": 1.6316576900059845,
+                     "topavgdiff@3": 1.4739011902387134,
+                     "topavgdiff@5": 1.3635946538998562},
+           "valid": [0.6910600018491493, 0.8395208053668606,
+                     0.8868578742361473, 0.9074228059092496,
+                     0.9186984365477405],
+           "best_iteration": 5},
+    "4w": {"train": {"ndcg@1": 0.8784645635633079,
+                     "ndcg@3": 0.8963312922723665,
+                     "ndcg@5": 0.9090194255316288,
+                     "map@1": 0.9996010373030122,
+                     "map@3": 0.9994680497373495,
+                     "map@5": 0.9987565662610538,
+                     "topavg@1": 0.005784959106323559,
+                     "topavg@3": 0.011702905778309753,
+                     "topavg@5": 0.017115499700778077,
+                     "topavgdiff@1": 1.637642130460802,
+                     "topavgdiff@3": 1.4696123412460922,
+                     "topavgdiff@5": 1.3573907839616965}},
+    "4x": {"train": {"ndcg@1": 0.8918526117807988,
+                     "ndcg@3": 0.9151776743287706,
+                     "ndcg@5": 0.9273341889273891,
+                     "map@1": 0.9998005186515061,
+                     "map@3": 0.9996841545315511,
+                     "map@5": 0.99927854245628,
+                     "topavg@1": 0.02333931777378815,
+                     "topavg@3": 0.026664006915353346,
+                     "topavg@5": 0.02976261719529226,
+                     "topavgdiff@1": 1.6434270895671255,
+                     "topavgdiff@3": 1.4804175809561806,
+                     "topavgdiff@5": 1.3670855774985007}},
+}
+JAX_RANKING_METRIC["4y"] = JAX_RANKING_METRIC["4x"]
+# The JAX package's train metrics on the cross-entropy paths (the held one
+# first), taken on the CPU backend with chunked histogram sums by
+#   JAX_PLATFORMS=cpu python scripts/jax_reference_auc.py \
+#       --objective xentropy|xentlambda --growth MODE --hist-impl matmul
+JAX_XENTROPY_METRIC = {
+    "4z": {"xentropy": 0.6409453522604893, "kldiv": 0.1022243812843356},
+    "4za": {"xentlambda": 0.6525149517965491},
+}
+# the lambdarank gradient at MSLR-WEB30K's shape (31,531 queries of up to
+# 1,251 docs, ~120 a query): held to a float64 per-query plain version on
+# a sample of RANK_SCALE_SAMPLE queries and the longest one, each element
+# within RANK_SCALE_REL of its query's sum of |g|
+MSLR_QUERIES, MSLR_MAX_DOCS, MSLR_MEAN_DOCS = 31_531, 1_251, 120
+RANK_SCALE_SAMPLE, RANK_SCALE_REL = 300, 1e-4
+# float32 operations lambdarank's pairwise pass does a pair (i, j) of one
+# query: the score and gain differences, |disc_i - disc_j| and its two
+# products, the /(0.01 + |ds|) regulariser (3), the sigmoid lambda (exp and
+# 3 more), its hessian factor (3), the two products with |ΔNDCG|, three
+# selects and the row and column sums
+LAMBDARANK_PAIR_OPS = 25
+
 # histogram shapes of the main path: the root (K=3 over every row) and the
 # fused two-child pass of a split (K=6) at the leaf sizes exact growth
 # meets (its median split pass has ~7,400 rows)
@@ -376,6 +512,43 @@ def multiclass_data(n: int, seed: int = 0, num_class: int = 5):
     x, t = regression_data(n, seed=seed)
     cuts = np.quantile(t, np.arange(1, num_class) / num_class)
     return x, np.searchsorted(cuts, t).astype(np.float32)
+
+
+# the ranking workload: consecutive queries of RANK_DOCS docs (MSLR-WEB30K
+# has ~120 a query), relevance 0-4 cut at the global quantiles
+# RELEVANCE_CUTS so that most docs are irrelevant, as MSLR's are
+RANK_DOCS = (50, 150)
+RELEVANCE_CUTS = (0.5, 0.8, 0.95, 0.99)
+QUERY_OFFSET_SD = 0.5
+
+
+def ranking_data(n: int, seed: int = 0, docs=RANK_DOCS):
+    """A learning-to-rank table: bench.py's 28 features and
+    ``regression_data``'s target plus an N(0, QUERY_OFFSET_SD) offset a
+    query (so a query's label mix varies, as a search engine's do), in
+    consecutive queries of a uniform ``docs[0]``-``docs[1]`` docs (the last
+    query takes the rows left over); relevance 0-4 is the shifted target
+    cut at its global quantiles RELEVANCE_CUTS. Returns (x, rel, the
+    queries' sizes)."""
+    x, t = regression_data(n, seed=seed)
+    r = np.random.RandomState([seed, 12])
+    sizes = r.randint(docs[0], docs[1] + 1, n // docs[0] + 1)
+    ends = np.cumsum(sizes)
+    q = int(np.searchsorted(ends, n)) + 1
+    sizes = sizes[:q].copy()
+    sizes[-1] -= ends[q - 1] - n
+    shifted = t + np.repeat(r.randn(q) * QUERY_OFFSET_SD, sizes)
+    cuts = np.quantile(shifted, RELEVANCE_CUTS)
+    return x, np.searchsorted(cuts, shifted).astype(np.float32), sizes
+
+
+def xentropy_data(n: int, seed: int = 0):
+    """bench.py's features with labels in [0, 1]: the sigmoid of
+    ``regression_data``'s target, and weights uniform in [0.5, 1.5] (seed
+    2) for the weighted path."""
+    x, t = regression_data(n, seed=seed)
+    w = np.random.RandomState(2).uniform(0.5, 1.5, n).astype(np.float32)
+    return x, (1.0 / (1.0 + np.exp(-t))).astype(np.float32), w
 
 
 # HIGGS's jet b-tag columns (0-based features 8, 12, 16, 20 of its 28) take
@@ -1697,6 +1870,449 @@ def time_renewal(dev) -> dict:
     return out
 
 
+def lambdarank_plain64(s, label, label_gain, max_position: int = 20,
+                       sigmoid: float = 1.0):
+    """Lambdarank's gradients and hessians of one query in float64 numpy,
+    straight from rank_objective.hpp's formulas: docs ranked by a stable
+    sort of -score, discounts 1/log2(2 + rank), and for each pair with the
+    higher label first the |ΔNDCG| (divided by 0.01 + |Δscore| where the
+    query's scores differ) times the sigmoid lambda."""
+    s = np.asarray(s, np.float64)
+    label = np.asarray(label, np.int64)
+    n = len(s)
+    gain = np.asarray(label_gain, np.float64)[label]
+    rank = np.empty(n, np.int64)
+    rank[np.argsort(-s, kind="stable")] = np.arange(n)
+    disc = 1.0 / np.log2(2.0 + rank)
+    ideal = np.sort(gain)[::-1][:max_position]
+    max_dcg = float(np.sum(ideal / np.log2(2.0 + np.arange(len(ideal)))))
+    g, h = np.zeros(n), np.zeros(n)
+    if max_dcg <= 0:
+        return g, h
+    ds = s[:, None] - s[None, :]
+    delta = (np.abs(disc[:, None] - disc[None, :])
+             * (gain[:, None] - gain[None, :]) / max_dcg)
+    if s.max() != s.min():
+        delta = delta / (0.01 + np.abs(ds))
+    p = 2.0 / (1.0 + np.exp(2.0 * sigmoid * ds))
+    pair = label[:, None] > label[None, :]
+    lam = np.where(pair, -p * delta, 0.0)
+    hes = np.where(pair, 2.0 * p * (2.0 - p) * delta, 0.0)
+    return lam.sum(1) - lam.sum(0), hes.sum(1) + hes.sum(0)
+
+
+def lambdarank_bound(sizes) -> tuple:
+    """(bound ms, what bounds it) of one lambdarank gradient over queries
+    of ``sizes`` docs: each doc's score and label read and its gradient and
+    hessian written once, against LAMBDARANK_PAIR_OPS float32 operations a
+    pair of each query's docs."""
+    sizes = np.asarray(sizes, np.int64)
+    return bound(int(sizes.sum()) * 16,
+                 LAMBDARANK_PAIR_OPS * int((sizes ** 2).sum()))
+
+
+def check_lambdarank_at_scale(dev) -> dict:
+    """The lambdarank gradient on the card at MSLR-WEB30K's shape:
+    MSLR_QUERIES queries of 1 to MSLR_MAX_DOCS docs (exponential lengths of
+    mean MSLR_MEAN_DOCS from seed 23, one query at the most), labels 0-4 in
+    MSLR's skew and scores from the seed. Times one call (CUDA events,
+    median), reads the peak memory it allocates, and holds it to
+    ``lambdarank_plain64`` on a seeded sample of queries and the longest
+    one. The JAX package's padded layout would need one [Q, M, M] float32
+    array of Q * M * M * 4 bytes here."""
+    r = np.random.RandomState(23)
+    sizes = np.clip(np.round(r.exponential(MSLR_MEAN_DOCS, MSLR_QUERIES)),
+                    1, MSLR_MAX_DOCS).astype(np.int64)
+    sizes[r.randint(MSLR_QUERIES)] = MSLR_MAX_DOCS
+    n = int(sizes.sum())
+    label = r.choice(5, n, p=[0.5, 0.3, 0.15, 0.04, 0.01])
+    score = r.randn(n).astype(np.float32)
+    meta = Metadata(n)
+    meta.set_label(label)
+    meta.set_query(sizes)
+    cfg = Config({"objective": "lambdarank"})
+    t0 = time.perf_counter()
+    obj = port_objectives.LambdarankNDCG(cfg)
+    obj.init(meta, dev)
+    init_s = time.perf_counter() - t0
+    s_dev = torch.as_tensor(score, device=dev)
+    obj.get_gradients(s_dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    g, h = obj.get_gradients(s_dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        obj.get_gradients(s_dev)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    g, h = g.cpu().numpy(), h.cpu().numpy()
+    qb = np.concatenate([[0], np.cumsum(sizes)])
+    sample = np.unique(np.concatenate([
+        [int(np.argmax(sizes))],
+        np.random.RandomState(24).choice(MSLR_QUERIES, RANK_SCALE_SAMPLE,
+                                         replace=False)]))
+    worst = 0.0
+    for q in sample:
+        lo, hi = qb[q], qb[q + 1]
+        g64, h64 = lambdarank_plain64(score[lo:hi], label[lo:hi],
+                                      port_objectives.default_label_gain())
+        for got, want in ((g[lo:hi], g64), (h[lo:hi], h64)):
+            scale = np.abs(want).sum()
+            if scale > 0:
+                worst = max(worst, float(np.abs(got - want).max() / scale))
+    padded = MSLR_QUERIES * MSLR_MAX_DOCS ** 2 * 4
+    bound_ms, bound_by = lambdarank_bound(sizes)
+    out = {"queries": MSLR_QUERIES, "docs": n,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "longest": int(sizes.max()), "chunks": len(obj.chunks),
+           "init_s": init_s, "ms": statistics.median(times),
+           "peak_bytes": peak, "peak_over_inputs": peak - base,
+           "cap_bytes": (port_objectives.PAIR_PEAK_ARRAYS
+                         * port_objectives.PAIR_BYTES_CAP),
+           "padded_bytes": padded, "max_rel_err": worst,
+           "sampled_queries": len(sample)}
+    log("lambdarank gradient at MSLR-WEB30K's shape: %d queries, %d docs "
+        "(longest %d) in %d chunks, set up in %.2f s; %.4f ms a call "
+        "(median of 5; bound %.4f ms by %s); max_memory_allocated %d "
+        "bytes, %d over its inputs "
+        "(cap %d = %d arrays of %d); the padded layout's one [Q, M, M] "
+        "array would be %d bytes; against float64 on %d queries: %.3g of "
+        "a query's sum of |g| (limit %g)" % (
+            MSLR_QUERIES, n, out["longest"], out["chunks"], init_s,
+            out["ms"], bound_ms, bound_by, peak, peak - base,
+            out["cap_bytes"],
+            port_objectives.PAIR_PEAK_ARRAYS, port_objectives.PAIR_BYTES_CAP,
+            padded, len(sample), worst,
+            RANK_SCALE_REL))
+    if worst > RANK_SCALE_REL:
+        raise AssertionError("the lambdarank gradient at scale is %.3g of a "
+                             "query's |g| from float64" % worst)
+    if peak - base > out["cap_bytes"]:
+        raise AssertionError("the lambdarank gradient took %d bytes over its "
+                             "inputs, more than its cap %d"
+                             % (peak - base, out["cap_bytes"]))
+    return out
+
+
+def timed_gradients(objective_name: str) -> EventTimer:
+    """An EventTimer in place of the objective's ``get_gradients`` (on its
+    class, until ``restore_gradients``)."""
+    cls = port_objectives._OBJECTIVES[objective_name]
+    timer = EventTimer(cls.get_gradients)
+    timer.cls = cls
+    cls.get_gradients = lambda obj, score: timer(obj, score)
+    return timer
+
+
+def restore_gradients(timer: EventTimer) -> None:
+    timer.cls.get_gradients = timer.fn
+
+
+class _PlainF64Sums:
+    """A callback that turns on ``GrowParams.plain_f64_sums`` before the
+    first iteration (``train`` builds the Booster itself)."""
+    before_iteration = True
+    order = 0
+
+    def __call__(self, env) -> None:
+        impl = env.model._impl
+        impl.grow_params = impl.grow_params._replace(plain_f64_sums=True)
+
+
+def train_plain_f64(params, ds, valid=None) -> dict:
+    """NUM_ITERS iterations of ``params`` on the plain path with float64
+    histogram sums (deterministic on the card), with ``valid`` and early
+    stopping where given: the Booster, its train metrics and (``valid``)
+    its valid ndcg@5 after each iteration."""
+    evals = {}
+    kwargs = {} if valid is None else {
+        "valid_sets": [valid], "evals_result": evals,
+        "early_stopping_rounds": EARLY_STOPPING_ROUNDS, "verbose_eval": False}
+    bst = lgb.train(dict(params, tpu_hist_impl="plain"), ds,
+                    num_boost_round=NUM_ITERS, callbacks=[_PlainF64Sums()],
+                    **kwargs)
+    if not bst._impl.grow_params.plain_f64_sums:
+        raise AssertionError("the plain run did not sum in float64")
+    return {"bst": bst,
+            "train": {m: v for _, m, v, _ in bst.eval_train()},
+            "valid": evals["valid_0"]["ndcg@5"] if valid else None}
+
+
+def first_parting(a, b):
+    """The first tree at which forests ``a`` and ``b`` differ in structure,
+    None where they never do."""
+    for i, (ta, tb) in enumerate(zip(a, b)):
+        nn = ta.num_leaves_actual - 1
+        if tb.num_leaves_actual - 1 != nn or not all(
+                np.array_equal(getattr(ta, k)[:nn], getattr(tb, k)[:nn])
+                for k in ("split_feature", "threshold_bin", "left_child",
+                          "right_child")):
+            return i
+    return None
+
+
+def drive_ranking_path(label: str, ds, x, dense: dict, valid=None):
+    """Phase 4v-4y: lambdarank at full width on the ranking workload, with
+    the launch counts set to 0 just before and read just after, and the
+    gradient's device time by events; 4v also keeps ``valid`` (Dataset,
+    rows), with early stopping, whose device scores must be the model's
+    raw predictions, and round-trips its model text. ``dense`` is the
+    dense binary path of the same growth mode, for its s/iter."""
+    growth = RANKING_PATHS[label]
+    params = dict(PARAMS, **RANKING_PARAMS, **GROWTH_PARAMS[growth])
+    ref = JAX_RANKING_METRIC[label]
+    kwargs, evals = {}, {}
+    if valid is not None:
+        kwargs = {"valid_sets": [valid[0]], "evals_result": evals,
+                  "early_stopping_rounds": EARLY_STOPPING_ROUNDS,
+                  "verbose_eval": False}
+    timer = timed_gradients("lambdarank")
+    try:
+        bst, train_s, launches, steps = train_counted(params, ds, **kwargs)
+    finally:
+        restore_gradients(timer)
+    trees = len(bst.models)
+    grad_bound_ms, _ = lambdarank_bound(np.diff(
+        ds._binned.metadata.query_boundaries))
+    t0 = time.perf_counter()
+    raw_train = bst.predict(x, raw_score=True, num_iteration=NUM_ITERS)
+    predict_s = time.perf_counter() - t0
+    train = {name: value for _, name, value, _ in bst.eval_train()}
+    waves = launches[WAVE_KERNEL[growth]] if growth in WAVE_KERNEL else None
+    out = {"growth": growth, "objective": "lambdarank", "train_s": train_s,
+           "s_per_iter": train_s / NUM_ITERS, "predict_s": predict_s,
+           "x_dense": train_s / NUM_ITERS / dense["s_per_iter"],
+           "gradient_ms_per_iter": timer.total_ms() / len(timer.events),
+           "gradient_calls": len(timer.events),
+           "gradient_bound_ms": grad_bound_ms,
+           "train": train, "jax_train": ref["train"],
+           "leaves": [t.num_leaves_actual for t in bst.models],
+           "waves_per_tree": None if waves is None else waves / trees,
+           "launches": launches}
+    log("path %s (%s, lambdarank, %d queries): train %.2f s (%d "
+        "iterations, %.3f s per iteration, %.2fx the dense binary path's "
+        "%.3f), predict %.3f s, trees %s leaves%s; lambdarank gradient "
+        "%.4f ms an iteration on the device (bound %.4f ms)" % (
+            label, growth, ds._binned.metadata.num_queries, train_s, trees,
+            out["s_per_iter"], out["x_dense"], dense["s_per_iter"],
+            predict_s, out["leaves"], "" if waves is None
+            else ", %.1f waves per tree" % out["waves_per_tree"],
+            out["gradient_ms_per_iter"], grad_bound_ms))
+    log("path %s: train %s (JAX package %s); launches %s" % (
+        label, " ".join("%s %.6f" % kv for kv in train.items()),
+        " ".join("%s %.6f" % kv for kv in ref["train"].items()), launches))
+    check_path_launches(label, growth, bst, launches, steps)
+    if trees != NUM_ITERS:
+        raise AssertionError("path %s: expected %d trees, got %d"
+                             % (label, NUM_ITERS, trees))
+    if any(n < 2 for n in out["leaves"]):
+        raise AssertionError("path %s: a tree did not split (%s)"
+                             % (label, out["leaves"]))
+    if raw_train.shape != (len(x),) or not np.isfinite(raw_train).all():
+        raise AssertionError("path %s: predictions are not finite [n] "
+                             "scores" % label)
+    if len(timer.events) != NUM_ITERS:
+        raise AssertionError("path %s: %d gradient calls in %d iterations"
+                             % (label, len(timer.events), NUM_ITERS))
+    reset_counts()
+    plain = train_plain_f64(params, ds, valid[0] if valid else None)
+    if any(read_counts().values()):
+        raise AssertionError("path %s: the plain run launched %s"
+                             % (label, read_counts()))
+    parted = first_parting(bst.models, plain["bst"].models)
+    raw_plain = plain["bst"].predict(x, raw_score=True)
+    out["plain_f64"] = {"train": plain["train"], "valid": plain["valid"],
+                        "parted_at_tree": parted,
+                        "max_raw_diff": float(np.abs(raw_train
+                                                     - raw_plain).max())}
+    log("path %s: the plain path with float64 sums: train %s%s; the kernel "
+        "run's trees %s, raw predictions %.3g apart" % (
+            label, " ".join("%s %.6f" % (m, plain["train"][m])
+                            for m in RANKING_HELD),
+            "" if valid is None else ", valid ndcg@5 %s" % plain["valid"],
+            "are its trees" if parted is None
+            else "part from its trees at tree %d" % parted,
+            out["plain_f64"]["max_raw_diff"]))
+    if parted == 0:
+        # tree 0's gradients are the same in both runs: only an f32 gain
+        # tie may part it (tests/test_parity.py's rule)
+        trees_match(bst.models[:1], plain["bst"].models[:1])
+    elif parted is None and out["plain_f64"]["max_raw_diff"] > F64_RAW_TOL:
+        raise AssertionError("path %s: the plain path's trees, but raw "
+                             "predictions %.3g apart"
+                             % (label, out["plain_f64"]["max_raw_diff"]))
+    kernel_tol = METRIC_REL_TOL if parted is None else RANK_PARTED_REL_TOL
+    checks = [("plain train " + m, plain["train"][m], ref["train"][m],
+               METRIC_REL_TOL) for m in RANKING_HELD]
+    checks += [("train " + m, train[m], ref["train"][m], kernel_tol)
+               for m in RANKING_HELD]
+    if valid is not None:
+        xv = valid[1]
+        scores = bst._impl.scores_of(1)
+        raw = bst.predict(xv, raw_score=True, num_iteration=NUM_ITERS)
+        out["valid"] = evals["valid_0"]["ndcg@5"]
+        out["jax_valid"] = ref["valid"]
+        out["best_iteration"] = bst.best_iteration
+        out["valid_score_max_diff"] = float(np.abs(scores - raw).max())
+        loaded = lgb.Booster(model_str=bst.model_to_string(
+            num_iteration=NUM_ITERS))
+        out["model_text_max_diff"] = float(np.abs(
+            loaded.predict(x, raw_score=True) - raw_train).max())
+        log("path %s: valid ndcg@5 %s (JAX package %s), best iteration %d "
+            "(JAX package %d); device valid scores of %d rows against "
+            "predict: max diff %.3g; the model text reloaded predicts the "
+            "%d rows within %.3g" % (
+                label, out["valid"], ref["valid"], bst.best_iteration,
+                ref["best_iteration"], len(raw),
+                out["valid_score_max_diff"], len(x),
+                out["model_text_max_diff"]))
+        if out["valid_score_max_diff"] > VALID_SCORE_TOL:
+            raise AssertionError("path %s: device valid scores differ from "
+                                 "predict by %.3g"
+                                 % (label, out["valid_score_max_diff"]))
+        if out["model_text_max_diff"] > MODEL_TEXT_TOL:
+            raise AssertionError("path %s: the reloaded model text predicts "
+                                 "%.3g away" % (label,
+                                                out["model_text_max_diff"]))
+        if len(out["valid"]) != len(ref["valid"]):
+            raise AssertionError("path %s: %d valid evaluations, the JAX "
+                                 "package %d" % (label, len(out["valid"]),
+                                                 len(ref["valid"])))
+        if parted is None and bst.best_iteration != ref["best_iteration"]:
+            raise AssertionError("path %s: best iteration %d, the JAX "
+                                 "package's %d" % (label, bst.best_iteration,
+                                                   ref["best_iteration"]))
+        checks += [("plain valid ndcg@5 at iteration %d" % (i + 1), v, r,
+                    METRIC_REL_TOL)
+                   for i, (v, r) in enumerate(zip(plain["valid"],
+                                                  ref["valid"]))]
+        checks += [("valid ndcg@5 at iteration %d" % (i + 1), v, r,
+                    kernel_tol)
+                   for i, (v, r) in enumerate(zip(out["valid"],
+                                                  ref["valid"]))]
+    gaps = [abs(v - r) / abs(r) for _, v, r, _ in checks]
+    out["max_rel_gap"] = max(g for g, c in zip(gaps, checks)
+                             if not c[0].startswith("plain"))
+    out["gaps"] = {what: gap for (what, _, _, _), gap in zip(checks, gaps)}
+    for (what, value, want, tol), gap in zip(checks, gaps):
+        if gap > tol:
+            raise AssertionError("path %s: %s %.6f is %.3g relative from "
+                                 "the JAX package's %.6f (limit %g)"
+                                 % (label, what, value, gap, want, tol))
+    out.update(iteration_counts(label, bst))
+    return out
+
+
+def drive_xentropy_path(label: str, ds, x, dense: dict):
+    """Phase 4z-4za: a cross-entropy objective at full width on
+    ``xentropy_data``, with the launch counts set to 0 just before and
+    read just after, and the gradient's device time by events. ``dense``
+    is the dense binary path of the same growth mode."""
+    growth, extra, _ = XENTROPY_PATHS[label]
+    objective = extra["objective"]
+    params = dict(PARAMS, **extra, **GROWTH_PARAMS[growth])
+    ref = JAX_XENTROPY_METRIC[label]
+    timer = timed_gradients(objective)
+    try:
+        bst, train_s, launches, steps = train_counted(params, ds)
+    finally:
+        restore_gradients(timer)
+    trees = len(bst.models)
+    train = {name: value for _, name, value, _ in bst.eval_train()}
+    held = next(iter(ref))
+    out = {"growth": growth, "objective": objective,
+           "weighted": ds._binned.metadata.weight is not None,
+           "train_s": train_s, "s_per_iter": train_s / NUM_ITERS,
+           "x_dense": train_s / NUM_ITERS / dense["s_per_iter"],
+           "gradient_ms_per_iter": timer.total_ms() / len(timer.events),
+           "train": train, "jax_train": ref,
+           "leaves": [t.num_leaves_actual for t in bst.models],
+           "launches": launches}
+    gap = abs(train[held] - ref[held]) / abs(ref[held])
+    out["max_rel_gap"] = gap
+    log("path %s (%s, %s%s): train %.2f s (%.3f s per iteration, %.2fx the "
+        "dense binary path's %.3f), trees %s leaves, gradient %.4f ms an "
+        "iteration; train %s (JAX package %s), %s %.3g relative; launches "
+        "%s" % (label, growth, objective, ", weighted" if out["weighted"]
+                else "", train_s, out["s_per_iter"], out["x_dense"],
+                dense["s_per_iter"], out["leaves"],
+                out["gradient_ms_per_iter"],
+                " ".join("%s %.6f" % kv for kv in train.items()),
+                " ".join("%s %.6f" % kv for kv in ref.items()), held, gap,
+                launches))
+    check_path_launches(label, growth, bst, launches, steps)
+    if trees != NUM_ITERS or any(n < 2 for n in out["leaves"]):
+        raise AssertionError("path %s: expected %d trees that split, got %s"
+                             % (label, NUM_ITERS, out["leaves"]))
+    pred = bst.predict(x)
+    if pred.shape != (len(x),) or not np.isfinite(pred).all() or (
+            pred.min() < 0 or (objective == "xentropy" and pred.max() > 1)):
+        raise AssertionError("path %s: predictions are not finite [n] "
+                             "values of the objective's link" % label)
+    if gap > METRIC_REL_TOL:
+        raise AssertionError("path %s: train %s %.6f is %.3g relative from "
+                             "the JAX package's %.6f"
+                             % (label, held, train[held], gap, ref[held]))
+    out.update(iteration_counts(label, bst))
+    return out
+
+
+def drive_ranking_workloads(paths: dict, dev) -> dict:
+    """Phase 4v-4za: the ranking paths on ``ranking_data`` (a valid set
+    with its own groups for 4v), the cross-entropy paths on
+    ``xentropy_data``, each beside the dense binary path of its growth mode
+    in ``paths``, then the lambdarank gradient at MSLR-WEB30K's shape.
+    Adds the paths to ``paths``; returns the scale check's numbers."""
+    x_rank, rel, sizes = ranking_data(RANKING_ROWS)
+    xv, relv, sizes_v = ranking_data(RANKING_VALID_ROWS, seed=1)
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(x_rank, label=rel, group=sizes,
+                     params=PARAMS).construct()
+    binning_s = time.perf_counter() - t0
+    valid = ds.create_valid(xv, label=relv, group=sizes_v).construct()
+    log("binning: %.2f s for %d x %d in %d queries (labels 0-4: %s), the "
+        "valid set's %d rows in %d queries %.2f s more"
+        % (binning_s, *x_rank.shape, len(sizes),
+           np.bincount(rel.astype(np.int64)).tolist(), len(xv),
+           len(sizes_v), time.perf_counter() - t0 - binning_s))
+    for label, growth in RANKING_PATHS.items():
+        paths[label] = drive_ranking_path(
+            label, ds, x_rank, paths[growth],
+            (valid, xv) if label == "4v" else None)
+        paths[label]["binning_s"] = binning_s
+    del ds, valid
+    x_xe, y_xe, w_xe = xentropy_data(MAIN_ROWS)
+    for label, (growth, _, weighted) in XENTROPY_PATHS.items():
+        t0 = time.perf_counter()
+        ds = lgb.Dataset(x_xe, label=y_xe, weight=w_xe if weighted else None,
+                         params=PARAMS).construct()
+        binning_s = time.perf_counter() - t0
+        log("binning: %.2f s for %d x %d" % (binning_s, *x_xe.shape))
+        paths[label] = drive_xentropy_path(label, ds, x_xe, paths[growth])
+        paths[label]["binning_s"] = binning_s
+        del ds
+    for label in list(RANKING_PATHS) + list(XENTROPY_PATHS):
+        m = paths[label]
+        d = paths[m["growth"]]
+        log("path %s against %s (the same growth, dense binary): %.3f "
+            "against %.3f s per iteration (%.2fx), %d against %d launches "
+            "and %d against %d syncs an iteration, gradient %.4f ms an "
+            "iteration, binning %.2f s" % (
+                label, m["growth"], m["s_per_iter"], d["s_per_iter"],
+                m["x_dense"], m["launches_per_iter"],
+                d["launches_per_iter"], m["syncs_per_iter"],
+                d["syncs_per_iter"], m["gradient_ms_per_iter"],
+                m["binning_s"]))
+    return check_lambdarank_at_scale(dev)
+
+
 # phase 5: (label, parameters over PARAMS, the wrapper the kernel run must
 # launch)
 COMPARE_RUNS = [
@@ -2040,6 +2656,10 @@ def main() -> int:
                 d["launches_per_iter"], m["syncs_per_iter"],
                 d["syncs_per_iter"]))
 
+    log_phase(t_start, "4v-4za. ranking and cross-entropy")
+    # ---- 4v-4za. ranking and cross-entropy -----------------------------
+    rank_scale = drive_ranking_workloads(paths, dev)
+
     log_phase(t_start, "5. kernel path against plain path")
     # ---- 5. kernel path against plain path -----------------------------
     x, y = bench_data(MAIN_ROWS)
@@ -2106,7 +2726,8 @@ def main() -> int:
              note="no grower calls partition_tiles (the JAX package's do "
                   "not either), so no path launches it; its phase-3 calls "
                   "are its only launches")],
-        "paths": paths, "renewal": renewal}), flush=True)
+        "paths": paths, "renewal": renewal, "rank_scale": rank_scale}),
+        flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

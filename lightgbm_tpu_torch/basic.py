@@ -129,14 +129,12 @@ class Dataset:
                  categorical_feature: Union[str, List] = "auto",
                  params: Optional[Dict[str, Any]] = None,
                  free_raw_data: bool = True, device: DeviceLike = None):
-        if group is not None:
-            raise outside_slice("query groups (ranking)",
-                                "ROADMAP Queue 1 #2")
         self.device = resolve_device(device)
         self.data = data
         self.label = label
         self.reference = reference
         self.weight = weight
+        self.group = group
         self.init_score = init_score
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
@@ -177,7 +175,8 @@ class Dataset:
         self._binned = BinnedDataset.from_matrix(
             _to_2d_float(data), Config(self.params),
             label=_to_1d(self.label), weight=_to_1d(self.weight),
-            init_score=_to_1d(self.init_score), feature_names=names,
+            init_score=_to_1d(self.init_score), group=_to_1d(self.group),
+            feature_names=names,
             categorical_feature=cat, reference=ref_binned)
         if self.free_raw_data:
             self.data = None
@@ -222,16 +221,27 @@ class Dataset:
     def get_init_score(self):
         return self.construct()._binned.metadata.init_score
 
+    def set_group(self, group) -> "Dataset":
+        """basic.py:333-337 of the JAX package: the queries' sizes, kept
+        for binning or set on the binned data's metadata."""
+        self.group = group
+        if self._binned is not None:
+            self._binned.metadata.set_query(group)
+        return self
+
+    def get_group(self):
+        """The queries' sizes, None without query groups (basic.py:368-371
+        of the JAX package)."""
+        qb = self.construct()._binned.metadata.query_boundaries
+        return None if qb is None else np.diff(qb)
+
     subset = _not_ported("subset", "#17")
     set_label = _not_ported("set_label", "#17")
     set_weight = _not_ported("set_weight", "#17")
-    set_group = _not_ported("set_group", "#17")
     set_init_score = _not_ported("set_init_score", "#17")
     set_reference = _not_ported("set_reference", "#17")
     set_field = _not_ported("set_field", "#17")
     get_field = _not_ported("get_field", "#17")
-    # a Dataset of the port holds no query groups (``group=`` refuses)
-    get_group = _not_ported("get_group", "#2")
     save_binary = _not_ported("save_binary", "#16")
 
 

@@ -3,9 +3,12 @@
 The port of ``lightgbm_tpu/boosting/gbdt.py`` (gbdt.cpp Init :45-115,
 TrainOneIter :333-412, UpdateScore :451-470, RollbackOneIter :414-430 of
 the reference) for the slice the port covers: the regression family,
-binary and multiclass objectives or a custom objective's gradients
-(``fobj``), numerical and categorical features stored as the JAX package
-stores them (EFB bundles and packed small-feature pairs share columns),
+binary, multiclass, cross-entropy and lambdarank objectives or a custom
+objective's gradients (``fobj``; the training set and each valid set
+carry their query groups in their metadata, which lambdarank and the
+ranking metrics read), numerical and categorical features stored as the
+JAX package stores them (EFB bundles and packed small-feature pairs share
+columns),
 one device, and the growth modes of ``tree_growth``: leaf-wise ``exact``
 (``core/grow.py``), ``frontier`` waves (``core/grow_frontier.py``) and
 top-K ``batched`` steps (``core/grow_batched.py``, or
@@ -54,7 +57,7 @@ from ..io.binning import BinType
 from ..io.dataset import BinnedDataset
 from ..log import LightGBMError, Log, outside_slice
 from ..metrics import Metric
-from ..objectives import LATER_OBJECTIVES, ObjectiveFunction
+from ..objectives import ObjectiveFunction
 
 # the grower of each tree_growth (config.TREE_GROW_MODES)
 GROWERS = {"exact": grow_tree, "frontier": grow_tree_frontier,
@@ -104,16 +107,18 @@ class HostTree:
 
 def check_slice(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for any option outside the slice."""
+    bagging = cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0
     rules = [
-        (cfg.objective in LATER_OBJECTIVES, "objective=%s" % cfg.objective,
-         "ROADMAP Queue 1 #2: cross-entropy and lambdarank"),
+        # lambdarank bags whole queries (gbdt.py:786-807 of the JAX package)
+        (bagging and cfg.objective == "lambdarank",
+         "bagging under lambdarank (group-aware bagging of whole queries)",
+         "ROADMAP Queue 1 #7"),
         (cfg.boosting == "goss", "boosting=goss",
          "ROADMAP Queue 1 #7: GOSS"),
         (cfg.boosting == "dart", "boosting=dart",
          "ROADMAP Queue 1 #7: DART"),
         (cfg.boosting == "rf", "boosting=rf", "ROADMAP Queue 1 #7: RF"),
-        (cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0, "bagging",
-         "ROADMAP Queue 1 #7: bagging"),
+        (bagging, "bagging", "ROADMAP Queue 1 #7: bagging"),
         (bool(cfg.monotone_constraints)
          and any(int(v) != 0 for v in cfg.monotone_constraints),
          "monotone_constraints", "ROADMAP Queue 1 #4"),

@@ -1,9 +1,12 @@
 """Objective functions: gradients and hessians as tensor expressions.
 
-The port of ``lightgbm_tpu/objectives.py`` for the regression family
+The port of ``lightgbm_tpu/objectives.py``: the regression family
 (regression_objective.hpp of the reference), the binary objective
-(binary_objective.hpp:20-190) and the two multiclass objectives
-(multiclass_objective.hpp: softmax and one-vs-all). The per-row arrays live
+(binary_objective.hpp:20-190), the two multiclass objectives
+(multiclass_objective.hpp: softmax and one-vs-all), the two cross-entropy
+objectives (xentropy_objective.hpp) and lambdarank (rank_objective.hpp),
+whose pairwise pass runs over chunks of queries bucketed by length
+(``LambdarankNDCG``). The per-row arrays live
 on the booster's device; ``get_gradients`` is a handful of elementwise ops
 in float32, the same arithmetic in the same order as the JAX package: [N]
 scores to [N] gradients, or [N, K] to [N, K] for the multiclass
@@ -12,20 +15,19 @@ numpy as they are there: ``boost_from_score`` reads host copies of the
 per-row arrays, and ``convert_output`` maps raw scores on the host.
 
 L1, quantile and MAPE refit their leaf values after growth
-(``renew_percentile``; ``core/renew.py``). Cross-entropy and lambdarank
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+(``renew_percentile``; ``core/renew.py``).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .config import Config
 from .io.dataset import Metadata
-from .log import Log, LightGBMError, check, outside_slice
+from .log import Log, LightGBMError, check
 
 
 class ObjectiveFunction:
@@ -406,6 +408,213 @@ class MulticlassOVA(ObjectiveFunction):
         return 1.0 / (1.0 + np.exp(-self.config.sigmoid * _f32(score)))
 
 
+# ------------------------------------------------------------------ xentropy
+class CrossEntropy(ObjectiveFunction):
+    """xentropy_objective.hpp:30-130: labels in [0, 1], the sigmoid link."""
+    name = "xentropy"
+
+    def init(self, metadata, device):
+        super().init(metadata, device)
+        if self._label_np.min() < 0 or self._label_np.max() > 1:
+            raise LightGBMError("[%s]: label must be in [0, 1]" % self.name)
+
+    def get_gradients(self, score):
+        p = 1.0 / (1.0 + torch.exp(-score))
+        if self.weights is None:
+            return p - self.label, p * (1.0 - p)
+        return ((p - self.label) * self.weights,
+                p * (1.0 - p) * self.weights)
+
+    def boost_from_score(self, class_id=0):
+        pavg = min(max(self._wmean(self._label_np), 1e-15), 1 - 1e-15)
+        return math.log(pavg / (1 - pavg))
+
+    def convert_output(self, score):
+        """Probabilities (float32, on the host)."""
+        return 1.0 / (1.0 + np.exp(-_f32(score)))
+
+
+class CrossEntropyLambda(CrossEntropy):
+    """xentropy_objective.hpp:140-250: the weighted cross-entropy with the
+    log1p(exp) link."""
+    name = "xentlambda"
+
+    def get_gradients(self, score):
+        w = self.weights if self.weights is not None \
+            else torch.ones_like(score)
+        epf = torch.exp(score)
+        hhat = torch.log1p(epf)
+        z = 1.0 - torch.exp(-w * hhat)
+        enf = torch.exp(-score)
+        grad = (1.0 - self.label / z) * w / (1.0 + enf)
+        c = 1.0 / (1.0 - z)
+        d = 1.0 + epf
+        a = w * epf / (z * d)
+        b = (d - 1.0) / d
+        hess = self.label * a * (c * b * w - (a - b)) + (
+            1.0 - self.label) * w * b / d * (1.0 + w * epf / d)
+        # the JAX package's guards against blow-ups of the float32 math
+        hess = torch.where(torch.isfinite(hess) & (hess > 0), hess, 1e-6)
+        grad = torch.where(torch.isfinite(grad), grad, 0.0)
+        return grad, hess
+
+    def boost_from_score(self, class_id=0):
+        pavg = min(max(self._wmean(self._label_np), 1e-15), 1 - 1e-15)
+        return math.log(math.expm1(pavg)) if pavg > 0 else -50.0
+
+    def convert_output(self, score):
+        """log1p(exp(score)) (float32, on the host)."""
+        return np.log1p(np.exp(_f32(score)))
+
+
+# -------------------------------------------------------------------- ranking
+def default_label_gain(max_label: int = 31) -> np.ndarray:
+    """2^i - 1 (dcg_calculator.cpp:30-38)."""
+    return np.array([0.0] + [float((1 << i) - 1) for i in range(1, max_label)])
+
+
+# the most bytes one [queries, M, M] float32 array of lambdarank's pairwise
+# pass may take; the pass holds at most PAIR_PEAK_ARRAYS such arrays (or
+# their bool masks) at once
+PAIR_BYTES_CAP = 64 << 20
+PAIR_PEAK_ARRAYS = 8
+
+
+class QueryChunk(NamedTuple):
+    """Queries of similar length padded to the longest of them: ``rows``
+    [c, M] their docs' rows (0 in padding), ``mask`` [c, M] the real docs,
+    ``label`` [c, M] int32 labels and ``gain`` [c, M] label gains (0 in
+    padding), ``inv_max_dcg`` [c], and ``flat`` / ``dest``: where the real
+    docs sit in the flattened [c * M] results and the rows they go to."""
+    rows: torch.Tensor
+    mask: torch.Tensor
+    label: torch.Tensor
+    gain: torch.Tensor
+    inv_max_dcg: torch.Tensor
+    flat: torch.Tensor
+    dest: torch.Tensor
+
+
+def query_chunks(sizes: np.ndarray, cap_bytes: int = PAIR_BYTES_CAP
+                 ) -> List[np.ndarray]:
+    """The queries bucketed by length: their indices in order of size, cut
+    into runs whose [run, M, M] float32 array (M the run's longest query)
+    stays within ``cap_bytes``; a query longer than the cap allows is a
+    run of its own."""
+    order = np.argsort(sizes, kind="stable")
+    runs, start = [], 0
+    for i in range(1, len(order) + 1):
+        if i == len(order) or (i - start + 1) * 4 * int(
+                sizes[order[i]]) ** 2 > cap_bytes:
+            runs.append(order[start:i])
+            start = i
+    return runs
+
+
+class LambdarankNDCG(ObjectiveFunction):
+    """rank_objective.hpp:19-240 with the JAX package's formulas
+    (objectives.py:498-589 there): per query, docs ranked by score (a
+    stable sort, so that tied docs keep their order: every score ties at
+    the first iteration, and a leaf's docs tie after each tree), position
+    discounts 1/log2(2 + rank), and pairwise |ΔNDCG|-weighted sigmoid
+    lambdas regularised by /(0.01 + |Δscore|) where the query's scores
+    differ; the weights apply last.
+
+    The JAX package pads every query to the longest one and computes
+    [Q, M, M] pairs at once; at MSLR-WEB30K's shape (31,531 queries, up to
+    1,251 docs) one such array would take ~197 GB. Here the queries are
+    bucketed by length (``query_chunks``): each chunk pads to its own
+    longest query, keeps one [chunk, M, M] float32 array within
+    ``pair_bytes_cap`` and at most PAIR_PEAK_ARRAYS of them alive, and
+    its results go back to their rows of the [N] gradients and hessians.
+    Per query the arithmetic, its order and its float32 constants (the
+    discounts and inverse max DCGs computed in float64, cast once) are the
+    JAX package's."""
+    name = "lambdarank"
+
+    def __init__(self, config, pair_bytes_cap: int = PAIR_BYTES_CAP):
+        super().__init__(config)
+        self.pair_bytes_cap = pair_bytes_cap
+
+    def init(self, metadata, device):
+        super().init(metadata, device)
+        if metadata.query_boundaries is None:
+            raise LightGBMError("Lambdarank tasks require query information")
+        qb = np.asarray(metadata.query_boundaries, np.int64)
+        sizes = np.diff(qb)
+        gains = self.config.label_gain
+        lg = (np.asarray(gains, np.float64) if gains
+              else default_label_gain())
+        lab = self._label_np.astype(np.int32)
+        check(lab.max() < len(lg), "label excels label_gain size")
+        # inverse max DCG at k a query (rank_objective.hpp:55-65)
+        k = self.config.max_position
+        disc = 1.0 / np.log2(2.0 + np.arange(int(sizes.max())))
+        inv = np.zeros(len(sizes), np.float64)
+        for i in range(len(sizes)):
+            ql = np.sort(lab[qb[i]:qb[i + 1]])[::-1][:k]
+            mx = float(np.sum(lg[ql] * disc[:len(ql)]))
+            inv[i] = 1.0 / mx if mx > 0 else 0.0
+        self.discount = torch.as_tensor(disc.astype(np.float32),
+                                        device=device)
+        gain_rows = lg.astype(np.float32)[lab]
+
+        def dev(a):
+            return torch.as_tensor(a, device=device)
+        self.chunks = []
+        for run in query_chunks(sizes, self.pair_bytes_cap):
+            pos = np.arange(int(sizes[run].max()))
+            mask = pos[None, :] < sizes[run][:, None]
+            rows = np.where(mask, qb[run][:, None] + pos[None, :], 0)
+            self.chunks.append(QueryChunk(
+                rows=dev(rows), mask=dev(mask),
+                label=dev(np.where(mask, lab[rows], 0).astype(np.int32)),
+                gain=dev(np.where(mask, gain_rows[rows], 0)
+                         .astype(np.float32)),
+                inv_max_dcg=dev(inv[run].astype(np.float32)),
+                flat=dev(np.flatnonzero(mask)), dest=dev(rows[mask])))
+
+    def _chunk_gradients(self, score: torch.Tensor, ch: QueryChunk
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[c, M] gradients and hessians of one chunk's queries, 0 in
+        padding."""
+        sig = self.config.sigmoid
+        s = torch.where(ch.mask, score[ch.rows], -1e30)
+        m = s.shape[1]
+        # rank of each doc (0 = best): a stable sort by -score, padding last
+        order = torch.argsort(-s, dim=1, stable=True)
+        rank_of = torch.empty_like(order).scatter_(
+            1, order, torch.arange(m, device=s.device).expand_as(order))
+        disc = self.discount[rank_of] * ch.mask.to(torch.float32)
+        best = s.max(dim=1).values
+        worst = torch.where(ch.mask, s, 1e30).min(dim=1).values
+        norm = (best != worst)[:, None, None]
+        ds = s[:, :, None] - s[:, None, :]
+        delta = ((ch.gain[:, :, None] - ch.gain[:, None, :])
+                 * torch.abs(disc[:, :, None] - disc[:, None, :])
+                 * ch.inv_max_dcg[:, None, None])
+        delta = torch.where(norm, delta / (0.01 + torch.abs(ds)), delta)
+        p_lambda = 2.0 / (1.0 + torch.exp(2.0 * sig * ds))
+        del ds
+        # pairs (i, j) with label_i > label_j, both docs real
+        hi = ((ch.label[:, :, None] > ch.label[:, None, :])
+              & ch.mask[:, :, None] & ch.mask[:, None, :])
+        lam = torch.where(hi, -p_lambda * delta, 0.0)
+        hes = torch.where(hi, 2.0 * (p_lambda * (2.0 - p_lambda)) * delta,
+                          0.0)
+        return (lam.sum(dim=2) - lam.sum(dim=1),
+                hes.sum(dim=2) + hes.sum(dim=1))
+
+    def get_gradients(self, score):
+        grad = torch.zeros_like(score)
+        hess = torch.zeros_like(score)
+        for ch in self.chunks:
+            g, h = self._chunk_gradients(score, ch)
+            grad[ch.dest] = g.reshape(-1)[ch.flat]
+            hess[ch.dest] = h.reshape(-1)[ch.flat]
+        return self._apply_weights(grad, hess)
+
+
 # ------------------------------------------------------------------- factory
 _OBJECTIVES = {
     "regression": RegressionL2Loss,
@@ -420,9 +629,10 @@ _OBJECTIVES = {
     "binary": BinaryLogloss,
     "multiclass": MulticlassSoftmax,
     "multiclassova": MulticlassOVA,
+    "xentropy": CrossEntropy,
+    "xentlambda": CrossEntropyLambda,
+    "lambdarank": LambdarankNDCG,
 }
-# the JAX package's other objectives, not ported yet
-LATER_OBJECTIVES = ("xentropy", "xentlambda", "lambdarank")
 
 
 def create_objective(config: Config) -> Optional[ObjectiveFunction]:
@@ -432,8 +642,6 @@ def create_objective(config: Config) -> Optional[ObjectiveFunction]:
     name = config.objective
     if name in ("none", "", None):
         return None
-    if name in LATER_OBJECTIVES:
-        raise outside_slice("objective=%s" % name, "ROADMAP Queue 1 #2")
     if name not in _OBJECTIVES:
         raise LightGBMError("Unknown objective type name: %s" % name)
     return _OBJECTIVES[name](config)

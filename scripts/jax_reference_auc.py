@@ -34,6 +34,20 @@ with ``tpu_batched_part=true``), 5 iterations.
   the data of its paths 4r-4u; prints the train ``multi_logloss`` and
   ``multi_error``, and with ``--valid`` the valid ``multi_logloss`` after
   each iteration (125,000 rows from seed 1, early stopping after 5 rounds).
+- ``--data ranking``: chip_smoke's ranking workload
+  (``chip_smoke.ranking_data``: 500,000 x 28 in consecutive queries of
+  50-150 docs, relevance 0-4), the data of its paths 4v-4y, trained with
+  ``--objective lambdarank`` (the default there) and chip_smoke's
+  RANKING_PARAMS (metrics ``ndcg,map,topavg,topavgdiff`` at
+  ``eval_at=1,3,5``); prints every train ranking metric, and with
+  ``--valid`` the valid ``ndcg@5`` after each iteration (125,000 rows
+  from seed 1 with their own groups, early stopping after 5 rounds).
+  ``--objective xentropy|xentlambda`` there trains on ``rel / 4``.
+- ``--objective xentropy|xentlambda`` on the dense data:
+  ``chip_smoke.xentropy_data`` (bench.py's features, labels
+  ``sigmoid(t)`` of the regression target; xentlambda with the weights
+  uniform in [0.5, 1.5] of path 4za), the data of paths 4z and 4za;
+  prints every metric of chip_smoke's XENTROPY_PATHS for the objective.
 - ``--hist-impl scatter|matmul`` sets the JAX package's
   ``tpu_hist_impl``. ``auto`` (the default) is ``scatter`` on the CPU: one
   XLA scatter-add, a single running f32 sum per histogram cell, which
@@ -44,7 +58,7 @@ with ``tpu_batched_part=true``), 5 iterations.
     JAX_PLATFORMS=cpu python scripts/jax_reference_auc.py \
         [--growth exact|frontier|batched|batched_part] \
         [--objective OBJECTIVE] [--num-class K] [--valid] \
-        [--data dense|bundled|categorical] [--fobj logistic] \
+        [--data dense|bundled|categorical|ranking] [--fobj logistic] \
         [--hist-impl auto|scatter|matmul] [--rows N] [--iters K]
 
 It runs on the CPU backend and prints one JSON line.
@@ -71,8 +85,8 @@ def main() -> int:
                     default="exact")
     ap.add_argument("--objective", default="binary")
     ap.add_argument("--valid", action="store_true")
-    ap.add_argument("--data", choices=("dense", "bundled", "categorical"),
-                    default="dense")
+    ap.add_argument("--data", choices=("dense", "bundled", "categorical",
+                                       "ranking"), default="dense")
     ap.add_argument("--fobj", choices=("logistic",))
     ap.add_argument("--num-class", type=int,
                     default=chip_smoke.NUM_CLASS)
@@ -80,8 +94,11 @@ def main() -> int:
                     default="auto")
     args = ap.parse_args()
     multiclass = args.objective in ("multiclass", "multiclassova")
+    if args.data == "ranking" and args.objective == "binary":
+        args.objective = "lambdarank"
     if args.rows is None:
         args.rows = (chip_smoke.MULTICLASS_ROWS if multiclass
+                     else chip_smoke.RANKING_ROWS if args.data == "ranking"
                      else chip_smoke.MAIN_ROWS)
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -106,6 +123,40 @@ def main() -> int:
                         fobj=chip_smoke.logistic_fobj)
         out.update(fobj=args.fobj, auc=chip_smoke.auc(
             np.asarray(bst.predict(x), np.float64), y))
+    elif args.data == "ranking":
+        x, rel, sizes = chip_smoke.ranking_data(args.rows)
+        params.update(chip_smoke.RANKING_PARAMS, objective=args.objective)
+        scale = 1.0 if args.objective == "lambdarank" else 0.25
+        train = lgb.Dataset(x, label=rel * scale, group=sizes)
+        kwargs = {}
+        if args.valid:
+            xv, relv, sizes_v = chip_smoke.ranking_data(
+                chip_smoke.RANKING_VALID_ROWS, seed=1)
+            kwargs = {"valid_sets": [train.create_valid(
+                xv, label=relv * scale, group=sizes_v)],
+                "early_stopping_rounds": chip_smoke.EARLY_STOPPING_ROUNDS,
+                "evals_result": {}, "verbose_eval": False}
+        bst = lgb.train(params, train, num_boost_round=args.iters, **kwargs)
+        out.update(queries=len(sizes),
+                   train={name: value
+                          for _, name, value, _ in bst.eval_train()})
+        if args.valid:
+            out["valid"] = kwargs["evals_result"]["valid_0"]["ndcg@5"]
+            out["best_iteration"] = bst.best_iteration
+    elif args.objective in ("xentropy", "xentlambda"):
+        if args.data != "dense":
+            ap.error("--data %s takes the binary objective" % args.data)
+        x, y, w = chip_smoke.xentropy_data(args.rows)
+        (_, extra, weighted), = [
+            v for v in chip_smoke.XENTROPY_PATHS.values()
+            if v[1]["objective"] == args.objective]
+        params.update(extra)
+        bst = lgb.train(params, lgb.Dataset(x, label=y,
+                                            weight=w if weighted else None),
+                        num_boost_round=args.iters)
+        out.update(weighted=weighted,
+                   train={name: value
+                          for _, name, value, _ in bst.eval_train()})
     elif args.objective == "binary":
         data = {"dense": chip_smoke.bench_data,
                 "bundled": chip_smoke.bundled_data,

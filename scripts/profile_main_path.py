@@ -25,11 +25,17 @@ workload instead (``chip_smoke.bundled_data``: HIGGS's b-tags and 8
 one-hot blocks of 32, 284 features stored in 34 columns), its paths
 4i-4l; ``--data categorical`` its categorical workload
 (``chip_smoke.categorical_data``: 28 features and four id columns passed
-as ``categorical_feature``), its paths 4m-4p.
+as ``categorical_feature``), its paths 4m-4p. ``--data ranking`` trains
+lambdarank (``--objective lambdarank``, the default there) on its ranking
+workload (``chip_smoke.ranking_data``: 500,000 rows in consecutive queries
+of 50-150 docs, relevance 0-4, with its ranking metrics), its paths 4v-4y;
+``--objective xentropy`` or ``xentlambda`` trains on
+``chip_smoke.xentropy_data`` (labels ``sigmoid(t)``, xentlambda with its
+weights), its paths 4z-4za.
 
     python3 scripts/profile_main_path.py [--growth MODE] [--rows N] \
         [--iters K] [--objective binary|multiclass|OBJECTIVE] \
-        [--data dense|bundled|categorical]
+        [--data dense|bundled|categorical|ranking]
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -67,14 +73,19 @@ def main() -> int:
                     help="binary (bench.py's labels), multiclass or "
                     "multiclassova (its target in 5 classes) or one of the "
                     "regression family (its target before the threshold)")
-    ap.add_argument("--data", choices=("dense", "bundled", "categorical"),
-                    default="dense")
+    ap.add_argument("--data", choices=("dense", "bundled", "categorical",
+                                       "ranking"), default="dense")
     args = ap.parse_args()
+    if args.data == "ranking" and args.objective == "binary":
+        args.objective = "lambdarank"
     if args.rows is None:
         args.rows = (chip_smoke.MULTICLASS_ROWS
                      if args.objective in chip_smoke.MULTICLASS_OBJECTIVES
+                     else chip_smoke.RANKING_ROWS if args.data == "ranking"
                      else chip_smoke.MAIN_ROWS)
-    if args.data != "dense" and args.objective != "binary":
+    if args.data == "ranking" and args.objective != "lambdarank":
+        ap.error("--data ranking takes the lambdarank objective")
+    if args.data not in ("dense", "ranking") and args.objective != "binary":
         ap.error("--data %s takes the binary objective" % args.data)
     import torch
     if not torch.cuda.is_available():
@@ -87,16 +98,26 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    x, y = (chip_smoke.bundled_data(args.rows) if args.data == "bundled"
-            else chip_smoke.categorical_data(args.rows)
-            if args.data == "categorical"
-            else chip_smoke.workload(args.objective, args.rows))
+    group = weight = None
+    if args.data == "ranking":
+        x, y, group = chip_smoke.ranking_data(args.rows)
+    elif args.objective in ("xentropy", "xentlambda"):
+        x, y, weight = chip_smoke.xentropy_data(args.rows)
+        if args.objective == "xentropy":
+            weight = None
+    else:
+        x, y = (chip_smoke.bundled_data(args.rows) if args.data == "bundled"
+                else chip_smoke.categorical_data(args.rows)
+                if args.data == "categorical"
+                else chip_smoke.workload(args.objective, args.rows))
     params = dict(chip_smoke.PARAMS, objective=args.objective,
                   **chip_smoke.objective_params(args.objective),
                   **chip_smoke.GROWTH_PARAMS[args.growth])
+    if args.data == "ranking":
+        params.update(chip_smoke.RANKING_PARAMS)
     cat = (chip_smoke.CATEGORICAL_FEATURES if args.data == "categorical"
            else "auto")
-    ds = lgb.Dataset(x, label=y, params=params,
+    ds = lgb.Dataset(x, label=y, weight=weight, group=group, params=params,
                      categorical_feature=cat).construct()
     bst = lgb.Booster(params=params, train_set=ds)
     bst.update()                                   # warm-up iteration

@@ -840,3 +840,100 @@ def test_raw_bitsets_past_255_predict_on_the_card(cuda_device):
     np.testing.assert_allclose(card.predict(xt, raw_score=True),
                                bst.predict(xt, raw_score=True), rtol=0,
                                atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scores", ["random", "leaf_tied"])
+@pytest.mark.parametrize("weighted", [False, True], ids=["unw", "w"])
+def test_lambdarank_gradient_on_the_card_matches_the_cpu(cuda_device,
+                                                         weighted, scores):
+    """The lambdarank gradient (plain torch ops, chunked by query length)
+    on the card against the same call on the CPU: queries of 1-400 docs in
+    chunks of a 1 MiB cap, each element within 1e-6 of its query's sum of
+    |g| (or |h|): the card's exp and its sums over a query's pairs may
+    round otherwise than the CPU's."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.io.dataset import Metadata
+    from lightgbm_tpu_torch.objectives import LambdarankNDCG
+    r = np.random.RandomState(8)
+    sizes = np.concatenate([[1, 400], r.randint(1, 200, 120)])
+    n = int(sizes.sum())
+    meta = Metadata(n)
+    meta.set_label(r.choice(5, n, p=[0.5, 0.3, 0.15, 0.04, 0.01]))
+    meta.set_weight(r.rand(n) + 0.5 if weighted else None)
+    meta.set_query(sizes)
+    s = (r.randn(n) if scores == "random"
+         else r.choice([-0.2, 0.0, 0.3], n)).astype(np.float32)
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        obj = LambdarankNDCG(Config({"objective": "lambdarank"}),
+                             pair_bytes_cap=1 << 20)
+        obj.init(meta, dev)
+        assert len(obj.chunks) > 3
+        out[dev.type] = [a.cpu().numpy() for a in
+                         obj.get_gradients(torch.as_tensor(s, device=dev))]
+    qid = np.repeat(np.arange(len(sizes)), sizes)
+    for got, want in zip(out["cuda"], out["cpu"]):
+        qsum = np.bincount(qid, weights=np.abs(want))
+        assert (np.abs(got - want) <= 1e-6 * qsum[qid]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective,growth,counter", [
+    ("lambdarank", {}, "build_histogram_cuda"),
+    ("lambdarank", {"tree_growth": "frontier"}, "build_histogram_slots_cuda"),
+    ("lambdarank", {"tree_growth": "batched"}, "build_histogram_slots6_cuda"),
+    ("lambdarank", {"tree_growth": "batched", "tpu_batched_part": "true"},
+     "build_histogram_part_tiles_cuda"),
+    ("xentropy", {"tree_growth": "frontier"}, "build_histogram_slots_cuda"),
+    ("xentlambda", {"tree_growth": "batched"},
+     "build_histogram_slots6_cuda")])
+def test_ranking_and_cross_entropy_training_on_the_card(cuda_device,
+                                                        objective, growth,
+                                                        counter):
+    """Lambdarank on chip_smoke.py ``ranking_data`` (20,000 rows in ~200
+    queries, a valid set with its own groups) and the cross-entropy
+    objectives on ``xentropy_data`` (xentlambda weighted) on the card: each
+    tree launches the grower's kernel, the valid scores on the card are the
+    model's predictions, the model text reloaded predicts the same, and the
+    trees of the same run on the CPU agree up to f32 gain ties
+    (chip_smoke.py's rule), with raw predictions within 1e-4 where the
+    trees are identical (chip_smoke.py ``F64_RAW_TOL``'s reason)."""
+    import chip_smoke
+    if objective == "lambdarank":
+        x, y, group = chip_smoke.ranking_data(20_000)
+        xv, yv, group_v = chip_smoke.ranking_data(5_000, seed=1)
+        w = wv = None
+        params = dict(chip_smoke.RANKING_PARAMS)
+    else:
+        x, y, w = chip_smoke.xentropy_data(20_000)
+        xv, yv, wv = chip_smoke.xentropy_data(5_000, seed=1)
+        group = group_v = None
+        if objective == "xentropy":
+            w = wv = None
+        params = {"objective": objective}
+    params.update(num_leaves=31, min_data_in_leaf=40, verbosity=-1,
+                  **growth)
+    wrapper = getattr(kernels, counter)
+    before = wrapper.launches
+    tr = tlgb.Dataset(x, label=y, weight=w, group=group)
+    bst = tlgb.train(params, tr, num_boost_round=3,
+                     valid_sets=[tr.create_valid(xv, label=yv, weight=wv,
+                                                 group=group_v)],
+                     verbose_eval=False)
+    assert wrapper.launches - before >= 3
+    assert len(bst.models) == 3
+    assert all(t.num_leaves_actual > 1 for t in bst.models)
+    raw = bst.predict(xv, raw_score=True)
+    np.testing.assert_allclose(bst._impl.scores_of(1), raw, rtol=0,
+                               atol=1e-5)
+    loaded = tlgb.Booster(model_str=bst.model_to_string())
+    np.testing.assert_allclose(loaded.predict(xv, raw_score=True), raw,
+                               rtol=0, atol=1e-6)
+    cpu = tlgb.train(params, tlgb.Dataset(x, label=y, weight=w, group=group,
+                                          device="cpu"),
+                     num_boost_round=3, device="cpu")
+    if chip_smoke.trees_match(bst.models, cpu.models):
+        np.testing.assert_allclose(bst.predict(x, raw_score=True),
+                                   cpu.predict(x, raw_score=True), rtol=0,
+                                   atol=1e-4)

@@ -101,8 +101,9 @@ OUTSIDE_SLICE = {
     "dart": ({"boosting": "dart"}, None),
     "rf": ({"boosting": "rf", "bagging_freq": 1,
             "bagging_fraction": 0.5}, None),
-    "xentropy": ({"objective": "xentropy"}, None),
-    "lambdarank": ({"objective": "lambdarank"}, None),
+    # lambdarank bags whole queries (group-aware bagging)
+    "lambdarank": ({"objective": "lambdarank", "bagging_freq": 1,
+                    "bagging_fraction": 0.5}, None),
     "monotone": ({"monotone_constraints": [1, 0, 0, 0]}, None),
     "forced_splits": ({"forcedsplits_filename": "forced.json"}, None),
     "cegb": ({"cegb_penalty_split": 0.5}, None),
@@ -129,8 +130,10 @@ REFUSALS = {
     # dataset-wide pairing (the JAX package's nibble cap) stays refused
     "nibble_pairs": ({"tpu_bin_packing": "nibble"}, "#9"),
     "checkpoint_callback": ({}, "#12"),
+    # bagging under lambdarank samples whole queries
+    "lambdarank_bagging": ({"objective": "lambdarank", "bagging_freq": 1,
+                            "bagging_fraction": 0.5}, "#7"),
     # refusals of the user-facing Dataset and Booster
-    "query_groups": ({}, "#2"),
     "data_file": ({}, "#16"),
     "averaged_model_text": ({}, "#7"),
     # methods of the JAX package's Booster and Dataset the port lacks
@@ -150,8 +153,11 @@ def _refused_call(kind, params, x, y):
         from lightgbm_tpu_torch.config import Config
         from lightgbm_tpu_torch.io.dataset import BinnedDataset
         return BinnedDataset.from_matrix(x, Config({}), label=y)
-    if kind == "query_groups":
-        return tlgb.Dataset(x, label=y, group=[len(y)], device="cpu")
+    if kind == "lambdarank_bagging":
+        return tlgb.train(dict(params, verbosity=-1),
+                          tlgb.Dataset(x, label=y, group=[len(y)],
+                                       device="cpu"),
+                          num_boost_round=1, device="cpu")
     if kind == "data_file":
         return tlgb.Dataset("train.csv", device="cpu").construct()
     params = dict(params, objective="binary", verbosity=-1)
@@ -265,6 +271,27 @@ def test_categorical_features_and_fobj_train(option):
     else:
         assert bst._impl.objective is None
     assert np.isfinite(bst.predict(x)).all()
+
+
+# objectives the port once refused: cross-entropy and lambdarank, which
+# takes query groups (ROADMAP Queue 1 #2)
+NOW_TRAIN_OBJECTIVES = ("lambdarank", "xentlambda", "xentropy")
+
+
+@pytest.mark.parametrize("objective", NOW_TRAIN_OBJECTIVES)
+def test_ranking_and_cross_entropy_train(objective):
+    x, y = _data()
+    group = [100] * 4 if objective == "lambdarank" else None
+    ds = tlgb.Dataset(x, label=y, group=group, device="cpu")
+    bst = tlgb.train({"objective": objective, "verbosity": -1}, ds,
+                     num_boost_round=2, device="cpu")
+    assert bst._impl.objective.name == objective
+    assert len(bst.models) == 2
+    assert np.isfinite(bst.predict(x)).all()
+    if objective == "lambdarank":
+        assert list(ds.get_group()) == group
+        assert [m for _, m, _, _ in bst.eval_train()] == [
+            "ndcg@%d" % k for k in range(1, 6)]
 
 
 @pytest.mark.parametrize("kind", sorted(NOW_TRAINED))
