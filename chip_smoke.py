@@ -26,7 +26,9 @@ and prints no result line):
    them), each with the profiler's device time by launch, the wrapper's
    host time and an exact count channel, and the in-tile
    partition (repack.cu) at 1,048,576 x 128 bytes, 512-row tiles, 30% of
-   the rows going left, which must come back byte-equal;
+   the rows going left, which must come back byte-equal; and one bagging
+   draw of 1,000,000 threefry uniforms (``random.py``, torch ops), timed
+   and held bit-equal to the same draw on the CPU;
 4. the main paths at full width, one per growth mode: bench.py's workload
    (1,000,000 x 28, numpy seed 0), objective=binary, num_leaves=255,
    max_bin=255, through ``lightgbm_tpu_torch.train`` for 5 iterations on
@@ -80,6 +82,31 @@ and prints no result line):
    (``logistic_fobj``) and ``metric=auc``, held to the JAX package's AUC
    within 2e-3, with the event-timed ms an iteration of its round trip
    (the scores to the host, the fobj call, the two copies back);
+   then the row-sampling paths on the same binned data (SAMPLING_PATHS),
+   whose key stream is the JAX package's (a valid set puts it on the
+   per-iteration stream, as DART and RF always are; without one
+   ``lgb.train`` takes the fused blocks):
+     4zb ``exact``, ``bagging_fraction=0.8``, ``bagging_freq=1``, with a
+        250,000-row validation set (seed 1), ``metric=auc`` and early
+        stopping, its valid AUC held at every iteration,
+     4zc ``batched_part`` (K=16), ``bagging_fraction=0.5``,
+        ``bagging_freq=2``, ``feature_fraction=0.8``,
+     4zd ``frontier``, ``boosting=goss`` (``top_rate=0.2``,
+        ``other_rate=0.1``, ``learning_rate=0.25``: 4 iterations of
+        warm-up, then 4 sampled), 8 rounds, each sampled iteration's top
+        rows (at least 200,000) and others (within 1.5% of their
+        expectation) printed and held,
+     4ze ``batched`` (K=16), ``boosting=dart`` (``drop_rate=0.5``,
+        ``skip_drop=0``), 8 rounds, with the validation set, its drop sets
+        held equal to the JAX package's and its model text reloaded,
+     4zf ``exact``, ``boosting=rf`` (``bagging_fraction=0.632``,
+        ``bagging_freq=1``, ``feature_fraction=0.8``), with the
+        validation set and a model-text reload (``average_output``);
+   each held to the JAX package's train AUC within 2e-3, every tree
+   splitting, valid scores within 1e-5 of ``predict(raw_score=True)`` and
+   reloaded texts within 1e-6, with its s/iter beside the dense binary
+   path of its growth mode and the event-timed ms of a mask draw, of
+   GOSS's selection and of DART's drop-and-normalize replay;
    then the categorical paths, binary with ``categorical_feature`` on
    ``categorical_data`` (1,000,000 x 32: bench.py's 28 features and four
    id columns of 3, 24, 1,000 and 20,000 ids, the last spread over ids up
@@ -127,7 +154,14 @@ and prints no result line):
    RANK_PARTED_REL_TOL where, after tree 0, they part (the kernels'
    summation order moves leaf values by ~1e-6, which reorders a query's
    docs whose scores lie that close); 4v's valid scores must be within
-   1e-5 of ``predict(raw_score=True)`` and its reloaded text within 1e-6; then the cross-entropy paths on ``xentropy_data``
+   1e-5 of ``predict(raw_score=True)`` and its reloaded text within 1e-6;
+   then 4zg, ``frontier`` lambdarank on the same data with
+   ``bagging_fraction=0.8``, ``bagging_freq=1`` (one draw a query, the
+   fused key stream, the plain run drawing the same masks), held as 4w
+   (its JAX constant parts from the port's forests at a gain tie, found on
+   the CPU by scripts/gain_tie_probe.py, so both runs are held as a parted
+   one is) and with every query wholly in or out of each mask; then the
+   cross-entropy paths on ``xentropy_data``
    (bench.py's 1,000,000 x 28 with labels sigmoid(t)): 4z ``frontier``
    ``xentropy`` (metrics xentropy and kldiv) and 4za ``batched`` (K=16)
    ``xentlambda`` with weights uniform in [0.5, 1.5], each train metric
@@ -139,7 +173,7 @@ and prints no result line):
    on average) on the card, timed, its peak memory read and held under
    its cap, and held to a float64 per-query version on a sample of
    queries with the longest one, within 1e-4 of each query's sum of |g|;
-   every path of 4a-4d and 4m-4za also trains one more iteration under
+   every path of 4a-4d, 4m-4za and 4zb-4zg also trains one more iteration under
    torch.profiler and prints its CUDA kernel launches and
    synchronisations;
 5. the kernel path against the plain path on the card (200,000 rows, 2
@@ -151,7 +185,11 @@ and prints no result line):
    identical up to f32 gain ties (tests/test_parity.py's rule), and raw
    predictions within 1e-5 when the trees are identical; on bench.py's
    data, on the bundled data, on the categorical data, and batched
-   multiclass (4t's call) on the multiclass data;
+   multiclass (4t's call) on the multiclass data; and, on bench.py's data,
+   every grower again on bagged rows (``bagging_fraction=0.5``: zeros in
+   the count channel) and on GOSS's rows (``learning_rate=1.0``: the
+   second iteration samples, its gradients amplified) against the float64
+   plain path;
 6. a ``kernels`` JSON line (each kernel's launches summed over every
    path of phase 4), the card line, and the result line
    ``{"ok": true, "device": {...}}``. No grower calls the in-tile
@@ -163,6 +201,7 @@ Exits non-zero without a result when no CUDA device is available.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import re
 import statistics
@@ -176,7 +215,10 @@ import torch
 import lightgbm_tpu_torch as lgb
 from lightgbm_tpu_torch import device as port_device
 from lightgbm_tpu_torch import objectives as port_objectives
+from lightgbm_tpu_torch import random as port_random
+from lightgbm_tpu_torch.boosting import dart as port_dart
 from lightgbm_tpu_torch.boosting import gbdt as port_gbdt
+from lightgbm_tpu_torch.boosting import goss as port_goss
 from lightgbm_tpu_torch.config import Config
 from lightgbm_tpu_torch.core import grow_batched_part
 from lightgbm_tpu_torch.core import histogram as hist
@@ -250,8 +292,22 @@ BUNDLED_RAW_TOL = 6e-4
 # value (measured on an H100: 1.1e-4 to 1.4e-4 on bench.py's data, 1.7e-5
 # to 4.2e-5 on the bundled data, 2.7e-4 on the multiclass data; the f32
 # plain path's trees part at a tie on bench.py's data, so there its 1e-5
-# is never reached)
+# is never reached). That error is a leaf value's, so it scales with the
+# shrinkage: the measurements are at the default learning rate,
+# F64_RAW_TOL_LR, and a run at another rate is held to F64_RAW_TOL times
+# its rate over that (phase 5's GOSS rows, at learning_rate 1.0 so that
+# the second iteration samples, measured 1.21e-3 with identical trees on an
+# H100, 1.2e-4 scaled back)
 F64_RAW_TOL = 5e-4
+F64_RAW_TOL_LR = 0.1
+# phase 5 on sampled rows (SAMPLED_COMPARE): a tree may break the tie
+# rule's count of substituted splits where its gain sum is within this of
+# the other's. With fewer rows in a leaf, near-tied gains decide more of
+# frontier's last wave: float32 against float64 sums on the CPU part
+# bagged tree 0 with 5 positional mismatches and 6 substituted splits,
+# gain sums 2.1e-6 apart (scripts/summation_order_probe.py --data dense
+# --growth frontier --sampled bagged); an H100 run 3 and 6, 6e-8 apart
+SAMPLED_TIE_GAIN_REL = 1e-5
 # phase 5 on data with categorical features: the most two runs' gains may
 # differ at the node where their trees part on one leaf (``parting_tie``).
 # The summation order alone moves the gains of splits both runs share by up
@@ -432,6 +488,80 @@ JAX_XENTROPY_METRIC = {
     "4z": {"xentropy": 0.6409453522604893, "kldiv": 0.1022243812843356},
     "4za": {"xentlambda": 0.6525149517965491},
 }
+# the row-sampling paths of phase 4 (#7): a growth mode, the parameters
+# over PARAMS, the data (bench.py's binary workload or ``ranking_data``),
+# the rounds, and whether a valid set of VALID_ROWS rows (seed 1) is kept.
+# The valid set decides the JAX package's bagging key stream: without one
+# ``lgb.train`` fuses the loop into blocks (``split(key, block + 1)``), with
+# one it splits a key an iteration; DART and RF always take the latter.
+# 4zb also stops early on the valid AUC
+SAMPLING_PATHS = {
+    "4zb": ("exact", {"bagging_fraction": 0.8, "bagging_freq": 1,
+                      "metric": "auc"}, "dense", 5, True),
+    "4zc": ("batched_part", {"bagging_fraction": 0.5, "bagging_freq": 2,
+                             "feature_fraction": 0.8}, "dense", 5, False),
+    "4zd": ("frontier", {"boosting": "goss", "top_rate": 0.2,
+                         "other_rate": 0.1, "learning_rate": 0.25},
+            "dense", 8, False),
+    "4ze": ("batched", {"boosting": "dart", "drop_rate": 0.5,
+                        "skip_drop": 0.0}, "dense", 8, True),
+    "4zf": ("exact", {"boosting": "rf", "bagging_fraction": 0.632,
+                      "bagging_freq": 1, "feature_fraction": 0.8},
+            "dense", 5, True),
+    "4zg": ("frontier", dict(RANKING_PARAMS, bagging_fraction=0.8,
+                             bagging_freq=1), "ranking", 5, False),
+}
+# The JAX package's train AUC on each row-sampling path (on 4zb also its
+# valid AUC after each iteration and its best iteration, on 4ze its drop
+# sets; on 4zg its train ranking metrics), taken on the CPU backend with
+# chunked histogram sums by
+#   JAX_PLATFORMS=cpu python scripts/jax_reference_auc.py --hist-impl matmul \
+#       --growth MODE --rounds R [--valid] [--boosting B] [--data ranking] \
+#       [the path's --bagging-fraction, --bagging-freq, --feature-fraction,
+#        --top-rate, --other-rate, --learning-rate, --drop-rate, --skip-drop]
+JAX_SAMPLING_METRIC = {
+    "4zb": {"auc": 0.9619187758590569,
+            "valid": [0.9479986041386149,
+                      0.9557844154484688,
+                      0.9587165494502657,
+                      0.9596871763480094,
+                      0.9606972630084464],
+            "best_iteration": 5},
+    "4zc": {"auc": 0.9621497302252083},
+    "4zd": {"auc": 0.9727381870505987},
+    "4ze": {"auc": 0.9574801269889175,
+            "drops": [[], [], [1], [0, 1], [0, 3], [0, 1, 2, 4],
+                      [2, 3, 5], [0, 1, 4, 5]]},
+    "4zf": {"auc": 0.9579133224967364},
+    "4zg": {"train": {"ndcg@1": 0.8863469265623674,
+                      "ndcg@3": 0.9007895782971747,
+                      "ndcg@5": 0.9116234201042583,
+                      "map@1": 0.9998005186515061,
+                      "map@3": 0.9994846731830571,
+                      "map@5": 0.9987956313584672,
+                      "topavg@1": 0.00718132854578097,
+                      "topavg@3": 0.015426557616862816,
+                      "topavg@5": 0.020466786355475913,
+                      "topavgdiff@1": 1.644225014961101,
+                      "topavgdiff@3": 1.4712414389254596,
+                      "topavgdiff@5": 1.3554957111510089},
+            # the JAX package's forest parts from the port's plain run with
+            # float64 sums at tree 1's node 110, where frontier growth's last
+            # wave ranks two leaves' splits whose exact gains are 1.4e-4
+            # apart, and the JAX package's float32 gain puts the lesser
+            # first; taken on the CPU by
+            #   JAX_PLATFORMS=cpu python scripts/gain_tie_probe.py --path 4zg
+            "gain_tie": {"tree": 1, "node": 110,
+                         "jax_exact": 76.86220149987639,
+                         "jax_f32": 76.8818359375,
+                         "port_exact": 76.87317600672668,
+                         "port_f32": 76.8720703125}},
+}
+# GOSS on path 4zd: the rows kept besides the top ones within this share of
+# their expectation, (N - tops) * other_cnt / (N - top_cnt): each of the
+# ~800,000 others is kept with probability 1/8, so one standard deviation
+# is ~296 rows, 0.3% of the ~100,000 expected
+GOSS_OTHERS_REL = 0.015
 # the lambdarank gradient at MSLR-WEB30K's shape (31,531 queries of up to
 # 1,251 docs, ~120 a query): held to a float64 per-query plain version on
 # a sample of RANK_SCALE_SAMPLE queries and the longest one, each element
@@ -1351,8 +1481,8 @@ def read_counts():
     return {w.__name__: w.launches for w in COUNTED}
 
 
-def train_counted(params, ds, **kwargs):
-    """Train NUM_ITERS iterations with the launch counts set to 0 just
+def train_counted(params, ds, rounds: int = NUM_ITERS, **kwargs):
+    """Train ``rounds`` iterations with the launch counts set to 0 just
     before and read just after; returns (booster, train seconds, launches,
     the partitioned grower's steps, each of which calls hist_part_tiles)."""
     steps = []
@@ -1365,7 +1495,7 @@ def train_counted(params, ds, **kwargs):
     try:
         reset_counts()
         t0 = time.perf_counter()
-        bst = lgb.train(params, ds, num_boost_round=NUM_ITERS, **kwargs)
+        bst = lgb.train(params, ds, num_boost_round=rounds, **kwargs)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
     finally:
@@ -1644,6 +1774,212 @@ def drive_fobj_path(ds, x, y):
                              % (train_auc, AUC_TOLERANCE, JAX_FOBJ_AUC))
     out.update(iteration_counts("4q", bst, fobj=logistic_fobj))
     return out
+
+
+@contextlib.contextmanager
+def patched(*targets):
+    """Set each (owner, name, value) of ``targets`` for the block, and put
+    the old values back after it."""
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in targets]
+    for owner, name, value in targets:
+        setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        for owner, name, value in saved:
+            setattr(owner, name, value)
+
+
+def queries_whole(masks, sizes) -> bool:
+    """Whether every query lies wholly in or wholly out of every mask."""
+    cuts = np.cumsum(sizes)[:-1]
+    return all(q.min() == q.max() for m in masks
+               for q in np.split(m.cpu().numpy(), cuts))
+
+
+def drive_sampling_path(label: str, ds, x, y, dense: dict, valid=None):
+    """Phase 4zb-4zf: a row-sampling path at full width on bench.py's
+    workload (SAMPLING_PATHS), with the launch counts set to 0 just before
+    and read just after, beside ``dense``, the dense binary path of the same
+    growth mode; ``valid`` (Dataset, rows) where the path keeps one. The
+    mask draws, GOSS's selection and DART's drop-and-normalize replay are
+    event-timed; DART's drop sets are recorded."""
+    growth, extra, _, rounds, _ = SAMPLING_PATHS[label]
+    params = dict(PARAMS, **extra, **GROWTH_PARAMS[growth])
+    boosting = params.get("boosting", "gbdt")
+    ref = JAX_SAMPLING_METRIC[label]
+    draw = EventTimer(port_gbdt.GBDT._draw_bag_mask)
+    select = EventTimer(port_goss.goss_multipliers)
+    replay = EventTimer(lambda impl, fn, *args: fn(impl, *args))
+    mults, drops = [], []
+    drop, put_back = port_dart.DART._drop, port_dart.DART._put_back
+
+    def selected(*args):
+        mults.append(select(*args))
+        return mults[-1]
+
+    def dropped(impl, index):
+        drops.append(list(index))
+        return replay(impl, drop, index)
+    kwargs, evals = {}, {}
+    if valid is not None:
+        kwargs = {"valid_sets": [valid[0]], "evals_result": evals,
+                  "verbose_eval": False}
+        if boosting == "gbdt":
+            kwargs["early_stopping_rounds"] = EARLY_STOPPING_ROUNDS
+    with patched((port_gbdt.GBDT, "_draw_bag_mask",
+                  lambda impl, key: draw(impl, key)),
+                 (port_goss, "goss_multipliers", selected),
+                 (port_dart.DART, "_drop", dropped),
+                 (port_dart.DART, "_put_back",
+                  lambda impl, outputs, factor: replay(impl, put_back,
+                                                       outputs, factor))):
+        bst, train_s, launches, steps = train_counted(params, ds, rounds,
+                                                      **kwargs)
+    trees = len(bst.models)
+    prob = bst.predict(x, num_iteration=rounds)
+    train_auc = auc(prob, y)
+    waves = launches[WAVE_KERNEL[growth]] if growth in WAVE_KERNEL else None
+    out = {"growth": growth, "params": extra, "train_s": train_s,
+           "s_per_iter": train_s / rounds,
+           "x_dense": train_s / rounds / dense["s_per_iter"],
+           "auc": train_auc, "jax_auc": ref["auc"],
+           "auc_gap": abs(train_auc - ref["auc"]),
+           "leaves": [t.num_leaves_actual for t in bst.models],
+           "waves_per_tree": None if waves is None else waves / trees,
+           "launches": launches,
+           "mask_draws": len(draw.events),
+           "mask_draw_ms": (draw.total_ms() / len(draw.events)
+                            if draw.events else None),
+           "goss_select_ms": (select.total_ms() / len(select.events)
+                              if select.events else None),
+           "dart_replay_ms_per_iter": (replay.total_ms() / rounds
+                                       if replay.events else None)}
+    log("path %s (%s, %s): train %.2f s (%d iterations, %.3f s per "
+        "iteration, %.2fx the dense binary path's %.3f), trees %s leaves%s; "
+        "train AUC %.6f (JAX package %.6f); %d mask draws of %s ms, GOSS "
+        "selection %s ms, DART replay %s ms an iteration; launches %s" % (
+            label, growth, boosting, train_s, rounds, out["s_per_iter"],
+            out["x_dense"], dense["s_per_iter"], out["leaves"],
+            "" if waves is None
+            else ", %.1f waves per tree" % out["waves_per_tree"], train_auc,
+            ref["auc"], out["mask_draws"], fmt(out["mask_draw_ms"]),
+            fmt(out["goss_select_ms"]),
+            fmt(out["dart_replay_ms_per_iter"]), launches))
+    check_path_launches(label, growth, bst, launches, steps)
+    if trees != rounds or any(n < 2 for n in out["leaves"]):
+        raise AssertionError("path %s: expected %d trees that split, got %s"
+                             % (label, rounds, out["leaves"]))
+    if prob.shape != (len(x),) or not np.isfinite(prob).all():
+        raise AssertionError("path %s: predictions are not finite [n] "
+                             "probabilities" % label)
+    if out["auc_gap"] > AUC_TOLERANCE:
+        raise AssertionError("path %s: train AUC %.6f is more than %g from "
+                             "the JAX package's %.6f" % (
+                                 label, train_auc, AUC_TOLERANCE,
+                                 ref["auc"]))
+    if "bagging_freq" in extra:
+        want = len(range(0, rounds, extra["bagging_freq"]))
+        if len(draw.events) != want:
+            raise AssertionError("path %s: %d mask draws, not %d"
+                                 % (label, len(draw.events), want))
+    if boosting == "goss":
+        check_goss_counts(label, mults, len(y), params, rounds)
+        out["goss"] = [{"top": int((m == 1).sum()),
+                        "others": int((m > 1).sum())} for m in mults]
+    if boosting == "dart":
+        out["drops"] = drops
+        log("path %s: drop sets %s (JAX package %s)"
+            % (label, drops, ref["drops"]))
+        if drops != ref["drops"]:
+            raise AssertionError("path %s: drop sets differ from the JAX "
+                                 "package's" % label)
+    if valid is not None:
+        xv = valid[1]
+        raw = bst.predict(xv, raw_score=True, num_iteration=rounds)
+        out["valid_score_max_diff"] = float(np.abs(
+            bst._impl.scores_of(1) - raw).max())
+        log("path %s: device valid scores of %d rows against predict: max "
+            "diff %.3g" % (label, len(raw), out["valid_score_max_diff"]))
+        if out["valid_score_max_diff"] > VALID_SCORE_TOL:
+            raise AssertionError("path %s: device valid scores differ from "
+                                 "predict by %.3g"
+                                 % (label, out["valid_score_max_diff"]))
+        if "valid" in ref:
+            out["valid"] = evals["valid_0"]["auc"]
+            out["jax_valid"] = ref["valid"]
+            out["best_iteration"] = bst.best_iteration
+            gaps = [abs(v - r) for v, r in zip(out["valid"], ref["valid"])]
+            out["valid_max_gap"] = max(gaps)
+            log("path %s: valid AUC %s (JAX package %s), best iteration %d "
+                "(JAX package %d)" % (label, out["valid"], ref["valid"],
+                                      bst.best_iteration,
+                                      ref["best_iteration"]))
+            if len(gaps) != len(ref["valid"]) or max(gaps) > AUC_TOLERANCE:
+                raise AssertionError("path %s: valid AUC more than %g from "
+                                     "the JAX package's" % (label,
+                                                            AUC_TOLERANCE))
+    if boosting in ("dart", "rf"):
+        text = bst.model_to_string()
+        loaded = lgb.Booster(model_str=text)
+        out["model_text_max_diff"] = float(np.abs(
+            loaded.predict(x, raw_score=True)
+            - bst.predict(x, raw_score=True)).max())
+        log("path %s: the model text (average_output %s) reloaded predicts "
+            "the %d rows within %.3g" % (
+                label, "average_output" in text.split("feature_names")[0],
+                len(x), out["model_text_max_diff"]))
+        if (boosting == "rf") != ("\naverage_output\n" in text):
+            raise AssertionError("path %s: average_output is %s the model "
+                                 "text" % (label, "missing from"
+                                           if boosting == "rf" else "in"))
+        if out["model_text_max_diff"] > MODEL_TEXT_TOL:
+            raise AssertionError("path %s: the reloaded model text predicts "
+                                 "%.3g away"
+                                 % (label, out["model_text_max_diff"]))
+    out.update(iteration_counts(label, bst))
+    return out
+
+
+def check_goss_counts(label: str, mults, n: int, params,
+                      rounds: int) -> None:
+    """Each sampled GOSS iteration keeps at least its top share (more where
+    rows tie at the threshold: a leaf's rows share g and h) and of the rest
+    close to the expected share; the warm-up draws nothing."""
+    warmup = int(1.0 / params["learning_rate"])
+    top_cnt, other_cnt = port_goss.goss_counts(n, params["top_rate"],
+                                               params["other_rate"])
+    for i, m in enumerate(mults):
+        tops, others = int((m == 1).sum()), int((m > 1).sum())
+        expect = (n - tops) * other_cnt / (n - top_cnt)
+        log("path %s: GOSS iteration %d keeps %d top rows (at least %d) "
+            "and %d others (expected %.0f, %.2f%% off)" % (
+                label, warmup + i, tops, top_cnt, others, expect,
+                100 * abs(others - expect) / expect))
+        if tops < top_cnt or abs(others - expect) > GOSS_OTHERS_REL * expect:
+            raise AssertionError("path %s: GOSS kept %d top and %d other "
+                                 "rows" % (label, tops, others))
+    if len(mults) != rounds - warmup:
+        raise AssertionError("path %s: GOSS sampled %d iterations, not %d"
+                             % (label, len(mults), rounds - warmup))
+
+
+def time_mask_draw(dev, flush) -> dict:
+    """One bagging draw of MAIN_ROWS threefry uniforms on the card (int64
+    torch ops), event-timed, and held bit-equal to the same draw on the
+    CPU."""
+    key = port_random.split(port_random.prng_key(3))[1]
+    got = port_random.uniform(key, MAIN_ROWS, dev)
+    want = port_random.uniform(key, MAIN_ROWS, "cpu")
+    if not torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("the card's threefry draw differs from the "
+                             "CPU's")
+    ms = time_ms(lambda: port_random.uniform(key, MAIN_ROWS, dev), flush)
+    # each value's 8 bytes of counter read and 4 written, once
+    bound_ms, _ = bound(12 * MAIN_ROWS, 0)
+    log("mask draw: %d threefry uniforms on the card in %.4f ms (bytes "
+        "bound %.4f ms), bit-equal to the CPU's" % (MAIN_ROWS, ms, bound_ms))
+    return {"rows": MAIN_ROWS, "ms": ms, "bound_ms": bound_ms}
 
 
 def drive_multiclass_path(label: str, ds, x, valid=None):
@@ -2030,14 +2366,23 @@ def train_plain_f64(params, ds, valid=None) -> dict:
     """NUM_ITERS iterations of ``params`` on the plain path with float64
     histogram sums (deterministic on the card), with ``valid`` and early
     stopping where given: the Booster, its train metrics and (``valid``)
-    its valid ndcg@5 after each iteration."""
+    its valid ndcg@5 after each iteration. Without ``valid`` it trains as
+    ``lgb.train`` does without a valid set (``GBDT.train_many``), so a
+    bagged run draws the kernel run's masks."""
     evals = {}
-    kwargs = {} if valid is None else {
-        "valid_sets": [valid], "evals_result": evals,
-        "early_stopping_rounds": EARLY_STOPPING_ROUNDS, "verbose_eval": False}
-    bst = lgb.train(dict(params, tpu_hist_impl="plain"), ds,
-                    num_boost_round=NUM_ITERS, callbacks=[_PlainF64Sums()],
-                    **kwargs)
+    if valid is None:
+        bst = lgb.Booster(params=dict(params, tpu_hist_impl="plain"),
+                          train_set=ds)
+        bst._impl.grow_params = bst._impl.grow_params._replace(
+            plain_f64_sums=True)
+        bst._impl.train_many(NUM_ITERS)
+    else:
+        bst = lgb.train(dict(params, tpu_hist_impl="plain"), ds,
+                        num_boost_round=NUM_ITERS,
+                        callbacks=[_PlainF64Sums()], valid_sets=[valid],
+                        evals_result=evals,
+                        early_stopping_rounds=EARLY_STOPPING_ROUNDS,
+                        verbose_eval=False)
     if not bst._impl.grow_params.plain_f64_sums:
         raise AssertionError("the plain run did not sum in float64")
     return {"bst": bst,
@@ -2059,23 +2404,38 @@ def first_parting(a, b):
 
 
 def drive_ranking_path(label: str, ds, x, dense: dict, valid=None):
-    """Phase 4v-4y: lambdarank at full width on the ranking workload, with
-    the launch counts set to 0 just before and read just after, and the
-    gradient's device time by events; 4v also keeps ``valid`` (Dataset,
-    rows), with early stopping, whose device scores must be the model's
-    raw predictions, and round-trips its model text. ``dense`` is the
-    dense binary path of the same growth mode, for its s/iter."""
-    growth = RANKING_PATHS[label]
-    params = dict(PARAMS, **RANKING_PARAMS, **GROWTH_PARAMS[growth])
-    ref = JAX_RANKING_METRIC[label]
+    """Phase 4v-4y and 4zg: lambdarank at full width on the ranking
+    workload, with the launch counts set to 0 just before and read just
+    after, and the gradient's device time by events; 4v also keeps
+    ``valid`` (Dataset, rows), with early stopping, whose device scores must
+    be the model's raw predictions, and round-trips its model text; 4zg
+    bags whole queries (SAMPLING_PATHS), its draws event-timed and every
+    query wholly in or out of each mask. ``dense`` is the dense binary path
+    of the same growth mode, for its s/iter."""
+    if label in RANKING_PATHS:
+        growth = RANKING_PATHS[label]
+        params = dict(PARAMS, **RANKING_PARAMS, **GROWTH_PARAMS[growth])
+        ref = JAX_RANKING_METRIC[label]
+    else:
+        growth, extra = SAMPLING_PATHS[label][:2]
+        params = dict(PARAMS, **extra, **GROWTH_PARAMS[growth])
+        ref = JAX_SAMPLING_METRIC[label]
     kwargs, evals = {}, {}
     if valid is not None:
         kwargs = {"valid_sets": [valid[0]], "evals_result": evals,
                   "early_stopping_rounds": EARLY_STOPPING_ROUNDS,
                   "verbose_eval": False}
     timer = timed_gradients("lambdarank")
+    draw = EventTimer(port_gbdt.GBDT._draw_bag_mask)
+    masks = []
+
+    def drawn(impl, key):
+        draw(impl, key)
+        masks.append(impl._bag_mask)
     try:
-        bst, train_s, launches, steps = train_counted(params, ds, **kwargs)
+        with patched((port_gbdt.GBDT, "_draw_bag_mask", drawn)):
+            bst, train_s, launches, steps = train_counted(params, ds,
+                                                          **kwargs)
     finally:
         restore_gradients(timer)
     trees = len(bst.models)
@@ -2096,6 +2456,18 @@ def drive_ranking_path(label: str, ds, x, dense: dict, valid=None):
            "leaves": [t.num_leaves_actual for t in bst.models],
            "waves_per_tree": None if waves is None else waves / trees,
            "launches": launches}
+    if "bagging_freq" in params:
+        sizes = np.diff(ds._binned.metadata.query_boundaries)
+        out["mask_draws"] = len(draw.events)
+        out["mask_draw_ms"] = draw.total_ms() / len(draw.events)
+        out["in_bag"] = [int(m.sum()) for m in masks]
+        log("path %s: %d mask draws of one uniform a query (%d queries), "
+            "%.4f ms each; rows in the bag %s" % (
+                label, len(masks), len(sizes), out["mask_draw_ms"],
+                out["in_bag"]))
+        if len(masks) != NUM_ITERS or not queries_whole(masks, sizes):
+            raise AssertionError("path %s: %d masks, or a query split by "
+                                 "one" % (label, len(masks)))
     log("path %s (%s, lambdarank, %d queries): train %.2f s (%d "
         "iterations, %.3f s per iteration, %.2fx the dense binary path's "
         "%.3f), predict %.3f s, trees %s leaves%s; lambdarank gradient "
@@ -2148,9 +2520,22 @@ def drive_ranking_path(label: str, ds, x, dense: dict, valid=None):
         raise AssertionError("path %s: the plain path's trees, but raw "
                              "predictions %.3g apart"
                              % (label, out["plain_f64"]["max_raw_diff"]))
-    kernel_tol = METRIC_REL_TOL if parted is None else RANK_PARTED_REL_TOL
+    # where the JAX package's forest parts from the port's plain run at a
+    # gain tie (its constant's ``gain_tie``, found on the CPU by
+    # scripts/gain_tie_probe.py), neither forest is the other's: both runs
+    # are held as a parted kernel run is
+    tie = ref.get("gain_tie")
+    plain_tol = METRIC_REL_TOL if tie is None else RANK_PARTED_REL_TOL
+    kernel_tol = (METRIC_REL_TOL if parted is None and tie is None
+                  else RANK_PARTED_REL_TOL)
+    if tie is not None:
+        log("path %s: the JAX package's trees part from the plain run's at "
+            "tree %d, node %d, at a gain tie: its split's exact gain %.6g "
+            "(float32 %.6g), the port's %.6g (float32 %.6g)" % (
+                label, tie["tree"], tie["node"], tie["jax_exact"],
+                tie["jax_f32"], tie["port_exact"], tie["port_f32"]))
     checks = [("plain train " + m, plain["train"][m], ref["train"][m],
-               METRIC_REL_TOL) for m in RANKING_HELD]
+               plain_tol) for m in RANKING_HELD]
     checks += [("train " + m, train[m], ref["train"][m], kernel_tol)
                for m in RANKING_HELD]
     if valid is not None:
@@ -2287,6 +2672,10 @@ def drive_ranking_workloads(paths: dict, dev) -> dict:
             label, ds, x_rank, paths[growth],
             (valid, xv) if label == "4v" else None)
         paths[label]["binning_s"] = binning_s
+    # 4zg: bagging of whole queries on the same binned data
+    paths["4zg"] = drive_ranking_path("4zg", ds, x_rank,
+                                      paths[SAMPLING_PATHS["4zg"][0]])
+    paths["4zg"]["binning_s"] = binning_s
     del ds, valid
     x_xe, y_xe, w_xe = xentropy_data(MAIN_ROWS)
     for label, (growth, _, weighted) in XENTROPY_PATHS.items():
@@ -2298,7 +2687,7 @@ def drive_ranking_workloads(paths: dict, dev) -> dict:
         paths[label] = drive_xentropy_path(label, ds, x_xe, paths[growth])
         paths[label]["binning_s"] = binning_s
         del ds
-    for label in list(RANKING_PATHS) + list(XENTROPY_PATHS):
+    for label in list(RANKING_PATHS) + ["4zg"] + list(XENTROPY_PATHS):
         m = paths[label]
         d = paths[m["growth"]]
         log("path %s against %s (the same growth, dense binary): %.3f "
@@ -2341,6 +2730,14 @@ def train_compared(params, ds, plain_f64_sums: bool):
     return bst
 
 
+# phase 5 on sampled rows (bench.py's data, COMPARE_ROWS): a bagging mask
+# with zeros in the count channel, and GOSS's amplified gradients after its
+# one-iteration warm-up, each through every grower of COMPARE_RUNS against
+# the float64 plain path
+SAMPLED_COMPARE = {
+    "bagged": {"bagging_fraction": 0.5, "bagging_freq": 1},
+    "GOSS": {"boosting": "goss", "learning_rate": 1.0},
+}
 # phase 5's plain paths, by whether their histograms sum in float64
 PLAIN_PATHS = {False: "plain", True: "plain_f64"}
 
@@ -2353,13 +2750,17 @@ def compare_paths(ds, xs, ys, raw_tol: float = 1e-5, runs=COMPARE_RUNS,
     path too (one running sum a cell; ``plains`` says which). Trees equal
     up to f32 gain ties (``trees_match``) against each; where they are
     identical, raw predictions within ``raw_tol`` of the f32 plain path's
-    and within F64_RAW_TOL of the float64 path's; where they part at a
-    categorical tie (data with categorical features), the two forests' AUC
-    on ``xs`` within AUC_TOLERANCE of each other."""
+    and within F64_RAW_TOL (scaled by the run's learning rate over
+    F64_RAW_TOL_LR where it is larger) of the float64 path's; where they
+    part at a categorical tie (data with categorical features), or on
+    bagged or GOSS rows grow on other scores after an f32 gain tie, the two
+    forests' AUC on ``xs`` within AUC_TOLERANCE of each other."""
     categorical = bool(ds._binned is not None and any(
         m.bin_type == BinType.CATEGORICAL for m in ds._binned.bin_mappers))
     out = {}
     for label, extra, wrapper in runs:
+        sampled = (extra.get("boosting") == "goss"
+                   or extra.get("bagging_freq", 0) > 0)
         forests = {}
         for name, impl, f64 in (("kernel", "auto", False),) + tuple(
                 (PLAIN_PATHS[f64], "plain", f64) for f64 in plains):
@@ -2375,20 +2776,24 @@ def compare_paths(ds, xs, ys, raw_tol: float = 1e-5, runs=COMPARE_RUNS,
                 launches = counts[wrapper]
         raw = {name: f.predict(xs, raw_score=True)
                for name, f in forests.items()}
-        aucs = ({name: auc(r, ys) for name, r in raw.items()} if categorical
-                else None)
+        aucs = ({name: auc(r, ys) for name, r in raw.items()}
+                if categorical or sampled else None)
         out[label] = {"launches": launches, "auc": aucs}
         for f64 in plains:
-            name, tol = PLAIN_PATHS[f64], F64_RAW_TOL if f64 else raw_tol
+            rate = extra.get("learning_rate", F64_RAW_TOL_LR)
+            name, tol = PLAIN_PATHS[f64], (
+                F64_RAW_TOL * max(1.0, rate / F64_RAW_TOL_LR) if f64
+                else raw_tol)
             ties = []
             identical = trees_match(forests["kernel"].models,
-                                    forests[name].models, ties, categorical)
+                                    forests[name].models, ties, categorical,
+                                    sampled)
             raw_diff = float(np.abs(raw["kernel"] - raw[name]).max())
             parted = any(t["after_parting_tie"] for t in ties)
             log("kernel vs %s path, %s: trees %s, max raw prediction diff "
                 "%.3g%s, %s launches %d" % (
                     name, label, "identical" if identical
-                    else "parted at a categorical tie" if parted
+                    else "parted at a tie" if parted
                     else "equal up to f32 gain ties", raw_diff,
                     ", AUC %.6f against %.6f" % (aucs["kernel"], aucs[name])
                     if aucs else "", wrapper, launches))
@@ -2397,9 +2802,9 @@ def compare_paths(ds, xs, ys, raw_tol: float = 1e-5, runs=COMPARE_RUNS,
                                      "predictions differ from the %s path's "
                                      "by %.3g" % (label, name, raw_diff))
             if parted and abs(aucs["kernel"] - aucs[name]) > AUC_TOLERANCE:
-                raise AssertionError("%s: after a categorical tie the kernel "
-                                     "and %s paths' AUC differ by more than "
-                                     "%g" % (label, name, AUC_TOLERANCE))
+                raise AssertionError("%s: after a tie the kernel and %s "
+                                     "paths' AUC differ by more than %g"
+                                     % (label, name, AUC_TOLERANCE))
             out[label][name] = {"identical": identical,
                                 "max_raw_diff": raw_diff, "ties": ties}
     return out
@@ -2437,7 +2842,8 @@ def parting_tie(ta, tb, nn: int):
     return i, (la, ra) in ((lb, rb), (rb, lb)), gain_rel
 
 
-def trees_match(a, b, ties=None, categorical: bool = False) -> bool:
+def trees_match(a, b, ties=None, categorical: bool = False,
+                sampled: bool = False) -> bool:
     """True when the forests are structurally identical. Otherwise they
     must satisfy the tie rule of tests/test_parity.py, or this raises.
 
@@ -2451,7 +2857,15 @@ def trees_match(a, b, ties=None, categorical: bool = False) -> bool:
     subsets, trade places with the summation order, and the tree regrows
     from there (``scripts/summation_order_probe.py``). From such a tie on,
     the caller holds the two forests to their AUC (``compare_paths``).
-    ``ties`` (a list), where given, records each tie."""
+
+    With ``sampled`` (bagged or GOSS rows) a tree may also break the count
+    of substituted splits where its gain sum is within SAMPLED_TIE_GAIN_REL
+    of the other's, and the trees after one that differs grow on other
+    scores: under GOSS on another sample, since GOSS keeps the rows whose
+    |g h| reaches its threshold and a leaf's rows share g and h, so a leaf
+    value moved by a tie takes its rows across the threshold together. From
+    there on the caller holds the two forests to their AUC as after a
+    categorical tie. ``ties`` (a list), where given, records each tie."""
     identical, parted = True, False
     for ta, tb in zip(a, b):
         nn = ta.num_leaves_actual - 1
@@ -2472,6 +2886,10 @@ def trees_match(a, b, ties=None, categorical: bool = False) -> bool:
         gain_rel = abs(ta.split_gain[:nn].sum() - tb.split_gain[:nn].sum()) \
             / max(abs(tb.split_gain[:nn].sum()), 1e-30)
         within_rule = len(mism) <= 6 and sym <= 4 and gain_rel <= 1e-3
+        if sampled and not within_rule and len(mism) <= 6 \
+                and gain_rel <= SAMPLED_TIE_GAIN_REL:
+            # a tie of frontier's last wave: the AUC holds from here
+            within_rule = parted = True
         tie = None
         if categorical and not parted and not within_rule:
             tie = parting_tie(ta, tb, nn)
@@ -2491,6 +2909,8 @@ def trees_match(a, b, ties=None, categorical: bool = False) -> bool:
         if not parted and not within_rule:
             raise AssertionError("kernel and plain trees differ beyond the "
                                  "f32 tie rule")
+        # the next iteration's scores, and GOSS's sample, follow these trees
+        parted = parted or sampled
     return identical
 
 
@@ -2540,6 +2960,7 @@ def main() -> int:
     slot_rows = check_slot_kernels(dev, flush)
     part_rows = check_part_kernel(dev, flush)
     repack_rows = check_partition_kernel(dev, flush)
+    mask_draw = time_mask_draw(dev, flush)
     del flush
 
     log_phase(t_start, "4. the main paths at full width")
@@ -2551,7 +2972,17 @@ def main() -> int:
                                           *x.shape))
     paths = {g: drive_path(g, ds, x, y) for g in GROWTH_PARAMS}
     paths["4q"] = drive_fobj_path(ds, x, y)
-    del ds
+
+    log_phase(t_start, "4zb-4zf. row sampling on the same data")
+    # ---- 4zb-4zf. row sampling on the same data ------------------------
+    xv, yv = bench_data(VALID_ROWS, seed=1)
+    valid = ds.create_valid(xv, label=yv).construct()
+    for label, (growth, _, data, _, keeps_valid) in SAMPLING_PATHS.items():
+        if data == "dense":
+            paths[label] = drive_sampling_path(
+                label, ds, x, y, paths[growth],
+                (valid, xv) if keeps_valid else None)
+    del ds, valid
     x, t = regression_data(MAIN_ROWS)
     xv, tv = regression_data(VALID_ROWS, seed=1)
     t0 = time.perf_counter()
@@ -2664,8 +3095,15 @@ def main() -> int:
     # ---- 5. kernel path against plain path -----------------------------
     x, y = bench_data(MAIN_ROWS)
     xs, ys = x[:COMPARE_ROWS], y[:COMPARE_ROWS]
-    compare_paths(lgb.Dataset(xs, label=ys, params=PARAMS).construct(), xs,
-                  ys)
+    ds = lgb.Dataset(xs, label=ys, params=PARAMS).construct()
+    compare_paths(ds, xs, ys)
+    for what, extra in SAMPLED_COMPARE.items():
+        log("kernel vs plain path on bench.py's data (%d rows), %s:"
+            % (len(xs), what))
+        compare_paths(ds, xs, ys, runs=[
+            ("%s, %s" % (label, what), dict(params, **extra), wrapper)
+            for label, params, wrapper in COMPARE_RUNS], plains=(True,))
+    del ds
     xs, ys = x_bundled[:COMPARE_ROWS], y_bundled[:COMPARE_ROWS]
     log("kernel vs plain path on the bundled data (%d rows):" % len(xs))
     compare_paths(lgb.Dataset(xs, label=ys, params=PARAMS).construct(), xs,
@@ -2726,7 +3164,8 @@ def main() -> int:
              note="no grower calls partition_tiles (the JAX package's do "
                   "not either), so no path launches it; its phase-3 calls "
                   "are its only launches")],
-        "paths": paths, "renewal": renewal, "rank_scale": rank_scale}),
+        "paths": paths, "renewal": renewal, "rank_scale": rank_scale,
+        "mask_draw": mask_draw}),
         flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

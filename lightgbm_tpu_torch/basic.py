@@ -27,7 +27,8 @@ from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 
-from .boosting.gbdt import GBDT, HostTree
+from .boosting import create_boosting
+from .boosting.gbdt import HostTree
 from .config import Config, param_dict_to_str
 from .device import DeviceLike, resolve_device
 from .io import model_text
@@ -336,8 +337,8 @@ class Booster:
         self._metric_names = [n for n in names if n and n != "None"]
         metrics = [m for m in (create_metric(n, self.config)
                                for n in self._metric_names) if m]
-        self._impl = GBDT(self.config, train_set._binned, objective, metrics,
-                          self.device)
+        self._impl = create_boosting(self.config, train_set._binned,
+                                     objective, metrics, self.device)
         if predictor is not None:
             init_k = predictor.booster.num_model_per_iteration()
             check(init_k == self._impl.num_tree_per_iteration,
@@ -350,10 +351,12 @@ class Booster:
 
     def _init_from_forest(self, models: List, feature_names: List[str],
                           feature_infos: List[str]) -> None:
-        """A predict-only booster over host trees."""
+        """A predict-only booster over host trees, of the class of
+        ``boosting`` (an RF averages its trees)."""
         self.config = Config(self.params)
-        self._impl = GBDT(self.config, None, create_objective(self.config),
-                          [], self.device)
+        self._impl = create_boosting(self.config, None,
+                                     create_objective(self.config), [],
+                                     self.device)
         self._impl.models = models
         self._feature_names_loaded = list(feature_names)
         self._feature_infos_loaded = list(feature_infos)
@@ -371,8 +374,6 @@ class Booster:
                 break
         parsed = model_text.parse_model_string(model_str)
         tokens = parsed["objective"].split()
-        if parsed["average_output"]:
-            raise outside_slice("averaged (RF) models", "ROADMAP Queue 1 #7")
         if tokens:
             self.params.setdefault("objective", tokens[0])
             for tok in tokens[1:]:
@@ -386,6 +387,9 @@ class Booster:
         self._init_from_forest(parsed["trees"], parsed["feature_names"],
                                parsed["feature_infos"])
         self._impl.num_tree_per_iteration = parsed["num_tree_per_iteration"]
+        # a loaded model is a GBDT that averages where its text says so
+        # (basic.py:561 of the JAX package)
+        self._impl.average_output = parsed["average_output"]
 
     # ------------------------------------------------------------ training
     def add_valid(self, data: Dataset, name: str) -> "Booster":

@@ -14,7 +14,10 @@ one device, and the growth modes of ``tree_growth``: leaf-wise ``exact``
 top-K ``batched`` steps (``core/grow_batched.py``, or
 ``core/grow_batched_part.py`` over rows kept grouped by leaf with
 ``tpu_batched_part=true``). Each iteration computes
-gradients on the device, grows one tree a class, renews its leaf values
+gradients on the device, samples rows where bagging asks for it (the JAX
+package's threefry draws, ``random.py``: a mask refreshed every
+``bagging_freq`` iterations, under lambdarank one draw a query), grows one
+tree a class on the in-bag rows, renews its leaf values
 where the objective asks for it (L1, quantile, MAPE: ``core/renew.py``),
 adds its shrunk leaf values to the class's training scores through the
 per-row leaf ids and to each validation set's scores through a binned
@@ -31,6 +34,15 @@ its class's gradients, as the JAX package grows them on its accelerator
 (gbdt.py:576-600 there; it vmaps them only on the CPU, where each class's
 tree is the one sequential growth gives). The model lists the K trees of
 an iteration together: tree ``i`` is class ``i % K``.
+
+The bagging key follows the JAX package's two key streams: an iteration
+of ``train_one_iter`` splits the key for a refresh and once more for GOSS
+(gbdt.py:1031-1046, :2211 there); ``train_many``, which ``engine.train``
+calls where the JAX engine fuses its loop, splits it into blocks of at most
+64 iterations and each block key in two (gbdt.py:1622-1647, :1862-1930).
+GOSS, DART and RF (``goss.py``, ``dart.py``, ``rf.py``) are subclasses that
+amend the gradients and mask, move the trees already in the model, or
+average the forest; ``boosting.create_boosting`` picks the class.
 
 Every option outside the slice raises ``NotImplementedError`` from
 ``check_slice`` before anything is built, naming the ROADMAP item that
@@ -53,6 +65,7 @@ from ..core.grow_frontier import grow_tree_frontier
 from ..core.histogram import HIST_IMPLS
 from ..core.renew import renew_leaf_values
 from ..core.split import FeatureMeta, SplitParams
+from .. import random as threefry
 from ..io.binning import BinType
 from ..io.dataset import BinnedDataset
 from ..log import LightGBMError, Log, outside_slice
@@ -107,18 +120,7 @@ class HostTree:
 
 def check_slice(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for any option outside the slice."""
-    bagging = cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0
     rules = [
-        # lambdarank bags whole queries (gbdt.py:786-807 of the JAX package)
-        (bagging and cfg.objective == "lambdarank",
-         "bagging under lambdarank (group-aware bagging of whole queries)",
-         "ROADMAP Queue 1 #7"),
-        (cfg.boosting == "goss", "boosting=goss",
-         "ROADMAP Queue 1 #7: GOSS"),
-        (cfg.boosting == "dart", "boosting=dart",
-         "ROADMAP Queue 1 #7: DART"),
-        (cfg.boosting == "rf", "boosting=rf", "ROADMAP Queue 1 #7: RF"),
-        (bagging, "bagging", "ROADMAP Queue 1 #7: bagging"),
         (bool(cfg.monotone_constraints)
          and any(int(v) != 0 for v in cfg.monotone_constraints),
          "monotone_constraints", "ROADMAP Queue 1 #4"),
@@ -218,9 +220,21 @@ def category_words(ds: BinnedDataset) -> int:
     return max(8, (max_cat + 32) // 32)
 
 
+# iterations a block of ``train_many`` draws its keys for, as the JAX
+# package fuses at most 64 into one device program (gbdt.py:1896 there)
+TRAIN_BLOCK = 64
+
+
+def as_f32(value: float) -> float:
+    """``value`` rounded to float32: a Python float compared with a float32
+    array in the JAX package is weakly typed and compares as float32."""
+    return float(np.float32(value))
+
+
 class GBDT:
     """Boosting driver (boosting.h:22-294, gbdt.{h,cpp})."""
 
+    boosting_type = "gbdt"
     average_output = False
 
     def __init__(self, config: Config, train_data: Optional[BinnedDataset],
@@ -296,8 +310,21 @@ class GBDT:
         self.scores = torch.as_tensor(self._initial_scores(ds), device=dev)
         self.boost_from_average_done = False
         self._rng = np.random.RandomState(cfg.feature_fraction_seed)
-        self._sample_mask = torch.ones(ds.num_data, dtype=torch.float32,
-                                       device=dev)
+        # bagging (gbdt.py:786-807 of the JAX package): the threefry key and
+        # the mask it last drew, kept between refreshes; under lambdarank
+        # one draw a query (and one for the padding group the JAX package
+        # counts in), broadcast to its rows
+        self._bag_key = threefry.prng_key(cfg.bagging_seed)
+        self._bag_mask = torch.ones(ds.num_data, dtype=torch.float32,
+                                    device=dev)
+        self._row_group, self._num_groups = None, 0
+        qb = ds.metadata.query_boundaries
+        if qb is not None and getattr(self.objective, "name",
+                                      "") == "lambdarank":
+            qb = np.asarray(qb, np.int64)
+            self._row_group = torch.as_tensor(
+                np.repeat(np.arange(len(qb) - 1), np.diff(qb)), device=dev)
+            self._num_groups = len(qb)
         # RenewTreeOutput (L1, quantile, MAPE): the percentile, the label
         # space the gradients see and the weights of the refit
         obj = self.objective
@@ -411,12 +438,101 @@ class GBDT:
                                   replace=False)] = True
         return torch.as_tensor(mask, device=self.device)
 
+    def _draw_bag_mask(self, key) -> None:
+        """A new bagging mask from ``key``: each row (under lambdarank each
+        query) in the bag where its uniform is below ``bagging_fraction``
+        (gbdt.cpp:180-241)."""
+        n = (self._num_groups if self._row_group is not None
+             else self.num_data)
+        u = threefry.uniform(key, n, self.device)
+        if self._row_group is not None:
+            u = u[self._row_group]
+        self._bag_mask = (u < as_f32(self.config.bagging_fraction)).to(
+            torch.float32)
+
+    def _sample_bagging_mask(self, iter_idx: int) -> torch.Tensor:
+        """The bagging mask of iteration ``iter_idx`` on the per-iteration
+        key stream: a new one from a split of the key every
+        ``bagging_freq`` iterations, else the last (gbdt.py:1031-1046 of
+        the JAX package)."""
+        cfg = self.config
+        if cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0 \
+                and iter_idx % cfg.bagging_freq == 0:
+            self._bag_key, sub = threefry.split(self._bag_key)
+            self._draw_bag_mask(sub)
+        return self._bag_mask
+
     def train_one_iter(self, grad: Optional[np.ndarray] = None,
                        hess: Optional[np.ndarray] = None) -> bool:
+        """One boosting iteration on the per-iteration key stream: the
+        bagging mask of this iteration, then a split of the key whose
+        second half is GOSS's (gbdt.py:2208-2211 of the JAX package), taken
+        whether or not GOSS is on. See ``_train_iteration``."""
+        if self._stopped:
+            return True
+        sample_mask = self._sample_bagging_mask(self.iter_)
+        self._bag_key, goss_key = threefry.split(self._bag_key)
+        return self._train_iteration(grad, hess, sample_mask, goss_key)
+
+    def train_many(self, num_iters: int) -> bool:
+        """``num_iters`` iterations with the keys of the JAX package's fused
+        loop (``GBDT.train_many``, gbdt.py:1862-1930 and the block's
+        :1622-1647 there): a block of at most TRAIN_BLOCK iterations splits
+        the key into ``block + 1``, keeps the first, and iteration i splits
+        key ``i + 1`` into its bagging key and its GOSS key; the mask
+        refreshes inside the block on the bagging schedule. The host still
+        grows one iteration at a time. DART and RF, whose iterations need
+        the host in between, take the per-iteration stream. Returns True
+        when training has stopped."""
+        if self.boosting_type not in ("gbdt", "goss"):
+            for _ in range(num_iters):
+                if self.train_one_iter():
+                    return True
+            return False
+        cfg = self.config
+        bagging = cfg.bagging_freq > 0 and 0.0 < cfg.bagging_fraction < 1.0
+        done = 0
+        while done < num_iters and not self._stopped:
+            block = min(num_iters - done, TRAIN_BLOCK)
+            keys = threefry.split(self._bag_key, block + 1)
+            self._bag_key = keys[0]
+            for key in keys[1:]:
+                bag_key, goss_key = threefry.split(key)
+                if bagging and self.iter_ % cfg.bagging_freq == 0:
+                    self._draw_bag_mask(bag_key)
+                if self._train_iteration(None, None, self._bag_mask,
+                                         goss_key):
+                    return True
+            done += block
+        return self._stopped
+
+    def _objective_gradients(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[K, N] gradients and hessians of the objective at the current
+        scores (0 and 1 without an objective)."""
+        k = self.num_tree_per_iteration
+        if self.objective is None:
+            return (torch.zeros((k, self.num_data), device=self.device),
+                    torch.ones((k, self.num_data), device=self.device))
+        if k == 1:
+            return tuple(a.unsqueeze(0) for a in
+                         self.objective.get_gradients(self.scores[:, 0]))
+        return tuple(a.t().contiguous() for a in
+                     self.objective.get_gradients(self.scores))
+
+    def _row_sample(self, grad: torch.Tensor, hess: torch.Tensor,
+                    sample_mask: torch.Tensor, goss_key
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The gradients, hessians and row mask the trees grow on: the
+        bagging mask as it is here; GOSS amends all three."""
+        return grad, hess, sample_mask
+
+    def _train_iteration(self, grad, hess, sample_mask: torch.Tensor,
+                         goss_key) -> bool:
         """One boosting iteration (gbdt.cpp TrainOneIter:333-412): one tree
         a class, grown in class order from the gradients of the scores at
-        the iteration's start. Returns True when training has stopped (no
-        class's tree could split).
+        the iteration's start, on the rows of ``sample_mask`` (their count
+        channel; renewal refits on them too). Returns True when training
+        has stopped (no class's tree could split).
 
         ``grad`` and ``hess`` (K * N values of a custom objective,
         class-major, on the host or the device) take the objective's place
@@ -432,8 +548,6 @@ class GBDT:
         only an iteration in which no class's tree splits stops training,
         and the first iteration then keeps constant trees that reproduce
         the init scores (AsConstantTree, gbdt.cpp:379-396)."""
-        if self._stopped:
-            return True
         external = grad is not None
         if external:
             # given gradients: no boost from average, now or later
@@ -445,17 +559,12 @@ class GBDT:
         if external:
             grad, hess = (self.device_gradients(a, name)
                           for a, name in ((grad, "grad"), (hess, "hess")))
-        elif self.objective is None:
-            grad = torch.zeros((k, self.num_data), device=self.device)
-            hess = torch.ones((k, self.num_data), device=self.device)
-        elif k == 1:
-            grad, hess = (a.unsqueeze(0) for a in
-                          self.objective.get_gradients(self.scores[:, 0]))
         else:
-            grad, hess = (a.t().contiguous() for a in
-                          self.objective.get_gradients(self.scores))
+            grad, hess = self._objective_gradients()
+        grad, hess, sample_mask = self._row_sample(grad, hess, sample_mask,
+                                                   goss_key)
         feature_mask = self._sample_feature_mask()
-        grown = [self._grow(self.xb, grad[c], hess[c], self._sample_mask,
+        grown = [self._grow(self.xb, grad[c], hess[c], sample_mask,
                             self.feature_meta, feature_mask,
                             self.grow_params) for c in range(k)]
         if all(tree.num_leaves <= 1 for tree, _ in grown):
@@ -479,7 +588,7 @@ class GBDT:
                 # of the JAX package); only leaf_value changes
                 leaf_value = renew_leaf_values(
                     self._renew_label - self.scores[:, 0], self._renew_weight,
-                    leaf_id, self._sample_mask, self.config.num_leaves,
+                    leaf_id, sample_mask, self.config.num_leaves,
                     self._renew_alpha, leaf_value)
                 tree = tree._replace(leaf_value=leaf_value.cpu().numpy())
             deltas.append(leaf_value[leaf_id] * float(self.shrinkage_rate))
@@ -659,7 +768,8 @@ class GBDT:
         """Batch prediction on raw feature values (GBDT::Predict,
         gbdt_prediction.cpp:49-83): [N] for one class, [N, K] for K, each
         class the sum of its trees (tree ``i`` is class ``i % K``) over the
-        first ``num_iteration`` iterations."""
+        first ``num_iteration`` iterations, divided by their number in an
+        averaged (RF) model (gbdt.py:2579-2580 of the JAX package)."""
         data = np.asarray(data, np.float64)
         if data.ndim == 1:
             data = data.reshape(1, -1)
@@ -675,6 +785,8 @@ class GBDT:
                 tree_mod.stack_predict_trees(self.models[c:use * k:k],
                                              self.device), x)
                 for c in range(k)], dim=1).cpu().numpy().astype(np.float64)
+        if self.average_output and use > 0:
+            out = out / use
         if k == 1:
             out = out[:, 0]
         if not raw_score and self.objective is not None:

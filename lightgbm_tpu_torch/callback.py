@@ -54,6 +54,9 @@ def _eval_text(entry, show_stdv: bool = True) -> str:
 class _PrintEvaluation:
     before_iteration = False
     order = 10
+    # a no-op on an iteration with no evaluation results, so the engine may
+    # take the fused key stream (lightgbm_tpu/callback.py:57)
+    only_consumes_evals = True
 
     def __init__(self, period: int, show_stdv: bool):
         self.period = period
@@ -77,6 +80,7 @@ def print_evaluation(period: int = 1, show_stdv: bool = True) -> Callable:
 class _RecordEvaluation:
     before_iteration = False
     order = 20
+    only_consumes_evals = True
 
     def __init__(self, store: Dict[str, Dict[str, List[float]]]):
         self.store = store

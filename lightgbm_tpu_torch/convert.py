@@ -12,7 +12,9 @@ numpy arrays per tree, holding the fields of the JAX package's HostTree
 for the BinMapper fields, categorical mappers' ``bin_2_categorical``
 included, and ``booster_from_numpy`` puts both behind a predict-only
 ``Booster``: with ``num_class`` K > 1 its trees are a multiclass forest,
-K an iteration (tree ``i`` is class ``i % K``), and it predicts [N, K].
+K an iteration (tree ``i`` is class ``i % K``), and it predicts [N, K];
+the JAX package's parameters with ``boosting=rf`` make it an RF, which
+averages its iterations as that package's RF model does.
 Nothing here imports the JAX package: a caller
 that holds a JAX-trained model reads its trees into numpy first.
 """
@@ -98,7 +100,8 @@ def booster_from_numpy(trees: Sequence[Mapping[str, Any]],
                        num_class: int = 1) -> Booster:
     """A predict-only Booster on ``device`` from numpy trees and mappers;
     ``num_class`` > 1 makes it multiclass (objective ``multiclass`` unless
-    ``params`` names another)."""
+    ``params`` names another); ``params`` with ``boosting=rf`` make it an
+    RF, whose predictions average the iterations."""
     params = dict(params) if params else None
     if num_class > 1:
         params = dict(params or {}, num_class=num_class)

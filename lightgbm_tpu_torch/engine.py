@@ -5,7 +5,12 @@ The port of ``lightgbm_tpu/engine.py`` ``train`` (:22, its ``_train_once``
 :211-236): train on one device with validation sets, ``feval``, callbacks,
 early stopping, learning-rate schedules, continued training from an
 ``init_model``, custom objectives (``fobj``, which sets
-``objective="none"``) and categorical features. Callbacks run before and
+``objective="none"``), categorical features and row sampling (bagging,
+GOSS, DART, RF). Where the JAX engine fuses its loop (no valid sets, no
+``fobj``, no callback before an iteration, and only callbacks after one
+that read evaluation results, which such a run has none of), the port
+trains through ``GBDT.train_many``, so that its bagging and GOSS draws
+follow the same key stream (engine.py:221-229 there). Callbacks run before and
 after each iteration, ``EarlyStopException`` unwinds the loop and sets
 ``best_iteration``, and ``evals_result`` records the history.
 Checkpoints and ``cv`` raise, naming the ROADMAP item that brings them.
@@ -69,6 +74,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
     if booster.config.checkpoint_dir or booster.config.resume:
         raise outside_slice("checkpoints and resume", "ROADMAP Queue 1 #12")
     is_valid_contain_train = False
+    fused = valid_sets is None and fobj is None
     if valid_sets is not None:
         if isinstance(valid_sets, Dataset):
             valid_sets = [valid_sets]
@@ -104,6 +110,12 @@ def train(params: Dict[str, Any], train_set: Dataset,
     begin = booster.current_iteration()
     end = begin + num_boost_round
     evaluation_result_list = []
+    if fused and not cbs_before and all(
+            getattr(c, "only_consumes_evals", False) for c in cbs_after):
+        # nothing reads the booster between iterations: the JAX engine's
+        # fused loop, and its key stream
+        booster._impl.train_many(num_boost_round)
+        end = begin
     for i in range(begin, end):
         for cb in cbs_before:
             cb(callback.CallbackEnv(model=booster, params=params, iteration=i,

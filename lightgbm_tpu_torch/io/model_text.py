@@ -125,8 +125,10 @@ def model_to_string(booster, feature_names: List[str],
            "label_index=0",
            "max_feature_idx=%d" % (len(feature_names) - 1),
            "objective=%s" % objective_to_string(booster.objective,
-                                                booster.config),
-           "feature_names=" + " ".join(feature_names),
+                                                booster.config)]
+    if booster.average_output:
+        out.append("average_output")
+    out += ["feature_names=" + " ".join(feature_names),
            "feature_infos=" + " ".join(feature_infos)]
     tree_strs = [tree_to_string(booster.models[i], idx)
                  for idx, i in enumerate(range(start_model, num_used))]

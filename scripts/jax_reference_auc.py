@@ -48,6 +48,19 @@ with ``tpu_batched_part=true``), 5 iterations.
   ``sigmoid(t)`` of the regression target; xentlambda with the weights
   uniform in [0.5, 1.5] of path 4za), the data of paths 4z and 4za;
   prints every metric of chip_smoke's XENTROPY_PATHS for the objective.
+- Row sampling (#7), the settings of chip_smoke's paths 4zb-4zg
+  (``chip_smoke.SAMPLING_PATHS``): ``--boosting gbdt|goss|dart|rf``,
+  ``--bagging-fraction``, ``--bagging-freq``, ``--feature-fraction``,
+  ``--top-rate``, ``--other-rate``, ``--learning-rate``, ``--drop-rate``,
+  ``--skip-drop`` and ``--rounds`` (the iterations) set the parameters of
+  those names over any of the workloads above. The run goes through
+  ``lgb.train`` with a valid set where ``--valid`` asks for one and without
+  one otherwise, as the path does: the valid set decides whether the JAX
+  package fuses the loop into blocks, and with it the bagging and GOSS key
+  stream. On the binary workload ``--valid`` keeps 250,000 rows from seed
+  1 with ``metric=auc`` and prints the valid AUC after each iteration;
+  gbdt and goss there stop early after 5 rounds (path 4zb), DART and RF
+  keep every iteration. A DART run prints each iteration's drop set.
 - ``--hist-impl scatter|matmul`` sets the JAX package's
   ``tpu_hist_impl``. ``auto`` (the default) is ``scatter`` on the CPU: one
   XLA scatter-add, a single running f32 sum per histogram cell, which
@@ -59,7 +72,11 @@ with ``tpu_batched_part=true``), 5 iterations.
         [--growth exact|frontier|batched|batched_part] \
         [--objective OBJECTIVE] [--num-class K] [--valid] \
         [--data dense|bundled|categorical|ranking] [--fobj logistic] \
-        [--hist-impl auto|scatter|matmul] [--rows N] [--iters K]
+        [--hist-impl auto|scatter|matmul] [--rows N] [--iters K] \
+        [--boosting gbdt|goss|dart|rf] [--bagging-fraction F] \
+        [--bagging-freq K] [--feature-fraction F] [--top-rate F] \
+        [--other-rate F] [--learning-rate F] [--drop-rate F] \
+        [--skip-drop F] [--rounds K]
 
 It runs on the CPU backend and prints one JSON line.
 """
@@ -80,7 +97,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int,
                     help="rows (1,000,000; multiclass 500,000)")
-    ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--iters", "--rounds", type=int, default=5)
     ap.add_argument("--growth", choices=sorted(chip_smoke.GROWTH_PARAMS),
                     default="exact")
     ap.add_argument("--objective", default="binary")
@@ -92,6 +109,14 @@ def main() -> int:
                     default=chip_smoke.NUM_CLASS)
     ap.add_argument("--hist-impl", choices=("auto", "scatter", "matmul"),
                     default="auto")
+    ap.add_argument("--boosting", choices=("gbdt", "goss", "dart", "rf"),
+                    default="gbdt")
+    sampling = ("bagging_fraction", "bagging_freq", "feature_fraction",
+                "top_rate", "other_rate", "learning_rate", "drop_rate",
+                "skip_drop")
+    for name in sampling:
+        ap.add_argument("--" + name.replace("_", "-"),
+                        type=int if name == "bagging_freq" else float)
     args = ap.parse_args()
     multiclass = args.objective in ("multiclass", "multiclassova")
     if args.data == "ranking" and args.objective == "binary":
@@ -109,9 +134,23 @@ def main() -> int:
     params = dict(chip_smoke.PARAMS, objective=args.objective,
                   tpu_hist_impl=args.hist_impl,
                   **chip_smoke.GROWTH_PARAMS[args.growth])
+    params["boosting"] = args.boosting
+    params.update({name: getattr(args, name) for name in sampling
+                   if getattr(args, name) is not None})
     out = {"growth": args.growth, "objective": args.objective,
            "data": args.data, "rows": args.rows, "iters": args.iters,
-           "hist_impl": args.hist_impl}
+           "hist_impl": args.hist_impl,
+           "sampling": {k: params[k] for k in ("boosting",) + sampling
+                        if k in params}}
+    drops = []
+    if args.boosting == "dart":
+        from lightgbm_tpu.boosting.dart import DART
+        dropping = DART._dropping_trees
+
+        def recorded(self):
+            drops.append(dropping(self))
+            return drops[-1]
+        DART._dropping_trees = recorded
     t0 = time.time()
     if args.fobj:
         if args.data != "dense" or args.objective != "binary":
@@ -164,10 +203,24 @@ def main() -> int:
         x, y = data(args.rows)
         cat = (chip_smoke.CATEGORICAL_FEATURES
                if args.data == "categorical" else "auto")
-        bst = lgb.train(params, lgb.Dataset(x, label=y,
-                                            categorical_feature=cat),
-                        num_boost_round=args.iters)
+        train = lgb.Dataset(x, label=y, categorical_feature=cat)
+        kwargs = {}
+        if args.valid:
+            if args.data != "dense":
+                ap.error("--valid on the binary objective takes --data "
+                         "dense")
+            xv, yv = chip_smoke.bench_data(chip_smoke.VALID_ROWS, seed=1)
+            params["metric"] = "auc"
+            kwargs = {"valid_sets": [train.create_valid(xv, label=yv)],
+                      "evals_result": {}, "verbose_eval": False}
+            if args.boosting in ("gbdt", "goss"):
+                kwargs["early_stopping_rounds"] = \
+                    chip_smoke.EARLY_STOPPING_ROUNDS
+        bst = lgb.train(params, train, num_boost_round=args.iters, **kwargs)
         out["auc"] = chip_smoke.auc(np.asarray(bst.predict(x), np.float64), y)
+        if args.valid:
+            out["valid"] = kwargs["evals_result"]["valid_0"]["auc"]
+            out["best_iteration"] = bst.best_iteration
         if args.data == "categorical":
             out["splits_on"] = chip_smoke.categorical_splits(
                 bst._impl.models)
@@ -218,6 +271,8 @@ def main() -> int:
         if args.valid:
             out["valid"] = kwargs["evals_result"]["valid_0"][name]
             out["best_iteration"] = bst.best_iteration
+    if args.boosting == "dart":
+        out["drops"] = drops
     out.update(backend=jax.default_backend(), seconds=time.time() - t0)
     print(json.dumps(out))
     return 0

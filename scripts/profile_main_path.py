@@ -33,9 +33,20 @@ of 50-150 docs, relevance 0-4, with its ranking metrics), its paths 4v-4y;
 ``chip_smoke.xentropy_data`` (labels ``sigmoid(t)``, xentlambda with its
 weights), its paths 4z-4za.
 
+Row sampling, as chip_smoke.py's paths 4zb-4zg set it: ``--boosting
+gbdt|goss|dart|rf`` and ``--bagging-fraction``, ``--bagging-freq``,
+``--feature-fraction``, ``--top-rate``, ``--other-rate``,
+``--learning-rate``, ``--drop-rate``, ``--skip-drop`` set the parameters
+of those names. Under GOSS the warm-up runs ``int(1 / learning_rate)``
+iterations, so that the profiled ones sample.
+
     python3 scripts/profile_main_path.py [--growth MODE] [--rows N] \
         [--iters K] [--objective binary|multiclass|OBJECTIVE] \
-        [--data dense|bundled|categorical|ranking]
+        [--data dense|bundled|categorical|ranking] \
+        [--boosting gbdt|goss|dart|rf] [--bagging-fraction F] \
+        [--bagging-freq K] [--feature-fraction F] [--top-rate F] \
+        [--other-rate F] [--learning-rate F] [--drop-rate F] \
+        [--skip-drop F]
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -75,6 +86,14 @@ def main() -> int:
                     "regression family (its target before the threshold)")
     ap.add_argument("--data", choices=("dense", "bundled", "categorical",
                                        "ranking"), default="dense")
+    ap.add_argument("--boosting", choices=("gbdt", "goss", "dart", "rf"),
+                    default="gbdt")
+    sampling = ("bagging_fraction", "bagging_freq", "feature_fraction",
+                "top_rate", "other_rate", "learning_rate", "drop_rate",
+                "skip_drop")
+    for name in sampling:
+        ap.add_argument("--" + name.replace("_", "-"),
+                        type=int if name == "bagging_freq" else float)
     args = ap.parse_args()
     if args.data == "ranking" and args.objective == "binary":
         args.objective = "lambdarank"
@@ -115,12 +134,18 @@ def main() -> int:
                   **chip_smoke.GROWTH_PARAMS[args.growth])
     if args.data == "ranking":
         params.update(chip_smoke.RANKING_PARAMS)
+    params["boosting"] = args.boosting
+    params.update({name: getattr(args, name) for name in sampling
+                   if getattr(args, name) is not None})
     cat = (chip_smoke.CATEGORICAL_FEATURES if args.data == "categorical"
            else "auto")
     ds = lgb.Dataset(x, label=y, weight=weight, group=group, params=params,
                      categorical_feature=cat).construct()
     bst = lgb.Booster(params=params, train_set=ds)
-    bst.update()                                   # warm-up iteration
+    warm_up = (max(1, int(1.0 / bst.config.learning_rate))
+               if args.boosting == "goss" else 1)
+    for _ in range(warm_up):                       # warm-up iterations
+        bst.update()
     torch.cuda.synchronize()
     chip_smoke.reset_counts()
     plain_ms = []                                  # without the profiler
@@ -162,8 +187,8 @@ def main() -> int:
 
     # splits an iteration (of every class's tree), after the warm-up's
     k = bst.num_model_per_iteration()
-    splits = sum(t.num_leaves_actual - 1 for t in bst.models[k:])
-    splits //= max(len(bst.models) // k - 1, 1)
+    splits = sum(t.num_leaves_actual - 1 for t in bst.models[warm_up * k:])
+    splits //= max(len(bst.models) // k - warm_up, 1)
     # the port's own kernels: the launches of the core/csrc libraries, and
     # the memsets their launchers issue (PyTorch zeroes with fill kernels)
     own = [a for a in dev if a.key.startswith("Memset") or (
@@ -194,6 +219,8 @@ def main() -> int:
     summary = {
         "card": card, "growth": args.growth, "objective": args.objective,
         "data": args.data, "rows": args.rows,
+        "sampling": {k: params[k] for k in ("boosting",) + sampling
+                     if k in params},
         "iters": args.iters, "own_kernel_launches": own_launches,
         "iteration_ms": wall_ms, "iteration_ms_each": plain_ms,
         "iteration_ms_profiled": prof_ms, "device_busy_ms": busy_ms,

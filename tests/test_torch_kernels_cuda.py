@@ -5,7 +5,9 @@ the in-tile partition (``repack.cu``), alone and on the training paths
 that launch them (binary, bundled, categorical and multiclass training);
 and the regression slice's device work on the card against the same calls
 on the CPU: leaf renewal (``core/renew.py``) and the binned replay that
-keeps the valid-set scores (``core/tree.py``).
+keeps the valid-set scores (``core/tree.py``); and row sampling: a
+1,000,000-row threefry draw (``random.py``) bit-equal to the CPU's, and
+bagging, GOSS, DART and RF training through the kernels.
 
 These tests need a CUDA device and ``nvcc``: a hand-written CUDA kernel has
 no CPU or interpret mode, so they are marked ``cuda`` and skip without one.
@@ -934,6 +936,72 @@ def test_ranking_and_cross_entropy_training_on_the_card(cuda_device,
                                           device="cpu"),
                      num_boost_round=3, device="cpu")
     if chip_smoke.trees_match(bst.models, cpu.models):
+        np.testing.assert_allclose(bst.predict(x, raw_score=True),
+                                   cpu.predict(x, raw_score=True), rtol=0,
+                                   atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_mask_draw_on_the_card_matches_the_cpu(cuda_device):
+    """A 1,000,000-row threefry draw (a bagging mask's uniforms, int64
+    torch ops) on the card is bit-equal to the same draw on the CPU."""
+    from lightgbm_tpu_torch import random as threefry
+    key = threefry.split(threefry.prng_key(3))[1]
+    got = threefry.uniform(key, 1_000_000, cuda_device)
+    assert got.device.type == "cuda"
+    want = threefry.uniform(key, 1_000_000, "cpu")
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,growth,counter", [
+    ({"bagging_fraction": 0.5, "bagging_freq": 1}, {},
+     "build_histogram_cuda"),
+    ({"boosting": "goss", "learning_rate": 0.5},
+     {"tree_growth": "frontier"}, "build_histogram_slots_cuda"),
+    ({"boosting": "dart", "skip_drop": 0.0}, {"tree_growth": "batched"},
+     "build_histogram_slots6_cuda"),
+    ({"boosting": "rf", "bagging_fraction": 0.632, "bagging_freq": 1},
+     {"tree_growth": "batched", "tpu_batched_part": "true"},
+     "build_histogram_part_tiles_cuda")],
+    ids=["bagging-exact", "goss-frontier", "dart-batched", "rf-part"])
+def test_sampled_training_on_the_card(cuda_device, mode, growth, counter):
+    """Bagging, GOSS, DART and RF on the card (bench.py's data at 20,000
+    rows, 4 rounds, a valid set): each launches its grower's kernel on
+    masks with zeros (and GOSS's amplified gradients); the valid scores
+    are the model's predictions; the model text reloads; the trees of the
+    same run on the CPU, which draws the same masks, up to f32 gain ties,
+    and raw predictions within 1e-4 where they are identical (as
+    test_multiclass_training_on_the_card)."""
+    import chip_smoke
+    x, y = chip_smoke.bench_data(20_000)
+    xv, yv = chip_smoke.bench_data(5_000, seed=1)
+    params = dict({"objective": "binary", "num_leaves": 31,
+                   "min_data_in_leaf": 40, "verbosity": -1}, **mode,
+                  **growth)
+    wrapper = getattr(kernels, counter)
+    before = wrapper.launches
+    tr = tlgb.Dataset(x, label=y)
+    bst = tlgb.train(params, tr, num_boost_round=4,
+                     valid_sets=[tr.create_valid(xv, label=yv)],
+                     verbose_eval=False)
+    assert wrapper.launches - before >= 4
+    assert len(bst.models) == 4
+    raw = bst.predict(xv, raw_score=True)
+    np.testing.assert_allclose(bst._impl.scores_of(1), raw, rtol=0,
+                               atol=1e-5)
+    loaded = tlgb.Booster(model_str=bst.model_to_string())
+    np.testing.assert_allclose(loaded.predict(xv, raw_score=True), raw,
+                               rtol=0, atol=1e-6)
+    cpu_tr = tlgb.Dataset(x, label=y, device="cpu")
+    cpu = tlgb.train(params, cpu_tr, num_boost_round=4, device="cpu",
+                     valid_sets=[cpu_tr.create_valid(xv, label=yv)],
+                     verbose_eval=False)
+    # sampled rows tie more often, and later trees follow the tie
+    # (chip_smoke.trees_match)
+    sampled = (mode.get("boosting") == "goss"
+               or mode.get("bagging_freq", 0) > 0)
+    if chip_smoke.trees_match(bst.models, cpu.models, sampled=sampled):
         np.testing.assert_allclose(bst.predict(x, raw_score=True),
                                    cpu.predict(x, raw_score=True), rtol=0,
                                    atol=1e-4)

@@ -506,9 +506,20 @@ def test_booster_from_numpy_takes_the_objective(objective):
 
 
 def test_lambdarank_bagging_refuses_citing_group_aware_bagging():
+    """Bagging under lambdarank once refused here, citing group-aware
+    bagging (ROADMAP Queue 1 #7). It trains now and bags whole queries as
+    the JAX package does: every query wholly in or out of the mask, which
+    is the JAX package's bit for bit (tests/test_torch_sampling.py holds
+    the trees)."""
     x, rel, sizes = rank_data(600)
-    with pytest.raises(NotImplementedError,
-                       match=r"group-aware bagging.*\(ROADMAP Queue 1 #7\)$"):
-        tlgb.train(dict(RANK_PARAMS, bagging_freq=1, bagging_fraction=0.5),
-                   tlgb.Dataset(x, label=rel, group=sizes, device="cpu"),
-                   num_boost_round=1, device="cpu")
+    params = dict(RANK_PARAMS, bagging_freq=1, bagging_fraction=0.5)
+    tb = tlgb.train(params, tlgb.Dataset(x, label=rel, group=sizes,
+                                         device="cpu"),
+                    num_boost_round=2, device="cpu")
+    jb = jlgb.train(params, jlgb.Dataset(x, label=rel, group=sizes),
+                    num_boost_round=2)
+    mask = tb._impl._bag_mask.numpy()
+    np.testing.assert_array_equal(mask, np.asarray(jb._impl._bag_mask))
+    assert 0 < mask.sum() < len(rel)
+    for q in np.split(mask, np.cumsum(sizes)[:-1]):
+        assert q.min() == q.max()

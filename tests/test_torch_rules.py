@@ -96,14 +96,6 @@ def _data(n=400):
 
 
 OUTSIDE_SLICE = {
-    "bagging": ({"bagging_freq": 1, "bagging_fraction": 0.5}, None),
-    "goss": ({"boosting": "goss"}, None),
-    "dart": ({"boosting": "dart"}, None),
-    "rf": ({"boosting": "rf", "bagging_freq": 1,
-            "bagging_fraction": 0.5}, None),
-    # lambdarank bags whole queries (group-aware bagging)
-    "lambdarank": ({"objective": "lambdarank", "bagging_freq": 1,
-                    "bagging_fraction": 0.5}, None),
     "monotone": ({"monotone_constraints": [1, 0, 0, 0]}, None),
     "forced_splits": ({"forcedsplits_filename": "forced.json"}, None),
     "cegb": ({"cegb_penalty_split": 0.5}, None),
@@ -130,12 +122,8 @@ REFUSALS = {
     # dataset-wide pairing (the JAX package's nibble cap) stays refused
     "nibble_pairs": ({"tpu_bin_packing": "nibble"}, "#9"),
     "checkpoint_callback": ({}, "#12"),
-    # bagging under lambdarank samples whole queries
-    "lambdarank_bagging": ({"objective": "lambdarank", "bagging_freq": 1,
-                            "bagging_fraction": 0.5}, "#7"),
     # refusals of the user-facing Dataset and Booster
     "data_file": ({}, "#16"),
-    "averaged_model_text": ({}, "#7"),
     # methods of the JAX package's Booster and Dataset the port lacks
     "booster_dump_model": ({}, "#17"),
     "booster_refit": ({}, "#15"),
@@ -153,11 +141,6 @@ def _refused_call(kind, params, x, y):
         from lightgbm_tpu_torch.config import Config
         from lightgbm_tpu_torch.io.dataset import BinnedDataset
         return BinnedDataset.from_matrix(x, Config({}), label=y)
-    if kind == "lambdarank_bagging":
-        return tlgb.train(dict(params, verbosity=-1),
-                          tlgb.Dataset(x, label=y, group=[len(y)],
-                                       device="cpu"),
-                          num_boost_round=1, device="cpu")
     if kind == "data_file":
         return tlgb.Dataset("train.csv", device="cpu").construct()
     params = dict(params, objective="binary", verbosity=-1)
@@ -165,8 +148,8 @@ def _refused_call(kind, params, x, y):
         return tlgb.Dataset(x, label=y, device="cpu").subset([0, 1, 2])
     if kind == "dataset_save_binary":
         return tlgb.Dataset(x, label=y, device="cpu").save_binary("x.bin")
-    if kind in ("averaged_model_text", "reset_training_data", "pred_leaf",
-                "booster_dump_model", "booster_refit"):
+    if kind in ("reset_training_data", "pred_leaf", "booster_dump_model",
+                "booster_refit"):
         bst = tlgb.train(params, tlgb.Dataset(x, label=y, device="cpu"),
                          num_boost_round=1, device="cpu")
         text = bst.model_to_string()
@@ -174,10 +157,6 @@ def _refused_call(kind, params, x, y):
             return bst.dump_model()
         if kind == "booster_refit":
             return bst.refit(x, y)
-        if kind == "averaged_model_text":
-            text = text.replace("label_index=0", "label_index=0\n"
-                                "average_output")
-            return tlgb.Booster(model_str=text, device="cpu")
         if kind == "reset_training_data":
             return bst.update(train_set=tlgb.Dataset(x, label=y,
                                                      device="cpu"))
@@ -292,6 +271,58 @@ def test_ranking_and_cross_entropy_train(objective):
         assert list(ds.get_group()) == group
         assert [m for _, m, _, _ in bst.eval_train()] == [
             "ndcg@%d" % k for k in range(1, 6)]
+
+
+# options the port once refused (row sampling, ROADMAP Queue 1 #7): bagging,
+# GOSS, DART, RF, bagging under lambdarank (whole queries, in four queries
+# or in one) and loading an averaged (RF) model text
+NOW_SAMPLES = {
+    "bagging": ({"bagging_freq": 1, "bagging_fraction": 0.5}, None),
+    "goss": ({"boosting": "goss", "learning_rate": 1.0}, None),
+    "dart": ({"boosting": "dart", "skip_drop": 0.0}, None),
+    "rf": ({"boosting": "rf", "bagging_freq": 1,
+            "bagging_fraction": 0.5}, None),
+    "lambdarank": ({"objective": "lambdarank", "bagging_freq": 1,
+                    "bagging_fraction": 0.5}, [100] * 4),
+    "lambdarank_bagging": ({"objective": "lambdarank", "bagging_freq": 1,
+                            "bagging_fraction": 0.5}, [400]),
+    "averaged_model_text": ({}, None),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(NOW_SAMPLES))
+def test_boosting_modes_train(mode):
+    params, group = NOW_SAMPLES[mode]
+    x, y = _data()
+    params = dict(params, verbosity=-1)
+    params.setdefault("objective", "binary")
+    bst = tlgb.train(params, tlgb.Dataset(x, label=y, group=group,
+                                          device="cpu"),
+                     num_boost_round=3, device="cpu")
+    impl = bst._impl
+    assert len(bst.models) == 3
+    assert np.isfinite(bst.predict(x)).all()
+    if mode == "averaged_model_text":
+        text = bst.model_to_string().replace(
+            "label_index=0", "label_index=0\naverage_output")
+        loaded = tlgb.Booster(model_str=text, device="cpu")
+        assert loaded._impl.average_output
+        np.testing.assert_allclose(loaded.predict(x, raw_score=True) * 3,
+                                   bst.predict(x, raw_score=True),
+                                   rtol=1e-12, atol=1e-12)
+        return
+    assert impl.boosting_type == params.get("boosting", "gbdt")
+    if "bagging_freq" in params:
+        mask = impl._bag_mask.numpy()
+        assert 0 < mask.sum() <= len(y) - (0 if group == [400] else 1)
+        assert bst.models[-1].internal_count[0] == mask.sum()
+    if group is not None:
+        # whole queries in or out of the bag
+        for q in np.split(impl._bag_mask.numpy(), np.cumsum(group)[:-1]):
+            assert q.min() == q.max()
+    if mode == "rf":
+        assert impl.average_output and "average_output" in \
+            bst.model_to_string()
 
 
 @pytest.mark.parametrize("kind", sorted(NOW_TRAINED))
