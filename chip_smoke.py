@@ -26,7 +26,11 @@ and prints no result line):
    them), each with the profiler's device time by launch, the wrapper's
    host time and an exact count channel, and the in-tile
    partition (repack.cu) at 1,048,576 x 128 bytes, 512-row tiles, 30% of
-   the rows going left, which must come back byte-equal; and one bagging
+   the rows going left, which must come back byte-equal; the rebuild of
+   one leaf for a forced split (``hist_for_leaf``: histogram.cu through
+   its own wrapper, K=3) at 1,000,000 rows, a leaf of 4,096 and one of
+   262,144 rows gathered with its sibling's (LEAF_SHAPES), its count
+   channel exact; and one bagging
    draw of 1,000,000 threefry uniforms (``random.py``, torch ops), timed
    and held bit-equal to the same draw on the CPU;
 4. the main paths at full width, one per growth mode: bench.py's workload
@@ -173,8 +177,25 @@ and prints no result line):
    on average) on the card, timed, its peak memory read and held under
    its cap, and held to a float64 per-query version on a sample of
    queries with the longest one, within 1e-4 of each query's sum of |g|;
-   every path of 4a-4d, 4m-4za and 4zb-4zg also trains one more iteration under
-   torch.profiler and prints its CUDA kernel launches and
+   then the constraint paths (CONSTRAINT_PATHS, Queue 1 #4/#6): 4zl
+   ``exact`` with forced splits (FORCED_SPLITS, written to a temporary
+   directory: four BFS steps) and 4zm ``exact`` with CEGB and bagging
+   (CEGB_PARAMS) on bench.py's binary data right after 4zb-4zf, and
+   4zh-4zk, ``objective=regression`` with MONOTONE_CONSTRAINTS (+1 on
+   feature 0, -1 on feature 1) under exact, frontier, batched (K=16) and
+   batched_part (K=16) on the regression data right after 4e-4h; each
+   monotone path held within 1e-3 relative of the JAX package's train l2
+   and monotone on a grid (MONO_GRID values along each constrained
+   feature at MONO_GRID_ROWS rows, within MONO_GRID_TOL), with its splits
+   on features 0 and 1 printed; 4zl within 2e-3 of the JAX package's
+   train AUC, nodes 0-3 of every tree the forced (split leaf, feature,
+   threshold bin), the hist_for_leaf route launched and counted; 4zm
+   within 2e-3 of its AUC, on the JAX package's features and with its
+   final ``feature_used``, the lazy state a [28, 1,000,000] uint8 table on
+   the card; each prints its seconds, launches and syncs an iteration
+   beside the dense binary path of its growth mode;
+   every path of 4a-4d, 4m-4za and 4zb-4zm also trains one more iteration
+   under torch.profiler and prints its CUDA kernel launches and
    synchronisations;
 5. the kernel path against the plain path on the card (200,000 rows, 2
    iterations) for exact, frontier, batched, batched with
@@ -189,9 +210,17 @@ and prints no result line):
    every grower again on bagged rows (``bagging_fraction=0.5``: zeros in
    the count channel) and on GOSS's rows (``learning_rate=1.0``: the
    second iteration samples, its gradients amplified) against the float64
-   plain path;
+   plain path; and every grower but batched_pack under
+   MONOTONE_CONSTRAINTS against the float64 plain path, where trees may
+   part at a tie of one leaf's clamped candidates or at a null split
+   (``parting_tie``, gains within CLAMP_PARTING of the root's, and those of
+   the splits both made before it too), and the trees after a tree that
+   differs regrow (SAMPLED_TIE_GAIN_REL); from there they are held to
+   their AUC; and exact with forced splits and CEGB, held to the tie rule
+   and F64_RAW_TOL;
 6. a ``kernels`` JSON line (each kernel's launches summed over every
-   path of phase 4), the card line, and the result line
+   path of phase 4; histogram.cu's launches through ``hist_for_leaf`` as
+   the entry ``histogram_leaf``), the card line, and the result line
    ``{"ok": true, "device": {...}}``. No grower calls the in-tile
    partition (nor does the JAX package's), so its entry's path launches
    are 0 and its phase-3 calls are its only launches.
@@ -207,7 +236,9 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -223,8 +254,10 @@ from lightgbm_tpu_torch.config import Config
 from lightgbm_tpu_torch.core import grow_batched_part
 from lightgbm_tpu_torch.core import histogram as hist
 from lightgbm_tpu_torch.core import kernels
+from lightgbm_tpu_torch.core import partition
 from lightgbm_tpu_torch.core import renew
 from lightgbm_tpu_torch.core import repack
+from lightgbm_tpu_torch.core import tree as tree_mod
 from lightgbm_tpu_torch.io.binning import BinType
 from lightgbm_tpu_torch.io.dataset import Metadata
 from lightgbm_tpu_torch.metrics import auc
@@ -306,8 +339,24 @@ F64_RAW_TOL_LR = 0.1
 # frontier's last wave: float32 against float64 sums on the CPU part
 # bagged tree 0 with 5 positional mismatches and 6 substituted splits,
 # gain sums 2.1e-6 apart (scripts/summation_order_probe.py --data dense
-# --growth frontier --sampled bagged); an H100 run 3 and 6, 6e-8 apart
+# --growth frontier --sampled bagged); an H100 run 3 and 6, 6e-8 apart.
+# The monotone rows use it too (``tie_limits``)
 SAMPLED_TIE_GAIN_REL = 1e-5
+
+
+class PartingLimits(NamedTuple):
+    """How far apart two runs' gains may be where their trees part at a tie
+    (``parting_tie``): relative to the gain of the other run's split of
+    the same rows (``gain_rel``), and relative to the tree's root gain
+    (``root_rel``), which also bounds the gains of the splits both trees
+    made before it and of a null split (a split of one tree's that the
+    other leaves whole: a float32 sum cannot tell it from no split); None
+    sets no limit of that kind, and without ``root_rel`` no split is
+    null."""
+    gain_rel: Optional[float] = None
+    root_rel: Optional[float] = None
+
+
 # phase 5 on data with categorical features: the most two runs' gains may
 # differ at the node where their trees part on one leaf (``parting_tie``).
 # The summation order alone moves the gains of splits both runs share by up
@@ -318,7 +367,23 @@ SAMPLED_TIE_GAIN_REL = 1e-5
 # frontier part at such a tie (a one-vs-rest split and its mirror: the
 # same rows, gains 1.5e-6 and 2.7e-6 apart on an H100), so the positional
 # rule alone does not hold there
-CAT_TIE_GAIN_REL = 0.1
+CAT_PARTING = PartingLimits(gain_rel=0.1)
+# phase 5 under monotone constraints: how far apart, relative to the
+# tree's root gain, two runs' gains may be where their trees part at one
+# leaf, and on every split both made before it (``parting_tie``). A bound
+# that binds clamps a leaf's candidates to the same outputs, so their gains
+# tie up to float32 rounding, or exactly, and the summation order picks
+# one. A clamped gain is a small difference of large terms, so its
+# rounding is of the terms' size, not the gain's: float32 against float64
+# sums on the CPU move the gains of tree 0's splits that both make by up
+# to 2.6e-3 of their own but 4.1e-6 of the root's, under every grower
+# (scripts/summation_order_probe.py --data dense --constraint monotone;
+# the card's kernels against float64 sums in PERF.md, from
+# scripts/constraint_tie_repeats.py). Faults planted there that zero every
+# 65,536th or 4,096th row of the float32 sums (the probe's --plant-fault)
+# move them by 1.1e-4 and 6.2e-4 of the root's, and fail the rule under
+# every grower
+CLAMP_PARTING = PartingLimits(root_rel=1e-5)
 
 # the categorical paths of phase 4 (binary on ``categorical_data``, its id
 # columns passed as categorical_feature): a growth mode each; 4m also keeps
@@ -557,6 +622,111 @@ JAX_SAMPLING_METRIC = {
                          "port_exact": 76.87317600672668,
                          "port_f32": 76.8720703125}},
 }
+# the constraint paths of phase 4 (Queue 1 #4/#6): a growth mode and a kind
+# each. "monotone" is objective=regression on ``regression_data`` with +1
+# on feature 0 and -1 on feature 1 (against the data's x1*x2 term, so the
+# bounds bind), through every grower; "forced" and "cegb" (exact growth
+# only, as in the JAX package) are bench.py's binary workload, "forced"
+# with FORCED_SPLITS written to a file, "cegb" with CEGB_PARAMS
+CONSTRAINT_PATHS = {"4zh": ("exact", "monotone"),
+                    "4zi": ("frontier", "monotone"),
+                    "4zj": ("batched", "monotone"),
+                    "4zk": ("batched_part", "monotone"),
+                    "4zl": ("exact", "forced"),
+                    "4zm": ("exact", "cegb")}
+MONOTONE_CONSTRAINTS = [1, -1] + [0] * (NUM_FEATURES - 2)
+# the root on feature 0 at 0.0; its left child on feature 1 at 0.0; its
+# right child on feature 2 at 0.0, whose right child is on feature 3 at
+# 0.5: four BFS steps, splitting leaves 0, 0, 1, 3
+FORCED_SPLITS = {"feature": 0, "threshold": 0.0,
+                 "left": {"feature": 1, "threshold": 0.0},
+                 "right": {"feature": 2, "threshold": 0.0,
+                           "right": {"feature": 3, "threshold": 0.5}}}
+FORCED_STEPS = [(0, 0, 0.0), (0, 1, 0.0), (1, 2, 0.0), (3, 3, 0.5)]
+# CEGB with bagging: features 0-7 free to buy and the rest too dear to buy,
+# a small lazy cost a row on every feature, and the split penalty picked on
+# the JAX package (scripts/jax_reference_auc.py --constraint cegb
+# --cegb-penalty-split P): at 2 iterations 0.003 and 0.01 grow 255-leaf
+# trees, 0.015 trees of 255 and 161 leaves, 0.02 of 23 and 12; at 5
+# iterations 0.016 grows 57, 205, 11, 8, 4 leaves on features 0-7, 0.017
+# grows 32, 22, 11, 4, 4 on features 0-3 and 0.018 31, 13, 4, 12, 4. 0.017
+# ends every tree below num_leaves, on more than one feature, away from
+# the jump to 205 leaves
+CEGB_PARAMS = {"bagging_fraction": 0.8, "bagging_freq": 1,
+               "cegb_tradeoff": 1.0, "cegb_penalty_split": 0.017,
+               "cegb_penalty_feature_coupled": [0.0] * 8 + [1e7] * 20,
+               "cegb_penalty_feature_lazy": [1e-4] * NUM_FEATURES}
+# The JAX package's train l2 (monotone) or AUC on each constraint path, the
+# splits of its 5 trees on features 0 and 1 (monotone), and (cegb) the
+# leaves of its trees, the features its trees split on and its final
+# feature_used, taken on the CPU backend with chunked histogram sums by
+#   JAX_PLATFORMS=cpu python scripts/jax_reference_auc.py --hist-impl matmul \
+#       --growth MODE --constraint monotone|forced|cegb
+JAX_CONSTRAINT_METRIC = {
+    "4zh": {"train": 1.5083580858663685, "splits_on": {"0": 220, "1": 116}},
+    "4zi": {"train": 1.5085938773906162, "splits_on": {"0": 227, "1": 82}},
+    "4zj": {"train": 1.5083254489283735, "splits_on": {"0": 223, "1": 108}},
+    "4zk": {"train": 1.5083254994323076, "splits_on": {"0": 223, "1": 108}},
+    "4zl": {"auc": 0.9717860122267304},
+    "4zm": {"auc": 0.8583862264963518, "leaves": [32, 22, 11, 4, 4],
+            "split_features": [0, 1, 2, 3], "feature_used": [0, 1, 2, 3]},
+}
+# monotone paths' predictions on a grid: MONO_GRID points along feature 0,
+# then along feature 1, at each of MONO_GRID_ROWS training rows, must move
+# the constraint's way within MONO_GRID_TOL
+MONO_GRID, MONO_GRID_ROWS, MONO_GRID_TOL = 64, 100, 1e-6
+
+
+def constraint_params(kind: str, directory: str) -> dict:
+    """The parameters over PARAMS of a constraint path's kind; "forced"
+    writes FORCED_SPLITS to a file in ``directory``."""
+    if kind == "monotone":
+        return {"objective": "regression",
+                "monotone_constraints": MONOTONE_CONSTRAINTS}
+    if kind == "forced":
+        path = "%s/forced_splits.json" % directory
+        with open(path, "w") as fh:
+            json.dump(FORCED_SPLITS, fh)
+        return {"forcedsplits_filename": path}
+    return dict(CEGB_PARAMS)
+
+
+def monotone_violation(predict, x: np.ndarray,
+                       constraints=MONOTONE_CONSTRAINTS, grid: int = MONO_GRID,
+                       rows: int = MONO_GRID_ROWS) -> float:
+    """The largest step against ``constraints`` along ``grid`` values of
+    each constrained feature (its 1st to 99th percentile), at each of the
+    first ``rows`` rows of ``x``: 0 for a monotone model."""
+    at = x[:rows]
+    worst = 0.0
+    for f, sign in enumerate(constraints):
+        if sign == 0:
+            continue
+        values = np.linspace(*np.percentile(x[:, f], [1, 99]), grid)
+        pts = np.repeat(at, grid, axis=0)
+        pts[:, f] = np.tile(values, len(at))
+        pred = np.asarray(predict(pts), np.float64).reshape(len(at), grid)
+        worst = max(worst, float((-sign * np.diff(pred, axis=1)).max()))
+    return worst
+
+
+def forced_nodes(models, ds) -> list:
+    """Each tree's nodes 0-3 as (split leaf, feature, threshold bin), and
+    FORCED_STEPS the same way on ``ds``'s bin mappers."""
+    want = [(leaf, f, ds.bin_mappers[f].value_to_bin(thr) - 1)
+            for leaf, f, thr in FORCED_STEPS]
+    got = [[(int(t.split_leaf[i]), int(t.split_feature[i]),
+             int(t.threshold_bin[i])) for i in range(len(FORCED_STEPS))]
+           for t in models]
+    return got, want
+
+
+def split_features(models) -> list:
+    """The features the trees split on, sorted."""
+    return sorted({int(f) for t in models
+                   for f in t.split_feature[:t.num_leaves_actual - 1]})
+
+
 # GOSS on path 4zd: the rows kept besides the top ones within this share of
 # their expectation, (N - tops) * other_cnt / (N - top_cnt): each of the
 # ~800,000 others is kept with probability 1/8, so one standard deviation
@@ -582,6 +752,9 @@ HIST_SHAPES = [(1_000_000, 28, 255, 3), (512, 28, 255, 6),
                (4_096, 28, 255, 6), (16_384, 28, 255, 6),
                (65_536, 28, 255, 6), (262_144, 28, 255, 6)]
 HIST_REL_TOL, HIST_ABS_TOL = 1e-5, 1e-6   # |d| <= rel * sum_bin|v| + abs
+# a forced step's rebuild of one leaf (hist_for_leaf): (n, F, B, the leaf's
+# rows), the leaf's range gathered with its sibling's
+LEAF_SHAPES = [(1_000_000, 28, 255, 4_096), (1_000_000, 28, 255, 262_144)]
 # slot histogram shapes (n, F, B, K, S): the frontier's waves at 255
 # leaves (S = the wave's splits, from the first waves' 1 or 2 up to 254)
 # and the batched step's parent-slot pass (K=6, S = tree_batch_splits =
@@ -1004,6 +1177,89 @@ def check_histogram_kernel(dev, flush):
                row["bound_ms"], row["bound_by"]))
         rows.append(row)
         del xb, v, got, want, absum, flat, src, err, d
+    return rows
+
+
+def leaf_inputs(dev, n, f, b, leaf_rows):
+    """A row partition of ``n`` rows (a random order) in which leaf 1 holds
+    ``leaf_rows`` rows, and the range that a forced step gathers for it:
+    its parent's, twice as long (leaf 1 its right half). Bins and values
+    as ``hist_inputs`` makes them. Returns (partition, leaf [1], begin,
+    count, xb, vals)."""
+    r = np.random.RandomState(leaf_rows)
+    xb, vals = hist_inputs(r, n, f, b, 3)
+    begin = int(r.randint(0, n - 2 * leaf_rows))
+    order = torch.as_tensor(r.permutation(n), device=dev)
+    leaf_begin = torch.zeros(2, dtype=torch.int64, device=dev)
+    leaf_begin[1] = begin + leaf_rows
+    leaf_count = torch.full((2,), leaf_rows, dtype=torch.int64, device=dev)
+    part = partition.RowPartition(order, leaf_begin, leaf_count)
+    return (part, torch.ones(1, dtype=torch.int64, device=dev), begin,
+            2 * leaf_rows, torch.as_tensor(xb, device=dev),
+            torch.as_tensor(vals, device=dev))
+
+
+def check_leaf_histogram(dev, flush):
+    """Phase 3: ``hist_for_leaf`` (a forced split's rebuild of one leaf:
+    gather its parent's range, zero the rows outside the leaf, one K=3
+    pass of histogram.cu) against its plain version on 1,000,000 rows at
+    each leaf size of LEAF_SHAPES, timed against its bound and one
+    ``index_add_`` over the same gathered rows."""
+    rows = []
+    for n, f, b, leaf_rows in LEAF_SHAPES:
+        part, leaf, begin, count, xb, v = leaf_inputs(dev, n, f, b,
+                                                      leaf_rows)
+
+        def call(impl="auto", vals=v):
+            return partition.hist_for_leaf(part, leaf, begin, count, xb,
+                                           vals, b, impl)
+        want = call("plain")
+        absum = call("plain", v.abs())
+        got = call()
+        torch.cuda.synchronize()
+        d = (got - want).abs()
+        bad = int((d > HIST_REL_TOL * absum + HIST_ABS_TOL).sum())
+        idx = part.order[begin:begin + count]
+        # the leaf's in-bag rows, each counted once in column 0's bins
+        in_bag = float(v.index_select(0, idx[leaf_rows:])[:, 2].sum())
+        if bad or not torch.equal(got[..., 2], want[..., 2]) \
+                or float(got[0, :, 2].sum()) != in_bag:
+            raise AssertionError("hist_for_leaf disagrees with its plain "
+                                 "version in %d cells at a leaf of %d rows"
+                                 % (bad, leaf_rows))
+        inside = ((torch.arange(begin, begin + count, device=dev)
+                   >= begin + leaf_rows)[:, None])
+        src_rows = xb.index_select(0, idx)
+        src_vals = torch.where(inside, v.index_select(0, idx), 0.0)
+        flat = (src_rows.to(torch.int64)
+                + torch.arange(f, device=dev) * b).reshape(-1)
+        src = src_vals.unsqueeze(1).expand(count, f, 3).reshape(
+            count * f, 3).contiguous()
+
+        def library():
+            return torch.zeros((f * b, 3), device=dev).index_add_(0, flat,
+                                                                  src)
+        # the function is the histogram of the leaf's rows: each of its row
+        # ids, bin rows and value triples read once, the histogram written
+        # once. The sibling's rows that the route gathers and zeroes are
+        # its own cost (gathered_rows), left out of the bound
+        nbytes = leaf_rows * 8 + kernels.hist_bytes(leaf_rows, f, b, 3)
+        bound_ms, bound_by = bound(nbytes, leaf_rows * f * 3)
+        row = {"n": n, "F": f, "B": b, "K": 3, "leaf_rows": leaf_rows,
+               "gathered_rows": count, "max_abs_err": float(d.max()),
+               "ms": time_ms(call, flush),
+               "host_ms": host_ms(call),
+               "plain_ms": time_ms(lambda: call("plain"), flush),
+               "library_ms": time_ms(library, flush),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        log("hist_for_leaf n=%d F=%d B=%d K=3, leaf %d of %d gathered rows: "
+            "max_abs_err=%.3g, count channel exact, kernel %.4f ms (host "
+            "%.4f), plain %.4f ms, index_add_ %.4f ms, bound %.4f ms (%s)"
+            % (n, f, b, leaf_rows, count, row["max_abs_err"], row["ms"],
+               row["host_ms"], row["plain_ms"], row["library_ms"],
+               row["bound_ms"], row["bound_by"]))
+        rows.append(row)
+        del part, xb, v, want, absum, got, d, src_rows, src_vals, flat, src
     return rows
 
 
@@ -1454,7 +1710,8 @@ def check_stored_kernels(dev, flush, stored: np.ndarray, data: str,
 
 
 # the kernel wrappers, each with its launch count
-COUNTED = (kernels.build_histogram_cuda, kernels.build_histogram_slots_cuda,
+COUNTED = (kernels.build_histogram_cuda, kernels.build_histogram_leaf_cuda,
+           kernels.build_histogram_slots_cuda,
            kernels.build_histogram_slots6_cuda,
            kernels.build_histogram_part_tiles_cuda,
            kernels.partition_tiles_cuda)
@@ -1564,25 +1821,31 @@ def iteration_counts(label: str, bst, fobj=None) -> dict:
     """One more iteration of ``bst`` under torch.profiler (after the
     path's checks: it adds a tree): its CUDA kernel launches and its
     host-device synchronisations, as scripts/profile_main_path.py counts
-    them."""
+    them, here from the profiler's raw events: its summary
+    (``key_averages``) gives the same counts but took 13.8-14.0 s for an
+    exact iteration's events on an H100, the raw count 0.4 s
+    (scripts/constraint_tie_repeats.py --profile-cost)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
     # CUDA activity alone records the runtime's launch and sync calls: the
     # same counts as with CPU activity, at a third of the time
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         bst.update(fobj=fobj)
         torch.cuda.synchronize()
-    avgs = prof.key_averages()
+    events = collections.Counter(
+        e.name() for e in prof.profiler.kineto_results.events())
+    seconds = time.perf_counter() - t0
 
     def count(*names):
-        return sum(a.count for a in avgs if a.key in names)
+        return sum(events[name] for name in names)
     out = {"launches_per_iter": count("cudaLaunchKernel", "cuLaunchKernel",
                                       "cudaLaunchKernelExC"),
            "syncs_per_iter": count("cudaStreamSynchronize",
                                    "cudaDeviceSynchronize")}
     log("path %s: one more iteration under the profiler: %d kernel "
-        "launches, %d synchronisations" % (label, out["launches_per_iter"],
-                                           out["syncs_per_iter"]))
+        "launches, %d synchronisations (%.1f s, the count included)"
+        % (label, out["launches_per_iter"], out["syncs_per_iter"], seconds))
     return out
 
 
@@ -1937,6 +2200,101 @@ def drive_sampling_path(label: str, ds, x, y, dense: dict, valid=None):
             raise AssertionError("path %s: the reloaded model text predicts "
                                  "%.3g away"
                                  % (label, out["model_text_max_diff"]))
+    out.update(iteration_counts(label, bst))
+    return out
+
+
+def drive_constraint_path(label: str, ds, x, y, dense: dict,
+                          directory: str) -> dict:
+    """Phase 4zh-4zm: a constraint path at full width (CONSTRAINT_PATHS),
+    with the launch counts set to 0 just before and read just after,
+    beside ``dense``, the dense binary path of the same growth mode.
+    Monotone paths are held to the JAX package's train l2 and checked
+    monotone on a grid; 4zl's trees must split nodes 0-3 as forced, through
+    the hist_for_leaf route; 4zm must keep the JAX package's AUC, features
+    and final feature_used."""
+    growth, kind = CONSTRAINT_PATHS[label]
+    extra = constraint_params(kind, directory)
+    params = dict(PARAMS, **extra, **GROWTH_PARAMS[growth])
+    ref = JAX_CONSTRAINT_METRIC[label]
+    bst, train_s, launches, steps = train_counted(params, ds)
+    impl = bst._impl
+    trees = len(bst.models)
+    out = {"growth": growth, "kind": kind, "train_s": train_s,
+           "s_per_iter": train_s / trees,
+           "x_dense": train_s / trees / dense["s_per_iter"],
+           "leaves": [t.num_leaves_actual for t in bst.models],
+           "launches": launches}
+    checks = []
+    if kind == "monotone":
+        (_, metric, value, _), = bst.eval_train()
+        out.update(metric=metric, train=value, jax_train=ref["train"],
+                   rel_gap=abs(value - ref["train"]) / abs(ref["train"]),
+                   violation=monotone_violation(
+                       lambda p: bst.predict(p, raw_score=True), x),
+                   splits_on={str(f): int(sum(
+                       (t.split_feature[:t.num_leaves_actual - 1] == f).sum()
+                       for t in bst.models)) for f in (0, 1)})
+        log("path %s (%s, monotone %s): train %s %.6f (JAX package %.6f, "
+            "%.3g relative), largest step against the constraints on the "
+            "grid %.3g, splits on features 0 / 1: %s (JAX package %s)" % (
+                label, growth, MONOTONE_CONSTRAINTS[:2], metric, value,
+                ref["train"], out["rel_gap"], out["violation"],
+                out["splits_on"], ref["splits_on"]))
+        checks += [(out["rel_gap"] > METRIC_REL_TOL, "train %s %.6f is %.3g "
+                    "relative from the JAX package's" % (
+                        metric, value, out["rel_gap"])),
+                   (out["violation"] > MONO_GRID_TOL, "predictions step "
+                    "%.3g against the constraints" % out["violation"])]
+    else:
+        out["auc"] = auc(bst.predict(x), y)
+        out.update(jax_auc=ref["auc"], auc_gap=abs(out["auc"] - ref["auc"]))
+        checks.append((out["auc_gap"] > AUC_TOLERANCE, "train AUC %.6f is "
+                       "more than %g from the JAX package's %.6f" % (
+                           out["auc"], AUC_TOLERANCE, ref["auc"])))
+    if kind == "forced":
+        got, want = forced_nodes(bst.models, impl.train_data)
+        out["hist_for_leaf_launches"] = launches["build_histogram_leaf_cuda"]
+        log("path %s: train AUC %.6f (JAX package %.6f); nodes 0-3 of every "
+            "tree %s (forced %s); hist_for_leaf launches %d" % (
+                label, out["auc"], ref["auc"],
+                "as forced" if got == [want] * trees else got, want,
+                out["hist_for_leaf_launches"]))
+        checks += [(got != [want] * trees, "nodes 0-3 are not the forced "
+                    "splits"),
+                   (out["hist_for_leaf_launches"] < trees, "the "
+                    "hist_for_leaf route launched %d times in %d trees"
+                    % (out["hist_for_leaf_launches"], trees))]
+    if kind == "cegb":
+        state = impl._cegb.state
+        out.update(split_features=split_features(bst.models),
+                   feature_used=torch.nonzero(state.feature_used)[:, 0]
+                   .tolist(), row_used_shape=list(state.row_used.shape))
+        log("path %s: train AUC %.6f (JAX package %.6f), trees %s leaves "
+            "(JAX package %s), split on features %s (JAX package %s), "
+            "feature_used %s (JAX package %s), row_used %s uint8 on the "
+            "card" % (label, out["auc"], ref["auc"], out["leaves"],
+                      ref["leaves"], out["split_features"],
+                      ref["split_features"], out["feature_used"],
+                      ref["feature_used"], out["row_used_shape"]))
+        checks += [(out["split_features"] != ref["split_features"],
+                    "the trees split on other features than the JAX "
+                    "package's"),
+                   (out["feature_used"] != ref["feature_used"],
+                    "feature_used differs from the JAX package's"),
+                   (out["row_used_shape"] != [NUM_FEATURES, len(y)],
+                    "row_used is not [F, N]")]
+    log("path %s: train %.2f s (%d iterations, %.3f s per iteration, %.2fx "
+        "the dense binary path's %.3f), trees %s leaves, launches %s" % (
+            label, train_s, trees, out["s_per_iter"], out["x_dense"],
+            dense["s_per_iter"], out["leaves"], launches))
+    check_path_launches(label, growth, bst, launches, steps)
+    if trees != NUM_ITERS or any(n < 2 for n in out["leaves"]):
+        raise AssertionError("path %s: expected %d trees that split, got %s"
+                             % (label, NUM_ITERS, out["leaves"]))
+    for bad, what in checks:
+        if bad:
+            raise AssertionError("path %s: %s" % (label, what))
     out.update(iteration_counts(label, bst))
     return out
 
@@ -2738,6 +3096,23 @@ SAMPLED_COMPARE = {
     "bagged": {"bagging_fraction": 0.5, "bagging_freq": 1},
     "GOSS": {"boosting": "goss", "learning_rate": 1.0},
 }
+def constraint_compare_runs(directory: str) -> list:
+    """Phase 5's constraint rows on bench.py's data: each grower of
+    COMPARE_RUNS but batched_pack under MONOTONE_CONSTRAINTS, and exact
+    growth with forced splits and CEGB, whose kernel run must launch the
+    hist_for_leaf route."""
+    runs = [("%s, monotone" % label,
+             dict(extra, monotone_constraints=MONOTONE_CONSTRAINTS), wrapper)
+            for label, extra, wrapper in COMPARE_RUNS
+            if label != "batched_pack"]
+    runs.append(("exact, forced splits and CEGB",
+                 dict(GROWTH_PARAMS["exact"],
+                      **constraint_params("forced", directory),
+                      **constraint_params("cegb", directory)),
+                 "build_histogram_leaf_cuda"))
+    return runs
+
+
 # phase 5's plain paths, by whether their histograms sum in float64
 PLAIN_PATHS = {False: "plain", True: "plain_f64"}
 
@@ -2752,15 +3127,15 @@ def compare_paths(ds, xs, ys, raw_tol: float = 1e-5, runs=COMPARE_RUNS,
     identical, raw predictions within ``raw_tol`` of the f32 plain path's
     and within F64_RAW_TOL (scaled by the run's learning rate over
     F64_RAW_TOL_LR where it is larger) of the float64 path's; where they
-    part at a categorical tie (data with categorical features), or on
-    bagged or GOSS rows grow on other scores after an f32 gain tie, the two
+    part at a tie of one leaf's candidates (``tie_limits``), or on bagged
+    or GOSS rows grow on other scores after an f32 gain tie, the two
     forests' AUC on ``xs`` within AUC_TOLERANCE of each other."""
     categorical = bool(ds._binned is not None and any(
         m.bin_type == BinType.CATEGORICAL for m in ds._binned.bin_mappers))
     out = {}
+    rows = torch.as_tensor(xs, dtype=torch.float64, device="cuda")
     for label, extra, wrapper in runs:
-        sampled = (extra.get("boosting") == "goss"
-                   or extra.get("bagging_freq", 0) > 0)
+        parting, regrow_gain_rel = tie_limits(extra, categorical)
         forests = {}
         for name, impl, f64 in (("kernel", "auto", False),) + tuple(
                 (PLAIN_PATHS[f64], "plain", f64) for f64 in plains):
@@ -2777,7 +3152,7 @@ def compare_paths(ds, xs, ys, raw_tol: float = 1e-5, runs=COMPARE_RUNS,
         raw = {name: f.predict(xs, raw_score=True)
                for name, f in forests.items()}
         aucs = ({name: auc(r, ys) for name, r in raw.items()}
-                if categorical or sampled else None)
+                if parting or regrow_gain_rel else None)
         out[label] = {"launches": launches, "auc": aucs}
         for f64 in plains:
             rate = extra.get("learning_rate", F64_RAW_TOL_LR)
@@ -2786,8 +3161,8 @@ def compare_paths(ds, xs, ys, raw_tol: float = 1e-5, runs=COMPARE_RUNS,
                 else raw_tol)
             ties = []
             identical = trees_match(forests["kernel"].models,
-                                    forests[name].models, ties, categorical,
-                                    sampled)
+                                    forests[name].models, ties,
+                                    parting, regrow_gain_rel, rows)
             raw_diff = float(np.abs(raw["kernel"] - raw[name]).max())
             parted = any(t["after_parting_tie"] for t in ties)
             log("kernel vs %s path, %s: trees %s, max raw prediction diff "
@@ -2810,73 +3185,168 @@ def compare_paths(ds, xs, ys, raw_tol: float = 1e-5, runs=COMPARE_RUNS,
     return out
 
 
-def _child_count(t, child: int) -> int:
-    return int(t.internal_count[child] if child >= 0
-               else t.leaf_count[~child])
+def tie_limits(extra: dict, categorical: bool) -> tuple:
+    """A phase 5 row's exemptions from the tie rule (``trees_match``): the
+    parting tie's gain limit on data with categorical features or under
+    monotone constraints, and the regrowth's gain-sum limit on sampled
+    rows or under monotone constraints; (None, None) for forced splits
+    with CEGB, whose trees came out identical in every H100 run (bagged as
+    they are), held to the rule and F64_RAW_TOL alone."""
+    if "forcedsplits_filename" in extra:
+        return None, None
+    monotone = "monotone_constraints" in extra
+    parting = (CAT_PARTING if categorical else CLAMP_PARTING
+               if monotone else None)
+    regrow = (monotone or extra.get("boosting") == "goss"
+              or extra.get("bagging_freq", 0) > 0)
+    return parting, SAMPLED_TIE_GAIN_REL if regrow else None
 
 
-def parting_tie(ta, tb, nn: int):
-    """Where two trees first part (in split order), when both split the
-    same leaf holding the same rows there: a choice between candidates for
-    one leaf. Returns None where they part otherwise, else (node, whether
-    both cut the leaf into the same two sets of rows, the two gains'
-    relative difference)."""
-    part = ((ta.split_feature[:nn] != tb.split_feature[:nn])
-            | (ta.threshold_bin[:nn] != tb.threshold_bin[:nn])
-            | (ta.split_leaf[:nn] != tb.split_leaf[:nn])
-            | (ta.internal_count[:nn] != tb.internal_count[:nn])
-            | (ta.cat_bitset_bin[:nn] != tb.cat_bitset_bin[:nn]).any(axis=1))
-    at = np.flatnonzero(part)
-    if not len(at):
-        return None
-    i = int(at[0])
-    if (ta.split_leaf[i] != tb.split_leaf[i]
-            or ta.internal_count[i] != tb.internal_count[i]):
-        return None
-    la, ra = (_child_count(ta, c) for c in (ta.left_child[i],
-                                            ta.right_child[i]))
-    lb, rb = (_child_count(tb, c) for c in (tb.left_child[i],
-                                            tb.right_child[i]))
-    gain_rel = float(abs(ta.split_gain[i] - tb.split_gain[i])
-                     / max(abs(tb.split_gain[i]), 1e-30))
-    return i, (la, ra) in ((lb, rb), (rb, lb)), gain_rel
+def node_rows(t, nn: int, x: torch.Tensor) -> tuple:
+    """Fingerprints of the training rows ``x`` [N, F] (float64, on any
+    device) that each of the tree's first ``nn`` nodes splits and that it
+    sends right: sums of one random 40-bit weight a row (seed 0), exact in
+    int64, so two nodes holding the same rows have the same print and two
+    holding different rows collide with odds of about 2^-40. The rows are
+    replayed through the splits in split order, as ``predict`` does."""
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    weight = torch.randint(0, 1 << 40, (x.shape[0],), generator=gen,
+                           dtype=torch.int64).to(x.device)
+    leaf_id = torch.zeros(x.shape[0], dtype=torch.int64, device=x.device)
+    split, right = torch.zeros(2, nn, dtype=torch.int64, device=x.device)
+    for i in range(nn):
+        fval = x[:, int(t.split_feature[i])]
+        if t.is_categorical[i]:
+            go_left = tree_mod.categorical_go_left(fval, torch.as_tensor(
+                t.cat_bitset[i].view(np.int32), device=x.device))
+        else:
+            go_left = tree_mod.decision_go_left(
+                fval, float(t.threshold[i]),
+                torch.tensor(bool(t.default_left[i]), device=x.device),
+                torch.tensor(int(t.missing_type[i]), device=x.device))
+        in_leaf = leaf_id == int(t.split_leaf[i])
+        move = in_leaf & ~go_left
+        split[i] = torch.where(in_leaf, weight, 0).sum()
+        right[i] = torch.where(move, weight, 0).sum()
+        leaf_id = torch.where(move, i + 1, leaf_id)
+    return split.cpu().numpy(), right.cpu().numpy()
 
 
-def trees_match(a, b, ties=None, categorical: bool = False,
-                sampled: bool = False) -> bool:
+def parting_tie(ta, tb, x: torch.Tensor, limits: PartingLimits):
+    """Where two trees first part at a tie, matching nodes by the training
+    rows ``x`` they split (``node_rows``), so that two leaves split in
+    another order do not count as a parting. A tree's first split (in its
+    own order) that the other tree does not make, on the same rows with
+    the same feature and threshold, is a tie if it is a choice between
+    candidates for one leaf: the other tree splits the same rows there,
+    into the same two sets ("alike") or others ("differently"), with a
+    gain within ``limits``; or a null split (gain within ``limits.root_rel``
+    of 0, relative to the root's: a leaf split on rounding in one run only,
+    after which a frontier wave splits one leaf fewer or more elsewhere;
+    under monotone constraints a leaf whose children both clamp to its own
+    bound makes one, and frontier, which splits every leaf of positive
+    gain, takes them). With ``limits.root_rel`` the splits it made
+    before, which the other tree made too, must also have gains within it
+    of the other's. One of the two trees' first such splits must be a tie,
+    as the other's may follow from it. Returns None where neither is, else
+    (node, kind, the two gains' difference relative to the other's gain,
+    and relative to the root's, the largest such difference relative to
+    the root's of the splits before it); where the trees make the same
+    splits in another order, (0, "order", 0, 0, the largest difference of
+    their gains relative to the root's)."""
+    nodes = []
+    for t in (ta, tb):
+        nn = int(t.num_leaves_actual) - 1
+        split, right = node_rows(t, nn, x)
+        keys = [(int(split[i]), int(right[i]), int(t.split_feature[i]),
+                 int(t.threshold_bin[i]), t.cat_bitset_bin[i].tobytes())
+                for i in range(nn)]
+        nodes.append((t, split, right, {k: i for i, k in enumerate(keys)},
+                      keys))
+    null_rel = -np.inf if limits.root_rel is None else limits.root_rel
+    firsts, order = [], None
+    for (t, split, right, _, keys), (o, o_split, o_right, o_index, _) in (
+            (nodes[0], nodes[1]), (nodes[1], nodes[0])):
+        root = max(abs(float(t.split_gain[0])), 1e-30)
+        shared, tie = 0.0, None
+        for i, key in enumerate(keys):
+            j = o_index.get(key)
+            if j is not None:
+                shared = max(shared, abs(float(t.split_gain[i]
+                                               - o.split_gain[j])) / root)
+                continue
+            j = np.flatnonzero(o_split == split[i])
+            if t.split_gain[i] / root <= null_rel:
+                tie = (i, "null", 0.0, float(t.split_gain[i] / root), shared)
+            elif len(j):
+                diff = abs(float(t.split_gain[i] - o.split_gain[j[0]]))
+                tie = (i, "alike" if right[i] in (
+                    o_right[j[0]], split[i] - o_right[j[0]])
+                    else "differently",
+                    diff / max(abs(float(o.split_gain[j[0]])), 1e-30),
+                    diff / root, shared)
+            else:
+                tie = (i, None)
+            break
+        if tie is None:
+            order = max(order or 0.0, shared)
+        else:
+            firsts.append(tie)
+    if not firsts:
+        firsts = [(0, "order", 0.0, 0.0, order)]
+    found = [tie for tie in firsts if tie[1] is not None
+             and (limits.gain_rel is None or tie[2] <= limits.gain_rel)
+             and (limits.root_rel is None
+                  or max(tie[3], tie[4]) <= limits.root_rel)]
+    return min(found, key=lambda tie: max(tie[3], tie[4]), default=None)
+
+
+def trees_match(a, b, ties=None, parting: PartingLimits = None,
+                regrow_gain_rel: float = None, x: torch.Tensor = None
+                ) -> bool:
     """True when the forests are structurally identical. Otherwise they
     must satisfy the tie rule of tests/test_parity.py, or this raises.
 
-    With ``categorical`` (data with categorical features) a tree that
-    breaks the positional rule may instead part at a categorical tie: the
-    trees are node for node the same up to a node where both split the
-    same leaf, holding the same rows, with gains within CAT_TIE_GAIN_REL
-    of each other (``parting_tie``). The categorical finder turns f32
-    rounding of a leaf's totals into gain shifts of that size: a one-vs-rest
-    split of a leaf holding two categories and its mirror, or two sorted
-    subsets, trade places with the summation order, and the tree regrows
-    from there (``scripts/summation_order_probe.py``). From such a tie on,
-    the caller holds the two forests to their AUC (``compare_paths``).
+    With ``parting`` (a row whose trees may part at a tie of one leaf's
+    candidates) a tree that breaks the positional rule may instead part at
+    such a tie: the trees make the same splits, on the same training rows
+    ``x`` (in any order), up to a split where both split the same rows
+    otherwise, or where one makes a null split, with gains within
+    ``parting`` (``parting_tie``). On data with categorical features
+    (CAT_PARTING) the categorical finder turns f32 rounding of a leaf's
+    totals into gain shifts of that size: a one-vs-rest split of a leaf
+    holding two categories and its mirror, or two sorted subsets, trade
+    places with the summation order. Under monotone constraints
+    (CLAMP_PARTING) a bound that binds clamps a leaf's candidates to the
+    same outputs, so their gains tie. The tree regrows from there
+    (``scripts/summation_order_probe.py``), and from such a tie on the
+    caller holds the two forests to their AUC (``compare_paths``).
 
-    With ``sampled`` (bagged or GOSS rows) a tree may also break the count
-    of substituted splits where its gain sum is within SAMPLED_TIE_GAIN_REL
-    of the other's, and the trees after one that differs grow on other
-    scores: under GOSS on another sample, since GOSS keeps the rows whose
-    |g h| reaches its threshold and a leaf's rows share g and h, so a leaf
-    value moved by a tie takes its rows across the threshold together. From
-    there on the caller holds the two forests to their AUC as after a
-    categorical tie. ``ties`` (a list), where given, records each tie."""
+    With ``regrow_gain_rel`` (rows whose ties move the trees after them) a
+    tree may also break the count of substituted splits where its gain sum
+    is within this of the other's, and the trees after one that differs
+    grow on other scores, and part there. On bagged or GOSS rows: under
+    GOSS on another sample, since GOSS keeps the rows whose |g h| reaches
+    its threshold and a leaf's rows share g and h, so a leaf value moved by
+    a tie takes its rows across the threshold together. Under monotone
+    constraints: a substituted split moves leaf values, and the next
+    tree's clamped candidates tie again. From there on the caller holds
+    the two forests to their AUC as after a parting tie. ``ties`` (a
+    list), where given, records each tie."""
     identical, parted = True, False
     for ta, tb in zip(a, b):
         nn = ta.num_leaves_actual - 1
-        if tb.num_leaves_actual - 1 != nn:
-            raise AssertionError("kernel and plain trees differ in size")
-        same = all(np.array_equal(getattr(ta, k)[:nn], getattr(tb, k)[:nn])
-                   for k in ("split_feature", "threshold_bin", "left_child",
-                             "right_child", "cat_bitset_bin"))
-        if same:
+        sized = tb.num_leaves_actual - 1 == nn
+        if sized and all(np.array_equal(getattr(ta, k)[:nn],
+                                        getattr(tb, k)[:nn])
+                         for k in ("split_feature", "threshold_bin",
+                                   "left_child", "right_child",
+                                   "cat_bitset_bin")):
             continue
         identical = False
+        if not sized and parting is None:
+            raise AssertionError("kernel and plain trees differ in size")
+        nn = min(nn, tb.num_leaves_actual - 1)
         mism = np.flatnonzero(ta.split_feature[:nn] != tb.split_feature[:nn])
         ca = collections.Counter(zip(ta.split_feature[:nn].tolist(),
                                      np.round(ta.threshold[:nn], 9)))
@@ -2885,23 +3355,34 @@ def trees_match(a, b, ties=None, categorical: bool = False,
         sym = sum(((ca - cb) + (cb - ca)).values())
         gain_rel = abs(ta.split_gain[:nn].sum() - tb.split_gain[:nn].sum()) \
             / max(abs(tb.split_gain[:nn].sum()), 1e-30)
-        within_rule = len(mism) <= 6 and sym <= 4 and gain_rel <= 1e-3
-        if sampled and not within_rule and len(mism) <= 6 \
-                and gain_rel <= SAMPLED_TIE_GAIN_REL:
+        within_rule = (sized and len(mism) <= 6 and sym <= 4
+                       and gain_rel <= 1e-3)
+        if regrow_gain_rel is not None and sized and not within_rule \
+                and len(mism) <= 6 and gain_rel <= regrow_gain_rel:
             # a tie of frontier's last wave: the AUC holds from here
             within_rule = parted = True
         tie = None
-        if categorical and not parted and not within_rule:
-            tie = parting_tie(ta, tb, nn)
-            if tie is not None and tie[2] > CAT_TIE_GAIN_REL:
-                tie = None
+        if parting is not None and not parted and not within_rule:
+            tie = parting_tie(ta, tb, x, parting)
             parted = tie is not None
         log("tie flip: %d positional mismatches, %d substituted splits, "
-            "gain sum rel diff %.2g%s" % (
-                len(mism), sym, gain_rel, "" if tie is None else
-                "; the trees part at node %d, one leaf's rows split %s, "
-                "gains %.2g apart" % (tie[0], "alike (a partition tie)"
-                                      if tie[1] else "differently", tie[2])))
+            "gain sum rel diff %.2g%s%s" % (
+                len(mism), sym, gain_rel, "" if sized else
+                "; %d and %d splits" % (ta.num_leaves_actual - 1,
+                                        tb.num_leaves_actual - 1),
+                "" if tie is None else
+                "; the trees part at node %d, %s, the splits before it %.2g "
+                "apart" % (tie[0], {
+                    "alike": "one leaf's rows split alike (a partition "
+                             "tie), gains %.2g apart (%.2g of the root's)"
+                             % tie[2:4],
+                    "differently": "one leaf's rows split differently, "
+                                   "gains %.2g apart (%.2g of the root's)"
+                                   % tie[2:4],
+                    "null": "a null split (%.2g of the root's gain)"
+                            % tie[3],
+                    "order": "the same splits in another order"}[tie[1]],
+                    tie[4])))
         if ties is not None:
             ties.append({"positional": len(mism), "substituted": sym,
                          "gain_rel": float(gain_rel), "parting_tie": tie,
@@ -2910,7 +3391,7 @@ def trees_match(a, b, ties=None, categorical: bool = False,
             raise AssertionError("kernel and plain trees differ beyond the "
                                  "f32 tie rule")
         # the next iteration's scores, and GOSS's sample, follow these trees
-        parted = parted or sampled
+        parted = parted or regrow_gain_rel is not None
     return identical
 
 
@@ -2932,6 +3413,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    with tempfile.TemporaryDirectory() as tmp:
+        return run(tmp)
+
+
+def run(tmp: str) -> int:
+    """Phases 1-6; ``tmp`` holds the forced-splits file."""
     t_start = time.perf_counter()
     # ---- 1. the card ---------------------------------------------------
     card = card_line()
@@ -2957,6 +3444,7 @@ def main() -> int:
     # ---- 3. kernels against plain, timed -------------------------------
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     hist_rows = check_histogram_kernel(dev, flush)
+    leaf_rows = check_leaf_histogram(dev, flush)
     slot_rows = check_slot_kernels(dev, flush)
     part_rows = check_part_kernel(dev, flush)
     repack_rows = check_partition_kernel(dev, flush)
@@ -2982,6 +3470,13 @@ def main() -> int:
             paths[label] = drive_sampling_path(
                 label, ds, x, y, paths[growth],
                 (valid, xv) if keeps_valid else None)
+
+    log_phase(t_start, "4zl-4zm. forced splits and CEGB on the same data")
+    # ---- 4zl-4zm. forced splits and CEGB on the same data --------------
+    for label, (growth, kind) in CONSTRAINT_PATHS.items():
+        if kind != "monotone":
+            paths[label] = drive_constraint_path(label, ds, x, y,
+                                                 paths[growth], tmp)
     del ds, valid
     x, t = regression_data(MAIN_ROWS)
     xv, tv = regression_data(VALID_ROWS, seed=1)
@@ -2992,6 +3487,13 @@ def main() -> int:
         % (time.perf_counter() - t0, *x.shape, len(xv)))
     for label in REGRESSION_PATHS:
         paths[label] = drive_regression_path(label, ds, (valid, xv))
+
+    log_phase(t_start, "4zh-4zk. monotone constraints on the same data")
+    # ---- 4zh-4zk. monotone constraints on the same data ----------------
+    for label, (growth, kind) in CONSTRAINT_PATHS.items():
+        if kind == "monotone":
+            paths[label] = drive_constraint_path(label, ds, x, t,
+                                                 paths[growth], tmp)
     del ds, valid
     renewal = time_renewal(dev)
 
@@ -3103,6 +3605,10 @@ def main() -> int:
         compare_paths(ds, xs, ys, runs=[
             ("%s, %s" % (label, what), dict(params, **extra), wrapper)
             for label, params, wrapper in COMPARE_RUNS], plains=(True,))
+    log("kernel vs plain path on bench.py's data (%d rows), monotone "
+        "constraints, and forced splits with CEGB:" % len(xs))
+    compare_paths(ds, xs, ys, runs=constraint_compare_runs(tmp),
+                  plains=(True,))
     del ds
     xs, ys = x_bundled[:COMPARE_ROWS], y_bundled[:COMPARE_ROWS]
     log("kernel vs plain path on the bundled data (%d rows):" % len(xs))
@@ -3135,6 +3641,7 @@ def main() -> int:
     # each kernel's shapes: the dense ones, headline first, then the
     # bundled workload's
     hist_rows += bundled_rows["histogram"] + cat_rows["histogram"]
+    leaf_headline = max(leaf_rows, key=lambda r: r["leaf_rows"])
     part_rows += bundled_rows["hist_part"]
     k3 = [r for r in slot_rows if r["K"] == 3] + bundled_rows["hist_slots"]
     k6 = [r for r in slot_rows if r["K"] == 6] + bundled_rows["hist_slots6"]
@@ -3143,6 +3650,14 @@ def main() -> int:
                      "lightgbm_tpu/core/histogram_pallas.py:67",
                      launches("build_histogram_cuda"), hist_rows,
                      hist_rows[0]),
+        dict(kernel_entry("histogram_leaf",
+                          "lightgbm_tpu_torch/core/csrc/histogram.cu",
+                          "lightgbm_tpu/core/histogram_pallas.py:67",
+                          launches("build_histogram_leaf_cuda"), leaf_rows,
+                          leaf_headline),
+             note="histogram.cu's kernel through hist_for_leaf (a forced "
+                  "split's rebuild of one leaf, path 4zl), counted apart "
+                  "from the split pass"),
         kernel_entry("hist_slots",
                      "lightgbm_tpu_torch/core/csrc/hist_slots.cu",
                      "lightgbm_tpu/core/histogram_pallas.py:384",

@@ -44,6 +44,15 @@ GOSS, DART and RF (``goss.py``, ``dart.py``, ``rf.py``) are subclasses that
 amend the gradients and mask, move the trees already in the model, or
 average the forest; ``boosting.create_boosting`` picks the class.
 
+Monotone constraints (``monotone_constraints``) bound the split search of
+every grower. Forced splits (``forcedsplits_filename``) and CEGB
+(``cegb_penalty_split``, ``cegb_penalty_feature_coupled``,
+``cegb_penalty_feature_lazy``) need exact growth, as in the JAX package
+(gbdt.py:522-554 there): the forced steps are read once into BFS order, the
+CEGB state lives on the device across iterations, each class's tree of an
+iteration grows from the iteration's state and the classes' purchases
+merge. Rollback leaves the state as it is, as the JAX package does.
+
 Every option outside the slice raises ``NotImplementedError`` from
 ``check_slice`` before anything is built, naming the ROADMAP item that
 brings it: the port never builds a different tree than the one asked for.
@@ -51,6 +60,7 @@ brings it: the port never builds a different tree than the one asked for.
 from __future__ import annotations
 
 import copy
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -58,7 +68,8 @@ import torch
 
 from ..config import Config
 from ..core import tree as tree_mod
-from ..core.grow import GrowParams, TreeArrays, grow_tree
+from ..core.grow import (Cegb, CegbState, ForcedSplits, GrowParams,
+                         TreeArrays, grow_tree)
 from ..core.grow_batched import grow_tree_batched
 from ..core.grow_batched_part import grow_tree_batched_part
 from ..core.grow_frontier import grow_tree_frontier
@@ -68,7 +79,7 @@ from ..core.split import FeatureMeta, SplitParams
 from .. import random as threefry
 from ..io.binning import BinType
 from ..io.dataset import BinnedDataset
-from ..log import LightGBMError, Log, outside_slice
+from ..log import LightGBMError, Log, check, outside_slice
 from ..metrics import Metric
 from ..objectives import ObjectiveFunction
 
@@ -121,15 +132,6 @@ class HostTree:
 def check_slice(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for any option outside the slice."""
     rules = [
-        (bool(cfg.monotone_constraints)
-         and any(int(v) != 0 for v in cfg.monotone_constraints),
-         "monotone_constraints", "ROADMAP Queue 1 #4"),
-        (bool(cfg.forcedsplits_filename), "forced splits",
-         "ROADMAP Queue 1 #6"),
-        (cfg.cegb_penalty_split > 0
-         or bool(cfg.cegb_penalty_feature_coupled)
-         or bool(cfg.cegb_penalty_feature_lazy), "CEGB",
-         "ROADMAP Queue 1 #6"),
         (cfg.gpu_use_dp or str(cfg.tpu_hist_dtype).lower()
          in ("float64", "f64", "double"), "f64 histograms (gpu_use_dp)",
          "ROADMAP Queue 1 #3"),
@@ -183,6 +185,16 @@ def _feature_meta(ds: BinnedDataset, cfg: Config,
             if rj < len(fc):
                 penalty[i] = fc[rj]
 
+    monotone = np.zeros(len(mappers), np.int64)
+    if cfg.monotone_constraints:
+        mc = np.asarray(cfg.monotone_constraints, np.int64)
+        # the constraint list must cover every feature (dataset.cpp:295):
+        # zero-filling would drop constraints the user asked for
+        check(len(mc) == ds.num_total_features,
+              "monotone_constraints has %d entries but the dataset has %d "
+              "features" % (len(mc), ds.num_total_features))
+        monotone[:] = mc[ds.used_features]
+
     def as_long(vals):
         return torch.as_tensor(np.asarray(vals, np.int64), device=device)
 
@@ -199,7 +211,8 @@ def _feature_meta(ds: BinnedDataset, cfg: Config,
         pack_div=as_long(pack_div), pack_mod=as_long(pack_mod),
         pack_partner=as_long(pack_partner),
         is_categorical=(torch.as_tensor(is_cat, device=device)
-                        if any(is_cat) else None))
+                        if any(is_cat) else None),
+        monotone=as_long(monotone))
 
 
 def categorical_features(ds: BinnedDataset) -> tuple:
@@ -293,7 +306,8 @@ class GBDT:
                 cat_smooth=cfg.cat_smooth, cat_l2=cfg.cat_l2,
                 max_cat_to_onehot=cfg.max_cat_to_onehot,
                 min_data_per_group=cfg.min_data_per_group,
-                cat_features=categorical_features(ds)),
+                cat_features=categorical_features(ds),
+                with_monotone=bool(self.feature_meta.monotone.any())),
             hist_impl=resolve_hist_impl(cfg),
             batch_splits=cfg.tree_batch_splits,
             batched_pack=bool(cfg.tpu_batched_pack),
@@ -301,11 +315,28 @@ class GBDT:
             with_efb=ds.has_bundles or ds.has_packed,
             num_feat_bins=num_feat_bins,
             pack_j=int(pack_partner.max(initial=1)),
-            packed_features=tuple(int(i) for i in np.nonzero(pack_mod)[0]))
+            packed_features=tuple(int(i) for i in np.nonzero(pack_mod)[0]),
+            cegb_split_penalty=float(cfg.cegb_tradeoff
+                                     * cfg.cegb_penalty_split),
+            with_cegb_coupled=bool(len(cfg.cegb_penalty_feature_coupled)),
+            with_cegb_lazy=bool(len(cfg.cegb_penalty_feature_lazy)))
+        # forced splits and CEGB (gbdt.py:522-554 of the JAX package): exact
+        # growth only, the CEGB state kept across iterations
+        self._forced = self._setup_forced_splits(ds)
+        self._cegb = self._setup_cegb(ds)
+        if cfg.tree_growth in ("batched", "frontier") and (
+                self._forced is not None or self._cegb is not None):
+            raise LightGBMError(
+                "tree_growth=%s requires exact split ordering; disable "
+                "forced splits / CEGB or use tree_growth=exact"
+                % cfg.tree_growth)
         # one place decides which grower runs (gbdt.py:1150-1160 of the
         # JAX package)
         self._grow = (grow_tree_batched_part if self.grow_params.batched_part
                       else GROWERS[cfg.tree_growth])
+        if self._forced is not None or self._cegb is not None:
+            self._grow = functools.partial(grow_tree, forced=self._forced,
+                                           cegb=self._cegb)
         self._init_scores_provided = ds.metadata.init_score is not None
         self.scores = torch.as_tensor(self._initial_scores(ds), device=dev)
         self.boost_from_average_done = False
@@ -335,6 +366,74 @@ class GBDT:
             rw = obj.label_weight if obj.name == "mape" else obj.weights
             self._renew_weight = (torch.ones_like(obj.label) if rw is None
                                   else rw)
+
+    def _setup_forced_splits(self, ds: BinnedDataset
+                             ) -> Optional[ForcedSplits]:
+        """forcedsplits_filename's JSON as BFS steps (the ForceSplits queue
+        walk, serial_tree_learner.cpp:593-751; gbdt.py:880-926 of the JAX
+        package): step t splits a known leaf, since its right child is
+        always leaf t + 1. None without a file or with an empty one."""
+        import json
+        from collections import deque
+        cfg = self.config
+        if not cfg.forcedsplits_filename:
+            return None
+        with open(cfg.forcedsplits_filename) as fh:
+            root = json.load(fh)
+        if not root:
+            return None
+        inner_of = {real: i for i, real in enumerate(ds.used_features)}
+        steps = []
+        queue = deque([(root, 0)])
+        while queue and len(steps) < cfg.num_leaves - 1:
+            node, leaf = queue.popleft()
+            real = int(node["feature"])
+            check(real in inner_of,
+                  "forced split feature %d is trivial/unused" % real)
+            mapper = ds.bin_mappers[real]
+            check(mapper.bin_type != BinType.CATEGORICAL,
+                  "forced splits on categorical features are not supported")
+            # rows of bin < ValueToBin(threshold) go left (BinThreshold,
+            # dataset.h:507), here bin <= threshold: -1 is an empty left
+            # side, and the forced split then aborts on it
+            steps.append((leaf, inner_of[real],
+                          mapper.value_to_bin(float(node["threshold"])) - 1))
+            right_leaf = len(steps)
+            if isinstance(node.get("left"), dict):
+                queue.append((node["left"], leaf))
+            if isinstance(node.get("right"), dict):
+                queue.append((node["right"], right_leaf))
+        return ForcedSplits(*(tuple(v) for v in zip(*steps)))
+
+    def _setup_cegb(self, ds: BinnedDataset) -> Optional[Cegb]:
+        """The CEGB state at the start of training, on the device
+        (gbdt.py:988-1016 of the JAX package; SerialTreeLearner's
+        feature_used and feature_used_in_data,
+        serial_tree_learner.cpp:103-112); None when CEGB is off."""
+        cfg = self.config
+        coupled = list(cfg.cegb_penalty_feature_coupled)
+        lazy = list(cfg.cegb_penalty_feature_lazy)
+        if not coupled and not lazy and cfg.cegb_penalty_split <= 0:
+            return None
+        f = len(ds.used_features)
+        coupled_arr = np.zeros(f, np.float32)
+        lazy_arr = np.zeros(f, np.float32)
+        for i, real in enumerate(ds.used_features):
+            if coupled:
+                check(real < len(coupled), "cegb_penalty_feature_coupled "
+                      "must cover every feature")
+                coupled_arr[i] = cfg.cegb_tradeoff * float(coupled[real])
+            if lazy:
+                check(real < len(lazy), "cegb_penalty_feature_lazy "
+                      "must cover every feature")
+                lazy_arr[i] = cfg.cegb_tradeoff * float(lazy[real])
+        dev = self.device
+        return Cegb(CegbState(
+            coupled_penalty=torch.as_tensor(coupled_arr, device=dev),
+            lazy_penalty=torch.as_tensor(lazy_arr, device=dev),
+            feature_used=torch.zeros(f, dtype=torch.bool, device=dev),
+            row_used=torch.zeros((f, ds.num_data if lazy else 0),
+                                 dtype=torch.uint8, device=dev)))
 
     def _initial_scores(self, ds: BinnedDataset) -> np.ndarray:
         """[N, K] float32 scores from the data's init score, zeros without
@@ -567,6 +666,10 @@ class GBDT:
         grown = [self._grow(self.xb, grad[c], hess[c], sample_mask,
                             self.feature_meta, feature_mask,
                             self.grow_params) for c in range(k)]
+        if self._cegb is not None:
+            # every class grew from the iteration's CEGB state; what the
+            # class trees bought merges for the next iteration
+            self._cegb.merge()
         if all(tree.num_leaves <= 1 for tree, _ in grown):
             Log.warning("Stopped training because there are no more leaves "
                         "that meet the split requirements")

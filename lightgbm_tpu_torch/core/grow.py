@@ -28,6 +28,29 @@ no-op steps to the end.
 Node numbering is the reference's: the split at step ``t`` creates internal
 node ``t``; the left child keeps the leaf's index and the right child
 becomes leaf ``t + 1``. Child pointers use the ``~leaf`` encoding.
+
+Three split-selection options (JAX ``core/grow.py:729-1015``):
+
+- monotone constraints: each leaf carries output bounds ``[L]`` on the
+  device, both children's are set at each split
+  (``propagate_monotone_bounds``) and passed to their search;
+- forced splits (``ForcedSplits``): step ``t < num_forced`` splits the
+  forced leaf on the forced feature and bin, priced from the leaf's own
+  histogram (``forced_split_info``, rebuilt by ``hist_for_leaf``). The
+  rebuild gathers a row range the host already knows to hold the leaf's
+  rows (its own or its parent's, from an earlier read) and zeroes the rows
+  outside the leaf's range on the device, so a forced step reads nothing
+  more than any other: its one read returns the leaf split, whether the
+  split is usable, its row range and whether the forced split was taken.
+  A forced split that is not usable (gain <= 0 or an empty side) turns
+  that step and the rest of the forced phase into best-first growth;
+- CEGB (``CegbState``, on the device): a per-feature gain penalty at the
+  root and for both children of each split (``cegb_gain_penalty``); the
+  state (features bought, and under lazy costs the in-bag rows that paid
+  for each feature) is updated after each split and left in the ``Cegb``
+  holder the caller passed, which merges an iteration's trees. A child's
+  rows are the split's row range ``part.order[begin:begin + count]``,
+  left ones first, so no per-row leaf id is kept.
 """
 from __future__ import annotations
 
@@ -37,11 +60,12 @@ import numpy as np
 import torch
 
 from .histogram import hist_tile_vals, stack_vals
-from .partition import (init_partition, leaf_id_from_partition,
-                        partition_and_hist)
-from .split import (BestSplit, CAT_WORDS, FeatureMeta, K_MIN_SCORE,
-                    MISSING_NAN, MISSING_ZERO, SplitParams,
-                    calculate_leaf_output, device_index, find_best_split)
+from .partition import (hist_for_leaf, init_partition,
+                        leaf_id_from_partition, partition_and_hist)
+from .split import (BestSplit, CAT_WORDS, FeatureMeta, K_EPSILON,
+                    K_MIN_SCORE, MISSING_NAN, MISSING_ZERO, SplitParams,
+                    calculate_leaf_output, device_index, find_best_split,
+                    leaf_split_gain)
 
 
 class GrowParams(NamedTuple):
@@ -73,6 +97,75 @@ class GrowParams(NamedTuple):
     # pack_partner; 1 = no packed columns) and the packed inner features
     pack_j: int = 1
     packed_features: tuple = ()
+    # CEGB (serial_tree_learner.cpp:533-539), exact growth only: the split
+    # penalty is tradeoff * cegb_penalty_split, times the leaf's count;
+    # the coupled and lazy terms are on when their lists are given
+    cegb_split_penalty: float = 0.0
+    with_cegb_coupled: bool = False
+    with_cegb_lazy: bool = False
+
+
+class ForcedSplits(NamedTuple):
+    """forcedsplits_filename's JSON in BFS order (ForceSplits,
+    serial_tree_learner.cpp:593-751), host ints: step ``t`` splits leaf
+    ``leaf[t]`` on inner feature ``feature[t]``, rows of bin <=
+    ``threshold[t]`` going left. Step t's right child is leaf t + 1, so
+    the leaves are known when the file is read."""
+    leaf: tuple
+    feature: tuple
+    threshold: tuple
+
+
+class CegbState(NamedTuple):
+    """CEGB's acquisition state on the device, kept across trees (the JAX
+    package's ``CegbState``; a SerialTreeLearner member in the
+    reference): once a feature is bought, later splits on it are free."""
+    coupled_penalty: torch.Tensor  # [F] f32 tradeoff * coupled penalty
+    lazy_penalty: torch.Tensor     # [F] f32 tradeoff * lazy penalty
+    feature_used: torch.Tensor     # [F] bool: some split on f so far
+    row_used: torch.Tensor         # [F, N] uint8: the row paid for f;
+    #                                [F, 0] without lazy penalties
+
+
+class Cegb:
+    """CEGB across trees: ``state`` is what each tree of an iteration
+    starts from; each tree leaves the state it ends with in ``grown``, and
+    ``merge``, once the iteration's trees are grown, makes their union the
+    next start (any over ``feature_used``, max over ``row_used``: under
+    multiclass every class grows from the iteration's state, gbdt.py:
+    1319-1326 of the JAX package)."""
+
+    def __init__(self, state: CegbState):
+        self.state, self.grown = state, []
+
+    def merge(self) -> None:
+        if self.grown:
+            self.state = self.state._replace(
+                feature_used=torch.stack(
+                    [s.feature_used for s in self.grown]).any(dim=0),
+                row_used=torch.stack(
+                    [s.row_used for s in self.grown]).amax(dim=0))
+            self.grown = []
+
+
+def cegb_gain_penalty(params: GrowParams, state: CegbState,
+                      cnt: torch.Tensor,
+                      unpaid: torch.Tensor = None) -> torch.Tensor:
+    """[..., F] CEGB penalty of leaves of ``cnt`` [...] rows
+    (serial_tree_learner.cpp:533-539, the JAX package's
+    ``cegb_gain_penalty``): the split cost scales with the leaf's count,
+    the coupled cost applies to features never bought, the lazy cost to
+    ``unpaid`` [..., F], the leaf's in-bag weight of rows that have not
+    paid for the feature (CalculateOndemandCosts, :484-504)."""
+    f = state.coupled_penalty.shape[0]
+    pen = (params.cegb_split_penalty * cnt)[..., None].expand(
+        tuple(cnt.shape) + (f,))
+    if params.with_cegb_coupled:
+        pen = pen + torch.where(state.feature_used, 0.0,
+                                state.coupled_penalty)
+    if params.with_cegb_lazy:
+        pen = pen + state.lazy_penalty * unpaid
+    return pen
 
 
 class TreeArrays(NamedTuple):
@@ -289,11 +382,12 @@ def decode_bundle_value(v: torch.Tensor, offset: torch.Tensor,
 
 
 def root_split(xb: torch.Tensor, vals: torch.Tensor, meta: FeatureMeta,
-               feature_mask: torch.Tensor, params: GrowParams):
-    """The root of a wave-grown tree, as in exact growth: returns the
-    empty device tree with leaf 0 set, the best-split table with the
-    root's best split, and the root histogram over the stored columns
-    [C, B, 3]."""
+               feature_mask: torch.Tensor, params: GrowParams,
+               cegb: CegbState = None):
+    """The root of a tree, shared by every grower: returns the empty
+    device tree with leaf 0 set, the best-split table with the root's best
+    split (CEGB-penalised where ``cegb`` is given), and the root histogram
+    over the stored columns [C, B, 3]."""
     l = params.num_leaves
     sp = params.split
     dev = xb.device
@@ -306,10 +400,18 @@ def root_split(xb: torch.Tensor, vals: torch.Tensor, meta: FeatureMeta,
     tree.leaf_weight[0] = root[1]
     tree.leaf_count[0] = root[2]
     best = _empty_best(l, dev)
+    pen = None
+    if cegb is not None:
+        unpaid = None
+        if params.with_cegb_lazy:
+            unpaid = (vals[None, :, 2] * (1.0 - cegb.row_used.to(
+                vals.dtype))).sum(dim=1)[None]
+        pen = cegb_gain_penalty(params, cegb, root[2:3], unpaid)
     b0 = find_best_split(
         expand_hist(hist_root[None], root[0:1], root[1:2], root[2:3], meta,
                     params),
-        meta, sp, root[0:1], root[1:2], root[2:3], feature_mask)
+        meta, sp, root[0:1], root[1:2], root[2:3], feature_mask,
+        gain_penalty=pen)
     _set_best(best, slice(0, 1), b0)
     return tree, best, hist_root
 
@@ -344,15 +446,65 @@ def _set_best(best: BestSplit, slots: torch.Tensor, new: BestSplit) -> None:
         arr[slots] = val
 
 
+def forced_split_info(hist_col: torch.Tensor, feature: torch.Tensor,
+                      threshold: torch.Tensor, meta: FeatureMeta,
+                      params: GrowParams) -> Tuple[BestSplit, torch.Tensor]:
+    """A forced split priced from its leaf's column histogram [C, B, 3]
+    (GatherInfoForThresholdNumerical, feature_histogram.hpp:284-357; the
+    JAX package's ``forced_split_info``): the leaf's totals from column 0,
+    the feature's view through ``expand_hist``, the rows of bins above
+    ``threshold`` going right and the default and NaN bins left. Returns
+    (the split, default left, gain at least 1e-30; ok [1]: gain > 0 and
+    both sides hold rows). ``feature`` and ``threshold`` are 0-d device
+    ints."""
+    sp = params.split
+    sum_g, sum_h, cnt = (hist_col[0, :, k].sum() for k in range(3))
+    # index_select: indexing with a 0-d device tensor reads it back
+    f1 = feature.view(1)
+    row = expand_hist(hist_col, sum_g, sum_h, cnt, meta,
+                      params).index_select(0, f1)[0]
+    nb, db, mt = (m.index_select(0, f1)[0]
+                  for m in (meta.num_bin, meta.default_bin,
+                            meta.missing_type))
+    bidx = torch.arange(row.shape[0], device=row.device)
+    in_right = ((bidx > threshold) & (bidx < nb)
+                & ~((mt == MISSING_ZERO) & (bidx == db))
+                & ~((mt == MISSING_NAN) & (bidx == nb - 1)))
+    r = (row * in_right[:, None].to(row.dtype)).sum(dim=0)
+    rg, rh, rc = r[0], r[1] + K_EPSILON, r[2]
+    lg, lh, lc = sum_g - rg, sum_h - rh, cnt - rc
+    l1, l2, mds = sp.lambda_l1, sp.lambda_l2, sp.max_delta_step
+    shift = leaf_split_gain(sum_g, sum_h, l1, l2, mds) + sp.min_gain_to_split
+    gain = (leaf_split_gain(lg, lh, l1, l2, mds)
+            + leaf_split_gain(rg, rh, l1, l2, mds) - shift)
+    ok = (gain > 0.0) & (lc > 0) & (rc > 0)
+    split = BestSplit(
+        gain=torch.clamp(gain, min=1e-30), feature=feature,
+        threshold=threshold,
+        default_left=torch.ones((), dtype=torch.bool, device=row.device),
+        left_sum_grad=lg, left_sum_hess=lh, left_count=lc,
+        right_sum_grad=rg, right_sum_hess=rh, right_count=rc,
+        left_output=calculate_leaf_output(lg, lh, l1, l2, mds),
+        right_output=calculate_leaf_output(rg, rh, l1, l2, mds),
+        is_categorical=torch.zeros((), dtype=torch.bool, device=row.device),
+        cat_bitset=torch.zeros(CAT_WORDS, dtype=torch.int64,
+                               device=row.device))
+    return split, ok.view(1)
+
+
 def grow_tree(xb: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               sample_mask: torch.Tensor, meta: FeatureMeta,
-              feature_mask: torch.Tensor, params: GrowParams
+              feature_mask: torch.Tensor, params: GrowParams,
+              forced: ForcedSplits = None, cegb: Cegb = None
               ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one leaf-wise tree; returns (tree on the host, per-row leaf id
     on the device).
 
     xb [N, C] uint8 stored columns; grad, hess, sample_mask [N] float32
-    on the same device; feature_mask [F] bool.
+    on the same device; feature_mask [F] bool. ``forced`` splits the
+    first steps as the forced-splits file says; ``cegb`` holds the CEGB
+    state the tree starts from, which it does not modify: the tree works
+    on a copy and leaves it in ``cegb.grown``.
     """
     n = xb.shape[0]
     l = params.num_leaves
@@ -361,9 +513,14 @@ def grow_tree(xb: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     dev = xb.device
 
     vals = stack_vals(grad, hess, sample_mask)               # [N, 3]
+    state = None
+    if cegb is not None:
+        state = cegb.state._replace(
+            feature_used=cegb.state.feature_used.clone(),
+            row_used=cegb.state.row_used.clone())
     # split values stay on the device; the structure is host ints, which
     # replace the device tree's structure fields when the tree is done
-    tree, best, _ = root_split(xb, vals, meta, feature_mask, params)
+    tree, best, _ = root_split(xb, vals, meta, feature_mask, params, state)
     left_child = np.full(l - 1, -1, np.int32)
     right_child = np.full(l - 1, -1, np.int32)
     split_leaf = np.full(l - 1, -1, np.int32)
@@ -372,20 +529,56 @@ def grow_tree(xb: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     part = init_partition(n, l, dev)
     # index tensors of the two children, made without a host-to-device copy
     slot_ids = torch.arange(l, device=dev)
+    if sp.with_monotone:
+        leaf_min = torch.full((l,), float("-inf"), device=dev)
+        leaf_max = torch.full((l,), float("inf"), device=dev)
+    num_forced = min(len(forced.leaf), l - 1) if forced is not None else 0
+    if num_forced:
+        forced_feature = device_index(forced.feature, dev)
+        forced_threshold = device_index(forced.threshold, dev)
+        # a row range of ``order`` holding each leaf's rows, known to the
+        # host: the range read for the leaf's parent when it split
+        known_begin = np.zeros(l, np.int64)
+        known_count = np.zeros(l, np.int64)
+        known_count[0] = n
 
     num_leaves = 1
     for t in range(l - 1):
         # one device-to-host read per split; indexing with a 0-d tensor
         # would read it back on its own, so every lookup is index_select
         leaf_t = torch.argmax(best.gain).view(1)
-        leaf, valid, begin, count = torch.cat([
-            leaf_t, (best.gain.index_select(0, leaf_t) > 0.0).to(torch.int64),
-            part.leaf_begin.index_select(0, leaf_t),
-            part.leaf_count.index_select(0, leaf_t)]).tolist()
+        gain_t = best.gain.index_select(0, leaf_t)
+        in_forced = t < num_forced
+        if in_forced:
+            fleaf = forced.leaf[t]
+            hist_f = hist_for_leaf(part, slot_ids[fleaf:fleaf + 1],
+                                   int(known_begin[fleaf]),
+                                   int(known_count[fleaf]), xb, vals, b,
+                                   params.hist_impl, params.plain_f64_sums)
+            fcur, use_forced = forced_split_info(
+                hist_f, forced_feature[t], forced_threshold[t], meta, params)
+            leaf_t = torch.where(use_forced, slot_ids[fleaf:fleaf + 1],
+                                 leaf_t)
+            gain_t = torch.where(use_forced, fcur.gain, gain_t)
+        read = [leaf_t, (gain_t > 0.0).to(torch.int64),
+                part.leaf_begin.index_select(0, leaf_t),
+                part.leaf_count.index_select(0, leaf_t)]
+        if in_forced:
+            read.append(use_forced.to(torch.int64))
+        leaf, valid, begin, count, *took = torch.cat(read).tolist()
         if not valid:        # the reference stops on gain <= 0 (:217-219)
             break
-        cur = BestSplit(*[a[leaf] for a in best])
+        if took and took[0]:
+            cur = fcur
+        else:
+            # a forced split that is not usable ends the forced phase
+            # (aborted_last_force_split)
+            num_forced = min(num_forced, t)
+            cur = BestSplit(*[a[leaf] for a in best])
         right_leaf = t + 1
+        if num_forced:
+            known_begin[[leaf, right_leaf]] = begin
+            known_count[[leaf, right_leaf]] = count
         feat = cur.feature.view(1)
         missing_type, num_bin, default_bin = (
             m.index_select(0, feat)[0]
@@ -454,6 +647,39 @@ def grow_tree(xb: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         tree.leaf_count[children] = torch.stack([cur.left_count,
                                                  cur.right_count])
 
+        # ---- the children's output bounds (:993-1000 of the JAX package)
+        ch_min = ch_max = None
+        if sp.with_monotone:
+            l_min, l_max, r_min, r_max = propagate_monotone_bounds(
+                meta.monotone.index_select(0, feat)[0], cur.left_output,
+                cur.right_output, leaf_min[leaf], leaf_max[leaf])
+            ch_min = torch.stack([l_min, r_min])
+            ch_max = torch.stack([l_max, r_max])
+            leaf_min[children] = ch_min
+            leaf_max[children] = ch_max
+
+        # ---- CEGB: the split buys its feature, and under lazy costs the
+        # in-bag rows of the split leaf pay for it (:1002-1015 there) ------
+        pen = None
+        if state is not None:
+            state.feature_used.index_fill_(0, feat, True)
+            unpaid = None
+            if params.with_cegb_lazy:
+                rows = part.order[begin:begin + count]   # left rows first
+                mask = vals.index_select(0, rows)[:, 2]
+                flat = state.row_used.view(-1)
+                at = feat * n + rows
+                flat.index_copy_(0, at, torch.maximum(
+                    flat.index_select(0, at), (mask > 0).to(flat.dtype)))
+                w = mask[None, :] * (1.0 - state.row_used.index_select(
+                    1, rows).to(mask.dtype))                  # [F, count]
+                is_left = (torch.arange(count, device=dev)
+                           < part.leaf_count[leaf:leaf + 1])
+                unpaid = torch.stack([(w * is_left).sum(dim=1),
+                                      (w * ~is_left).sum(dim=1)])
+            pen = cegb_gain_penalty(params, state, torch.stack(
+                [cur.left_count, cur.right_count]), unpaid)
+
         # ---- best splits of both children, one batched search -----------
         ch_g = torch.stack([cur.left_sum_grad, cur.right_sum_grad])
         ch_h = torch.stack([cur.left_sum_hess, cur.right_sum_hess])
@@ -461,11 +687,13 @@ def grow_tree(xb: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         b2 = find_best_split(
             expand_hist(torch.stack([hist_left, hist_right]), ch_g, ch_h,
                         ch_c, meta, params),
-            meta, sp, ch_g, ch_h, ch_c, feature_mask)
+            meta, sp, ch_g, ch_h, ch_c, feature_mask, ch_min, ch_max, pen)
         if 0 < params.max_depth <= depth:
             b2 = b2._replace(gain=torch.full_like(b2.gain, K_MIN_SCORE))
         _set_best(best, children, b2)
 
+    if cegb is not None:
+        cegb.grown.append(state)
     leaf_id = leaf_id_from_partition(part, n, l)
     return tree_to_host(tree, num_leaves)._replace(
         left_child=left_child, right_child=right_child,

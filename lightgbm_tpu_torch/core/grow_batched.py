@@ -190,30 +190,41 @@ def apply_split_wave(tree: DeviceTree, leaf_min: torch.Tensor,
     tree.leaf_parent[both] = torch.cat([node, node])
     tree.leaf_depth[both] = torch.cat([depth, depth])
 
-    # monotone constraints are outside the slice (every feature is 0), so
-    # the bounds stay (-inf, inf); they are carried for Queue 1 #4
-    mono = torch.zeros_like(cur.feature)
-    l_min, l_max, r_min, r_max = propagate_monotone_bounds(
-        mono, cur.left_output, cur.right_output,
-        leaf_min.index_select(0, gleaf), leaf_max.index_select(0, gleaf))
-    leaf_min[both] = torch.cat([l_min, r_min])
-    leaf_max[both] = torch.cat([l_max, r_max])
+    if sp.with_monotone:
+        # without constraints every bound stays (-inf, inf)
+        l_min, l_max, r_min, r_max = propagate_monotone_bounds(
+            meta.monotone.index_select(0, cur.feature), cur.left_output,
+            cur.right_output, leaf_min.index_select(0, gleaf),
+            leaf_max.index_select(0, gleaf))
+        leaf_min[both] = torch.cat([l_min, r_min])
+        leaf_max[both] = torch.cat([l_max, r_max])
 
     depth_ok = (depth < max_depth) if max_depth > 0 \
         else torch.ones_like(depth, dtype=torch.bool)
     return interleave_lr(depth_ok, depth_ok)
 
 
-def search_children(ch_hist: torch.Tensor, cur: BestSplit, ch_ok, meta,
-                    params: GrowParams, feature_mask) -> BestSplit:
+def search_children(ch_hist: torch.Tensor, plan: WavePlan, ch_ok, meta,
+                    params: GrowParams, feature_mask, leaf_min: torch.Tensor,
+                    leaf_max: torch.Tensor) -> BestSplit:
     """Best splits of the 2K children's column histograms [2K, C, B, 3]
     (interleaved), expanded to per-feature views first, in one batched
-    search; a child past ``max_depth`` gets gain -inf."""
+    search, each child within its output bounds (``leaf_min``,
+    ``leaf_max`` [L], as ``apply_split_wave`` set them) where monotone
+    constraints are on; a child past ``max_depth`` gets gain -inf (JAX
+    ``core/grow_batched.py:142-150, 285-290``)."""
+    cur = plan.cur
     sg = interleave_lr(cur.left_sum_grad, cur.right_sum_grad)
     sh = interleave_lr(cur.left_sum_hess, cur.right_sum_hess)
     cnt = interleave_lr(cur.left_count, cur.right_count)
+    ch_min = ch_max = None
+    if params.split.with_monotone:
+        ch_min, ch_max = (interleave_lr(b.index_select(0, plan.gleaf),
+                                        b.index_select(0, plan.right_leaf))
+                          for b in (leaf_min, leaf_max))
     b2k = find_best_split(expand_hist(ch_hist, sg, sh, cnt, meta, params),
-                          meta, params.split, sg, sh, cnt, feature_mask)
+                          meta, params.split, sg, sh, cnt, feature_mask,
+                          ch_min, ch_max)
     return b2k._replace(gain=torch.where(ch_ok, b2k.gain, K_MIN_SCORE))
 
 
@@ -276,8 +287,9 @@ def grow_tree_batched(xb: torch.Tensor, grad: torch.Tensor,
         ch_ok = apply_split_wave(tree, leaf_min, leaf_max, plan.cur,
                                  plan.gleaf, plan.node, plan.right_leaf, nl,
                                  meta, sp, params.max_depth)
-        scatter_child_best(best, search_children(ch_hist, plan.cur, ch_ok,
-                                                 meta, params, feature_mask),
+        scatter_child_best(best, search_children(ch_hist, plan, ch_ok, meta,
+                                                 params, feature_mask,
+                                                 leaf_min, leaf_max),
                            plan.gleaf, plan.right_leaf)
         nl += k
     return tree_to_host(tree, nl), leaf_id

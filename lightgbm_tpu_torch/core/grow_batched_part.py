@@ -180,8 +180,9 @@ def grow_tree_batched_part(xb: torch.Tensor, grad: torch.Tensor,
         ch_ok = apply_split_wave(tree, leaf_min, leaf_max, plan.cur, gleaf,
                                  plan.node, right_leaf, nl, meta, sp,
                                  params.max_depth)
-        scatter_child_best(best, search_children(ch_hist, plan.cur, ch_ok,
-                                                 meta, params, feature_mask),
+        scatter_child_best(best, search_children(ch_hist, plan, ch_ok, meta,
+                                                 params, feature_mask,
+                                                 leaf_min, leaf_max),
                            gleaf, right_leaf)
         nl += k
 

@@ -112,8 +112,9 @@ def wave_commit(s: FrontierState, plan: WavePlan, num_leaves: int,
                              plan.gleaf, plan.node, plan.right_leaf,
                              num_leaves, meta, params.split,
                              params.max_depth)
-    scatter_child_best(s.best, search_children(ch_hist, plan.cur, ch_ok,
-                                               meta, params, feature_mask),
+    scatter_child_best(s.best, search_children(ch_hist, plan, ch_ok, meta,
+                                               params, feature_mask,
+                                               s.leaf_min, s.leaf_max),
                        plan.gleaf, plan.right_leaf)
 
 

@@ -84,6 +84,18 @@ def hist_tile_vals(xb_rows: torch.Tensor, vals: torch.Tensor, num_bins: int,
     return hist_plain(xb_rows, vals, num_bins, f64_sums)
 
 
+def hist_leaf_vals(xb_rows: torch.Tensor, vals: torch.Tensor,
+                   num_bins: int, impl: str = "auto", f64_sums: bool = False
+                   ) -> torch.Tensor:
+    """``hist_tile_vals`` for one leaf's rebuilt histogram (a forced split,
+    ``core/partition.py`` ``hist_for_leaf``): the same kernel, launched
+    through its own wrapper so its launches are counted apart from the
+    split pass's."""
+    if _use_kernel(impl, xb_rows):
+        return kernels.build_histogram_leaf_cuda(xb_rows, vals, num_bins)
+    return hist_plain(xb_rows, vals, num_bins, f64_sums)
+
+
 def stack_vals(grad: torch.Tensor, hess: torch.Tensor,
                mask: torch.Tensor) -> torch.Tensor:
     """[N, 3] (grad*mask, hess*mask, mask), the row layout every histogram

@@ -141,24 +141,15 @@ def _sm_count(dev: torch.device) -> int:
     return count
 
 
-def build_histogram_cuda(xb: torch.Tensor, vals: torch.Tensor,
-                         num_bins: int,
-                         variant: Optional[str] = None) -> torch.Tensor:
-    """out[f, b, k] = sum_n [xb[n, f] == b] * vals[n, k] on the card.
-
-    xb [n, F] uint8 contiguous; vals [n, K] float32 contiguous, K in {3, 6};
-    both on one CUDA device; 1 <= num_bins <= 256; n * F < 2^31. Returns
-    [F, B, K] f32. One memset and one kernel launch, of the variant
-    ``hist_launch_plan`` picks (``variant`` forces one), counted once in
-    ``build_histogram_cuda.launches``. At K=6 a row may feed both triples,
-    but the kernel is fastest when it feeds one (the partition's case).
-    The order of the f32 additions varies from run to run (atomics);
-    a channel of 0/1 values is exact.
-    """
+def _launch_histogram(name: str, xb: torch.Tensor, vals: torch.Tensor,
+                      num_bins: int, variant: Optional[str]
+                      ) -> Tuple[torch.Tensor, bool]:
+    """Check, allocate and launch histogram.cu for ``name``'s wrapper:
+    returns (out, whether the kernel was launched)."""
     dev = xb.device
     if dev.type != "cuda" or vals.device != dev:
-        raise ValueError("build_histogram_cuda takes CUDA tensors on one "
-                         "device, got %s and %s" % (dev, vals.device))
+        raise ValueError("%s takes CUDA tensors on one device, got %s and "
+                         "%s" % (name, dev, vals.device))
     if xb.dtype != torch.uint8 or xb.dim() != 2:
         raise ValueError("xb must be a 2-D uint8 tensor, got %s %s"
                          % (xb.dtype, tuple(xb.shape)))
@@ -175,10 +166,9 @@ def build_histogram_cuda(xb: torch.Tensor, vals: torch.Tensor,
     k = vals.shape[1]
     if f == 0 or n == 0:
         return torch.zeros((f, num_bins, k), dtype=torch.float32,
-                           device=dev)
+                           device=dev), False
     if n * f >= 2 ** 31:
-        raise ValueError("build_histogram_cuda takes fewer than 2^31 bins "
-                         "(n * F)")
+        raise ValueError("%s takes fewer than 2^31 bins (n * F)" % name)
     plan = hist_launch_plan(n, f, num_bins, k, _sm_count(dev), variant)
     lib = _hist_lib()
     out = torch.empty((f, num_bins, k), dtype=torch.float32, device=dev)
@@ -190,11 +180,46 @@ def build_histogram_cuda(xb: torch.Tensor, vals: torch.Tensor,
     if rc != 0:
         raise RuntimeError("histogram kernel launch failed: CUDA error %d (%s)"
                            % (rc, lib.lgbt_error_string(rc).decode()))
-    build_histogram_cuda.launches += 1
+    return out, True
+
+
+def build_histogram_cuda(xb: torch.Tensor, vals: torch.Tensor,
+                         num_bins: int,
+                         variant: Optional[str] = None) -> torch.Tensor:
+    """out[f, b, k] = sum_n [xb[n, f] == b] * vals[n, k] on the card.
+
+    xb [n, F] uint8 contiguous; vals [n, K] float32 contiguous, K in {3, 6};
+    both on one CUDA device; 1 <= num_bins <= 256; n * F < 2^31. Returns
+    [F, B, K] f32. One memset and one kernel launch, of the variant
+    ``hist_launch_plan`` picks (``variant`` forces one), counted once in
+    ``build_histogram_cuda.launches``. At K=6 a row may feed both triples,
+    but the kernel is fastest when it feeds one (the partition's case).
+    The order of the f32 additions varies from run to run (atomics);
+    a channel of 0/1 values is exact.
+    """
+    out, launched = _launch_histogram("build_histogram_cuda", xb, vals,
+                                      num_bins, variant)
+    build_histogram_cuda.launches += launched
     return out
 
 
 build_histogram_cuda.launches = 0
+
+
+def build_histogram_leaf_cuda(xb: torch.Tensor, vals: torch.Tensor,
+                              num_bins: int,
+                              variant: Optional[str] = None) -> torch.Tensor:
+    """``build_histogram_cuda`` for one leaf's rebuilt histogram (a forced
+    split, ``core/partition.py`` ``hist_for_leaf``): the same checks and
+    kernel, its launches counted in
+    ``build_histogram_leaf_cuda.launches``."""
+    out, launched = _launch_histogram("build_histogram_leaf_cuda", xb, vals,
+                                      num_bins, variant)
+    build_histogram_leaf_cuda.launches += launched
+    return out
+
+
+build_histogram_leaf_cuda.launches = 0
 
 
 def hist_bytes(n: int, num_features: int, num_bins: int, k: int) -> int:

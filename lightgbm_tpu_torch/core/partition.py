@@ -21,7 +21,7 @@ from typing import Callable, NamedTuple, Tuple
 
 import torch
 
-from .histogram import hist_tile_vals
+from .histogram import hist_leaf_vals, hist_tile_vals
 
 
 class RowPartition(NamedTuple):
@@ -75,6 +75,30 @@ def partition_and_hist(part: RowPartition, leaf: int, right_leaf: int,
     part.leaf_count[leaf] = n_left
     part.leaf_count[right_leaf] = count - n_left
     return part, hist[:, :, :3], hist[:, :, 3:]
+
+
+def hist_for_leaf(part: RowPartition, leaf: torch.Tensor, begin: int,
+                  count: int, xb: torch.Tensor, vals: torch.Tensor,
+                  num_bins: int, impl: str, f64_sums: bool = False
+                  ) -> torch.Tensor:
+    """[F, B, 3] (grad, hess, count) histogram of one leaf's rows (the JAX
+    package's ``hist_for_leaf``, core/partition.py:282), for a forced split.
+
+    ``leaf`` [1] is the leaf on the device; ``order[begin:begin + count]``
+    is a range the host knows to hold its rows (its own, or its parent's
+    before the split that made it). The range's rows are gathered and
+    those outside the leaf's own range (``leaf_begin``, ``leaf_count`` on
+    the device) add zeros, so the host need not read the leaf's range. One
+    K=3 pass (``hist_leaf_vals``: histogram.cu's kernel on the card).
+    """
+    idx = part.order[begin:begin + count]
+    rows = xb.index_select(0, idx)                           # [count, F]
+    v = vals.index_select(0, idx)                            # [count, 3]
+    pos = torch.arange(begin, begin + count, device=idx.device)
+    lb = part.leaf_begin.index_select(0, leaf)
+    inside = (pos >= lb) & (pos < lb + part.leaf_count.index_select(0, leaf))
+    v = torch.where(inside[:, None], v, v.new_zeros(()))
+    return hist_leaf_vals(rows, v, num_bins, impl, f64_sums)
 
 
 def leaf_id_from_partition(part: RowPartition, num_data: int,

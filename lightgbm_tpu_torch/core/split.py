@@ -15,7 +15,12 @@ line:
 - ties: dir=-1 keeps the highest threshold, dir=+1 the lowest, and across
   features the lowest feature index;
 - validity: min_data_in_leaf and min_sum_hessian_in_leaf on both sides, gain
-  strictly above the parent's gain plus min_gain_to_split.
+  strictly above the parent's gain plus min_gain_to_split;
+- monotone constraints: both outputs clamp to the leaf's bounds, and a
+  split whose outputs are in the wrong order for its feature's constraint
+  gets gain 0 before the validity test (so it never passes it);
+- CEGB: a per-feature gain penalty is subtracted from each feature's best
+  finite gain before the argmax, and the penalised gain is the split's.
 
 Categorical features (FindBestThresholdCategorical, :110-271) take their own
 finder, ``per_feature_split_categorical``, run over the categorical
@@ -77,6 +82,9 @@ class FeatureMeta(NamedTuple):
     # categorical features (BinType.CATEGORICAL); None when the data has
     # none, and the numerical finder then skips the mask
     is_categorical: Optional[torch.Tensor] = None  # [F] bool
+    # monotone_constraints (-1/0/+1), read where SplitParams.with_monotone
+    # is set; zeros when no constraint is set, None in a hand-built meta
+    monotone: Optional[torch.Tensor] = None       # [F] int64
 
 
 class SplitParams(NamedTuple):
@@ -96,6 +104,10 @@ class SplitParams(NamedTuple):
     # the inner indices of the categorical features, which the categorical
     # finder runs over; () = none, and the search is numerical only
     cat_features: tuple = ()
+    # some feature has a monotone constraint: the numerical finder rejects
+    # wrongly ordered splits by meta.monotone, and the growers carry and
+    # pass each leaf's output bounds; off, neither costs a launch
+    with_monotone: bool = False
 
 
 class BestSplit(NamedTuple):
@@ -147,16 +159,33 @@ def leaf_split_gain(sum_grad, sum_hess, l1: float, l2: float,
     return leaf_split_gain_given_output(sum_grad, sum_hess, l1, l2, out)
 
 
-def _split_gains(lg, lh, rg, rh, p: SplitParams):
-    """GetSplitGains without monotone constraints
-    (feature_histogram.hpp:465-478): (gain, left_output, right_output)."""
+def _clamp_outputs(lo, ro, min_c, max_c):
+    """Both outputs clamped to the leaf's bounds (``jnp.clip``); no bounds
+    (None) leaves them as they are."""
+    if min_c is None:
+        return lo, ro
+    return (torch.minimum(torch.maximum(lo, min_c), max_c),
+            torch.minimum(torch.maximum(ro, min_c), max_c))
+
+
+def _split_gains(lg, lh, rg, rh, p: SplitParams, min_c=None, max_c=None,
+                 monotone=None):
+    """GetSplitGains with monotone rejection (feature_histogram.hpp:
+    465-478): (gain, left_output, right_output). The outputs clamp to
+    ``[min_c, max_c]`` (tensors broadcasting against them, or None for no
+    bounds); where ``monotone`` (broadcasting, or None) is +1 and the left
+    output exceeds the right, or -1 and it falls below, the gain is 0."""
     lo = calculate_leaf_output(lg, lh, p.lambda_l1, p.lambda_l2,
                                p.max_delta_step)
     ro = calculate_leaf_output(rg, rh, p.lambda_l1, p.lambda_l2,
                                p.max_delta_step)
+    lo, ro = _clamp_outputs(lo, ro, min_c, max_c)
     gain = (leaf_split_gain_given_output(lg, lh, p.lambda_l1, p.lambda_l2, lo)
             + leaf_split_gain_given_output(rg, rh, p.lambda_l1, p.lambda_l2,
                                            ro))
+    if monotone is not None:
+        bad = ((monotone > 0) & (lo > ro)) | ((monotone < 0) & (lo < ro))
+        gain = torch.where(bad, 0.0, gain)
     return gain, lo, ro
 
 
@@ -182,12 +211,17 @@ def per_feature_split_numerical(hist: torch.Tensor, meta: FeatureMeta,
                                 params: SplitParams, sum_grad: torch.Tensor,
                                 sum_hess: torch.Tensor,
                                 num_data: torch.Tensor,
-                                feature_mask: torch.Tensor
+                                feature_mask: torch.Tensor,
+                                min_constraint: Optional[torch.Tensor] = None,
+                                max_constraint: Optional[torch.Tensor] = None
                                 ) -> PerFeatureSplit:
     """FindBestThresholdNumerical for every feature at once.
 
     hist [..., F, B, 3]; sum_grad, sum_hess, num_data [...] leaf totals;
-    feature_mask [F] bool. Threshold t means left = bins <= t.
+    feature_mask [F] bool; min_constraint, max_constraint [...] each
+    leaf's output bounds (None: unbounded). Threshold t means left = bins
+    <= t. Under ``params.with_monotone`` a split against its feature's
+    ``meta.monotone`` gets gain 0.
     """
     b = hist.shape[-2]
     dev = hist.device
@@ -217,6 +251,8 @@ def per_feature_split_numerical(hist: torch.Tensor, meta: FeatureMeta,
     gain_shift = leaf_split_gain(sg, sh, sp.lambda_l1, sp.lambda_l2,
                                  sp.max_delta_step)
     min_gain_shift = gain_shift + sp.min_gain_to_split
+    min_c, max_c = _bounds(min_constraint, max_constraint, 2)
+    mono = meta.monotone[:, None] if sp.with_monotone else None
 
     def eval_candidates(lg, lh, lc):
         rg_ = sg - lg
@@ -225,7 +261,7 @@ def per_feature_split_numerical(hist: torch.Tensor, meta: FeatureMeta,
         ok = ((lc >= sp.min_data_in_leaf) & (rc_ >= sp.min_data_in_leaf)
               & (lh >= sp.min_sum_hessian_in_leaf)
               & (rh_ >= sp.min_sum_hessian_in_leaf))
-        gain, lo, ro = _split_gains(lg, lh, rg_, rh_, sp)
+        gain, lo, ro = _split_gains(lg, lh, rg_, rh_, sp, min_c, max_c, mono)
         ok = ok & (gain > min_gain_shift)
         return torch.where(ok, gain, K_MIN_SCORE), lo, ro
 
@@ -289,12 +325,24 @@ def per_feature_split_numerical(hist: torch.Tensor, meta: FeatureMeta,
     )
 
 
-def _split_gains_l2(lg, lh, rg, rh, p: SplitParams, l2: float):
+def _bounds(min_constraint, max_constraint, trailing: int):
+    """[...] leaf bounds broadcast over ``trailing`` more dims, or
+    (None, None) when the leaves are unbounded."""
+    if min_constraint is None:
+        return None, None
+    at = (Ellipsis,) + (None,) * trailing
+    return min_constraint[at], max_constraint[at]
+
+
+def _split_gains_l2(lg, lh, rg, rh, p: SplitParams, l2: float, min_c=None,
+                    max_c=None):
     """GetSplitGains with an explicit l2 (the categorical finder adds
     cat_l2, feature_histogram.hpp:171): (gain, left_output,
-    right_output)."""
+    right_output), the outputs clamped to ``[min_c, max_c]`` as
+    ``_split_gains`` clamps them (no monotone rejection)."""
     lo = calculate_leaf_output(lg, lh, p.lambda_l1, l2, p.max_delta_step)
     ro = calculate_leaf_output(rg, rh, p.lambda_l1, l2, p.max_delta_step)
+    lo, ro = _clamp_outputs(lo, ro, min_c, max_c)
     gain = (leaf_split_gain_given_output(lg, lh, p.lambda_l1, l2, lo)
             + leaf_split_gain_given_output(rg, rh, p.lambda_l1, l2, ro))
     return gain, lo, ro
@@ -316,7 +364,9 @@ def per_feature_split_categorical(hist: torch.Tensor, meta: FeatureMeta,
                                   sum_grad: torch.Tensor,
                                   sum_hess: torch.Tensor,
                                   num_data: torch.Tensor,
-                                  feature_mask: torch.Tensor
+                                  feature_mask: torch.Tensor,
+                                  min_constraint: Optional[torch.Tensor] = None,
+                                  max_constraint: Optional[torch.Tensor] = None
                                   ) -> Tuple[PerFeatureSplit, torch.Tensor]:
     """FindBestThresholdCategorical (feature_histogram.hpp:110-271) for the
     categorical features ``params.cat_features`` at once (the JAX
@@ -337,6 +387,9 @@ def per_feature_split_categorical(hist: torch.Tensor, meta: FeatureMeta,
       cat_l2. That group count is a sequential scan: a loop of at most
       ``max_cat_threshold`` steps, each over every leaf, feature and
       direction at once.
+
+    Both generators clamp their outputs to the leaves' bounds
+    (``min_constraint``, ``max_constraint`` [...], None: unbounded).
     """
     dev = hist.device
     sp = params
@@ -366,8 +419,9 @@ def per_feature_split_categorical(hist: torch.Tensor, meta: FeatureMeta,
            & (h >= sp.min_sum_hessian_in_leaf)
            & (oh_c >= sp.min_data_in_leaf)
            & (oh_h >= sp.min_sum_hessian_in_leaf))
+    min1, max1 = _bounds(min_constraint, max_constraint, 2)
     gain1, lo1, ro1 = _split_gains_l2(g, h + K_EPSILON, oh_g, oh_h, sp,
-                                      sp.lambda_l2)
+                                      sp.lambda_l2, min1, max1)
     gain1 = torch.where(ok1 & (gain1 > min_gain_shift), gain1, K_MIN_SCORE)
     t1 = torch.argmax(gain1, dim=-1)                         # [..., Fc]
     onehot = (_take(gain1, t1), _take(g, t1), _take(h, t1), _take(c, t1),
@@ -420,8 +474,9 @@ def per_feature_split_categorical(hist: torch.Tensor, meta: FeatureMeta,
         cnt = torch.where(hit, zero, cnt)
         do_eval.append(hit)
     do_eval = torch.stack(do_eval, dim=-1)
+    min2, max2 = _bounds(min_constraint, max_constraint, 3)
     gain2, lo2, ro2 = _split_gains_l2(pg, ph, sg2 - pg, sh2 - ph, sp,
-                                      sp.lambda_l2 + sp.cat_l2)
+                                      sp.lambda_l2 + sp.cat_l2, min2, max2)
     gain2 = torch.where(do_eval & (gain2 > min_gain_shift[..., None]), gain2,
                         K_MIN_SCORE)
     ib = torch.argmax(gain2, dim=-1)                         # [..., Fc, 2]
@@ -460,20 +515,35 @@ def per_feature_split_categorical(hist: torch.Tensor, meta: FeatureMeta,
 def find_best_split(hist: torch.Tensor, meta: FeatureMeta,
                     params: SplitParams, sum_grad: torch.Tensor,
                     sum_hess: torch.Tensor, num_data: torch.Tensor,
-                    feature_mask: torch.Tensor) -> BestSplit:
+                    feature_mask: torch.Tensor,
+                    min_constraint: Optional[torch.Tensor] = None,
+                    max_constraint: Optional[torch.Tensor] = None,
+                    gain_penalty: Optional[torch.Tensor] = None
+                    ) -> BestSplit:
     """Best split over all features, numerical and (where
     ``params.cat_features`` lists any) categorical, each feature by its own
     finder (feature_histogram.hpp:68-108): the per-leaf SplitInfo argmax
-    (serial_tree_learner.cpp:506-591), over leading batch dims."""
+    (serial_tree_learner.cpp:506-591), over leading batch dims.
+
+    ``min_constraint``, ``max_constraint`` [...] bound each leaf's outputs
+    (monotone constraints; None: unbounded). ``gain_penalty`` [..., F] is
+    subtracted from each feature's best finite gain before the argmax, and
+    the penalised gain is the split's gain: the CEGB cost model
+    (serial_tree_learner.cpp:533-539)."""
     pf = per_feature_split_numerical(hist, meta, params, sum_grad, sum_hess,
-                                     num_data, feature_mask)
+                                     num_data, feature_mask, min_constraint,
+                                     max_constraint)
     cat = params.cat_features
     if cat:
         pfc, bitsets = per_feature_split_categorical(
-            hist, meta, params, sum_grad, sum_hess, num_data, feature_mask)
+            hist, meta, params, sum_grad, sum_hess, num_data, feature_mask,
+            min_constraint, max_constraint)
         cf = device_index(cat, hist.device)
         pf = PerFeatureSplit(*[nv.index_copy(-1, cf, cv)
                                for nv, cv in zip(pf, pfc)])
+    if gain_penalty is not None:
+        pf = pf._replace(gain=torch.where(torch.isfinite(pf.gain),
+                                          pf.gain - gain_penalty, pf.gain))
     best_f = torch.argmax(pf.gain, dim=-1)
     gain = _take(pf.gain, best_f)
     lg = _take(pf.left_sum_grad, best_f)

@@ -61,6 +61,18 @@ with ``tpu_batched_part=true``), 5 iterations.
   1 with ``metric=auc`` and prints the valid AUC after each iteration;
   gbdt and goss there stop early after 5 rounds (path 4zb), DART and RF
   keep every iteration. A DART run prints each iteration's drop set.
+- ``--constraint monotone|forced|cegb``: chip_smoke's constraint paths
+  4zh-4zm (``chip_smoke.CONSTRAINT_PATHS``, ``constraint_params``):
+  ``monotone`` trains objective=regression on the regression workload with
+  ``chip_smoke.MONOTONE_CONSTRAINTS`` and prints the train l2, the splits
+  of the trees on features 0 and 1 and the largest step against the
+  constraints on chip_smoke's grid; ``forced`` trains the binary workload
+  with chip_smoke's forced-splits file (written to a temporary directory)
+  and prints the AUC and each tree's nodes 0-3 beside the forced steps;
+  ``cegb`` trains the binary workload with ``chip_smoke.CEGB_PARAMS``
+  (``--cegb-penalty-split`` overrides its split penalty, to pick one) and
+  prints the AUC, each tree's leaves, the features the trees split on and
+  the final ``feature_used``.
 - ``--hist-impl scatter|matmul`` sets the JAX package's
   ``tpu_hist_impl``. ``auto`` (the default) is ``scatter`` on the CPU: one
   XLA scatter-add, a single running f32 sum per histogram cell, which
@@ -76,7 +88,8 @@ with ``tpu_batched_part=true``), 5 iterations.
         [--boosting gbdt|goss|dart|rf] [--bagging-fraction F] \
         [--bagging-freq K] [--feature-fraction F] [--top-rate F] \
         [--other-rate F] [--learning-rate F] [--drop-rate F] \
-        [--skip-drop F] [--rounds K]
+        [--skip-drop F] [--rounds K] [--constraint monotone|forced|cegb] \
+        [--cegb-penalty-split F]
 
 It runs on the CPU backend and prints one JSON line.
 """
@@ -117,6 +130,8 @@ def main() -> int:
     for name in sampling:
         ap.add_argument("--" + name.replace("_", "-"),
                         type=int if name == "bagging_freq" else float)
+    ap.add_argument("--constraint", choices=("monotone", "forced", "cegb"))
+    ap.add_argument("--cegb-penalty-split", type=float)
     args = ap.parse_args()
     multiclass = args.objective in ("multiclass", "multiclassova")
     if args.data == "ranking" and args.objective == "binary":
@@ -152,7 +167,42 @@ def main() -> int:
             return drops[-1]
         DART._dropping_trees = recorded
     t0 = time.time()
-    if args.fobj:
+    if args.constraint:
+        import tempfile
+        with tempfile.TemporaryDirectory() as tmp:
+            extra = chip_smoke.constraint_params(args.constraint, tmp)
+            if args.cegb_penalty_split is not None:
+                extra["cegb_penalty_split"] = args.cegb_penalty_split
+            params.update(extra)
+            if args.constraint == "monotone":
+                x, y = chip_smoke.regression_data(args.rows)
+            else:
+                x, y = chip_smoke.bench_data(args.rows)
+            bst = lgb.train(params, lgb.Dataset(x, label=y),
+                            num_boost_round=args.iters)
+        models = bst._impl.models
+        out.update(constraint=args.constraint,
+                   leaves=[int(t.num_leaves_actual) for t in models])
+        if args.constraint == "monotone":
+            (_, name, value, _), = bst.eval_train()
+            out.update(metric=name, train=value, splits_on={
+                str(f): int(sum((t.split_feature[:t.num_leaves_actual - 1]
+                                 == f).sum() for t in models))
+                for f in (0, 1)},
+                violation=chip_smoke.monotone_violation(
+                    lambda p: bst.predict(p, raw_score=True), x))
+        else:
+            out["auc"] = chip_smoke.auc(
+                np.asarray(bst.predict(x), np.float64), y)
+        if args.constraint == "forced":
+            out["nodes"], out["forced"] = chip_smoke.forced_nodes(
+                models, bst._impl.train_data)
+        if args.constraint == "cegb":
+            out.update(cegb_penalty_split=params["cegb_penalty_split"],
+                       split_features=chip_smoke.split_features(models),
+                       feature_used=np.flatnonzero(np.asarray(
+                           bst._impl._cegb_state.feature_used)).tolist())
+    elif args.fobj:
         if args.data != "dense" or args.objective != "binary":
             ap.error("--fobj takes bench.py's binary labels")
         x, y = chip_smoke.bench_data(args.rows)

@@ -759,7 +759,9 @@ def test_categorical_training_on_the_card(cuda_device, growth, counter):
     cpu = tlgb.train(params, tlgb.Dataset(x, label=y, categorical_feature=cat,
                                           device="cpu"),
                      num_boost_round=3, device="cpu")
-    if chip_smoke.trees_match(bst.models, cpu.models, categorical=True):
+    if chip_smoke.trees_match(
+            bst.models, cpu.models, parting=chip_smoke.CAT_PARTING,
+            x=torch.as_tensor(x, dtype=torch.float64)):
         np.testing.assert_allclose(bst.predict(x, raw_score=True),
                                    cpu.predict(x, raw_score=True), rtol=0,
                                    atol=1e-5)
@@ -1001,7 +1003,84 @@ def test_sampled_training_on_the_card(cuda_device, mode, growth, counter):
     # (chip_smoke.trees_match)
     sampled = (mode.get("boosting") == "goss"
                or mode.get("bagging_freq", 0) > 0)
-    if chip_smoke.trees_match(bst.models, cpu.models, sampled=sampled):
+    if chip_smoke.trees_match(
+            bst.models, cpu.models, regrow_gain_rel=(
+                chip_smoke.SAMPLED_TIE_GAIN_REL if sampled else None)):
+        np.testing.assert_allclose(bst.predict(x, raw_score=True),
+                                   cpu.predict(x, raw_score=True), rtol=0,
+                                   atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaf_rows", [4_096, 262_144])
+def test_hist_for_leaf_matches_plain(cuda_device, leaf_rows):
+    """A forced split's rebuild of one leaf (``hist_for_leaf``) on the card
+    at 1,000,000 rows: the leaf's range, gathered with its sibling's, through
+    histogram.cu's leaf wrapper, against the plain version over the same
+    range: |kernel - plain| <= 1e-5 * sum_bin|v| + 1e-6, the count channel
+    exact and equal to the leaf's rows, one launch of the leaf wrapper and
+    none of the split pass's."""
+    from lightgbm_tpu_torch.core import partition as tp
+    n, f, b = 1_000_000, 28, 255
+    r = np.random.RandomState(leaf_rows)
+    xb, vals = _inputs(n, f, b, 3, seed=leaf_rows)
+    vals = _count_channels(vals)
+    begin = int(r.randint(0, n - 2 * leaf_rows))
+    order = torch.as_tensor(r.permutation(n))
+    part = tp.RowPartition(order, torch.tensor([0, begin + leaf_rows]),
+                           torch.tensor([n - leaf_rows, leaf_rows]))
+    leaf = torch.ones(1, dtype=torch.int64)
+    args = (begin, 2 * leaf_rows)
+    want = tp.hist_for_leaf(part, leaf, *args, torch.as_tensor(xb),
+                            torch.as_tensor(vals), b, "auto").numpy()
+    absum = tp.hist_for_leaf(part, leaf, *args, torch.as_tensor(xb),
+                             torch.as_tensor(np.abs(vals)), b,
+                             "auto").numpy()
+    on_card = tp.RowPartition(*(a.to(cuda_device) for a in part))
+    before = (kernels.build_histogram_leaf_cuda.launches,
+              kernels.build_histogram_cuda.launches)
+    got = tp.hist_for_leaf(on_card, leaf.to(cuda_device), *args,
+                           torch.as_tensor(xb, device=cuda_device),
+                           torch.as_tensor(vals, device=cuda_device), b,
+                           "auto").cpu().numpy()
+    assert (kernels.build_histogram_leaf_cuda.launches,
+            kernels.build_histogram_cuda.launches) == (before[0] + 1,
+                                                       before[1])
+    assert got.shape == (f, b, 3)
+    assert (np.abs(got - want) <= 1e-5 * absum + 1e-6).all()
+    np.testing.assert_array_equal(got[..., 2], want[..., 2])
+    rows = order.numpy()[begin + leaf_rows:begin + 2 * leaf_rows]
+    assert got[0, :, 2].sum() == vals[rows, 2].sum()
+
+
+@pytest.mark.cuda
+def test_constraints_train_on_the_card(cuda_device, tmp_path):
+    """Monotone constraints through the exact grower, forced splits (the
+    hist_for_leaf route) and CEGB with lazy costs on the card at 20,000
+    rows: the forced nodes, a monotone model, and the trees of the same
+    run on the CPU up to f32 gain ties."""
+    import json
+    import chip_smoke
+    x, y = chip_smoke.bench_data(20_000)
+    path = tmp_path / "forced.json"
+    path.write_text(json.dumps(chip_smoke.FORCED_SPLITS))
+    params = {"objective": "binary", "num_leaves": 31,
+              "min_data_in_leaf": 40, "verbosity": -1,
+              "monotone_constraints": chip_smoke.MONOTONE_CONSTRAINTS,
+              "forcedsplits_filename": str(path),
+              "cegb_penalty_split": 0.002,
+              "cegb_penalty_feature_lazy": [1e-3] * 28}
+    before = kernels.build_histogram_leaf_cuda.launches
+    bst = tlgb.train(params, tlgb.Dataset(x, label=y), num_boost_round=4)
+    assert kernels.build_histogram_leaf_cuda.launches - before == 16
+    got, want = chip_smoke.forced_nodes(bst.models, bst._impl.train_data)
+    assert got == [want] * 4
+    assert bst._impl._cegb.state.row_used.device.type == "cuda"
+    assert chip_smoke.monotone_violation(
+        lambda p: bst.predict(p, raw_score=True), x) <= 1e-6
+    cpu = tlgb.train(params, tlgb.Dataset(x, label=y, device="cpu"),
+                     num_boost_round=4, device="cpu")
+    if chip_smoke.trees_match(bst.models, cpu.models):
         np.testing.assert_allclose(bst.predict(x, raw_score=True),
                                    cpu.predict(x, raw_score=True), rtol=0,
                                    atol=1e-4)

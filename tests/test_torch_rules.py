@@ -96,9 +96,6 @@ def _data(n=400):
 
 
 OUTSIDE_SLICE = {
-    "monotone": ({"monotone_constraints": [1, 0, 0, 0]}, None),
-    "forced_splits": ({"forcedsplits_filename": "forced.json"}, None),
-    "cegb": ({"cegb_penalty_split": 0.5}, None),
     "gpu_use_dp": ({"gpu_use_dp": True}, None),
     # frontier, batched and partitioned batched growth are in the slice;
     # packed bin words and model statistics on the partitioned step are not
@@ -323,6 +320,38 @@ def test_boosting_modes_train(mode):
     if mode == "rf":
         assert impl.average_output and "average_output" in \
             bst.model_to_string()
+
+
+# split-selection options the port once refused (ROADMAP Queue 1 #4/#6):
+# monotone constraints, forced splits (a file, written per test) and CEGB
+NOW_CONSTRAINS = {
+    "monotone": {"monotone_constraints": [1, 0, 0, 0]},
+    "forced_splits": {"forcedsplits_filename": "forced.json"},
+    "cegb": {"cegb_penalty_split": 0.5},
+}
+
+
+@pytest.mark.parametrize("option", sorted(NOW_CONSTRAINS))
+def test_split_constraints_train(option, tmp_path):
+    params = dict(NOW_CONSTRAINS[option], objective="binary", verbosity=-1)
+    if option == "forced_splits":
+        path = tmp_path / params["forcedsplits_filename"]
+        path.write_text('{"feature": 1, "threshold": 0.0}')
+        params["forcedsplits_filename"] = str(path)
+    x, y = _data()
+    bst = tlgb.train(params, tlgb.Dataset(x, label=y, device="cpu"),
+                     num_boost_round=2, device="cpu")
+    impl = bst._impl
+    assert len(bst.models) == 2
+    assert np.isfinite(bst.predict(x)).all()
+    if option == "monotone":
+        assert impl.grow_params.split.with_monotone
+        assert impl.feature_meta.monotone.tolist() == [1, 0, 0, 0]
+    elif option == "forced_splits":
+        assert all(int(t.split_feature[0]) == 1 for t in bst.models)
+    else:
+        assert impl._cegb is not None
+        assert impl._cegb.state.feature_used.any()
 
 
 @pytest.mark.parametrize("kind", sorted(NOW_TRAINED))
