@@ -30,7 +30,13 @@ and prints no result line):
    one leaf for a forced split (``hist_for_leaf``: histogram.cu through
    its own wrapper, K=3) at 1,000,000 rows, a leaf of 4,096 and one of
    262,144 rows gathered with its sibling's (LEAF_SHAPES), its count
-   channel exact; and one bagging
+   channel exact; histogram.cu's float64 variant (``gpu_use_dp``) at the
+   root (1,000,000 x 28, K=3) and at split passes of 4,096 and 262,144 rows
+   (K=6), both variants forced at each, and through ``hist_for_leaf`` at
+   LEAF_SHAPES, held to the plain version in float64 (the count channel
+   exact, the others within 1e-12 * sum_bin|v| + 1e-300) and timed
+   against its bound (float64 additions at 34 TFLOP/s) and one float64
+   ``index_add_``; and one bagging
    draw of 1,000,000 threefry uniforms (``random.py``, torch ops), timed
    and held bit-equal to the same draw on the CPU;
 4. the main paths at full width, one per growth mode: bench.py's workload
@@ -194,7 +200,16 @@ and prints no result line):
    final ``feature_used``, the lazy state a [28, 1,000,000] uint8 table on
    the card; each prints its seconds, launches and syncs an iteration
    beside the dense binary path of its growth mode;
-   every path of 4a-4d, 4m-4za and 4zb-4zm also trains one more iteration
+   then the float64 paths (F64_PATHS, Queue 1 #3), exact growth with
+   float64 histograms through histogram.cu's f64 variant on data phase 4
+   already binned: 4zn ``gpu_use_dp=true`` binary on bench.py's data (after
+   4zl-4zm), 4zo ``tpu_hist_dtype=float64`` on the categorical data (after
+   4m-4p) and 4zp ``gpu_use_dp=true`` lambdarank on the ranking data
+   (after 4zg); each launches the f64 kernel once per histogram pass and
+   no other kernel, holds the JAX package's f64 constant (AUC within 1e-5
+   absolute, ndcg@1/3/5 within 1e-5 relative) and prints its s/iter,
+   launches and syncs beside 4a, 4m and 4v;
+   every path of 4a-4d, 4m-4za and 4zb-4zp also trains one more iteration
    under torch.profiler and prints its CUDA kernel launches and
    synchronisations;
 5. the kernel path against the plain path on the card (200,000 rows, 2
@@ -217,10 +232,14 @@ and prints no result line):
    the splits both made before it too), and the trees after a tree that
    differs regrow (SAMPLED_TIE_GAIN_REL); from there they are held to
    their AUC; and exact with forced splits and CEGB, held to the tie rule
-   and F64_RAW_TOL;
+   and F64_RAW_TOL; and on the dense and the bundled data, exact growth
+   with ``gpu_use_dp=true``: the f64 kernel path, the f64 kernel path
+   again and the f64 plain path, every pair's trees identical node for
+   node with no tie rule and raw predictions within 1e-6;
 6. a ``kernels`` JSON line (each kernel's launches summed over every
    path of phase 4; histogram.cu's launches through ``hist_for_leaf`` as
-   the entry ``histogram_leaf``), the card line, and the result line
+   the entry ``histogram_leaf``, its float64 variant's as
+   ``histogram_f64``), the card line, and the result line
    ``{"ok": true, "device": {...}}``. No grower calls the in-tile
    partition (nor does the JAX package's), so its entry's path launches
    are 0 and its phase-3 calls are its only launches.
@@ -671,6 +690,32 @@ JAX_CONSTRAINT_METRIC = {
     "4zm": {"auc": 0.8583862264963518, "leaves": [32, 22, 11, 4, 4],
             "split_features": [0, 1, 2, 3], "feature_used": [0, 1, 2, 3]},
 }
+# the float64 paths of phase 4 (Queue 1 #3): exact growth with float64
+# histograms, each on data phase 4 already binned: (the spelling of f64,
+# the data, the f32 path of the same data and growth it is printed beside)
+F64_PATHS = {"4zn": ({"gpu_use_dp": True}, "dense", "exact"),
+             "4zo": ({"tpu_hist_dtype": "float64"}, "categorical", "4m"),
+             "4zp": ({"gpu_use_dp": True}, "ranking", "4v")}
+# The JAX package's train metrics on the f64 paths, taken on the CPU
+# backend (its f64 histograms are an XLA scatter in float64 there, no
+# drift) by
+#   JAX_PLATFORMS=cpu python scripts/jax_reference_auc.py --gpu-use-dp
+#   JAX_PLATFORMS=cpu python scripts/jax_reference_auc.py \
+#       --hist-dtype float64 --data categorical
+#   JAX_PLATFORMS=cpu python scripts/jax_reference_auc.py --gpu-use-dp \
+#       --data ranking
+JAX_F64_METRIC = {"4zn": {"auc": 0.9623968615768451},
+                  "4zo": {"auc": 0.9201280032333901},
+                  "4zp": {"ndcg@1": 0.8865863041805594,
+                          "ndcg@3": 0.9125385135134905,
+                          "ndcg@5": 0.9253591660621158}}
+# f64 sums leave the trees no f32 gain tie to part at, so the train
+# metrics are the JAX package's up to the rounding of f32 leaf values and
+# the gradients' ulps: AUC absolute, ndcg relative. On the categorical
+# data a one-vs-rest split and its mirror tie exactly in any precision; a
+# mirror sends the same rows the same way, so the AUC does not see it
+F64_AUC_TOL = 1e-5
+F64_NDCG_REL_TOL = 1e-5
 # monotone paths' predictions on a grid: MONO_GRID points along feature 0,
 # then along feature 1, at each of MONO_GRID_ROWS training rows, must move
 # the constraint's way within MONO_GRID_TOL
@@ -773,6 +818,14 @@ PART_SHAPES = [("A", 1, 1.0), ("B", 16, 1.0), ("C", 16, 0.5),
 REPACK_SHAPE = (1_048_576, 128, 512, 0.3)
 MEM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+F64_OPS_PER_S = 34e12         # H100 SXM float64 outside the tensor cores
+# histogram.cu's float64 variant (gpu_use_dp): the root and split passes of
+# exact growth (n, F, B, K), each variant forced at each, and through
+# hist_for_leaf at LEAF_SHAPES; |kernel - plain| <= rel * sum_bin|v| + abs
+# against the plain version in float64, the count channel exact
+F64_HIST_SHAPES = [(1_000_000, 28, 255, 3), (4_096, 28, 255, 6),
+                   (262_144, 28, 255, 6)]
+F64_HIST_REL_TOL, F64_HIST_ABS_TOL = 1e-12, 1e-300
 L2_FLUSH_BYTES = 64 << 20     # more than the 50 MB L2
 
 
@@ -1023,10 +1076,11 @@ def time_ms(fn, flush, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: int, ops: int):
+def bound(nbytes: int, ops: int, ops_per_s: float = F32_OPS_PER_S):
     """(bound ms, what bounds it): the larger of the bytes over the memory
-    rate and the float32 additions over the card's float32 rate."""
-    by_bytes, by_ops = nbytes / MEM_BYTES_PER_S, ops / F32_OPS_PER_S
+    rate and the additions over the card's rate for their type (float32
+    by default)."""
+    by_bytes, by_ops = nbytes / MEM_BYTES_PER_S, ops / ops_per_s
     return (max(by_bytes, by_ops) * 1e3,
             "bytes" if by_bytes >= by_ops else "operations")
 
@@ -1260,6 +1314,134 @@ def check_leaf_histogram(dev, flush):
                row["bound_ms"], row["bound_by"]))
         rows.append(row)
         del part, xb, v, want, absum, got, d, src_rows, src_vals, flat, src
+    return rows
+
+
+def check_f64_result(got, want, absum, what: str) -> float:
+    """Raises unless the f64 kernel's ``got`` is within F64_HIST_REL_TOL *
+    sum_bin|v| + F64_HIST_ABS_TOL of the float64 plain ``want`` in every
+    cell, its count channels exact; returns the largest difference."""
+    if got.dtype != torch.float64:
+        raise AssertionError("%s returned %s" % (what, got.dtype))
+    d = (got - want).abs()
+    bad = int((d > F64_HIST_REL_TOL * absum + F64_HIST_ABS_TOL).sum())
+    counts_exact = torch.equal(got[..., 2::3], want[..., 2::3])
+    if bad or not counts_exact:
+        raise AssertionError("%s disagrees with the float64 plain version "
+                             "in %d cells (count channel exact: %s)"
+                             % (what, bad, counts_exact))
+    return float(d.max())
+
+
+def check_histogram_f64(dev, flush):
+    """Phase 3: histogram.cu's float64 variant (``build_histogram_f64_cuda``,
+    the wrapper exact growth calls under ``gpu_use_dp``) against the plain
+    version in float64, each variant forced at each of F64_HIST_SHAPES
+    (the plan's choice is the main path's), then through ``hist_for_leaf``
+    at LEAF_SHAPES (``build_histogram_leaf_f64_cuda``); each timed against
+    its bound (bytes n*F + 8*n*K + 8*F*B*K, or n*F*K float64 additions at
+    F64_OPS_PER_S) and one float64 ``index_add_`` on a prebuilt index."""
+    rows = []
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n, f, b, k in F64_HIST_SHAPES:
+        xb_np, vals = hist_inputs(np.random.RandomState(n + k), n, f, b, k)
+        xb = torch.as_tensor(xb_np, device=dev)
+        v = torch.as_tensor(vals.astype(np.float64), device=dev)
+        want = hist.hist_tile_vals(xb, v, b, "plain")
+        absum = hist.hist_tile_vals(xb, v.abs(), b, "plain")
+        picked = kernels.hist_launch_plan(n, f, b, k, sm, None, 8)
+        err, variants = None, {}
+        for variant in kernels.HIST_VARIANTS:
+            def call(variant=variant):
+                return kernels.build_histogram_f64_cuda(xb, v, b, variant)
+            got = call()
+            torch.cuda.synchronize()
+            e = check_f64_result(got, want, absum, "histogram f64 kernel "
+                                 "(%s) at n=%d K=%d" % (variant, n, k))
+            plan = kernels.hist_launch_plan(n, f, b, k, sm, variant, 8)
+            variants[variant] = {"ms": time_ms(call, flush),
+                                 "device_ms": device_ms(call, flush),
+                                 "feature_tiles": plan.grid_x,
+                                 "replicas": plan.replicas}
+            if variant == picked.variant:
+                err = e
+        flat = (xb.to(torch.int64)
+                + torch.arange(f, device=dev) * b).reshape(-1)
+        src = v.unsqueeze(1).expand(n, f, k).reshape(n * f, k).contiguous()
+
+        def library():
+            return torch.zeros((f * b, k), dtype=torch.float64,
+                               device=dev).index_add_(0, flat, src)
+        bound_ms, bound_by = bound(kernels.hist_bytes(n, f, b, k, 8),
+                                   n * f * k, F64_OPS_PER_S)
+        row = {"n": n, "F": f, "B": b, "K": k, "dtype": "float64",
+               "variant": picked.variant, "max_abs_err": err,
+               "ms": variants[picked.variant]["ms"],
+               "device_ms": variants[picked.variant]["device_ms"],
+               "variants": variants,
+               "plain_ms": time_ms(lambda: hist.hist_tile_vals(
+                   xb, v, b, "plain"), flush),
+               "library_ms": time_ms(library, flush),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        log("hist f64 n=%d F=%d B=%d K=%d (%s): max_abs_err=%.3g, count "
+            "channel exact, kernel %.4f ms (variants, event / device ms, "
+            "feature tiles x replicas: %s), plain %.4f ms, index_add_ f64 "
+            "%.4f ms, bound %.4f ms (%s)"
+            % (n, f, b, k, picked.variant, err, row["ms"],
+               ", ".join("%s %.4f / %s, %d x %d" % (
+                   name, t["ms"], fmt(t["device_ms"]), t["feature_tiles"],
+                   t["replicas"]) for name, t in variants.items()),
+               row["plain_ms"], row["library_ms"], bound_ms, bound_by))
+        rows.append(row)
+        del xb, v, got, want, absum, flat, src
+    for n, f, b, leaf_rows in LEAF_SHAPES:
+        part, leaf, begin, count, xb, v32 = leaf_inputs(dev, n, f, b,
+                                                        leaf_rows)
+        v = v32.double()
+        before = (kernels.build_histogram_leaf_f64_cuda.launches,
+                  kernels.build_histogram_f64_cuda.launches)
+
+        def call(impl="auto", vals=v):
+            return partition.hist_for_leaf(part, leaf, begin, count, xb,
+                                           vals, b, impl)
+        got = call()
+        torch.cuda.synchronize()
+        if (kernels.build_histogram_leaf_f64_cuda.launches,
+                kernels.build_histogram_f64_cuda.launches) != (
+                before[0] + 1, before[1]):
+            raise AssertionError("hist_for_leaf in float64 did not go "
+                                 "through the f64 leaf wrapper alone")
+        err = check_f64_result(got, call("plain"), call("plain", v.abs()),
+                               "hist_for_leaf f64 at a leaf of %d rows"
+                               % leaf_rows)
+        idx = part.order[begin:begin + count]
+        inside = ((torch.arange(begin, begin + count, device=dev)
+                   >= begin + leaf_rows)[:, None])
+        src_rows = xb.index_select(0, idx)
+        flat = (src_rows.to(torch.int64)
+                + torch.arange(f, device=dev) * b).reshape(-1)
+        src = torch.where(inside, v.index_select(0, idx), 0.0).unsqueeze(
+            1).expand(count, f, 3).reshape(count * f, 3).contiguous()
+
+        def library():
+            return torch.zeros((f * b, 3), dtype=torch.float64,
+                               device=dev).index_add_(0, flat, src)
+        nbytes = leaf_rows * 8 + kernels.hist_bytes(leaf_rows, f, b, 3, 8)
+        bound_ms, bound_by = bound(nbytes, leaf_rows * f * 3, F64_OPS_PER_S)
+        row = {"n": n, "F": f, "B": b, "K": 3, "dtype": "float64",
+               "route": "hist_for_leaf", "leaf_rows": leaf_rows,
+               "gathered_rows": count, "max_abs_err": err,
+               "ms": time_ms(call, flush),
+               "plain_ms": time_ms(lambda: call("plain"), flush),
+               "library_ms": time_ms(library, flush),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        log("hist_for_leaf f64 n=%d F=%d B=%d K=3, leaf %d of %d gathered "
+            "rows: max_abs_err=%.3g, count channel exact, kernel %.4f ms, "
+            "plain %.4f ms, index_add_ f64 %.4f ms, bound %.4f ms (%s)"
+            % (n, f, b, leaf_rows, count, err, row["ms"], row["plain_ms"],
+               row["library_ms"], bound_ms, bound_by))
+        rows.append(row)
+        del part, xb, v, v32, got, flat, src, src_rows
     return rows
 
 
@@ -1711,6 +1893,8 @@ def check_stored_kernels(dev, flush, stored: np.ndarray, data: str,
 
 # the kernel wrappers, each with its launch count
 COUNTED = (kernels.build_histogram_cuda, kernels.build_histogram_leaf_cuda,
+           kernels.build_histogram_f64_cuda,
+           kernels.build_histogram_leaf_f64_cuda,
            kernels.build_histogram_slots_cuda,
            kernels.build_histogram_slots6_cuda,
            kernels.build_histogram_part_tiles_cuda,
@@ -1770,6 +1954,8 @@ def check_path_launches(label: str, growth: str, bst, launches,
     if launches["build_histogram_cuda"] < len(bst.models):
         raise AssertionError("path %s built fewer root histograms than "
                              "trees" % label)
+    if launches["build_histogram_f64_cuda"]:
+        raise AssertionError("f32 path %s launched the f64 kernel" % label)
     if growth == "batched_part" and launches[WAVE_KERNEL[growth]] != steps:
         raise AssertionError("path %s launched the part kernel %d times in "
                              "%d steps" % (label,
@@ -1846,6 +2032,79 @@ def iteration_counts(label: str, bst, fobj=None) -> dict:
     log("path %s: one more iteration under the profiler: %d kernel "
         "launches, %d synchronisations (%.1f s, the count included)"
         % (label, out["launches_per_iter"], out["syncs_per_iter"], seconds))
+    return out
+
+
+def drive_f64_path(label: str, ds, x, y, dense: dict) -> dict:
+    """Phase 4zn-4zp: exact growth with float64 histograms (F64_PATHS) at
+    full width on a data set phase 4 already binned (``y`` its labels,
+    None for the ranking data), with the launch counts set to 0 just
+    before and read just after: every histogram pass through the f64
+    kernel and none through the f32 one, the train metric held to the
+    JAX package's f64 constant, s/iter, launches and syncs beside
+    ``dense``, the f32 path of the same data and growth."""
+    extra, data, beside = F64_PATHS[label]
+    params = dict(PARAMS, **GROWTH_PARAMS["exact"], **extra)
+    if data == "ranking":
+        params.update(RANKING_PARAMS)
+    bst, train_s, launches, _ = train_counted(params, ds)
+    if bst._impl.grow_params.hist_dtype != "f64":
+        raise AssertionError("path %s did not grow in float64" % label)
+    f64_passes = launches["build_histogram_f64_cuda"]
+    others = {k: v for k, v in launches.items()
+              if v and k != "build_histogram_f64_cuda"}
+    splits = sum(t.num_leaves_actual - 1 for t in bst.models)
+    if f64_passes != splits + len(bst.models) or others:
+        raise AssertionError("path %s: %d f64 histogram passes for %d "
+                             "trees of %d splits, other kernels %s"
+                             % (label, f64_passes, len(bst.models), splits,
+                                others))
+    if len(bst.models) != NUM_ITERS:
+        raise AssertionError("expected %d trees, got %d"
+                             % (NUM_ITERS, len(bst.models)))
+    want = JAX_F64_METRIC[label]
+    if data == "ranking":
+        got = {m: v for _, m, v, _ in bst.eval_train()}
+        off = {m: abs(got[m] - w) / w for m, w in want.items()}
+        ok = max(off.values()) <= F64_NDCG_REL_TOL
+    else:
+        prob = bst.predict(x)
+        if prob.shape != (len(x),) or not np.isfinite(prob).all():
+            raise AssertionError("predictions are not finite [n] "
+                                 "probabilities")
+        got = {"auc": auc(prob, y)}
+        off = {"auc": abs(got["auc"] - want["auc"])}
+        ok = off["auc"] <= F64_AUC_TOL
+    log("path %s (%s, %s data): train %.2f s (%.3f s per iteration), "
+        "leaves %s, train %s against the JAX package's %s (off by %s), "
+        "launches %s" % (label, extra, data, train_s,
+                         train_s / len(bst.models),
+                         [t.num_leaves_actual for t in bst.models],
+                         {m: round(v, 10) for m, v in got.items()}, want,
+                         {m: "%.3g" % v for m, v in off.items()},
+                         {k: v for k, v in launches.items() if v}))
+    if not ok:
+        raise AssertionError("path %s: train metrics %s are off the JAX "
+                             "package's %s by %s (limits: AUC %g absolute, "
+                             "ndcg %g relative)" % (label, got, want, off,
+                                                   F64_AUC_TOL,
+                                                   F64_NDCG_REL_TOL))
+    out = {"growth": "exact", "data": data, "params": extra,
+           "train_s": train_s, "s_per_iter": train_s / len(bst.models),
+           "train": got, "jax": want, "off": off,
+           "leaves": [t.num_leaves_actual for t in bst.models],
+           "launches": launches}
+    out.update(iteration_counts(label, bst))
+    log("path %s against %s (the same data and growth in f32): %.3f against "
+        "%.3f s per iteration (%.2fx), %d against %d launches and %d "
+        "against %d syncs an iteration" % (
+            label, beside, out["s_per_iter"], dense["s_per_iter"],
+            out["s_per_iter"] / dense["s_per_iter"],
+            out["launches_per_iter"], dense["launches_per_iter"],
+            out["syncs_per_iter"], dense["syncs_per_iter"]))
+    out["beside"] = {"path": beside, "s_per_iter": dense["s_per_iter"],
+                     "launches_per_iter": dense["launches_per_iter"],
+                     "syncs_per_iter": dense["syncs_per_iter"]}
     return out
 
 
@@ -3034,6 +3293,9 @@ def drive_ranking_workloads(paths: dict, dev) -> dict:
     paths["4zg"] = drive_ranking_path("4zg", ds, x_rank,
                                       paths[SAMPLING_PATHS["4zg"][0]])
     paths["4zg"]["binning_s"] = binning_s
+    # 4zp: float64 histograms on the same binned data
+    paths["4zp"] = drive_f64_path("4zp", ds, x_rank, None, paths["4v"])
+    paths["4zp"]["binning_s"] = binning_s
     del ds, valid
     x_xe, y_xe, w_xe = xentropy_data(MAIN_ROWS)
     for label, (growth, _, weighted) in XENTROPY_PATHS.items():
@@ -3182,6 +3444,81 @@ def compare_paths(ds, xs, ys, raw_tol: float = 1e-5, runs=COMPARE_RUNS,
                                      % (label, name, AUC_TOLERANCE))
             out[label][name] = {"identical": identical,
                                 "max_raw_diff": raw_diff, "ties": ties}
+    return out
+
+
+# phase 5's float64 rows (gpu_use_dp, exact growth) on COMPARE_ROWS of the
+# dense and the bundled data: the f64 kernel path twice and the f64 plain
+# path, trees identical node for node with no tie rule, raw predictions
+# within F64_COMPARE_RAW_TOL. The kernels' f64 atomics add in another order
+# each run, but round at 2^-53: no gain tie of f32 sums is left, and each
+# leaf value is rounded to f32 once
+F64_COMPARE_RAW_TOL = 1e-6
+STRICT_FIELDS = ("split_feature", "threshold_bin", "default_left",
+                 "left_child", "right_child", "split_leaf",
+                 "cat_bitset_bin")
+
+
+def first_difference(a, b):
+    """(tree, node) where forests ``a`` and ``b`` first differ node for node
+    (STRICT_FIELDS, and the trees' sizes), None where they never do."""
+    for i, (ta, tb) in enumerate(zip(a, b)):
+        nn = min(ta.num_leaves_actual, tb.num_leaves_actual) - 1
+        for j in range(nn):
+            if not all(np.array_equal(getattr(ta, k)[j], getattr(tb, k)[j])
+                       for k in STRICT_FIELDS):
+                return i, j
+        if ta.num_leaves_actual != tb.num_leaves_actual:
+            return i, nn
+    return None
+
+
+def compare_f64(ds, xs, data: str) -> dict:
+    """Phase 5's f64 rows on ``ds`` (rows ``xs``): the f64 kernel path,
+    again, and the f64 plain path, COMPARE_ITERS iterations each with the
+    launch counts set to 0 just before and read just after. Raises unless
+    every pair's trees are identical node for node (where they are not,
+    it logs the first node that differs: both splits' gains, leaves and
+    rows) and their raw predictions within F64_COMPARE_RAW_TOL."""
+    params = dict(PARAMS, gpu_use_dp=True, **GROWTH_PARAMS["exact"])
+    forests, launches = {}, {}
+    for name, impl in (("kernel", "auto"), ("kernel again", "auto"),
+                       ("plain_f64", "plain")):
+        reset_counts()
+        forests[name] = train_compared(dict(params, tpu_hist_impl=impl), ds,
+                                       False)
+        counts = read_counts()
+        n64 = counts["build_histogram_f64_cuda"]
+        if (n64 > 0) != (impl == "auto") or sum(counts.values()) != n64:
+            raise AssertionError("f64 %s path on the %s data launched %s"
+                                 % (name, data, counts))
+        launches[name] = n64
+    raw = {name: f.predict(xs, raw_score=True) for name, f in forests.items()}
+    out = {"launches": launches["kernel"]}
+    for other in ("kernel again", "plain_f64"):
+        at = first_difference(forests["kernel"].models, forests[other].models)
+        raw_diff = float(np.abs(raw["kernel"] - raw[other]).max())
+        if at is not None:
+            i, j = at
+            ta, tb = forests["kernel"].models[i], forests[other].models[i]
+            log("f64 kernel vs %s path on the %s data: tree %d parts at "
+                "node %d: (leaf, feature, bin, gain, rows) %s against %s"
+                % (other, data, i, j, *[
+                    (int(t.split_leaf[j]), int(t.split_feature[j]),
+                     int(t.threshold_bin[j]), float(t.split_gain[j]),
+                     int(t.internal_count[j])) if j < t.num_leaves_actual - 1
+                    else None for t in (ta, tb)]))
+            raise AssertionError("f64 kernel and %s trees differ on the %s "
+                                 "data (no tie rule holds f64 rows)"
+                                 % (other, data))
+        log("f64 kernel vs %s path on the %s data (%d rows, exact): trees "
+            "identical node for node, max raw prediction diff %.3g, "
+            "build_histogram_f64_cuda launches %d"
+            % (other, data, len(xs), raw_diff, launches["kernel"]))
+        if raw_diff > F64_COMPARE_RAW_TOL:
+            raise AssertionError("f64 %s: identical trees but raw predictions "
+                                 "%.3g apart" % (other, raw_diff))
+        out[other] = {"identical": True, "max_raw_diff": raw_diff}
     return out
 
 
@@ -3445,6 +3782,7 @@ def run(tmp: str) -> int:
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     hist_rows = check_histogram_kernel(dev, flush)
     leaf_rows = check_leaf_histogram(dev, flush)
+    f64_rows = check_histogram_f64(dev, flush)
     slot_rows = check_slot_kernels(dev, flush)
     part_rows = check_part_kernel(dev, flush)
     repack_rows = check_partition_kernel(dev, flush)
@@ -3477,6 +3815,10 @@ def run(tmp: str) -> int:
         if kind != "monotone":
             paths[label] = drive_constraint_path(label, ds, x, y,
                                                  paths[growth], tmp)
+
+    log_phase(t_start, "4zn. float64 histograms on the same data")
+    # ---- 4zn. float64 histograms on the same data ----------------------
+    paths["4zn"] = drive_f64_path("4zn", ds, x, y, paths["exact"])
     del ds, valid
     x, t = regression_data(MAIN_ROWS)
     xv, tv = regression_data(VALID_ROWS, seed=1)
@@ -3546,6 +3888,9 @@ def run(tmp: str) -> int:
         paths[label] = drive_categorical_path(
             label, ds, x_cat, y_cat, (valid, xv) if label == "4m" else None)
         paths[label]["binning_s"] = binning_s
+    log_phase(t_start, "4zo. float64 histograms on the categorical data")
+    paths["4zo"] = drive_f64_path("4zo", ds, x_cat, y_cat, paths["4m"])
+    paths["4zo"]["binning_s"] = binning_s
     largest = max(paths[label]["splits_on"]["max_category"]
                   for label in CATEGORICAL_PATHS)
     if largest < 256:
@@ -3609,11 +3954,14 @@ def run(tmp: str) -> int:
         "constraints, and forced splits with CEGB:" % len(xs))
     compare_paths(ds, xs, ys, runs=constraint_compare_runs(tmp),
                   plains=(True,))
+    f64_compare = {"dense": compare_f64(ds, xs, "dense")}
     del ds
     xs, ys = x_bundled[:COMPARE_ROWS], y_bundled[:COMPARE_ROWS]
     log("kernel vs plain path on the bundled data (%d rows):" % len(xs))
-    compare_paths(lgb.Dataset(xs, label=ys, params=PARAMS).construct(), xs,
-                  ys, BUNDLED_RAW_TOL)
+    ds = lgb.Dataset(xs, label=ys, params=PARAMS).construct()
+    compare_paths(ds, xs, ys, BUNDLED_RAW_TOL)
+    f64_compare["bundled"] = compare_f64(ds, xs, "bundled")
+    del ds
     xs, ys = x_cat[:COMPARE_ROWS], y_cat[:COMPARE_ROWS]
     log("kernel vs plain path on the categorical data (%d rows):" % len(xs))
     # the id columns are dense, so none joins an EFB bundle and identical
@@ -3658,6 +4006,19 @@ def run(tmp: str) -> int:
              note="histogram.cu's kernel through hist_for_leaf (a forced "
                   "split's rebuild of one leaf, path 4zl), counted apart "
                   "from the split pass"),
+        dict(kernel_entry("histogram_f64",
+                          "lightgbm_tpu_torch/core/csrc/histogram.cu",
+                          "lightgbm_tpu/core/histogram.py:51",
+                          launches("build_histogram_f64_cuda"), f64_rows,
+                          f64_rows[0]),
+             leaf_launches=launches("build_histogram_leaf_f64_cuda"),
+             note="histogram.cu's float64 variant (gpu_use_dp, exact growth: "
+                  "paths 4zn-4zp); the JAX package computes this in XLA "
+                  "(core/histogram.py:51 _hist_scatter on the CPU, :34 "
+                  "_hist_chunk_matmul on a TPU), not in a Pallas kernel. "
+                  "Its hist_for_leaf route (build_histogram_leaf_f64_cuda, "
+                  "leaf_launches) is launched by phase 3 alone: no f64 path "
+                  "forces a split"),
         kernel_entry("hist_slots",
                      "lightgbm_tpu_torch/core/csrc/hist_slots.cu",
                      "lightgbm_tpu/core/histogram_pallas.py:384",
@@ -3680,7 +4041,7 @@ def run(tmp: str) -> int:
                   "not either), so no path launches it; its phase-3 calls "
                   "are its only launches")],
         "paths": paths, "renewal": renewal, "rank_scale": rank_scale,
-        "mask_draw": mask_draw}),
+        "mask_draw": mask_draw, "f64_compare": f64_compare}),
         flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -53,6 +53,12 @@ CEGB state lives on the device across iterations, each class's tree of an
 iteration grows from the iteration's state and the classes' purchases
 merge. Rollback leaves the state as it is, as the JAX package does.
 
+Float64 histograms (``gpu_use_dp``, ``tpu_hist_dtype=float64``;
+``hist_dtype``) grow in exact growth only: under frontier or batched the
+JAX package's warning is logged and ``grow_tree`` runs (gbdt.py:566-570
+there). The JAX package then runs with 64-bit types on, so its bagging
+and GOSS uniforms are float64: ``_draw_dtype`` draws them the same way.
+
 Every option outside the slice raises ``NotImplementedError`` from
 ``check_slice`` before anything is built, naming the ROADMAP item that
 brings it: the port never builds a different tree than the one asked for.
@@ -132,9 +138,6 @@ class HostTree:
 def check_slice(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for any option outside the slice."""
     rules = [
-        (cfg.gpu_use_dp or str(cfg.tpu_hist_dtype).lower()
-         in ("float64", "f64", "double"), "f64 histograms (gpu_use_dp)",
-         "ROADMAP Queue 1 #3"),
         # the JAX package packs bins for frontier growth only, and its auto
         # resolves to none off a TPU (core/binpack.py:97-117)
         (cfg.tree_growth == "frontier"
@@ -152,6 +155,19 @@ def check_slice(cfg: Config) -> None:
     for bad, what, where in rules:
         if bad:
             raise outside_slice(what, where)
+
+
+def hist_dtype(cfg: Config) -> str:
+    """Histogram accumulation dtype (the JAX package's ``_hist_dtype``,
+    gbdt.py:171-180 there): tpu_hist_dtype is the explicit knob,
+    gpu_use_dp (config.h:784) the reference-compatible alias for f64."""
+    spelled = str(cfg.tpu_hist_dtype).strip().lower()
+    if spelled in ("float64", "f64", "double"):
+        return "f64"
+    if spelled not in ("float32", "f32", "single", ""):
+        raise LightGBMError("unknown tpu_hist_dtype %r "
+                            "(use float32 or float64)" % cfg.tpu_hist_dtype)
+    return "f64" if cfg.gpu_use_dp else "f32"
 
 
 def batched_part_on(cfg: Config) -> bool:
@@ -244,6 +260,13 @@ def as_f32(value: float) -> float:
     return float(np.float32(value))
 
 
+def draw_bound(value: float, dtype: torch.dtype) -> float:
+    """The Python float ``value`` as the JAX package compares it with a
+    uniform draw of ``dtype``: rounded to float32 against a float32 draw
+    (``as_f32``), unrounded against a float64 one."""
+    return as_f32(value) if dtype == torch.float32 else float(value)
+
+
 class GBDT:
     """Boosting driver (boosting.h:22-294, gbdt.{h,cpp})."""
 
@@ -293,6 +316,7 @@ class GBDT:
             self.objective.init(ds.metadata, dev)
         for m in self.train_metrics:
             m.init(ds.metadata, ds.num_data)
+        hdt = hist_dtype(cfg)
         self.grow_params = GrowParams(
             num_leaves=cfg.num_leaves, num_bins=self.num_bins,
             max_depth=cfg.max_depth,
@@ -308,10 +332,10 @@ class GBDT:
                 min_data_per_group=cfg.min_data_per_group,
                 cat_features=categorical_features(ds),
                 with_monotone=bool(self.feature_meta.monotone.any())),
-            hist_impl=resolve_hist_impl(cfg),
+            hist_impl=resolve_hist_impl(cfg), hist_dtype=hdt,
             batch_splits=cfg.tree_batch_splits,
             batched_pack=bool(cfg.tpu_batched_pack),
-            batched_part=batched_part_on(cfg),
+            batched_part=batched_part_on(cfg) and hdt == "f32",
             with_efb=ds.has_bundles or ds.has_packed,
             num_feat_bins=num_feat_bins,
             pack_j=int(pack_partner.max(initial=1)),
@@ -334,6 +358,11 @@ class GBDT:
         # JAX package)
         self._grow = (grow_tree_batched_part if self.grow_params.batched_part
                       else GROWERS[cfg.tree_growth])
+        if cfg.tree_growth in ("batched", "frontier") and hdt == "f64":
+            # both wave growers accumulate f32 (gbdt.py:566-570 there)
+            Log.warning("tree_growth=%s does not support f64 histograms "
+                        "yet; falling back to exact growth" % cfg.tree_growth)
+            self._grow = grow_tree
         if self._forced is not None or self._cegb is not None:
             self._grow = functools.partial(grow_tree, forced=self._forced,
                                            cegb=self._cegb)
@@ -345,7 +374,11 @@ class GBDT:
         # the mask it last drew, kept between refreshes; under lambdarank
         # one draw a query (and one for the padding group the JAX package
         # counts in), broadcast to its rows
-        self._bag_key = threefry.prng_key(cfg.bagging_seed)
+        # under f64 the JAX package runs with 64-bit types on, so its key
+        # takes an int64 seed and its draws are float64 (random.py)
+        f64 = self.grow_params.hist_dtype == "f64"
+        self._bag_key = threefry.prng_key(cfg.bagging_seed, x64=f64)
+        self._draw_dtype = torch.float64 if f64 else torch.float32
         self._bag_mask = torch.ones(ds.num_data, dtype=torch.float32,
                                     device=dev)
         self._row_group, self._num_groups = None, 0
@@ -543,11 +576,11 @@ class GBDT:
         (gbdt.cpp:180-241)."""
         n = (self._num_groups if self._row_group is not None
              else self.num_data)
-        u = threefry.uniform(key, n, self.device)
+        u = threefry.uniform(key, n, self.device, self._draw_dtype)
         if self._row_group is not None:
             u = u[self._row_group]
-        self._bag_mask = (u < as_f32(self.config.bagging_fraction)).to(
-            torch.float32)
+        self._bag_mask = (u < draw_bound(self.config.bagging_fraction,
+                                         u.dtype)).to(torch.float32)
 
     def _sample_bagging_mask(self, iter_idx: int) -> torch.Tensor:
         """The bagging mask of iteration ``iter_idx`` on the per-iteration

@@ -19,7 +19,7 @@ import torch
 
 from .. import random as threefry
 from ..log import LightGBMError
-from .gbdt import GBDT, as_f32
+from .gbdt import GBDT, as_f32, draw_bound
 
 
 def goss_counts(n: int, top_rate: float, other_rate: float
@@ -29,17 +29,21 @@ def goss_counts(n: int, top_rate: float, other_rate: float
 
 
 def goss_multipliers(grad: torch.Tensor, hess: torch.Tensor, key,
-                     top_rate: float, other_rate: float) -> torch.Tensor:
+                     top_rate: float, other_rate: float,
+                     draw_dtype: torch.dtype = torch.float32
+                     ) -> torch.Tensor:
     """[N] float32 multipliers of GOSS for [K, N] ``grad`` and ``hess``: 1
     for the top rows, the amplification for the sampled rest, 0 for the
-    rows left out."""
+    rows left out. The rest's uniforms are of ``draw_dtype`` (float64 under
+    f64 histograms, as ``GBDT._draw_dtype``)."""
     n = grad.shape[1]
     top_cnt, other_cnt = goss_counts(n, top_rate, other_rate)
     gh = (grad * hess).abs().sum(dim=0)
     thr = torch.topk(gh, top_cnt).values[-1]
     is_top = gh >= thr
-    u = threefry.uniform(key, n, grad.device)
-    keep_other = ~is_top & (u < as_f32(other_cnt / max(n - top_cnt, 1)))
+    u = threefry.uniform(key, n, grad.device, draw_dtype)
+    keep_other = ~is_top & (u < draw_bound(other_cnt / max(n - top_cnt, 1),
+                                           draw_dtype))
     amplify = as_f32((n - top_cnt) / other_cnt)
     return torch.where(is_top, 1.0,
                        torch.where(keep_other, amplify, 0.0)).to(
@@ -69,6 +73,6 @@ class GOSS(GBDT):
         if not self.goss_active(self.iter_):
             return grad, hess, sample_mask
         mult = goss_multipliers(grad, hess, goss_key, self.config.top_rate,
-                                self.config.other_rate)
+                                self.config.other_rate, self._draw_dtype)
         return (grad * mult, hess * mult,
                 sample_mask * (mult > 0).to(torch.float32))

@@ -74,6 +74,9 @@ class GrowParams(NamedTuple):
     max_depth: int
     split: SplitParams
     hist_impl: str = "auto"  # core/histogram.py: auto | plain
+    # the histograms' and the split search's dtype: "f32", or "f64"
+    # (gpu_use_dp; exact growth only, the tree rounded to f32 at the end)
+    hist_dtype: str = "f32"
     # the plain histograms sum in float64 (core/histogram.py f64_sums; set
     # by chip_smoke.py and the tests, not by a Config parameter)
     plain_f64_sums: bool = False
@@ -218,12 +221,14 @@ class DeviceTree(NamedTuple):
     leaf_depth: torch.Tensor
 
 
-def empty_tree(num_leaves: int, device: torch.device) -> DeviceTree:
+def empty_tree(num_leaves: int, device: torch.device,
+               dtype: torch.dtype = torch.float32) -> DeviceTree:
     """A tree with one leaf and no nodes (``lightgbm_tpu/core/grow.py``
-    ``empty_tree``): children and split leaves -1, everything else 0."""
+    ``empty_tree``): children and split leaves -1, everything else 0; its
+    float fields in ``dtype``."""
     l = num_leaves
     i64 = dict(dtype=torch.int64, device=device)
-    f32 = dict(dtype=torch.float32, device=device)
+    flt = dict(dtype=dtype, device=device)
     return DeviceTree(
         split_feature=torch.zeros(l - 1, **i64),
         threshold_bin=torch.zeros(l - 1, **i64),
@@ -233,21 +238,23 @@ def empty_tree(num_leaves: int, device: torch.device) -> DeviceTree:
         cat_bitset=torch.zeros((l - 1, CAT_WORDS), **i64),
         left_child=torch.full((l - 1,), -1, **i64),
         right_child=torch.full((l - 1,), -1, **i64),
-        split_gain=torch.zeros(l - 1, **f32),
-        internal_value=torch.zeros(l - 1, **f32),
-        internal_weight=torch.zeros(l - 1, **f32),
-        internal_count=torch.zeros(l - 1, **f32),
+        split_gain=torch.zeros(l - 1, **flt),
+        internal_value=torch.zeros(l - 1, **flt),
+        internal_weight=torch.zeros(l - 1, **flt),
+        internal_count=torch.zeros(l - 1, **flt),
         split_leaf=torch.full((l - 1,), -1, **i64),
-        leaf_value=torch.zeros(l, **f32),
-        leaf_weight=torch.zeros(l, **f32),
-        leaf_count=torch.zeros(l, **f32),
+        leaf_value=torch.zeros(l, **flt),
+        leaf_weight=torch.zeros(l, **flt),
+        leaf_count=torch.zeros(l, **flt),
         leaf_parent=torch.full((l,), -1, **i64),
         leaf_depth=torch.zeros(l, **i64))
 
 
-def _empty_best(num_leaves: int, device: torch.device) -> BestSplit:
-    """The per-leaf best-split table: gain -inf (no split) everywhere."""
-    z = torch.zeros(num_leaves, dtype=torch.float32, device=device)
+def _empty_best(num_leaves: int, device: torch.device,
+                dtype: torch.dtype = torch.float32) -> BestSplit:
+    """The per-leaf best-split table: gain -inf (no split) everywhere, its
+    float fields in ``dtype``."""
+    z = torch.zeros(num_leaves, dtype=dtype, device=device)
     zi = torch.zeros(num_leaves, dtype=torch.int64, device=device)
     floats = BestSplit._fields[4:-2]
     return BestSplit(
@@ -290,8 +297,13 @@ def to_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
 
 
 def tree_to_host(tree: DeviceTree, num_leaves: int) -> TreeArrays:
-    """A finished device tree as host TreeArrays, in one transfer."""
+    """A finished device tree as host TreeArrays, in one transfer. Float
+    fields are rounded to float32 once, here: the model holds f32 values
+    whatever the histograms' dtype (:1095-1100 of the JAX package)."""
     host = dict(zip(DeviceTree._fields, to_host(list(tree))))
+    for k, v in host.items():
+        if v.dtype == np.float64:
+            host[k] = v.astype(np.float32)
     int32 = ("split_feature", "threshold_bin", "missing_type", "left_child",
              "right_child", "split_leaf", "leaf_parent", "leaf_depth")
     for k in int32:
@@ -394,12 +406,12 @@ def root_split(xb: torch.Tensor, vals: torch.Tensor, meta: FeatureMeta,
     root = vals.sum(dim=0)                                   # (g, h, count)
     hist_root = hist_tile_vals(xb, vals, params.num_bins, params.hist_impl,
                                params.plain_f64_sums)
-    tree = empty_tree(l, dev)
+    tree = empty_tree(l, dev, vals.dtype)
     tree.leaf_value[0] = calculate_leaf_output(root[0], root[1], sp.lambda_l1,
                                                sp.lambda_l2, sp.max_delta_step)
     tree.leaf_weight[0] = root[1]
     tree.leaf_count[0] = root[2]
-    best = _empty_best(l, dev)
+    best = _empty_best(l, dev, vals.dtype)
     pen = None
     if cegb is not None:
         unpaid = None
@@ -501,7 +513,11 @@ def grow_tree(xb: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     on the device).
 
     xb [N, C] uint8 stored columns; grad, hess, sample_mask [N] float32
-    on the same device; feature_mask [F] bool. ``forced`` splits the
+    on the same device, cast to ``params.hist_dtype`` here (the JAX
+    package's cast, grow.py:615-617 there: under f64 the histograms, the
+    split search, the bounds and the device tree are float64 and the tree
+    is rounded to float32 once, in ``tree_to_host``); feature_mask [F]
+    bool. ``forced`` splits the
     first steps as the forced-splits file says; ``cegb`` holds the CEGB
     state the tree starts from, which it does not modify: the tree works
     on a copy and leaves it in ``cegb.grown``.
@@ -511,8 +527,9 @@ def grow_tree(xb: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     b = params.num_bins
     sp = params.split
     dev = xb.device
+    hdt = torch.float64 if params.hist_dtype == "f64" else torch.float32
 
-    vals = stack_vals(grad, hess, sample_mask)               # [N, 3]
+    vals = stack_vals(grad.to(hdt), hess.to(hdt), sample_mask.to(hdt))
     state = None
     if cegb is not None:
         state = cegb.state._replace(
@@ -530,8 +547,8 @@ def grow_tree(xb: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     # index tensors of the two children, made without a host-to-device copy
     slot_ids = torch.arange(l, device=dev)
     if sp.with_monotone:
-        leaf_min = torch.full((l,), float("-inf"), device=dev)
-        leaf_max = torch.full((l,), float("inf"), device=dev)
+        leaf_min = torch.full((l,), float("-inf"), dtype=hdt, device=dev)
+        leaf_max = torch.full((l,), float("inf"), dtype=hdt, device=dev)
     num_forced = min(len(forced.leaf), l - 1) if forced is not None else 0
     if num_forced:
         forced_feature = device_index(forced.feature, dev)

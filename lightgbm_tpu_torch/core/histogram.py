@@ -20,7 +20,9 @@ tile instead (``hist_part_tiles``, from ``build_histogram_part_tiles``).
 ``impl`` mirrors the JAX package's ``tpu_hist_impl`` switch:
 
 - ``"auto"``: the CUDA kernel (``core/kernels.py``) for a CUDA tensor, the
-  plain version for a CPU tensor;
+  plain version for a CPU tensor; float64 values (``gpu_use_dp``, exact
+  growth only) go to histogram.cu's float64 variant, through wrappers of
+  their own (``build_histogram_f64_cuda``, ``build_histogram_leaf_f64_cuda``);
 - ``"plain"``: the plain version on any device (chip_smoke.py runs it on
   the card to compare the two paths).
 
@@ -33,7 +35,7 @@ values' dtype at the end (``GrowParams.plain_f64_sums``; internal, not a
 single running float32 sum per cell, as the JAX package's CPU scatter
 path is; on a cell of a million rows that sum drifts by 1e-2 relative,
 where the kernels, which sum in blocks, and float64 sums agree. The
-kernels ignore it.
+kernels ignore it, and it changes nothing for float64 values.
 """
 from __future__ import annotations
 
@@ -78,8 +80,11 @@ def hist_tile_vals(xb_rows: torch.Tensor, vals: torch.Tensor, num_bins: int,
                    impl: str = "auto", f64_sums: bool = False
                    ) -> torch.Tensor:
     """[rows, F] bins + pre-stacked [rows, K] values -> [F, B, K] (the
-    fused two-child pass of ``core/partition.py`` gives K = 6)."""
+    fused two-child pass of ``core/partition.py`` gives K = 6), in the
+    values' dtype (float32, or float64 under ``gpu_use_dp``)."""
     if _use_kernel(impl, xb_rows):
+        if vals.dtype == torch.float64:
+            return kernels.build_histogram_f64_cuda(xb_rows, vals, num_bins)
         return kernels.build_histogram_cuda(xb_rows, vals, num_bins)
     return hist_plain(xb_rows, vals, num_bins, f64_sums)
 
@@ -92,6 +97,9 @@ def hist_leaf_vals(xb_rows: torch.Tensor, vals: torch.Tensor,
     through its own wrapper so its launches are counted apart from the
     split pass's."""
     if _use_kernel(impl, xb_rows):
+        if vals.dtype == torch.float64:
+            return kernels.build_histogram_leaf_f64_cuda(xb_rows, vals,
+                                                         num_bins)
         return kernels.build_histogram_leaf_cuda(xb_rows, vals, num_bins)
     return hist_plain(xb_rows, vals, num_bins, f64_sums)
 

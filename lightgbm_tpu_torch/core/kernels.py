@@ -49,7 +49,7 @@ def _hist_lib() -> ctypes.CDLL:
     if not getattr(lib, "_lgbt_bound", False):
         lib.lgbt_hist_launch.argtypes = [
             _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int,
-            _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
+            _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
             ctypes.c_longlong, _c_void_p]
         lib.lgbt_hist_launch.restype = _c_int
         lib.lgbt_error_string.argtypes = [_c_int]
@@ -63,7 +63,8 @@ class HistPlan(NamedTuple):
     ``threads``; for ``block``, ``grid_x`` feature tiles of
     ``feature_tile`` features by ``grid_y`` row slices of
     ``rows_per_block`` rows) and the block variant's dynamic shared
-    memory, ``replicas`` copies of a [feature_tile, B, K] f32 histogram."""
+    memory, ``replicas`` copies of a [feature_tile, B, K] histogram of the
+    values' dtype."""
     variant: str
     threads: int
     grid_x: int
@@ -75,6 +76,8 @@ class HistPlan(NamedTuple):
 
 
 HIST_VARIANTS = ("direct", "block")
+# the value dtypes histogram.cu takes, by its dtype code
+HIST_DTYPES = (torch.float32, torch.float64)
 
 
 def _pad16(nbytes: int) -> int:
@@ -83,7 +86,8 @@ def _pad16(nbytes: int) -> int:
 
 @functools.lru_cache(maxsize=4096)
 def hist_launch_plan(n: int, num_features: int, num_bins: int, k: int,
-                     sm_count: int, variant: Optional[str] = None) -> HistPlan:
+                     sm_count: int, variant: Optional[str] = None,
+                     elem_bytes: int = 4) -> HistPlan:
     """The plan of one ``histogram.cu`` call over n >= 1 rows.
 
     ``direct`` runs at n <= HIST_DIRECT_MAX_ROWS (about half of exact
@@ -103,7 +107,11 @@ def hist_launch_plan(n: int, num_features: int, num_bins: int, k: int,
     Neither uses device-memory scratch. Both add in an order that varies
     from run to run, so a cell's f32 sum may move by a few ulps between
     runs; 0/1 channels stay exact. ``variant`` forces one (chip_smoke.py
-    and the card's tests run both at every shape)."""
+    and the card's tests run both at every shape).
+
+    ``elem_bytes`` 8 plans the float64 variant (``gpu_use_dp``): the same
+    grids, with a shared replica twice as large, so at F=28, B=255 one
+    replica fits at K=3 (171 KB) and K=6 takes two feature tiles of 14."""
     if variant is None:
         variant = "direct" if n <= HIST_DIRECT_MAX_ROWS else "block"
     if variant == "direct":
@@ -114,7 +122,7 @@ def hist_launch_plan(n: int, num_features: int, num_bins: int, k: int,
     if variant != "block":
         raise ValueError("variant must be one of %s, got %r"
                          % ("/".join(HIST_VARIANTS), variant))
-    feature_bytes = num_bins * k * 4
+    feature_bytes = num_bins * k * elem_bytes
     ft = max(1, min(num_features, HIST_SMEM_OPT_IN // feature_bytes))
     tiles = -(-num_features // ft)
     ft = -(-num_features // tiles)                # equal tiles
@@ -142,10 +150,12 @@ def _sm_count(dev: torch.device) -> int:
 
 
 def _launch_histogram(name: str, xb: torch.Tensor, vals: torch.Tensor,
-                      num_bins: int, variant: Optional[str]
+                      num_bins: int, variant: Optional[str],
+                      dtype: torch.dtype = torch.float32
                       ) -> Tuple[torch.Tensor, bool]:
-    """Check, allocate and launch histogram.cu for ``name``'s wrapper:
-    returns (out, whether the kernel was launched)."""
+    """Check, allocate and launch histogram.cu for ``name``'s wrapper,
+    which takes values of ``dtype``: returns (out, whether the kernel was
+    launched)."""
     dev = xb.device
     if dev.type != "cuda" or vals.device != dev:
         raise ValueError("%s takes CUDA tensors on one device, got %s and "
@@ -153,10 +163,10 @@ def _launch_histogram(name: str, xb: torch.Tensor, vals: torch.Tensor,
     if xb.dtype != torch.uint8 or xb.dim() != 2:
         raise ValueError("xb must be a 2-D uint8 tensor, got %s %s"
                          % (xb.dtype, tuple(xb.shape)))
-    if vals.dtype != torch.float32 or vals.dim() != 2 \
+    if vals.dtype != dtype or vals.dim() != 2 \
             or vals.shape[0] != xb.shape[0] or vals.shape[1] not in (3, 6):
-        raise ValueError("vals must be float32 [n, 3] or [n, 6] with n = %d, "
-                         "got %s %s" % (xb.shape[0], vals.dtype,
+        raise ValueError("%s takes vals %s [n, 3] or [n, 6] with n = %d, "
+                         "got %s %s" % (name, dtype, xb.shape[0], vals.dtype,
                                         tuple(vals.shape)))
     if not (xb.is_contiguous() and vals.is_contiguous()):
         raise ValueError("xb and vals must be contiguous")
@@ -165,15 +175,16 @@ def _launch_histogram(name: str, xb: torch.Tensor, vals: torch.Tensor,
     n, f = xb.shape
     k = vals.shape[1]
     if f == 0 or n == 0:
-        return torch.zeros((f, num_bins, k), dtype=torch.float32,
-                           device=dev), False
+        return torch.zeros((f, num_bins, k), dtype=dtype, device=dev), False
     if n * f >= 2 ** 31:
         raise ValueError("%s takes fewer than 2^31 bins (n * F)" % name)
-    plan = hist_launch_plan(n, f, num_bins, k, _sm_count(dev), variant)
+    plan = hist_launch_plan(n, f, num_bins, k, _sm_count(dev), variant,
+                            vals.element_size())
     lib = _hist_lib()
-    out = torch.empty((f, num_bins, k), dtype=torch.float32, device=dev)
+    out = torch.empty((f, num_bins, k), dtype=dtype, device=dev)
     rc = lib.lgbt_hist_launch(
         xb.data_ptr(), vals.data_ptr(), out.data_ptr(), n, f, num_bins, k,
+        HIST_DTYPES.index(dtype),
         HIST_VARIANTS.index(plan.variant), plan.grid_x, plan.grid_y,
         plan.feature_tile, plan.rows_per_block, plan.replicas,
         plan.smem_bytes, current_stream(dev))
@@ -222,10 +233,46 @@ def build_histogram_leaf_cuda(xb: torch.Tensor, vals: torch.Tensor,
 build_histogram_leaf_cuda.launches = 0
 
 
-def hist_bytes(n: int, num_features: int, num_bins: int, k: int) -> int:
+def build_histogram_f64_cuda(xb: torch.Tensor, vals: torch.Tensor,
+                             num_bins: int,
+                             variant: Optional[str] = None) -> torch.Tensor:
+    """``build_histogram_cuda`` in float64 (``gpu_use_dp``): vals [n, K]
+    float64 -> [F, B, K] float64, summed in float64 by histogram.cu's f64
+    variant (scalar f64 atomics), its launches counted in
+    ``build_histogram_f64_cuda.launches``. Its sums still add in an order
+    that varies from run to run, but each rounds at 2^-53."""
+    out, launched = _launch_histogram("build_histogram_f64_cuda", xb, vals,
+                                      num_bins, variant, torch.float64)
+    build_histogram_f64_cuda.launches += launched
+    return out
+
+
+build_histogram_f64_cuda.launches = 0
+
+
+def build_histogram_leaf_f64_cuda(xb: torch.Tensor, vals: torch.Tensor,
+                                  num_bins: int,
+                                  variant: Optional[str] = None
+                                  ) -> torch.Tensor:
+    """``build_histogram_leaf_cuda`` in float64: one leaf's rebuilt
+    histogram under ``gpu_use_dp``, counted in
+    ``build_histogram_leaf_f64_cuda.launches``."""
+    out, launched = _launch_histogram("build_histogram_leaf_f64_cuda", xb,
+                                      vals, num_bins, variant, torch.float64)
+    build_histogram_leaf_f64_cuda.launches += launched
+    return out
+
+
+build_histogram_leaf_f64_cuda.launches = 0
+
+
+def hist_bytes(n: int, num_features: int, num_bins: int, k: int,
+               elem_bytes: int = 4) -> int:
     """Bytes the histogram function must move: each input read once
-    (n*F bin bytes, 4*n*K value bytes), the output written once."""
-    return n * num_features + 4 * n * k + 4 * num_features * num_bins * k
+    (n*F bin bytes, elem_bytes*n*K value bytes), the output written
+    once."""
+    return (n * num_features + elem_bytes * n * k
+            + elem_bytes * num_features * num_bins * k)
 
 
 def _slots_lib() -> ctypes.CDLL:

@@ -111,14 +111,16 @@ class SplitParams(NamedTuple):
 
 
 class BestSplit(NamedTuple):
-    """SplitInfo analog (split_info.hpp:48-130), fields over batch dims."""
-    gain: torch.Tensor          # float32; -inf when unsplittable
+    """SplitInfo analog (split_info.hpp:48-130), fields over batch dims;
+    the float fields in the histogram's dtype (float32, or float64 under
+    ``gpu_use_dp``)."""
+    gain: torch.Tensor          # -inf when unsplittable
     feature: torch.Tensor       # int64 inner feature index
     threshold: torch.Tensor     # int64 bin threshold (left: bin <= thr)
     default_left: torch.Tensor  # bool
     left_sum_grad: torch.Tensor
     left_sum_hess: torch.Tensor
-    left_count: torch.Tensor    # float32 (histogram count channel)
+    left_count: torch.Tensor    # the histogram's count channel
     right_sum_grad: torch.Tensor
     right_sum_hess: torch.Tensor
     right_count: torch.Tensor
@@ -435,7 +437,7 @@ def per_feature_split_categorical(hist: torch.Tensor, meta: FeatureMeta,
     elig = is_real & (c >= sp.cat_smooth)                    # [..., Fc, B]
     n_elig = elig.sum(dim=-1, keepdim=True)[..., None]       # [..., Fc, 1, 1]
     ctr = g / (h + sp.cat_smooth)
-    inf = torch.full((), float("inf"), device=dev)
+    inf = torch.full((), float("inf"), dtype=hist.dtype, device=dev)
     key = torch.stack([torch.where(elig, ctr, inf),
                        torch.where(elig, -ctr, inf)], dim=-2)  # [.., 2, B]
     order = torch.argsort(key, dim=-1, stable=True)
@@ -465,7 +467,7 @@ def per_feature_split_categorical(hist: torch.Tensor, meta: FeatureMeta,
     # each one; a position evaluates when it may and the count reaches
     # min_data_per_group (folded into a threshold of inf where it may not)
     need = torch.where(can, torch.full((), float(sp.min_data_per_group),
-                                       device=dev), inf)
+                                       dtype=hist.dtype, device=dev), inf)
     cnt = torch.zeros_like(cs[..., 0])
     do_eval = []
     for step in range(t):

@@ -16,7 +16,12 @@ JAX 0.5 on, and the setting of the JAX package's tests):
 - ``uniform(key, n)``: the same hash of (0, i), i < n, whose two words are
   XORed into the 32 random bits of value i
   (``_threefry_random_bits_partitionable``), of which the top 23 become
-  the mantissa of a float in [1, 2), less 1 (``random.py _uniform``).
+  the mantissa of a float in [1, 2), less 1 (``random.py _uniform``);
+- ``uniform(key, n, dtype=torch.float64)``: what ``uniform`` gives under
+  ``jax_enable_x64``, which the JAX package turns on for f64 histograms
+  (``gpu_use_dp``), so its bagging and GOSS draws become float64 there:
+  the two words of value i are its 64 random bits (high word first), of
+  which the top 52 become the mantissa.
 
 A key is two Python ints (k0, k1) or a [2] tensor. Keys stay on the host:
 ``split`` runs on the CPU, and ``uniform`` takes the key as two scalars into
@@ -44,14 +49,15 @@ def _as_key(key: KeyLike) -> Key:
     return k0, k1
 
 
-def prng_key(seed: int) -> Key:
+def prng_key(seed: int, x64: bool = False) -> Key:
     """``jax.random.PRNGKey(seed)`` with 64-bit types off: the seed as an
     int32, its high word 0 and its low word the seed's 32 bits
-    (``prng.threefry_seed``)."""
+    (``prng.threefry_seed``). With ``x64`` (64-bit types on) the seed is
+    an int64 split into its high and low words."""
     seed = int(seed)
     if not -2 ** 31 <= seed < 2 ** 31:
         raise OverflowError("seed %d does not fit in int32" % seed)
-    return 0, seed & MASK32
+    return ((seed >> 32) & MASK32 if x64 else 0), seed & MASK32
 
 
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -96,8 +102,13 @@ def random_bits(key: KeyLike, n: int, device=None) -> torch.Tensor:
     return b0 ^ b1
 
 
-def uniform(key: KeyLike, n: int, device=None) -> torch.Tensor:
-    """``jax.random.uniform(key, (n,))``: [n] float32 in [0, 1) on
-    ``device``."""
+def uniform(key: KeyLike, n: int, device=None,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.uniform(key, (n,), dtype)``: [n] values in [0, 1) on
+    ``device``, float32 or float64."""
+    if dtype == torch.float64:
+        hi, lo = _counter_bits(key, n, device)
+        # the top 52 of the 64 bits hi:lo over 2^52: exact in float64
+        return ((hi << 20) | (lo >> 12)).to(torch.float64) * 2.0 ** -52
     bits = (random_bits(key, n, device) >> 9) | 0x3F800000
     return bits.to(torch.int32).view(torch.float32) - 1.0

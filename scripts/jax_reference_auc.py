@@ -79,6 +79,10 @@ with ``tpu_batched_part=true``), 5 iterations.
   drifts by 1e-2 relative on a cell of 1,000,000 rows. ``matmul`` sums in
   16,384-row chunks, as the port's kernels sum in blocks, and is about
   twice as slow.
+- ``--gpu-use-dp`` sets ``gpu_use_dp=true`` and ``--hist-dtype float64``
+  sets ``tpu_hist_dtype`` (chip_smoke's f64 paths 4zn-4zp): the JAX
+  package then sums its histograms in float64 (``auto`` is its f64
+  scatter on the CPU, without the f32 drift) and grows exact trees.
 
     JAX_PLATFORMS=cpu python scripts/jax_reference_auc.py \
         [--growth exact|frontier|batched|batched_part] \
@@ -89,7 +93,7 @@ with ``tpu_batched_part=true``), 5 iterations.
         [--bagging-freq K] [--feature-fraction F] [--top-rate F] \
         [--other-rate F] [--learning-rate F] [--drop-rate F] \
         [--skip-drop F] [--rounds K] [--constraint monotone|forced|cegb] \
-        [--cegb-penalty-split F]
+        [--cegb-penalty-split F] [--gpu-use-dp] [--hist-dtype DTYPE]
 
 It runs on the CPU backend and prints one JSON line.
 """
@@ -132,6 +136,8 @@ def main() -> int:
                         type=int if name == "bagging_freq" else float)
     ap.add_argument("--constraint", choices=("monotone", "forced", "cegb"))
     ap.add_argument("--cegb-penalty-split", type=float)
+    ap.add_argument("--gpu-use-dp", action="store_true")
+    ap.add_argument("--hist-dtype")
     args = ap.parse_args()
     multiclass = args.objective in ("multiclass", "multiclassova")
     if args.data == "ranking" and args.objective == "binary":
@@ -150,11 +156,16 @@ def main() -> int:
                   tpu_hist_impl=args.hist_impl,
                   **chip_smoke.GROWTH_PARAMS[args.growth])
     params["boosting"] = args.boosting
+    if args.gpu_use_dp:
+        params["gpu_use_dp"] = True
+    if args.hist_dtype:
+        params["tpu_hist_dtype"] = args.hist_dtype
     params.update({name: getattr(args, name) for name in sampling
                    if getattr(args, name) is not None})
     out = {"growth": args.growth, "objective": args.objective,
            "data": args.data, "rows": args.rows, "iters": args.iters,
-           "hist_impl": args.hist_impl,
+           "hist_impl": args.hist_impl, "gpu_use_dp": args.gpu_use_dp,
+           "hist_dtype": args.hist_dtype,
            "sampling": {k: params[k] for k in ("boosting",) + sampling
                         if k in params}}
     drops = []

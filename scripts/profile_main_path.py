@@ -40,13 +40,17 @@ gbdt|goss|dart|rf`` and ``--bagging-fraction``, ``--bagging-freq``,
 of those names. Under GOSS the warm-up runs ``int(1 / learning_rate)``
 iterations, so that the profiled ones sample.
 
+``--gpu-use-dp`` sets ``gpu_use_dp=true``: float64 histograms through
+histogram.cu's f64 variant, in exact growth (chip_smoke.py's paths
+4zn-4zp; other growth modes fall back to exact, as the JAX package's do).
+
     python3 scripts/profile_main_path.py [--growth MODE] [--rows N] \
         [--iters K] [--objective binary|multiclass|OBJECTIVE] \
         [--data dense|bundled|categorical|ranking] \
         [--boosting gbdt|goss|dart|rf] [--bagging-fraction F] \
         [--bagging-freq K] [--feature-fraction F] [--top-rate F] \
         [--other-rate F] [--learning-rate F] [--drop-rate F] \
-        [--skip-drop F]
+        [--skip-drop F] [--gpu-use-dp]
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -94,6 +98,7 @@ def main() -> int:
     for name in sampling:
         ap.add_argument("--" + name.replace("_", "-"),
                         type=int if name == "bagging_freq" else float)
+    ap.add_argument("--gpu-use-dp", action="store_true")
     args = ap.parse_args()
     if args.data == "ranking" and args.objective == "binary":
         args.objective = "lambdarank"
@@ -137,6 +142,8 @@ def main() -> int:
     params["boosting"] = args.boosting
     params.update({name: getattr(args, name) for name in sampling
                    if getattr(args, name) is not None})
+    if args.gpu_use_dp:
+        params["gpu_use_dp"] = True
     cat = (chip_smoke.CATEGORICAL_FEATURES if args.data == "categorical"
            else "auto")
     ds = lgb.Dataset(x, label=y, weight=weight, group=group, params=params,
@@ -218,7 +225,7 @@ def main() -> int:
                                    a.count // args.iters, a.key[:90]))
     summary = {
         "card": card, "growth": args.growth, "objective": args.objective,
-        "data": args.data, "rows": args.rows,
+        "data": args.data, "rows": args.rows, "gpu_use_dp": args.gpu_use_dp,
         "sampling": {k: params[k] for k in ("boosting",) + sampling
                      if k in params},
         "iters": args.iters, "own_kernel_launches": own_launches,

@@ -263,15 +263,21 @@ def test_trees_split_on_packed_features():
 @pytest.mark.parametrize("growth", sorted(GROWTHS))
 def test_layout_changes_nothing_in_the_port(growth):
     """Bundling and packing on against off, the port alone: predictions
-    within rtol 1e-4 and atol 1e-5 (tests/test_efb.py:74-95)."""
-    x, y = small_bundled()
+    within rtol 1e-4 and atol 1e-5 (tests/test_efb.py:74-95). The "on"
+    booster is the one ``_train_both`` trained with the same parameters
+    (enable_bundle and enable_nbit_packing are on by default)."""
+    x, _, on = _train_both(growth, "binary")
+    y = small_bundled()[1]
+    assert on._impl.config.enable_bundle and on._impl.config.enable_nbit_packing
     params = dict(PARAMS, objective="binary", **GROWTHS[growth])
     out = []
-    for on in (True, False):
-        p = dict(params, enable_bundle=on, enable_nbit_packing=on)
-        bst = tlgb.train(p, tlgb.Dataset(x, label=y, device="cpu"),
-                         num_boost_round=ROUNDS, device="cpu")
-        assert bst._impl.grow_params.with_efb == on
+    for bst in (on, None):
+        if bst is None:
+            bst = tlgb.train(dict(params, enable_bundle=False,
+                                  enable_nbit_packing=False),
+                             tlgb.Dataset(x, label=y, device="cpu"),
+                             num_boost_round=ROUNDS, device="cpu")
+        assert bst._impl.grow_params.with_efb == (bst is on)
         out.append(bst.predict(x, raw_score=True))
     np.testing.assert_allclose(out[0], out[1], rtol=1e-4, atol=1e-5)
 

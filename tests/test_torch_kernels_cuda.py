@@ -7,7 +7,9 @@ and the regression slice's device work on the card against the same calls
 on the CPU: leaf renewal (``core/renew.py``) and the binned replay that
 keeps the valid-set scores (``core/tree.py``); and row sampling: a
 1,000,000-row threefry draw (``random.py``) bit-equal to the CPU's, and
-bagging, GOSS, DART and RF training through the kernels.
+bagging, GOSS, DART and RF training through the kernels; and the float64
+variant of ``histogram.cu`` (``gpu_use_dp``) against the plain version in
+float64, alone, through ``hist_for_leaf`` and on the training path.
 
 These tests need a CUDA device and ``nvcc``: a hand-written CUDA kernel has
 no CPU or interpret mode, so they are marked ``cuda`` and skip without one.
@@ -1084,3 +1086,138 @@ def test_constraints_train_on_the_card(cuda_device, tmp_path):
         np.testing.assert_allclose(bst.predict(x, raw_score=True),
                                    cpu.predict(x, raw_score=True), rtol=0,
                                    atol=1e-4)
+
+
+# ---- float64 histograms (gpu_use_dp): histogram.cu's f64 variant ---------
+def _check_f64(got, xb, vals, b):
+    """The f64 variant against the plain version in float64: the count
+    channel exact, the others within 1e-12 * sum_bin|v| + 1e-300 (the
+    atomics add in any order, each sum rounding at 2^-53)."""
+    want = th.hist_plain(torch.as_tensor(xb), torch.as_tensor(vals), b)
+    absum = th.hist_plain(torch.as_tensor(xb),
+                          torch.as_tensor(np.abs(vals)), b).numpy()
+    assert got.dtype == torch.float64 and want.dtype == torch.float64
+    got, want = got.cpu().numpy(), want.numpy()
+    assert (np.abs(got - want) <= 1e-12 * absum + 1e-300).all()
+    np.testing.assert_array_equal(got[..., 2::3], want[..., 2::3])
+
+
+F64_CASES = [(1, 28, 255, 6, 0), (4096, 28, 255, 3, 1),
+             (4096, 28, 255, 6, 0), (20_001, 28, 255, 3, 0),
+             (20_001, 28, 255, 6, 2), (100_003, 28, 255, 6, 0),
+             (20_001, 34, 255, 6, 0), (3001, 5, 16, 3, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["direct", "block"])
+@pytest.mark.parametrize("n,f,b,k,offset", F64_CASES)
+def test_f64_kernel_variants_match_plain(cuda_device, variant, n, f, b, k,
+                                         offset):
+    """Each variant of the f64 kernel, forced, at K=3 and K=6, rows on both
+    sides of HIST_DIRECT_MAX_ROWS, a misaligned first word, and F*B*K*8
+    bytes above the block's 227 KB (K=6 at F=28 and F=34: two feature
+    tiles)."""
+    xb, vals = _inputs(n, f, b, k, seed=n + f + k)
+    vals = _count_channels(vals).astype(np.float64)
+    vals[:, 0::3] *= 10.0 ** np.random.RandomState(n).randint(-3, 4, (n, 1))
+    buf = torch.empty(n * f + offset, dtype=torch.uint8, device=cuda_device)
+    x = buf[offset:].view(n, f)
+    x.copy_(torch.as_tensor(xb))
+    v = torch.as_tensor(vals, device=cuda_device)
+    before = (kernels.build_histogram_f64_cuda.launches,
+              kernels.build_histogram_cuda.launches)
+    _check_f64(kernels.build_histogram_f64_cuda(x, v, b, variant), xb, vals,
+               b)
+    assert (kernels.build_histogram_f64_cuda.launches,
+            kernels.build_histogram_cuda.launches) == (before[0] + 1,
+                                                       before[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(4096, 6), (100_003, 3)])
+def test_f64_values_dispatch_to_the_f64_kernel(cuda_device, n, k):
+    xb, vals = _inputs(n, 28, 255, k, seed=n)
+    vals = _count_channels(vals).astype(np.float64)
+    before = (kernels.build_histogram_f64_cuda.launches,
+              kernels.build_histogram_cuda.launches)
+    got = th.hist_tile_vals(torch.as_tensor(xb, device=cuda_device),
+                            torch.as_tensor(vals, device=cuda_device), 255)
+    assert (kernels.build_histogram_f64_cuda.launches,
+            kernels.build_histogram_cuda.launches) == (before[0] + 1,
+                                                       before[1])
+    _check_f64(got, xb, vals, 255)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaf_rows", [4_096, 262_144])
+def test_f64_hist_for_leaf_matches_plain(cuda_device, leaf_rows):
+    """A forced split's rebuild of one leaf in float64 goes through the f64
+    leaf wrapper, and none of the others."""
+    from lightgbm_tpu_torch.core import partition as tp
+    n, f, b = 1_000_000, 28, 255
+    r = np.random.RandomState(leaf_rows)
+    xb, vals = _inputs(n, f, b, 3, seed=leaf_rows)
+    vals = _count_channels(vals).astype(np.float64)
+    begin = int(r.randint(0, n - 2 * leaf_rows))
+    order = torch.as_tensor(r.permutation(n))
+    part = tp.RowPartition(order, torch.tensor([0, begin + leaf_rows]),
+                           torch.tensor([n - leaf_rows, leaf_rows]))
+    idx = order[begin:begin + 2 * leaf_rows].numpy()
+    inside = np.zeros((2 * leaf_rows, 1))
+    inside[leaf_rows:] = 1.0
+    on_card = tp.RowPartition(*(a.to(cuda_device) for a in part))
+    counters = (kernels.build_histogram_leaf_f64_cuda,
+                kernels.build_histogram_f64_cuda,
+                kernels.build_histogram_leaf_cuda)
+    before = [c.launches for c in counters]
+    got = tp.hist_for_leaf(on_card, torch.ones(1, dtype=torch.int64,
+                                               device=cuda_device),
+                           begin, 2 * leaf_rows,
+                           torch.as_tensor(xb, device=cuda_device),
+                           torch.as_tensor(vals, device=cuda_device), b,
+                           "auto")
+    assert [c.launches for c in counters] == [before[0] + 1, before[1],
+                                              before[2]]
+    _check_f64(got, xb[idx], vals[idx] * inside, b)
+
+
+@pytest.mark.cuda
+def test_f64_kernel_rejects_what_it_does_not_take(cuda_device):
+    x = torch.zeros((8, 3), dtype=torch.uint8, device=cuda_device)
+    v = torch.zeros((8, 3), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.build_histogram_f64_cuda(x.cpu(), v, 4)
+    with pytest.raises(ValueError, match="float64"):
+        kernels.build_histogram_f64_cuda(x, v.float(), 4)
+    with pytest.raises(ValueError, match="num_bins"):
+        kernels.build_histogram_f64_cuda(x, v, 300)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("growth", ["exact", "frontier"])
+def test_f64_training_goes_through_the_f64_kernel(cuda_device, growth):
+    """gpu_use_dp training on the card launches the f64 kernel once per
+    histogram pass and the f32 one never (frontier falls back to exact),
+    and grows the plain f64 path's trees, every one, node for node."""
+    r = np.random.RandomState(4)
+    x = r.randn(20_000, 8)
+    y = (x[:, 0] + 0.5 * x[:, 1] * x[:, 2] + 0.3 * r.randn(len(x)) > 0)
+    params = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
+              "gpu_use_dp": True, "tree_growth": growth}
+    before = (kernels.build_histogram_f64_cuda.launches,
+              kernels.build_histogram_cuda.launches)
+    bst = tlgb.train(params, tlgb.Dataset(x, label=y), num_boost_round=3)
+    splits = sum(t.num_leaves_actual - 1 for t in bst.models)
+    assert (kernels.build_histogram_f64_cuda.launches - before[0],
+            kernels.build_histogram_cuda.launches - before[1]) == (
+        splits + len(bst.models), 0)
+    plain = tlgb.train(dict(params, tpu_hist_impl="plain"),
+                       tlgb.Dataset(x, label=y), num_boost_round=3)
+    for a, p in zip(bst.models, plain.models):
+        for name in ("split_feature", "threshold_bin", "default_left",
+                     "left_child", "right_child"):
+            np.testing.assert_array_equal(getattr(a, name),
+                                          getattr(p, name))
+    np.testing.assert_allclose(bst.predict(x, raw_score=True),
+                               plain.predict(x, raw_score=True), rtol=0,
+                               atol=1e-6)

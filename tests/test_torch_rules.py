@@ -96,7 +96,8 @@ def _data(n=400):
 
 
 OUTSIDE_SLICE = {
-    "gpu_use_dp": ({"gpu_use_dp": True}, None),
+    # f64 histograms are in the slice; on a device mesh they are not
+    "gpu_use_dp": ({"gpu_use_dp": True, "tree_learner": "data"}, None),
     # frontier, batched and partitioned batched growth are in the slice;
     # packed bin words and model statistics on the partitioned step are not
     "tree_growth_frontier": ({"tree_growth": "frontier",
