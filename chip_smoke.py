@@ -209,15 +209,43 @@ and prints no result line):
    no other kernel, holds the JAX package's f64 constant (AUC within 1e-5
    absolute, ndcg@1/3/5 within 1e-5 relative) and prints its s/iter,
    launches and syncs beside 4a, 4m and 4v;
-   every path of 4a-4d, 4m-4za and 4zb-4zp also trains one more iteration
-   under torch.profiler and prints its CUDA kernel launches and
-   synchronisations;
+   then the input formats and prediction extras (Queue 1 #16, #8), after
+   4zn:
+     4zq exact growth from a scipy CSR of 1,000,000 x 1,000
+        (``sparse_data``: eight one-hot blocks of 100 columns, one stored
+        1.0 a row a block, and 200 lognormal columns at 1%), binned
+        without densifying it, every one-hot column in an EFB bundle; its
+        train AUC within 2e-3 of the JAX package's, predict on the CSR
+        (its first SPARSE_PREDICT_ROWS rows) equal to predict on the rows
+        densified block by block; binning seconds, s/iter, launches and
+        the port's kernels' device ms an iteration beside 4a's;
+     4zr the first 250,000 rows of bench.py's data as a CSV file with a
+        header and 100,000 rows of 4zq's CSR as a libsvm file, each binned
+        byte for byte as the same rows in memory, and the binary cache of
+        4a's whole Dataset, loaded byte for byte, from which 2 rounds
+        under ``gpu_use_dp`` grow 4a's Dataset's trees node for node;
+     4zs the prediction extras on trained models: pred_leaf of 4a's 1M
+        rows on the card, equal to the training replay's leaves
+        (``replay_leaves_binned``) and summing to the raw scores;
+        pred_early_stop on 4a and 4r at margin 1e30 equal to predict, and
+        at margin 10 (freq 5) and the first iteration's median margin
+        (freq 1) equal to a host emulation of the rule on 10,000 rows;
+        pred_contrib on the card on 10,000 rows of 4a, 4m, 4r and 4zq,
+        each class summing to its raw score within 1e-6 x max(1, |raw|)
+        and on 50 rows within 1e-9 of a row's sum of |contrib| of the
+        plain recursion (``predict_contrib_plain``);
+   every path of 4a-4d, 4m-4za, 4zb-4zp and 4zq also trains one more
+   iteration under torch.profiler and prints its CUDA kernel launches,
+   synchronisations and the port's kernels' device time;
 5. the kernel path against the plain path on the card (200,000 rows, 2
    iterations) for exact, frontier, batched, batched with
    ``tpu_batched_pack=true`` (which launches the slot kernel on its
    batched branch) and batched_part, the plain path's histograms summed
-   in float64 (``GrowParams.plain_f64_sums``; a single running f32 sum a
-   cell, as ``index_add_`` keeps, drifts on bins of many rows): trees
+   in float64 and in blocked f32 sums (``GrowParams.plain_sums``
+   ``"blocked"``: each cell's rows in runs of 16,384 rows landing in that
+   cell, the runs' sums added in order; a single running f32 sum a cell,
+   as ``index_add_`` keeps, drifts on bins of many rows as far as a small
+   fault moves a histogram): trees
    identical up to f32 gain ties (tests/test_parity.py's rule), and raw
    predictions within 1e-5 when the trees are identical; on bench.py's
    data, on the bundled data, on the categorical data, and batched
@@ -233,13 +261,16 @@ and prints no result line):
    differs regrow (SAMPLED_TIE_GAIN_REL); from there they are held to
    their AUC; and exact with forced splits and CEGB, held to the tie rule
    and F64_RAW_TOL; and on the dense and the bundled data, exact growth
-   with ``gpu_use_dp=true``: the f64 kernel path, the f64 kernel path
-   again and the f64 plain path, every pair's trees identical node for
-   node with no tie rule and raw predictions within 1e-6;
+   with ``gpu_use_dp=true``, and on the dense data with forced splits and
+   CEGB too (the f64 ``hist_for_leaf`` route): the f64 kernel path, the
+   f64 kernel path again and the f64 plain path, every pair's trees
+   identical node for node with no tie rule and raw predictions within
+   1e-6;
 6. a ``kernels`` JSON line (each kernel's launches summed over every
    path of phase 4; histogram.cu's launches through ``hist_for_leaf`` as
    the entry ``histogram_leaf``, its float64 variant's as
-   ``histogram_f64``), the card line, and the result line
+   ``histogram_f64``, with the f64 ``hist_for_leaf`` route's launches of
+   phase 5's forced row), the card line, and the result line
    ``{"ok": true, "device": {...}}``. No grower calls the in-tile
    partition (nor does the JAX package's), so its entry's path launches
    are 0 and its phase-3 calls are its only launches.
@@ -251,6 +282,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -276,6 +308,7 @@ from lightgbm_tpu_torch.core import kernels
 from lightgbm_tpu_torch.core import partition
 from lightgbm_tpu_torch.core import renew
 from lightgbm_tpu_torch.core import repack
+from lightgbm_tpu_torch.core import shap
 from lightgbm_tpu_torch.core import tree as tree_mod
 from lightgbm_tpu_torch.io.binning import BinType
 from lightgbm_tpu_torch.io.dataset import Metadata
@@ -716,6 +749,30 @@ JAX_F64_METRIC = {"4zn": {"auc": 0.9623968615768451},
 # mirror sends the same rows the same way, so the AUC does not see it
 F64_AUC_TOL = 1e-5
 F64_NDCG_REL_TOL = 1e-5
+# path 4zq (Queue 1 #16): exact growth with PARAMS on the sparse CSR
+# (``sparse_data``: MAIN_ROWS x 1,000, binned without densifying it). The
+# JAX package's train AUC, taken on the CPU backend with float64 histogram
+# sums (its f64 scatter, no drift; its chunked matmul sums build a
+# [16,384, C, B] one-hot a chunk, which at this data's stored columns did
+# not finish 100,000 rows in 20 minutes) by
+#   JAX_PLATFORMS=cpu python scripts/jax_reference_auc.py --data sparse \
+#       --gpu-use-dp
+JAX_SPARSE_AUC = 0.5737745172051685
+# 4zq's CSR predicted and densified block by block on its first
+# SPARSE_PREDICT_ROWS rows (15 of predict's row blocks)
+SPARSE_PREDICT_ROWS = 250_000
+# path 4zr (#16): the first FILE_ROWS rows of the dense data as a CSV file
+# (label in column 0, a header, values "%.17g") and LIBSVM_ROWS rows of the
+# sparse data as a libsvm file; the binary cache of the whole dense Dataset
+# trained DP_ROUNDS rounds under gpu_use_dp from memory and from the file
+FILE_ROWS, LIBSVM_ROWS, DP_ROUNDS = 250_000, 100_000, 2
+# path 4zs (#8): the prediction extras on models phase 4 trained: pred_leaf
+# and pred_early_stop (margin 1e30) on every training row, the margin rule
+# on EARLY_STOP_ROWS rows against a host emulation, pred_contrib on
+# CONTRIB_ROWS rows and the plain recursion on CONTRIB_PLAIN_ROWS of them
+EARLY_STOP_ROWS, CONTRIB_ROWS, CONTRIB_PLAIN_ROWS = 10_000, 10_000, 50
+EXTRAS_RAW_TOL = 1e-6          # raw scores, absolute (contrib: x max(1, |s|))
+CONTRIB_PLAIN_REL = 1e-9       # of a row's sum of |contrib|, a class's
 # monotone paths' predictions on a grid: MONO_GRID points along feature 0,
 # then along feature 1, at each of MONO_GRID_ROWS training rows, must move
 # the constraint's way within MONO_GRID_TOL
@@ -945,6 +1002,49 @@ def bundled_data(n: int, seed: int = 0, groups: int = ONEHOT_GROUPS,
     y = (x[:, 0] + x[:, 1] * x[:, 2] + 0.5 * np.sin(3 * x[:, 3]) + eff
          + 0.4 * (x[:, 8] > 1) + 0.3 * noise > 0)
     return np.hstack([x, onehot]), y.astype(np.float32)
+
+
+# the sparse workload of path 4zq (a scipy CSR, ROADMAP Queue 1 #16):
+# one-hot blocks (one stored 1.0 a row a block) and sparse numeric columns
+SPARSE_BLOCKS, SPARSE_WIDTH = 8, 100
+SPARSE_NUMERIC, SPARSE_DENSITY = 200, 0.01
+
+
+def sparse_data(n: int, seed: int = 0, blocks: int = SPARSE_BLOCKS,
+                width: int = SPARSE_WIDTH, numeric: int = SPARSE_NUMERIC,
+                density: float = SPARSE_DENSITY):
+    """A sparse count or one-hot table, as a scipy CSR [n, blocks * width
+    + numeric] float64 (at the defaults 1,000,000 x 1,000 with ~10M
+    stored values, ~120 MB): ``blocks`` one-hot blocks of ``width``
+    columns, one stored 1.0 a row a block (a category drawn uniformly),
+    then ``numeric`` columns at ``density`` with lognormal values. The
+    label is binary, drawn from a logistic of three one-hot columns and two
+    numeric ones. Default binning bundles each one-hot block into one
+    stored column (EFB); no stored value is 0."""
+    import scipy.sparse
+    r = np.random.RandomState(seed)
+    cats = r.randint(0, width, (n, blocks))
+    rows = [np.repeat(np.arange(n), blocks)]
+    cols = [(cats + np.arange(blocks) * width).reshape(-1)]
+    vals = [np.ones(n * blocks)]
+    num = {}
+    for j in range(numeric):
+        at = np.unique(r.randint(0, n, r.binomial(n, density)))
+        v = r.lognormal(0.0, 1.0, len(at))
+        rows.append(at)
+        cols.append(np.full(len(at), blocks * width + j))
+        vals.append(v)
+        if j < 2:
+            num[j] = (at, v)
+    t = (1.5 * (cats[:, 0] == 3) - 1.2 * (cats[:, 1] == 7)
+         + 1.0 * (cats[:, 2] < 10) - 0.5)
+    for j, (at, v) in num.items():
+        t[at] += (0.8 if j == 0 else -0.8) * np.log(v)
+    y = (r.rand(n) < 1.0 / (1.0 + np.exp(-t))).astype(np.float32)
+    x = scipy.sparse.csr_matrix(
+        (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+        shape=(n, blocks * width + numeric))
+    return x, y
 
 
 # the categorical workload's id columns (features 28-31): (ids, Zipf
@@ -1963,9 +2063,11 @@ def check_path_launches(label: str, growth: str, bst, launches,
                                            steps))
 
 
-def drive_path(growth: str, ds, x, y):
+def drive_path(growth: str, ds, x, y, keep: Optional[dict] = None):
     """Phase 4: one growth mode's main path at full width, with the launch
-    counts set to 0 just before and read just after."""
+    counts set to 0 just before and read just after; the booster goes in
+    ``keep`` under its growth mode where given (path 4zs predicts with
+    it)."""
     params = dict(PARAMS, **GROWTH_PARAMS[growth])
     bst, train_s, launches, steps = train_counted(params, ds)
     t0 = time.perf_counter()
@@ -2000,6 +2102,8 @@ def drive_path(growth: str, ds, x, y):
                               if waves is not None else None),
            "launches": launches}
     out.update(iteration_counts(growth, bst))
+    if keep is not None:
+        keep[growth] = bst
     return out
 
 
@@ -2025,13 +2129,21 @@ def iteration_counts(label: str, bst, fobj=None) -> dict:
 
     def count(*names):
         return sum(events[name] for name in names)
+    own = collections.Counter()
+    for e in prof.profiler.kineto_results.events():
+        match = OWN_KERNEL_KEY.match(e.name())
+        if match:
+            own[match.group(1)] += e.duration_ns() / 1e6
     out = {"launches_per_iter": count("cudaLaunchKernel", "cuLaunchKernel",
                                       "cudaLaunchKernelExC"),
            "syncs_per_iter": count("cudaStreamSynchronize",
-                                   "cudaDeviceSynchronize")}
+                                   "cudaDeviceSynchronize"),
+           "own_kernel_ms_per_iter": dict(own)}
     log("path %s: one more iteration under the profiler: %d kernel "
-        "launches, %d synchronisations (%.1f s, the count included)"
-        % (label, out["launches_per_iter"], out["syncs_per_iter"], seconds))
+        "launches, %d synchronisations, the port's kernels' device ms %s "
+        "(%.1f s, the count included)"
+        % (label, out["launches_per_iter"], out["syncs_per_iter"],
+           {k: round(v, 4) for k, v in own.items()}, seconds))
     return out
 
 
@@ -2108,6 +2220,387 @@ def drive_f64_path(label: str, ds, x, y, dense: dict) -> dict:
     return out
 
 
+BINNED_FIELDS = ("num_data", "num_total_features", "used_features",
+                 "col_features", "col_offsets", "col_num_bin", "col_packed")
+
+
+def same_binned(a, b, what: str) -> None:
+    """Raises unless the binned datasets ``a`` and ``b`` hold the same
+    stored matrix byte for byte, the same mappers and layout, and the same
+    labels, weights, query boundaries and init scores."""
+    for name in BINNED_FIELDS:
+        if getattr(a, name) != getattr(b, name):
+            raise AssertionError("%s: %s differs" % (what, name))
+    if json.dumps([m.to_dict() for m in a.bin_mappers]) \
+            != json.dumps([m.to_dict() for m in b.bin_mappers]):
+        raise AssertionError("%s: the bin mappers differ" % what)
+    if a.X_binned.dtype != b.X_binned.dtype \
+            or not np.array_equal(a.X_binned, b.X_binned):
+        raise AssertionError("%s: the stored matrices differ" % what)
+    for name in ("label", "weight", "query_boundaries", "init_score"):
+        va, vb = getattr(a.metadata, name), getattr(b.metadata, name)
+        if (va is None) != (vb is None) or (
+                va is not None and not np.array_equal(va, vb)):
+            raise AssertionError("%s: metadata %s differs" % (what, name))
+
+
+def predict_row_blocks(bst, x, **kwargs) -> np.ndarray:
+    """``bst.predict`` of a CSR ``x`` densified a row block at a time, in
+    the blocks of ``Booster.predict``'s own sparse path."""
+    block = max(256, (1 << 24) // x.shape[1])
+    return np.concatenate([bst.predict(x[lo:lo + block].toarray(), **kwargs)
+                           for lo in range(0, x.shape[0], block)])
+
+
+def drive_sparse_path(x, y, dense: dict, keep: dict) -> dict:
+    """Phase 4zq: exact growth from the sparse CSR ``x`` (``sparse_data``)
+    at full width, binned without densifying it, with the launch counts set
+    to 0 just before training and read just after: EFB packs every one-hot
+    column into a bundle, the train AUC (of the training scores) is held
+    to the JAX package's, and on the CSR's first SPARSE_PREDICT_ROWS rows
+    predict equals predict on them densified block by block (the row
+    blocks' assembly) and the training scores, and pred_leaf equals the
+    leaves the binned training replay gives (``replay_leaves_binned`` on
+    the stored, bundled columns: raw thresholds against bin thresholds).
+    The booster goes in ``keep`` (path 4zs)."""
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(x, label=y, params=PARAMS).construct()
+    binning_s = time.perf_counter() - t0
+    binned = ds._binned
+    onehot = SPARSE_BLOCKS * SPARSE_WIDTH
+    column_of = {j: c for c, cols in enumerate(binned.col_features)
+                 for j in cols if len(cols) > 1}
+    spans = [len({column_of.get(j) for j in range(b * SPARSE_WIDTH,
+                                                   (b + 1) * SPARSE_WIDTH)})
+             for b in range(SPARSE_BLOCKS)]
+    log("path 4zq: binning %.2f s for a CSR of %d x %d with %d stored "
+        "values (%d MB): %d stored columns (B=%d), %d of the %d one-hot "
+        "columns in EFB bundles, each block in %s stored columns; 4a's 1M x "
+        "28 binned in %.2f s"
+        % (binning_s, *x.shape, x.nnz,
+           (x.data.nbytes + x.indices.nbytes + x.indptr.nbytes) >> 20,
+           binned.num_columns, binned.max_col_bins(),
+           sum(j in column_of for j in range(onehot)), onehot, spans,
+           dense["binning_s"]))
+    if any(j not in column_of for j in range(onehot)):
+        raise AssertionError("path 4zq: EFB left one-hot columns unbundled")
+    params = dict(PARAMS, **GROWTH_PARAMS["exact"])
+    bst, train_s, launches, steps = train_counted(params, ds)
+    check_path_launches("4zq", "exact", bst, launches, steps)
+    trees = len(bst.models)
+    if trees != NUM_ITERS:
+        raise AssertionError("path 4zq: expected %d trees, got %d"
+                             % (NUM_ITERS, trees))
+    # the training scores are predict's (4a-4d hold that on the dense data),
+    # and a full predict of 1M rows in 60 row blocks takes ~30 s each way
+    train_auc = auc(bst._impl.scores_of(0), y)
+    rows = x[:SPARSE_PREDICT_ROWS]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raw = bst.predict(rows, raw_score=True)
+    sparse_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    raw_dense = predict_row_blocks(bst, rows, raw_score=True)
+    dense_s = time.perf_counter() - t0
+    if not np.array_equal(raw, raw_dense):
+        raise AssertionError("path 4zq: predict on the CSR differs from the "
+                             "densified rows' by %.3g"
+                             % float(np.abs(raw - raw_dense).max()))
+    scores_diff = float(np.abs(raw - bst._impl.scores_of(0)[:len(raw)])
+                        .max())
+    if scores_diff > VALID_SCORE_TOL:
+        raise AssertionError("path 4zq: predict on the CSR is %.3g from the "
+                             "training scores" % scores_diff)
+    t0 = time.perf_counter()
+    ids = bst.predict(rows, pred_leaf=True)
+    leaf_s = time.perf_counter() - t0
+    impl = bst._impl
+    xb = impl.xb[:len(raw)]
+    leaf_misses = sum(int((tree_mod.replay_leaves_binned(
+        impl._binned_tree(ht), xb).cpu().numpy() != ids[:, i]).sum())
+        for i, ht in enumerate(bst.models))
+    if leaf_misses:
+        raise AssertionError("path 4zq: pred_leaf on the CSR is %d leaf ids "
+                             "off the binned training replay" % leaf_misses)
+    splits = splits_on_layout(bst.models, binned)
+    out = {"binning_s": binning_s, "C": binned.num_columns,
+           "B": binned.max_col_bins(), "nnz": int(x.nnz),
+           "train_s": train_s, "s_per_iter": train_s / trees,
+           "predict_rows": len(raw), "predict_csr_s": sparse_s,
+           "predict_dense_blocks_s": dense_s,
+           "predict_scores_max_diff": scores_diff,
+           "pred_leaf_csr_s": leaf_s,
+           "pred_leaf_replay_misses": leaf_misses,
+           "auc": train_auc, "jax_auc": JAX_SPARSE_AUC,
+           "leaves": [t.num_leaves_actual for t in bst.models],
+           "splits_on": splits, "launches": launches}
+    log("path 4zq: train %.2f s (%.3f s per iteration, 4a %.3f), trees %s "
+        "leaves; predict %d rows from the CSR %.2f s, densified block by "
+        "block %.2f s, raw scores equal, %.3g from the training scores; "
+        "pred_leaf from the CSR %.2f s, %d leaf ids off the binned replay; "
+        "train AUC %.6f (JAX package %.6f), %d splits, %d on bundled "
+        "features, launches %s"
+        % (train_s, out["s_per_iter"], dense["s_per_iter"], out["leaves"],
+           len(raw), sparse_s, dense_s, scores_diff, leaf_s, leaf_misses,
+           train_auc,
+           JAX_SPARSE_AUC,
+           splits["splits"], splits["bundled"], launches))
+    if abs(train_auc - JAX_SPARSE_AUC) > AUC_TOLERANCE:
+        raise AssertionError("path 4zq: train AUC %.6f is more than %g from "
+                             "the JAX package's %.6f"
+                             % (train_auc, AUC_TOLERANCE, JAX_SPARSE_AUC))
+    if splits["bundled"] < 1:
+        raise AssertionError("path 4zq: no split on a bundled feature")
+    out.update(iteration_counts("4zq", bst))
+    log("path 4zq against 4a: %d against %d launches, %d against %d syncs "
+        "an iteration; the port's kernels' device ms an iteration %s "
+        "against %s" % (out["launches_per_iter"], dense["launches_per_iter"],
+                        out["syncs_per_iter"], dense["syncs_per_iter"],
+                        out["own_kernel_ms_per_iter"],
+                        dense["own_kernel_ms_per_iter"]))
+    keep["4zq"] = bst
+    return out
+
+
+def write_libsvm(path: str, x, y) -> None:
+    """A CSR ``x`` with labels ``y`` as a libsvm file, values "%.17g"."""
+    with open(path, "w") as fh:
+        for i in range(x.shape[0]):
+            lo, hi = x.indptr[i], x.indptr[i + 1]
+            fh.write(" ".join(["%.17g" % y[i]] + [
+                "%d:%.17g" % kv for kv in zip(x.indices[lo:hi].tolist(),
+                                               x.data[lo:hi].tolist())])
+                     + "\n")
+
+
+def drive_file_paths(x, y, ds, x_sparse, y_sparse, tmp: str) -> dict:
+    """Phase 4zr: files and the binary cache, with the launch counts set to
+    0 just before and read just after. The first FILE_ROWS rows of the
+    dense data (``ds`` their Dataset, 4a's) as a CSV file and LIBSVM_ROWS
+    rows of the sparse data as a libsvm file bin byte for byte as the same
+    rows in memory do; the binary cache of ``ds`` loads byte for byte, and
+    DP_ROUNDS rounds under gpu_use_dp (f64 kernel runs repeat themselves)
+    grow the same trees from it as from ``ds``."""
+    reset_counts()
+    out = {}
+    csv = os.path.join(tmp, "dense.csv")
+    t0 = time.perf_counter()
+    np.savetxt(csv, np.column_stack([y[:FILE_ROWS], x[:FILE_ROWS]]),
+               fmt="%.17g", delimiter=",", comments="", header=",".join(
+                   ["label"] + ["f%d" % j for j in range(x.shape[1])]))
+    out["csv_write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    from_csv = lgb.Dataset(csv, params=dict(PARAMS, header=True)).construct()
+    out["csv_parse_bin_s"] = time.perf_counter() - t0
+    same_binned(from_csv._binned, lgb.Dataset(
+        x[:FILE_ROWS], label=y[:FILE_ROWS], params=PARAMS).construct()._binned,
+        "path 4zr, the CSV file")
+    svm = os.path.join(tmp, "sparse.svm")
+    rows = x_sparse[:LIBSVM_ROWS]
+    t0 = time.perf_counter()
+    write_libsvm(svm, rows, y_sparse[:LIBSVM_ROWS])
+    out["libsvm_write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    from_svm = lgb.Dataset(svm, params=PARAMS).construct()
+    out["libsvm_parse_bin_s"] = time.perf_counter() - t0
+    same_binned(from_svm._binned, lgb.Dataset(
+        rows, label=y_sparse[:LIBSVM_ROWS], params=PARAMS)
+        .construct()._binned, "path 4zr, the libsvm file")
+    cache = os.path.join(tmp, "dense.bin")
+    t0 = time.perf_counter()
+    ds.save_binary(cache)
+    out["save_binary_s"] = time.perf_counter() - t0
+    out["cache_bytes"] = os.path.getsize(cache)
+    t0 = time.perf_counter()
+    loaded = lgb.Dataset(cache).construct()
+    out["load_binary_s"] = time.perf_counter() - t0
+    same_binned(loaded._binned, ds._binned, "path 4zr, the binary cache")
+    params = dict(PARAMS, gpu_use_dp=True, **GROWTH_PARAMS["exact"])
+    forests = [lgb.train(params, d, num_boost_round=DP_ROUNDS).models
+               for d in (ds, loaded)]
+    at = first_difference(*forests)
+    if at is not None:
+        raise AssertionError("path 4zr: the cache's f64 trees part from the "
+                             "in-memory Dataset's at (tree, node) %s" % (at,))
+    out["launches"] = read_counts()
+    if out["launches"]["build_histogram_f64_cuda"] <= 0:
+        raise AssertionError("path 4zr: no f64 histogram pass")
+    log("path 4zr: CSV of %d x %d written %.2f s, parsed and binned %.2f s; "
+        "libsvm of %d x %d written %.2f s, parsed and binned %.2f s; both "
+        "byte for byte the rows in memory; binary cache of %d rows (%d "
+        "bytes) saved %.2f s, loaded %.2f s, byte for byte, and %d f64 "
+        "rounds from it identical node for node; launches %s"
+        % (FILE_ROWS, x.shape[1], out["csv_write_s"],
+           out["csv_parse_bin_s"], LIBSVM_ROWS, rows.shape[1],
+           out["libsvm_write_s"], out["libsvm_parse_bin_s"], ds.num_data(),
+           out["cache_bytes"], out["save_binary_s"], out["load_binary_s"],
+           DP_ROUNDS, out["launches"]))
+    return out
+
+
+def early_stop_emulation(models, k: int, leaves: np.ndarray, freq: int,
+                         margin: float):
+    """Raw scores [N, K] and the rows stopped under the margin early stop,
+    on the host from the rows' leaves in ``models`` (K trees an iteration;
+    ``pred_leaf``'s class-major layout), the trees' values summed in
+    float32 as ``predict`` sums."""
+    iters = len(models) // k
+    acc = np.zeros((len(leaves), k), np.float32)
+    stopped = np.zeros(len(leaves), bool)
+    for it in range(iters):
+        for c in range(k):
+            value = models[it * k + c].leaf_value.astype(np.float32)[
+                leaves[:, c * iters + it]]
+            acc[:, c] += np.where(stopped, np.float32(0), value)
+        if (it + 1) % freq == 0:
+            top = np.sort(acc, axis=1)
+            reached = (top[:, -1] - top[:, -2] if k > 1
+                       else 2 * np.abs(acc[:, 0])) >= margin
+            stopped |= reached
+    return acc, stopped
+
+
+def drive_prediction_extras(label: str, bst, x, leaves: bool = False,
+                            early_stop: bool = False) -> dict:
+    """Phase 4zs on the model of path ``label`` and its training rows ``x``
+    (a CSR for 4zq). With ``leaves``: pred_leaf on every row, on the card,
+    equal to the leaves the training replay gives (``replay_leaves_binned``
+    on the stored matrix), the leaf values there summing to the raw
+    scores. With ``early_stop``: pred_early_stop at margin 1e30 is predict
+    on every row, and at margin 10 (freq 5) and at the median margin of
+    the first iteration (freq 1) it is the host emulation of the rule on
+    EARLY_STOP_ROWS rows. Always: pred_contrib on CONTRIB_ROWS rows, on
+    the card, each class's columns summing to its raw score, and on
+    CONTRIB_PLAIN_ROWS of them the plain recursion's values."""
+    impl = bst._impl
+    dev = impl.device
+    k = impl.num_tree_per_iteration
+    # predict's trees: those of the best iteration, which phase 4's
+    # profiled iteration is past
+    iters = (bst.best_iteration if bst.best_iteration > 0
+             else len(impl.models) // k)
+    models = impl.models[:iters * k]
+    out = {"trees": len(models)}
+    if leaves:
+        xt = torch.as_tensor(x, dtype=torch.float64, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = tree_mod.predict_forest_leaves(
+            tree_mod.stack_predict_trees(models, dev), xt)
+        torch.cuda.synchronize()
+        out["pred_leaf_s"] = time.perf_counter() - t0
+        if ids.device.type != "cuda":
+            raise AssertionError("path 4zs: pred_leaf ran on %s" % ids.device)
+        api = bst.predict(x, pred_leaf=True)
+        if not np.array_equal(api, ids.cpu().numpy()):
+            raise AssertionError("path 4zs (%s): Booster.predict's pred_leaf "
+                                 "differs from the device forest's" % label)
+        misses = sum(int((tree_mod.replay_leaves_binned(
+            impl._binned_tree(ht), impl.xb).to(torch.int32)
+            != ids[:, i]).sum()) for i, ht in enumerate(models))
+        total = torch.zeros(len(x), dtype=torch.float32, device=dev)
+        for i, ht in enumerate(models):
+            total += torch.as_tensor(ht.leaf_value.astype(np.float32),
+                                     device=dev)[ids[:, i].long()]
+        out["leaf_raw_max_diff"] = float(np.abs(
+            total.cpu().numpy() - bst.predict(x, raw_score=True)).max())
+        out["replay_misses"] = misses
+        log("path 4zs (%s): pred_leaf of %d rows in %d trees on %s %.3f s; "
+            "%d leaf ids off the training replay; their leaf values sum to "
+            "the raw scores within %.3g" % (
+                label, len(x), len(models), ids.device,
+                out["pred_leaf_s"], misses, out["leaf_raw_max_diff"]))
+        if misses or out["leaf_raw_max_diff"] > EXTRAS_RAW_TOL:
+            raise AssertionError("path 4zs (%s): pred_leaf is not the "
+                                 "training replay" % label)
+        del xt, ids, total
+    if early_stop:
+        raw = bst.predict(x, raw_score=True)
+        t0 = time.perf_counter()
+        never = bst.predict(x, raw_score=True, pred_early_stop=True,
+                            pred_early_stop_freq=5,
+                            pred_early_stop_margin=1e30)
+        out["early_stop_s"] = time.perf_counter() - t0
+        out["early_stop_1e30_max_diff"] = float(np.abs(never - raw).max())
+        rows = x[:EARLY_STOP_ROWS]
+        ids = bst.predict(rows, pred_leaf=True)
+        first = np.zeros((len(rows), k), np.float32)
+        for c in range(k):
+            first[:, c] = models[c].leaf_value.astype(np.float32)[
+                ids[:, c * iters]]
+        top = np.sort(first, axis=1)
+        median = float(np.median(top[:, -1] - top[:, -2] if k > 1
+                                 else 2 * np.abs(first[:, 0])))
+        out["rule"] = {}
+        for freq, margin in ((5, 10.0), (1, median)):
+            want, stopped = early_stop_emulation(models, k, ids, freq,
+                                                 margin)
+            got = bst.predict(rows, raw_score=True, pred_early_stop=True,
+                              pred_early_stop_freq=freq,
+                              pred_early_stop_margin=margin)
+            diff = float(np.abs(got.reshape(len(rows), k) - want).max())
+            out["rule"]["freq %d, margin %.6g" % (freq, margin)] = {
+                "stopped": int(stopped.sum()), "max_diff": diff}
+            if diff > EXTRAS_RAW_TOL:
+                raise AssertionError("path 4zs (%s): early stop at freq %d, "
+                                     "margin %g is %.3g from the emulation"
+                                     % (label, freq, margin, diff))
+        log("path 4zs (%s): pred_early_stop at margin 1e30 on %d rows %.3f "
+            "s, %.3g from predict; the rule on %d rows against the host "
+            "emulation %s" % (label, len(x), out["early_stop_s"],
+                              out["early_stop_1e30_max_diff"], len(rows),
+                              out["rule"]))
+        if out["early_stop_1e30_max_diff"] > EXTRAS_RAW_TOL:
+            raise AssertionError("path 4zs (%s): early stop at margin 1e30 "
+                                 "is not predict" % label)
+    rows = x[:CONTRIB_ROWS]
+    if hasattr(rows, "toarray"):
+        rows = rows.toarray()
+    raw = bst.predict(rows, raw_score=True).reshape(len(rows), k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    contrib = bst.predict(rows, pred_contrib=True).reshape(len(rows), k, -1)
+    out["contrib_s"] = time.perf_counter() - t0
+    scale = np.maximum(1.0, np.abs(raw))
+    out["contrib_sum_max_rel"] = float(
+        (np.abs(contrib.sum(axis=2) - raw) / scale).max())
+    head = rows[:CONTRIB_PLAIN_ROWS]
+    on_card = shap.contrib_tensor(impl, torch.as_tensor(
+        head, dtype=torch.float64, device=dev), iters)
+    if on_card.device.type != "cuda":
+        raise AssertionError("path 4zs: pred_contrib ran on %s"
+                             % on_card.device)
+    t0 = time.perf_counter()
+    plain = shap.predict_contrib_plain(impl, head, iters).reshape(
+        len(head), k, -1)
+    out["contrib_plain_s"] = time.perf_counter() - t0
+    absum = np.abs(plain).sum(axis=2)
+    out["contrib_plain_max_rel"] = float(max(
+        (np.abs(ours - plain).max(axis=2) / absum).max()
+        for ours in (contrib[:len(head)], on_card.cpu().numpy())))
+    # TreeSHAP's unique depth: the two orders of summation part further on
+    # deeper merged paths (scripts/shap_depth_probe.py)
+    out["longest_merged_path"] = max(
+        shap.tree_paths(ht, torch.device("cpu")).max_depth
+        for ht in models if ht.num_leaves_actual > 1)
+    log("path 4zs (%s): pred_contrib of %d rows x %d columns on %s %.3f s; "
+        "classes sum to the raw scores within %.3g of max(1, |raw|); the "
+        "plain recursion on %d rows (%.2f s) within %.3g of a row's sum of "
+        "|contrib|; longest merged path %d"
+        % (label, len(rows), contrib.shape[2] * k, on_card.device,
+           out["contrib_s"], out["contrib_sum_max_rel"], len(head),
+           out["contrib_plain_s"], out["contrib_plain_max_rel"],
+           out["longest_merged_path"]))
+    if out["contrib_sum_max_rel"] > EXTRAS_RAW_TOL:
+        raise AssertionError("path 4zs (%s): contributions do not sum to the "
+                             "raw scores" % label)
+    if out["contrib_plain_max_rel"] > CONTRIB_PLAIN_REL:
+        raise AssertionError("path 4zs (%s): contributions are %.3g from "
+                             "the plain recursion's"
+                             % (label, out["contrib_plain_max_rel"]))
+    return out
+
+
 def drive_bundled_path(label: str, ds, x, y, valid=None):
     """Phase 4i-4l: one growth mode on the bundled workload at full width,
     with the launch counts set to 0 just before and read just after; 4i
@@ -2180,7 +2673,8 @@ def drive_bundled_path(label: str, ds, x, y, valid=None):
     return out
 
 
-def drive_categorical_path(label: str, ds, x, y, valid=None):
+def drive_categorical_path(label: str, ds, x, y, valid=None,
+                           keep: Optional[dict] = None):
     """Phase 4m-4p: one growth mode on the categorical workload at full
     width, with the launch counts set to 0 just before and read just
     after; 4m also keeps ``valid`` (Dataset, rows), whose device scores
@@ -2252,6 +2746,8 @@ def drive_categorical_path(label: str, ds, x, y, valid=None):
                                  "%.3g away" % (label,
                                                 out["model_text_max_diff"]))
     out.update(iteration_counts(label, bst))
+    if keep is not None:
+        keep[label] = bst
     return out
 
 
@@ -2599,7 +3095,8 @@ def time_mask_draw(dev, flush) -> dict:
     return {"rows": MAIN_ROWS, "ms": ms, "bound_ms": bound_ms}
 
 
-def drive_multiclass_path(label: str, ds, x, valid=None):
+def drive_multiclass_path(label: str, ds, x, valid=None,
+                          keep: Optional[dict] = None):
     """Phase 4r-4u: one multiclass path at full width (NUM_CLASS trees an
     iteration, one a class), with the launch counts set to 0 just before
     and read just after; 4r also keeps ``valid`` (Dataset, rows), with
@@ -2687,6 +3184,8 @@ def drive_multiclass_path(label: str, ds, x, valid=None):
                                  "the JAX package's %.6f"
                                  % (label, what, value, gap, want))
     out.update(iteration_counts(label, bst))
+    if keep is not None:
+        keep[label] = bst
     return out
 
 
@@ -2969,14 +3468,14 @@ def restore_gradients(timer: EventTimer) -> None:
 
 
 class _PlainF64Sums:
-    """A callback that turns on ``GrowParams.plain_f64_sums`` before the
+    """A callback that sets ``GrowParams.plain_sums`` to "f64" before the
     first iteration (``train`` builds the Booster itself)."""
     before_iteration = True
     order = 0
 
     def __call__(self, env) -> None:
         impl = env.model._impl
-        impl.grow_params = impl.grow_params._replace(plain_f64_sums=True)
+        impl.grow_params = impl.grow_params._replace(plain_sums="f64")
 
 
 def train_plain_f64(params, ds, valid=None) -> dict:
@@ -2991,7 +3490,7 @@ def train_plain_f64(params, ds, valid=None) -> dict:
         bst = lgb.Booster(params=dict(params, tpu_hist_impl="plain"),
                           train_set=ds)
         bst._impl.grow_params = bst._impl.grow_params._replace(
-            plain_f64_sums=True)
+            plain_sums="f64")
         bst._impl.train_many(NUM_ITERS)
     else:
         bst = lgb.train(dict(params, tpu_hist_impl="plain"), ds,
@@ -3000,7 +3499,7 @@ def train_plain_f64(params, ds, valid=None) -> dict:
                         evals_result=evals,
                         early_stopping_rounds=EARLY_STOPPING_ROUNDS,
                         verbose_eval=False)
-    if not bst._impl.grow_params.plain_f64_sums:
+    if bst._impl.grow_params.plain_sums != "f64":
         raise AssertionError("the plain run did not sum in float64")
     return {"bst": bst,
             "train": {m: v for _, m, v, _ in bst.eval_train()},
@@ -3335,16 +3834,14 @@ COMPARE_RUNS = [
 ]
 
 
-def train_compared(params, ds, plain_f64_sums: bool):
+def train_compared(params, ds, sums: str):
     """COMPARE_ITERS iterations of a Booster on ``ds``, the plain
-    histograms summed in float64 with ``plain_f64_sums``
-    (``GrowParams.plain_f64_sums``: one running f32 sum per cell, as
-    ``index_add_`` keeps it, drifts on bins of many rows, where the
-    kernels and float64 sums agree)."""
+    histograms summed as ``sums`` says (``GrowParams.plain_sums``: one
+    running f32 sum per cell, as ``index_add_`` keeps it, drifts on bins
+    of many rows, where the kernels, "blocked" and "f64" sums agree)."""
     bst = lgb.Booster(params=params, train_set=ds)
     impl = bst._impl
-    impl.grow_params = impl.grow_params._replace(
-        plain_f64_sums=plain_f64_sums)
+    impl.grow_params = impl.grow_params._replace(plain_sums=sums)
     for _ in range(COMPARE_ITERS):
         bst.update()
     return bst
@@ -3375,8 +3872,13 @@ def constraint_compare_runs(directory: str) -> list:
     return runs
 
 
-# phase 5's plain paths, by whether their histograms sum in float64
-PLAIN_PATHS = {False: "plain", True: "plain_f64"}
+# phase 5's plain paths, by whether their histograms sum in float64: f32
+# sums are blocked (core/histogram.py plain sums "blocked": each cell's
+# rows in runs of BLOCK_ROWS rows landing in that cell, the runs' sums
+# added in order; not the JAX matmul's blocks of BLOCK_ROWS consecutive
+# rows), since one running f32 sum a cell drifts on bundled data by 1.6e-5
+# to 4.0e-5 of the root's gain, as far as a small fault moves it
+PLAIN_PATHS = {False: "plain_blocked", True: "plain_f64"}
 
 
 def compare_paths(ds, xs, ys, raw_tol: float = 1e-5, runs=COMPARE_RUNS,
@@ -3384,8 +3886,8 @@ def compare_paths(ds, xs, ys, raw_tol: float = 1e-5, runs=COMPARE_RUNS,
     """Phase 5: for each growth mode of ``runs``, the kernel path against
     the plain path with float64 histogram sums (no drift) and, on the data
     phase 5 has held the kernels to from the start, against the f32 plain
-    path too (one running sum a cell; ``plains`` says which). Trees equal
-    up to f32 gain ties (``trees_match``) against each; where they are
+    path too (blocked sums, ``PLAIN_PATHS``; ``plains`` says which). Trees
+    equal up to f32 gain ties (``trees_match``) against each; where they are
     identical, raw predictions within ``raw_tol`` of the f32 plain path's
     and within F64_RAW_TOL (scaled by the run's learning rate over
     F64_RAW_TOL_LR where it is larger) of the float64 path's; where they
@@ -3403,7 +3905,8 @@ def compare_paths(ds, xs, ys, raw_tol: float = 1e-5, runs=COMPARE_RUNS,
                 (PLAIN_PATHS[f64], "plain", f64) for f64 in plains):
             reset_counts()
             forests[name] = train_compared(
-                dict(PARAMS, tpu_hist_impl=impl, **extra), ds, f64)
+                dict(PARAMS, tpu_hist_impl=impl, **extra), ds,
+                "f64" if f64 else "blocked")
             counts = read_counts()
             if (counts[wrapper] > 0) != (impl == "auto"):
                 raise AssertionError("%s %s path: %s launched %d times"
@@ -3473,28 +3976,35 @@ def first_difference(a, b):
     return None
 
 
-def compare_f64(ds, xs, data: str) -> dict:
+def compare_f64(ds, xs, data: str, extra: Optional[dict] = None,
+                wrappers=("build_histogram_f64_cuda",)) -> dict:
     """Phase 5's f64 rows on ``ds`` (rows ``xs``): the f64 kernel path,
     again, and the f64 plain path, COMPARE_ITERS iterations each with the
-    launch counts set to 0 just before and read just after. Raises unless
+    launch counts set to 0 just before and read just after, ``extra`` over
+    the parameters (forced splits with CEGB, whose kernel runs must launch
+    the f64 ``hist_for_leaf`` route too: ``wrappers``). Raises unless
     every pair's trees are identical node for node (where they are not,
     it logs the first node that differs: both splits' gains, leaves and
     rows) and their raw predictions within F64_COMPARE_RAW_TOL."""
-    params = dict(PARAMS, gpu_use_dp=True, **GROWTH_PARAMS["exact"])
+    params = dict(PARAMS, gpu_use_dp=True, **GROWTH_PARAMS["exact"],
+                  **(extra or {}))
     forests, launches = {}, {}
     for name, impl in (("kernel", "auto"), ("kernel again", "auto"),
                        ("plain_f64", "plain")):
         reset_counts()
         forests[name] = train_compared(dict(params, tpu_hist_impl=impl), ds,
-                                       False)
+                                       "running")
         counts = read_counts()
-        n64 = counts["build_histogram_f64_cuda"]
-        if (n64 > 0) != (impl == "auto") or sum(counts.values()) != n64:
+        n64 = sum(counts[w] for w in wrappers)
+        if any((counts[w] > 0) != (impl == "auto") for w in wrappers) \
+                or sum(counts.values()) != n64:
             raise AssertionError("f64 %s path on the %s data launched %s"
                                  % (name, data, counts))
-        launches[name] = n64
+        launches[name] = {w: counts[w] for w in wrappers}
     raw = {name: f.predict(xs, raw_score=True) for name, f in forests.items()}
     out = {"launches": launches["kernel"]}
+    kernel_launches = ", ".join("%s launches %d" % kv
+                                for kv in launches["kernel"].items())
     for other in ("kernel again", "plain_f64"):
         at = first_difference(forests["kernel"].models, forests[other].models)
         raw_diff = float(np.abs(raw["kernel"] - raw[other]).max())
@@ -3512,9 +4022,8 @@ def compare_f64(ds, xs, data: str) -> dict:
                                  "data (no tie rule holds f64 rows)"
                                  % (other, data))
         log("f64 kernel vs %s path on the %s data (%d rows, exact): trees "
-            "identical node for node, max raw prediction diff %.3g, "
-            "build_histogram_f64_cuda launches %d"
-            % (other, data, len(xs), raw_diff, launches["kernel"]))
+            "identical node for node, max raw prediction diff %.3g, %s"
+            % (other, data, len(xs), raw_diff, kernel_launches))
         if raw_diff > F64_COMPARE_RAW_TOL:
             raise AssertionError("f64 %s: identical trees but raw predictions "
                                  "%.3g apart" % (other, raw_diff))
@@ -3794,9 +4303,11 @@ def run(tmp: str) -> int:
     x, y = bench_data(MAIN_ROWS)
     t0 = time.perf_counter()
     ds = lgb.Dataset(x, label=y, params=PARAMS).construct()
-    log("binning: %.2f s for %d x %d" % (time.perf_counter() - t0,
-                                          *x.shape))
-    paths = {g: drive_path(g, ds, x, y) for g in GROWTH_PARAMS}
+    binning_s = time.perf_counter() - t0
+    log("binning: %.2f s for %d x %d" % (binning_s, *x.shape))
+    models, extras = {}, {}
+    paths = {g: drive_path(g, ds, x, y, models) for g in GROWTH_PARAMS}
+    paths["exact"]["binning_s"] = binning_s
     paths["4q"] = drive_fobj_path(ds, x, y)
 
     log_phase(t_start, "4zb-4zf. row sampling on the same data")
@@ -3819,7 +4330,24 @@ def run(tmp: str) -> int:
     log_phase(t_start, "4zn. float64 histograms on the same data")
     # ---- 4zn. float64 histograms on the same data ----------------------
     paths["4zn"] = drive_f64_path("4zn", ds, x, y, paths["exact"])
-    del ds, valid
+
+    log_phase(t_start, "4zq. sparse input, exact growth")
+    # ---- 4zq. sparse input, exact growth -------------------------------
+    x_sparse, y_sparse = sparse_data(MAIN_ROWS)
+    paths["4zq"] = drive_sparse_path(x_sparse, y_sparse, paths["exact"],
+                                     models)
+
+    log_phase(t_start, "4zr. files and the binary cache")
+    # ---- 4zr. files and the binary cache -------------------------------
+    paths["4zr"] = drive_file_paths(x, y, ds, x_sparse, y_sparse, tmp)
+
+    log_phase(t_start, "4zs. prediction extras of 4a and 4zq")
+    # ---- 4zs. prediction extras of 4a and 4zq --------------------------
+    extras["4a"] = drive_prediction_extras("4a", models.pop("exact"), x,
+                                           leaves=True, early_stop=True)
+    extras["4zq"] = drive_prediction_extras("4zq", models.pop("4zq"),
+                                            x_sparse)
+    del ds, valid, x_sparse, y_sparse
     x, t = regression_data(MAIN_ROWS)
     xv, tv = regression_data(VALID_ROWS, seed=1)
     t0 = time.perf_counter()
@@ -3886,7 +4414,8 @@ def run(tmp: str) -> int:
     del flush
     for label in CATEGORICAL_PATHS:
         paths[label] = drive_categorical_path(
-            label, ds, x_cat, y_cat, (valid, xv) if label == "4m" else None)
+            label, ds, x_cat, y_cat, (valid, xv) if label == "4m" else None,
+            models)
         paths[label]["binning_s"] = binning_s
     log_phase(t_start, "4zo. float64 histograms on the categorical data")
     paths["4zo"] = drive_f64_path("4zo", ds, x_cat, y_cat, paths["4m"])
@@ -3898,6 +4427,8 @@ def run(tmp: str) -> int:
                              "or more left (largest %d)" % largest)
     cat_bundled = ds._binned.has_bundles
     del ds, valid
+    log_phase(t_start, "4zs. prediction extras of 4m")
+    extras["4m"] = drive_prediction_extras("4m", models.pop("4m"), x_cat)
     for cat_label, dense in CATEGORICAL_PATHS.items():
         c, d = paths[cat_label], paths[dense]
         log("path %s against %s (the same growth, dense): %.3f against %.3f "
@@ -3921,9 +4452,13 @@ def run(tmp: str) -> int:
                          time.perf_counter() - t0 - binning_s))
     for label in MULTICLASS_PATHS:
         paths[label] = drive_multiclass_path(
-            label, ds, x_mc, (valid, xv) if label == "4r" else None)
+            label, ds, x_mc, (valid, xv) if label == "4r" else None, models)
         paths[label]["binning_s"] = binning_s
     del ds, valid
+    log_phase(t_start, "4zs. prediction extras of 4r")
+    extras["4r"] = drive_prediction_extras("4r", models.pop("4r"), x_mc,
+                                           early_stop=True)
+    models.clear()
     for label, (dense, _) in MULTICLASS_PATHS.items():
         m, d = paths[label], paths[dense]
         log("path %s against %s (the same growth, dense binary): %.3f "
@@ -3955,6 +4490,10 @@ def run(tmp: str) -> int:
     compare_paths(ds, xs, ys, runs=constraint_compare_runs(tmp),
                   plains=(True,))
     f64_compare = {"dense": compare_f64(ds, xs, "dense")}
+    f64_compare["dense, forced splits and CEGB"] = compare_f64(
+        ds, xs, "dense", dict(constraint_params("forced", tmp),
+                              **constraint_params("cegb", tmp)),
+        ("build_histogram_f64_cuda", "build_histogram_leaf_f64_cuda"))
     del ds
     xs, ys = x_bundled[:COMPARE_ROWS], y_bundled[:COMPARE_ROWS]
     log("kernel vs plain path on the bundled data (%d rows):" % len(xs))
@@ -4012,13 +4551,17 @@ def run(tmp: str) -> int:
                           launches("build_histogram_f64_cuda"), f64_rows,
                           f64_rows[0]),
              leaf_launches=launches("build_histogram_leaf_f64_cuda"),
+             phase5_forced_leaf_launches=f64_compare[
+                 "dense, forced splits and CEGB"]["launches"][
+                 "build_histogram_leaf_f64_cuda"],
              note="histogram.cu's float64 variant (gpu_use_dp, exact growth: "
-                  "paths 4zn-4zp); the JAX package computes this in XLA "
-                  "(core/histogram.py:51 _hist_scatter on the CPU, :34 "
+                  "paths 4zn-4zp, 4zr); the JAX package computes this in "
+                  "XLA (core/histogram.py:51 _hist_scatter on the CPU, :34 "
                   "_hist_chunk_matmul on a TPU), not in a Pallas kernel. "
-                  "Its hist_for_leaf route (build_histogram_leaf_f64_cuda, "
-                  "leaf_launches) is launched by phase 3 alone: no f64 path "
-                  "forces a split"),
+                  "Its hist_for_leaf route (build_histogram_leaf_f64_cuda) "
+                  "has leaf_launches on the phase-4 paths; phase 5's f64 "
+                  "forced-splits-with-CEGB comparison, which is not a main "
+                  "path, launches it phase5_forced_leaf_launches times"),
         kernel_entry("hist_slots",
                      "lightgbm_tpu_torch/core/csrc/hist_slots.cu",
                      "lightgbm_tpu/core/histogram_pallas.py:384",
@@ -4041,7 +4584,8 @@ def run(tmp: str) -> int:
                   "not either), so no path launches it; its phase-3 calls "
                   "are its only launches")],
         "paths": paths, "renewal": renewal, "rank_scale": rank_scale,
-        "mask_draw": mask_draw, "f64_compare": f64_compare}),
+        "mask_draw": mask_draw, "f64_compare": f64_compare,
+        "prediction_extras": extras}),
         flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,9 +30,11 @@ import numpy as np
 from .boosting import create_boosting
 from .boosting.gbdt import HostTree
 from .config import Config, param_dict_to_str
+from .core.shap import predict_contrib
 from .device import DeviceLike, resolve_device
 from .io import model_text
-from .io.dataset import BinnedDataset
+from .io import parser
+from .io.dataset import BinnedDataset, _is_sparse
 from .log import LightGBMError, check, outside_slice
 from .metrics import create_metric, default_metric_for_objective
 from .objectives import create_objective
@@ -73,11 +75,13 @@ def _pandas_frame_to_array(df, pandas_categorical=None):
 
 
 def _to_2d_float(data) -> np.ndarray:
-    """Dense ndarray / list / DataFrame -> float64 [N, F]."""
-    if hasattr(data, "tocsc") and hasattr(data, "nnz"):
-        raise outside_slice("sparse input", "ROADMAP Queue 1 #16")
+    """Dense ndarray / list / DataFrame / scipy sparse -> float64 [N, F]
+    (a sparse matrix densified: ``Booster.predict`` passes one row block
+    at a time)."""
     if _is_frame(data):
         data = _pandas_frame_to_array(data)[0]
+    if _is_sparse(data):
+        data = data.toarray()
     arr = np.asarray(data, dtype=np.float64)
     if arr.ndim == 1:
         arr = arr.reshape(1, -1)
@@ -150,16 +154,17 @@ class Dataset:
         validation set takes its reference's mappers."""
         if self._binned is not None:
             return self
-        if isinstance(self.data, str):
-            raise outside_slice("loading data from files",
-                                "ROADMAP Queue 1 #16")
         ref_binned = (None if self.reference is None
                       else self.reference.construct()._binned)
+        data, frame_cats = self.data, []
+        if isinstance(data, str):
+            data = self._from_file(data, ref_binned)
+            if data is None:
+                return self
         names = (list(self.feature_name)
                  if isinstance(self.feature_name, (list, tuple)) else None)
         if names is None and hasattr(self.data, "columns"):
             names = [str(c) for c in self.data.columns]
-        data, frame_cats = self.data, []
         if _is_frame(data):
             if self.pandas_categorical is None and self.reference is not None:
                 # a valid set codes categories in the training set's order
@@ -174,13 +179,69 @@ class Dataset:
             cat = list(cat) if cat else []
             cat.extend(c for c in frame_cats if c not in cat)
         self._binned = BinnedDataset.from_matrix(
-            _to_2d_float(data), Config(self.params),
+            # scipy sparse data are binned without densifying them
+            data if _is_sparse(data) else _to_2d_float(data),
+            Config(self.params),
             label=_to_1d(self.label), weight=_to_1d(self.weight),
             init_score=_to_1d(self.init_score), group=_to_1d(self.group),
             feature_names=names,
             categorical_feature=cat, reference=ref_binned)
         if self.free_raw_data:
             self.data = None
+        return self
+
+    def _from_file(self, path: str, ref_binned: Optional[BinnedDataset]
+                   ) -> Optional[np.ndarray]:
+        """A data file (basic.py:130-181 of the JAX package): the binary
+        cache (``.npz``/``.bin``) and, under ``two_round``, a delimited
+        file streamed in chunks are binned here (returns None); any other
+        file is parsed into the float64 matrix it returns, its label
+        column the label and its header the feature names unless given.
+        Weights, query sizes and init scores not given come from the
+        sidecar files ``<path>.weight``, ``.query`` and ``.init``."""
+        if path.endswith((".npz", ".bin")):
+            self._binned = BinnedDataset.load_binary(path)
+            return None
+        cfg = Config(self.params)
+        if cfg.two_round and not parser.sniff_libsvm(path):
+            self._binned = BinnedDataset.from_file_two_round(
+                path, cfg, reference=ref_binned,
+                feature_names=(None if self.feature_name == "auto"
+                               else self.feature_name),
+                categorical_feature=(None if self.categorical_feature
+                                     == "auto"
+                                     else self.categorical_feature))
+            meta = self._binned.metadata
+            if self.label is not None:
+                meta.set_label(_to_1d(self.label))
+            for value, load, store in (
+                    (self.weight, parser.load_weight_file, meta.set_weight),
+                    (self.group, parser.load_query_file, meta.set_query),
+                    (self.init_score, parser.load_init_score_file,
+                     meta.set_init_score)):
+                value = value if value is not None else load(path)
+                if value is not None:
+                    store(_to_1d(value))
+            return None
+        x, y, names = parser.parse_file(path, has_header=cfg.header,
+                                        label_column=cfg.label_column)
+        if self.label is None:
+            self.label = y
+        if self.feature_name == "auto" and names:
+            self.feature_name = names
+        if self.weight is None:
+            self.weight = parser.load_weight_file(path)
+        if self.group is None:
+            self.group = parser.load_query_file(path)
+        if self.init_score is None:
+            self.init_score = parser.load_init_score_file(path)
+        return x
+
+    def save_binary(self, filename: str) -> "Dataset":
+        """basic.py:397 of the JAX package (dataset.h:394 SaveBinaryFile):
+        the binned data, mappers and metadata as the ``.npz`` cache that
+        ``Dataset(filename)`` loads, in either package."""
+        self.construct()._binned.save_binary(filename)
         return self
 
     def create_valid(self, data, label=None, weight=None, group=None,
@@ -243,7 +304,6 @@ class Dataset:
     set_reference = _not_ported("set_reference", "#17")
     set_field = _not_ported("set_field", "#17")
     get_field = _not_ported("get_field", "#17")
-    save_binary = _not_ported("save_binary", "#16")
 
 
 class _InnerPredictor:
@@ -496,21 +556,42 @@ class Booster:
     def predict(self, data, num_iteration: Optional[int] = None,
                 raw_score: bool = False, pred_leaf: bool = False,
                 pred_contrib: bool = False, **kwargs) -> np.ndarray:
-        """Raw scores or probabilities for raw feature rows, on the
-        booster's device."""
+        """Raw scores or probabilities for raw feature rows (a dense
+        matrix, a DataFrame or a scipy sparse matrix), on the booster's
+        device; with ``pred_leaf`` each tree's leaf index a row, class-major
+        for K classes, as the JAX package lays it out (class 0's
+        iterations, then class 1's); with ``pred_contrib`` the SHAP values,
+        F + 1 columns a class (``core/shap.py``); ``pred_early_stop``
+        (``pred_early_stop_freq``, ``pred_early_stop_margin``) stops a row's
+        sum once its margin is reached (``GBDT.predict``)."""
         if isinstance(data, Dataset):
             raise LightGBMError("Cannot use Dataset instance for prediction, "
                                 "please use raw data instead")
-        if pred_leaf or pred_contrib or kwargs.get("pred_early_stop"):
-            raise outside_slice("pred_leaf, pred_contrib and pred_early_stop",
-                                "ROADMAP Queue 1 #8")
         if _is_frame(data) and self.pandas_categorical is not None:
             data = _pandas_frame_to_array(data, self.pandas_categorical)[0]
         if num_iteration is None and self.best_iteration > 0:
             num_iteration = self.best_iteration
-        return self._impl.predict(_to_2d_float(data),
-                                  num_iteration=num_iteration,
-                                  raw_score=raw_score)
+        if _is_sparse(data):
+            # densified a row block at a time (~128 MB of float64), never
+            # whole (basic.py:689-704 of the JAX package; PredictForCSR)
+            block = max(256, (1 << 24) // max(int(data.shape[1]), 1))
+            if data.shape[0] > block:
+                mat = data.tocsr()
+                return np.concatenate([self.predict(
+                    mat[lo:lo + block], num_iteration=num_iteration,
+                    raw_score=raw_score, pred_leaf=pred_leaf,
+                    pred_contrib=pred_contrib, **kwargs)
+                    for lo in range(0, mat.shape[0], block)], axis=0)
+        x = _to_2d_float(data)
+        if pred_contrib:
+            return predict_contrib(self._impl, x, num_iteration)
+        return self._impl.predict(
+            x, num_iteration=num_iteration, raw_score=raw_score,
+            pred_leaf=pred_leaf,
+            pred_early_stop=kwargs.get("pred_early_stop", False),
+            pred_early_stop_freq=kwargs.get("pred_early_stop_freq", 10),
+            pred_early_stop_margin=kwargs.get("pred_early_stop_margin",
+                                              10.0))
 
     # ------------------------------------------------------------ model IO
     def _feature_names(self) -> List[str]:

@@ -900,12 +900,21 @@ class GBDT:
 
     # ------------------------------------------------------------ prediction
     def predict(self, data: np.ndarray, num_iteration: Optional[int] = None,
-                raw_score: bool = False) -> np.ndarray:
+                raw_score: bool = False, pred_leaf: bool = False,
+                pred_early_stop: bool = False, pred_early_stop_freq: int = 10,
+                pred_early_stop_margin: float = 10.0) -> np.ndarray:
         """Batch prediction on raw feature values (GBDT::Predict,
-        gbdt_prediction.cpp:49-83): [N] for one class, [N, K] for K, each
-        class the sum of its trees (tree ``i`` is class ``i % K``) over the
-        first ``num_iteration`` iterations, divided by their number in an
-        averaged (RF) model (gbdt.py:2579-2580 of the JAX package)."""
+        gbdt_prediction.cpp:49-83; gbdt.py:2523-2582 of the JAX package):
+        [N] for one class, [N, K] for K, each class the sum of its trees
+        (tree ``i`` is class ``i % K``) over the first ``num_iteration``
+        iterations, divided by their number in an averaged (RF) model.
+
+        ``pred_leaf``: [N, T] int32 leaf ids, for K classes class-major
+        (class 0's iterations, then class 1's), as the JAX package lays
+        them out; no averaging or conversion. ``pred_early_stop``: the
+        margin early stop (``predict_forest_early_stop``), off for an
+        objective that needs accurate prediction (predictor.hpp:39) and
+        under ``pred_leaf``."""
         data = np.asarray(data, np.float64)
         if data.ndim == 1:
             data = data.reshape(1, -1)
@@ -913,14 +922,31 @@ class GBDT:
         total = len(self.models) // k
         use = total if num_iteration is None or num_iteration <= 0 \
             else min(num_iteration, total)
+        if pred_early_stop and self.objective is not None \
+                and self.objective.need_accurate_prediction:
+            pred_early_stop = False
         if use == 0:
             out = np.zeros((data.shape[0], k), np.float64)
         else:
             x = torch.as_tensor(data, device=self.device)
-            out = torch.stack([tree_mod.predict_forest_scores(
-                tree_mod.stack_predict_trees(self.models[c:use * k:k],
-                                             self.device), x)
-                for c in range(k)], dim=1).cpu().numpy().astype(np.float64)
+            if pred_leaf:
+                leaves = [tree_mod.predict_forest_leaves(
+                    tree_mod.stack_predict_trees(self.models[c:use * k:k],
+                                                 self.device), x)
+                    for c in range(k)]
+                return torch.cat(leaves, dim=1).cpu().numpy()
+            if pred_early_stop:
+                out = tree_mod.predict_forest_early_stop(
+                    tree_mod.stack_predict_trees(self.models[:use * k],
+                                                 self.device), x, k,
+                    max(int(pred_early_stop_freq), 1),
+                    float(pred_early_stop_margin))
+            else:
+                out = torch.stack([tree_mod.predict_forest_scores(
+                    tree_mod.stack_predict_trees(self.models[c:use * k:k],
+                                                 self.device), x)
+                    for c in range(k)], dim=1)
+            out = out.cpu().numpy().astype(np.float64)
         if self.average_output and use > 0:
             out = out / use
         if k == 1:

@@ -77,9 +77,10 @@ class GrowParams(NamedTuple):
     # the histograms' and the split search's dtype: "f32", or "f64"
     # (gpu_use_dp; exact growth only, the tree rounded to f32 at the end)
     hist_dtype: str = "f32"
-    # the plain histograms sum in float64 (core/histogram.py f64_sums; set
-    # by chip_smoke.py and the tests, not by a Config parameter)
-    plain_f64_sums: bool = False
+    # how the plain histograms add a cell's rows: running | blocked | f64
+    # (core/histogram.py PLAIN_SUMS; set by chip_smoke.py and the tests,
+    # not by a Config parameter)
+    plain_sums: str = "running"
     # tree_growth=batched (core/grow_batched.py): split up to this many of
     # the highest-gain leaves per step
     batch_splits: int = 16
@@ -405,7 +406,7 @@ def root_split(xb: torch.Tensor, vals: torch.Tensor, meta: FeatureMeta,
     dev = xb.device
     root = vals.sum(dim=0)                                   # (g, h, count)
     hist_root = hist_tile_vals(xb, vals, params.num_bins, params.hist_impl,
-                               params.plain_f64_sums)
+                               params.plain_sums)
     tree = empty_tree(l, dev, vals.dtype)
     tree.leaf_value[0] = calculate_leaf_output(root[0], root[1], sp.lambda_l1,
                                                sp.lambda_l2, sp.max_delta_step)
@@ -571,7 +572,7 @@ def grow_tree(xb: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
             hist_f = hist_for_leaf(part, slot_ids[fleaf:fleaf + 1],
                                    int(known_begin[fleaf]),
                                    int(known_count[fleaf]), xb, vals, b,
-                                   params.hist_impl, params.plain_f64_sums)
+                                   params.hist_impl, params.plain_sums)
             fcur, use_forced = forced_split_info(
                 hist_f, forced_feature[t], forced_threshold[t], meta, params)
             leaf_t = torch.where(use_forced, slot_ids[fleaf:fleaf + 1],
@@ -624,7 +625,7 @@ def grow_tree(xb: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
 
         part, hist_left, hist_right = partition_and_hist(
             part, leaf, right_leaf, begin, count, xb, vals, go_left_rows, b,
-            params.hist_impl, params.plain_f64_sums)
+            params.hist_impl, params.plain_sums)
 
         # ---- tree bookkeeping (Tree::Split, tree.cpp:49-67) -------------
         node = t

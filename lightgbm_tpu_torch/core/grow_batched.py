@@ -275,12 +275,12 @@ def grow_tree_batched(xb: torch.Tensor, grad: torch.Tensor,
             slot = rs * 2 + (~go_left).to(torch.int64)       # child slot
             ch_hist = hist_slots(xb, torch.where(active, slot, -1)
                                  .to(torch.int32), vals, b, 2 * k,
-                                 params.hist_impl, params.plain_f64_sums)
+                                 params.hist_impl, params.plain_sums)
         else:
             h6 = hist_slots6(xb, torch.where(active, rs, -1).to(torch.int32),
                              go_left.to(torch.float32), vals, b, k,
                              params.hist_impl,
-                             params.plain_f64_sums)          # [k, C, B, 6]
+                             params.plain_sums)              # [k, C, B, 6]
             ch_hist = torch.stack([h6[..., :3], h6[..., 3:]],
                                   dim=1).reshape(2 * k, c, b, 3)
 

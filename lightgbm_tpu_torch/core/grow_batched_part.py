@@ -156,7 +156,7 @@ def grow_tree_batched_part(xb: torch.Tensor, grad: torch.Tensor,
         first = (slot_at >= 0) & (slot_at != prev)
         h6 = hist_part_tiles(xb_fm, go_left.to(torch.float32), vals3,
                              slot_at, first, b, k, tile, params.hist_impl,
-                             params.plain_f64_sums)           # [k, C, B, 6]
+                             params.plain_sums)               # [k, C, B, 6]
         ch_hist = torch.stack([h6[..., :3], h6[..., 3:]],
                               dim=1).reshape(2 * k, c, b, 3)
         # both routes zero a slot with no tile, so this mask changes nothing

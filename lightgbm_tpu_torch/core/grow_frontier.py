@@ -160,7 +160,7 @@ def grow_tree_frontier(xb: torch.Tensor, grad: torch.Tensor,
         left_small, slot = wave_slots(plan.cur, active, go_left, rs)
         hist_small = hist_slots(xb, slot, vals, params.num_bins, k,
                                 params.hist_impl,
-                                params.plain_f64_sums)        # [k, C, B, 3]
+                                params.plain_sums)            # [k, C, B, 3]
         s = s._replace(leaf_id=leaf_id)
         wave_commit(s, plan, nl, left_small, hist_small, meta, params,
                     feature_mask)

@@ -29,13 +29,22 @@ tile instead (``hist_part_tiles``, from ``build_histogram_part_tiles``).
 A CUDA tensor never falls back to the plain version when the kernel fails:
 the kernel's error propagates.
 
-``f64_sums`` makes a plain version accumulate in float64 and round to the
-values' dtype at the end (``GrowParams.plain_f64_sums``; internal, not a
-``Config`` parameter). By default a plain version is one ``index_add_``, a
-single running float32 sum per cell, as the JAX package's CPU scatter
-path is; on a cell of a million rows that sum drifts by 1e-2 relative,
-where the kernels, which sum in blocks, and float64 sums agree. The
-kernels ignore it, and it changes nothing for float64 values.
+``sums`` sets how a plain version adds a cell's rows
+(``GrowParams.plain_sums``; internal, not a ``Config`` parameter; the
+kernels ignore it):
+
+- ``"running"`` (the default): one ``index_add_``, a single running sum
+  per cell, as the JAX package's CPU scatter path is. On a cell of a
+  million float32 rows that sum drifts by 1e-2 relative, where the
+  kernels, which sum in blocks, and float64 sums agree.
+- ``"blocked"``: each cell's rows, in row order, in runs of
+  ``BLOCK_ROWS`` rows landing in that cell, the runs' sums added in order.
+  A cell of fewer rows is the running sum; a cell of hundreds of
+  thousands of rows (the default bin of a bundled column) no longer
+  drifts from float64 as far as a small fault moves a histogram.
+  chip_smoke.py's phase 5 holds the kernels' float32 paths to it.
+- ``"f64"``: accumulate in float64 and round to the values' dtype at the
+  end. It changes nothing for float64 values.
 """
 from __future__ import annotations
 
@@ -44,28 +53,60 @@ import torch
 from . import kernels
 
 HIST_IMPLS = ("auto", "plain")
+PLAIN_SUMS = ("running", "blocked", "f64")
+BLOCK_ROWS = 16_384
 
 
-def _sums(vals: torch.Tensor, f64_sums: bool) -> torch.Tensor:
-    return vals.double() if f64_sums else vals
+def _add_cells(flat: torch.Tensor, src: torch.Tensor, cells: int,
+               sums: str) -> torch.Tensor:
+    """[cells, K] sums of the rows of ``src`` [m, K] into the cells
+    ``flat`` [m] names: one ``index_add_``, or under ``"blocked"`` each
+    cell's rows (in order) in runs of ``BLOCK_ROWS``, the runs' sums added
+    in order."""
+    if sums != "blocked":
+        hist = torch.zeros((cells, src.shape[1]), dtype=src.dtype,
+                           device=src.device)
+        return hist.index_add_(0, flat, src)
+    sorted_cells, order = torch.sort(flat, stable=True)
+    pos = torch.arange(len(flat), device=flat.device)
+    first = torch.ones_like(sorted_cells, dtype=torch.bool)
+    first[1:] = sorted_cells[1:] != sorted_cells[:-1]
+    run = torch.empty_like(pos)
+    run[order] = (pos - torch.cummax(torch.where(first, pos, 0), 0).values
+                  ) // BLOCK_ROWS
+    runs = int(run.max()) + 1 if len(run) else 1
+    hist = torch.zeros((runs * cells, src.shape[1]), dtype=src.dtype,
+                       device=src.device)
+    hist.index_add_(0, run * cells + flat, src)
+    hist = hist.view(runs, cells, src.shape[1])
+    out = hist[0]
+    for r in range(1, runs):
+        out = out + hist[r]
+    return out
+
+
+def _sums(vals: torch.Tensor, sums: str) -> torch.Tensor:
+    if sums not in PLAIN_SUMS:
+        raise ValueError("plain sums must be one of %s, got %r"
+                         % ("/".join(PLAIN_SUMS), sums))
+    return vals.double() if sums == "f64" else vals
 
 
 def hist_plain(xb: torch.Tensor, vals: torch.Tensor, num_bins: int,
-               f64_sums: bool = False) -> torch.Tensor:
+               sums: str = "running") -> torch.Tensor:
     """Plain version: one flat ``index_add_`` over ``f * B + xb[n, f]``.
 
     xb [n, F] uint8 with every bin < num_bins; vals [n, K] float ->
-    [F, B, K] in the dtype of ``vals``, summed in float64 with
-    ``f64_sums``.
+    [F, B, K] in the dtype of ``vals``, summed as
+    ``sums`` says (``PLAIN_SUMS``).
     """
     n, f = xb.shape
     k = vals.shape[1]
     offs = torch.arange(f, device=xb.device, dtype=torch.int64) * num_bins
     flat = (xb.to(torch.int64) + offs).reshape(-1)
-    acc = _sums(vals, f64_sums)
+    acc = _sums(vals, sums)
     src = acc.unsqueeze(1).expand(n, f, k).reshape(n * f, k)
-    hist = torch.zeros((f * num_bins, k), dtype=acc.dtype, device=xb.device)
-    hist.index_add_(0, flat, src)
+    hist = _add_cells(flat, src, f * num_bins, sums)
     return hist.reshape(f, num_bins, k).to(vals.dtype)
 
 
@@ -77,7 +118,7 @@ def _use_kernel(impl: str, xb: torch.Tensor) -> bool:
 
 
 def hist_tile_vals(xb_rows: torch.Tensor, vals: torch.Tensor, num_bins: int,
-                   impl: str = "auto", f64_sums: bool = False
+                   impl: str = "auto", sums: str = "running"
                    ) -> torch.Tensor:
     """[rows, F] bins + pre-stacked [rows, K] values -> [F, B, K] (the
     fused two-child pass of ``core/partition.py`` gives K = 6), in the
@@ -86,12 +127,12 @@ def hist_tile_vals(xb_rows: torch.Tensor, vals: torch.Tensor, num_bins: int,
         if vals.dtype == torch.float64:
             return kernels.build_histogram_f64_cuda(xb_rows, vals, num_bins)
         return kernels.build_histogram_cuda(xb_rows, vals, num_bins)
-    return hist_plain(xb_rows, vals, num_bins, f64_sums)
+    return hist_plain(xb_rows, vals, num_bins, sums)
 
 
 def hist_leaf_vals(xb_rows: torch.Tensor, vals: torch.Tensor,
-                   num_bins: int, impl: str = "auto", f64_sums: bool = False
-                   ) -> torch.Tensor:
+                   num_bins: int, impl: str = "auto",
+                   sums: str = "running") -> torch.Tensor:
     """``hist_tile_vals`` for one leaf's rebuilt histogram (a forced split,
     ``core/partition.py`` ``hist_for_leaf``): the same kernel, launched
     through its own wrapper so its launches are counted apart from the
@@ -101,7 +142,7 @@ def hist_leaf_vals(xb_rows: torch.Tensor, vals: torch.Tensor,
             return kernels.build_histogram_leaf_f64_cuda(xb_rows, vals,
                                                          num_bins)
         return kernels.build_histogram_leaf_cuda(xb_rows, vals, num_bins)
-    return hist_plain(xb_rows, vals, num_bins, f64_sums)
+    return hist_plain(xb_rows, vals, num_bins, sums)
 
 
 def stack_vals(grad: torch.Tensor, hess: torch.Tensor,
@@ -131,14 +172,14 @@ def build_histogram(xb: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
 
 def hist_slots_plain(xb: torch.Tensor, slot: torch.Tensor,
                      vals: torch.Tensor, num_bins: int,
-                     num_slots: int, f64_sums: bool = False) -> torch.Tensor:
+                     num_slots: int, sums: str = "running") -> torch.Tensor:
     """Plain version: one ``index_add_`` over ``slot*F*B + f*B + bin``.
     Inactive rows go to one spare slot past the end that is dropped, so
     nothing is read back to pick the active rows.
 
     xb [n, F] uint8 with every bin < num_bins; slot [n] int; vals [n, K]
-    -> [S, F, B, K] in the dtype of ``vals``, summed in float64 with
-    ``f64_sums``.
+    -> [S, F, B, K] in the dtype of ``vals``, summed as
+    ``sums`` says (``PLAIN_SUMS``).
     """
     n, f = xb.shape
     k = vals.shape[1]
@@ -146,42 +187,41 @@ def hist_slots_plain(xb: torch.Tensor, slot: torch.Tensor,
                     num_slots)
     offs = torch.arange(f, device=xb.device, dtype=torch.int64) * num_bins
     flat = ((s * (f * num_bins))[:, None] + offs + xb.to(torch.int64))
-    acc = _sums(vals, f64_sums)
+    acc = _sums(vals, sums)
     src = acc.unsqueeze(1).expand(n, f, k).reshape(n * f, k)
-    hist = torch.zeros(((num_slots + 1) * f * num_bins, k), dtype=acc.dtype,
-                       device=xb.device)
-    hist.index_add_(0, flat.reshape(-1), src)
+    hist = _add_cells(flat.reshape(-1), src, (num_slots + 1) * f * num_bins,
+                      sums)
     return hist[:num_slots * f * num_bins].reshape(
         num_slots, f, num_bins, k).to(vals.dtype)
 
 
 def hist_slots6_plain(xb: torch.Tensor, slot: torch.Tensor, sel: torch.Tensor,
                       vals3: torch.Tensor, num_bins: int,
-                      num_slots: int, f64_sums: bool = False) -> torch.Tensor:
+                      num_slots: int, sums: str = "running") -> torch.Tensor:
     """Plain version of the parent-slot pass: channels vals3 * sel then
     vals3 * (1 - sel), both children of every parent slot ->
     [S, F, B, 6]."""
     s = sel.to(vals3.dtype)[:, None]
     return hist_slots_plain(xb, slot, torch.cat([vals3 * s, vals3 * (1.0 - s)],
                                                 dim=1), num_bins, num_slots,
-                            f64_sums)
+                            sums)
 
 
 def hist_slots(xb: torch.Tensor, slot: torch.Tensor, vals: torch.Tensor,
                num_bins: int, num_slots: int, impl: str = "auto",
-               f64_sums: bool = False) -> torch.Tensor:
+               sums: str = "running") -> torch.Tensor:
     """[N, F] bins + [N] slot ids + stacked [N, 3] values -> [S, F, B, 3]:
     the slot kernel for a CUDA tensor under ``auto``, else the plain
     version."""
     if _use_kernel(impl, xb):
         return kernels.build_histogram_slots_cuda(
             xb, slot.to(torch.int32).contiguous(), vals, num_bins, num_slots)
-    return hist_slots_plain(xb, slot, vals, num_bins, num_slots, f64_sums)
+    return hist_slots_plain(xb, slot, vals, num_bins, num_slots, sums)
 
 
 def hist_slots6(xb: torch.Tensor, slot: torch.Tensor, sel: torch.Tensor,
                 vals3: torch.Tensor, num_bins: int, num_slots: int,
-                impl: str = "auto", f64_sums: bool = False) -> torch.Tensor:
+                impl: str = "auto", sums: str = "running") -> torch.Tensor:
     """Parent slots + go-left selector -> [S, F, B, 6] (left channels,
     then right), dispatched as ``hist_slots``."""
     if _use_kernel(impl, xb):
@@ -189,27 +229,28 @@ def hist_slots6(xb: torch.Tensor, slot: torch.Tensor, sel: torch.Tensor,
             xb, slot.to(torch.int32).contiguous(),
             sel.to(torch.float32).contiguous(), vals3, num_bins, num_slots)
     return hist_slots6_plain(xb, slot, sel, vals3, num_bins, num_slots,
-                             f64_sums)
+                             sums)
 
 
 def hist_part_tiles_plain(xb_fm: torch.Tensor, sel: torch.Tensor,
                           vals3: torch.Tensor, tile_slot: torch.Tensor,
                           tile_first: torch.Tensor, num_bins: int,
                           n_slots: int, row_tile: int,
-                          f64_sums: bool = False) -> torch.Tensor:
+                          sums: str = "running") -> torch.Tensor:
     """Plain version of the partitioned-layout pass: every row takes its
     tile's slot, then the parent-slot pass runs over the row-major view.
     ``tile_first`` is implied by ``tile_slot`` and not read."""
     row_slot = tile_slot.repeat_interleave(row_tile)
     return hist_slots6_plain(xb_fm.t(), row_slot, sel, vals3.t(), num_bins,
-                             n_slots, f64_sums)
+                             n_slots, sums)
 
 
 def hist_part_tiles(xb_fm: torch.Tensor, sel: torch.Tensor,
                     vals3: torch.Tensor, tile_slot: torch.Tensor,
                     tile_first: torch.Tensor, num_bins: int, n_slots: int,
                     row_tile: int, impl: str = "auto",
-                    f64_sums: bool = False) -> torch.Tensor:
+                    sums: str = "running"
+                    ) -> torch.Tensor:
     """Both children of every splitting leaf over the partitioned layout
     (``build_histogram_part_tiles``, histogram_pallas.py:327), in the JAX
     layout: xb_fm [F, Np] uint8 feature-major, rows grouped into
@@ -229,7 +270,7 @@ def hist_part_tiles(xb_fm: torch.Tensor, sel: torch.Tensor,
             tile_first.to(torch.int32).contiguous(), num_bins, n_slots,
             row_tile)
     return hist_part_tiles_plain(xb_fm, sel, vals3, tile_slot, tile_first,
-                                 num_bins, n_slots, row_tile, f64_sums)
+                                 num_bins, n_slots, row_tile, sums)
 
 
 def build_histogram_frontier(xb: torch.Tensor, slot: torch.Tensor,

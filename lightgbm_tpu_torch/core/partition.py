@@ -44,7 +44,7 @@ def partition_and_hist(part: RowPartition, leaf: int, right_leaf: int,
                        vals: torch.Tensor,
                        go_left_from_rows: Callable[[torch.Tensor],
                                                    torch.Tensor],
-                       num_bins: int, impl: str, f64_sums: bool = False
+                       num_bins: int, impl: str, sums: str = "running"
                        ) -> Tuple[RowPartition, torch.Tensor, torch.Tensor]:
     """Split ``leaf`` (rows ``order[begin:begin + count]``) into ``leaf``
     and ``right_leaf`` and price both children in the same pass.
@@ -60,7 +60,7 @@ def partition_and_hist(part: RowPartition, leaf: int, right_leaf: int,
     go_left = go_left_from_rows(rows)
     is_l = go_left.to(v.dtype)[:, None]
     v6 = torch.cat([v * is_l, v * (1.0 - is_l)], dim=1)      # [count, 6]
-    hist = hist_tile_vals(rows, v6, num_bins, impl, f64_sums)
+    hist = hist_tile_vals(rows, v6, num_bins, impl, sums)
 
     # left rows keep their order from the front of the range; right rows
     # fill it from the end backwards (the JAX scatter placement)
@@ -79,7 +79,7 @@ def partition_and_hist(part: RowPartition, leaf: int, right_leaf: int,
 
 def hist_for_leaf(part: RowPartition, leaf: torch.Tensor, begin: int,
                   count: int, xb: torch.Tensor, vals: torch.Tensor,
-                  num_bins: int, impl: str, f64_sums: bool = False
+                  num_bins: int, impl: str, sums: str = "running"
                   ) -> torch.Tensor:
     """[F, B, 3] (grad, hess, count) histogram of one leaf's rows (the JAX
     package's ``hist_for_leaf``, core/partition.py:282), for a forced split.
@@ -98,7 +98,7 @@ def hist_for_leaf(part: RowPartition, leaf: torch.Tensor, begin: int,
     lb = part.leaf_begin.index_select(0, leaf)
     inside = (pos >= lb) & (pos < lb + part.leaf_count.index_select(0, leaf))
     v = torch.where(inside[:, None], v, v.new_zeros(()))
-    return hist_leaf_vals(rows, v, num_bins, impl, f64_sums)
+    return hist_leaf_vals(rows, v, num_bins, impl, sums)
 
 
 def leaf_id_from_partition(part: RowPartition, num_data: int,

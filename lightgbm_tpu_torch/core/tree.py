@@ -17,6 +17,10 @@ as wide as the model's largest category needs (Tree cat_threshold_,
 tree.h:276-291), stored as int32 words on the device: a 60,000-id column
 takes ~1,875 words a node.
 
+``predict_forest_leaves`` gives each row's leaf in every tree
+(``pred_leaf``) and ``predict_forest_early_stop`` the scores under the
+prediction early stop, from the same decisions.
+
 ``replay_leaves_binned`` finds the leaf of every row of a binned matrix
 instead (the JAX package's ``_replay_leaves_binned_impl``,
 boosting/gbdt.py:2416-2468, for numerical splits): it walks the tree from
@@ -130,28 +134,72 @@ def categorical_go_left(fval: torch.Tensor,
     return cat_ok & (((word >> (cat_i & 31)) & 1) == 1)
 
 
+def tree_leaves(trees: PredictTree, i: int, x: torch.Tensor
+                ) -> torch.Tensor:
+    """[N] int64 leaf of every row of x [N, F] float64 in tree ``i``
+    (Tree::GetLeaf): the splits replayed in creation order."""
+    leaf_id = torch.zeros(x.shape[0], dtype=torch.int64, device=x.device)
+    for t in range(trees.split_leaf.shape[1]):
+        fval = x.index_select(1, trees.split_feature[i, t].view(1))[:, 0]
+        if trees.is_categorical[i, t]:
+            go_left = categorical_go_left(fval, trees.cat_bitset[i, t])
+        else:
+            go_left = decision_go_left(fval, trees.threshold[i, t],
+                                       trees.default_left[i, t],
+                                       trees.missing_type[i, t])
+        move = ((leaf_id == trees.split_leaf[i, t]) & ~go_left
+                & (trees.split_leaf[i, t] >= 0))
+        leaf_id = torch.where(move, t + 1, leaf_id)
+    return leaf_id
+
+
 def predict_forest_scores(trees: PredictTree, x: torch.Tensor
                           ) -> torch.Tensor:
     """[N] raw scores: the sum over trees, in tree order, of each tree's
     leaf value for every row of x [N, F] float64."""
-    n = x.shape[0]
-    out = torch.zeros(n, dtype=torch.float32, device=x.device)
-    num_trees, num_nodes = trees.split_leaf.shape
-    for i in range(num_trees):
-        leaf_id = torch.zeros(n, dtype=torch.int64, device=x.device)
-        for t in range(num_nodes):
-            fval = x.index_select(1, trees.split_feature[i, t].view(1))[:, 0]
-            if trees.is_categorical[i, t]:
-                go_left = categorical_go_left(fval, trees.cat_bitset[i, t])
-            else:
-                go_left = decision_go_left(fval, trees.threshold[i, t],
-                                           trees.default_left[i, t],
-                                           trees.missing_type[i, t])
-            move = ((leaf_id == trees.split_leaf[i, t]) & ~go_left
-                    & (trees.split_leaf[i, t] >= 0))
-            leaf_id = torch.where(move, t + 1, leaf_id)
-        out = out + trees.leaf_value[i][leaf_id]
+    out = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    for i in range(trees.split_leaf.shape[0]):
+        out = out + trees.leaf_value[i][tree_leaves(trees, i, x)]
     return out
+
+
+def predict_forest_leaves(trees: PredictTree, x: torch.Tensor
+                          ) -> torch.Tensor:
+    """[N, T] int32 leaf ids of every row of x [N, F] float64 in each of
+    the T trees (PredictLeafIndex, gbdt.cpp:564-583; the JAX package's
+    ``predict_forest_leaves_raw``), with ``predict_forest_scores``'s float64
+    decisions."""
+    return torch.stack([tree_leaves(trees, i, x).to(torch.int32)
+                        for i in range(trees.split_leaf.shape[0])], dim=1)
+
+
+def predict_forest_early_stop(trees: PredictTree, x: torch.Tensor,
+                              num_class: int, freq: int, margin: float
+                              ) -> torch.Tensor:
+    """[N, K] raw scores with the margin early stop of prediction
+    (src/boosting/prediction_early_stop.cpp; the JAX package's
+    ``predict_forest_early_stop``, core/tree.py:175-210). ``trees`` are
+    the forest in tree order, K = ``num_class`` trees an iteration. After
+    every ``freq``-th iteration, a row whose margin has reached
+    ``margin`` adds no more trees: the margin is 2|s| for one class and
+    the largest score less the second for K. Stopped rows freeze while
+    the whole batch runs on, so nothing is read back."""
+    n = x.shape[0]
+    acc = torch.zeros((n, num_class), dtype=torch.float32, device=x.device)
+    stopped = torch.zeros(n, dtype=torch.bool, device=x.device)
+    for it in range(trees.split_leaf.shape[0] // num_class):
+        delta = torch.stack([
+            trees.leaf_value[i][tree_leaves(trees, i, x)]
+            for i in range(it * num_class, (it + 1) * num_class)], dim=1)
+        acc = acc + torch.where(stopped[:, None], 0.0, delta)
+        if (it + 1) % freq == 0:
+            if num_class > 1:
+                top2 = torch.topk(acc, 2, dim=1).values
+                reached = top2[:, 0] - top2[:, 1] >= margin
+            else:
+                reached = 2.0 * torch.abs(acc[:, 0]) >= margin
+            stopped = stopped | reached
+    return acc
 
 
 class BinnedTree(NamedTuple):

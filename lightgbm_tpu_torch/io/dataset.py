@@ -1,10 +1,10 @@
 """Binned Dataset + Metadata on the host.
 
-The port's own copy of the dense path of ``lightgbm_tpu/io/dataset.py``
-(the reference Dataset/Metadata, include/LightGBM/dataset.h:36-627): a single
-dense ``[num_data, num_columns] uint8`` bin matrix plus the per-feature
-mappers. The bin matrix is built on the host with numpy and moved to the
-device once, by the boosting driver.
+The port's own copy of ``lightgbm_tpu/io/dataset.py`` (the reference
+Dataset/Metadata, include/LightGBM/dataset.h:36-627): a single dense
+``[num_data, num_columns] uint8`` bin matrix plus the per-feature mappers.
+The bin matrix is built on the host with numpy and moved to the device
+once, by the booster (``boosting/gbdt.py``).
 
 The stored columns are the JAX package's layout, byte for byte: EFB
 (``io/bundle.py``) packs mutually-exclusive sparse features into shared
@@ -17,10 +17,21 @@ decode with. ``tpu_bin_packing=nibble`` (dataset-wide pairing) is outside
 the slice. Categorical features (``categorical_feature``) are binned by
 category; they never join a small-feature pair, and join an EFB bundle by
 the JAX package's rule, as any feature sparse enough does.
+
+Input: a dense matrix, or a scipy sparse CSR/CSC matrix, binned column by
+column from its stored entries without densifying it (the JAX package's
+CSC path); a delimited text file streamed in chunks
+(``from_file_two_round``); and the binary cache, an ``.npz`` of the bin
+matrix, mappers and metadata in the JAX package's layout
+(``save_binary``/``load_binary``), so that a file written by either package
+loads in the other. A stored zero of a sparse matrix is a value there (its
+column's mapper sees it, as the JAX package's does), where a dense matrix's
+zero is not: the two paths agree wherever no zero is stored.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Union
+import json
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -28,6 +39,54 @@ from ..config import Config
 from ..log import Log, LightGBMError, check, outside_slice
 from .binning import BinMapper, BinType
 from .bundle import bundle_offsets, find_bundles
+
+
+def _is_sparse(data) -> bool:
+    return hasattr(data, "tocsc") and hasattr(data, "nnz")
+
+
+class _RawColumns:
+    """The raw matrix column by column: a dense float64 [N, F] matrix, or a
+    scipy CSC matrix with its duplicates summed (dataset.py:182-210 and
+    :316-325 of the JAX package)."""
+
+    def __init__(self, data):
+        if _is_sparse(data):
+            self.csc = data.tocsc()
+            self.csc.sum_duplicates()
+            self.dense = None
+            self.shape = self.csc.shape
+            return
+        data = np.asarray(data)
+        if data.ndim != 2:
+            raise LightGBMError("Data should be 2-D, got shape %s"
+                                % (data.shape,))
+        self.csc = None
+        self.dense = np.asarray(data, dtype=np.float64)
+        self.shape = self.dense.shape
+
+    def nonzeros(self, j: int):
+        """(rows, float64 values) of column j's stored or non-zero
+        entries."""
+        if self.csc is not None:
+            sl = slice(self.csc.indptr[j], self.csc.indptr[j + 1])
+            return (self.csc.indices[sl],
+                    np.asarray(self.csc.data[sl], np.float64))
+        col = self.dense[:, j]
+        rows = np.flatnonzero(~((col >= -1e-35) & (col <= 1e-35)))
+        return rows, col[rows]
+
+    def bins(self, mapper: BinMapper, j: int) -> np.ndarray:
+        """Column j's [N] uint8 bins: a sparse column is its zero's bin
+        where nothing is stored."""
+        if self.csc is not None:
+            zero_bin = int(mapper.values_to_bins(np.zeros(1))[0])
+            colb = np.full(self.shape[0], zero_bin, np.uint8)
+            rows, vals = self.nonzeros(j)
+            if len(rows):
+                colb[rows] = mapper.values_to_bins(vals).astype(np.uint8)
+            return colb
+        return mapper.values_to_bins(self.dense[:, j]).astype(np.uint8)
 
 
 class Metadata:
@@ -137,6 +196,7 @@ class BinnedDataset:
         self.metadata = Metadata()
         self.feature_names: List[str] = []
         self.max_bin: int = 255
+        self.bin_params: Dict[str, Any] = {}
 
     @classmethod
     def from_matrix(cls, data: np.ndarray, config: Config,
@@ -148,24 +208,20 @@ class BinnedDataset:
                     categorical_feature: Optional[Union[str, List]] = None,
                     reference: Optional["BinnedDataset"] = None
                     ) -> "BinnedDataset":
-        """Bin a dense raw [N, F] matrix (DatasetLoader::CostructFromSampleData,
-        dataset_loader.cpp:700-820), with the JAX package's sampling, so the
-        mappers and the bin matrix are byte-identical to its own. A
-        validation set passes the training set as ``reference`` and reuses
+        """Bin a raw [N, F] matrix, dense or scipy sparse CSR/CSC
+        (DatasetLoader::CostructFromSampleData, dataset_loader.cpp:700-820),
+        with the JAX package's sampling, so the mappers and the bin matrix
+        are byte-identical to its own; a sparse matrix is never densified.
+        A validation set passes the training set as ``reference`` and reuses
         its mappers, used features, names and stored layout (dataset.py:
-        212-219 of the JAX package)."""
-        if hasattr(data, "tocsc") and hasattr(data, "nnz"):
-            raise outside_slice("sparse input", "ROADMAP Queue 1 #16")
-        data = np.asarray(data)
-        if data.ndim != 2:
-            raise LightGBMError("Data should be 2-D, got shape %s"
-                                % (data.shape,))
-        n, f = data.shape
-        data64 = np.asarray(data, dtype=np.float64)
+        212-223 of the JAX package)."""
+        raw = _RawColumns(data)
+        n, f = raw.shape
         self = cls()
         self.num_data = n
         self.num_total_features = f
         self.max_bin = config.max_bin
+        self._record_bin_params(config)
         self.feature_names = feature_names or ["Column_%d" % i for i in range(f)]
         if reference is not None:
             check(f == reference.num_total_features,
@@ -179,14 +235,9 @@ class BinnedDataset:
             self.col_offsets = reference.col_offsets
             self.col_num_bin = reference.col_num_bin
             self.col_packed = reference.col_packed
-            self._bin_columns(data64)
+            self._bin_columns(raw)
             self._set_metadata(n, label, weight, init_score, group)
             return self
-
-        def column_nonzeros(j):
-            col = data64[:, j]
-            rows = np.flatnonzero(~((col >= -1e-35) & (col <= 1e-35)))
-            return rows, col[rows]
 
         cat_idx = set(_parse_categorical(
             categorical_feature if categorical_feature is not None
@@ -201,7 +252,7 @@ class BinnedDataset:
 
         nz_sample: List[np.ndarray] = []
         for j in range(f):
-            rows, vals = column_nonzeros(j)
+            rows, vals = raw.nonzeros(j)
             if sample_pos is not None:
                 pos = sample_pos[rows]
                 keep = pos >= 0
@@ -262,21 +313,109 @@ class BinnedDataset:
             # conservative cap, B never grows past the widest column
             self._pack_small_pairs()
 
-        self._bin_columns(data64)
+        self._bin_columns(raw)
         self._set_metadata(n, label, weight, init_score, group)
         return self
 
-    def _bin_columns(self, data64: np.ndarray) -> None:
+    _BIN_PARAM_KEYS = ("max_bin", "bin_construct_sample_cnt",
+                       "min_data_in_bin", "use_missing", "zero_as_missing",
+                       "sparse_threshold")
+
+    @classmethod
+    def from_file_two_round(cls, path: str, config: Config,
+                            chunk_rows: int = 262144,
+                            reference: "BinnedDataset" = None,
+                            feature_names=None, categorical_feature=None
+                            ) -> "BinnedDataset":
+        """Two-round streaming load of a delimited file (two_round; the
+        JAX package's ``from_file_two_round``, dataset.py:359-440, after
+        dataset_loader.cpp:160-219).
+
+        Round 1 streams the file once, reservoir-sampling up to
+        ``bin_construct_sample_cnt`` rows (the mappers and the stored layout
+        come from the sample, as the reference's sampled bin finding) and
+        collecting the labels. Round 2 streams it again, binning each chunk
+        against that layout into the preallocated uint8 matrix. The float64
+        matrix is never built: its peak is one chunk."""
+        from .parser import parse_file_chunks
+
+        sample_cnt = int(config.bin_construct_sample_cnt)
+        rng = np.random.RandomState(config.data_random_seed)
+        sample_rows: list = []
+        labels: list = []
+        names = None
+        first_row = None
+        n_total = 0
+        for xc, yc, chunk_names in parse_file_chunks(
+                path, has_header=config.header,
+                label_column=config.label_column, chunk_rows=chunk_rows):
+            labels.append(yc)
+            names = names or chunk_names
+            if first_row is None:
+                first_row = xc[:1].copy()
+            if reference is None:
+                # Algorithm R a chunk at a time: the fill phase keeps the
+                # file's order (the sample is the data when N <=
+                # sample_cnt); after it row i draws j ~ U[0, n_total + i]
+                # and takes slot j when j < sample_cnt. Rows are copied, so
+                # that no chunk outlives its round
+                c = xc.shape[0]
+                fill = max(0, min(sample_cnt - n_total, c))
+                for i in range(fill):
+                    sample_rows.append(xc[i].copy())
+                if fill < c:
+                    draws = (rng.random_sample(c - fill)
+                             * (n_total + np.arange(fill, c) + 1)
+                             ).astype(np.int64)
+                    for i in np.nonzero(draws < sample_cnt)[0]:
+                        sample_rows[draws[i]] = xc[fill + i].copy()
+            n_total += xc.shape[0]
+        check(n_total > 0, "Data file %s is empty" % path)
+        label = np.concatenate(labels)
+
+        proto = reference
+        if proto is None:
+            proto = cls.from_matrix(
+                np.asarray(sample_rows), config,
+                feature_names=feature_names or names,
+                categorical_feature=categorical_feature)
+
+        xb = np.empty((n_total, proto.X_binned.shape[1]), np.uint8)
+        row = 0
+        for xc, _, _ in parse_file_chunks(
+                path, has_header=config.header,
+                label_column=config.label_column, chunk_rows=chunk_rows):
+            xb[row:row + xc.shape[0]] = cls.from_matrix(
+                xc, config, reference=proto).X_binned
+            row += xc.shape[0]
+
+        # a validation set takes the training layout through the
+        # reference path (no sampling run)
+        ds = (proto if reference is None
+              else cls.from_matrix(first_row, config, reference=reference))
+        ds.X_binned = xb
+        ds.num_data = n_total
+        ds.metadata = Metadata(n_total)
+        ds.metadata.set_label(label)
+        return ds
+
+    def _record_bin_params(self, config: Config) -> None:
+        """The construction parameters the bins depend on, kept in the
+        binary cache (dataset.py:160-167 of the JAX package)."""
+        self.bin_params = {k: getattr(config, k)
+                           for k in self._BIN_PARAM_KEYS
+                           if hasattr(config, k)}
+
+    def _bin_columns(self, raw: _RawColumns) -> None:
         """The uint8 stored columns (dataset.py:316-350 of the JAX
         package): a feature's own bins in a singleton column, ``offset +
         bin`` of the non-default bins in a bundle (features in bundle
         order, so a later feature wins a conflicting row), ``bin_a *
         num_bin_b + bin_b`` in a packed pair."""
-        n = len(data64)
+        n = raw.shape[0]
 
         def full_bin_column(j):
-            return self.bin_mappers[j].values_to_bins(
-                data64[:, j]).astype(np.uint8)
+            return raw.bins(self.bin_mappers[j], j)
 
         cols = []
         for ci, (feats, offs) in enumerate(zip(self.col_features,
@@ -292,10 +431,8 @@ class BinnedDataset:
                 colb = np.zeros(n, np.uint8)
                 for off, j in zip(offs, feats):
                     m = self.bin_mappers[j]
-                    col = data64[:, j]
-                    rows = np.flatnonzero(~((col >= -1e-35)
-                                            & (col <= 1e-35)))
-                    bins = m.values_to_bins(col[rows])
+                    rows, vals = raw.nonzeros(j)
+                    bins = m.values_to_bins(vals)
                     sel = bins != m.default_bin
                     colb[rows[sel]] = (off + bins[sel]).astype(np.uint8)
             cols.append(colb)
@@ -455,3 +592,71 @@ class BinnedDataset:
             else:
                 infos.append("[%s:%s]" % (repr(m.min_val), repr(m.max_val)))
         return infos
+
+    # ------------------------------------------------------------ binary cache
+    def save_binary(self, path: str) -> None:
+        """The binary dataset cache (dataset.h:394 SaveBinaryFile analog),
+        in the JAX package's layout (dataset.py:705-734): an ``.npz`` of a
+        ``__meta__`` JSON and the arrays ``X_binned``, ``label``,
+        ``weight``, ``query_boundaries`` and ``init_score`` that are set,
+        written to ``path`` itself."""
+        meta = {
+            "num_data": self.num_data,
+            "num_total_features": self.num_total_features,
+            "used_features": self.used_features,
+            "feature_names": self.feature_names,
+            "max_bin": self.max_bin,
+            "bin_params": self.bin_params,
+            "bin_mappers": [m.to_dict() for m in self.bin_mappers],
+            "col_features": self.col_features,
+            "col_offsets": self.col_offsets,
+            "col_num_bin": self.col_num_bin,
+            "col_packed": self.col_packed,
+        }
+        arrays: Dict[str, np.ndarray] = {"X_binned": self.X_binned}
+        for name in ("label", "weight", "query_boundaries", "init_score"):
+            value = getattr(self.metadata, name)
+            if value is not None:
+                arrays[name] = value
+        # through a file handle: savez appends ".npz" to a bare path
+        with open(path, "wb") as fh:
+            np.savez_compressed(fh, __meta__=np.frombuffer(
+                json.dumps(meta).encode(), dtype=np.uint8), **arrays)
+
+    @classmethod
+    def load_binary(cls, path: str) -> "BinnedDataset":
+        """A binary cache written by ``save_binary``, or by the JAX
+        package's (dataset.py:736-769 there)."""
+        with np.load(path) as z:
+            meta = json.loads(bytes(z["__meta__"]).decode())
+            self = cls()
+            self.num_data = meta["num_data"]
+            self.num_total_features = meta["num_total_features"]
+            self.used_features = list(meta["used_features"])
+            self.feature_names = list(meta["feature_names"])
+            self.max_bin = meta["max_bin"]
+            self.bin_params = dict(meta.get("bin_params", {}))
+            self.bin_mappers = [BinMapper.from_dict(d)
+                                for d in meta["bin_mappers"]]
+            self.col_features = [list(b) for b in meta.get(
+                "col_features", [[j] for j in self.used_features])]
+            self.col_offsets = [list(o) for o in meta.get(
+                "col_offsets", [[0]] * len(self.col_features))]
+            self.col_num_bin = list(meta.get("col_num_bin", []))
+            if not self.col_num_bin:
+                self.col_num_bin = [self.bin_mappers[b[0]].num_bin
+                                    for b in self.col_features]
+            self.col_packed = list(meta.get(
+                "col_packed", [False] * len(self.col_features)))
+            self.X_binned = z["X_binned"]
+            self.metadata = Metadata(self.num_data)
+            if "label" in z:
+                self.metadata.set_label(z["label"])
+            if "weight" in z:
+                self.metadata.set_weight(z["weight"])
+            if "query_boundaries" in z:
+                self.metadata.query_boundaries = \
+                    z["query_boundaries"].astype(np.int32)
+            if "init_score" in z:
+                self.metadata.set_init_score(z["init_score"])
+        return self

@@ -117,13 +117,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         for label, extra, _ in cs.constraint_compare_runs(tmp):
             params = dict(cs.PARAMS, tpu_hist_impl="plain", **extra)
-            plain = cs.train_compared(params, ds, True).models
+            plain = cs.train_compared(params, ds, "f64").models
             fails, kinds, shared = 0, collections.Counter(), (0.0, 0.0)
             for rep in range(args.reps):
                 if args.replain and rep:
-                    plain = cs.train_compared(params, ds, True).models
+                    plain = cs.train_compared(params, ds, "f64").models
                 models = cs.train_compared(dict(params, tpu_hist_impl="auto"),
-                                           ds, False).models
+                                           ds, "running").models
                 ties = []
                 try:
                     cs.trees_match(models, plain, ties,

@@ -81,7 +81,7 @@ def main() -> int:
                       train_set=tlgb.Dataset(x, label=y, group=group,
                                              device="cpu"), device="cpu")
     impl = tb._impl
-    impl.grow_params = impl.grow_params._replace(plain_f64_sums=True)
+    impl.grow_params = impl.grow_params._replace(plain_sums="f64")
     # the mask each iteration grows on
     masks = []
     cls = type(impl)

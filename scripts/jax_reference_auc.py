@@ -17,7 +17,11 @@ with ``tpu_batched_part=true``), 5 iterations.
   categorical`` takes its categorical workload
   (``chip_smoke.categorical_data``: 1,000,000 x 32, four integer id
   columns passed as ``categorical_feature``), the data of its paths
-  4m-4p.
+  4m-4p; ``--data sparse`` its sparse workload, a scipy CSR the JAX
+  package bins without densifying (``chip_smoke.sparse_data``: 1,000,000
+  x 1,000, eight one-hot blocks of 100 columns and 200 numeric columns at
+  1% density), the data of its path 4zq (predicted in the JAX package's
+  row blocks).
 - ``--fobj logistic``: bench.py's 0/1 labels trained through a custom
   objective that returns the logistic gradients ``(p - y, p (1 - p))``
   in numpy, ``metric=auc``, the call of chip_smoke's path 4q; prints the
@@ -87,7 +91,8 @@ with ``tpu_batched_part=true``), 5 iterations.
     JAX_PLATFORMS=cpu python scripts/jax_reference_auc.py \
         [--growth exact|frontier|batched|batched_part] \
         [--objective OBJECTIVE] [--num-class K] [--valid] \
-        [--data dense|bundled|categorical|ranking] [--fobj logistic] \
+        [--data dense|bundled|categorical|ranking|sparse] \
+        [--fobj logistic] \
         [--hist-impl auto|scatter|matmul] [--rows N] [--iters K] \
         [--boosting gbdt|goss|dart|rf] [--bagging-fraction F] \
         [--bagging-freq K] [--feature-fraction F] [--top-rate F] \
@@ -120,7 +125,8 @@ def main() -> int:
     ap.add_argument("--objective", default="binary")
     ap.add_argument("--valid", action="store_true")
     ap.add_argument("--data", choices=("dense", "bundled", "categorical",
-                                       "ranking"), default="dense")
+                                       "ranking", "sparse"),
+                    default="dense")
     ap.add_argument("--fobj", choices=("logistic",))
     ap.add_argument("--num-class", type=int,
                     default=chip_smoke.NUM_CLASS)
@@ -260,7 +266,8 @@ def main() -> int:
     elif args.objective == "binary":
         data = {"dense": chip_smoke.bench_data,
                 "bundled": chip_smoke.bundled_data,
-                "categorical": chip_smoke.categorical_data}[args.data]
+                "categorical": chip_smoke.categorical_data,
+                "sparse": chip_smoke.sparse_data}[args.data]
         x, y = data(args.rows)
         cat = (chip_smoke.CATEGORICAL_FEATURES
                if args.data == "categorical" else "auto")
@@ -285,9 +292,10 @@ def main() -> int:
         if args.data == "categorical":
             out["splits_on"] = chip_smoke.categorical_splits(
                 bst._impl.models)
-        if args.data == "bundled":
+        if args.data in ("bundled", "sparse"):
             out["splits_on"] = chip_smoke.splits_on_layout(
                 bst._impl.models, bst._impl.train_data)
+            out["stored_columns"] = bst._impl.train_data.num_columns
     elif multiclass:
         if args.data != "dense":
             ap.error("--data %s takes the binary objective" % args.data)

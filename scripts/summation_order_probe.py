@@ -93,17 +93,17 @@ def main() -> int:
     forests = {}
     sums = histogram._sums
     if args.plant_fault:
-        def dropping_sums(vals, f64_sums):
-            if not f64_sums:
+        def dropping_sums(vals, mode):
+            if mode != "f64":
                 vals = vals.clone()
                 vals[::args.plant_fault] = 0
-            return sums(vals, f64_sums)
+            return sums(vals, mode)
         histogram._sums = dropping_sums
     for label in ("float32", "float64"):
         bst = lgb.Booster(params=params, train_set=ds, device="cpu")
-        # the plain histograms' accumulation (GrowParams.plain_f64_sums)
+        # the plain histograms' accumulation (GrowParams.plain_sums)
         bst._impl.grow_params = bst._impl.grow_params._replace(
-            plain_f64_sums=label == "float64")
+            plain_sums="f64" if label == "float64" else "running")
         for _ in range(args.iters):
             bst.update()
         forests[label] = bst

@@ -261,28 +261,37 @@ _TRAINED = {}
 
 
 def _train_both(growth, objective):
-    """(x, JAX booster, port booster) on the small categorical data,
-    trained once per module."""
+    """(x, JAX booster, port booster, both evals_result, the valid rows) on
+    the small categorical data with a validation set of 1,500 rows (seed
+    1), trained once per module and shared by every test of the pair."""
     key = (growth, objective)
     if key not in _TRAINED:
         x, y = small_categorical()
+        xv, yv = small_categorical(1500, seed=1)
         if objective == "regression":
-            y = regression_target(x, y)
+            y, yv = regression_target(x, y), regression_target(xv, yv)
         params = dict(PARAMS, objective=objective, **GROWTHS[growth])
-        jb = jlgb.train(params, jlgb.Dataset(
-            x, label=y, categorical_feature=CATEGORICAL_FEATURES),
-            num_boost_round=ROUNDS)
-        tb = tlgb.train(params, tlgb.Dataset(
-            x, label=y, categorical_feature=CATEGORICAL_FEATURES,
-            device="cpu"), num_boost_round=ROUNDS, device="cpu")
-        _TRAINED[key] = (x, jb, tb)
+        jev, tev = {}, {}
+        jtr = jlgb.Dataset(x, label=y,
+                           categorical_feature=CATEGORICAL_FEATURES,
+                           free_raw_data=False)
+        jb = jlgb.train(params, jtr, num_boost_round=ROUNDS,
+                        valid_sets=[jtr.create_valid(xv, label=yv)],
+                        evals_result=jev, verbose_eval=False)
+        ttr = tlgb.Dataset(x, label=y,
+                           categorical_feature=CATEGORICAL_FEATURES,
+                           device="cpu")
+        tb = tlgb.train(params, ttr, num_boost_round=ROUNDS,
+                        valid_sets=[ttr.create_valid(xv, label=yv)],
+                        evals_result=tev, verbose_eval=False, device="cpu")
+        _TRAINED[key] = (x, jb, tb, jev, tev, xv)
     return _TRAINED[key]
 
 
 @pytest.mark.parametrize("objective", ["binary", "regression"])
 @pytest.mark.parametrize("growth", sorted(GROWTHS))
 def test_trees_match_jax(growth, objective):
-    x, jb, tb = _train_both(growth, objective)
+    x, jb, tb = _train_both(growth, objective)[:3]
     assert tb._impl.grow_params.split.cat_features == (28, 29, 30, 31)
     assert len(tb.models) == len(jb._impl.models) == ROUNDS
     for jt, tt in zip(jb._impl.models, tb.models):
@@ -300,7 +309,7 @@ def test_trees_match_jax(growth, objective):
 def test_tree0_is_the_jax_tree():
     """Exact growth's first tree, node for node: features, bins, children,
     default directions and both bitsets."""
-    _, jb, tb = _train_both("exact", "binary")
+    _, jb, tb = _train_both("exact", "binary")[:3]
     jt, tt = jb._impl.models[0], tb.models[0]
     nn = jt.num_leaves_actual - 1
     assert tt.num_leaves_actual - 1 == nn
@@ -344,7 +353,7 @@ def test_model_text_matches_jax():
     cat_boundaries, cat_threshold), the f32 sums within 1e-4 relative; the
     text reloads in the port with the same predictions, and a JAX-written
     text loads in the port within 1e-6."""
-    x, jb, tb = _train_both("exact", "binary")
+    x, jb, tb = _train_both("exact", "binary")[:3]
     ours, ref = tb.model_to_string(), jb.model_to_string()
     assert "cat_threshold=" in ours
     lines, ref_lines = ours.splitlines(), ref.splitlines()
@@ -375,7 +384,7 @@ def test_numpy_forest_carries_categorical_trees():
     """convert.py builds the port's trees and mappers from the JAX
     package's numpy fields, bitsets included."""
     from lightgbm_tpu_torch.convert import booster_from_numpy
-    x, jb, _ = _train_both("exact", "binary")
+    x, jb = _train_both("exact", "binary")[:2]
     fields = ("split_feature", "threshold", "threshold_bin", "default_left",
               "missing_type", "left_child", "right_child", "leaf_value",
               "internal_value", "split_gain", "is_categorical", "cat_bitset",
@@ -448,22 +457,8 @@ def test_set_categorical_feature_before_construct():
 def test_valid_scores_are_predict(growth):
     """A categorical validation set's device scores (the binned replay of
     each tree) are the model's raw predictions, its metric the JAX
-    package's."""
-    x, y = small_categorical()
-    xv, yv = small_categorical(1500, seed=1)
-    params = dict(PARAMS, objective="binary", metric="binary_logloss",
-                  **GROWTHS[growth])
-    jev, tev = {}, {}
-    jtr = jlgb.Dataset(x, label=y, categorical_feature=CATEGORICAL_FEATURES,
-                       free_raw_data=False)
-    jlgb.train(params, jtr, num_boost_round=ROUNDS,
-               valid_sets=[jtr.create_valid(xv, label=yv)],
-               evals_result=jev, verbose_eval=False)
-    ttr = tlgb.Dataset(x, label=y, categorical_feature=CATEGORICAL_FEATURES,
-                       device="cpu")
-    tb = tlgb.train(params, ttr, num_boost_round=ROUNDS,
-                    valid_sets=[ttr.create_valid(xv, label=yv)],
-                    evals_result=tev, verbose_eval=False, device="cpu")
+    package's (binary's default, binary_logloss)."""
+    _, _, tb, jev, tev, xv = _train_both(growth, "binary")
     np.testing.assert_allclose(tb._impl.scores_of(1),
                                tb.predict(xv, raw_score=True), rtol=0,
                                atol=1e-5)

@@ -465,7 +465,7 @@ def test_phase5_monotone_rule_holds_summation_orders_and_fails_a_fault(
     def forest(f64_sums):
         bst = tlgb.Booster(params=params, train_set=ds, device="cpu")
         bst._impl.grow_params = bst._impl.grow_params._replace(
-            plain_f64_sums=f64_sums)
+            plain_sums="f64" if f64_sums else "running")
         for _ in range(2):
             bst.update()
         return bst.models
@@ -477,10 +477,10 @@ def test_phase5_monotone_rule_holds_summation_orders_and_fails_a_fault(
     chip_smoke.trees_match(f32, f64, [], *limits, rows)
     sums = histogram._sums
 
-    def dropping_sums(vals, f64_sums):
+    def dropping_sums(vals, mode):
         vals = vals.clone()
         vals[::64] = 0
-        return sums(vals, f64_sums)
+        return sums(vals, mode)
 
     monkeypatch.setattr(histogram, "_sums", dropping_sums)
     faulty = forest(False)

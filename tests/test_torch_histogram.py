@@ -161,7 +161,7 @@ def test_plain_f64_sums_do_not_drift():
     """One cell of 1,000,000 equal float32 values (0.23784, a binary tree
     0's hessian): the default plain version's single running float32 sum
     drifts by about 1e-2 relative, as the JAX package's CPU scatter path
-    does; ``f64_sums`` comes within 1e-6 of the float64 sum, on every
+    does; ``sums="f64"`` comes within 1e-6 of the float64 sum, on every
     plain version, and keeps the values' dtype."""
     n = 1_000_000
     xb = torch.zeros((n, 1), dtype=torch.uint8)
@@ -172,14 +172,14 @@ def test_plain_f64_sums_do_not_drift():
     assert abs(f32 - want) / want > 5e-3
     slot = torch.zeros(n, dtype=torch.int32)
     sel = torch.ones(n)
-    got = [th.hist_plain(xb, vals, 4, f64_sums=True)[0, 0],
-           th.hist_tile_vals(xb, vals, 4, "plain", True)[0, 0],
-           th.hist_slots(xb, slot, vals, 4, 1, "plain", True)[0, 0, 0],
-           th.hist_slots6(xb, slot, sel, vals, 4, 1, "plain", True)[0, 0, 0],
+    got = [th.hist_plain(xb, vals, 4, sums="f64")[0, 0],
+           th.hist_tile_vals(xb, vals, 4, "plain", "f64")[0, 0],
+           th.hist_slots(xb, slot, vals, 4, 1, "plain", "f64")[0, 0, 0],
+           th.hist_slots6(xb, slot, sel, vals, 4, 1, "plain", "f64")[0, 0, 0],
            th.hist_part_tiles(xb.t().contiguous(), sel, vals.t(),
                               torch.zeros(1, dtype=torch.int32),
                               torch.zeros(1, dtype=torch.int32), 4, 1, n,
-                              "plain", True)[0, 0, 0]]
+                              "plain", "f64")[0, 0, 0]]
     for h in got:
         assert h.dtype == torch.float32
         assert abs(float(h[0]) - want) / want < 1e-6

@@ -9,7 +9,11 @@ keeps the valid-set scores (``core/tree.py``); and row sampling: a
 1,000,000-row threefry draw (``random.py``) bit-equal to the CPU's, and
 bagging, GOSS, DART and RF training through the kernels; and the float64
 variant of ``histogram.cu`` (``gpu_use_dp``) against the plain version in
-float64, alone, through ``hist_for_leaf`` and on the training path.
+float64, alone, through ``hist_for_leaf`` and on the training path; and
+``histogram.cu`` on the stored columns of a sparse CSR (whole one-hot
+blocks in EFB bundles), the prediction extras' leaf ids on the card
+against the CPU's, and the vectorized TreeSHAP on the card against the
+plain recursion.
 
 These tests need a CUDA device and ``nvcc``: a hand-written CUDA kernel has
 no CPU or interpret mode, so they are marked ``cuda`` and skip without one.
@@ -1221,3 +1225,84 @@ def test_f64_training_goes_through_the_f64_kernel(cuda_device, growth):
     np.testing.assert_allclose(bst.predict(x, raw_score=True),
                                plain.predict(x, raw_score=True), rtol=0,
                                atol=1e-6)
+
+
+# ---- input formats and prediction extras (ROADMAP Queue 1 #8, #16) -------
+def _sparse_dataset(n):
+    """chip_smoke.py's sparse workload (path 4zq) at ``n`` rows, binned on
+    the host: one-hot blocks packed into EFB bundles."""
+    from chip_smoke import PARAMS, sparse_data
+    x, y = sparse_data(n)
+    return x, y, tlgb.Dataset(x, label=y, params=PARAMS,
+                              device="cpu").construct()._binned
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 6])
+def test_sparse_bundled_histogram_matches_plain(cuda_device, k):
+    """histogram.cu on the stored columns of a sparse CSR (whole one-hot
+    blocks in a few bundled columns, most rows' adds landing in one bin of
+    each) against the plain version, as the other cases hold it."""
+    _, _, binned = _sparse_dataset(200_000)
+    xb, b = binned.X_binned, binned.max_col_bins()
+    assert binned.has_bundles
+    vals = _count_channels(_inputs(len(xb), 1, 2, k, seed=k)[1])
+    got = kernels.build_histogram_cuda(
+        torch.as_tensor(xb, device=cuda_device),
+        torch.as_tensor(vals, device=cuda_device), b).cpu().numpy()
+    want = th.hist_plain(torch.as_tensor(xb), torch.as_tensor(vals), b).numpy()
+    absum = th.hist_plain(torch.as_tensor(xb),
+                          torch.as_tensor(np.abs(vals)), b).numpy()
+    assert (np.abs(got - want) <= 1e-5 * absum + 1e-6).all()
+    np.testing.assert_array_equal(got[..., 2::3], want[..., 2::3])
+
+
+def _extras_model(device, objective="binary"):
+    """A small model of chip_smoke.py's categorical data (binary) or of
+    its multiclass data, trained on ``device``."""
+    from chip_smoke import (CATEGORICAL_FEATURES, categorical_data,
+                            multiclass_data)
+    params = {"objective": objective, "num_leaves": 31, "verbosity": -1}
+    if objective == "multiclass":
+        x, y = multiclass_data(20_000)
+        params["num_class"] = 5
+        ds = tlgb.Dataset(x, label=y, device=device)
+    else:
+        x, y = categorical_data(20_000)
+        ds = tlgb.Dataset(x, label=y, device=device,
+                          categorical_feature=CATEGORICAL_FEATURES)
+    return x, tlgb.train(params, ds, num_boost_round=3, device=device)
+
+
+@pytest.mark.cuda
+def test_forest_leaves_on_the_card_match_the_cpu(cuda_device):
+    from lightgbm_tpu_torch.core import tree as tree_mod
+    x, bst = _extras_model(cuda_device, "multiclass")
+    runs = [tree_mod.predict_forest_leaves(
+        tree_mod.stack_predict_trees(bst.models, dev),
+        torch.as_tensor(x, dtype=torch.float64, device=dev))
+        for dev in (cuda_device, torch.device("cpu"))]
+    assert runs[0].device.type == "cuda"
+    np.testing.assert_array_equal(runs[0].cpu().numpy(), runs[1].numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective", ["binary", "multiclass"])
+def test_contrib_on_the_card_matches_the_recursion(cuda_device, objective):
+    """The vectorized TreeSHAP on the card against the plain recursion:
+    within 1e-9 of each row's sum of |contrib|, a class's; categorical
+    splits in the binary model, five classes in the other."""
+    from lightgbm_tpu_torch.core import shap
+    x, bst = _extras_model(cuda_device, objective)
+    rows = x[:200]
+    k = bst.num_model_per_iteration()
+    on_card = shap.contrib_tensor(bst._impl, torch.as_tensor(
+        rows, dtype=torch.float64, device=cuda_device))
+    assert on_card.device.type == "cuda"
+    got = on_card.cpu().numpy()
+    want = shap.predict_contrib_plain(bst._impl, rows).reshape(got.shape)
+    scale = np.abs(want).sum(axis=2)
+    assert (np.abs(got - want).max(axis=2) <= 1e-9 * scale).all()
+    np.testing.assert_allclose(
+        bst.predict(rows, pred_contrib=True).reshape(len(rows), k, -1), got,
+        rtol=0, atol=1e-12 * scale.max())

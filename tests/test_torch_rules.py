@@ -115,50 +115,33 @@ OUTSIDE_SLICE = {
 REFUSALS = {
     "packed_words": ({"tree_growth": "frontier", "tpu_bin_packing": "byte"},
                      "#9"),
-    "sparse_input": ({}, "#16"),
-    "sparse_matrix_binning": ({}, "#16"),
     # dataset-wide pairing (the JAX package's nibble cap) stays refused
     "nibble_pairs": ({"tpu_bin_packing": "nibble"}, "#9"),
     "checkpoint_callback": ({}, "#12"),
-    # refusals of the user-facing Dataset and Booster
-    "data_file": ({}, "#16"),
+    "data_stream_chunk_rows": ({"data_stream_chunk_rows": 100,
+                                "tree_growth": "frontier"}, "#11"),
     # methods of the JAX package's Booster and Dataset the port lacks
     "booster_dump_model": ({}, "#17"),
     "booster_refit": ({}, "#15"),
     "dataset_subset": ({}, "#17"),
-    "dataset_save_binary": ({}, "#16"),
     "reset_training_data": ({}, "#20"),
-    "pred_leaf": ({}, "#8"),
 }
 
 
 def _refused_call(kind, params, x, y):
     """The call that ``kind`` refuses."""
-    if kind == "sparse_matrix_binning":
-        # the binning entry point itself, below the Dataset's check
-        from lightgbm_tpu_torch.config import Config
-        from lightgbm_tpu_torch.io.dataset import BinnedDataset
-        return BinnedDataset.from_matrix(x, Config({}), label=y)
-    if kind == "data_file":
-        return tlgb.Dataset("train.csv", device="cpu").construct()
     params = dict(params, objective="binary", verbosity=-1)
     if kind == "dataset_subset":
         return tlgb.Dataset(x, label=y, device="cpu").subset([0, 1, 2])
-    if kind == "dataset_save_binary":
-        return tlgb.Dataset(x, label=y, device="cpu").save_binary("x.bin")
-    if kind in ("reset_training_data", "pred_leaf", "booster_dump_model",
+    if kind in ("reset_training_data", "booster_dump_model",
                 "booster_refit"):
         bst = tlgb.train(params, tlgb.Dataset(x, label=y, device="cpu"),
                          num_boost_round=1, device="cpu")
-        text = bst.model_to_string()
         if kind == "booster_dump_model":
             return bst.dump_model()
         if kind == "booster_refit":
             return bst.refit(x, y)
-        if kind == "reset_training_data":
-            return bst.update(train_set=tlgb.Dataset(x, label=y,
-                                                     device="cpu"))
-        return bst.predict(x, pred_leaf=True)
+        return bst.update(train_set=tlgb.Dataset(x, label=y, device="cpu"))
     extra = {}
     if kind == "checkpoint_callback":
         extra["callbacks"] = [tlgb.callback.checkpoint("checkpoints")]
@@ -170,9 +153,6 @@ def _refused_call(kind, params, x, y):
 def test_refusals_cite_their_roadmap_item(kind):
     params, item = REFUSALS[kind]
     x, y = _data()
-    if kind.startswith("sparse"):
-        import scipy.sparse
-        x = scipy.sparse.csr_matrix(x)
     if kind == "nibble_pairs":
         x = _small_pair_data(x)
     with pytest.raises(NotImplementedError,
