@@ -232,8 +232,50 @@ and prints no result line):
         (freq 1) equal to a host emulation of the rule on 10,000 rows;
         pred_contrib on the card on 10,000 rows of 4a, 4m, 4r and 4zq,
         each class summing to its raw score within 1e-6 x max(1, |raw|)
-        and on 50 rows within 1e-9 of a row's sum of |contrib| of the
-        plain recursion (``predict_contrib_plain``);
+        and on 50 rows (10 of 4zq's) within 1e-9 of a row's sum of
+        |contrib| of the plain recursion (``predict_contrib_plain``);
+   then the Python surface (Queue 1 #17) and resetting the training data
+   (#20) on bench.py's data and 4zr's CSV, each path with the launch
+   counts set to 0 just before and read just after, each launching
+   histogram.cu:
+     4zt ``LGBMClassifier(num_leaves=255, max_bin=255, n_estimators=5)``
+        on 4a's 1M rows with the labels as "neg"/"pos", a validation set
+        of 250,000 rows (seed 1), ``eval_metric="auc"`` and early stopping
+        after 5 rounds: its train AUC (``predict_proba`` at 5 iterations)
+        within 2e-3 of 4a's JAX constant, ``predict`` giving the string
+        labels, 5 valid AUCs and a best iteration; on its booster
+        ``dump_model``'s leaf values equal to the trees', ``get_leaf_output``
+        on sampled leaves and ``get_split_value_histogram`` counting every
+        split on each feature; the estimator pickled and unpickled
+        predicting 10,000 rows exactly as before; and ``LGBMRegressor``
+        with 4e's parameters, 5 estimators, 4e's validation set and a
+        callable l2 metric: train l2 within 1e-3 relative of 4e's JAX
+        constant, the callable's valid values within 1e-3 of 4e's;
+     4zu ``lgb.cv`` on 4a's 1M rows (a Dataset with the default
+        ``free_raw_data=True``), binary with ``metric=auc``, 5 stratified
+        shuffled folds (seed 0), 3 rounds: the folds partition the rows,
+        each test fold's positive share within one row of the whole's,
+        each round's ``valid auc-mean`` and ``-stdv`` within 2e-3 of the
+        JAX package's f64 constants, and 5 fold boosters on CUDA;
+     4zv the command line in the process on 4zr's CSV: ``task=train``
+        (4a's parameters, 5 trees), ``task=predict`` on the first 50,000
+        rows (a CSV of their own), equal to ``Booster.predict`` to
+        ``%.12g``, and ``task=convert_model``, whose C++ compiled with
+        ``g++ -O2 -shared -fPIC`` scores 1,000 rows within 1e-6 relative;
+        ``python -m lightgbm_tpu_torch task=predict`` as a subprocess on
+        the CUDA default writing the same file; and 2 rounds under
+        ``gpu_use_dp=true`` through the CLI and through
+        ``lgb.train(Dataset("dense.csv"))``, the two models' trees
+        identical in their text;
+     4zw 3 rounds on rows 0-500,000 of 4a's data with 4zt's validation
+        set, ``reset_training_data`` to rows 500,000-1,000,000 binned with
+        the first half's mappers: the valid AUC unchanged within 1e-7, the
+        new training scores within 1e-5 of ``predict(raw_score=True)`` on
+        the new rows; 2 more rounds, the valid AUC within 2e-3 of the JAX
+        package's f64 constant; and under ``gpu_use_dp`` (whose kernel
+        runs repeat) the same reset through ``reset_training_data`` and
+        through ``update(train_set=...)``, one round after it, the two
+        ways' trees identical and their scores within 1e-5;
    every path of 4a-4d, 4m-4za, 4zb-4zp and 4zq also trains one more
    iteration under torch.profiler and prints its CUDA kernel launches,
    synchronisations and the port's kernels' device time;
@@ -275,14 +317,27 @@ and prints no result line):
    partition (nor does the JAX package's), so its entry's path launches
    are 0 and its phase-3 calls are its only launches.
 
+Phases 1-3 and 4a-4d run in this process alone. Then two more processes
+of this script (``--part workloads`` and ``--part compare``, given the
+dense paths 4a-4d for their ratios) share the card with it, so that the
+host-bound paths overlap: this process runs 4q, 4zb-4zf, 4zl-4zn and
+4zq-4zw; ``workloads`` 4e-4h, 4zh-4zk, 4i-4p, 4zo, 4r-4u and their
+prediction extras; ``compare`` 4v-4za, 4zg, 4zp and phase 5. Each
+process sets its own launch counts to 0 just before each path and reads
+them just after; phase 6 sums them. The seconds of the paths from 4q on,
+and the bundled and categorical kernel rows, are taken while the three
+processes share the card and the host's cores.
+
 Exits non-zero without a result when no CUDA device is available.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import json
 import os
+import pickle
 import re
 import statistics
 import subprocess
@@ -295,7 +350,9 @@ import numpy as np
 import torch
 
 import lightgbm_tpu_torch as lgb
+from lightgbm_tpu_torch import cli as port_cli
 from lightgbm_tpu_torch import device as port_device
+from lightgbm_tpu_torch import engine as port_engine
 from lightgbm_tpu_torch import objectives as port_objectives
 from lightgbm_tpu_torch import random as port_random
 from lightgbm_tpu_torch.boosting import dart as port_dart
@@ -311,6 +368,7 @@ from lightgbm_tpu_torch.core import repack
 from lightgbm_tpu_torch.core import shap
 from lightgbm_tpu_torch.core import tree as tree_mod
 from lightgbm_tpu_torch.io.binning import BinType
+from lightgbm_tpu_torch.io import parser as port_parser
 from lightgbm_tpu_torch.io.dataset import Metadata
 from lightgbm_tpu_torch.metrics import auc
 
@@ -771,8 +829,41 @@ FILE_ROWS, LIBSVM_ROWS, DP_ROUNDS = 250_000, 100_000, 2
 # on EARLY_STOP_ROWS rows against a host emulation, pred_contrib on
 # CONTRIB_ROWS rows and the plain recursion on CONTRIB_PLAIN_ROWS of them
 EARLY_STOP_ROWS, CONTRIB_ROWS, CONTRIB_PLAIN_ROWS = 10_000, 10_000, 50
+# 4zq's merged paths are ~50 deep, so its plain recursion takes 0.3-0.7 s a
+# row on the host: 10 rows of it, to keep the whole run inside its limit
+# with 4zt-4zw (50 rows took 13-37 s)
+SPARSE_CONTRIB_PLAIN_ROWS = 10
 EXTRAS_RAW_TOL = 1e-6          # raw scores, absolute (contrib: x max(1, |s|))
 CONTRIB_PLAIN_REL = 1e-9       # of a row's sum of |contrib|, a class's
+# path 4zt (#17): the estimators' trees, the rows predicted after a
+# pickle round trip and the (tree, leaf) pairs read through
+# get_leaf_output
+SKLEARN_TREES, PICKLE_ROWS, LEAF_SAMPLE = 5, 10_000, 200
+# path 4zu (#17): lgb.cv on 4a's rows, binary with metric=auc, CV_FOLDS
+# stratified, shuffled folds (seed 0), CV_ROUNDS rounds, f32 exact. The
+# JAX package's valid auc-mean and -stdv a round, taken on the CPU backend
+# with float64 histogram sums (its f64 scatter; the chunked matmul takes
+# 6-30 min a training at this size) by
+#   JAX_PLATFORMS=cpu python scripts/jax_reference_auc.py --cv \
+#       --gpu-use-dp --rounds 3
+CV_FOLDS, CV_ROUNDS = 5, 3
+JAX_CV_AUC = {"mean": [0.9482389596906508, 0.9552013695111171,
+                       0.9583589241554312],
+              "stdv": [0.0005112660269294178, 0.0008581770525645262,
+                       0.0006395592446987079]}
+# path 4zv (#17): the command line on 4zr's CSV, CLI_TREES trees; predict
+# on CLI_PREDICT_ROWS rows, the C++ export on CPP_ROWS of them
+CLI_TREES, CLI_PREDICT_ROWS, CPP_ROWS, CPP_REL_TOL = 5, 50_000, 1_000, 1e-6
+# path 4zw (#20): RESET_ROUNDS rounds on the first half of 4a's rows, a
+# reset to the second half, RESET_MORE_ROUNDS more; the JAX package's
+# valid AUC after them, taken with its f64 scatter by
+#   JAX_PLATFORMS=cpu python scripts/jax_reference_auc.py --reset \
+#       --gpu-use-dp --rounds 3 --more-rounds 2
+# (its reset adds the init-score offsets, 2.24e-4 here, to the replayed
+# scores once more; the script takes them back out: ROADMAP Queue 3)
+RESET_ROUNDS, RESET_MORE_ROUNDS = 3, 2
+JAX_RESET_AUC = 0.9621367607899336
+RESET_VALID_TOL, REPLAY_TOL = 1e-7, 1e-5
 # monotone paths' predictions on a grid: MONO_GRID points along feature 0,
 # then along feature 1, at each of MONO_GRID_ROWS training rows, must move
 # the constraint's way within MONO_GRID_TOL
@@ -886,8 +977,12 @@ F64_HIST_REL_TOL, F64_HIST_ABS_TOL = 1e-12, 1e-300
 L2_FLUSH_BYTES = 64 << 20     # more than the 50 MB L2
 
 
+# "[part] " in a process of ``--part part``, so its lines can be told apart
+LOG_PREFIX = ""
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(LOG_PREFIX + msg, flush=True)
 
 
 def log_phase(t_start: float, name: str) -> None:
@@ -2461,7 +2556,8 @@ def early_stop_emulation(models, k: int, leaves: np.ndarray, freq: int,
 
 
 def drive_prediction_extras(label: str, bst, x, leaves: bool = False,
-                            early_stop: bool = False) -> dict:
+                            early_stop: bool = False,
+                            plain_rows: int = CONTRIB_PLAIN_ROWS) -> dict:
     """Phase 4zs on the model of path ``label`` and its training rows ``x``
     (a CSR for 4zq). With ``leaves``: pred_leaf on every row, on the card,
     equal to the leaves the training replay gives (``replay_leaves_binned``
@@ -2471,7 +2567,7 @@ def drive_prediction_extras(label: str, bst, x, leaves: bool = False,
     the first iteration (freq 1) it is the host emulation of the rule on
     EARLY_STOP_ROWS rows. Always: pred_contrib on CONTRIB_ROWS rows, on
     the card, each class's columns summing to its raw score, and on
-    CONTRIB_PLAIN_ROWS of them the plain recursion's values."""
+    ``plain_rows`` of them the plain recursion's values."""
     impl = bst._impl
     dev = impl.device
     k = impl.num_tree_per_iteration
@@ -2564,7 +2660,7 @@ def drive_prediction_extras(label: str, bst, x, leaves: bool = False,
     scale = np.maximum(1.0, np.abs(raw))
     out["contrib_sum_max_rel"] = float(
         (np.abs(contrib.sum(axis=2) - raw) / scale).max())
-    head = rows[:CONTRIB_PLAIN_ROWS]
+    head = rows[:plain_rows]
     on_card = shap.contrib_tensor(impl, torch.as_tensor(
         head, dtype=torch.float64, device=dev), iters)
     if on_card.device.type != "cuda":
@@ -2598,6 +2694,404 @@ def drive_prediction_extras(label: str, bst, x, leaves: bool = False,
         raise AssertionError("path 4zs (%s): contributions are %.3g from "
                              "the plain recursion's"
                              % (label, out["contrib_plain_max_rel"]))
+    return out
+
+
+def require_histogram(label: str, launches: dict,
+                      name: str = "build_histogram_cuda") -> None:
+    if launches[name] <= 0:
+        raise AssertionError("path %s never launched %s" % (label, name))
+
+
+def leaf_values_of(node, out: dict) -> None:
+    """Each leaf's value of a ``dump_model`` tree, by leaf index."""
+    if "leaf_index" in node:
+        out[node["leaf_index"]] = node["leaf_value"]
+        return
+    leaf_values_of(node["left_child"], out)
+    leaf_values_of(node["right_child"], out)
+
+
+def check_booster_methods(bst, num_features: int) -> dict:
+    """Path 4zt on a fitted estimator's booster: ``dump_model``'s leaf
+    values are the trees', ``get_leaf_output`` reads LEAF_SAMPLE sampled
+    leaves, and ``get_split_value_histogram`` counts every numerical split
+    on each feature."""
+    t0 = time.perf_counter()
+    dump = bst.dump_model(num_iteration=-1)
+    if len(dump["tree_info"]) != len(bst.models):
+        raise AssertionError("path 4zt: dump_model has %d trees, the "
+                             "booster %d" % (len(dump["tree_info"]),
+                                             len(bst.models)))
+    for info, ht in zip(dump["tree_info"], bst.models):
+        leaves = {}
+        leaf_values_of(info["tree_structure"], leaves)
+        want = {i: float(v) for i, v in
+                enumerate(ht.leaf_value[:ht.num_leaves_actual])}
+        if leaves != want:
+            raise AssertionError("path 4zt: dump_model's leaf values of "
+                                 "tree %d are not the tree's"
+                                 % info["tree_index"])
+    r = np.random.RandomState(0)
+    for _ in range(LEAF_SAMPLE):
+        t = int(r.randint(len(bst.models)))
+        leaf = int(r.randint(bst.models[t].num_leaves_actual))
+        if bst.get_leaf_output(t, leaf) != float(
+                bst.models[t].leaf_value[leaf]):
+            raise AssertionError("path 4zt: get_leaf_output(%d, %d) is "
+                                 "not the tree's leaf" % (t, leaf))
+    counts = []
+    for f in range(num_features):
+        want = sum(int(((ht.split_feature[:ht.num_leaves_actual - 1] == f)
+                        & ~ht.is_categorical[:ht.num_leaves_actual - 1])
+                       .sum()) for ht in bst.models)
+        got = int(bst.get_split_value_histogram(f)[0].sum())
+        if got != want:
+            raise AssertionError("path 4zt: get_split_value_histogram(%d) "
+                                 "counts %d splits, the trees have %d"
+                                 % (f, got, want))
+        counts.append(got)
+    return {"splits_by_feature": counts,
+            "methods_s": time.perf_counter() - t0}
+
+
+def drive_sklearn_path(x, y, xv, yv) -> dict:
+    """Phase 4zt: the estimators on 4a's rows (``LGBMClassifier``) and on
+    4e's rows and target (``LGBMRegressor``), on the CUDA default, with
+    the launch counts set to 0 just before and read just after."""
+    labels = np.where(y > 0, "pos", "neg")
+    reset_counts()
+    t0 = time.perf_counter()
+    clf = lgb.LGBMClassifier(num_leaves=255, max_bin=255,
+                             n_estimators=SKLEARN_TREES)
+    clf.fit(x, labels, eval_set=[(xv, np.where(yv > 0, "pos", "neg"))],
+            eval_metric="auc", early_stopping_rounds=EARLY_STOPPING_ROUNDS,
+            verbose=False)
+    torch.cuda.synchronize()
+    out = {"classifier_fit_s": time.perf_counter() - t0}
+    prob = clf.predict_proba(x, num_iteration=SKLEARN_TREES)[:, 1]
+    out["auc"] = auc(prob, y)
+    valid_auc = clf.evals_result_["valid_0"]["auc"]
+    out.update(valid_auc=valid_auc, best_iteration=clf.best_iteration_,
+               classes=[str(c) for c in clf.classes_])
+    log("path 4zt: LGBMClassifier fit %.2f s (%d rows, string labels, a "
+        "valid set of %d); train AUC %.6f (JAX package %.6f), valid AUC %s,"
+        " best iteration %d" % (out["classifier_fit_s"], len(x), len(xv),
+                                out["auc"], JAX_REFERENCE_AUC["exact"],
+                                valid_auc, clf.best_iteration_))
+    if abs(out["auc"] - JAX_REFERENCE_AUC["exact"]) > AUC_TOLERANCE:
+        raise AssertionError("path 4zt: train AUC %.6f is more than %g from "
+                             "the JAX package's %.6f" % (
+                                 out["auc"], AUC_TOLERANCE,
+                                 JAX_REFERENCE_AUC["exact"]))
+    if len(valid_auc) != SKLEARN_TREES or clf.best_iteration_ <= 0:
+        raise AssertionError("path 4zt: %d valid AUCs, best iteration %s"
+                             % (len(valid_auc), clf.best_iteration_))
+    if clf.booster_.device.type != "cuda":
+        raise AssertionError("path 4zt: the estimator trained on %s"
+                             % clf.booster_.device)
+    rows = xv[:PICKLE_ROWS]
+    pred = clf.predict(rows)
+    want = np.where(clf.predict_proba(rows)[:, 1] > 0.5, "pos", "neg")
+    if not np.array_equal(pred, want):
+        raise AssertionError("path 4zt: predict does not give the string "
+                             "labels of predict_proba")
+    out.update(check_booster_methods(clf.booster_, x.shape[1]))
+    t0 = time.perf_counter()
+    blob = pickle.dumps(clf)
+    loaded = pickle.loads(blob)
+    out.update(pickle_bytes=len(blob),
+               pickle_s=time.perf_counter() - t0)
+    if loaded.booster_.device.type != "cuda" or not np.array_equal(
+            loaded.predict_proba(rows), clf.predict_proba(rows)):
+        raise AssertionError("path 4zt: the unpickled estimator predicts "
+                             "otherwise (or off the card)")
+    # the regressor: 4e's parameters, rows, target and validation set
+    _, t = regression_data(len(x))
+    xv_reg, tv = regression_data(VALID_ROWS, seed=1)
+
+    def l2_np(y_true, y_pred):
+        return "l2_np", float(np.mean((y_pred - y_true) ** 2)), False
+    t0 = time.perf_counter()
+    reg = lgb.LGBMRegressor(num_leaves=255, max_bin=255,
+                            n_estimators=SKLEARN_TREES)
+    reg.fit(x, t, eval_set=[(xv_reg, tv)], eval_metric=l2_np,
+            verbose=False)
+    torch.cuda.synchronize()
+    out["regressor_fit_s"] = time.perf_counter() - t0
+    out["train_l2"] = float(np.mean((reg.predict(x) - t) ** 2))
+    out["valid_l2_np"] = reg.evals_result_["valid_0"]["l2_np"]
+    ref = JAX_REFERENCE_METRIC["4e"]
+    log("path 4zt: LGBMRegressor fit %.2f s; train l2 %.9g (JAX package "
+        "%.9g), callable valid l2 %s" % (out["regressor_fit_s"],
+                                         out["train_l2"], ref["train"],
+                                         out["valid_l2_np"]))
+    if abs(out["train_l2"] / ref["train"] - 1) > METRIC_REL_TOL:
+        raise AssertionError("path 4zt: train l2 %.9g is more than %g "
+                             "relative from the JAX package's %.9g" % (
+                                 out["train_l2"], METRIC_REL_TOL,
+                                 ref["train"]))
+    rel = np.abs(np.asarray(out["valid_l2_np"]) / ref["valid"] - 1)
+    if len(rel) != SKLEARN_TREES or rel.max() > METRIC_REL_TOL:
+        raise AssertionError("path 4zt: the callable's valid l2 %s is not "
+                             "4e's %s" % (out["valid_l2_np"], ref["valid"]))
+    out["launches"] = read_counts()
+    require_histogram("4zt", out["launches"])
+    log("path 4zt: dump_model, get_leaf_output (%d leaves) and "
+        "get_split_value_histogram (%d splits) %.2f s; pickle %d bytes, "
+        "%.3f s, predictions equal after it; launches %s" % (
+            LEAF_SAMPLE, sum(out["splits_by_feature"]), out["methods_s"],
+            out["pickle_bytes"], out["pickle_s"], out["launches"]))
+    return out
+
+
+def drive_cv_path(x, y) -> dict:
+    """Phase 4zu: ``lgb.cv`` on 4a's rows from a Dataset with the default
+    ``free_raw_data=True``, with the launch counts set to 0 just before
+    and read just after."""
+    params = dict(PARAMS, metric="auc", **GROWTH_PARAMS["exact"])
+    ds = lgb.Dataset(x, label=y, params=PARAMS)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = lgb.cv(params, ds, num_boost_round=CV_ROUNDS, nfold=CV_FOLDS,
+                 stratified=True, shuffle=True, seed=0,
+                 return_cvbooster=True)
+    torch.cuda.synchronize()
+    out = {"cv_s": time.perf_counter() - t0, "launches": read_counts()}
+    require_histogram("4zu", out["launches"])
+    folds = port_engine._make_n_folds(ds, None, CV_FOLDS, params, 0, True,
+                                      True)
+    tests = np.sort(np.concatenate([te for _, te in folds]))
+    if not np.array_equal(tests, np.arange(len(y))):
+        raise AssertionError("path 4zu: the test folds do not partition "
+                             "the rows")
+    share = float(y.mean())
+    off = [abs(float(y[te].sum()) - share * len(te)) for _, te in folds]
+    for (tr, te), bst in zip(folds, res["cvbooster"].boosters):
+        if len(tr) + len(te) != len(y) or bst.num_trees() != CV_ROUNDS \
+                or bst._train_set.num_data() != len(tr) \
+                or bst.device.type != "cuda":
+            raise AssertionError("path 4zu: a fold's booster does not hold "
+                                 "its %d training rows on the card"
+                                 % len(tr))
+    mean, stdv = res["valid auc-mean"], res["valid auc-stdv"]
+    gaps = [abs(a - b) for a, b in zip(mean + stdv,
+                                       JAX_CV_AUC["mean"] + JAX_CV_AUC["stdv"])]
+    out.update(mean=mean, stdv=stdv, max_gap=max(gaps),
+               positive_share_off_rows=max(off),
+               boosters=len(res["cvbooster"].boosters))
+    log("path 4zu: cv of %d folds x %d rounds %.2f s (binning included); "
+        "valid auc-mean %s (JAX %s), -stdv %s (JAX %s), largest gap %.3g; "
+        "test folds %s rows, positive share off by at most %.2f rows; "
+        "launches %s" % (CV_FOLDS, CV_ROUNDS, out["cv_s"], mean,
+                         JAX_CV_AUC["mean"], stdv, JAX_CV_AUC["stdv"],
+                         out["max_gap"], sorted({len(te) for _, te in folds}),
+                         max(off), out["launches"]))
+    if max(off) > 1.0:
+        raise AssertionError("path 4zu: a test fold's positive share is "
+                             "%.2f rows off the whole's" % max(off))
+    if len(mean) != CV_ROUNDS or len(stdv) != CV_ROUNDS \
+            or out["boosters"] != CV_FOLDS:
+        raise AssertionError("path 4zu: %d means, %d stdvs, %d boosters"
+                             % (len(mean), len(stdv), out["boosters"]))
+    if out["max_gap"] > AUC_TOLERANCE:
+        raise AssertionError("path 4zu: cv's AUC is %.3g from the JAX "
+                             "package's" % out["max_gap"])
+    return out
+
+
+def run_cli(args, what: str) -> None:
+    rc = port_cli.main(list(args))
+    if rc != 0:
+        raise AssertionError("path 4zv: %s exited %d" % (what, rc))
+
+
+def tree_text(model_text: str) -> str:
+    """A model text without its parameters."""
+    return model_text.split("\nparameters:")[0]
+
+
+def drive_cli_path(x, y, tmp: str) -> dict:
+    """Phase 4zv: the command line on 4zr's CSV (``dense.csv`` in ``tmp``),
+    with the launch counts set to 0 just before and read just after."""
+    csv = os.path.join(tmp, "dense.csv")
+    rows_csv = os.path.join(tmp, "predict.csv")
+    np.savetxt(rows_csv, np.column_stack([y[:CLI_PREDICT_ROWS],
+                                          x[:CLI_PREDICT_ROWS]]),
+               fmt="%.17g", delimiter=",", comments="", header=",".join(
+                   ["label"] + ["f%d" % j for j in range(x.shape[1])]))
+    model = os.path.join(tmp, "cli_model.txt")
+    result = os.path.join(tmp, "cli_predict.txt")
+    common = ["header=true", "verbosity=-1"]
+    train_args = ["task=train", "data=%s" % csv] + [
+        "%s=%s" % kv for kv in dict(PARAMS, **GROWTH_PARAMS["exact"]).items()]
+    reset_counts()
+    out = {}
+    t0 = time.perf_counter()
+    run_cli(train_args + common + ["num_trees=%d" % CLI_TREES,
+                                   "output_model=%s" % model], "task=train")
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_cli(["task=predict", "data=%s" % rows_csv, "input_model=%s" % model,
+             "output_result=%s" % result] + common, "task=predict")
+    out["predict_s"] = time.perf_counter() - t0
+    bst = lgb.Booster(model_file=model)
+    if len(bst.models) != CLI_TREES:
+        raise AssertionError("path 4zv: the CLI's model has %d trees"
+                             % len(bst.models))
+    rows = port_parser.parse_file(rows_csv, has_header=True)[0]
+    want = bst.predict(rows)
+    with open(result) as fh:
+        written = fh.read()
+    if written.split() != ["%.12g" % v for v in want]:
+        raise AssertionError("path 4zv: task=predict's file is not "
+                             "Booster.predict to %.12g")
+    cpp = os.path.join(tmp, "cli_model.cpp")
+    t0 = time.perf_counter()
+    run_cli(["task=convert_model", "input_model=%s" % model,
+             "convert_model=%s" % cpp], "task=convert_model")
+    lib = os.path.join(tmp, "cli_model.so")
+    subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-o", lib, cpp],
+                   check=True, timeout=600)
+    out["convert_compile_s"] = time.perf_counter() - t0
+    scorer = ctypes.CDLL(lib)
+    one = np.zeros(1, np.float64)
+    scored = np.empty(CPP_ROWS)
+    for i, row in enumerate(np.ascontiguousarray(rows[:CPP_ROWS],
+                                                 np.float64)):
+        scorer.Predict(row.ctypes.data_as(ctypes.c_void_p),
+                       one.ctypes.data_as(ctypes.c_void_p))
+        scored[i] = one[0]
+    out["cpp_max_rel"] = float(np.max(np.abs(scored - want[:CPP_ROWS])
+                                      / np.abs(want[:CPP_ROWS])))
+    if out["cpp_max_rel"] > CPP_REL_TOL:
+        raise AssertionError("path 4zv: the C++ scorer is %.3g relative "
+                             "from predict" % out["cpp_max_rel"])
+    # __main__ as a subprocess, on the CUDA default
+    sub_result = os.path.join(tmp, "cli_predict_sub.txt")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "lightgbm_tpu_torch",
+                    "task=predict", "data=%s" % rows_csv,
+                    "input_model=%s" % model,
+                    "output_result=%s" % sub_result] + common,
+                   check=True, timeout=600,
+                   cwd=os.path.dirname(os.path.abspath(__file__)))
+    out["subprocess_s"] = time.perf_counter() - t0
+    with open(sub_result) as fh:
+        if fh.read() != written:
+            raise AssertionError("path 4zv: python -m lightgbm_tpu_torch "
+                                 "wrote another prediction file")
+    # f64 through the CLI and through lgb.train on the same file
+    dp_model = os.path.join(tmp, "cli_model_dp.txt")
+    t0 = time.perf_counter()
+    run_cli(train_args + common + ["num_trees=%d" % DP_ROUNDS,
+                                   "gpu_use_dp=true",
+                                   "output_model=%s" % dp_model],
+            "task=train gpu_use_dp=true")
+    params = dict(PARAMS, gpu_use_dp=True, header=True,
+                  **GROWTH_PARAMS["exact"])
+    direct = lgb.train(params, lgb.Dataset(csv, params=params),
+                       num_boost_round=DP_ROUNDS)
+    out["dp_s"] = time.perf_counter() - t0
+    with open(dp_model) as fh:
+        if tree_text(fh.read()) != tree_text(direct.model_to_string()):
+            raise AssertionError("path 4zv: the CLI's f64 model is not "
+                                 "lgb.train's on the same file")
+    out["launches"] = read_counts()
+    require_histogram("4zv", out["launches"])
+    require_histogram("4zv", out["launches"], "build_histogram_f64_cuda")
+    log("path 4zv: CLI train %.2f s (%d trees, CSV of %d rows parsed), "
+        "predict %.2f s (%d rows, equal to Booster.predict to %%.12g), "
+        "convert and g++ %.2f s (C++ within %.3g relative on %d rows), "
+        "python -m lightgbm_tpu_torch predict %.2f s (the same file), f64 "
+        "through the CLI and lgb.train %.2f s (the same trees); launches %s"
+        % (out["train_s"], CLI_TREES, FILE_ROWS, out["predict_s"],
+           CLI_PREDICT_ROWS, out["convert_compile_s"], out["cpp_max_rel"],
+           CPP_ROWS, out["subprocess_s"], out["dp_s"], out["launches"]))
+    return out
+
+
+def drive_reset_path(x, y, xv, yv) -> dict:
+    """Phase 4zw: resetting the training data (#20) on the halves of 4a's
+    rows, with the launch counts set to 0 just before and read just
+    after."""
+    half = len(x) // 2
+    params = dict(PARAMS, metric="auc", **GROWTH_PARAMS["exact"])
+    reset_counts()
+    t0 = time.perf_counter()
+    first = lgb.Dataset(x[:half], label=y[:half], params=params)
+    bst = lgb.Booster(params=params, train_set=first)
+    valid = first.create_valid(xv, label=yv)
+    bst.add_valid(valid, "valid")
+    second = lgb.Dataset(x[half:], label=y[half:], reference=first,
+                         params=params).construct()
+    out = {"binning_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    for _ in range(RESET_ROUNDS):
+        bst.update()
+    before = bst.eval_valid()[0][2]
+    t1 = time.perf_counter()
+    bst.reset_training_data(second)
+    torch.cuda.synchronize()
+    out["reset_s"] = time.perf_counter() - t1
+    after = bst.eval_valid()[0][2]
+    replay_gap = float(np.max(np.abs(
+        bst._impl.scores_of(0) - bst.predict(x[half:], raw_score=True))))
+    for _ in range(RESET_MORE_ROUNDS):
+        bst.update()
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0 - out["reset_s"]
+    final = bst.eval_valid()[0][2]
+    out.update(valid_before=before, valid_after=after, replay_gap=replay_gap,
+               final_auc=final)
+    log("path 4zw: %d rounds on %d rows, reset to the other %d in %.2f s "
+        "(valid AUC %.9f -> %.9f, new scores %.3g from predict), %d more "
+        "rounds: valid AUC %.6f (JAX package %.6f); train %.2f s"
+        % (RESET_ROUNDS, half, len(x) - half, out["reset_s"], before, after,
+           replay_gap, RESET_MORE_ROUNDS, final, JAX_RESET_AUC,
+           out["train_s"]))
+    if abs(after - before) > RESET_VALID_TOL:
+        raise AssertionError("path 4zw: the reset moved the valid AUC from "
+                             "%.9f to %.9f" % (before, after))
+    if replay_gap > REPLAY_TOL:
+        raise AssertionError("path 4zw: the replayed scores are %.3g from "
+                             "predict" % replay_gap)
+    if abs(final - JAX_RESET_AUC) > AUC_TOLERANCE:
+        raise AssertionError("path 4zw: valid AUC %.6f is more than %g from "
+                             "the JAX package's %.6f" % (
+                                 final, AUC_TOLERANCE, JAX_RESET_AUC))
+    if len(bst.models) != RESET_ROUNDS + RESET_MORE_ROUNDS:
+        raise AssertionError("path 4zw: %d trees" % len(bst.models))
+    # the two ways to reset, under f64, whose kernel runs repeat
+    p64 = dict(params, gpu_use_dp=True)
+    t0 = time.perf_counter()
+    ways = []
+    for way in ("reset_training_data", "update"):
+        b = lgb.Booster(params=p64, train_set=first)
+        for _ in range(RESET_ROUNDS):
+            b.update()
+        if way == "update":
+            b.update(train_set=second)
+        else:
+            b.reset_training_data(second)
+            b.update()
+        ways.append(b)
+    torch.cuda.synchronize()
+    out["two_ways_s"] = time.perf_counter() - t0
+    at = first_difference(ways[0].models, ways[1].models)
+    out["two_ways_gap"] = float(np.max(np.abs(
+        ways[0]._impl.scores_of(0) - ways[1]._impl.scores_of(0))))
+    out["launches"] = read_counts()
+    require_histogram("4zw", out["launches"])
+    require_histogram("4zw", out["launches"], "build_histogram_f64_cuda")
+    log("path 4zw: f64, reset_training_data against update(train_set=...) "
+        "%.2f s: trees %s, scores %.3g apart; launches %s"
+        % (out["two_ways_s"], "identical" if at is None else
+           "part at %s" % (at,), out["two_ways_gap"], out["launches"]))
+    if at is not None or out["two_ways_gap"] > REPLAY_TOL:
+        raise AssertionError("path 4zw: update(train_set=...) does not "
+                             "reach reset_training_data's model")
     return out
 
 
@@ -4253,18 +4747,375 @@ def kernel_entry(name, source, replaces, launches, rows, headline):
             "library_ms": headline["library_ms"], "shapes": rows}
 
 
+# phases 4-5 from 4q on run in this process and in one more process of
+# this script for each of PARTS (the module docstring), which must end
+# PART_TIMEOUT_S into the run; each part's torch and OpenMP take
+# PART_THREADS of the host's cores
+PARTS = ("workloads", "compare")
+PART_TIMEOUT_S = 1_150
+PART_THREADS = 3
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script only runs on a GPU",
               file=sys.stderr)
         return 2
-
+    if len(sys.argv) > 1:
+        return run_part(sys.argv[1:])
     with tempfile.TemporaryDirectory() as tmp:
         return run(tmp)
 
 
+def start_parts(dense: dict, tmp: str, t_start: float) -> dict:
+    """Start a process of this script for each of PARTS, each in a
+    directory of its own under ``tmp``, given the dense paths ``dense``
+    and the run's start ``t_start`` (``time.perf_counter`` is the host's
+    monotonic clock, shared by its processes). Returns {part: (process,
+    its directory)}."""
+    dense_file = os.path.join(tmp, "dense_paths.json")
+    with open(dense_file, "w") as f:
+        json.dump(dense, f)
+    env = dict(os.environ, OMP_NUM_THREADS=str(PART_THREADS))
+    procs = {}
+    for name in PARTS:
+        directory = os.path.join(tmp, "part_" + name)
+        os.mkdir(directory)
+        procs[name] = (subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--part", name,
+             "--dense", dense_file, "--dir", directory,
+             "--t0", repr(t_start)], env=env), directory)
+    return procs
+
+
+def check_parts(procs: dict) -> None:
+    """Raise if a part has already failed."""
+    for name, (proc, _) in procs.items():
+        if proc.poll() not in (None, 0):
+            raise AssertionError("part %s exited %d" % (name, proc.returncode))
+
+
+def join_parts(procs: dict, t_start: float) -> dict:
+    """{part: its result} once every part has ended; raises if one fails or
+    is still running PART_TIMEOUT_S after ``t_start``."""
+    results = {}
+    for name, (proc, directory) in procs.items():
+        left = PART_TIMEOUT_S - (time.perf_counter() - t_start)
+        try:
+            rc = proc.wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            raise AssertionError("part %s was still running %d s into the "
+                                 "run" % (name, PART_TIMEOUT_S)) from None
+        if rc != 0:
+            raise AssertionError("part %s exited %d" % (name, rc))
+        with open(os.path.join(directory, "result.json")) as f:
+            results[name] = json.load(f)
+    return results
+
+
+def stop_parts(procs: dict) -> None:
+    """Kill every part still running, and reap them all."""
+    for proc, _ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
+def run_part(argv) -> int:
+    """``--part NAME --dense FILE --dir DIR --t0 T``: part NAME's phases
+    (``part_workloads`` or ``part_compare``) beside the dense paths in
+    FILE, its result written to DIR/result.json."""
+    import argparse
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--part", choices=PARTS, required=True)
+    parser.add_argument("--dense", required=True)
+    parser.add_argument("--dir", required=True)
+    parser.add_argument("--t0", type=float, required=True)
+    args = parser.parse_args(argv)
+    global LOG_PREFIX
+    LOG_PREFIX = "[%s] " % args.part
+    torch.set_num_threads(PART_THREADS)
+    with open(args.dense) as f:
+        dense = json.load(f)
+    part = {"workloads": part_workloads, "compare": part_compare}[args.part]
+    result = part(dense, args.dir, args.t0)
+    log_phase(args.t0, "the end of part %s" % args.part)
+    with open(os.path.join(args.dir, "result.json"), "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def dense_part(paths: dict, models: dict, extras: dict, ds, x, y, tmp: str,
+               t_start: float, procs: dict) -> None:
+    """This process's share of phase 4 after 4q, on bench.py's data ``x``,
+    ``y`` binned as ``ds``: 4zb-4zf, 4zl-4zn, 4zq-4zs and 4zt-4zw, added
+    to ``paths`` and ``extras``; between phases it raises if a part has
+    failed (``check_parts``)."""
+    log_phase(t_start, "4zb-4zf. row sampling on the same data")
+    # ---- 4zb-4zf. row sampling on the same data ------------------------
+    xv, yv = bench_data(VALID_ROWS, seed=1)
+    valid = ds.create_valid(xv, label=yv).construct()
+    for label, (growth, _, data, _, keeps_valid) in SAMPLING_PATHS.items():
+        if data == "dense":
+            paths[label] = drive_sampling_path(
+                label, ds, x, y, paths[growth],
+                (valid, xv) if keeps_valid else None)
+    del valid
+    check_parts(procs)
+
+    log_phase(t_start, "4zl-4zm. forced splits and CEGB on the same data")
+    # ---- 4zl-4zm. forced splits and CEGB on the same data --------------
+    for label, (growth, kind) in CONSTRAINT_PATHS.items():
+        if kind != "monotone":
+            paths[label] = drive_constraint_path(label, ds, x, y,
+                                                 paths[growth], tmp)
+
+    log_phase(t_start, "4zn. float64 histograms on the same data")
+    # ---- 4zn. float64 histograms on the same data ----------------------
+    paths["4zn"] = drive_f64_path("4zn", ds, x, y, paths["exact"])
+    check_parts(procs)
+
+    log_phase(t_start, "4zq. sparse input, exact growth")
+    # ---- 4zq. sparse input, exact growth -------------------------------
+    x_sparse, y_sparse = sparse_data(MAIN_ROWS)
+    paths["4zq"] = drive_sparse_path(x_sparse, y_sparse, paths["exact"],
+                                     models)
+
+    log_phase(t_start, "4zr. files and the binary cache")
+    # ---- 4zr. files and the binary cache -------------------------------
+    paths["4zr"] = drive_file_paths(x, y, ds, x_sparse, y_sparse, tmp)
+    check_parts(procs)
+
+    log_phase(t_start, "4zs. prediction extras of 4a and 4zq")
+    # ---- 4zs. prediction extras of 4a and 4zq --------------------------
+    extras["4a"] = drive_prediction_extras("4a", models.pop("exact"), x,
+                                           leaves=True, early_stop=True)
+    extras["4zq"] = drive_prediction_extras(
+        "4zq", models.pop("4zq"), x_sparse,
+        plain_rows=SPARSE_CONTRIB_PLAIN_ROWS)
+    del x_sparse, y_sparse
+    check_parts(procs)
+
+    log_phase(t_start, "4zt. the scikit-learn estimators")
+    # ---- 4zt-4zw. the Python surface and resetting the training data ---
+    paths["4zt"] = drive_sklearn_path(x, y, xv, yv)
+    check_parts(procs)
+    log_phase(t_start, "4zu. cv")
+    paths["4zu"] = drive_cv_path(x, y)
+    check_parts(procs)
+    log_phase(t_start, "4zv. the command line")
+    paths["4zv"] = drive_cli_path(x, y, tmp)
+    check_parts(procs)
+    log_phase(t_start, "4zw. resetting the training data")
+    paths["4zw"] = drive_reset_path(x, y, xv, yv)
+
+
+def part_workloads(dense: dict, tmp: str, t_start: float) -> dict:
+    """Part ``workloads``: the regression paths 4e-4h and 4zh-4zk, the
+    bundled paths 4i-4l (their kernels first), the categorical paths 4m-4p
+    (their root pass first) and 4zo, the multiclass paths 4r-4u, and the
+    prediction extras of 4m and 4r, each beside the dense path of its
+    growth mode in ``dense``; ``tmp`` is the part's directory."""
+    dev = torch.device("cuda", 0)
+    paths, models, extras = dict(dense), {}, {}
+    log_phase(t_start, "4e-4h. the regression workload")
+    # ---- 4e-4h. the regression workload --------------------------------
+    x, t = regression_data(MAIN_ROWS)
+    xv, tv = regression_data(VALID_ROWS, seed=1)
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(x, label=t, params=PARAMS).construct()
+    valid = ds.create_valid(xv, label=tv).construct()
+    log("binning: %.2f s for %d x %d and the valid set's %d rows"
+        % (time.perf_counter() - t0, *x.shape, len(xv)))
+    for label in REGRESSION_PATHS:
+        paths[label] = drive_regression_path(label, ds, (valid, xv))
+
+    log_phase(t_start, "4zh-4zk. monotone constraints on the same data")
+    # ---- 4zh-4zk. monotone constraints on the same data ----------------
+    for label, (growth, kind) in CONSTRAINT_PATHS.items():
+        if kind == "monotone":
+            paths[label] = drive_constraint_path(label, ds, x, t,
+                                                 paths[growth], tmp)
+    del ds, valid
+    renewal = time_renewal(dev)
+
+    log_phase(t_start, "4i-4l. the bundled workload, its kernels first")
+    # ---- 4i-4l. the bundled workload, its kernels first ----------------
+    x_bundled, y_bundled = bundled_data(MAIN_ROWS)
+    xv, yv = bundled_data(VALID_ROWS, seed=1)
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(x_bundled, label=y_bundled, params=PARAMS).construct()
+    binning_s = time.perf_counter() - t0
+    valid = ds.create_valid(xv, label=yv).construct()
+    log("binning: %.2f s for %d x %d (%d stored columns, B=%d), the valid "
+        "set's %d rows %.2f s more" % (binning_s, *x_bundled.shape,
+                                       ds._binned.num_columns,
+                                       ds._binned.max_col_bins(), len(xv),
+                                       time.perf_counter() - t0 - binning_s))
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    bundled_rows = check_stored_kernels(dev, flush, ds._binned.X_binned,
+                                        "bundled")
+    del flush
+    for label in BUNDLED_PATHS:
+        paths[label] = drive_bundled_path(
+            label, ds, x_bundled, y_bundled, (valid, xv) if label == "4i" else None)
+        paths[label]["binning_s"] = binning_s
+        log("path %s: %.3f s per iteration, binning %.2f s"
+            % (label, paths[label]["s_per_iter"], binning_s))
+    del ds, valid, x_bundled, y_bundled
+
+    log_phase(t_start, "4m-4p. the categorical workload, its root pass first")
+    # ---- 4m-4p. the categorical workload, its root pass first ----------
+    x_cat, y_cat = categorical_data(MAIN_ROWS)
+    xv, yv = categorical_data(VALID_ROWS, seed=1)
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(x_cat, label=y_cat, params=PARAMS,
+                     categorical_feature=CATEGORICAL_FEATURES).construct()
+    binning_s = time.perf_counter() - t0
+    valid = ds.create_valid(xv, label=yv).construct()
+    mappers = [ds._binned.bin_mappers[j] for j in CATEGORICAL_FEATURES]
+    log("binning: %.2f s for %d x %d (%d stored columns, B=%d; categorical "
+        "bins %s, largest kept category %d), the valid set's %d rows %.2f "
+        "s more" % (binning_s, *x_cat.shape, ds._binned.num_columns,
+                    ds._binned.max_col_bins(), [m.num_bin for m in mappers],
+                    max(max(m.bin_2_categorical) for m in mappers), len(xv),
+                    time.perf_counter() - t0 - binning_s))
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    cat_rows = check_stored_kernels(dev, flush, ds._binned.X_binned,
+                                    "categorical", root_only=True)
+    del flush
+    for label in CATEGORICAL_PATHS:
+        paths[label] = drive_categorical_path(
+            label, ds, x_cat, y_cat, (valid, xv) if label == "4m" else None,
+            models)
+        paths[label]["binning_s"] = binning_s
+    log_phase(t_start, "4zo. float64 histograms on the categorical data")
+    paths["4zo"] = drive_f64_path("4zo", ds, x_cat, y_cat, paths["4m"])
+    paths["4zo"]["binning_s"] = binning_s
+    largest = max(paths[label]["splits_on"]["max_category"]
+                  for label in CATEGORICAL_PATHS)
+    if largest < 256:
+        raise AssertionError("no categorical path sent a category id of 256 "
+                             "or more left (largest %d)" % largest)
+    del ds, valid
+    log_phase(t_start, "4zs. prediction extras of 4m")
+    extras["4m"] = drive_prediction_extras("4m", models.pop("4m"), x_cat)
+    del x_cat, y_cat
+    for cat_label, dense_label in CATEGORICAL_PATHS.items():
+        c, d = paths[cat_label], paths[dense_label]
+        log("path %s against %s (the same growth, dense): %.3f against %.3f "
+            "s per iteration (%.2fx), %d against %d launches and %d against "
+            "%d syncs an iteration" % (
+                cat_label, dense_label, c["s_per_iter"], d["s_per_iter"],
+                c["s_per_iter"] / d["s_per_iter"], c["launches_per_iter"],
+                d["launches_per_iter"], c["syncs_per_iter"],
+                d["syncs_per_iter"]))
+
+    log_phase(t_start, "4r-4u. the multiclass workload")
+    # ---- 4r-4u. the multiclass workload --------------------------------
+    x_mc, y_mc = multiclass_data(MULTICLASS_ROWS)
+    xv, yv = multiclass_data(MULTICLASS_VALID_ROWS, seed=1)
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(x_mc, label=y_mc, params=PARAMS).construct()
+    binning_s = time.perf_counter() - t0
+    valid = ds.create_valid(xv, label=yv).construct()
+    log("binning: %.2f s for %d x %d in %d classes, the valid set's %d rows "
+        "%.2f s more" % (binning_s, *x_mc.shape, NUM_CLASS, len(xv),
+                         time.perf_counter() - t0 - binning_s))
+    for label in MULTICLASS_PATHS:
+        paths[label] = drive_multiclass_path(
+            label, ds, x_mc, (valid, xv) if label == "4r" else None, models)
+        paths[label]["binning_s"] = binning_s
+    del ds, valid
+    log_phase(t_start, "4zs. prediction extras of 4r")
+    extras["4r"] = drive_prediction_extras("4r", models.pop("4r"), x_mc,
+                                           early_stop=True)
+    models.clear()
+    for label, (dense_label, _) in MULTICLASS_PATHS.items():
+        m, d = paths[label], paths[dense_label]
+        log("path %s against %s (the same growth, dense binary): %.3f "
+            "against %.3f s per iteration (%.2fx), %d against %d launches "
+            "and %d against %d syncs an iteration" % (
+                label, dense_label, m["s_per_iter"], d["s_per_iter"],
+                m["s_per_iter"] / d["s_per_iter"], m["launches_per_iter"],
+                d["launches_per_iter"], m["syncs_per_iter"],
+                d["syncs_per_iter"]))
+    return {"paths": {k: v for k, v in paths.items() if k not in dense},
+            "extras": extras, "renewal": renewal,
+            "bundled_rows": bundled_rows, "cat_rows": cat_rows}
+
+
+def part_compare(dense: dict, tmp: str, t_start: float) -> dict:
+    """Part ``compare``: the ranking and cross-entropy paths 4v-4za, 4zg
+    and 4zp, each beside the dense path of its growth mode in ``dense``,
+    the lambdarank gradient at scale, then phase 5 on the first
+    COMPARE_ROWS rows of each workload's data; ``tmp`` is the part's
+    directory."""
+    dev = torch.device("cuda", 0)
+    paths = dict(dense)
+    log_phase(t_start, "4v-4za. ranking and cross-entropy")
+    # ---- 4v-4za. ranking and cross-entropy -----------------------------
+    rank_scale = drive_ranking_workloads(paths, dev)
+
+    log_phase(t_start, "5. kernel path against plain path")
+    # ---- 5. kernel path against plain path -----------------------------
+    x, y = bench_data(MAIN_ROWS)
+    xs, ys = x[:COMPARE_ROWS], y[:COMPARE_ROWS]
+    ds = lgb.Dataset(xs, label=ys, params=PARAMS).construct()
+    compare_paths(ds, xs, ys)
+    for what, extra in SAMPLED_COMPARE.items():
+        log("kernel vs plain path on bench.py's data (%d rows), %s:"
+            % (len(xs), what))
+        compare_paths(ds, xs, ys, runs=[
+            ("%s, %s" % (label, what), dict(params, **extra), wrapper)
+            for label, params, wrapper in COMPARE_RUNS], plains=(True,))
+    log("kernel vs plain path on bench.py's data (%d rows), monotone "
+        "constraints, and forced splits with CEGB:" % len(xs))
+    compare_paths(ds, xs, ys, runs=constraint_compare_runs(tmp),
+                  plains=(True,))
+    f64_compare = {"dense": compare_f64(ds, xs, "dense")}
+    f64_compare["dense, forced splits and CEGB"] = compare_f64(
+        ds, xs, "dense", dict(constraint_params("forced", tmp),
+                              **constraint_params("cegb", tmp)),
+        ("build_histogram_f64_cuda", "build_histogram_leaf_f64_cuda"))
+    del ds
+    x_bundled, y_bundled = bundled_data(MAIN_ROWS)
+    xs, ys = x_bundled[:COMPARE_ROWS], y_bundled[:COMPARE_ROWS]
+    del x_bundled, y_bundled
+    log("kernel vs plain path on the bundled data (%d rows):" % len(xs))
+    ds = lgb.Dataset(xs, label=ys, params=PARAMS).construct()
+    compare_paths(ds, xs, ys, BUNDLED_RAW_TOL)
+    f64_compare["bundled"] = compare_f64(ds, xs, "bundled")
+    del ds
+    x_cat, y_cat = categorical_data(MAIN_ROWS)
+    xs, ys = x_cat[:COMPARE_ROWS], y_cat[:COMPARE_ROWS]
+    del x_cat, y_cat
+    log("kernel vs plain path on the categorical data (%d rows):" % len(xs))
+    # the id columns are dense, so none joins an EFB bundle and identical
+    # trees must predict within 1e-5; a bundle would bring the bundled
+    # data's rounding of rebuilt default bins (BUNDLED_RAW_TOL)
+    ds = lgb.Dataset(xs, label=ys, params=PARAMS,
+                     categorical_feature=CATEGORICAL_FEATURES).construct()
+    compare_paths(ds, xs, ys,
+                  BUNDLED_RAW_TOL if ds._binned.has_bundles else 1e-5)
+    del ds
+    x_mc, y_mc = multiclass_data(MULTICLASS_ROWS)
+    xs, ys = x_mc[:COMPARE_ROWS], y_mc[:COMPARE_ROWS]
+    log("kernel vs plain path on the multiclass data (%d rows, %d "
+        "classes):" % (len(xs), NUM_CLASS))
+    compare_paths(lgb.Dataset(xs, label=ys, params=PARAMS).construct(), xs,
+                  ys, runs=[("4t batched, multiclass",
+                             dict(GROWTH_PARAMS["batched"],
+                                  objective="multiclass",
+                                  **objective_params("multiclass")),
+                             "build_histogram_slots6_cuda")], plains=(True,))
+    return {"paths": {k: v for k, v in paths.items() if k not in dense},
+            "rank_scale": rank_scale, "f64_compare": f64_compare}
+
+
 def run(tmp: str) -> int:
-    """Phases 1-6; ``tmp`` holds the forced-splits file."""
+    """Phases 1-6; ``tmp`` holds the forced-splits file, the files of 4zr
+    and 4zv, and the parts' directories."""
     t_start = time.perf_counter()
     # ---- 1. the card ---------------------------------------------------
     card = card_line()
@@ -4308,217 +5159,24 @@ def run(tmp: str) -> int:
     models, extras = {}, {}
     paths = {g: drive_path(g, ds, x, y, models) for g in GROWTH_PARAMS}
     paths["exact"]["binning_s"] = binning_s
-    paths["4q"] = drive_fobj_path(ds, x, y)
-
-    log_phase(t_start, "4zb-4zf. row sampling on the same data")
-    # ---- 4zb-4zf. row sampling on the same data ------------------------
-    xv, yv = bench_data(VALID_ROWS, seed=1)
-    valid = ds.create_valid(xv, label=yv).construct()
-    for label, (growth, _, data, _, keeps_valid) in SAMPLING_PATHS.items():
-        if data == "dense":
-            paths[label] = drive_sampling_path(
-                label, ds, x, y, paths[growth],
-                (valid, xv) if keeps_valid else None)
-
-    log_phase(t_start, "4zl-4zm. forced splits and CEGB on the same data")
-    # ---- 4zl-4zm. forced splits and CEGB on the same data --------------
-    for label, (growth, kind) in CONSTRAINT_PATHS.items():
-        if kind != "monotone":
-            paths[label] = drive_constraint_path(label, ds, x, y,
-                                                 paths[growth], tmp)
-
-    log_phase(t_start, "4zn. float64 histograms on the same data")
-    # ---- 4zn. float64 histograms on the same data ----------------------
-    paths["4zn"] = drive_f64_path("4zn", ds, x, y, paths["exact"])
-
-    log_phase(t_start, "4zq. sparse input, exact growth")
-    # ---- 4zq. sparse input, exact growth -------------------------------
-    x_sparse, y_sparse = sparse_data(MAIN_ROWS)
-    paths["4zq"] = drive_sparse_path(x_sparse, y_sparse, paths["exact"],
-                                     models)
-
-    log_phase(t_start, "4zr. files and the binary cache")
-    # ---- 4zr. files and the binary cache -------------------------------
-    paths["4zr"] = drive_file_paths(x, y, ds, x_sparse, y_sparse, tmp)
-
-    log_phase(t_start, "4zs. prediction extras of 4a and 4zq")
-    # ---- 4zs. prediction extras of 4a and 4zq --------------------------
-    extras["4a"] = drive_prediction_extras("4a", models.pop("exact"), x,
-                                           leaves=True, early_stop=True)
-    extras["4zq"] = drive_prediction_extras("4zq", models.pop("4zq"),
-                                            x_sparse)
-    del ds, valid, x_sparse, y_sparse
-    x, t = regression_data(MAIN_ROWS)
-    xv, tv = regression_data(VALID_ROWS, seed=1)
-    t0 = time.perf_counter()
-    ds = lgb.Dataset(x, label=t, params=PARAMS).construct()
-    valid = ds.create_valid(xv, label=tv).construct()
-    log("binning: %.2f s for %d x %d and the valid set's %d rows"
-        % (time.perf_counter() - t0, *x.shape, len(xv)))
-    for label in REGRESSION_PATHS:
-        paths[label] = drive_regression_path(label, ds, (valid, xv))
-
-    log_phase(t_start, "4zh-4zk. monotone constraints on the same data")
-    # ---- 4zh-4zk. monotone constraints on the same data ----------------
-    for label, (growth, kind) in CONSTRAINT_PATHS.items():
-        if kind == "monotone":
-            paths[label] = drive_constraint_path(label, ds, x, t,
-                                                 paths[growth], tmp)
-    del ds, valid
-    renewal = time_renewal(dev)
-
-    log_phase(t_start, "4i-4l. the bundled workload, its kernels first")
-    # ---- 4i-4l. the bundled workload, its kernels first ----------------
-    x_bundled, y_bundled = bundled_data(MAIN_ROWS)
-    xv, yv = bundled_data(VALID_ROWS, seed=1)
-    t0 = time.perf_counter()
-    ds = lgb.Dataset(x_bundled, label=y_bundled, params=PARAMS).construct()
-    binning_s = time.perf_counter() - t0
-    valid = ds.create_valid(xv, label=yv).construct()
-    log("binning: %.2f s for %d x %d (%d stored columns, B=%d), the valid "
-        "set's %d rows %.2f s more" % (binning_s, *x_bundled.shape,
-                                       ds._binned.num_columns,
-                                       ds._binned.max_col_bins(), len(xv),
-                                       time.perf_counter() - t0 - binning_s))
-    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
-    bundled_rows = check_stored_kernels(dev, flush, ds._binned.X_binned,
-                                        "bundled")
-    del flush
-    for label in BUNDLED_PATHS:
-        paths[label] = drive_bundled_path(
-            label, ds, x_bundled, y_bundled, (valid, xv) if label == "4i" else None)
-        paths[label]["binning_s"] = binning_s
-        log("path %s: %.3f s per iteration, binning %.2f s"
-            % (label, paths[label]["s_per_iter"], binning_s))
-    del ds, valid
-
-    log_phase(t_start, "4m-4p. the categorical workload, its root pass first")
-    # ---- 4m-4p. the categorical workload, its root pass first ----------
-    x_cat, y_cat = categorical_data(MAIN_ROWS)
-    xv, yv = categorical_data(VALID_ROWS, seed=1)
-    t0 = time.perf_counter()
-    ds = lgb.Dataset(x_cat, label=y_cat, params=PARAMS,
-                     categorical_feature=CATEGORICAL_FEATURES).construct()
-    binning_s = time.perf_counter() - t0
-    valid = ds.create_valid(xv, label=yv).construct()
-    mappers = [ds._binned.bin_mappers[j] for j in CATEGORICAL_FEATURES]
-    log("binning: %.2f s for %d x %d (%d stored columns, B=%d; categorical "
-        "bins %s, largest kept category %d), the valid set's %d rows %.2f "
-        "s more" % (binning_s, *x_cat.shape, ds._binned.num_columns,
-                    ds._binned.max_col_bins(), [m.num_bin for m in mappers],
-                    max(max(m.bin_2_categorical) for m in mappers), len(xv),
-                    time.perf_counter() - t0 - binning_s))
-    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
-    cat_rows = check_stored_kernels(dev, flush, ds._binned.X_binned,
-                                    "categorical", root_only=True)
-    del flush
-    for label in CATEGORICAL_PATHS:
-        paths[label] = drive_categorical_path(
-            label, ds, x_cat, y_cat, (valid, xv) if label == "4m" else None,
-            models)
-        paths[label]["binning_s"] = binning_s
-    log_phase(t_start, "4zo. float64 histograms on the categorical data")
-    paths["4zo"] = drive_f64_path("4zo", ds, x_cat, y_cat, paths["4m"])
-    paths["4zo"]["binning_s"] = binning_s
-    largest = max(paths[label]["splits_on"]["max_category"]
-                  for label in CATEGORICAL_PATHS)
-    if largest < 256:
-        raise AssertionError("no categorical path sent a category id of 256 "
-                             "or more left (largest %d)" % largest)
-    cat_bundled = ds._binned.has_bundles
-    del ds, valid
-    log_phase(t_start, "4zs. prediction extras of 4m")
-    extras["4m"] = drive_prediction_extras("4m", models.pop("4m"), x_cat)
-    for cat_label, dense in CATEGORICAL_PATHS.items():
-        c, d = paths[cat_label], paths[dense]
-        log("path %s against %s (the same growth, dense): %.3f against %.3f "
-            "s per iteration (%.2fx), %d against %d launches and %d against "
-            "%d syncs an iteration" % (
-                cat_label, dense, c["s_per_iter"], d["s_per_iter"],
-                c["s_per_iter"] / d["s_per_iter"], c["launches_per_iter"],
-                d["launches_per_iter"], c["syncs_per_iter"],
-                d["syncs_per_iter"]))
-
-    log_phase(t_start, "4r-4u. the multiclass workload")
-    # ---- 4r-4u. the multiclass workload --------------------------------
-    x_mc, y_mc = multiclass_data(MULTICLASS_ROWS)
-    xv, yv = multiclass_data(MULTICLASS_VALID_ROWS, seed=1)
-    t0 = time.perf_counter()
-    ds = lgb.Dataset(x_mc, label=y_mc, params=PARAMS).construct()
-    binning_s = time.perf_counter() - t0
-    valid = ds.create_valid(xv, label=yv).construct()
-    log("binning: %.2f s for %d x %d in %d classes, the valid set's %d rows "
-        "%.2f s more" % (binning_s, *x_mc.shape, NUM_CLASS, len(xv),
-                         time.perf_counter() - t0 - binning_s))
-    for label in MULTICLASS_PATHS:
-        paths[label] = drive_multiclass_path(
-            label, ds, x_mc, (valid, xv) if label == "4r" else None, models)
-        paths[label]["binning_s"] = binning_s
-    del ds, valid
-    log_phase(t_start, "4zs. prediction extras of 4r")
-    extras["4r"] = drive_prediction_extras("4r", models.pop("4r"), x_mc,
-                                           early_stop=True)
-    models.clear()
-    for label, (dense, _) in MULTICLASS_PATHS.items():
-        m, d = paths[label], paths[dense]
-        log("path %s against %s (the same growth, dense binary): %.3f "
-            "against %.3f s per iteration (%.2fx), %d against %d launches "
-            "and %d against %d syncs an iteration" % (
-                label, dense, m["s_per_iter"], d["s_per_iter"],
-                m["s_per_iter"] / d["s_per_iter"], m["launches_per_iter"],
-                d["launches_per_iter"], m["syncs_per_iter"],
-                d["syncs_per_iter"]))
-
-    log_phase(t_start, "4v-4za. ranking and cross-entropy")
-    # ---- 4v-4za. ranking and cross-entropy -----------------------------
-    rank_scale = drive_ranking_workloads(paths, dev)
-
-    log_phase(t_start, "5. kernel path against plain path")
-    # ---- 5. kernel path against plain path -----------------------------
-    x, y = bench_data(MAIN_ROWS)
-    xs, ys = x[:COMPARE_ROWS], y[:COMPARE_ROWS]
-    ds = lgb.Dataset(xs, label=ys, params=PARAMS).construct()
-    compare_paths(ds, xs, ys)
-    for what, extra in SAMPLED_COMPARE.items():
-        log("kernel vs plain path on bench.py's data (%d rows), %s:"
-            % (len(xs), what))
-        compare_paths(ds, xs, ys, runs=[
-            ("%s, %s" % (label, what), dict(params, **extra), wrapper)
-            for label, params, wrapper in COMPARE_RUNS], plains=(True,))
-    log("kernel vs plain path on bench.py's data (%d rows), monotone "
-        "constraints, and forced splits with CEGB:" % len(xs))
-    compare_paths(ds, xs, ys, runs=constraint_compare_runs(tmp),
-                  plains=(True,))
-    f64_compare = {"dense": compare_f64(ds, xs, "dense")}
-    f64_compare["dense, forced splits and CEGB"] = compare_f64(
-        ds, xs, "dense", dict(constraint_params("forced", tmp),
-                              **constraint_params("cegb", tmp)),
-        ("build_histogram_f64_cuda", "build_histogram_leaf_f64_cuda"))
-    del ds
-    xs, ys = x_bundled[:COMPARE_ROWS], y_bundled[:COMPARE_ROWS]
-    log("kernel vs plain path on the bundled data (%d rows):" % len(xs))
-    ds = lgb.Dataset(xs, label=ys, params=PARAMS).construct()
-    compare_paths(ds, xs, ys, BUNDLED_RAW_TOL)
-    f64_compare["bundled"] = compare_f64(ds, xs, "bundled")
-    del ds
-    xs, ys = x_cat[:COMPARE_ROWS], y_cat[:COMPARE_ROWS]
-    log("kernel vs plain path on the categorical data (%d rows):" % len(xs))
-    # the id columns are dense, so none joins an EFB bundle and identical
-    # trees must predict within 1e-5; a bundle would bring the bundled
-    # data's rounding of rebuilt default bins (BUNDLED_RAW_TOL)
-    compare_paths(lgb.Dataset(xs, label=ys, params=PARAMS,
-                              categorical_feature=CATEGORICAL_FEATURES)
-                  .construct(), xs, ys,
-                  BUNDLED_RAW_TOL if cat_bundled else 1e-5)
-    xs, ys = x_mc[:COMPARE_ROWS], y_mc[:COMPARE_ROWS]
-    log("kernel vs plain path on the multiclass data (%d rows, %d "
-        "classes):" % (len(xs), NUM_CLASS))
-    compare_paths(lgb.Dataset(xs, label=ys, params=PARAMS).construct(), xs,
-                  ys, runs=[("4t batched, multiclass",
-                             dict(GROWTH_PARAMS["batched"],
-                                  objective="multiclass",
-                                  **objective_params("multiclass")),
-                             "build_histogram_slots6_cuda")], plains=(True,))
+    procs = start_parts(paths, tmp, t_start)
+    try:
+        log_phase(t_start, "4q. a custom objective")
+        paths["4q"] = drive_fobj_path(ds, x, y)
+        check_parts(procs)
+        dense_part(paths, models, extras, ds, x, y, tmp, t_start, procs)
+        del ds
+        results = join_parts(procs, t_start)
+    finally:
+        stop_parts(procs)
+    for result in results.values():
+        paths.update(result["paths"])
+    extras.update(results["workloads"]["extras"])
+    renewal = results["workloads"]["renewal"]
+    bundled_rows = results["workloads"]["bundled_rows"]
+    cat_rows = results["workloads"]["cat_rows"]
+    rank_scale = results["compare"]["rank_scale"]
+    f64_compare = results["compare"]["f64_compare"]
 
     log_phase(t_start, "6. result lines")
     # ---- 6. result lines -----------------------------------------------

@@ -12,8 +12,11 @@ frame's category order, which the model text keeps in its
 
 A multiclass booster (``num_class`` K) predicts [N, K] and hands ``fobj``
 and ``feval`` its scores as K * N values, class-major, as the reference's
-python package does. The JAX package's methods that the port does not
-cover yet exist and raise, naming the ROADMAP item that brings them.
+python package does. A booster pickles as its model text; it can swap its
+training set for another binned with the same mappers
+(``reset_training_data``) and dump its model as JSON. The JAX package's
+methods that the port does not cover yet exist and raise, naming the
+ROADMAP item that brings them.
 
 Device policy: ``Dataset``, ``Booster`` and ``train`` take ``device``.
 ``None`` means CUDA; without a CUDA device they raise unless the caller
@@ -145,6 +148,8 @@ class Dataset:
         self.categorical_feature = categorical_feature
         self.params = copy.deepcopy(params) if params else {}
         self.free_raw_data = free_raw_data
+        # the rows a ``subset`` keeps, applied as the data are binned
+        self.used_indices: Optional[np.ndarray] = None
         self._binned: Optional[BinnedDataset] = None
         self._predictor: Optional[_InnerPredictor] = None
         self.pandas_categorical = None
@@ -178,12 +183,21 @@ class Dataset:
             # they are listed (the reference's auto-detection)
             cat = list(cat) if cat else []
             cat.extend(c for c in frame_cats if c not in cat)
+        # scipy sparse data are binned without densifying them
+        data = data if _is_sparse(data) else _to_2d_float(data)
+        label, weight, init_score = (_to_1d(self.label), _to_1d(self.weight),
+                                     _to_1d(self.init_score))
+        if self.used_indices is not None:
+            # a subset's rows (basic.py:209-222 of the JAX package); the
+            # query sizes stay the parent's, as there
+            idx = self.used_indices
+            data = data.tocsr()[idx] if _is_sparse(data) else data[idx]
+            label, weight, init_score = (
+                None if v is None else v[idx]
+                for v in (label, weight, init_score))
         self._binned = BinnedDataset.from_matrix(
-            # scipy sparse data are binned without densifying them
-            data if _is_sparse(data) else _to_2d_float(data),
-            Config(self.params),
-            label=_to_1d(self.label), weight=_to_1d(self.weight),
-            init_score=_to_1d(self.init_score), group=_to_1d(self.group),
+            data, Config(self.params), label=label, weight=weight,
+            init_score=init_score, group=_to_1d(self.group),
             feature_names=names,
             categorical_feature=cat, reference=ref_binned)
         if self.free_raw_data:
@@ -203,7 +217,9 @@ class Dataset:
             self._binned = BinnedDataset.load_binary(path)
             return None
         cfg = Config(self.params)
-        if cfg.two_round and not parser.sniff_libsvm(path):
+        # a subset takes the one-shot path: its rows are in memory anyway
+        if (cfg.two_round and self.used_indices is None
+                and not parser.sniff_libsvm(path)):
             self._binned = BinnedDataset.from_file_two_round(
                 path, cfg, reference=ref_binned,
                 feature_names=(None if self.feature_name == "auto"
@@ -252,6 +268,25 @@ class Dataset:
                        group=group, init_score=init_score, silent=silent,
                        params=params or self.params, device=self.device)
 
+    def subset(self, used_indices, params=None) -> "Dataset":
+        """basic.py:306 of the JAX package: the rows ``used_indices`` of
+        this Dataset's raw data, on its device, binned with its mappers
+        when it is binned already."""
+        check(self.data is not None,
+              "Cannot subset a Dataset whose raw data were freed when it "
+              "was constructed; pass free_raw_data=False")
+        ds = Dataset(self.data, label=self.label, reference=self.reference,
+                     weight=self.weight, group=self.group,
+                     init_score=self.init_score,
+                     feature_name=self.feature_name,
+                     categorical_feature=self.categorical_feature,
+                     params=params or self.params,
+                     free_raw_data=self.free_raw_data, device=self.device)
+        ds.used_indices = np.asarray(sorted(used_indices), dtype=np.int64)
+        if self._binned is not None and self.reference is None:
+            ds.reference = self
+        return ds
+
     def set_categorical_feature(self, categorical_feature) -> "Dataset":
         """basic.py:402 of the JAX package: the categorical features,
         before the data are binned."""
@@ -274,36 +309,70 @@ class Dataset:
     def get_feature_name(self) -> List[str]:
         return list(self.construct()._binned.feature_names)
 
-    def get_label(self):
-        return self.construct()._binned.metadata.label
+    # ------------------------------------------------------------ fields
+    # basic.py:321-386 of the JAX package: a field set before binning is
+    # kept for it, one set after goes to the binned data's metadata
+    def set_label(self, label) -> "Dataset":
+        self.label = label
+        if self._binned is not None:
+            self._binned.metadata.set_label(_to_1d(label))
+        return self
 
-    def get_weight(self):
-        return self.construct()._binned.metadata.weight
-
-    def get_init_score(self):
-        return self.construct()._binned.metadata.init_score
+    def set_weight(self, weight) -> "Dataset":
+        self.weight = weight
+        if self._binned is not None:
+            self._binned.metadata.set_weight(_to_1d(weight))
+        return self
 
     def set_group(self, group) -> "Dataset":
-        """basic.py:333-337 of the JAX package: the queries' sizes, kept
-        for binning or set on the binned data's metadata."""
+        """The queries' sizes."""
         self.group = group
         if self._binned is not None:
             self._binned.metadata.set_query(group)
         return self
 
-    def get_group(self):
-        """The queries' sizes, None without query groups (basic.py:368-371
-        of the JAX package)."""
-        qb = self.construct()._binned.metadata.query_boundaries
-        return None if qb is None else np.diff(qb)
+    def set_init_score(self, init_score) -> "Dataset":
+        self.init_score = init_score
+        if self._binned is not None:
+            self._binned.metadata.set_init_score(_to_1d(init_score))
+        return self
 
-    subset = _not_ported("subset", "#17")
-    set_label = _not_ported("set_label", "#17")
-    set_weight = _not_ported("set_weight", "#17")
-    set_init_score = _not_ported("set_init_score", "#17")
-    set_reference = _not_ported("set_reference", "#17")
-    set_field = _not_ported("set_field", "#17")
-    get_field = _not_ported("get_field", "#17")
+    def set_reference(self, reference: "Dataset") -> "Dataset":
+        check(self._binned is None,
+              "Cannot set reference after dataset was constructed")
+        self.reference = reference
+        return self
+
+    def set_field(self, field_name: str, data) -> "Dataset":
+        setter = {"label": self.set_label, "weight": self.set_weight,
+                  "group": self.set_group, "query": self.set_group,
+                  "init_score": self.set_init_score}.get(field_name)
+        if setter is None:
+            raise LightGBMError("Unknown field name %s" % field_name)
+        return setter(data)
+
+    def get_field(self, field_name: str):
+        """A field of the binned data's metadata; ``group`` (``query``) is
+        the queries' sizes, None without query groups."""
+        m = self.construct()._binned.metadata
+        if field_name in ("group", "query"):
+            qb = m.query_boundaries
+            return None if qb is None else np.diff(qb)
+        if field_name not in ("label", "weight", "init_score"):
+            raise LightGBMError("Unknown field name %s" % field_name)
+        return getattr(m, field_name)
+
+    def get_label(self):
+        return self.get_field("label")
+
+    def get_weight(self):
+        return self.get_field("weight")
+
+    def get_init_score(self):
+        return self.get_field("init_score")
+
+    def get_group(self):
+        return self.get_field("group")
 
 
 class _InnerPredictor:
@@ -395,10 +464,9 @@ class Booster:
             default = default_metric_for_objective(self.config.objective)
             names = [default] if default else []
         self._metric_names = [n for n in names if n and n != "None"]
-        metrics = [m for m in (create_metric(n, self.config)
-                               for n in self._metric_names) if m]
         self._impl = create_boosting(self.config, train_set._binned,
-                                     objective, metrics, self.device)
+                                     objective, self._new_metrics(),
+                                     self.device)
         if predictor is not None:
             init_k = predictor.booster.num_model_per_iteration()
             check(init_k == self._impl.num_tree_per_iteration,
@@ -462,23 +530,26 @@ class Booster:
         if data.reference is None:
             data.reference = self._train_set
         data.construct()
-        metrics = [m for m in (create_metric(n, self.config)
-                               for n in self._metric_names) if m]
-        self._impl.add_valid_data(data._binned, metrics)
+        self._impl.add_valid_data(data._binned, self._new_metrics())
         self._valid_sets.append(data)
         self.name_valid_sets.append(name)
         return self
 
+    def _new_metrics(self) -> List:
+        """A fresh instance of each of the booster's metrics."""
+        return [m for m in (create_metric(n, self.config)
+                            for n in self._metric_names) if m]
+
     def update(self, train_set: Optional[Dataset] = None, fobj=None) -> bool:
         """One boosting round (basic.py:1843). Returns True if stopped.
 
-        ``fobj(raw training scores, training Dataset)`` returns the
-        gradients and hessians of a custom objective in numpy; they take the
-        objective's place for this round (basic.py:577-618 of the JAX
-        package)."""
+        A ``train_set`` other than the booster's own replaces it first
+        (``reset_training_data``). ``fobj(raw training scores, training
+        Dataset)`` returns the gradients and hessians of a custom objective
+        in numpy; they take the objective's place for this round
+        (basic.py:577-618 of the JAX package)."""
         if train_set is not None and train_set is not self._train_set:
-            raise outside_slice("resetting the training data",
-                                "ROADMAP Queue 1 #20")
+            self.reset_training_data(train_set)
         if fobj is None:
             return self._impl.train_one_iter()
         return self._impl.train_one_iter(*self._custom_gradients(fobj))
@@ -491,6 +562,70 @@ class Booster:
                           self._train_set)
         return (self._impl.device_gradients(grad, "grad").reshape(-1),
                 self._impl.device_gradients(hess, "hess").reshape(-1))
+
+    def reset_training_data(self, train_set: Dataset) -> "Booster":
+        """Swap the training set under the current model (basic.py:721-777
+        of the JAX package; GBDT::ResetTrainingData, gbdt.cpp:622-660): the
+        new set must bin with the old one's mappers (CheckAlign), the model
+        and the validation sets are kept, and the training scores are every
+        tree replayed on the new stored columns (``GBDT.reset_training_data``).
+
+        As in the JAX package the GBDT is built anew, so what it keeps
+        between iterations starts over: the bagging and GOSS key and mask,
+        the feature-fraction draws, DART's drop draws and tree weights, RF's
+        running training sums and the CEGB state (ROADMAP Queue 3)."""
+        check(self._train_set is not None,
+              "Cannot reset training data: the booster has no training set")
+        check(isinstance(train_set, Dataset),
+              "Training data should be Dataset instance")
+        if train_set.device != self.device:
+            raise ValueError("the Dataset is on %s but the Booster on %s"
+                             % (train_set.device, self.device))
+        old_binned = self._train_set.construct()._binned
+        if train_set._binned is None:
+            if train_set.reference is None:
+                train_set.reference = self._train_set
+            train_set.params = {**train_set.params, **self.params}
+        train_set.construct()
+        # CheckAlign (gbdt.cpp:624-626): the same bin mappers or nothing
+        check(train_set._binned.get_feature_infos()
+              == old_binned.get_feature_infos(),
+              "Cannot reset training data: new training data has different "
+              "bin mappers")
+        impl = create_boosting(self.config, train_set._binned,
+                               create_objective(self.config),
+                               self._new_metrics(), self.device)
+        impl.reset_from(self._impl)
+        # the validation sets survive the swap: add_valid_data replays the
+        # model on each
+        for vset in self._valid_sets:
+            impl.add_valid_data(vset._binned, self._new_metrics())
+        self._impl = impl
+        self._train_set = train_set
+        return self
+
+    def __getstate__(self):
+        """Pickle as the model text (basic.py:587-609 of the JAX package),
+        with the parameters, the best iteration and score, the pandas
+        categories and the device type: the unpickled booster predicts and
+        saves; the training state does not survive."""
+        return {"params": self.params, "best_iteration": self.best_iteration,
+                "best_score": dict(self.best_score),
+                "pandas_categorical": self.pandas_categorical,
+                "device": self.device.type,
+                "model_str": (self.model_to_string(num_iteration=-1)
+                              if self._impl.models else None)}
+
+    def __setstate__(self, state):
+        """The device is resolved anew: a CUDA booster unpickled where CUDA
+        is absent raises, as every entry point does."""
+        self.__init__(params=state.get("params"),
+                      model_str=state.get("model_str"),
+                      device=state.get("device"))
+        self.best_iteration = state.get("best_iteration", -1)
+        self.best_score = state.get("best_score", {})
+        if state.get("pandas_categorical") is not None:
+            self.pandas_categorical = state["pandas_categorical"]
 
     def rollback_one_iter(self) -> "Booster":
         """basic.py:1934: drop the last iteration's trees, one a class."""
@@ -624,6 +759,16 @@ class Booster:
             fh.write(self.model_to_string(num_iteration, start_iteration))
         return self
 
+    def dump_model(self, num_iteration: Optional[int] = None) -> Dict:
+        """The model as JSON (basic.py:932 of the JAX package; GBDT::DumpModel),
+        up to the best iteration unless ``num_iteration`` says otherwise."""
+        if num_iteration is None:
+            num_iteration = self.best_iteration if self.best_iteration > 0 \
+                else -1
+        return json.loads(model_text.model_to_json(
+            self._impl, self._feature_names(), self._feature_infos(),
+            num_iteration=num_iteration))
+
     def feature_importance(self, importance_type: str = "split",
                            iteration: Optional[int] = None) -> np.ndarray:
         imp = self._impl.feature_importance(importance_type, iteration)
@@ -632,16 +777,46 @@ class Booster:
     def feature_name(self) -> List[str]:
         return self._feature_names()
 
+    def get_split_value_histogram(self, feature, bins=None,
+                                  xgboost_style: bool = False):
+        """The thresholds of the numerical splits on ``feature`` (an index
+        or a name) as a histogram (basic.py:952 of the JAX package):
+        (counts, edges), or with ``xgboost_style`` the [upper edge, count]
+        rows of the nonempty bins."""
+        if isinstance(feature, str):
+            names = self._feature_names()
+            check(feature in names, "Feature %s not found" % feature)
+            feature = names.index(feature)
+        values = np.asarray(
+            [float(ht.threshold[t]) for ht in self._impl.models
+             for t in range(max(ht.num_leaves_actual - 1, 0))
+             if ht.split_feature[t] == feature and not ht.is_categorical[t]],
+            np.float64)
+        if bins is None:
+            bins = max(min(len(values), 255), 1)
+        hist, edges = np.histogram(values, bins=bins)
+        if xgboost_style:
+            rows = [(edges[i + 1], int(hist[i])) for i in range(len(hist))
+                    if hist[i] > 0]
+            return np.asarray(rows, np.float64).reshape(-1, 2)
+        return hist, edges
+
+    def get_leaf_output(self, tree_id: int, leaf_id: int) -> float:
+        """The value of one leaf (basic.py:978 of the JAX package;
+        LGBM_BoosterGetLeafValue)."""
+        models = self._impl.models
+        if not 0 <= tree_id < len(models):
+            raise LightGBMError("tree_id %d out of range" % tree_id)
+        t = models[tree_id]
+        if not 0 <= leaf_id < int(t.num_leaves_actual):
+            raise LightGBMError("leaf_id %d out of range" % leaf_id)
+        return float(t.leaf_value[leaf_id])
+
     @property
     def models(self) -> List[HostTree]:
         return self._impl.models
 
-    dump_model = _not_ported("dump_model", "#17")
-    get_split_value_histogram = _not_ported("get_split_value_histogram",
-                                            "#17")
-    get_leaf_output = _not_ported("get_leaf_output", "#17")
     refit = _not_ported("refit", "#15")
-    reset_training_data = _not_ported("reset_training_data", "#20")
     as_serving_bundle = _not_ported("as_serving_bundle", "#10")
     set_network = _not_ported("set_network", "#13")
     free_network = _not_ported("free_network", "#13")

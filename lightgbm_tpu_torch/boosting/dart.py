@@ -22,6 +22,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from ..log import LightGBMError
 from .gbdt import GBDT
 
 
@@ -52,6 +53,14 @@ class DART(GBDT):
                 drop_rate = min(drop_rate,
                                 cfg.max_drop * inv_avg / self.sum_weight)
             for i in range(n_iter):
+                if i >= len(self.tree_weight):
+                    # a reset of the training data starts the weights over
+                    # while the iterations go on; the JAX package indexes
+                    # past its list here (IndexError, ROADMAP Queue 3)
+                    raise LightGBMError(
+                        "DART with uniform_drop=false has no weight for "
+                        "iteration %d: its tree weights were lost when the "
+                        "training data were reset" % i)
                 if self._drop_rng.rand() < (drop_rate * self.tree_weight[i]
                                             * inv_avg):
                     drop_index.append(i)

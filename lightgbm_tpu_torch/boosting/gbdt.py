@@ -538,6 +538,30 @@ class GBDT:
         self.models = merged
         self.iter_ = len(merged) // self.num_tree_per_iteration
 
+    def reset_from(self, old: "GBDT") -> None:
+        """Carry ``old``'s model over to this GBDT's training set, binned
+        with the same mappers (GBDT::ResetTrainingData, gbdt.cpp:622-660;
+        basic.py:744-766 of the JAX package): copies of its trees, its
+        iteration count and its init-score offsets; the training scores are
+        the new set's init scores plus every tree replayed on its stored
+        columns. Each class's first tree has its init score folded in
+        (AddBias), so the replay carries it: the JAX package adds the
+        offsets to the scores once more, which the port does not copy
+        (ROADMAP Queue 3). Everything else starts over, as it does there;
+        the scores are replaced, not updated in place, so RF's running
+        training sums start over too."""
+        self.models = copy.deepcopy(old.models)
+        self.iter_ = old.iter_
+        self.init_score_offsets = np.array(old.init_score_offsets,
+                                           np.float32)
+        self.boost_from_average_done = True
+        k = self.num_tree_per_iteration
+        scores = self.scores.clone()
+        for i, ht in enumerate(self.models):
+            scores[:, i % k] += self._tree_output(ht, self._binned_tree(ht),
+                                                  self.xb)
+        self.scores = scores
+
     # ------------------------------------------------------------ training
     def _boost_from_average(self) -> None:
         """gbdt.cpp:298-331: seed each class's scores with the objective's

@@ -1,8 +1,9 @@
-"""LightGBM-compatible model text.
+"""LightGBM-compatible model text, its JSON dump and its C++ export.
 
-The port's own copy of the tree part of ``lightgbm_tpu/io/model_text.py``
-(gbdt_model_text.cpp:244-341 SaveModelToString and :343+
-LoadModelFromString, tree.cpp:207-238 Tree::ToString of the reference). A
+The port's own copy of ``lightgbm_tpu/io/model_text.py``
+(gbdt_model_text.cpp:244-341 SaveModelToString, :343+ LoadModelFromString,
+:15-58 DumpModel and :60-243 ModelToIfElse, tree.cpp:207-238
+Tree::ToString of the reference). A
 model written here loads in the JAX package and in the reference, and the
 other way round. ``decision_type`` is bit-packed: bit0 categorical, bit1
 default_left, bits 2-3 missing type. A categorical node's threshold is its
@@ -11,6 +12,7 @@ bitset in ``cat_threshold`` (trailing zero words dropped).
 """
 from __future__ import annotations
 
+import json
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -20,6 +22,7 @@ from ..log import LightGBMError
 
 K_CATEGORICAL_MASK = 1
 K_DEFAULT_LEFT_MASK = 2
+_MISSING_NAMES = {0: "None", 1: "Zero", 2: "NaN"}
 
 
 def _fmt(x: float) -> str:
@@ -243,3 +246,190 @@ def parse_model_string(model_str: str) -> Dict:
         params_part = model_str.split("\nparameters:", 1)[1]
         result["parameters"] = params_part.split("end of parameters")[0].strip()
     return result
+
+
+def parse_model_file(path: str) -> Dict:
+    """Load and parse a model-text file (GBDT::LoadModelFromFile): a
+    malformed file raises here, before any Booster or device state is
+    built (``task=convert_model`` reads its model this way)."""
+    with open(path, "r") as fh:
+        return parse_model_string(fh.read())
+
+
+def model_to_json(booster, feature_names: List[str],
+                  feature_infos: List[str],
+                  num_iteration: Optional[int] = None) -> str:
+    """GBDT::DumpModel JSON (gbdt_model_text.cpp:15-58, tree.cpp:242-301)."""
+    k = booster.num_tree_per_iteration
+    num_used = len(booster.models)
+    if num_iteration is not None and num_iteration > 0:
+        num_used = min(num_iteration * k, num_used)
+
+    def node_to_json(ht, index):
+        if index < 0:  # leaf
+            li = ~index
+            return {
+                "leaf_index": int(li),
+                "leaf_value": float(ht.leaf_value[li]),
+                "leaf_count": int(ht.leaf_count[li]),
+            }
+        d = {
+            "split_index": int(index),
+            "split_feature": int(ht.split_feature[index]),
+            "split_gain": float(ht.split_gain[index]),
+            "threshold": float(ht.threshold[index]),
+            "decision_type": "==" if ht.is_categorical[index] else "<=",
+            "default_left": bool(ht.default_left[index]),
+            "missing_type": _MISSING_NAMES.get(int(ht.missing_type[index]),
+                                               "None"),
+            "internal_value": float(ht.internal_value[index]),
+            "internal_count": int(ht.internal_count[index]),
+            "left_child": node_to_json(ht, int(ht.left_child[index])),
+            "right_child": node_to_json(ht, int(ht.right_child[index])),
+        }
+        return d
+
+    trees = []
+    for i in range(num_used):
+        ht = booster.models[i]
+        t = {"tree_index": i,
+             "num_leaves": int(ht.num_leaves_actual),
+             "shrinkage": float(ht.shrinkage)}
+        if ht.num_leaves_actual <= 1:
+            t["tree_structure"] = {"leaf_value": float(ht.leaf_value[0])}
+        else:
+            t["tree_structure"] = node_to_json(ht, 0)
+        trees.append(t)
+
+    return json.dumps({
+        "name": "tree",
+        "version": "v2",
+        "num_class": booster.num_class,
+        "num_tree_per_iteration": k,
+        "label_index": 0,
+        "max_feature_idx": len(feature_names) - 1,
+        "objective": objective_to_string(booster.objective, booster.config),
+        "average_output": booster.average_output,
+        "feature_names": feature_names,
+        "feature_infos": feature_infos,
+        "tree_info": trees,
+    }, indent=2)
+
+
+def model_to_cpp(parsed: Dict) -> str:
+    """Standalone C++ scorer from a parsed model (the ModelToIfElse /
+    convert_model export, gbdt_model_text.cpp:60-243): one nested if/else
+    function per tree plus PredictRaw / Predict entry points with the
+    objective's link function applied."""
+    trees: List = parsed["trees"]
+    k = parsed["num_tree_per_iteration"]
+    obj = parsed.get("objective", "").split()
+    obj_name = obj[0] if obj else ""
+    sigmoid = 1.0
+    for tok in obj[1:]:
+        if tok.startswith("sigmoid:"):
+            sigmoid = float(tok.split(":", 1)[1])
+
+    lines: List[str] = [
+        "// generated by lightgbm_tpu task=convert_model",
+        "#include <cmath>",
+        "#include <cstring>",
+        "",
+        "static inline bool IsZero(double v) "
+        "{ return v > -1e-35 && v <= 1e-35; }",
+        "",
+    ]
+
+    def emit_node(ht, root, root_depth):
+        # explicit work stack — trees can be chain-shaped (depth ~num_leaves)
+        # and must not hit the Python recursion limit
+        stack = [("node", root, root_depth)]
+        while stack:
+            kind, payload, depth = stack.pop()
+            pad = "  " * depth
+            if kind == "text":
+                lines.append(pad + payload)
+                continue
+            index = payload
+            if index < 0:
+                lines.append("%sreturn %.17g;"
+                             % (pad, float(ht.leaf_value[~index])))
+                continue
+            f = int(ht.split_feature[index])
+            missing = int(ht.missing_type[index])
+            dl = bool(ht.default_left[index])
+            if ht.is_categorical[index]:
+                nw = ht.cat_bitset.shape[1]
+                words = ", ".join("0x%xu" % int(w)
+                                  for w in ht.cat_bitset[index])
+                lines.append(
+                    "%s{ static const unsigned cat[%d] = {%s};"
+                    % (pad, nw, words))
+                lines.append("%s  int c = (int)arr[%d];" % (pad, f))
+                lines.append(
+                    "%s  if (!std::isnan(arr[%d]) && c >= 0 && c < %d && "
+                    "((cat[c >> 5] >> (c & 31)) & 1)) {" % (pad, f, nw * 32))
+                closer = "} }"
+            else:
+                thr = float(ht.threshold[index])
+                cond = "arr[%d] <= %.17g" % (f, thr)
+                if missing == 2:    # NaN
+                    cond = ("(std::isnan(arr[%d]) ? %s : (%s))"
+                            % (f, "true" if dl else "false", cond))
+                elif missing == 1:  # Zero
+                    cond = ("((IsZero(arr[%d]) || std::isnan(arr[%d])) ? "
+                            "%s : (%s))"
+                            % (f, f, "true" if dl else "false", cond))
+                else:
+                    cond = ("(std::isnan(arr[%d]) ? 0.0 <= %.17g : (%s))"
+                            % (f, thr, cond))
+                lines.append("%sif (%s) {" % (pad, cond))
+                closer = "}"
+            stack.append(("text", closer, depth))
+            stack.append(("node", int(ht.right_child[index]), depth + 1))
+            stack.append(("text", "} else {", depth))
+            stack.append(("node", int(ht.left_child[index]), depth + 1))
+
+    for i, ht in enumerate(trees):
+        lines.append("static double PredictTree%d(const double* arr) {" % i)
+        if ht.num_leaves_actual <= 1:
+            lines.append("  return %.17g;" % float(ht.leaf_value[0]))
+        else:
+            emit_node(ht, 0, 1)
+        lines.append("}")
+        lines.append("")
+
+    lines.append('extern "C" void PredictRaw(const double* arr, double* out) {')
+    lines.append("  for (int c = 0; c < %d; ++c) out[c] = 0.0;" % k)
+    for i in range(len(trees)):
+        lines.append("  out[%d] += PredictTree%d(arr);" % (i % k, i))
+    if parsed.get("average_output"):
+        niter = max(len(trees) // max(k, 1), 1)
+        lines.append("  for (int c = 0; c < %d; ++c) out[c] /= %d.0;"
+                     % (k, niter))
+    lines.append("}")
+    lines.append("")
+    lines.append('extern "C" void Predict(const double* arr, double* out) {')
+    lines.append("  PredictRaw(arr, out);")
+    if "sqrt" in obj[1:]:
+        # reg_sqrt back-transform: sign(x) * x^2 (regression_objective.hpp)
+        lines.append("  for (int c = 0; c < %d; ++c) "
+                     "out[c] = (out[c] < 0 ? -1.0 : 1.0) * out[c] * out[c];"
+                     % k)
+    if obj_name in ("binary", "cross_entropy", "xentropy"):
+        lines.append("  out[0] = 1.0 / (1.0 + std::exp(%.17g * -out[0]));"
+                     % sigmoid)
+    elif obj_name in ("multiclass", "softmax"):
+        lines.append("  double m = out[0], s = 0.0;")
+        lines.append("  for (int c = 1; c < %d; ++c) if (out[c] > m) m = out[c];" % k)
+        lines.append("  for (int c = 0; c < %d; ++c) { out[c] = std::exp(out[c] - m); s += out[c]; }" % k)
+        lines.append("  for (int c = 0; c < %d; ++c) out[c] /= s;" % k)
+    elif obj_name in ("multiclassova", "multiclass_ova", "ova", "ovr"):
+        lines.append("  for (int c = 0; c < %d; ++c) "
+                     "out[c] = 1.0 / (1.0 + std::exp(%.17g * -out[c]));"
+                     % (k, sigmoid))
+    elif obj_name in ("poisson", "gamma", "tweedie"):
+        lines.append("  for (int c = 0; c < %d; ++c) out[c] = std::exp(out[c]);" % k)
+    lines.append("}")
+    lines.append("")
+    return "\n".join(lines)

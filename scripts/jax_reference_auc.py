@@ -87,6 +87,26 @@ with ``tpu_batched_part=true``), 5 iterations.
   sets ``tpu_hist_dtype`` (chip_smoke's f64 paths 4zn-4zp): the JAX
   package then sums its histograms in float64 (``auto`` is its f64
   scatter on the CPU, without the f32 drift) and grows exact trees.
+- ``--cv``: chip_smoke's path 4zu, ``lgb.cv`` on the binary workload
+  with ``metric=auc``, ``nfold=5``, stratified, shuffled, seed 0, for
+  ``--rounds`` rounds (3 there); prints each round's ``valid auc-mean``
+  and ``valid auc-stdv``. Five folds of 800,000 training rows, each binned
+  on its own.
+- ``--reset``: chip_smoke's path 4zw, ``--rounds`` rounds (3 there) on
+  the binary workload's first half with chip_smoke's validation set
+  (250,000 rows from seed 1, ``metric=auc``), ``reset_training_data`` to
+  the second half (binned with the first half's mappers), then
+  ``--more-rounds`` rounds (2 there); prints the valid AUC after each
+  round and around the reset. The JAX package's reset adds the init-score
+  offsets to the replayed training scores although each class's first
+  tree carries them already (ROADMAP Queue 3); the script takes them back
+  out before training on, as GBDT::ResetTrainingData of the reference
+  replays the trees alone, and prints the offsets and how far the
+  package's own scores stood from its predictions.
+
+Run ``--cv`` and ``--reset`` with ``--gpu-use-dp``: chip_smoke's
+constants for them are the f64 scatter's (the chunked matmul sums take
+6-30 min a training at 1M rows).
 
     JAX_PLATFORMS=cpu python scripts/jax_reference_auc.py \
         [--growth exact|frontier|batched|batched_part] \
@@ -98,7 +118,8 @@ with ``tpu_batched_part=true``), 5 iterations.
         [--bagging-freq K] [--feature-fraction F] [--top-rate F] \
         [--other-rate F] [--learning-rate F] [--drop-rate F] \
         [--skip-drop F] [--rounds K] [--constraint monotone|forced|cegb] \
-        [--cegb-penalty-split F] [--gpu-use-dp] [--hist-dtype DTYPE]
+        [--cegb-penalty-split F] [--gpu-use-dp] [--hist-dtype DTYPE] \
+        [--cv | --reset [--more-rounds K]]
 
 It runs on the CPU backend and prints one JSON line.
 """
@@ -144,6 +165,9 @@ def main() -> int:
     ap.add_argument("--cegb-penalty-split", type=float)
     ap.add_argument("--gpu-use-dp", action="store_true")
     ap.add_argument("--hist-dtype")
+    ap.add_argument("--cv", action="store_true")
+    ap.add_argument("--reset", action="store_true")
+    ap.add_argument("--more-rounds", type=int, default=2)
     args = ap.parse_args()
     multiclass = args.objective in ("multiclass", "multiclassova")
     if args.data == "ranking" and args.objective == "binary":
@@ -184,7 +208,42 @@ def main() -> int:
             return drops[-1]
         DART._dropping_trees = recorded
     t0 = time.time()
-    if args.constraint:
+    if args.cv:
+        x, y = chip_smoke.bench_data(args.rows)
+        params["metric"] = "auc"
+        res = lgb.cv(params, lgb.Dataset(x, label=y),
+                     num_boost_round=args.iters,
+                     nfold=chip_smoke.CV_FOLDS, stratified=True,
+                     shuffle=True, seed=0)
+        out.update(cv=True, nfold=chip_smoke.CV_FOLDS,
+                   mean=res["valid auc-mean"], stdv=res["valid auc-stdv"])
+    elif args.reset:
+        import jax.numpy as jnp
+        x, y = chip_smoke.bench_data(args.rows)
+        xv, yv = chip_smoke.bench_data(chip_smoke.VALID_ROWS, seed=1)
+        half = args.rows // 2
+        params["metric"] = "auc"
+        first = lgb.Dataset(x[:half], label=y[:half])
+        bst = lgb.Booster(params=params, train_set=first)
+        bst.add_valid(first.create_valid(xv, label=yv), "valid")
+        valid = []
+        for _ in range(args.iters):
+            bst.update()
+            valid.append(bst.eval_valid()[0][2])
+        second = lgb.Dataset(x[half:], label=y[half:], reference=first)
+        bst.reset_training_data(second)
+        offsets = np.asarray(bst._impl.init_score_offsets, np.float32)
+        scores = np.asarray(bst._impl.scores)[:, 0]
+        raw = np.asarray(bst.predict(x[half:], raw_score=True))
+        out["package_scores_minus_predict"] = float(np.max(scores - raw))
+        bst._impl.scores = bst._impl.scores - jnp.asarray(offsets)[None, :]
+        out["after_reset"] = bst.eval_valid()[0][2]
+        for _ in range(args.more_rounds):
+            bst.update()
+            valid.append(bst.eval_valid()[0][2])
+        out.update(reset=True, more_rounds=args.more_rounds,
+                   offsets=offsets.tolist(), valid=valid)
+    elif args.constraint:
         import tempfile
         with tempfile.TemporaryDirectory() as tmp:
             extra = chip_smoke.constraint_params(args.constraint, tmp)

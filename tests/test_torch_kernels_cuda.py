@@ -13,7 +13,9 @@ float64, alone, through ``hist_for_leaf`` and on the training path; and
 ``histogram.cu`` on the stored columns of a sparse CSR (whole one-hot
 blocks in EFB bundles), the prediction extras' leaf ids on the card
 against the CPU's, and the vectorized TreeSHAP on the card against the
-plain recursion.
+plain recursion; and the Python surface on its CUDA default: an
+estimator's ``fit``, ``cv``'s boosters and a command-line ``task=train``
+with no ``device_type``, each launching the histogram kernel.
 
 These tests need a CUDA device and ``nvcc``: a hand-written CUDA kernel has
 no CPU or interpret mode, so they are marked ``cuda`` and skip without one.
@@ -1306,3 +1308,50 @@ def test_contrib_on_the_card_matches_the_recursion(cuda_device, objective):
     np.testing.assert_allclose(
         bst.predict(rows, pred_contrib=True).reshape(len(rows), k, -1), got,
         rtol=0, atol=1e-12 * scale.max())
+
+
+def _bench_rows(n):
+    from chip_smoke import bench_data
+    return bench_data(n)
+
+
+def _launched_histograms(fn):
+    """``fn()``'s result and the histogram kernel's launches in it."""
+    kernels.build_histogram_cuda.launches = 0
+    out = fn()
+    return out, kernels.build_histogram_cuda.launches
+
+
+@pytest.mark.cuda
+def test_estimator_fits_on_the_cuda_default(cuda_device):
+    x, y = _bench_rows(20_000)
+    est, launches = _launched_histograms(lambda: tlgb.LGBMClassifier(
+        n_estimators=3, num_leaves=31).fit(x, np.where(y > 0, "b", "a")))
+    assert est.booster_.device.type == "cuda" and launches > 0
+    cpu = tlgb.LGBMClassifier(n_estimators=3, num_leaves=31, device="cpu")
+    cpu.fit(x, np.where(y > 0, "b", "a"))
+    assert (est.predict(x) == cpu.predict(x)).mean() > 0.99
+
+
+@pytest.mark.cuda
+def test_cv_boosters_train_on_the_cuda_default(cuda_device):
+    x, y = _bench_rows(20_000)
+    res, launches = _launched_histograms(lambda: tlgb.cv(
+        {"objective": "binary", "metric": "auc", "verbosity": -1},
+        tlgb.Dataset(x, label=y), num_boost_round=2, nfold=3,
+        return_cvbooster=True))
+    assert launches > 0 and len(res["valid auc-mean"]) == 2
+    assert all(b.device.type == "cuda" for b in res["cvbooster"].boosters)
+
+
+@pytest.mark.cuda
+def test_cli_trains_on_cuda_without_device_type(cuda_device, tmp_path):
+    from lightgbm_tpu_torch import cli
+    x, y = _bench_rows(20_000)
+    data = tmp_path / "train.csv"
+    np.savetxt(data, np.column_stack([y, x]), fmt="%.17g", delimiter=",")
+    model = tmp_path / "model.txt"
+    rc, launches = _launched_histograms(lambda: cli.main([
+        "task=train", "data=%s" % data, "num_trees=2", "verbosity=-1",
+        "output_model=%s" % model]))
+    assert rc == 0 and launches > 0 and model.exists()

@@ -120,28 +120,29 @@ REFUSALS = {
     "checkpoint_callback": ({}, "#12"),
     "data_stream_chunk_rows": ({"data_stream_chunk_rows": 100,
                                 "tree_growth": "frontier"}, "#11"),
-    # methods of the JAX package's Booster and Dataset the port lacks
-    "booster_dump_model": ({}, "#17"),
+    # methods of the JAX package's Booster the port lacks, and the command
+    # line's task that needs one of them
+    "booster_as_serving_bundle": ({}, "#10"),
     "booster_refit": ({}, "#15"),
-    "dataset_subset": ({}, "#17"),
-    "reset_training_data": ({}, "#20"),
+    "booster_set_network": ({}, "#13"),
+    "cli_task_refit": ({}, "#15"),
 }
 
 
 def _refused_call(kind, params, x, y):
     """The call that ``kind`` refuses."""
     params = dict(params, objective="binary", verbosity=-1)
-    if kind == "dataset_subset":
-        return tlgb.Dataset(x, label=y, device="cpu").subset([0, 1, 2])
-    if kind in ("reset_training_data", "booster_dump_model",
-                "booster_refit"):
+    if kind == "cli_task_refit":
+        from lightgbm_tpu_torch import cli
+        return cli.main(["task=refit", "device_type=cpu"])
+    if kind.startswith("booster_"):
         bst = tlgb.train(params, tlgb.Dataset(x, label=y, device="cpu"),
                          num_boost_round=1, device="cpu")
-        if kind == "booster_dump_model":
-            return bst.dump_model()
         if kind == "booster_refit":
             return bst.refit(x, y)
-        return bst.update(train_set=tlgb.Dataset(x, label=y, device="cpu"))
+        if kind == "booster_set_network":
+            return bst.set_network("127.0.0.1:12400")
+        return bst.as_serving_bundle()
     extra = {}
     if kind == "checkpoint_callback":
         extra["callbacks"] = [tlgb.callback.checkpoint("checkpoints")]
@@ -366,7 +367,8 @@ def test_outside_the_slice_raises(option):
 def test_every_jax_method_is_ported_or_refuses(cls):
     """Each public method of the JAX package's class exists on the port's;
     one the port has not ported raises ``outside_slice`` citing its ROADMAP
-    item, never ``AttributeError``."""
+    item, never ``AttributeError``. Only the Booster's refit (#15), serving
+    bundle (#10) and network setup (#13) still refuse."""
     import lightgbm_tpu as jlgb
     x, y = _data()
     ds = tlgb.Dataset(x, label=y, device="cpu")
@@ -384,4 +386,17 @@ def test_every_jax_method_is_ported_or_refuses(cls):
                                match=r"\(ROADMAP Queue 1 #\d+\)$"):
                 method()
             refusing.append(name)
-    assert len(refusing) < len(names)
+    assert refusing == ([] if cls == "Dataset" else [
+        "as_serving_bundle", "free_network", "refit", "set_network"])
+
+
+def test_the_jax_packages_public_names_resolve_on_the_port():
+    """Every name in the JAX package's ``__all__``, and its four plotting
+    functions, is a name of the port's package too."""
+    import lightgbm_tpu as jlgb
+    names = list(jlgb.__all__) + ["plot_importance", "plot_metric",
+                                  "plot_tree", "create_tree_digraph"]
+    missing = [n for n in names if not hasattr(tlgb, n)]
+    assert not missing, missing
+    for name in ("cv", "CVBooster", "LGBMClassifier", "plot_tree"):
+        assert name in tlgb.__all__
