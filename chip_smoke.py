@@ -276,6 +276,28 @@ and prints no result line):
         runs repeat) the same reset through ``reset_training_data`` and
         through ``update(train_set=...)``, one round after it, the two
         ways' trees identical and their scores within 1e-5;
+   then the serving path (Queue 1 #10), after 4r-4u in the workloads part:
+     4zx a binary model of SERVE_ROUNDS iterations grown under
+        ``frontier`` on 4a's data (its launches counted), 4m's and 4r's
+        boosters and 4m's model text reloaded through
+        ``ModelRegistry.load_file``, served on the card by a
+        ``ServingEngine`` warmed over every bucket (one CUDA graph an
+        entry): requests of SERVE_SIZES rows (10,000 split across
+        buckets) through ``ServingEngine.predict``, a ``MicroBatchQueue``
+        from SERVE_THREADS threads, ``serve_stdin`` and ``make_server`` on
+        127.0.0.1 (``urllib``), every response ``Booster.predict``'s on
+        the same rows bit for bit, raw and transformed, and no graph
+        captured and no cache miss after warmup; the replay backend equal
+        to the traversal; the cascade at margin inf the full model, at 0
+        the first iterations, at 10 and at the median stage-1 margin a
+        host emulation of the rule; int16 leaves within SERVE_QUANT_REL of
+        the full scores (relative to the largest); a hot roll to a staged
+        50-iteration model capturing before the swap and serving it from
+        the next request on; each bucket's p50/p99 latency through the
+        engine and through HTTP, rows a second at bucket 4,096, the
+        captures of warmup and bucket 4,096's graph replay against the
+        same entry op by op, printed beside the card's name and power
+        limit;
    every path of 4a-4d, 4m-4za, 4zb-4zp and 4zq also trains one more
    iteration under torch.profiler and prints its CUDA kernel launches,
    synchronisations and the port's kernels' device time;
@@ -321,8 +343,8 @@ Phases 1-3 and 4a-4d run in this process alone. Then two more processes
 of this script (``--part workloads`` and ``--part compare``, given the
 dense paths 4a-4d for their ratios) share the card with it, so that the
 host-bound paths overlap: this process runs 4q, 4zb-4zf, 4zl-4zn and
-4zq-4zw; ``workloads`` 4e-4h, 4zh-4zk, 4i-4p, 4zo, 4r-4u and their
-prediction extras; ``compare`` 4v-4za, 4zg, 4zp and phase 5. Each
+4zq-4zw; ``workloads`` 4e-4h, 4zh-4zk, 4i-4p, 4zo, 4r-4u, their
+prediction extras and 4zx; ``compare`` 4v-4za, 4zg, 4zp and phase 5. Each
 process sets its own launch counts to 0 just before each path and reads
 them just after; phase 6 sums them. The seconds of the paths from 4q on,
 and the bundled and categorical kernel rows, are taken while the three
@@ -3095,6 +3117,342 @@ def drive_reset_path(x, y, xv, yv) -> dict:
     return out
 
 
+# path 4zx, the serving path (Queue 1 #10): the models it serves (a binary
+# frontier model of SERVE_ROUNDS iterations on 4a's data, 4m's categorical
+# booster, 4r's 5-class booster and 4m's model text reloaded), the request
+# sizes (the last split across buckets), the rows each model's references
+# are predicted on (seed 1), the threads of the queue's callers, the
+# cascades' first stages (binary, multiclass) and the quantized leaves'
+# limit relative to the largest |score|
+SERVE_ROUNDS = 100
+SERVE_SIZES = (1, 16, 17, 1_000, 4_096, 10_000)
+SERVE_ROWS = 10_000
+SERVE_THREADS = 8
+SERVE_CASCADE = {"binary": 10, "multiclass": 2}
+SERVE_QUANT_REL = 1e-4
+SERVE_LATENCY_REPS = 20
+HTTP_LATENCY_SIZES = (1, 16, 1_000, 4_096)
+
+
+def require_equal(got, want, what: str) -> None:
+    """Raise unless ``got`` is ``want`` bit for bit (shape and values)."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape or not np.array_equal(got, want):
+        diff = (float(np.max(np.abs(got - want)))
+                if got.shape == want.shape else float("nan"))
+        raise AssertionError("%s: not predict's output (shapes %s, %s; max "
+                             "|diff| %g)" % (what, got.shape, want.shape,
+                                             diff))
+
+
+def serve_references(bst, rows, cascade_trees: int = 0) -> dict:
+    """``bst.predict`` on ``rows``: transformed, raw, and raw over the
+    first ``cascade_trees`` iterations where given."""
+    out = {False: bst.predict(rows), True: bst.predict(rows, raw_score=True)}
+    if cascade_trees:
+        out["first"] = bst.predict(rows, raw_score=True,
+                                   num_iteration=cascade_trees)
+    return out
+
+
+def stage1_margins(first: np.ndarray, k: int) -> np.ndarray:
+    """The cascade's margin of each row's stage-1 raw score, in float32:
+    2|s| for one class, top-1 minus top-2 for K."""
+    s = np.asarray(first, np.float32).reshape(len(first), k)
+    if k > 1:
+        top2 = -np.sort(-s, axis=1)[:, :2]
+        return top2[:, 0] - top2[:, 1]
+    return np.float32(2) * np.abs(s[:, 0])
+
+
+def cascade_emulation(first: np.ndarray, full: np.ndarray, k: int,
+                      margin: float):
+    """The cascade's rule on the host: a row whose stage-1 margin reaches
+    ``margin`` keeps its stage-1 raw score, any other row the full
+    model's. Returns (the scores, the rows kept)."""
+    sure = stage1_margins(first, k) >= np.float32(margin)
+    want = np.where(sure.reshape(-1, *([1] * (first.ndim - 1))), first, full)
+    return want, int(sure.sum())
+
+
+def http_post(host: str, port: int, body: dict) -> dict:
+    import urllib.request
+    return json.loads(urllib.request.urlopen(urllib.request.Request(
+        "http://%s:%d/predict" % (host, port),
+        data=json.dumps(body).encode()), timeout=120).read())
+
+
+def latency_ms(fn, reps: int) -> list:
+    """Host-clock milliseconds of ``reps`` calls of ``fn`` (each returns
+    its result on the host, so each ends in a synchronise)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def drive_serving_path(cat_bst, mc_bst, tmp: str, dev) -> dict:
+    """Path 4zx: serving (Queue 1 #10) on ``dev`` (the card). Trains the
+    binary frontier model with the launch counts set to 0 just before and
+    read just after, then serves it, ``cat_bst`` (4m), ``mc_bst`` (4r) and
+    4m's model text reloaded through ``ModelRegistry.load_file``: requests
+    of SERVE_SIZES rows through ``ServingEngine.predict``, a
+    ``MicroBatchQueue`` from SERVE_THREADS threads, ``serve_stdin`` and
+    ``make_server`` on 127.0.0.1, each response equal to ``predict`` on
+    the same rows bit for bit, raw and transformed, with no graph capture
+    after warmup; then the replay backend, the cascades, the quantized
+    leaves and a hot roll. Prints each bucket's latency through the engine
+    and through HTTP, rows a second at bucket 4,096, the captures of
+    warmup and a graph's replay against the same entry run op by op."""
+    import io
+    import threading
+    from lightgbm_tpu_torch import serving
+    x, y = bench_data(MAIN_ROWS)
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(x, label=y, params=PARAMS).construct()
+    binning_s = time.perf_counter() - t0
+    del x, y
+    bst, train_s, launches, steps = train_counted(
+        dict(PARAMS, **GROWTH_PARAMS["frontier"]), ds, rounds=SERVE_ROUNDS)
+    del ds
+    check_path_launches("4zx", "frontier", bst, launches, steps)
+    log("path 4zx: binning %.2f s, %d frontier iterations in %.2f s (%.3f s "
+        "each), launches %s" % (binning_s, SERVE_ROUNDS, train_s,
+                                train_s / SERVE_ROUNDS, launches))
+    text_path = os.path.join(tmp, "serve_categorical.model.txt")
+    cat_bst.save_model(text_path)
+    text_bst = lgb.Booster(model_file=text_path)
+    served = {"binary": (bst, bench_data(SERVE_ROWS, seed=1)[0]),
+              "categorical": (cat_bst, categorical_data(SERVE_ROWS,
+                                                        seed=1)[0]),
+              "multiclass": (mc_bst, multiclass_data(SERVE_ROWS, seed=1)[0])}
+    served["categorical_text"] = (text_bst, served["categorical"][1])
+    t0 = time.perf_counter()
+    refs = {name: serve_references(b, rows, SERVE_CASCADE.get(name, 0))
+            for name, (b, rows) in served.items()}
+    log("path 4zx: references (predict on %d rows, raw and transformed) "
+        "%.2f s" % (SERVE_ROWS, time.perf_counter() - t0))
+    checks = 0
+
+    # ---- the engine, its warmup, and requests in process -------------
+    eng = serving.ServingEngine(device=dev)
+    for name in ("binary", "categorical", "multiclass"):
+        eng.registry.register(served[name][0].as_serving_bundle(name))
+    eng.registry.load_file("categorical_text", text_path)
+    c0 = serving.backend_compile_count()
+    t0 = time.perf_counter()
+    warmed = eng.warmup(raw_scores=(False, True))
+    warm_s = time.perf_counter() - t0
+    warm_captures = serving.backend_compile_count() - c0
+    log("path 4zx: warmup %.2f s, %d entries (4 models x %d buckets x raw "
+        "and transformed), %d CUDA graphs captured"
+        % (warm_s, warmed, len(serving.bucket_sizes()), warm_captures))
+    if warm_captures != warmed:
+        raise AssertionError("4zx: warmup captured %d graphs for %d entries"
+                             % (warm_captures, warmed))
+    for name, (_, rows) in served.items():
+        for n in SERVE_SIZES:
+            for raw in (False, True):
+                require_equal(eng.predict(name, rows[:n], raw_score=raw),
+                              refs[name][raw][:n],
+                              "4zx engine %s %d rows raw=%s" % (name, n, raw))
+                checks += 1
+
+    # ---- the micro-batch queue from SERVE_THREADS threads -------------
+    queue = serving.MicroBatchQueue(eng, deadline_ms=2.0).start()
+    faults = []
+
+    def caller(i):
+        try:
+            for name, (_, rows) in served.items():
+                for n in SERVE_SIZES:
+                    lo = (i * 997) % (SERVE_ROWS - n + 1)
+                    raw = bool((i + n) % 2)
+                    require_equal(queue.predict(name, rows[lo:lo + n],
+                                                raw_score=raw),
+                                  refs[name][raw][lo:lo + n],
+                                  "4zx queue %s %d rows" % (name, n))
+        except Exception as e:  # noqa: BLE001 - raised after the join
+            faults.append(e)
+    threads = [threading.Thread(target=caller, args=(i,))
+               for i in range(SERVE_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    queue_s = time.perf_counter() - t0
+    queue.stop()
+    if faults or any(t.is_alive() for t in threads):
+        raise AssertionError("4zx queue: %s" % (faults or "a caller hung"))
+    checks += SERVE_THREADS * len(served) * len(SERVE_SIZES)
+    log("path 4zx: queue, %d threads x %d requests in %.2f s"
+        % (SERVE_THREADS, len(served) * len(SERVE_SIZES), queue_s))
+
+    # ---- stdin and HTTP ------------------------------------------------
+    app = serving.ServingApp(eng)
+    srv = None
+    try:
+        lines, wants = [], []
+        for name, (_, rows) in served.items():
+            for n in (1, 17, 1_000):
+                for raw in (False, True):
+                    lines.append(json.dumps({"model": name, "raw_score": raw,
+                                             "data": rows[:n].tolist()}))
+                    wants.append((refs[name][raw][:n], name, n))
+        reply = io.StringIO()
+        if serving.serve_stdin(app, io.StringIO("\n".join(lines) + "\n"),
+                               reply) != len(lines):
+            raise AssertionError("4zx stdin: not every request was served")
+        for line, (want, name, n) in zip(reply.getvalue().splitlines(),
+                                         wants):
+            require_equal(json.loads(line)["predictions"], want,
+                          "4zx stdin %s %d rows" % (name, n))
+            checks += 1
+        srv = serving.make_server(app, "127.0.0.1", 0)
+        host, port = srv.server_address
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        for name, (_, rows) in served.items():
+            for n in SERVE_SIZES:
+                raw = n in (17, 4_096)
+                rep = http_post(host, port, {"model": name, "raw_score": raw,
+                                             "data": rows[:n].tolist()})
+                require_equal(rep["predictions"], refs[name][raw][:n],
+                              "4zx HTTP %s %d rows" % (name, n))
+                checks += 1
+        rows = served["binary"][1]
+        http_latency = {n: serving.latency_summary(latency_ms(
+            lambda: http_post(host, port, {"model": "binary",
+                                           "data": rows[:n].tolist()}),
+            SERVE_LATENCY_REPS // 2)) for n in HTTP_LATENCY_SIZES}
+    finally:
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        app.close()
+    after = {"captures": eng.metrics.recompiles_after_warmup(),
+             "cache_misses": eng.metrics.cache_misses_after_warmup()}
+    if after["captures"] or after["cache_misses"]:
+        raise AssertionError("4zx: %s after warmup" % after)
+
+    # ---- latency by bucket, rows a second, graph against op by op ------
+    rows = served["binary"][1]
+    engine_latency = {b: serving.latency_summary(latency_ms(
+        lambda: eng.predict("binary", rows[:b]), SERVE_LATENCY_REPS))
+        for b in serving.bucket_sizes()}
+    big = serving.bucket_sizes()[-1]
+    t0 = time.perf_counter()
+    for _ in range(SERVE_LATENCY_REPS):
+        eng.predict("binary", rows[:big])
+    rows_per_s = big * SERVE_LATENCY_REPS / (time.perf_counter() - t0)
+    bundle = eng.registry.get("binary")
+    entry = eng._predictor(bundle, big, False, bundle.total_iterations)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    graph_ms = time_ms(entry.replay, flush, reps=10)
+    eager_ms = time_ms(lambda: entry.eager(entry._x), flush, reps=10)
+    del flush
+    log("path 4zx on %s" % card_line())
+    for b, lat in engine_latency.items():
+        log("path 4zx: bucket %5d through ServingEngine: p50 %.3f ms, p99 "
+            "%.3f ms" % (b, lat["p50_ms"], lat["p99_ms"]))
+    for n, lat in http_latency.items():
+        log("path 4zx: %5d rows through HTTP: p50 %.3f ms, p99 %.3f ms"
+            % (n, lat["p50_ms"], lat["p99_ms"]))
+    log("path 4zx: %.0f rows a second at bucket %d (binary, %d trees); its "
+        "graph replays in %.3f ms, the same entry op by op in %.3f ms"
+        % (rows_per_s, big, len(bundle.host_models), graph_ms, eager_ms))
+
+    # ---- a hot roll to a staged second model ---------------------------
+    half_path = os.path.join(tmp, "serve_binary_50.model.txt")
+    bst.save_model(half_path, num_iteration=SERVE_ROUNDS // 2)
+    rows = served["binary"][1]
+    half = bst.predict(rows[:1_000], num_iteration=SERVE_ROUNDS // 2)
+    c0 = serving.backend_compile_count()
+    staged = eng.stage_and_prewarm("binary", half_path,
+                                   raw_scores=(False, True))
+    roll_captures = serving.backend_compile_count() - c0
+    if roll_captures < 2 * len(serving.bucket_sizes()):
+        raise AssertionError("4zx: the staged model captured %d graphs "
+                             "before the swap" % roll_captures)
+    require_equal(eng.predict("binary", rows[:1_000]),
+                  refs["binary"][False][:1_000], "4zx before the swap")
+    eng.registry.register(staged, replace=True)
+    require_equal(eng.predict("binary", rows[:1_000]), half,
+                  "4zx after the swap")
+    after_roll = {"captures": eng.metrics.recompiles_after_warmup(),
+                  "cache_misses": eng.metrics.cache_misses_after_warmup()}
+    if after_roll["captures"] or after_roll["cache_misses"]:
+        raise AssertionError("4zx: %s after the hot roll" % after_roll)
+    checks += 2
+    log("path 4zx: hot roll captured %d graphs before the swap; captures "
+        "and cache misses after warmup %s" % (roll_captures, after_roll))
+
+    # ---- the replay backend, the cascades, the quantized leaves --------
+    # (after the checks of captures: these engines capture graphs of their
+    # own, which the process-wide count would read as the first engine's)
+    replay = serving.ServingEngine(device=dev, backend="replay")
+    for name in ("binary", "categorical", "multiclass"):
+        replay.registry.register(served[name][0].as_serving_bundle(name))
+        for n in ((16,) if name == "binary" else (16, 1_000)):
+            rows = served[name][1]
+            # the traversal's output on these rows is refs' (checked above)
+            require_equal(replay.predict(name, rows[:n], raw_score=True),
+                          refs[name][True][:n],
+                          "4zx replay against traversal %s %d rows"
+                          % (name, n))
+            checks += 1
+    cascade = {}
+    for name, ct in SERVE_CASCADE.items():
+        b, rows = served[name]
+        k = b.num_model_per_iteration()
+        ref = refs[name]
+        median = float(np.median(stage1_margins(ref["first"][:1_000], k)))
+        for margin in (float("inf"), 0.0, 10.0, median):
+            ce = serving.ServingEngine(device=dev, cascade_trees=ct,
+                                       cascade_margin=margin)
+            ce.registry.register(b.as_serving_bundle(name))
+            got = ce.predict(name, rows[:1_000], raw_score=True)
+            want, sure = cascade_emulation(ref["first"][:1_000],
+                                           ref[True][:1_000], k, margin)
+            if margin == float("inf"):
+                want = ref[True][:1_000]
+            elif margin == 0.0:
+                want = ref["first"][:1_000]
+            require_equal(got, want, "4zx cascade %s margin %g"
+                          % (name, margin))
+            cascade["%s margin %g" % (name, margin)] = sure
+            checks += 1
+    log("path 4zx: cascades (first stage %s iterations), rows that keep "
+        "their stage-1 score of 1,000: %s" % (SERVE_CASCADE, cascade))
+    quant = serving.ServingEngine(device=dev, quantize_leaves=True)
+    quant.registry.register(bst.as_serving_bundle("binary"))
+    rows = served["binary"][1]
+    got = quant.predict("binary", rows[:big], raw_score=True)
+    full = refs["binary"][True][:big]
+    quant_rel = float(np.max(np.abs(got - full)) / np.max(np.abs(full)))
+    if not quant_rel <= SERVE_QUANT_REL:
+        raise AssertionError("4zx: quantized leaves %.3g off the full scores "
+                             "(relative to the largest), limit %g"
+                             % (quant_rel, SERVE_QUANT_REL))
+    log("path 4zx: quantized leaves %.3g off the full scores (relative to "
+        "the largest |score|)" % quant_rel)
+    log("path 4zx: %d checks passed" % checks)
+
+    return {"launches": launches, "binning_s": binning_s, "train_s": train_s,
+            "s_per_iter": train_s / SERVE_ROUNDS, "warmed": warmed,
+            "warm_s": warm_s, "warm_captures": warm_captures,
+            "engine_latency_ms": {str(b): v
+                                  for b, v in engine_latency.items()},
+            "http_latency_ms": {str(n): v for n, v in http_latency.items()},
+            "rows_per_s": rows_per_s, "graph_ms": graph_ms,
+            "eager_ms": eager_ms, "cascade_kept": cascade,
+            "quantized_rel": quant_rel, "roll_captures": roll_captures,
+            "queue_s": queue_s, "checks": checks}
+
+
 def drive_bundled_path(label: str, ds, x, y, valid=None):
     """Phase 4i-4l: one growth mode on the bundled workload at full width,
     with the launch counts set to 0 just before and read just after; 4i
@@ -4915,7 +5273,8 @@ def part_workloads(dense: dict, tmp: str, t_start: float) -> dict:
     bundled paths 4i-4l (their kernels first), the categorical paths 4m-4p
     (their root pass first) and 4zo, the multiclass paths 4r-4u, and the
     prediction extras of 4m and 4r, each beside the dense path of its
-    growth mode in ``dense``; ``tmp`` is the part's directory."""
+    growth mode in ``dense``, then the serving path 4zx with 4m's and 4r's
+    boosters; ``tmp`` is the part's directory."""
     dev = torch.device("cuda", 0)
     paths, models, extras = dict(dense), {}, {}
     log_phase(t_start, "4e-4h. the regression workload")
@@ -4999,7 +5358,8 @@ def part_workloads(dense: dict, tmp: str, t_start: float) -> dict:
                              "or more left (largest %d)" % largest)
     del ds, valid
     log_phase(t_start, "4zs. prediction extras of 4m")
-    extras["4m"] = drive_prediction_extras("4m", models.pop("4m"), x_cat)
+    cat_bst = models.pop("4m")
+    extras["4m"] = drive_prediction_extras("4m", cat_bst, x_cat)
     del x_cat, y_cat
     for cat_label, dense_label in CATEGORICAL_PATHS.items():
         c, d = paths[cat_label], paths[dense_label]
@@ -5028,9 +5388,11 @@ def part_workloads(dense: dict, tmp: str, t_start: float) -> dict:
         paths[label]["binning_s"] = binning_s
     del ds, valid
     log_phase(t_start, "4zs. prediction extras of 4r")
-    extras["4r"] = drive_prediction_extras("4r", models.pop("4r"), x_mc,
+    mc_bst = models.pop("4r")
+    extras["4r"] = drive_prediction_extras("4r", mc_bst, x_mc,
                                            early_stop=True)
     models.clear()
+    del x_mc, y_mc
     for label, (dense_label, _) in MULTICLASS_PATHS.items():
         m, d = paths[label], paths[dense_label]
         log("path %s against %s (the same growth, dense binary): %.3f "
@@ -5040,6 +5402,11 @@ def part_workloads(dense: dict, tmp: str, t_start: float) -> dict:
                 m["s_per_iter"] / d["s_per_iter"], m["launches_per_iter"],
                 d["launches_per_iter"], m["syncs_per_iter"],
                 d["syncs_per_iter"]))
+
+    log_phase(t_start, "4zx. serving")
+    # ---- 4zx. serving: a frontier model, 4m's and 4r's boosters --------
+    paths["4zx"] = drive_serving_path(cat_bst, mc_bst, tmp, dev)
+    del cat_bst, mc_bst
     return {"paths": {k: v for k, v in paths.items() if k not in dense},
             "extras": extras, "renewal": renewal,
             "bundled_rows": bundled_rows, "cat_rows": cat_rows}

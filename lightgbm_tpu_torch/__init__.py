@@ -18,7 +18,10 @@ grouped by leaf with ``tpu_batched_part=true``); with validation sets,
 early stopping, learning-rate schedules, continued training and a swap of
 the training set (``Booster.reset_training_data``). It predicts raw
 scores, probabilities, leaf ids, SHAP values and early-stopped scores,
-and saves, loads, pickles, dumps and converts models. The histogram
+and saves, loads, pickles, dumps and converts models; ``serving`` serves
+them (``Booster.as_serving_bundle``, ``python -m lightgbm_tpu_torch
+task=serve``) with a CUDA graph a shape bucket, each response
+``predict``'s bit for bit. The histogram
 passes run as CUDA kernels written for Hopper
 (``core/csrc/histogram.cu``, ``hist_slots.cu`` and ``hist_part.cu``), as
 does the in-tile row partition (``core/csrc/repack.cu``); everything else

@@ -816,7 +816,15 @@ class Booster:
     def models(self) -> List[HostTree]:
         return self._impl.models
 
+    def as_serving_bundle(self, model_id: str = "default"):
+        """Package this booster for ``lightgbm_tpu_torch.serving`` on its
+        device. Register it on a ServingEngine of that device with
+        ``engine.registry.register(booster.as_serving_bundle(id))``."""
+        from .serving.registry import ModelBundle
+        check(self._impl is not None and len(self._impl.models) > 0,
+              "Cannot serve: no trained model")
+        return ModelBundle.from_booster(model_id, self)
+
     refit = _not_ported("refit", "#15")
-    as_serving_bundle = _not_ported("as_serving_bundle", "#10")
     set_network = _not_ported("set_network", "#13")
     free_network = _not_ported("free_network", "#13")

@@ -10,6 +10,9 @@ one of the reference's tasks (include/LightGBM/application.h:74):
 - ``task=predict``       - score a file (application.cpp:213-250)
 - ``task=convert_model`` - the model as a standalone C++ if-else scorer
   (gbdt_model_text.cpp:60-243 ModelToIfElse)
+- ``task=serve``         - serve ``input_model`` over HTTP
+  (``serve_host``, ``serve_port``) or JSON lines on stdin
+  (``serve_stdin=true``): ``serving/server.py`` ``run_server``
 
 ``key=value`` tokens on the command line and an optional ``config=`` file
 of ``key=value`` lines with ``#`` comments, the command line taking
@@ -17,9 +20,9 @@ precedence (Application::LoadParameters, application.cpp:48-81).
 
 Device: LightGBM's ``device_type`` key (alias ``device``). ``cpu`` runs on
 the CPU; anything else, the default included, runs on CUDA and raises when
-CUDA is absent. ``task=refit`` and ``task=serve``, checkpoints, resume,
-the supervisor and the raising health monitor are not ported yet: each
-raises, naming the ROADMAP item that brings it.
+CUDA is absent. ``task=refit``, checkpoints, resume, the supervisor and
+the raising health monitor are not ported yet: each raises, naming the
+ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -200,8 +203,9 @@ def run_refit(config: Config, params: Dict) -> None:
 
 
 def run_serve(config: Config, params: Dict) -> None:
-    raise outside_slice("task=serve (the batch-inference server)",
-                        "ROADMAP Queue 1 #10")
+    from .serving.server import run_server
+
+    run_server(config, params)
 
 
 _TASKS = {

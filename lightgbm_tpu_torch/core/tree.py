@@ -122,14 +122,24 @@ def decision_go_left(fval: torch.Tensor, threshold, default_left,
 def categorical_go_left(fval: torch.Tensor,
                         cat_bitset: torch.Tensor) -> torch.Tensor:
     """Tree::CategoricalDecision on raw values (tree.h:245-260): a row goes
-    left when its category's bit is set in the node's [W] bitset. The
-    value is truncated toward zero; NaN, negative values and values past
-    the bitset's ``32 * W`` go right (the JAX package's ``cat_ok``)."""
-    max_cat = cat_bitset.shape[0] * 32
+    left when its category's bit is set in the node's [W] bitset."""
+    return categorical_words_go_left(
+        fval, cat_bitset.shape[0], lambda wi: cat_bitset.index_select(0, wi))
+
+
+def categorical_words_go_left(fval: torch.Tensor, num_words: int,
+                              word_of) -> torch.Tensor:
+    """``categorical_go_left`` with the bitset read through ``word_of``:
+    given the word index of each element of ``fval``, it returns that
+    element's bitset word (the serving traversal reads each (row, tree)
+    pair's node this way). The value is truncated toward zero; NaN,
+    negative values and values past the bitset's ``32 * num_words`` go
+    right (the JAX package's ``cat_ok``)."""
+    max_cat = num_words * 32
     is_nan = torch.isnan(fval)
     cat_i = torch.clamp(torch.where(is_nan, torch.zeros_like(fval), fval),
                         0, max_cat - 1).to(torch.int64)
-    word = cat_bitset.index_select(0, cat_i >> 5)
+    word = word_of(cat_i >> 5)
     cat_ok = ~is_nan & (fval >= 0) & (fval < max_cat)
     return cat_ok & (((word >> (cat_i & 31)) & 1) == 1)
 

@@ -14,6 +14,15 @@ class LightGBMError(Exception):
     """Error raised by lightgbm_tpu_torch (LightGBMError of the C API)."""
 
 
+class OverloadedError(LightGBMError):
+    """The serving queue shed this request (bounded admission or open
+    circuit breaker); ``retry_after_s`` hints when to come back."""
+
+    def __init__(self, msg: str, retry_after_s: float = 1.0):
+        super().__init__(msg)
+        self.retry_after_s = float(retry_after_s)
+
+
 # Levels mirror LogLevel in the reference (log.h:14-20).
 LEVEL_FATAL = -1
 LEVEL_WARNING = 0

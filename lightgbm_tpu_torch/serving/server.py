@@ -1,0 +1,337 @@
+"""Serving front-ends: HTTP (stdlib ThreadingHTTPServer) and JSON-lines stdin.
+
+The port of ``lightgbm_tpu/serving/server.py``. The wire layer is thin:
+parse JSON, hand rows to the MicroBatchQueue, serialize the Future's
+result. Bucketing, CUDA graphs and metrics live in the engine underneath
+and are shared by both transports and by in-process callers.
+
+HTTP API:
+  POST /predict   {"model": "...", "data": [[...], ...],
+                   "raw_score": false, "num_iteration": null}
+                  -> {"model": ..., "rows": N, "predictions": [...]}
+  GET  /metrics   one ServingMetrics snapshot
+  GET  /metrics/prometheus   process-wide metrics registry, Prometheus
+                  text exposition 0.0.4
+  GET  /healthz   {"status": "ok", "models": [...], "drift": "ok"|"warn"|
+                   "no_profile"|"disabled", "breaker": {...}}
+  GET  /stats     the metrics snapshot with the breaker and queue state
+  GET  /drift     per-model train/serve drift detail
+  GET  /models    registered model ids and shapes
+
+The JAX package's ``/slo``, ``/traces``, ``/metrics/cluster`` and
+``/stats/cluster`` answer as they do there when their options are off
+(``build_app`` refuses the options: ROADMAP Queue 1 #15).
+
+stdin mode (``serve_stdin=true``) speaks the same request objects, one
+JSON object per line, and replies one JSON line each.
+"""
+from __future__ import annotations
+
+import json
+import os
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Dict, Optional
+
+import numpy as np
+
+from ..config import Config
+from ..log import LightGBMError, Log, OverloadedError, outside_slice
+from ..obs.registry import get_registry
+from ..resilience.breaker import CircuitBreaker
+from .batching import MicroBatchQueue
+from .metrics import ServingMetrics
+from .predictor import ServingEngine, bucket_sizes
+
+
+def _predictions_payload(model_id: str, out: np.ndarray) -> Dict:
+    return {"model": model_id, "rows": int(np.asarray(out).shape[0]),
+            "predictions": np.asarray(out).tolist()}
+
+
+class ServingApp:
+    """Engine + queue + registry bound together for a transport to drive.
+
+    The circuit breaker sits BETWEEN validation and dispatch: client
+    errors (missing data, unknown model, bad width) are classified before
+    the queue and never count as failures; only dispatch failures (the
+    engine itself is sick) advance the breaker. An open breaker rejects
+    fast with OverloadedError carrying the Retry-After hint; transports
+    map that to 503."""
+
+    def __init__(self, engine: ServingEngine,
+                 queue: Optional[MicroBatchQueue] = None,
+                 breaker: Optional[CircuitBreaker] = None):
+        self.engine = engine
+        self.queue = queue if queue is not None else MicroBatchQueue(engine)
+        self.breaker = breaker if breaker is not None else CircuitBreaker()
+        self.queue.start()
+
+    # ------------------------------------------------------------ requests
+    def handle_predict(self, req: Dict) -> Dict:
+        model_id = req.get("model", "")
+        if not model_id:
+            ids = self.engine.registry.ids()
+            if len(ids) != 1:
+                raise LightGBMError(
+                    "request must name a model (registered: %s)" % ids)
+            model_id = ids[0]
+        data = req.get("data")
+        if data is None:
+            raise LightGBMError('request is missing "data"')
+        # client-side validation BEFORE the breaker/queue: an unknown
+        # model or wrong width is the caller's fault, not engine sickness
+        self.engine.registry.get(model_id)
+        X = np.asarray(data, np.float64)
+        if not self.breaker.allow():
+            self.engine.metrics.record_shed()
+            raise OverloadedError(
+                "circuit breaker open (%d consecutive dispatch failures); "
+                "retry in %.1fs"
+                % (self.breaker.failure_threshold,
+                   self.breaker.retry_after_s()),
+                retry_after_s=max(self.breaker.retry_after_s(), 0.1))
+        try:
+            out = self.queue.predict(
+                model_id, X, raw_score=bool(req.get("raw_score", False)),
+                num_iteration=req.get("num_iteration"))
+        except OverloadedError:
+            raise          # admission shed: not an engine failure
+        except Exception:
+            self.breaker.record_failure()
+            raise
+        self.breaker.record_success()
+        return _predictions_payload(model_id, out)
+
+    def handle_models(self) -> Dict:
+        models = []
+        for mid in self.engine.registry.ids():
+            b = self.engine.registry.get(mid)
+            models.append({"model": mid, "num_features": b.num_features,
+                           "num_class": b.num_class,
+                           "iterations": b.total_iterations})
+        return {"models": models}
+
+    def close(self) -> None:
+        self.queue.stop()
+
+
+class _Handler(BaseHTTPRequestHandler):
+    app: ServingApp = None  # type: ignore[assignment]  # bound by make_server
+
+    def log_message(self, fmt, *args):  # route through our logger, not stderr
+        Log.debug("serve: " + fmt, *args)
+
+    def _reply(self, code: int, payload: Dict,
+               retry_after_s: Optional[float] = None) -> None:
+        self._reply_raw(code, json.dumps(payload).encode("utf-8"),
+                        "application/json", retry_after_s=retry_after_s)
+
+    def _reply_raw(self, code: int, body: bytes, ctype: str,
+                   retry_after_s: Optional[float] = None) -> None:
+        self.send_response(code)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(body)))
+        if retry_after_s is not None:
+            self.send_header("Retry-After",
+                             str(max(int(round(retry_after_s)), 1)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _reply_prometheus(self) -> None:
+        self._reply_raw(200, get_registry().prometheus_text().encode(),
+                        "text/plain; version=0.0.4; charset=utf-8")
+
+    def do_GET(self):  # noqa: N802 - http.server API
+        if self.path == "/healthz":
+            brk = self.app.breaker.snapshot()
+            code = 200 if brk["state"] != "open" else 503
+            # drift is advisory: a drifted model still answers correctly
+            # for its training distribution, so "warn" never turns the
+            # probe 503
+            self._reply(code, {"status": "ok" if code == 200 else "degraded",
+                               "models": self.app.engine.registry.ids(),
+                               "drift":
+                                   self.app.engine.drift_status()["status"],
+                               "breaker": brk})
+        elif self.path == "/stats":
+            snap = self.app.engine.metrics.snapshot()
+            snap["breaker"] = self.app.breaker.snapshot()
+            snap["queue"] = self.app.queue.stats()
+            self._reply(200, snap)
+        elif self.path in ("/metrics/prometheus", "/metrics/cluster"):
+            # without a fleet the cluster view is the local registry
+            self._reply_prometheus()
+        elif self.path == "/stats/cluster":
+            self._reply(200, {"fleet": {"replicas": 0, "live": 0},
+                              "replicas": {}})
+        elif self.path == "/metrics":
+            self._reply(200, self.app.engine.metrics.snapshot())
+        elif self.path == "/drift":
+            from ..obs.drift import drift_snapshot
+            self._reply(200, drift_snapshot())
+        elif self.path == "/slo":
+            self._reply(200, {"status": "disabled", "slos": {}})
+        elif self.path == "/traces":
+            self._reply(200, {"traces": []})
+        elif self.path == "/models":
+            self._reply(200, self.app.handle_models())
+        else:
+            self._reply(404, {"error": "unknown path %r" % self.path})
+
+    def do_POST(self):  # noqa: N802 - http.server API
+        if self.path != "/predict":
+            self._reply(404, {"error": "unknown path %r" % self.path})
+            return
+        try:
+            length = int(self.headers.get("Content-Length", "0"))
+            req = json.loads(self.rfile.read(length) or b"{}")
+            self._reply(200, self.app.handle_predict(req))
+        except OverloadedError as e:
+            # shed (bounded admission) or breaker-open: 503 + Retry-After
+            self._reply(503, {"error": str(e),
+                              "retry_after_s": e.retry_after_s},
+                        retry_after_s=e.retry_after_s)
+        except (LightGBMError, ValueError, KeyError) as e:
+            self.app.engine.metrics.record_error()
+            self._reply(400, {"error": str(e)})
+
+
+def make_server(app: ServingApp, host: str = "127.0.0.1",
+                port: int = 0) -> ThreadingHTTPServer:
+    """Bind (not yet serving); port 0 lets the OS pick (read
+    ``server.server_address``)."""
+    handler = type("BoundHandler", (_Handler,), {"app": app})
+    return ThreadingHTTPServer((host, port), handler)
+
+
+def serve_stdin(app: ServingApp, in_stream=None, out_stream=None) -> int:
+    """One JSON request per line in, one JSON reply per line out; blank
+    line or EOF ends the session. Returns requests served."""
+    import sys
+    in_stream = in_stream if in_stream is not None else sys.stdin
+    out_stream = out_stream if out_stream is not None else sys.stdout
+    served = 0
+    for line in in_stream:
+        line = line.strip()
+        if not line:
+            break
+        try:
+            reply = app.handle_predict(json.loads(line))
+        except OverloadedError as e:
+            reply = {"error": str(e), "overloaded": True,
+                     "retry_after_s": e.retry_after_s}
+        except (LightGBMError, ValueError, KeyError) as e:
+            app.engine.metrics.record_error()
+            reply = {"error": str(e)}
+        out_stream.write(json.dumps(reply) + "\n")
+        out_stream.flush()
+        served += 1
+    return served
+
+
+def _metrics_writer(metrics: ServingMetrics, path: str, freq_s: float,
+                    stop: threading.Event) -> threading.Thread:
+    def loop():
+        while not stop.wait(max(freq_s, 0.1)):
+            metrics.write_jsonl(path)
+    t = threading.Thread(target=loop, name="lgbm-serve-metrics", daemon=True)
+    t.start()
+    return t
+
+
+def _check_slice(config: Config) -> None:
+    """Raise ``outside_slice`` for a serving option the port lacks."""
+    rules = [
+        (bool(config.fault_inject), "fault_inject (the faults seam)",
+         "ROADMAP Queue 1 #18"),
+        (bool(config.obs_trace), "obs_trace (request tracing, /traces)",
+         "ROADMAP Queue 1 #15"),
+        (config.serve_slo_p99_ms > 0 or config.serve_slo_availability > 0,
+         "serve_slo_* (SLO burn rates, /slo)", "ROADMAP Queue 1 #15"),
+        (bool(config.serve_qos_weights) or config.serve_qos_quota_rows > 0,
+         "serve_qos_* (per-model QoS)", "ROADMAP Queue 1 #15"),
+        (config.serve_latency_budget_ms > 0,
+         "serve_latency_budget_ms (the cascade-margin autotuner)",
+         "ROADMAP Queue 1 #15"),
+        (bool(config.fleet_kv_dir),
+         "fleet_kv_dir (the serving fleet, /metrics/cluster)",
+         "ROADMAP Queue 1 #15"),
+        (bool(config.checkpoint_dir),
+         "checkpoint_dir (the checkpoint watcher)", "ROADMAP Queue 1 #12"),
+    ]
+    for bad, what, where in rules:
+        if bad:
+            raise outside_slice(what, where)
+
+
+def build_app(config: Config) -> ServingApp:
+    """Engine + queue from the serve_* config on ``device_type``'s device
+    (CUDA unless it says ``cpu``); loads ``input_model`` (if any) under id
+    "default". Tests and embedders register models themselves."""
+    from ..cli import device_of
+    _check_slice(config)
+    engine = ServingEngine(
+        max_batch=config.serve_max_batch, min_bucket=config.serve_min_bucket,
+        num_devices=config.serve_num_devices,
+        backend=config.serving_backend,
+        cascade_trees=config.serving_cascade_trees,
+        cascade_margin=config.serving_cascade_margin,
+        quantize_leaves=config.serving_quantize_leaves,
+        guard_hot_roll=config.serve_guard_hot_roll,
+        canary_rows=config.serve_canary_rows,
+        roll_max_latency_ms=config.serve_roll_max_latency_ms,
+        drift=config.serve_drift,
+        drift_warn_psi=config.obs_drift_warn_psi,
+        drift_min_rows=config.obs_drift_min_rows,
+        drift_decay=config.obs_drift_decay, device=device_of(config))
+    if config.input_model:
+        engine.registry.load_file("default", config.input_model)
+    return ServingApp(
+        engine,
+        MicroBatchQueue(engine, deadline_ms=config.serve_deadline_ms,
+                        max_queue_rows=config.serve_max_queue_rows,
+                        request_timeout_ms=config.serve_request_timeout_ms),
+        breaker=CircuitBreaker(
+            failure_threshold=config.serve_breaker_failures,
+            cooldown_s=config.serve_breaker_cooldown_s))
+
+
+def run_server(config: Config, params: Optional[Dict] = None) -> int:
+    """cli.py task=serve entry: boot, warm every bucket, serve until EOF
+    (stdin mode) or interrupt (HTTP mode)."""
+    if not config.input_model:
+        raise LightGBMError("No model file: pass input_model=<file>")
+    app = build_app(config)
+    engine = app.engine
+    if config.serve_warmup:
+        warmed = engine.warmup()
+        Log.info("serve: warmed %d predictor entries (buckets %s)",
+                 warmed, ",".join(str(b) for b in
+                                  bucket_sizes(engine.min_bucket,
+                                               engine.max_batch)))
+    stop = threading.Event()
+    if config.serve_metrics_file:
+        _metrics_writer(engine.metrics, config.serve_metrics_file,
+                        config.serve_metrics_freq, stop)
+    try:
+        if config.serve_stdin:
+            served = serve_stdin(app)
+            Log.info("serve: stdin session done, %d requests", served)
+            return 0
+        server = make_server(app, config.serve_host, config.serve_port)
+        Log.info("serve: listening on http://%s:%d (pid %d)",
+                 server.server_address[0], server.server_address[1],
+                 os.getpid())
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            Log.info("serve: interrupted, shutting down")
+        finally:
+            server.server_close()
+        return 0
+    finally:
+        stop.set()
+        if config.serve_metrics_file:
+            engine.metrics.write_jsonl(config.serve_metrics_file)
+        app.close()

@@ -255,7 +255,10 @@ def test_cli_matches_the_jax_package(tmp_path):
 
 REFUSED_CLI = {
     "refit": (["task=refit"], "#15"),
-    "serve": (["task=serve"], "#10"),
+    # task=serve runs (ROADMAP #10); its options outside the slice refuse
+    "serve": (["task=serve", "serve_num_devices=2"], "#13"),
+    "serve_fault_inject": (["task=serve", "fault_inject=serve_error@req:5"],
+                           "#18"),
     "checkpoint_dir": (["checkpoint_dir=ckpt"], "#12"),
     "resume": (["resume=ckpt"], "#12"),
     "supervise": (["supervise=true"], "#18"),

@@ -1355,3 +1355,46 @@ def test_cli_trains_on_cuda_without_device_type(cuda_device, tmp_path):
         "task=train", "data=%s" % data, "num_trees=2", "verbosity=-1",
         "output_model=%s" % model]))
     assert rc == 0 and launches > 0 and model.exists()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective", ["binary", "multiclass"])
+def test_serving_on_the_card_is_predict_with_no_capture_after_warmup(
+        cuda_device, objective):
+    """The serving engine on its CUDA default: one CUDA graph an entry at
+    warmup, none after it, each response ``predict``'s bit for bit; and
+    the cascade's two graphs at the median stage-1 margin serve the rule
+    (a confident row keeps its stage-1 score)."""
+    from lightgbm_tpu_torch import serving
+    x, y = _bench_rows(20_000)
+    params = {"objective": objective, "num_leaves": 63, "verbosity": -1}
+    if objective == "multiclass":
+        params["num_class"] = 3
+        y = np.digitize(x[:, 0] + x[:, 1], [-0.5, 0.5]).astype(float)
+    bst = tlgb.train(params, tlgb.Dataset(x, label=y), num_boost_round=10)
+    k = bst.num_model_per_iteration()
+    eng = serving.ServingEngine(max_batch=1024)
+    eng.registry.register(bst.as_serving_bundle("m"))
+    c0 = serving.backend_compile_count()
+    warmed = eng.warmup(raw_scores=(False, True))
+    assert serving.backend_compile_count() - c0 == warmed > 0
+    for n in (1, 16, 17, 700, 3000):
+        for raw in (False, True):
+            np.testing.assert_array_equal(
+                eng.predict("m", x[:n], raw_score=raw),
+                bst.predict(x[:n], raw_score=raw))
+    assert eng.metrics.recompiles_after_warmup() == 0
+    assert eng.metrics.cache_misses_after_warmup() == 0
+    first = bst.predict(x[:1000], raw_score=True, num_iteration=3)
+    full = bst.predict(x[:1000], raw_score=True)
+    s = first.astype(np.float32).reshape(1000, k)
+    top2 = -np.sort(-s, axis=1)[:, :2]
+    margin = top2[:, 0] - top2[:, 1] if k > 1 else 2 * np.abs(s[:, 0])
+    median = float(np.median(margin))
+    sure = margin >= np.float32(median)
+    cascade = serving.ServingEngine(max_batch=1024, cascade_trees=3,
+                                    cascade_margin=median)
+    cascade.registry.register(bst.as_serving_bundle("m"))
+    np.testing.assert_array_equal(
+        cascade.predict("m", x[:1000], raw_score=True),
+        np.where(sure.reshape(-1, *([1] * (first.ndim - 1))), first, full))

@@ -59,6 +59,16 @@ def test_the_scan_covers_the_wave_growers():
         assert os.path.join("lightgbm_tpu_torch", module) in scanned
 
 
+def test_the_scan_covers_the_serving_layers():
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for module in ("serving/traversal.py", "serving/predictor.py",
+                   "serving/registry.py", "serving/batching.py",
+                   "serving/server.py", "serving/metrics.py",
+                   "obs/registry.py", "obs/drift.py", "obs/health.py",
+                   "resilience/breaker.py"):
+        assert os.path.join("lightgbm_tpu_torch", module) in scanned
+
+
 def test_importing_the_port_leaves_jax_out():
     mods = ["lightgbm_tpu_torch"] + [
         "lightgbm_tpu_torch." + os.path.relpath(p, PORT)[:-3]
@@ -122,16 +132,33 @@ REFUSALS = {
                                 "tree_growth": "frontier"}, "#11"),
     # methods of the JAX package's Booster the port lacks, and the command
     # line's task that needs one of them
-    "booster_as_serving_bundle": ({}, "#10"),
     "booster_refit": ({}, "#15"),
     "booster_set_network": ({}, "#13"),
     "cli_task_refit": ({}, "#15"),
+    # serving options outside the serving slice (#10), refused where the
+    # engine or the app is built
+    "serve_mesh": ({"serve_num_devices": 2}, "#13"),
+    "serve_fault_inject": ({"fault_inject": "serve_error@req:5"}, "#18"),
+    "serve_obs_trace": ({"obs_trace": True}, "#15"),
+    "serve_slo": ({"serve_slo_p99_ms": 5.0}, "#15"),
+    "serve_qos": ({"serve_qos_weights": "a:1,b:2"}, "#15"),
+    "serve_latency_budget": ({"serve_latency_budget_ms": 5.0,
+                              "serving_cascade_trees": 2}, "#15"),
+    "serve_fleet": ({"fleet_kv_dir": "fleet"}, "#15"),
+    "serve_checkpoint_dir": ({"checkpoint_dir": "checkpoints"}, "#12"),
+    "serve_watch_dir": ({}, "#12"),
 }
 
 
 def _refused_call(kind, params, x, y):
     """The call that ``kind`` refuses."""
     params = dict(params, objective="binary", verbosity=-1)
+    if kind.startswith("serve_"):
+        from lightgbm_tpu_torch.config import Config
+        from lightgbm_tpu_torch.serving import ModelRegistry, build_app
+        if kind == "serve_watch_dir":
+            return ModelRegistry(device="cpu").watch_dir("m", "checkpoints")
+        return build_app(Config(dict(params, device_type="cpu")))
     if kind == "cli_task_refit":
         from lightgbm_tpu_torch import cli
         return cli.main(["task=refit", "device_type=cpu"])
@@ -140,9 +167,7 @@ def _refused_call(kind, params, x, y):
                          num_boost_round=1, device="cpu")
         if kind == "booster_refit":
             return bst.refit(x, y)
-        if kind == "booster_set_network":
-            return bst.set_network("127.0.0.1:12400")
-        return bst.as_serving_bundle()
+        return bst.set_network("127.0.0.1:12400")
     extra = {}
     if kind == "checkpoint_callback":
         extra["callbacks"] = [tlgb.callback.checkpoint("checkpoints")]
@@ -367,8 +392,8 @@ def test_outside_the_slice_raises(option):
 def test_every_jax_method_is_ported_or_refuses(cls):
     """Each public method of the JAX package's class exists on the port's;
     one the port has not ported raises ``outside_slice`` citing its ROADMAP
-    item, never ``AttributeError``. Only the Booster's refit (#15), serving
-    bundle (#10) and network setup (#13) still refuse."""
+    item, never ``AttributeError``. Only the Booster's refit (#15) and
+    network setup (#13) still refuse."""
     import lightgbm_tpu as jlgb
     x, y = _data()
     ds = tlgb.Dataset(x, label=y, device="cpu")
@@ -387,7 +412,7 @@ def test_every_jax_method_is_ported_or_refuses(cls):
                 method()
             refusing.append(name)
     assert refusing == ([] if cls == "Dataset" else [
-        "as_serving_bundle", "free_network", "refit", "set_network"])
+        "free_network", "refit", "set_network"])
 
 
 def test_the_jax_packages_public_names_resolve_on_the_port():
