@@ -36,7 +36,12 @@ and prints no result line):
    LEAF_SHAPES, held to the plain version in float64 (the count channel
    exact, the others within 1e-12 * sum_bin|v| + 1e-300) and timed
    against its bound (float64 additions at 34 TFLOP/s) and one float64
-   ``index_add_``; and one bagging
+   ``index_add_``; the packed-word variants of histogram.cu and
+   hist_slots.cu (``tpu_bin_packing``, int32 words of four codes read in
+   place at a row stride of 4 W bytes) at WORD_HIST_SHAPES and
+   WORD_SLOT_SHAPES, held to their plain versions (the words unpacked) and
+   timed beside the uint8 variants on the same codes, one ``index_add_``
+   and their bound (the words' bytes); and one bagging
    draw of 1,000,000 threefry uniforms (``random.py``, torch ops), timed
    and held bit-equal to the same draw on the CPU;
 4. the main paths at full width, one per growth mode: bench.py's workload
@@ -298,7 +303,29 @@ and prints no result line):
         captures of warmup and bucket 4,096's graph replay against the
         same entry op by op, printed beside the card's name and power
         limit;
-   every path of 4a-4d, 4m-4za, 4zb-4zp and 4zq also trains one more
+   then out-of-core streaming (Queue 1 #11) and packed bin words (#9), in
+   the compare part:
+     4zy 4b's data and parameters streamed from a .npy memory map in
+        chunks of STREAM_CHUNK_ROWS rows (8 chunks; round 1's sample the
+        whole data), streamed ``auto`` packing them into int32 words: the
+        mappers and the trees those of an in-memory frontier run with the
+        same sample (every row; 4b's loader samples 200,000 rows at
+        random, the stream a reservoir), the trees under phase 5's
+        frontier tie rule (WAVE_PARTING; its AUC where they part), the
+        train AUC within
+        2e-3 of the JAX package's 4b constant, ``predict`` the training
+        scores within 1e-5, and the word variants of both kernels
+        launched (and no uint8 one); its s/iter beside 4b's, the
+        pipeline's overlap_efficiency and ingest rows a second, and one
+        more iteration's launches and syncs;
+     4zz frontier in memory with ``tpu_bin_packing=byte`` on 4b's data
+        (4b's trees under the same rule), and ``none`` against
+        ``nibble`` on ``small_bin_data`` (1,000,000 x NIBBLE_FEATURES of
+        2-16 levels): nibble's stored columns at most half the features
+        and fewer than none's, its trees none's under the same rule, its
+        AUC within 2e-3 of none's; both packed runs on the word variants
+        only;
+   every path of 4a-4d, 4m-4za, 4zb-4zp, 4zq and 4zy also trains one more
    iteration under torch.profiler and prints its CUDA kernel launches,
    synchronisations and the port's kernels' device time;
 5. the kernel path against the plain path on the card (200,000 rows, 2
@@ -317,7 +344,13 @@ and prints no result line):
    every grower again on bagged rows (``bagging_fraction=0.5``: zeros in
    the count channel) and on GOSS's rows (``learning_rate=1.0``: the
    second iteration samples, its gradients amplified) against the float64
-   plain path; and every grower but batched_pack under
+   plain path; the frontier row again with the data streamed
+   (STREAM_COMPARE_CHUNK_ROWS rows a chunk, 4 chunks, packed words: the
+   word variants) against both plain paths; every frontier row may part
+   at a tie located by the rows split (WAVE_PARTING: a tie of one leaf's
+   candidates or a null split, and every split before it within 3e-5 of
+   the root's gain), from where it is held to its AUC; and every grower
+   but batched_pack under
    MONOTONE_CONSTRAINTS against the float64 plain path, where trees may
    part at a tie of one leaf's clamped candidates or at a null split
    (``parting_tie``, gains within CLAMP_PARTING of the root's, and those of
@@ -334,7 +367,9 @@ and prints no result line):
    path of phase 4; histogram.cu's launches through ``hist_for_leaf`` as
    the entry ``histogram_leaf``, its float64 variant's as
    ``histogram_f64``, with the f64 ``hist_for_leaf`` route's launches of
-   phase 5's forced row), the card line, and the result line
+   phase 5's forced row, its word variants' as ``histogram_words`` and
+   ``hist_slots_words``, with phase 5's streamed row's), the card line,
+   and the result line
    ``{"ok": true, "device": {...}}``. No grower calls the in-tile
    partition (nor does the JAX package's), so its entry's path launches
    are 0 and its phase-3 calls are its only launches.
@@ -344,7 +379,8 @@ of this script (``--part workloads`` and ``--part compare``, given the
 dense paths 4a-4d for their ratios) share the card with it, so that the
 host-bound paths overlap: this process runs 4q, 4zb-4zf, 4zl-4zn and
 4zq-4zw; ``workloads`` 4e-4h, 4zh-4zk, 4i-4p, 4zo, 4r-4u, their
-prediction extras and 4zx; ``compare`` 4v-4za, 4zg, 4zp and phase 5. Each
+prediction extras and 4zx; ``compare`` 4v-4za, 4zg, 4zp, 4zy, 4zz and
+phase 5 (4b's trees reach it in a file, FRONTIER_REF, for 4zz). Each
 process sets its own launch counts to 0 just before each path and reads
 them just after; phase 6 sums them. The seconds of the paths from 4q on,
 and the bundled and categorical kernel rows, are taken while the three
@@ -381,6 +417,7 @@ from lightgbm_tpu_torch.boosting import dart as port_dart
 from lightgbm_tpu_torch.boosting import gbdt as port_gbdt
 from lightgbm_tpu_torch.boosting import goss as port_goss
 from lightgbm_tpu_torch.config import Config
+from lightgbm_tpu_torch.core import binpack
 from lightgbm_tpu_torch.core import grow_batched_part
 from lightgbm_tpu_torch.core import histogram as hist
 from lightgbm_tpu_torch.core import kernels
@@ -484,9 +521,11 @@ class PartingLimits(NamedTuple):
     made before it and of a null split (a split of one tree's that the
     other leaves whole: a float32 sum cannot tell it from no split); None
     sets no limit of that kind, and without ``root_rel`` no split is
-    null."""
+    null. ``null_rel``, where given, bounds a null split's gain instead of
+    ``root_rel``."""
     gain_rel: Optional[float] = None
     root_rel: Optional[float] = None
+    null_rel: Optional[float] = None
 
 
 # phase 5 on data with categorical features: the most two runs' gains may
@@ -516,6 +555,26 @@ CAT_PARTING = PartingLimits(gain_rel=0.1)
 # move them by 1.1e-4 and 6.2e-4 of the root's, and fail the rule under
 # every grower
 CLAMP_PARTING = PartingLimits(root_rel=1e-5)
+# phase 5's frontier rows without categorical features or constraints: a
+# wave splits every leaf of positive gain, so one tie (near-tied
+# candidates of one leaf, or a null split: a zero gain rounded up in one
+# run, which takes one of the last wave's leaf-capped slots) substitutes
+# several splits in that wave and the waves after it, below the parted
+# leaf and at the leaf cap. Such a tree may part at a tie located by the
+# rows split (``parting_tie``): that tie and every split both trees made
+# before it within ``root_rel`` of the root's gain, a null split's gain
+# within ``null_rel`` of it. Float32 against float64 sums on the CPU
+# (scripts/summation_order_probe.py --data bundled --growth frontier, 200k
+# rows, seeds 0-4 with running f32 sums and 0-1 with blocked ones) part
+# both trees of every run at such a tie, the tie up to 4.3e-6 and the
+# splits before it up to 1.55e-5 of the root's gain apart (null splits
+# 1.6e-10 of it); seed 3 parts as an H100 did once (PR 18: 3 positional
+# mismatches, 6 substituted splits, gain sums 5.6e-7 apart). The faults
+# the probe plants (--plant-fault 65536 at seeds 0-2, 4096 at seed 0:
+# every 65,536th or 4,096th row dropped from the f32 sums) fail the rule,
+# the seed-0 ones with the splits before their parting 5.5e-5 and 6.0e-4
+# of the root's gain apart
+WAVE_PARTING = PartingLimits(root_rel=3e-5, null_rel=1e-8)
 
 # the categorical paths of phase 4 (binary on ``categorical_data``, its id
 # columns passed as categorical_feature): a growth mode each; 4m also keeps
@@ -978,6 +1037,14 @@ SLOT_SHAPES = [(1_000_000, 28, 255, 3, 2), (1_000_000, 28, 255, 3, 16),
                (1_000_000, 28, 255, 3, 128), (1_000_000, 28, 255, 3, 254),
                (1_000_000, 28, 255, 6, 16)]
 SLOT_ACTIVE = 0.5             # share of rows in a slot
+# packed bin words (tpu_bin_packing, ROADMAP Queue 1 #9): histogram.cu's
+# word variant at the root of 4b's data, of one streamed chunk and of 34
+# stored columns (9 words, 2 tail lanes) (n, C, B), and hist_slots.cu's at
+# S = 16 over the same rows (n, C, B, S), SLOT_ACTIVE of the rows active;
+# each beside the uint8 variant on the same codes
+WORD_HIST_SHAPES = [(1_000_000, 28, 255), (131_072, 28, 255),
+                    (1_000_000, 34, 255)]
+WORD_SLOT_SHAPES = [(1_000_000, 28, 255, 16), (131_072, 28, 255, 16)]
 # the partitioned-layout kernel on the layout of MAIN_ROWS rows at 255
 # leaves: (label, S, share of the row-holding tiles active), the steps of a
 # K=16 tree: A its first step, B the step where S reaches 16, C the middle
@@ -1028,6 +1095,23 @@ def regression_data(n: int, f: int = NUM_FEATURES, seed: int = 0):
     t = (x[:, 0] + x[:, 1] * x[:, 2] + 0.5 * np.sin(x[:, 3] * 3)
          + 0.3 * r.randn(n))
     return x, t
+
+
+# path 4zz's nibble workload: NIBBLE_FEATURES numerical features of 2 to 16
+# levels each (cycling), whose default layout pairs only the few whose bin
+# counts multiply to at most the widest column's, and nibble pairs all
+NIBBLE_FEATURES = 64
+
+
+def small_bin_data(n: int, seed: int = 0, f: int = NIBBLE_FEATURES):
+    """``f`` integer features of 2-16 levels (feature j has 2 + j % 15) and
+    a label from eight of them and noise."""
+    r = np.random.RandomState(seed)
+    levels = 2 + np.arange(f) % 15
+    x = np.floor(r.rand(n, f) * levels).astype(np.float32)
+    t = (x[:, :8] / (levels[:8] - 1)) @ np.array(
+        [1.0, -0.8, 0.6, 0.5, -0.4, 0.3, 0.3, -0.2]) + 0.3 * r.randn(n)
+    return x, (t > np.median(t)).astype(np.float32)
 
 
 def bench_data(n: int, f: int = NUM_FEATURES, seed: int = 0):
@@ -1777,6 +1861,101 @@ def check_slot_kernels(dev, flush):
     return rows
 
 
+def check_word_kernels(dev, flush):
+    """Phase 3: the packed-word variants of histogram.cu and hist_slots.cu
+    (``build_histogram_words_cuda``, ``build_histogram_slots_words_cuda``)
+    against their plain versions (the words unpacked, then the plain sums)
+    at WORD_HIST_SHAPES and WORD_SLOT_SHAPES, each timed beside the uint8
+    variant on the same codes, one ``index_add_`` over the unpacked codes
+    and its bound (the words' bytes: ld = 4 W a row). Returns (histogram
+    rows, slot rows)."""
+    hist_rows, slot_rows = [], []
+    for n, c, b in WORD_HIST_SHAPES:
+        xb_np, vals = hist_inputs(np.random.RandomState(n + c), n, c, b, 3)
+        words = torch.as_tensor(binpack.pack_words_np(xb_np), device=dev)
+        xb = torch.as_tensor(xb_np, device=dev)
+        v = torch.as_tensor(vals, device=dev)
+        ld = 4 * words.shape[1]
+
+        def kernel():
+            return kernels.build_histogram_words_cuda(words, v, b, c)
+        got = kernel()
+        want = hist.hist_tile_vals(words, v, b, "plain", packed_cols=c)
+        absum = hist.hist_tile_vals(words, v.abs(), b, "plain",
+                                    packed_cols=c)
+        torch.cuda.synchronize()
+        d = (got - want).abs()
+        bad = int((d > HIST_REL_TOL * absum + HIST_ABS_TOL).sum())
+        if bad or not torch.equal(got[..., 2], want[..., 2]):
+            raise AssertionError("histogram kernel on words disagrees with "
+                                 "the plain version in %d cells at n=%d "
+                                 "C=%d" % (bad, n, c))
+        flat = (xb.to(torch.int64)
+                + torch.arange(c, device=dev) * b).reshape(-1)
+        src = v.unsqueeze(1).expand(n, c, 3).reshape(n * c, 3).contiguous()
+
+        def library():
+            return torch.zeros((c * b, 3), device=dev).index_add_(0, flat,
+                                                                   src)
+        bound_ms, bound_by = bound(kernels.hist_bytes(n, c, b, 3, ld=ld),
+                                   n * c * 3)
+        row = {"n": n, "F": c, "ld": ld, "B": b, "K": 3,
+               "variant": kernels.hist_launch_plan(
+                   n, c, b, 3, torch.cuda.get_device_properties(dev)
+                   .multi_processor_count, ld=ld).variant,
+               "max_abs_err": float(d.max()), "ms": time_ms(kernel, flush),
+               "u8_ms": time_ms(lambda: kernels.build_histogram_cuda(
+                   xb, v, b), flush),
+               "plain_ms": time_ms(lambda: hist.hist_tile_vals(
+                   words, v, b, "plain", packed_cols=c), flush),
+               "library_ms": time_ms(library, flush),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        log("hist on words n=%d C=%d (ld %d bytes, %s): max_abs_err=%.3g, "
+            "count channel exact, kernel %.4f ms, uint8 variant %.4f ms, "
+            "plain %.4f ms, index_add_ %.4f ms, bound %.4f ms (%s)"
+            % (n, c, ld, row["variant"], row["max_abs_err"], row["ms"],
+               row["u8_ms"], row["plain_ms"], row["library_ms"], bound_ms,
+               bound_by))
+        hist_rows.append(row)
+        del words, xb, v, got, want, absum, d, flat, src
+    for n, c, b, s in WORD_SLOT_SHAPES:
+        xb, slot, v, _ = slot_inputs(dev, n, c, b, 3, s)
+        words = torch.as_tensor(binpack.pack_words_np(xb.cpu().numpy()),
+                                device=dev)
+        ld = 4 * words.shape[1]
+
+        def kernel():
+            return kernels.build_histogram_slots_words_cuda(words, slot, v, b,
+                                                            s, c)
+
+        def plain(vals=v):
+            return hist.hist_slots(words, slot, vals, b, s, "plain",
+                                   packed_cols=c)
+        got, want, absum = kernel(), plain(), plain(v.abs())
+        torch.cuda.synchronize()
+        max_err = check_slot_result(got, want, absum, s, 3)
+        library, n_active = slot_library(xb, slot, v, None, b, s, 3)
+        bound_ms, bound_by = bound(
+            kernels.slot_hist_bytes(n, n_active, c, b, 3, s, ld=ld),
+            n_active * c * 3)
+        row = {"n": n, "active": n_active, "F": c, "ld": ld, "B": b, "K": 3,
+               "S": s, "max_abs_err": max_err, "ms": time_ms(kernel, flush),
+               "u8_ms": time_ms(lambda: kernels.build_histogram_slots_cuda(
+                   xb, slot, v, b, s), flush),
+               "plain_ms": time_ms(plain, flush),
+               "library_ms": time_ms(library, flush),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        log("slots on words n=%d active=%d C=%d (ld %d bytes) S=%d: "
+            "max_abs_err=%.3g, count channel exact, kernel %.4f ms, uint8 "
+            "variant %.4f ms, plain %.4f ms, index_add_ %.4f ms, bound "
+            "%.4f ms (%s)" % (n, n_active, c, ld, s, max_err, row["ms"],
+                              row["u8_ms"], row["plain_ms"],
+                              row["library_ms"], bound_ms, bound_by))
+        slot_rows.append(row)
+        del xb, slot, v, words, got, want, absum, library
+    return hist_rows, slot_rows
+
+
 def part_layout(r, n, num_leaves, f, b, n_slots, share=0.5):
     """A partitioned layout of ``n`` rows at ``num_leaves`` leaves, made with
     numpy: ``share`` of the row-holding tiles in contiguous runs of every
@@ -2112,6 +2291,8 @@ def check_stored_kernels(dev, flush, stored: np.ndarray, data: str,
 COUNTED = (kernels.build_histogram_cuda, kernels.build_histogram_leaf_cuda,
            kernels.build_histogram_f64_cuda,
            kernels.build_histogram_leaf_f64_cuda,
+           kernels.build_histogram_words_cuda,
+           kernels.build_histogram_slots_words_cuda,
            kernels.build_histogram_slots_cuda,
            kernels.build_histogram_slots6_cuda,
            kernels.build_histogram_part_tiles_cuda,
@@ -4617,6 +4798,211 @@ def drive_xentropy_path(label: str, ds, x, dense: dict):
     return out
 
 
+# path 4zy (ROADMAP Queue 1 #11): 4b's data and parameters streamed from a
+# .npy memory map in chunks of STREAM_CHUNK_ROWS rows (8 chunks), round 1's
+# sample the whole data; streamed auto packs the chunks into int32 words
+# (byte). The in-memory loader samples bin_construct_sample_cnt rows at
+# random (200,000 of 4b's 1,000,000) where the stream keeps a reservoir,
+# so the two give the same mappers only when both sample every row: 4zy is
+# held to an in-memory frontier run with bin_construct_sample_cnt = N.
+# Phase 5's streamed row: COMPARE_ROWS rows in chunks of
+# STREAM_COMPARE_CHUNK_ROWS
+STREAM_CHUNK_ROWS = 131_072
+STREAM_COMPARE_CHUNK_ROWS = COMPARE_ROWS // 4
+# 4b's booster, saved by the main process for the compare part's 4zz: its
+# trees, next to the parts' directories
+FRONTIER_REF = "frontier_ref.pkl"
+STREAM_PREDICT_TOL = 1e-5     # predict against the training scores (raw)
+
+
+def save_frontier_ref(bst, tmp: str) -> None:
+    with open(os.path.join(tmp, FRONTIER_REF), "wb") as f:
+        pickle.dump(bst.models, f)
+
+
+def load_frontier_ref(tmp: str) -> list:
+    with open(os.path.join(os.path.dirname(tmp), FRONTIER_REF), "rb") as f:
+        return pickle.load(f)
+
+
+def word_launches(label: str, launches: dict, rounds: int) -> None:
+    """Raises unless a path on packed words launched the word variants
+    only: histogram.cu's at every root (once a chunk when streamed) and
+    hist_slots.cu's on its waves."""
+    if launches["build_histogram_words_cuda"] < rounds \
+            or launches["build_histogram_slots_words_cuda"] <= 0:
+        raise AssertionError("path %s launched the word kernels %s"
+                             % (label, launches))
+    uint8 = {k: v for k, v in launches.items() if v and "words" not in k}
+    if uint8:
+        raise AssertionError("path %s on packed words launched %s"
+                             % (label, uint8))
+
+
+def held_to(label: str, bst, ref_models: list, what: str,
+            rows: torch.Tensor, auc_now, auc_ref) -> list:
+    """``bst``'s trees against ``ref_models`` (``what``'s) under phase 5's
+    frontier rule (WAVE_PARTING); where they part at a tie, the two AUCs
+    within AUC_TOLERANCE. Returns the ties."""
+    ties = []
+    trees_match(bst.models, ref_models, ties, WAVE_PARTING, None, rows)
+    if any(t["after_parting_tie"] for t in ties) \
+            and abs(auc_now - auc_ref) > AUC_TOLERANCE:
+        raise AssertionError("path %s parted from %s at a tie and its AUC "
+                             "%.6f is more than %g from %.6f"
+                             % (label, what, auc_now, AUC_TOLERANCE,
+                                auc_ref))
+    return ties
+
+
+def drive_stream_path(x, y, dense: dict, tmp: str) -> dict:
+    """Path 4zy: 4b's 1,000,000 rows streamed from a .npy memory map
+    (``data_stream_chunk_rows=STREAM_CHUNK_ROWS``, 8 chunks), 5 iterations,
+    round 1 sampling every row: its mappers and stored layout equal to the
+    in-memory loader's at the same ``bin_construct_sample_cnt``, its trees
+    that in-memory frontier run's under the frontier tie rule, its train
+    AUC within AUC_TOLERANCE of the JAX package's 4b constant, ``predict``
+    equal to the training scores within STREAM_PREDICT_TOL, and the word
+    variants of both kernels launched (and no uint8 one); prints its
+    s/iter beside 4b's and the in-memory run's, the pipeline's overlap and
+    ingest rate, and one more iteration's launches and syncs."""
+    memory = dict(PARAMS, **GROWTH_PARAMS["frontier"],
+                  bin_construct_sample_cnt=len(x))
+    t0 = time.perf_counter()
+    mem_ds = lgb.Dataset(x, label=y, params=memory).construct()
+    mem_binning_s = time.perf_counter() - t0
+    mem, mem_s, _, _ = train_counted(memory, mem_ds)
+    mem_auc = auc(mem.predict(x, raw_score=True), y)
+    path = os.path.join(tmp, "dense.npy")
+    np.save(path, x)
+    params = dict(memory, data_stream_chunk_rows=STREAM_CHUNK_ROWS)
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(path, label=y, params=params).construct()
+    ingest_s = time.perf_counter() - t0
+    sd = ds._binned
+    if [m.to_dict() for m in sd.bin_mappers] != [
+            m.to_dict() for m in mem_ds._binned.bin_mappers] \
+            or sd.col_features != mem_ds._binned.col_features:
+        raise AssertionError("4zy: the streamed mappers are not the "
+                             "in-memory loader's")
+    del mem_ds
+    bst, train_s, launches, _ = train_counted(params, ds)
+    impl = bst._impl
+    pipe = impl._stream
+    stats = pipe.stats()
+    raw = bst.predict(x, raw_score=True)
+    predict_diff = float(np.abs(raw - impl.scores_of(0)).max())
+    train_auc = auc(raw, y)
+    log("path 4zy streamed: ingest %.2f s (in memory: binning %.2f s; %d "
+        "chunks of %d rows, %d stored columns as %d words a row), train "
+        "%.2f s (%.3f s per iteration, in memory %.3f, 4b %.3f), "
+        "overlap_efficiency %.4f, ingest %.4g rows/s (wait %.4f s of %.4f "
+        "s of sweeps), train AUC %.6f (in memory %.6f, 4b %.6f, JAX "
+        "package %.6f), predict against the training scores %.3g, "
+        "launches %s"
+        % (ingest_s, mem_binning_s, pipe.num_chunks, pipe.chunk_rows,
+           pipe.num_cols, binpack.words_per_row(pipe.num_cols), train_s,
+           train_s / len(bst.models), mem_s / len(mem.models),
+           dense["frontier"]["s_per_iter"], stats["overlap_efficiency"],
+           stats["ingest_rows_per_sec"], stats["wait_s"], stats["total_s"],
+           train_auc, mem_auc, dense["frontier"]["auc"],
+           JAX_REFERENCE_AUC["frontier"], predict_diff, launches))
+    if pipe.num_chunks != -(-len(x) // STREAM_CHUNK_ROWS) or not pipe.packed:
+        raise AssertionError("4zy: %d chunks, packed %s" % (pipe.num_chunks,
+                                                           pipe.packed))
+    word_launches("4zy", launches, NUM_ITERS * pipe.num_chunks)
+    if predict_diff > STREAM_PREDICT_TOL or not np.isfinite(raw).all():
+        raise AssertionError("4zy: predict is %.3g from the training scores"
+                             % predict_diff)
+    if abs(train_auc - JAX_REFERENCE_AUC["frontier"]) > AUC_TOLERANCE:
+        raise AssertionError("4zy: train AUC %.6f is more than %g from the "
+                             "JAX package's %.6f" % (
+                                 train_auc, AUC_TOLERANCE,
+                                 JAX_REFERENCE_AUC["frontier"]))
+    rows = torch.as_tensor(x, dtype=torch.float64, device="cuda")
+    ties = held_to("4zy", bst, mem.models, "the in-memory run", rows,
+                   train_auc, mem_auc)
+    out = {"ingest_s": ingest_s, "memory_binning_s": mem_binning_s,
+           "memory_s_per_iter": mem_s / len(mem.models),
+           "memory_auc": mem_auc, "train_s": train_s,
+           "s_per_iter": train_s / len(bst.models),
+           "x_frontier": train_s / len(bst.models)
+           / dense["frontier"]["s_per_iter"],
+           "auc": train_auc, "predict_diff": predict_diff,
+           "pipeline": stats, "ties": ties, "launches": launches}
+    out.update(iteration_counts("4zy", bst))
+    return out
+
+
+def drive_packed_paths(x, y, dense: dict, ref_models: list) -> dict:
+    """Path 4zz: packed bin words in memory (frontier). ``byte`` on 4b's
+    data, its trees 4b's under the frontier tie rule; ``nibble`` on
+    ``small_bin_data`` (1,000,000 x NIBBLE_FEATURES), its stored columns at
+    most half the features and fewer than its ``none`` run's, its trees the
+    ``none`` run's under the same rule and its AUC within AUC_TOLERANCE of
+    it. Each launches the word variants only."""
+    out = {}
+    params = dict(PARAMS, **GROWTH_PARAMS["frontier"])
+    ds = lgb.Dataset(x, label=y, params=params).construct()
+    bst, train_s, launches, _ = train_counted(
+        dict(params, tpu_bin_packing="byte"), ds)
+    raw = bst.predict(x, raw_score=True)
+    train_auc = auc(raw, y)
+    log("path 4zz byte: train %.2f s (%.3f s per iteration, 4b %.3f), "
+        "train AUC %.6f (4b %.6f), launches %s"
+        % (train_s, train_s / len(bst.models),
+           dense["frontier"]["s_per_iter"], train_auc,
+           dense["frontier"]["auc"], launches))
+    word_launches("4zz byte", launches, NUM_ITERS)
+    rows = torch.as_tensor(x, dtype=torch.float64, device="cuda")
+    out["4zz byte"] = {
+        "train_s": train_s, "s_per_iter": train_s / len(bst.models),
+        "auc": train_auc, "launches": launches,
+        "ties": held_to("4zz byte", bst, ref_models, "4b", rows, train_auc,
+                        dense["frontier"]["auc"])}
+    del ds, bst, rows
+    xn, yn = small_bin_data(MAIN_ROWS)
+    runs = {}
+    for mode in ("none", "nibble"):
+        p = dict(params, tpu_bin_packing=mode)
+        t0 = time.perf_counter()
+        dsn = lgb.Dataset(xn, label=yn, params=p).construct()
+        binning_s = time.perf_counter() - t0
+        bst, train_s, launches, _ = train_counted(p, dsn)
+        runs[mode] = {"bst": bst, "columns": dsn._binned.num_columns,
+                      "max_col_bins": dsn._binned.max_col_bins(),
+                      "binning_s": binning_s, "train_s": train_s,
+                      "launches": launches,
+                      "auc": auc(bst.predict(xn, raw_score=True), yn)}
+        log("path 4zz %s: %d stored columns (widest %d bins), binning "
+            "%.2f s, train %.2f s (%.3f s per iteration), train AUC %.6f, "
+            "launches %s" % (mode, runs[mode]["columns"],
+                             runs[mode]["max_col_bins"], binning_s, train_s,
+                             train_s / len(bst.models), runs[mode]["auc"],
+                             launches))
+        del dsn
+    none, nib = runs["none"], runs["nibble"]
+    word_launches("4zz nibble", nib["launches"], NUM_ITERS)
+    if not nib["columns"] <= NIBBLE_FEATURES // 2 < none["columns"]:
+        raise AssertionError("4zz nibble: %d stored columns against none's "
+                             "%d" % (nib["columns"], none["columns"]))
+    if abs(nib["auc"] - none["auc"]) > AUC_TOLERANCE:
+        raise AssertionError("4zz nibble: train AUC %.6f is more than %g "
+                             "from none's %.6f" % (nib["auc"],
+                                                   AUC_TOLERANCE,
+                                                   none["auc"]))
+    ties = []
+    trees_match(nib["bst"].models, none["bst"].models, ties, WAVE_PARTING,
+                None, torch.as_tensor(xn, dtype=torch.float64,
+                                      device="cuda"))
+    for mode, run_ in runs.items():
+        bst = run_.pop("bst")
+        out["4zz %s" % mode] = dict(run_, s_per_iter=run_["train_s"]
+                                    / len(bst.models),
+                                    ties=ties if mode == "nibble" else None)
+    return out
+
+
 def drive_ranking_workloads(paths: dict, dev) -> dict:
     """Phase 4v-4za: the ranking paths on ``ranking_data`` (a valid set
     with its own groups for 4v), the cross-entropy paths on
@@ -4894,7 +5280,8 @@ def tie_limits(extra: dict, categorical: bool) -> tuple:
         return None, None
     monotone = "monotone_constraints" in extra
     parting = (CAT_PARTING if categorical else CLAMP_PARTING
-               if monotone else None)
+               if monotone else WAVE_PARTING
+               if extra.get("tree_growth") == "frontier" else None)
     regrow = (monotone or extra.get("boosting") == "goss"
               or extra.get("bagging_freq", 0) > 0)
     return parting, SAMPLED_TIE_GAIN_REL if regrow else None
@@ -4961,7 +5348,8 @@ def parting_tie(ta, tb, x: torch.Tensor, limits: PartingLimits):
                 for i in range(nn)]
         nodes.append((t, split, right, {k: i for i, k in enumerate(keys)},
                       keys))
-    null_rel = -np.inf if limits.root_rel is None else limits.root_rel
+    null_rel = (limits.null_rel if limits.null_rel is not None
+                else -np.inf if limits.root_rel is None else limits.root_rel)
     firsts, order = [], None
     for (t, split, right, _, keys), (o, o_split, o_right, o_index, _) in (
             (nodes[0], nodes[1]), (nodes[1], nodes[0])):
@@ -4997,6 +5385,50 @@ def parting_tie(ta, tb, x: torch.Tensor, limits: PartingLimits):
              and (limits.root_rel is None
                   or max(tie[3], tie[4]) <= limits.root_rel)]
     return min(found, key=lambda tie: max(tie[3], tie[4]), default=None)
+
+
+def node_waves(t, nn: int) -> np.ndarray:
+    """[nn] the wave of each of the tree's first ``nn`` nodes under
+    frontier growth: its depth. A wave splits every leaf of positive gain
+    until the leaf cap binds, which ends the tree, so wave w splits the
+    leaves of depth w and only the last wave leaves some of them whole."""
+    depth = np.zeros(nn, np.int64)
+    for i in range(nn):
+        for c in (int(t.left_child[i]), int(t.right_child[i])):
+            if 0 <= c < nn:
+                depth[c] = depth[i] + 1
+    return depth
+
+
+def substituted_splits(ta, tb, x: torch.Tensor) -> list:
+    """The splits each tree makes that the other does not make on the same
+    training rows ``x`` with the same feature and bin (nodes matched by
+    ``node_rows``, in any order): for each, the tree ("a" or "b"), node,
+    wave (``node_waves``), leaf split, rows (its training count), feature,
+    bin and gain."""
+    keys = []
+    for t in (ta, tb):
+        nn = int(t.num_leaves_actual) - 1
+        split, right = node_rows(t, nn, x)
+        keys.append([(int(split[i]), int(right[i]), int(t.split_feature[i]),
+                      int(t.threshold_bin[i]), t.cat_bitset_bin[i].tobytes())
+                     for i in range(nn)])
+    out = []
+    for name, t, mine, other in (("a", ta, keys[0], keys[1]),
+                                 ("b", tb, keys[1], keys[0])):
+        waves = node_waves(t, len(mine))
+        left = collections.Counter(other)
+        for i, key in enumerate(mine):
+            if left[key] > 0:
+                left[key] -= 1
+                continue
+            out.append({"tree": name, "node": i, "wave": int(waves[i]),
+                        "leaf": int(t.split_leaf[i]),
+                        "rows": int(t.internal_count[i]),
+                        "feature": int(t.split_feature[i]),
+                        "bin": int(t.threshold_bin[i]),
+                        "gain": float(t.split_gain[i])})
+    return out
 
 
 def trees_match(a, b, ties=None, parting: PartingLimits = None,
@@ -5060,6 +5492,14 @@ def trees_match(a, b, ties=None, parting: PartingLimits = None,
             # a tie of frontier's last wave: the AUC holds from here
             within_rule = parted = True
         tie = None
+        if parting is WAVE_PARTING:
+            # a frontier row's substituted splits, both trees'
+            for sub in substituted_splits(ta, tb, x):
+                log("  substituted split of the %s tree: node %d, wave %d, "
+                    "leaf %d, %d rows, feature %d, bin %d, gain %.7g"
+                    % (("kernel", "other")[sub["tree"] == "b"],
+                       sub["node"], sub["wave"], sub["leaf"], sub["rows"],
+                       sub["feature"], sub["bin"], sub["gain"]))
         if parting is not None and not parted and not within_rule:
             tie = parting_tie(ta, tb, x, parting)
             parted = tie is not None
@@ -5424,12 +5864,28 @@ def part_compare(dense: dict, tmp: str, t_start: float) -> dict:
     # ---- 4v-4za. ranking and cross-entropy -----------------------------
     rank_scale = drive_ranking_workloads(paths, dev)
 
+    x, y = bench_data(MAIN_ROWS)
+    log_phase(t_start, "4zy. out-of-core streaming")
+    # ---- 4zy. out-of-core streaming (Queue 1 #11) ----------------------
+    paths["4zy"] = drive_stream_path(x, y, dense, tmp)
+    log_phase(t_start, "4zz. packed bin words in memory")
+    # ---- 4zz. packed bin words in memory (Queue 1 #9) ------------------
+    paths.update(drive_packed_paths(x, y, dense, load_frontier_ref(tmp)))
+
     log_phase(t_start, "5. kernel path against plain path")
     # ---- 5. kernel path against plain path -----------------------------
-    x, y = bench_data(MAIN_ROWS)
     xs, ys = x[:COMPARE_ROWS], y[:COMPARE_ROWS]
     ds = lgb.Dataset(xs, label=ys, params=PARAMS).construct()
     compare_paths(ds, xs, ys)
+    log("kernel vs plain path on bench.py's data (%d rows) streamed in "
+        "chunks of %d:" % (len(xs), STREAM_COMPARE_CHUNK_ROWS))
+    streamed = dict(GROWTH_PARAMS["frontier"],
+                    data_stream_chunk_rows=STREAM_COMPARE_CHUNK_ROWS)
+    stream_compare = compare_paths(
+        lgb.Dataset(xs, label=ys, params=dict(PARAMS, **streamed))
+        .construct(), xs, ys,
+        runs=[("frontier, streamed", streamed,
+               "build_histogram_slots_words_cuda")])
     for what, extra in SAMPLED_COMPARE.items():
         log("kernel vs plain path on bench.py's data (%d rows), %s:"
             % (len(xs), what))
@@ -5477,7 +5933,8 @@ def part_compare(dense: dict, tmp: str, t_start: float) -> dict:
                                   **objective_params("multiclass")),
                              "build_histogram_slots6_cuda")], plains=(True,))
     return {"paths": {k: v for k, v in paths.items() if k not in dense},
-            "rank_scale": rank_scale, "f64_compare": f64_compare}
+            "rank_scale": rank_scale, "f64_compare": f64_compare,
+            "stream_compare": stream_compare}
 
 
 def run(tmp: str) -> int:
@@ -5511,6 +5968,7 @@ def run(tmp: str) -> int:
     leaf_rows = check_leaf_histogram(dev, flush)
     f64_rows = check_histogram_f64(dev, flush)
     slot_rows = check_slot_kernels(dev, flush)
+    word_hist_rows, word_slot_rows = check_word_kernels(dev, flush)
     part_rows = check_part_kernel(dev, flush)
     repack_rows = check_partition_kernel(dev, flush)
     mask_draw = time_mask_draw(dev, flush)
@@ -5526,6 +5984,7 @@ def run(tmp: str) -> int:
     models, extras = {}, {}
     paths = {g: drive_path(g, ds, x, y, models) for g in GROWTH_PARAMS}
     paths["exact"]["binning_s"] = binning_s
+    save_frontier_ref(models["frontier"], tmp)
     procs = start_parts(paths, tmp, t_start)
     try:
         log_phase(t_start, "4q. a custom objective")
@@ -5544,6 +6003,7 @@ def run(tmp: str) -> int:
     cat_rows = results["workloads"]["cat_rows"]
     rank_scale = results["compare"]["rank_scale"]
     f64_compare = results["compare"]["f64_compare"]
+    stream_compare = results["compare"]["stream_compare"]
 
     log_phase(t_start, "6. result lines")
     # ---- 6. result lines -----------------------------------------------
@@ -5592,6 +6052,29 @@ def run(tmp: str) -> int:
                      "lightgbm_tpu/core/histogram_pallas.py:384",
                      launches("build_histogram_slots_cuda"), k3,
                      max(k3, key=lambda r: (r.get("data") is None, r["S"]))),
+        dict(kernel_entry("histogram_words",
+                          "lightgbm_tpu_torch/core/csrc/histogram.cu",
+                          "lightgbm_tpu/core/histogram_pallas.py:67",
+                          launches("build_histogram_words_cuda"),
+                          word_hist_rows, word_hist_rows[0]),
+             note="histogram.cu on packed bin words (tpu_bin_packing; the "
+                  "root of every frontier tree on words, once a chunk when "
+                  "streamed: paths 4zy, 4zz), read in place at a row "
+                  "stride of 4 W bytes; the TPU kernel unpacks the words "
+                  "in XLA first (histogram_pallas.py:139-143). Each shape "
+                  "has the uint8 variant's time on the same codes (u8_ms)"),
+        dict(kernel_entry("hist_slots_words",
+                          "lightgbm_tpu_torch/core/csrc/hist_slots.cu",
+                          "lightgbm_tpu/core/histogram_pallas.py:384",
+                          launches("build_histogram_slots_words_cuda"),
+                          word_slot_rows, word_slot_rows[0]),
+             phase5_streamed_launches=stream_compare[
+                 "frontier, streamed"]["launches"],
+             note="hist_slots.cu (K=3) on packed bin words: every "
+                  "frontier wave on words, once a chunk when streamed "
+                  "(4zy, 4zz); the TPU kernel unpacks them first "
+                  "(histogram_pallas.py:464-465). u8_ms: the uint8 "
+                  "variant on the same codes"),
         kernel_entry("hist_slots6",
                      "lightgbm_tpu_torch/core/csrc/hist_slots.cu",
                      "lightgbm_tpu/core/histogram_pallas.py:175",

@@ -159,6 +159,13 @@ class Dataset:
         validation set takes its reference's mappers."""
         if self._binned is not None:
             return self
+        if (int(Config(self.params).data_stream_chunk_rows) > 0
+                and self.reference is None and self.used_indices is None
+                and not (isinstance(self.data, str)
+                         and self.data.endswith((".npz", ".bin")))):
+            # out of core: valid sets (a reference) and subsets bin in
+            # memory, as they are bounded
+            return self._construct_streamed()
         ref_binned = (None if self.reference is None
                       else self.reference.construct()._binned)
         data, frame_cats = self.data, []
@@ -166,23 +173,14 @@ class Dataset:
             data = self._from_file(data, ref_binned)
             if data is None:
                 return self
-        names = (list(self.feature_name)
-                 if isinstance(self.feature_name, (list, tuple)) else None)
-        if names is None and hasattr(self.data, "columns"):
-            names = [str(c) for c in self.data.columns]
+        names = self._feature_names()
         if _is_frame(data):
             if self.pandas_categorical is None and self.reference is not None:
                 # a valid set codes categories in the training set's order
                 self.pandas_categorical = self.reference.pandas_categorical
             data, frame_cats, self.pandas_categorical = \
                 _pandas_frame_to_array(data, self.pandas_categorical)
-        cat = (None if self.categorical_feature in ("auto", None)
-               else self.categorical_feature)
-        if frame_cats:
-            # a frame's category columns are categorical whether or not
-            # they are listed (the reference's auto-detection)
-            cat = list(cat) if cat else []
-            cat.extend(c for c in frame_cats if c not in cat)
+        cat = self._categorical(frame_cats)
         # scipy sparse data are binned without densifying them
         data = data if _is_sparse(data) else _to_2d_float(data)
         label, weight, init_score = (_to_1d(self.label), _to_1d(self.weight),
@@ -200,6 +198,76 @@ class Dataset:
             init_score=init_score, group=_to_1d(self.group),
             feature_names=names,
             categorical_feature=cat, reference=ref_binned)
+        if self.free_raw_data:
+            self.data = None
+        return self
+
+    def _feature_names(self) -> Optional[List[str]]:
+        """The names given, or a frame's columns, or None."""
+        if isinstance(self.feature_name, (list, tuple)):
+            return list(self.feature_name)
+        if hasattr(self.data, "columns"):
+            return [str(c) for c in self.data.columns]
+        return None
+
+    def _categorical(self, frame_cats: List[str]):
+        """The categorical features given, with a frame's category columns
+        added: they are categorical whether or not they are listed (the
+        reference's auto-detection)."""
+        cat = (None if self.categorical_feature in ("auto", None)
+               else self.categorical_feature)
+        if frame_cats:
+            cat = list(cat) if cat else []
+            cat.extend(c for c in frame_cats if c not in cat)
+        return cat
+
+    def _construct_streamed(self) -> "Dataset":
+        """Out-of-core construction (``data_stream_chunk_rows > 0``;
+        basic.py:231-290 of the JAX package): a chunk source by input (a
+        ``.npy`` path memory-mapped, another path as delimited text with
+        its ``.weight``, ``.query`` and ``.init`` sidecars, an array or
+        frame in memory; sparse input refuses), ingested in two rounds
+        into a ``StreamedDataset`` whose uint8 chunks stay on the host
+        until the booster's pipeline copies them to the card."""
+        from .stream import ArraySource, CsvSource, NpyMmapSource, ingest
+        cfg = Config(self.params)
+        rows = int(cfg.data_stream_chunk_rows)
+        data = self.data
+        weight, group, init_score = self.weight, self.group, self.init_score
+        frame_cats: List[str] = []
+        if isinstance(data, str):
+            if data.endswith(".npy"):
+                src = NpyMmapSource(data, label=self.label, chunk_rows=rows)
+            else:
+                src = CsvSource(data, chunk_rows=rows, has_header=cfg.header,
+                                label_column=cfg.label_column)
+            weight = weight if weight is not None \
+                else parser.load_weight_file(data)
+            group = group if group is not None \
+                else parser.load_query_file(data)
+            init_score = init_score if init_score is not None \
+                else parser.load_init_score_file(data)
+        else:
+            if _is_frame(data):
+                data, frame_cats, self.pandas_categorical = \
+                    _pandas_frame_to_array(data, self.pandas_categorical)
+            if _is_sparse(data):
+                raise LightGBMError(
+                    "data_stream_chunk_rows does not support sparse input; "
+                    "pass a dense array or stream from .npy/text")
+            src = ArraySource(_to_2d_float(data), label=_to_1d(self.label),
+                              chunk_rows=rows)
+        binned = ingest(src, cfg, feature_names=self._feature_names(),
+                        categorical_feature=self._categorical(frame_cats))
+        meta = binned.metadata
+        if self.label is not None and meta.label is None:
+            meta.set_label(_to_1d(self.label))
+        for value, store in ((weight, meta.set_weight),
+                             (group, meta.set_query),
+                             (init_score, meta.set_init_score)):
+            if value is not None:
+                store(_to_1d(value))
+        self._binned = binned
         if self.free_raw_data:
             self.data = None
         return self

@@ -95,7 +95,7 @@ class DART(GBDT):
     def _score_sets(self):
         """(key, scores, binned matrix) of the training set and each valid
         set."""
-        yield -1, self.scores, self.xb
+        yield -1, self.scores, self.training_rows("DART's drops")
         for vi, cache in enumerate(self._valid):
             yield vi, cache["scores"], cache["xb"]
 

@@ -59,6 +59,19 @@ JAX package's warning is logged and ``grow_tree`` runs (gbdt.py:566-570
 there). The JAX package then runs with 64-bit types on, so its bagging
 and GOSS uniforms are float64: ``_draw_dtype`` draws them the same way.
 
+Packed bin words and out-of-core streaming (``_setup_bins``): under
+``tpu_bin_packing=byte|nibble`` the frontier grower with float32
+histograms keeps the training bins on the device as int32 words of four
+codes (``core/binpack.py``; ``auto`` is none in memory off a TPU), which
+both histogram kernels read in place; a streamed dataset
+(``data_stream_chunk_rows > 0``, ``stream/``) stays on the host in chunks
+that a ``ChunkPipeline`` copies to the card ahead of each sweep, packed
+into words unless the option says ``none``, and
+``stream.StreamFrontierGrower`` grows its trees (gbdt or GOSS, f32,
+frontier; config.py refuses the rest). Replays of the training rows
+(rollback, a reset, DART) unpack the words; a streamed booster refuses
+them and custom gradients, as the JAX package does.
+
 Every option outside the slice raises ``NotImplementedError`` from
 ``check_slice`` before anything is built, naming the ROADMAP item that
 brings it: the port never builds a different tree than the one asked for.
@@ -78,6 +91,8 @@ from ..core.grow import (Cegb, CegbState, ForcedSplits, GrowParams,
                          TreeArrays, grow_tree)
 from ..core.grow_batched import grow_tree_batched
 from ..core.grow_batched_part import grow_tree_batched_part
+from ..core.binpack import (pack_words_np, resolve_bin_packing,
+                            unpack_words, words_per_row)
 from ..core.grow_frontier import grow_tree_frontier
 from ..core.histogram import HIST_IMPLS
 from ..core.renew import renew_leaf_values
@@ -88,6 +103,8 @@ from ..io.dataset import BinnedDataset
 from ..log import LightGBMError, Log, check, outside_slice
 from ..metrics import Metric
 from ..objectives import ObjectiveFunction
+from ..stream.grow_stream import StreamFrontierGrower
+from ..stream.pipeline import ChunkPipeline
 
 # the grower of each tree_growth (config.TREE_GROW_MODES)
 GROWERS = {"exact": grow_tree, "frontier": grow_tree_frontier,
@@ -138,19 +155,11 @@ class HostTree:
 def check_slice(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for any option outside the slice."""
     rules = [
-        # the JAX package packs bins for frontier growth only, and its auto
-        # resolves to none off a TPU (core/binpack.py:97-117)
-        (cfg.tree_growth == "frontier"
-         and cfg.tpu_bin_packing not in ("auto", "none"),
-         "tpu_bin_packing=%s (packed bin words)" % cfg.tpu_bin_packing,
-         "ROADMAP Queue 1 #9"),
         (bool(cfg.obs_modelstats), "obs_modelstats (model statistics)",
          "ROADMAP Queue 1 #15"),
         (cfg.tree_learner != "serial" or bool(cfg.mesh_shape)
          or cfg.num_machines > 1, "a device mesh (tree_learner=%s)"
          % cfg.tree_learner, "ROADMAP Queue 1 #13"),
-        (int(cfg.data_stream_chunk_rows) > 0, "out-of-core streaming",
-         "ROADMAP Queue 1 #11"),
     ]
     for bad, what, where in rules:
         if bad:
@@ -296,6 +305,7 @@ class GBDT:
         self.valid_metrics: List[List[Metric]] = []
         # each valid set's binned matrix and running scores on the device
         self._valid: List[Dict[str, torch.Tensor]] = []
+        self._stream = None           # a streamed training set's pipeline
         if train_data is not None:
             self._setup_train(train_data)
 
@@ -304,7 +314,8 @@ class GBDT:
         check_slice(cfg)
         dev = self.device
         self.num_data = ds.num_data
-        self.xb = torch.as_tensor(ds.X_binned, device=dev)     # [N, C]
+        hdt = hist_dtype(cfg)
+        self._stream, word_packed_cols = self._setup_bins(ds, hdt)
         self.feature_meta = _feature_meta(ds, cfg, dev)
         # histograms span the stored columns' bins, the split search the
         # features' (gbdt.py:482-483 of the JAX package)
@@ -316,7 +327,6 @@ class GBDT:
             self.objective.init(ds.metadata, dev)
         for m in self.train_metrics:
             m.init(ds.metadata, ds.num_data)
-        hdt = hist_dtype(cfg)
         self.grow_params = GrowParams(
             num_leaves=cfg.num_leaves, num_bins=self.num_bins,
             max_depth=cfg.max_depth,
@@ -343,7 +353,8 @@ class GBDT:
             cegb_split_penalty=float(cfg.cegb_tradeoff
                                      * cfg.cegb_penalty_split),
             with_cegb_coupled=bool(len(cfg.cegb_penalty_feature_coupled)),
-            with_cegb_lazy=bool(len(cfg.cegb_penalty_feature_lazy)))
+            with_cegb_lazy=bool(len(cfg.cegb_penalty_feature_lazy)),
+            word_packed_cols=word_packed_cols)
         # forced splits and CEGB (gbdt.py:522-554 of the JAX package): exact
         # growth only, the CEGB state kept across iterations
         self._forced = self._setup_forced_splits(ds)
@@ -366,6 +377,8 @@ class GBDT:
         if self._forced is not None or self._cegb is not None:
             self._grow = functools.partial(grow_tree, forced=self._forced,
                                            cegb=self._cegb)
+        if self._stream is not None:
+            self._grow = StreamFrontierGrower(self._stream)
         self._init_scores_provided = ds.metadata.init_score is not None
         self.scores = torch.as_tensor(self._initial_scores(ds), device=dev)
         self.boost_from_average_done = False
@@ -399,6 +412,61 @@ class GBDT:
             rw = obj.label_weight if obj.name == "mape" else obj.weights
             self._renew_weight = (torch.ones_like(obj.label) if rw is None
                                   else rw)
+
+    def _setup_bins(self, ds: BinnedDataset, hdt: str
+                    ) -> Tuple[Optional[ChunkPipeline], int]:
+        """The training bins on the device (gbdt.py:385-432, :631-649 and
+        :740-751 of the JAX package): returns (the streamed chunks'
+        pipeline or None, the code columns of packed words or 0), and sets
+        ``self.xb``. A streamed dataset's chunks go through a
+        ``ChunkPipeline`` (``self.xb`` None), packed into int32 words where
+        ``tpu_bin_packing`` resolves to byte or nibble (streamed ``auto``
+        is byte). In memory the frontier grower with float32 histograms
+        takes the words where it resolves so (``auto`` is none off a TPU);
+        every other grower takes the uint8 matrix."""
+        cfg = self.config
+        dev = self.device
+        streamed = bool(getattr(ds, "is_streamed", False))
+        mode = resolve_bin_packing(cfg.tpu_bin_packing, streamed=streamed,
+                                   tpu_shaped=False,
+                                   col_num_bin=list(ds.col_num_bin))
+        if streamed:
+            # config.py refuses every other grower, boosting and f64
+            check(cfg.tree_growth == "frontier" and hdt == "f32",
+                  "streamed training requires tree_growth=frontier with f32 "
+                  "histograms")
+            # uniform chunks of data_stream_chunk_rows rows, at most the
+            # data's (the JAX package pads one chunk to any larger count)
+            pipe = ChunkPipeline(
+                ds.chunks, min(int(cfg.data_stream_chunk_rows)
+                               or max(ds.chunk_row_counts), ds.num_data),
+                prefetch=int(cfg.data_stream_prefetch), device=dev,
+                packed=mode != "none")
+            self.xb = None
+            return pipe, (pipe.num_cols if pipe.packed else 0)
+        xb = ds.X_binned
+        if cfg.tree_growth == "frontier" and hdt == "f32" and mode != "none":
+            Log.info("bin packing: %d uint8 columns stored as %d int32 "
+                     "words a row on the device (tpu_bin_packing=%s)",
+                     xb.shape[1], words_per_row(xb.shape[1]),
+                     cfg.tpu_bin_packing)
+            self.xb = torch.as_tensor(pack_words_np(xb), device=dev)
+            return None, xb.shape[1]
+        self.xb = torch.as_tensor(xb, device=dev)              # [N, C]
+        return None, 0
+
+    def training_rows(self, what: str) -> torch.Tensor:
+        """The training set's stored uint8 [N, C] matrix on the device, to
+        replay trees on (``what``: a rollback, a reset, DART's drops):
+        packed words are unpacked into a copy; streamed chunks are never
+        in one piece, so there it raises."""
+        if self._stream is not None:
+            raise LightGBMError(
+                "%s needs the full binned matrix to replay trees; it is not "
+                "supported with streamed training (data_stream_chunk_rows "
+                "> 0)" % what)
+        packed = self.grow_params.word_packed_cols
+        return unpack_words(self.xb, packed) if packed else self.xb
 
     def _setup_forced_splits(self, ds: BinnedDataset
                              ) -> Optional[ForcedSplits]:
@@ -557,9 +625,10 @@ class GBDT:
         self.boost_from_average_done = True
         k = self.num_tree_per_iteration
         scores = self.scores.clone()
+        xb = self.training_rows("resetting the training data")
         for i, ht in enumerate(self.models):
             scores[:, i % k] += self._tree_output(ht, self._binned_tree(ht),
-                                                  self.xb)
+                                                  xb)
         self.scores = scores
 
     # ------------------------------------------------------------ training
@@ -640,7 +709,10 @@ class GBDT:
         grows one iteration at a time. DART and RF, whose iterations need
         the host in between, take the per-iteration stream. Returns True
         when training has stopped."""
-        if self.boosting_type not in ("gbdt", "goss"):
+        if self.boosting_type not in ("gbdt", "goss") \
+                or self._stream is not None:
+            # streamed growth, too, takes the per-iteration key stream, as
+            # the JAX package never fuses it (gbdt.py:1870-1876 there)
             for _ in range(num_iters):
                 if self.train_one_iter():
                     return True
@@ -705,6 +777,11 @@ class GBDT:
         and the first iteration then keeps constant trees that reproduce
         the init scores (AsConstantTree, gbdt.cpp:379-396)."""
         external = grad is not None
+        if external and self._stream is not None:
+            raise LightGBMError(
+                "streamed training does not support externally supplied "
+                "gradients; use a built-in objective or unset "
+                "data_stream_chunk_rows")
         if external:
             # given gradients: no boost from average, now or later
             # (gbdt.cpp TrainOneIter boosts from the average only on its
@@ -882,12 +959,13 @@ class GBDT:
         the training and valid scores."""
         if not self.models:
             return
+        xb = self.training_rows("rollback_one_iter")
         k = self.num_tree_per_iteration
         dropped = self.models[-k:]
         del self.models[-k:]
         binned = [self._binned_tree(ht) for ht in dropped]
         self.scores = self.scores - self._iteration_output(dropped, binned,
-                                                           self.xb)
+                                                           xb)
         for cache in self._valid:
             cache["scores"] = cache["scores"] - self._iteration_output(
                 dropped, binned, cache["xb"])

@@ -17,7 +17,12 @@
 // where s'(n) = min(slot[n], S - 1) (the TPU kernel's clamp) and a negative
 // slot marks an inactive row that adds nothing. Every output cell is
 // written: a slot no row carries comes out zero. Bins b >= B are dropped.
-// Any S >= 1 works; n * F < 2^31.
+// Row n of X starts at byte n * ld, ld >= F: ld = F for the uint8 matrix,
+// ld = 4 W for packed bin words (tpu_bin_packing, core/binpack.py: int32
+// [n, W] words, four codes each in little-endian lanes, zero tail lanes),
+// which the TPU kernel unpacks in XLA first (histogram_pallas.py:464-465)
+// and this one reads in place, every packed row starting on a word. Any
+// S >= 1 works; n * ld < 2^31.
 //
 // Bound on this card: bytes. The function must read the n slot ids, the
 // F bin bytes and 12 value bytes of each active row (4 more bytes of sel a
@@ -215,7 +220,7 @@ __device__ __forceinline__ void add_piece(const uint8_t* __restrict__ x,
                                           const float* __restrict__ sel,
                                           const int* __restrict__ perm,
                                           float* hist, int seg0, int rows,
-                                          int num_features, int num_bins,
+                                          int ld, int num_bins,
                                           int f0, int fw, int words) {
   const unsigned long long base = reinterpret_cast<uintptr_t>(x);
   const unsigned items = (unsigned)rows * (unsigned)words;
@@ -241,7 +246,7 @@ __device__ __forceinline__ void add_piece(const uint8_t* __restrict__ x,
         both = true;
       }
     }
-    const unsigned long long b0 = base + row * num_features + f0;
+    const unsigned long long b0 = base + row * ld + f0;
     const unsigned long long wa = (b0 & ~3ull) + 4ull * w;
     if (wa >= b0 + fw) continue;              // the spare last word
     const unsigned word = __ldg(reinterpret_cast<const unsigned*>(wa));
@@ -304,7 +309,7 @@ slot_hist_kernel(const uint8_t* __restrict__ x,
                  const float* __restrict__ sel,
                  const int* __restrict__ perm,
                  const int* __restrict__ offsets, float* __restrict__ out,
-                 int num_features, int num_bins, int num_slots,
+                 int num_features, int ld, int num_bins, int num_slots,
                  int feature_tile, int replicas) {
   extern __shared__ float4 sh4[];
   float* sh = reinterpret_cast<float*>(sh4);
@@ -316,9 +321,10 @@ slot_hist_kernel(const uint8_t* __restrict__ x,
   const int fw = min(feature_tile, num_features - f0);
   const int cells = fw * num_bins * K;
   const int stride = replica_floats(feature_tile, num_bins, K);
-  // words a row: one more where rows do not all start on a word
+  // words a row: one more where rows do not all start on a word (packed
+  // rows always do: ld = 4 W)
   const bool aligned = (reinterpret_cast<uintptr_t>(x) + f0) % 4 == 0 &&
-                       num_features % 4 == 0;
+                       ld % 4 == 0;
   const int words = (fw + 3) / 4 + (aligned ? 0 : 1);
   float* mine = sh + (threadIdx.x / 32 % replicas) * stride;
 
@@ -339,7 +345,7 @@ slot_hist_kernel(const uint8_t* __restrict__ x,
       sh4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
     __syncthreads();
     add_piece<K, kSel>(x, vals, sel, perm, mine + lead, seg0, seg1 - seg0,
-                       num_features, num_bins, f0, fw, words);
+                       ld, num_bins, f0, fw, words);
     __syncthreads();
     flush_piece(sh, stride, replicas, lead, cells, out + dst);
     __syncthreads();
@@ -372,14 +378,14 @@ template <int K, bool kSel>
 cudaError_t launch_hist(dim3 grid, size_t smem, cudaStream_t s,
                         const uint8_t* x, const float* vals, const float* sel,
                         const int* perm, const int* offsets, float* out,
-                        int num_features, int num_bins, int num_slots,
-                        int feature_tile, int replicas) {
+                        int num_features, int ld, int num_bins,
+                        int num_slots, int feature_tile, int replicas) {
   const cudaError_t err = opt_in(
       reinterpret_cast<const void*>(slot_hist_kernel<K, kSel>), K == 6, smem);
   if (err != cudaSuccess) return err;
   slot_hist_kernel<K, kSel><<<grid, kHistThreads, smem, s>>>(
-      x, vals, sel, perm, offsets, out, num_features, num_bins, num_slots,
-      feature_tile, replicas);
+      x, vals, sel, perm, offsets, out, num_features, ld, num_bins,
+      num_slots, feature_tile, replicas);
   return cudaGetLastError();
 }
 
@@ -394,18 +400,20 @@ extern "C" {
 // rows_per_sort_block rows (covering n) for each of slot_windows windows
 // of 4,096 slots (covering S); hist runs hist_blocks blocks a feature tile
 // of feature_tile features, each with smem_bytes of dynamic shared memory:
-// replicas copies of replica_floats(feature_tile, B, k) floats. Needs
-// n * F < 2^31. Returns the first CUDA error, 0 on success.
+// replicas copies of replica_floats(feature_tile, B, k) floats. Row n of x
+// starts at byte n * ld (ld >= F; 4 W for packed words). Needs
+// n * ld < 2^31. Returns the first CUDA error, 0 on success.
 int lgbt_hist_slots_launch(const void* x, const void* slot, const void* vals,
                            const void* sel, void* ints, void* out, int n,
-                           int num_features, int num_bins, int num_slots,
+                           int num_features, int ld, int num_bins,
+                           int num_slots,
                            int k, int sort_blocks, int rows_per_sort_block,
                            int slot_windows, int hist_blocks,
                            int feature_tile, int replicas,
                            long long smem_bytes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 0 || num_features <= 0 || num_bins <= 0 || num_bins > 256 ||
-      num_slots <= 0 || (long long)n * num_features >= (1ll << 31) ||
+  if (n <= 0 || num_features <= 0 || ld < num_features || num_bins <= 0 ||
+      num_bins > 256 || num_slots <= 0 || (long long)n * ld >= (1ll << 31) ||
       sort_blocks <= 0 || rows_per_sort_block <= 0 ||
       (long long)sort_blocks * rows_per_sort_block < n || hist_blocks <= 0 ||
       feature_tile <= 0 || feature_tile > num_features || replicas <= 0 ||
@@ -448,11 +456,11 @@ int lgbt_hist_slots_launch(const void* x, const void* slot, const void* vals,
   const float* v = static_cast<const float*>(vals);
   err = k == 3
       ? launch_hist<3, false>(grid, (size_t)smem_bytes, s, xb, v, nullptr,
-                              perm, offsets, o, num_features, num_bins,
+                              perm, offsets, o, num_features, ld, num_bins,
                               num_slots, feature_tile, replicas)
       : launch_hist<6, true>(grid, (size_t)smem_bytes, s, xb, v,
                              static_cast<const float*>(sel), perm, offsets,
-                             o, num_features, num_bins, num_slots,
+                             o, num_features, ld, num_bins, num_slots,
                              feature_tile, replicas);
   return static_cast<int>(err);
 }

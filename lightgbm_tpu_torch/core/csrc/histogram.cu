@@ -8,6 +8,13 @@
 // Computes, for X [n, F] uint8 row-major and vals [n, K] f32 row-major:
 //     out[f, b, k] = sum_n [X[n, f] == b] * vals[n, k]      out [F, B, K] f32
 // Bins b >= B are dropped, as the TPU kernel drops bins past num_bins.
+// Row n of X starts at byte n * ld, ld >= F: ld = F for the uint8 matrix,
+// ld = 4 W for packed bin words (tpu_bin_packing; int32 [n, W] words of
+// four codes, little-endian lanes, core/binpack.py), whose bytes are the
+// codes in columns [0, F) and zero tail lanes after them. The TPU kernel
+// unpacks the words in XLA before it runs (histogram_pallas.py:139-143);
+// here the loads read the words in place, every row starting on a word,
+// and the tail lanes are skipped like any byte outside the feature tile.
 // Every function is templated on the value type: the float64 variant
 // (gpu_use_dp, exact growth) sums vals [n, K] f64 into out f64, where the
 // JAX package sums f64 histograms in XLA (core/histogram.py:51 scatter on
@@ -163,8 +170,10 @@ __device__ __forceinline__ void add_cell(T* hist, size_t cell,
   }
 }
 
-// Adds the elements e in [e0, e1) of the flat [n * F] bin array whose
-// feature lies in [f0, f0 + fw) into hist ([fw, B, K] cells). The range is
+// Adds the elements e in [e0, e1) of the flat [n * ld] bin array (row
+// stride ld bytes) whose column lies in [f0, f0 + fw) into hist ([fw, B, K]
+// cells); columns past the features (a packed row's tail lanes) lie
+// outside every tile and are skipped. The range is
 // cut into aligned 4-byte words; thread t of nt takes the words t, t + nt,
 // ..., loading the next one before it adds the current one (an aligned word
 // that holds a byte of the array lies in the array's allocation, and its
@@ -174,14 +183,14 @@ template <typename T, int K, bool SHARED>
 __device__ __forceinline__ void add_range(const uint8_t* __restrict__ x,
                                           const T* __restrict__ vals,
                                           T* hist, unsigned e0,
-                                          unsigned e1, int num_features,
+                                          unsigned e1, int ld,
                                           int f0, int fw, int num_bins,
                                           unsigned t, unsigned nt) {
   if (e0 >= e1) return;
   const unsigned long long base = reinterpret_cast<uintptr_t>(x);
   const unsigned long long first = (base + e0) & ~3ull;
   const unsigned words = (unsigned)((base + e1 - first + 3) >> 2);
-  const unsigned last_row = (e1 - 1) / num_features;
+  const unsigned last_row = (e1 - 1) / ld;
   const unsigned* w4 = reinterpret_cast<const unsigned*>(first);
   unsigned cur = t < words ? __ldg(w4 + t) : 0u;
   for (unsigned w = t; w < words; w += nt) {
@@ -189,11 +198,11 @@ __device__ __forceinline__ void add_range(const uint8_t* __restrict__ x,
     const long long e = (long long)(first + 4ull * w) - (long long)base;
     const int q0 = e < (long long)e0 ? (int)((long long)e0 - e) : 0;
     const unsigned e_first = (unsigned)(e + q0);
-    unsigned row = e_first / num_features;
-    int f = (int)(e_first - row * num_features);
+    unsigned row = e_first / ld;
+    int f = (int)(e_first - row * ld);
     RowVals<T, K> r, rn;
     load_row<T, K>(vals, row, r);
-    const bool crosses = f + (4 - q0) > num_features && row < last_row;
+    const bool crosses = f + (4 - q0) > ld && row < last_row;
     if (crosses) load_row<T, K>(vals, row + 1, rn);
     bool use_rn = crosses;
 #pragma unroll
@@ -204,14 +213,14 @@ __device__ __forceinline__ void add_range(const uint8_t* __restrict__ x,
       const int j = f - f0;
       if ((unsigned)j < (unsigned)fw && b < num_bins)
         add_cell<T, K, SHARED>(hist, ((size_t)j * num_bins + b) * K, r);
-      if (++f == num_features) {
+      if (++f == ld) {
         f = 0;
         ++row;
         if (use_rn) {
           r = rn;
           use_rn = false;
         } else if (q < 3 && e + q + 1 < (long long)e1) {
-          load_row<T, K>(vals, row, r);   // F < 4: a word spans 3+ rows
+          load_row<T, K>(vals, row, r);   // ld < 4: a word spans 3+ rows
         }
       }
     }
@@ -223,9 +232,9 @@ template <typename T, int K>
 __global__ void __launch_bounds__(kDirectThreads)
 hist_direct_kernel(const uint8_t* __restrict__ x,
                    const T* __restrict__ vals, T* __restrict__ out,
-                   int n, int num_features, int num_bins) {
-  add_range<T, K, false>(x, vals, out, 0, (unsigned)n * num_features,
-                         num_features, 0, num_features, num_bins,
+                   int n, int num_features, int ld, int num_bins) {
+  add_range<T, K, false>(x, vals, out, 0, (unsigned)n * ld, ld, 0,
+                         num_features, num_bins,
                          blockIdx.x * blockDim.x + threadIdx.x,
                          gridDim.x * blockDim.x);
 }
@@ -294,8 +303,8 @@ template <typename T, int K>
 __global__ void __launch_bounds__(kBlockThreads, 1)
 hist_block_kernel(const uint8_t* __restrict__ x,
                   const T* __restrict__ vals, T* __restrict__ out,
-                  int n, int num_features, int num_bins, int feature_tile,
-                  int rows_per_block, int replicas) {
+                  int n, int num_features, int ld, int num_bins,
+                  int feature_tile, int rows_per_block, int replicas) {
   extern __shared__ float4 sh4[];
   T* sh = reinterpret_cast<T*>(sh4);
   const int f0 = blockIdx.x * feature_tile;
@@ -307,9 +316,8 @@ hist_block_kernel(const uint8_t* __restrict__ x,
   const unsigned row0 = blockIdx.y * (unsigned)rows_per_block;
   const unsigned row1 = min((unsigned)n, row0 + rows_per_block);
   T* mine = sh + (threadIdx.x / 32 % replicas) * stride;
-  add_range<T, K, true>(x, vals, mine, row0 * num_features,
-                        row1 * num_features, num_features, f0, fw, num_bins,
-                        threadIdx.x, blockDim.x);
+  add_range<T, K, true>(x, vals, mine, row0 * ld, row1 * ld, ld, f0, fw,
+                        num_bins, threadIdx.x, blockDim.x);
   __syncthreads();
   flush<K>(sh, stride, replicas, out, f0, fw, num_bins);
 }
@@ -339,20 +347,20 @@ cudaError_t opt_in(const void* fn, int which, size_t smem) {
 
 template <typename T, int K>
 cudaError_t launch(int variant, const uint8_t* x, const T* v, T* out,
-                   int n, int num_features, int num_bins, int grid_x,
+                   int n, int num_features, int ld, int num_bins, int grid_x,
                    int grid_y, int feature_tile, int rows_per_block,
                    int replicas, size_t smem, cudaStream_t s) {
   if (variant == 0) {
     hist_direct_kernel<T, K><<<grid_x, kDirectThreads, 0, s>>>(
-        x, v, out, n, num_features, num_bins);
+        x, v, out, n, num_features, ld, num_bins);
   } else {
     const cudaError_t err = opt_in(
         reinterpret_cast<const void*>(hist_block_kernel<T, K>),
         (K == 6) + 2 * (sizeof(T) == 8), smem);
     if (err != cudaSuccess) return err;
     hist_block_kernel<T, K><<<dim3(grid_x, grid_y), kBlockThreads, smem, s>>>(
-        x, v, out, n, num_features, num_bins, feature_tile, rows_per_block,
-        replicas);
+        x, v, out, n, num_features, ld, num_bins, feature_tile,
+        rows_per_block, replicas);
   }
   return cudaGetLastError();
 }
@@ -367,19 +375,20 @@ extern "C" {
 // feature tiles, grid_y row slices) blocks of 1,024 threads and
 // smem_bytes of dynamic shared memory (replicas copies of a
 // [feature_tile, B, K] histogram of the dtype, each padded to 16 bytes).
-// Needs n * F < 2^31. Returns the first CUDA error (of the memset, the
-// opt-in or the launch), 0 on success.
+// Row n of x starts at byte n * ld (ld >= F; 4 W for packed words). Needs
+// n * ld < 2^31. Returns the first CUDA error (of the memset, the opt-in
+// or the launch), 0 on success.
 int lgbt_hist_launch(const void* x, const void* vals, void* out, int n,
-                     int num_features, int num_bins, int k, int dtype,
+                     int num_features, int ld, int num_bins, int k, int dtype,
                      int variant, int grid_x, int grid_y, int feature_tile,
                      int rows_per_block, int replicas, long long smem_bytes,
                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long elem = dtype == 1 ? 8 : 4;
-  if (n <= 0 || num_features <= 0 || num_bins <= 0 || num_bins > 256 ||
-      (k != 3 && k != 6) || (dtype != 0 && dtype != 1) || grid_x <= 0 ||
-      grid_y <= 0 || variant < 0 || variant > 1 ||
-      (long long)n * num_features >= (1ll << 31))
+  if (n <= 0 || num_features <= 0 || ld < num_features || num_bins <= 0 ||
+      num_bins > 256 || (k != 3 && k != 6) || (dtype != 0 && dtype != 1) ||
+      grid_x <= 0 || grid_y <= 0 || variant < 0 || variant > 1 ||
+      (long long)n * ld >= (1ll << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   if (variant == 1 &&
       (feature_tile <= 0 || rows_per_block <= 0 || replicas <= 0 ||
@@ -396,19 +405,19 @@ int lgbt_hist_launch(const void* x, const void* vals, void* out, int n,
   if (dtype == 0) {
     const float* v = static_cast<const float*>(vals);
     float* o = static_cast<float*>(out);
-    err = k == 3 ? launch<float, 3>(variant, xb, v, o, n, num_features,
+    err = k == 3 ? launch<float, 3>(variant, xb, v, o, n, num_features, ld,
                                     num_bins, grid_x, grid_y, feature_tile,
                                     rows_per_block, replicas, smem, s)
-                 : launch<float, 6>(variant, xb, v, o, n, num_features,
+                 : launch<float, 6>(variant, xb, v, o, n, num_features, ld,
                                     num_bins, grid_x, grid_y, feature_tile,
                                     rows_per_block, replicas, smem, s);
   } else {
     const double* v = static_cast<const double*>(vals);
     double* o = static_cast<double*>(out);
-    err = k == 3 ? launch<double, 3>(variant, xb, v, o, n, num_features,
+    err = k == 3 ? launch<double, 3>(variant, xb, v, o, n, num_features, ld,
                                      num_bins, grid_x, grid_y, feature_tile,
                                      rows_per_block, replicas, smem, s)
-                 : launch<double, 6>(variant, xb, v, o, n, num_features,
+                 : launch<double, 6>(variant, xb, v, o, n, num_features, ld,
                                      num_bins, grid_x, grid_y, feature_tile,
                                      rows_per_block, replicas, smem, s);
   }

@@ -107,6 +107,11 @@ class GrowParams(NamedTuple):
     cegb_split_penalty: float = 0.0
     with_cegb_coupled: bool = False
     with_cegb_lazy: bool = False
+    # tpu_bin_packing (core/binpack.py), frontier growth only: the stored
+    # matrix is int32 [N, W] packed words holding this many code columns
+    # (0: the uint8 [N, C] matrix); the histograms read the words in place
+    # and routing gathers one code a row from them
+    word_packed_cols: int = 0
 
 
 class ForcedSplits(NamedTuple):
@@ -401,18 +406,9 @@ def root_split(xb: torch.Tensor, vals: torch.Tensor, meta: FeatureMeta,
     device tree with leaf 0 set, the best-split table with the root's best
     split (CEGB-penalised where ``cegb`` is given), and the root histogram
     over the stored columns [C, B, 3]."""
-    l = params.num_leaves
-    sp = params.split
-    dev = xb.device
     root = vals.sum(dim=0)                                   # (g, h, count)
     hist_root = hist_tile_vals(xb, vals, params.num_bins, params.hist_impl,
-                               params.plain_sums)
-    tree = empty_tree(l, dev, vals.dtype)
-    tree.leaf_value[0] = calculate_leaf_output(root[0], root[1], sp.lambda_l1,
-                                               sp.lambda_l2, sp.max_delta_step)
-    tree.leaf_weight[0] = root[1]
-    tree.leaf_count[0] = root[2]
-    best = _empty_best(l, dev, vals.dtype)
+                               params.plain_sums, params.word_packed_cols)
     pen = None
     if cegb is not None:
         unpaid = None
@@ -420,13 +416,34 @@ def root_split(xb: torch.Tensor, vals: torch.Tensor, meta: FeatureMeta,
             unpaid = (vals[None, :, 2] * (1.0 - cegb.row_used.to(
                 vals.dtype))).sum(dim=1)[None]
         pen = cegb_gain_penalty(params, cegb, root[2:3], unpaid)
+    tree, best = root_from_hist(hist_root, root, meta, feature_mask, params,
+                                pen)
+    return tree, best, hist_root
+
+
+def root_from_hist(hist_root: torch.Tensor, root: torch.Tensor,
+                   meta: FeatureMeta, feature_mask: torch.Tensor,
+                   params: GrowParams, gain_penalty=None):
+    """The empty device tree with leaf 0 set and the best-split table with
+    the root's best split, from the root's histogram [C, B, 3] and its
+    (g, h, count) totals ``root`` [3] (a streamed tree sums its root
+    histogram over the chunks first, ``stream/grow_stream.py``)."""
+    l = params.num_leaves
+    sp = params.split
+    dev = hist_root.device
+    tree = empty_tree(l, dev, root.dtype)
+    tree.leaf_value[0] = calculate_leaf_output(root[0], root[1], sp.lambda_l1,
+                                               sp.lambda_l2, sp.max_delta_step)
+    tree.leaf_weight[0] = root[1]
+    tree.leaf_count[0] = root[2]
+    best = _empty_best(l, dev, root.dtype)
     b0 = find_best_split(
         expand_hist(hist_root[None], root[0:1], root[1:2], root[2:3], meta,
                     params),
         meta, sp, root[0:1], root[1:2], root[2:3], feature_mask,
-        gain_penalty=pen)
+        gain_penalty=gain_penalty)
     _set_best(best, slice(0, 1), b0)
-    return tree, best, hist_root
+    return tree, best
 
 
 def _bin_go_left(col: torch.Tensor, threshold, default_left, missing_type,

@@ -49,6 +49,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from .binpack import gather_code_columns
 from .grow import (DeviceTree, GrowParams, TreeArrays, _bin_go_left,
                    decode_bundle_value, expand_hist,
                    propagate_monotone_bounds, root_split, tree_to_host)
@@ -95,14 +96,16 @@ def wave_plan(best: BestSplit, num_leaves: int, k: int) -> WavePlan:
 
 def wave_route(xb: torch.Tensor, leaf_id: torch.Tensor, plan: WavePlan,
                meta: FeatureMeta, with_efb: bool = False,
-               with_cat: bool = False):
+               with_cat: bool = False, packed_cols: int = 0):
     """Route every row through its leaf's split. Returns (new leaf_id,
     active [N] bool: the row's leaf splits, rs [N] its split's rank,
-    go_left [N])."""
+    go_left [N]). Any slice of rows with their ``leaf_id`` (a streamed
+    chunk's); xb packed words with ``packed_cols``."""
     r_r = plan.rank_of_leaf.index_select(0, leaf_id)
     active = r_r >= 0
     rs = r_r.clamp(min=0)
-    go_left = _route_rows_gather(xb, rs, plan.cur, meta, with_efb, with_cat)
+    go_left = _route_rows_gather(xb, rs, plan.cur, meta, with_efb, with_cat,
+                                 packed_cols)
     new_leaf_id = torch.where(active & ~go_left,
                               plan.right_leaf.index_select(0, rs), leaf_id)
     return new_leaf_id, active, rs, go_left
@@ -110,17 +113,24 @@ def wave_route(xb: torch.Tensor, leaf_id: torch.Tensor, plan: WavePlan,
 
 def _route_rows_gather(xb: torch.Tensor, rs: torch.Tensor, cur: BestSplit,
                        meta: FeatureMeta, with_efb: bool = False,
-                       with_cat: bool = False) -> torch.Tensor:
+                       with_cat: bool = False,
+                       packed_cols: int = 0) -> torch.Tensor:
     """Per-row go-left decisions by per-row gathers of each row's split
     descriptor. xb [N, C] stored columns; rs [N] per-row split rank into
     ``cur`` (0 for rows in no splitting leaf, whose answer the caller
     masks). With ``with_efb`` the split feature's stored column is read
     and decoded into its own bin; with ``with_cat`` a categorical split
     reads its bitset word for each row's bin, one [N] gather from the
-    flat [K * 8] words (JAX ``core/grow_batched.py:170-212``)."""
+    flat [K * 8] words (JAX ``core/grow_batched.py:170-212``). With
+    ``packed_cols`` xb is int32 packed words and each row's code comes
+    straight from its word (``gather_code_columns``, JAX
+    ``core/grow_frontier.py:202-240``): nothing is unpacked."""
     fk = cur.feature.index_select(0, rs)                      # [N]
     stored_col = meta.col.index_select(0, fk) if with_efb else fk
-    colv = torch.gather(xb, 1, stored_col[:, None])[:, 0]
+    if packed_cols:
+        colv = gather_code_columns(xb, stored_col)
+    else:
+        colv = torch.gather(xb, 1, stored_col[:, None])[:, 0]
     num_bin_r = meta.num_bin.index_select(0, fk)
     default_bin_r = meta.default_bin.index_select(0, fk)
     if with_efb:

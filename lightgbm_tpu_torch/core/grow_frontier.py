@@ -1,8 +1,10 @@
 """Frontier-wave growth: O(depth) passes over the rows per tree.
 
 The port of ``lightgbm_tpu/core/grow_frontier.py`` (``tree_growth=frontier``)
-for one device, one class, the serial learner, without packed words,
-categorical features included. Each wave splits every frontier leaf whose
+for one device, one class, the serial learner, categorical features and
+packed bin words included (``tpu_bin_packing``: the stored matrix as int32
+words, ``core/binpack.py``, which both histogram kernels read in place and
+routing gathers one code a row from). Each wave splits every frontier leaf whose
 best split has positive gain, ranked by gain (rank ``i`` of a wave with
 ``nl`` leaves makes node ``nl - 1 + i`` and right leaf ``nl + i``, the
 numbering of ``core/grow_batched.py``), until the tree has ``num_leaves``
@@ -47,9 +49,11 @@ order (``boosting/gbdt.py``). The JAX package's class-batched
 docstring states that each class's structure equals its solo run, and
 sequential growth is that run.
 
-Not ported: ``wave_hist_entry`` and ``wave_fused_entry`` (the JAX cost
-model's pricing entries), the learners of a device mesh, streaming, and the
-health and model-statistics accumulators (``obs_modelstats`` raises).
+Streamed growth (``stream/grow_stream.py``) runs the same wave over chunks
+from ``frontier_state``. Not ported: ``wave_hist_entry`` and
+``wave_fused_entry`` (the JAX cost model's pricing entries), the learners of
+a device mesh, and the health and model-statistics accumulators
+(``obs_modelstats`` raises).
 """
 from __future__ import annotations
 
@@ -123,14 +127,22 @@ def root_state(xb: torch.Tensor, vals: torch.Tensor, meta: FeatureMeta,
                params: GrowParams) -> FrontierState:
     """The state before the first wave: the root split, and the pool
     holding the root's histogram."""
-    l = params.num_leaves
-    dev = xb.device
     tree, best, hist_root = root_split(xb, vals, meta, feature_mask, params)
+    return frontier_state(tree, best, hist_root, xb.shape[0], params)
+
+
+def frontier_state(tree: DeviceTree, best: BestSplit,
+                   hist_root: torch.Tensor, n: int,
+                   params: GrowParams) -> FrontierState:
+    """The state before the first wave from the root split: the pool
+    holding the root's histogram, every one of the ``n`` rows in leaf 0."""
+    l = params.num_leaves
+    dev = hist_root.device
     pool = torch.zeros((l,) + tuple(hist_root.shape), dtype=torch.float32,
                        device=dev)
     pool[0] = hist_root
     return FrontierState(
-        leaf_id=torch.zeros(xb.shape[0], dtype=torch.int64, device=dev),
+        leaf_id=torch.zeros(n, dtype=torch.int64, device=dev),
         hist_pool=pool, best=best, tree=tree,
         leaf_min=torch.full((l,), float("-inf"), device=dev),
         leaf_max=torch.full((l,), float("inf"), device=dev))
@@ -156,11 +168,11 @@ def grow_tree_frontier(xb: torch.Tensor, grad: torch.Tensor,
         plan = wave_plan(s.best, nl, k)
         leaf_id, active, rs, go_left = wave_route(
             xb, s.leaf_id, plan, meta, params.with_efb,
-            bool(params.split.cat_features))
+            bool(params.split.cat_features), params.word_packed_cols)
         left_small, slot = wave_slots(plan.cur, active, go_left, rs)
         hist_small = hist_slots(xb, slot, vals, params.num_bins, k,
-                                params.hist_impl,
-                                params.plain_sums)            # [k, C, B, 3]
+                                params.hist_impl, params.plain_sums,
+                                params.word_packed_cols)      # [k, C, B, 3]
         s = s._replace(leaf_id=leaf_id)
         wave_commit(s, plan, nl, left_small, hist_small, meta, params,
                     feature_mask)

@@ -29,6 +29,13 @@ tile instead (``hist_part_tiles``, from ``build_histogram_part_tiles``).
 A CUDA tensor never falls back to the plain version when the kernel fails:
 the kernel's error propagates.
 
+``packed_cols`` > 0 (``tpu_bin_packing``, ``core/binpack.py``): ``xb`` is
+int32 [N, W] packed words holding that many code columns. The kernels read
+the words in place (``build_histogram_words_cuda``,
+``build_histogram_slots_words_cuda``, counted apart from the uint8
+wrappers); the plain versions unpack them first, then sum as for the uint8
+matrix, so both give the histograms of the unpacked codes.
+
 ``sums`` sets how a plain version adds a cell's rows
 (``GrowParams.plain_sums``; internal, not a ``Config`` parameter; the
 kernels ignore it):
@@ -51,6 +58,7 @@ from __future__ import annotations
 import torch
 
 from . import kernels
+from .binpack import unpack_words
 
 HIST_IMPLS = ("auto", "plain")
 PLAIN_SUMS = ("running", "blocked", "f64")
@@ -118,11 +126,18 @@ def _use_kernel(impl: str, xb: torch.Tensor) -> bool:
 
 
 def hist_tile_vals(xb_rows: torch.Tensor, vals: torch.Tensor, num_bins: int,
-                   impl: str = "auto", sums: str = "running"
-                   ) -> torch.Tensor:
+                   impl: str = "auto", sums: str = "running",
+                   packed_cols: int = 0) -> torch.Tensor:
     """[rows, F] bins + pre-stacked [rows, K] values -> [F, B, K] (the
     fused two-child pass of ``core/partition.py`` gives K = 6), in the
-    values' dtype (float32, or float64 under ``gpu_use_dp``)."""
+    values' dtype (float32, or float64 under ``gpu_use_dp``). With
+    ``packed_cols`` the bins are packed words (float32 values)."""
+    if packed_cols:
+        if _use_kernel(impl, xb_rows):
+            return kernels.build_histogram_words_cuda(xb_rows, vals,
+                                                      num_bins, packed_cols)
+        return hist_plain(unpack_words(xb_rows, packed_cols), vals,
+                          num_bins, sums)
     if _use_kernel(impl, xb_rows):
         if vals.dtype == torch.float64:
             return kernels.build_histogram_f64_cuda(xb_rows, vals, num_bins)
@@ -156,10 +171,13 @@ def stack_vals(grad: torch.Tensor, hess: torch.Tensor,
 
 def build_histogram(xb: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                     mask: torch.Tensor, num_bins: int,
-                    impl: str = "auto") -> torch.Tensor:
+                    impl: str = "auto", packed_cols: int = 0
+                    ) -> torch.Tensor:
     """(grad, hess, count) histograms of every feature over all rows:
-    xb [N, F] uint8; grad, hess, mask [N] float32 -> [F, B, 3]."""
-    return hist_tile_vals(xb, stack_vals(grad, hess, mask), num_bins, impl)
+    xb [N, F] uint8 (or int32 [N, W] words of ``packed_cols`` = F code
+    columns); grad, hess, mask [N] float32 -> [F, B, 3]."""
+    return hist_tile_vals(xb, stack_vals(grad, hess, mask), num_bins, impl,
+                          packed_cols=packed_cols)
 
 
 # ---- per-slot histograms (the wave growers) ------------------------------
@@ -209,10 +227,17 @@ def hist_slots6_plain(xb: torch.Tensor, slot: torch.Tensor, sel: torch.Tensor,
 
 def hist_slots(xb: torch.Tensor, slot: torch.Tensor, vals: torch.Tensor,
                num_bins: int, num_slots: int, impl: str = "auto",
-               sums: str = "running") -> torch.Tensor:
+               sums: str = "running", packed_cols: int = 0) -> torch.Tensor:
     """[N, F] bins + [N] slot ids + stacked [N, 3] values -> [S, F, B, 3]:
     the slot kernel for a CUDA tensor under ``auto``, else the plain
-    version."""
+    version. With ``packed_cols`` the bins are packed words."""
+    if packed_cols:
+        if _use_kernel(impl, xb):
+            return kernels.build_histogram_slots_words_cuda(
+                xb, slot.to(torch.int32).contiguous(), vals, num_bins,
+                num_slots, packed_cols)
+        return hist_slots_plain(unpack_words(xb, packed_cols), slot, vals,
+                                num_bins, num_slots, sums)
     if _use_kernel(impl, xb):
         return kernels.build_histogram_slots_cuda(
             xb, slot.to(torch.int32).contiguous(), vals, num_bins, num_slots)
@@ -276,11 +301,11 @@ def hist_part_tiles(xb_fm: torch.Tensor, sel: torch.Tensor,
 def build_histogram_frontier(xb: torch.Tensor, slot: torch.Tensor,
                              grad: torch.Tensor, hess: torch.Tensor,
                              mask: torch.Tensor, num_bins: int,
-                             num_slots: int,
-                             impl: str = "auto") -> torch.Tensor:
+                             num_slots: int, impl: str = "auto",
+                             packed_cols: int = 0) -> torch.Tensor:
     """Histograms of every live frontier leaf in one pass over the rows
     (``lightgbm_tpu/core/histogram.py:189``): slot [N] in [0, num_slots)
     or -1; grad, hess, mask [N] float32 -> [num_slots, F, B, 3]
-    (sum_grad, sum_hess, count)."""
+    (sum_grad, sum_hess, count); xb packed words with ``packed_cols``."""
     return hist_slots(xb, slot, stack_vals(grad, hess, mask), num_bins,
-                      num_slots, impl)
+                      num_slots, impl, packed_cols=packed_cols)

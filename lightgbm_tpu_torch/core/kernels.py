@@ -49,7 +49,7 @@ def _hist_lib() -> ctypes.CDLL:
     if not getattr(lib, "_lgbt_bound", False):
         lib.lgbt_hist_launch.argtypes = [
             _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int,
-            _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
+            _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
             ctypes.c_longlong, _c_void_p]
         lib.lgbt_hist_launch.restype = _c_int
         lib.lgbt_error_string.argtypes = [_c_int]
@@ -87,7 +87,7 @@ def _pad16(nbytes: int) -> int:
 @functools.lru_cache(maxsize=4096)
 def hist_launch_plan(n: int, num_features: int, num_bins: int, k: int,
                      sm_count: int, variant: Optional[str] = None,
-                     elem_bytes: int = 4) -> HistPlan:
+                     elem_bytes: int = 4, ld: int = 0) -> HistPlan:
     """The plan of one ``histogram.cu`` call over n >= 1 rows.
 
     ``direct`` runs at n <= HIST_DIRECT_MAX_ROWS (about half of exact
@@ -111,11 +111,14 @@ def hist_launch_plan(n: int, num_features: int, num_bins: int, k: int,
 
     ``elem_bytes`` 8 plans the float64 variant (``gpu_use_dp``): the same
     grids, with a shared replica twice as large, so at F=28, B=255 one
-    replica fits at K=3 (171 KB) and K=6 takes two feature tiles of 14."""
+    replica fits at K=3 (171 KB) and K=6 takes two feature tiles of 14.
+
+    ``ld`` is the row stride in bytes where it is not F (packed words:
+    4 W); the direct grid covers its n * ld bytes."""
     if variant is None:
         variant = "direct" if n <= HIST_DIRECT_MAX_ROWS else "block"
     if variant == "direct":
-        words = -(-n * num_features // 4) + 1     # +1: a misaligned start
+        words = -(-n * (ld or num_features) // 4) + 1   # +1: misaligned
         return HistPlan("direct", HIST_DIRECT_THREADS,
                         -(-words // HIST_DIRECT_THREADS), 1, num_features,
                         n, 1, 0)
@@ -139,6 +142,24 @@ def hist_launch_plan(n: int, num_features: int, num_bins: int, k: int,
 _SM_COUNT: Dict[int, int] = {}
 
 
+def _code_bytes(xb: torch.Tensor, packed_cols: int) -> Tuple[torch.Tensor,
+                                                              int]:
+    """(the uint8 [n, ld] bytes a kernel reads, the code columns F): the
+    uint8 matrix itself (ld = F), or with ``packed_cols`` > 0 the bytes of
+    int32 [n, W] packed words (ld = 4 W >= F), read in place."""
+    if packed_cols:
+        if xb.dtype != torch.int32 or xb.dim() != 2 \
+                or not 0 < packed_cols <= 4 * xb.shape[1]:
+            raise ValueError("packed words must be int32 [n, W] holding %d "
+                             "columns, got %s %s" % (packed_cols, xb.dtype,
+                                                     tuple(xb.shape)))
+        return xb.view(torch.uint8), int(packed_cols)
+    if xb.dtype != torch.uint8 or xb.dim() != 2:
+        raise ValueError("xb must be a 2-D uint8 tensor, got %s %s"
+                         % (xb.dtype, tuple(xb.shape)))
+    return xb, xb.shape[1]
+
+
 def _sm_count(dev: torch.device) -> int:
     """The SM count of a CUDA device, read once per device."""
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
@@ -151,18 +172,18 @@ def _sm_count(dev: torch.device) -> int:
 
 def _launch_histogram(name: str, xb: torch.Tensor, vals: torch.Tensor,
                       num_bins: int, variant: Optional[str],
-                      dtype: torch.dtype = torch.float32
-                      ) -> Tuple[torch.Tensor, bool]:
+                      dtype: torch.dtype = torch.float32,
+                      packed_cols: int = 0) -> Tuple[torch.Tensor, bool]:
     """Check, allocate and launch histogram.cu for ``name``'s wrapper,
     which takes values of ``dtype``: returns (out, whether the kernel was
-    launched)."""
+    launched). ``packed_cols`` > 0: xb is int32 [n, W] packed words holding
+    that many code columns, launched as their uint8 [n, 4 W] bytes at a
+    row stride of 4 W."""
     dev = xb.device
     if dev.type != "cuda" or vals.device != dev:
         raise ValueError("%s takes CUDA tensors on one device, got %s and "
                          "%s" % (name, dev, vals.device))
-    if xb.dtype != torch.uint8 or xb.dim() != 2:
-        raise ValueError("xb must be a 2-D uint8 tensor, got %s %s"
-                         % (xb.dtype, tuple(xb.shape)))
+    xb, f = _code_bytes(xb, packed_cols)
     if vals.dtype != dtype or vals.dim() != 2 \
             or vals.shape[0] != xb.shape[0] or vals.shape[1] not in (3, 6):
         raise ValueError("%s takes vals %s [n, 3] or [n, 6] with n = %d, "
@@ -172,18 +193,19 @@ def _launch_histogram(name: str, xb: torch.Tensor, vals: torch.Tensor,
         raise ValueError("xb and vals must be contiguous")
     if not 1 <= num_bins <= 256:
         raise ValueError("num_bins must be in [1, 256], got %d" % num_bins)
-    n, f = xb.shape
+    n, ld = xb.shape
     k = vals.shape[1]
     if f == 0 or n == 0:
         return torch.zeros((f, num_bins, k), dtype=dtype, device=dev), False
-    if n * f >= 2 ** 31:
-        raise ValueError("%s takes fewer than 2^31 bins (n * F)" % name)
+    if n * ld >= 2 ** 31:
+        raise ValueError("%s takes fewer than 2^31 bin bytes (n * row "
+                         "stride)" % name)
     plan = hist_launch_plan(n, f, num_bins, k, _sm_count(dev), variant,
-                            vals.element_size())
+                            vals.element_size(), ld)
     lib = _hist_lib()
     out = torch.empty((f, num_bins, k), dtype=dtype, device=dev)
     rc = lib.lgbt_hist_launch(
-        xb.data_ptr(), vals.data_ptr(), out.data_ptr(), n, f, num_bins, k,
+        xb.data_ptr(), vals.data_ptr(), out.data_ptr(), n, f, ld, num_bins, k,
         HIST_DTYPES.index(dtype),
         HIST_VARIANTS.index(plan.variant), plan.grid_x, plan.grid_y,
         plan.feature_tile, plan.rows_per_block, plan.replicas,
@@ -215,6 +237,27 @@ def build_histogram_cuda(xb: torch.Tensor, vals: torch.Tensor,
 
 
 build_histogram_cuda.launches = 0
+
+
+def build_histogram_words_cuda(xw: torch.Tensor, vals: torch.Tensor,
+                               num_bins: int, packed_cols: int,
+                               variant: Optional[str] = None
+                               ) -> torch.Tensor:
+    """``build_histogram_cuda`` over packed bin words (``tpu_bin_packing``,
+    ``core/binpack.py``): xw int32 [n, W] contiguous, ``packed_cols`` = F
+    <= 4 W code columns in little-endian lanes. histogram.cu reads the
+    words' bytes in place at a row stride of 4 W and skips the tail lanes;
+    nothing is unpacked. Returns [F, B, K] f32, its launches counted in
+    ``build_histogram_words_cuda.launches`` (the root of a frontier tree on
+    packed words, in memory or once a streamed chunk)."""
+    out, launched = _launch_histogram("build_histogram_words_cuda", xw,
+                                      vals, num_bins, variant,
+                                      packed_cols=packed_cols)
+    build_histogram_words_cuda.launches += launched
+    return out
+
+
+build_histogram_words_cuda.launches = 0
 
 
 def build_histogram_leaf_cuda(xb: torch.Tensor, vals: torch.Tensor,
@@ -267,11 +310,11 @@ build_histogram_leaf_f64_cuda.launches = 0
 
 
 def hist_bytes(n: int, num_features: int, num_bins: int, k: int,
-               elem_bytes: int = 4) -> int:
+               elem_bytes: int = 4, ld: int = 0) -> int:
     """Bytes the histogram function must move: each input read once
-    (n*F bin bytes, elem_bytes*n*K value bytes), the output written
-    once."""
-    return (n * num_features + elem_bytes * n * k
+    (n*F bin bytes, or n*ld for packed words of ld bytes a row;
+    elem_bytes*n*K value bytes), the output written once."""
+    return (n * (ld or num_features) + elem_bytes * n * k
             + elem_bytes * num_features * num_bins * k)
 
 
@@ -281,7 +324,7 @@ def _slots_lib() -> ctypes.CDLL:
         lib.lgbt_hist_slots_launch.argtypes = [
             _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
             _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
-            _c_int, _c_int, _c_int, ctypes.c_longlong, _c_void_p]
+            _c_int, _c_int, _c_int, _c_int, ctypes.c_longlong, _c_void_p]
         lib.lgbt_hist_slots_launch.restype = _c_int
         lib.lgbt_slots_error_string.argtypes = [_c_int]
         lib.lgbt_slots_error_string.restype = ctypes.c_char_p
@@ -341,14 +384,15 @@ def slot_hist_launch_plan(n: int, num_features: int, num_bins: int, k: int,
 
 def _check_slot_inputs(name: str, xb: torch.Tensor, slot: torch.Tensor,
                        vals: torch.Tensor, num_bins: int,
-                       n_slots: int) -> None:
+                       n_slots: int, packed_cols: int = 0
+                       ) -> Tuple[torch.Tensor, int]:
+    """Raise on what hist_slots.cu does not take; returns the uint8 [n, ld]
+    bytes it reads and the code columns F (``_code_bytes``)."""
     dev = xb.device
     if dev.type != "cuda" or slot.device != dev or vals.device != dev:
         raise ValueError("%s takes CUDA tensors on one device, got %s, %s "
                          "and %s" % (name, dev, slot.device, vals.device))
-    if xb.dtype != torch.uint8 or xb.dim() != 2:
-        raise ValueError("xb must be a 2-D uint8 tensor, got %s %s"
-                         % (xb.dtype, tuple(xb.shape)))
+    xb, f = _code_bytes(xb, packed_cols)
     n = xb.shape[0]
     if slot.dtype != torch.int32 or tuple(slot.shape) != (n,):
         raise ValueError("slot must be int32 [%d], got %s %s"
@@ -365,14 +409,16 @@ def _check_slot_inputs(name: str, xb: torch.Tensor, slot: torch.Tensor,
         raise ValueError("n_slots must be >= 1, got %d" % n_slots)
     if n + 3 * n_slots + 1 >= 2 ** 31 or n * xb.shape[1] >= 2 ** 31:
         raise ValueError("%s takes fewer than 2^31 rows and slots, and "
-                         "fewer than 2^31 bins (n * F)" % name)
+                         "fewer than 2^31 bin bytes (n * row stride)" % name)
+    return xb, f
 
 
-def _launch_slots(wrapper, xb, slot, vals, sel, num_bins: int, n_slots: int,
-                  k: int) -> torch.Tensor:
+def _launch_slots(wrapper, xb, f: int, slot, vals, sel, num_bins: int,
+                  n_slots: int, k: int) -> torch.Tensor:
     """Launch hist_slots.cu's pass (two memsets, then count, scan,
-    scatter and hist) and count the launch on ``wrapper``."""
-    n, f = xb.shape
+    scatter and hist) over the uint8 [n, ld] bytes ``xb`` of F code
+    columns, and count the launch on ``wrapper``."""
+    n, ld = xb.shape
     out_shape = (n_slots, f, num_bins, k)
     if f == 0 or n == 0:
         return torch.zeros(out_shape, dtype=torch.float32, device=xb.device)
@@ -386,7 +432,7 @@ def _launch_slots(wrapper, xb, slot, vals, sel, num_bins: int, n_slots: int,
     rc = lib.lgbt_hist_slots_launch(
         xb.data_ptr(), slot.data_ptr(), vals.data_ptr(),
         sel.data_ptr() if sel is not None else None, ints.data_ptr(),
-        out.data_ptr(), n, f, num_bins, n_slots, k, plan.sort_blocks,
+        out.data_ptr(), n, f, ld, num_bins, n_slots, k, plan.sort_blocks,
         plan.rows_per_sort_block, plan.slot_windows, plan.hist_blocks,
         plan.feature_tile, plan.replicas, plan.smem_bytes,
         current_stream(xb.device))
@@ -412,13 +458,33 @@ def build_histogram_slots_cuda(xb: torch.Tensor, slot: torch.Tensor,
     additions varies from run to run (atomics); a channel of 0/1 values
     is exact.
     """
-    _check_slot_inputs("build_histogram_slots_cuda", xb, slot, vals,
-                       num_bins, n_slots)
-    return _launch_slots(build_histogram_slots_cuda, xb, slot, vals, None,
+    xb, f = _check_slot_inputs("build_histogram_slots_cuda", xb, slot, vals,
+                               num_bins, n_slots)
+    return _launch_slots(build_histogram_slots_cuda, xb, f, slot, vals, None,
                          num_bins, n_slots, 3)
 
 
 build_histogram_slots_cuda.launches = 0
+
+
+def build_histogram_slots_words_cuda(xw: torch.Tensor, slot: torch.Tensor,
+                                     vals: torch.Tensor, num_bins: int,
+                                     n_slots: int,
+                                     packed_cols: int) -> torch.Tensor:
+    """``build_histogram_slots_cuda`` over packed bin words: xw int32
+    [n, W] contiguous holding ``packed_cols`` = F <= 4 W code columns
+    (``core/binpack.py``), read in place at a row stride of 4 W, every
+    row starting on a word; the tail lanes add nothing. Returns
+    [S, F, B, 3] f32, its launches counted in
+    ``build_histogram_slots_words_cuda.launches`` (a frontier wave on
+    packed words, in memory or once a streamed chunk)."""
+    xb, f = _check_slot_inputs("build_histogram_slots_words_cuda", xw, slot,
+                               vals, num_bins, n_slots, packed_cols)
+    return _launch_slots(build_histogram_slots_words_cuda, xb, f, slot, vals,
+                         None, num_bins, n_slots, 3)
+
+
+build_histogram_slots_words_cuda.launches = 0
 
 
 def build_histogram_slots6_cuda(xb: torch.Tensor, slot: torch.Tensor,
@@ -430,28 +496,28 @@ def build_histogram_slots6_cuda(xb: torch.Tensor, slot: torch.Tensor,
 
     sel [n] float32 contiguous on the same device. Returns [S, F, B, 6] f32.
     """
-    _check_slot_inputs("build_histogram_slots6_cuda", xb, slot, vals3,
-                       num_bins, n_slots)
+    xb, f = _check_slot_inputs("build_histogram_slots6_cuda", xb, slot,
+                               vals3, num_bins, n_slots)
     if sel.device != xb.device or sel.dtype != torch.float32 \
             or tuple(sel.shape) != (xb.shape[0],) or not sel.is_contiguous():
         raise ValueError("sel must be contiguous float32 [%d] on %s, got %s "
                          "%s on %s" % (xb.shape[0], xb.device, sel.dtype,
                                        tuple(sel.shape), sel.device))
-    return _launch_slots(build_histogram_slots6_cuda, xb, slot, vals3, sel,
-                         num_bins, n_slots, 6)
+    return _launch_slots(build_histogram_slots6_cuda, xb, f, slot, vals3,
+                         sel, num_bins, n_slots, 6)
 
 
 build_histogram_slots6_cuda.launches = 0
 
 
 def slot_hist_bytes(n: int, n_active: int, num_features: int, num_bins: int,
-                    k: int, n_slots: int) -> int:
+                    k: int, n_slots: int, ld: int = 0) -> int:
     """Bytes a slot histogram must move: every row's slot id, the bin
-    bytes and three value floats of each active row (and its sel float
-    when K = 6: an inactive row's selector is never needed), the output
-    written once."""
+    bytes (ld a row for packed words) and three value floats of each
+    active row (and its sel float when K = 6: an inactive row's selector
+    is never needed), the output written once."""
     sel = 4 * n_active if k == 6 else 0
-    return (4 * n + n_active * (num_features + 12) + sel
+    return (4 * n + n_active * ((ld or num_features) + 12) + sel
             + 4 * n_slots * num_features * num_bins * k)
 
 

@@ -13,8 +13,8 @@ Dense4bitsBin idea) share a joint-coded column where that does not widen
 the histogram. ``col_features`` / ``col_offsets`` / ``col_num_bin`` /
 ``col_packed`` record the layout (feature_group.h:35-50 bin_offsets_
 analog) and ``feature_layout`` gives the per-feature view the growers
-decode with. ``tpu_bin_packing=nibble`` (dataset-wide pairing) is outside
-the slice. Categorical features (``categorical_feature``) are binned by
+decode with. ``tpu_bin_packing=nibble`` pairs them dataset-wide (a joint
+code up to 256 bins). Categorical features (``categorical_feature``) are binned by
 category; they never join a small-feature pair, and join an EFB bundle by
 the JAX package's rule, as any feature sparse enough does.
 
@@ -36,7 +36,8 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 
 from ..config import Config
-from ..log import Log, LightGBMError, check, outside_slice
+from ..log import Log, LightGBMError, check
+from ..core.binpack import resolve_bin_packing
 from .binning import BinMapper, BinType
 from .bundle import bundle_offsets, find_bundles
 
@@ -303,15 +304,17 @@ class BinnedDataset:
         # (a mesh shards the feature axis assuming an identity layout)
         if config.enable_nbit_packing and \
                 config.tree_learner == "serial" and not config.mesh_shape:
-            if config.tpu_bin_packing == "nibble":
-                raise outside_slice(
-                    "tpu_bin_packing=nibble (small-feature pairs coded "
-                    "dataset-wide, widening the histogram)",
-                    "ROADMAP Queue 1 #9")
-            # auto and none resolve to plain uint8 columns off a TPU, as
-            # does byte (core/binpack.py:97-117 of the JAX package): the
-            # conservative cap, B never grows past the widest column
-            self._pack_small_pairs()
+            # nibble raises the joint code's cap to the full byte (256),
+            # so every pair of <=16-bin features shares a column whatever
+            # the histogram's width: the stored columns halve, B may grow
+            # to 256. auto (none in memory off a TPU, byte streamed),
+            # none and byte keep the conservative cap, B never growing
+            # past the widest column; byte changes the device layout alone
+            # (int32 words, core/binpack.py), not the columns
+            mode = resolve_bin_packing(config.tpu_bin_packing,
+                                       streamed=False, tpu_shaped=False,
+                                       col_num_bin=self.col_num_bin)
+            self._pack_small_pairs(pair_cap=256 if mode == "nibble" else 0)
 
         self._bin_columns(raw)
         self._set_metadata(n, label, weight, init_score, group)
@@ -493,15 +496,17 @@ class BinnedDataset:
     def has_packed(self) -> bool:
         return any(self.col_packed)
 
-    def _pack_small_pairs(self) -> None:
+    def _pack_small_pairs(self, pair_cap: int = 0) -> None:
         """Joint-code pairs of small singleton numerical features into one
         stored column (value = bin_a * num_bin_b + bin_b), the
         Dense4bitsBin idea (dense_nbits_bin.hpp:38-82) re-shaped for the
         [N, C] uint8 matrix: two features share a column whose joint
-        histogram is marginalised per feature at split-search time. A pair
-        forms only when it fits the dataset's existing histogram width, so
-        B never grows (the JAX package's ``pair_cap`` 0)."""
-        b_max = max(self.col_num_bin, default=0)
+        histogram is marginalised per feature at split-search time. With
+        ``pair_cap`` 0 a pair forms only when it fits the dataset's
+        existing histogram width, so B never grows; ``nibble`` passes 256
+        (the uint8 code space), pairing dataset-wide at the price of a
+        wider B (JAX ``io/dataset.py:603-646``)."""
+        b_max = int(pair_cap) or max(self.col_num_bin, default=0)
         cand = [ci for ci in range(len(self.col_features))
                 if len(self.col_features[ci]) == 1
                 and not self.col_packed[ci]

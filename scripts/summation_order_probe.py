@@ -16,7 +16,11 @@ CEGB_PARAMS, the options of phase 5's constraint rows
 (``chip_smoke.constraint_compare_runs``). ``--plant-fault N`` plants a
 fault in the float32 run: its histograms drop every N-th row of the rows
 they sum (zero gradient, hessian and count), to show what phase 5's rule
-makes of a kernel that sums wrong. Prints, per tree, the first node
+makes of a kernel that sums wrong. ``--seed`` draws other data,
+``--f32-sums blocked`` sums the float32 run in cell runs as phase 5's f32
+plain path does. Prints, per tree, every substituted split (tree, node,
+wave, leaf, rows, feature, bin, gain: ``chip_smoke.substituted_splits``),
+the first node
 where the two trees part by position, how far apart the gains of the
 splits before it (relative to their own and to the root's) and of that
 node are, where they part at a tie matched
@@ -33,7 +37,7 @@ both forests' train AUC and whether phase 5's tie rule
     python scripts/summation_order_probe.py [--growth MODE] [--rows N] \
         [--iters K] [--threads T] [--data categorical|dense|bundled] \
         [--sampled bagged|GOSS] [--constraint monotone|forced_cegb] \
-        [--plant-fault N]
+        [--plant-fault N] [--seed S] [--f32-sums running|blocked]
 
 This is what chip_smoke.py's phase 5 rules for categorical data and for
 sampled rows rest on: the kernel path and the plain path are two
@@ -71,6 +75,12 @@ def main() -> int:
     ap.add_argument("--constraint", choices=("monotone", "forced_cegb"))
     ap.add_argument("--plant-fault", type=int, default=0, metavar="N",
                     help="the float32 run's histograms drop every N-th row")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="the data's seed (chip_smoke.py's is 0)")
+    ap.add_argument("--f32-sums", choices=("running", "blocked"),
+                    default="running",
+                    help="how the float32 run's histograms add a cell's "
+                         "rows (core/histogram.py PLAIN_SUMS)")
     args = ap.parse_args()
     torch.set_num_threads(args.threads)
     params = dict(chip_smoke.PARAMS, **chip_smoke.GROWTH_PARAMS[args.growth],
@@ -83,10 +93,10 @@ def main() -> int:
             params.update(chip_smoke.constraint_params(kind, tmp.name))
     if args.data in ("dense", "bundled"):
         x, y = (chip_smoke.bench_data if args.data == "dense"
-                else chip_smoke.bundled_data)(args.rows)
+                else chip_smoke.bundled_data)(args.rows, seed=args.seed)
         ds = lgb.Dataset(x, label=y, params=params, device="cpu")
     else:
-        x, y = chip_smoke.categorical_data(args.rows)
+        x, y = chip_smoke.categorical_data(args.rows, seed=args.seed)
         ds = lgb.Dataset(x, label=y, params=params, device="cpu",
                          categorical_feature=chip_smoke.CATEGORICAL_FEATURES)
     ds.construct()
@@ -103,7 +113,7 @@ def main() -> int:
         bst = lgb.Booster(params=params, train_set=ds, device="cpu")
         # the plain histograms' accumulation (GrowParams.plain_sums)
         bst._impl.grow_params = bst._impl.grow_params._replace(
-            plain_sums="f64" if label == "float64" else "running")
+            plain_sums="f64" if label == "float64" else args.f32_sums)
         for _ in range(args.iters):
             bst.update()
         forests[label] = bst
@@ -112,6 +122,7 @@ def main() -> int:
     rows = torch.as_tensor(x, dtype=torch.float64)
     limits = chip_smoke.tie_limits(params, args.data == "categorical")
     out = {"growth": args.growth, "rows": args.rows, "data": args.data,
+           "seed": args.seed, "f32_sums": args.f32_sums,
            "sampled": args.sampled, "constraint": args.constraint,
            "trees": []}
     for i, (ta, tb) in enumerate(zip(a, b)):
@@ -150,6 +161,12 @@ def main() -> int:
         null = rel_root <= chip_smoke.CLAMP_PARTING.root_rel
         row["null_splits"] = [int(null.sum()), float(rel_root[null].max(
             initial=0.0)), float(rel_root[~null].min(initial=np.inf))]
+        row["substituted_splits"] = chip_smoke.substituted_splits(ta, tb,
+                                                                  rows)
+        for sub in row["substituted_splits"]:
+            print("  substituted split of the %(tree)s tree: node %(node)d, "
+                  "wave %(wave)d, leaf %(leaf)d, %(rows)d rows, feature "
+                  "%(feature)d, bin %(bin)d, gain %(gain).6g" % sub)
         out["trees"].append(row)
         print("tree %d: parts by position at node %s, at a tie matched by "
               "rows %s; the nodes before it split alike with gains up to "

@@ -15,7 +15,9 @@ blocks in EFB bundles), the prediction extras' leaf ids on the card
 against the CPU's, and the vectorized TreeSHAP on the card against the
 plain recursion; and the Python surface on its CUDA default: an
 estimator's ``fit``, ``cv``'s boosters and a command-line ``task=train``
-with no ``device_type``, each launching the histogram kernel.
+with no ``device_type``, each launching the histogram kernel; and
+out-of-core streaming, its chunks in pinned memory copied ahead of their
+use, through the word variants of both histogram kernels.
 
 These tests need a CUDA device and ``nvcc``: a hand-written CUDA kernel has
 no CPU or interpret mode, so they are marked ``cuda`` and skip without one.
@@ -1398,3 +1400,44 @@ def test_serving_on_the_card_is_predict_with_no_capture_after_warmup(
     np.testing.assert_array_equal(
         cascade.predict("m", x[:1000], raw_score=True),
         np.where(sure.reshape(-1, *([1] * (first.ndim - 1))), first, full))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packing", ["auto", "none"])
+def test_streamed_frontier_on_the_card(cuda_device, tmp_path, packing):
+    """Out-of-core streaming (``data_stream_chunk_rows``) on the card: the
+    chunks copied from pinned memory on a side stream, ahead of their use,
+    through the word variants of both histogram kernels under streamed
+    ``auto`` (byte) and the uint8 ones under ``none``; the trees those of
+    the in-memory frontier run, raw predictions within 1e-4, and
+    ``predict`` the training scores within 1e-5."""
+    r = np.random.RandomState(7)
+    x = r.randn(60_000, 12)
+    y = (x[:, 0] + x[:, 1] * x[:, 2] + 0.3 * r.randn(60_000) > 0).astype(
+        float)
+    path = str(tmp_path / "x.npy")
+    np.save(path, x)
+    params = {"objective": "binary", "tree_growth": "frontier",
+              "num_leaves": 31, "min_data_in_leaf": 40, "verbosity": -1}
+    memory = tlgb.train(params, tlgb.Dataset(x, label=y), num_boost_round=3)
+    words = (kernels.build_histogram_words_cuda,
+             kernels.build_histogram_slots_words_cuda)
+    before = [w.launches for w in words]
+    sp = dict(params, data_stream_chunk_rows=16_384, tpu_bin_packing=packing)
+    bst = tlgb.train(sp, tlgb.Dataset(path, label=y, params=sp),
+                     num_boost_round=3)
+    launched = [w.launches - b for w, b in zip(words, before)]
+    assert (min(launched) > 0) == (packing == "auto")
+    pipe = bst._impl._stream
+    assert pipe.num_chunks == 4 and pipe.host_chunks[0].is_pinned()
+    st = pipe.stats()
+    assert st["sweeps"] > 3 and 0.0 <= st["overlap_efficiency"] <= 1.0
+    assert st["total_s"] > 0 and st["ingest_rows_per_sec"] > 0
+    np.testing.assert_allclose(bst.predict(x, raw_score=True),
+                               bst._impl.scores_of(0), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(bst.predict(x, raw_score=True),
+                               memory.predict(x, raw_score=True), rtol=0,
+                               atol=1e-4)
+    for ta, tb in zip(memory.models, bst.models):
+        assert ta.num_leaves_actual == tb.num_leaves_actual
+        np.testing.assert_array_equal(ta.split_feature, tb.split_feature)

@@ -69,6 +69,16 @@ def test_the_scan_covers_the_serving_layers():
         assert os.path.join("lightgbm_tpu_torch", module) in scanned
 
 
+def test_the_scan_covers_the_stream_package_and_the_words():
+    """Streaming (#11) and packed words (#9) keep their own copies of what
+    they need from the JAX package's stream/ and core/binpack.py."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for module in ("stream/__init__.py", "stream/source.py",
+                   "stream/sampler.py", "stream/pipeline.py",
+                   "stream/grow_stream.py", "core/binpack.py"):
+        assert os.path.join("lightgbm_tpu_torch", module) in scanned
+
+
 def test_importing_the_port_leaves_jax_out():
     mods = ["lightgbm_tpu_torch"] + [
         "lightgbm_tpu_torch." + os.path.relpath(p, PORT)[:-3]
@@ -108,10 +118,11 @@ def _data(n=400):
 OUTSIDE_SLICE = {
     # f64 histograms are in the slice; on a device mesh they are not
     "gpu_use_dp": ({"gpu_use_dp": True, "tree_learner": "data"}, None),
-    # frontier, batched and partitioned batched growth are in the slice;
-    # packed bin words and model statistics on the partitioned step are not
+    # frontier, batched and partitioned batched growth are in the slice, as
+    # are packed bin words; model statistics on either wave grower are not
     "tree_growth_frontier": ({"tree_growth": "frontier",
-                              "tpu_bin_packing": "byte"}, None),
+                              "tpu_bin_packing": "byte",
+                              "obs_modelstats": True}, None),
     "tree_growth_batched": ({"tree_growth": "batched",
                              "tpu_batched_part": "true",
                              "obs_modelstats": True}, None),
@@ -123,13 +134,16 @@ OUTSIDE_SLICE = {
 # refusals raised while the data are binned or the options checked, each
 # citing the ROADMAP Queue 1 item that brings what it refuses
 REFUSALS = {
-    "packed_words": ({"tree_growth": "frontier", "tpu_bin_packing": "byte"},
-                     "#9"),
-    # dataset-wide pairing (the JAX package's nibble cap) stays refused
-    "nibble_pairs": ({"tpu_bin_packing": "nibble"}, "#9"),
+    # packed words, dataset-wide pairing and streaming train on one device
+    # (#9, #11); on a device mesh they refuse with it
+    "packed_words": ({"tree_growth": "frontier", "tpu_bin_packing": "byte",
+                      "tree_learner": "data"}, "#13"),
+    "nibble_pairs": ({"tpu_bin_packing": "nibble", "tree_learner": "data"},
+                     "#13"),
     "checkpoint_callback": ({}, "#12"),
     "data_stream_chunk_rows": ({"data_stream_chunk_rows": 100,
-                                "tree_growth": "frontier"}, "#11"),
+                                "tree_growth": "frontier",
+                                "tree_learner": "data"}, "#13"),
     # methods of the JAX package's Booster the port lacks, and the command
     # line's task that needs one of them
     "booster_refit": ({}, "#15"),

@@ -161,8 +161,8 @@ def test_frontier_split_set_is_exact_growths_without_a_cap():
 
 @pytest.mark.parametrize("option,growth", [
     ({"tpu_batched_part": "true", "tree_learner": "data"}, "batched"),
-    ({"tpu_bin_packing": "byte"}, "frontier"),
-    ({"tpu_bin_packing": "nibble"}, "frontier"),
+    ({"tpu_bin_packing": "byte", "tree_learner": "data"}, "frontier"),
+    ({"tpu_bin_packing": "nibble", "tree_learner": "data"}, "frontier"),
     ({"obs_modelstats": True}, "frontier"),
     ({"obs_modelstats": True}, "batched"),
 ])
@@ -236,7 +236,8 @@ def test_slot_count_is_the_committed_splits(monkeypatch, growth, module, fn):
     real = getattr(module, fn)
 
     def spy(xb, slot, *rest):
-        num_slots = rest[-3]           # (..., num_slots, impl, sums)
+        num_slots = rest[-4] if module is grow_frontier else rest[-3]
+        # (..., num_slots, impl, sums[, packed_cols])
         assert int(slot.max()) < num_slots and int(slot.min()) >= -1
         calls.append(num_slots)
         return real(xb, slot, *rest)
