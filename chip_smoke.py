@@ -325,6 +325,45 @@ and prints no result line):
         and fewer than none's, its trees none's under the same rule, its
         AUC within 2e-3 of none's; both packed runs on the word variants
         only;
+   then checkpoints, resume and resilience (Queue 1 #12, #18), 4zza,
+   4zzc and 4zzd in this process after 4zv, 4zzb in the compare part
+   after 4zz, each run's launches counted and summed into its row:
+     4zza exact growth with ``gpu_use_dp=true`` (CKPT_PARAMS) on 4a's
+        data for CKPT_ROUNDS iterations in this process, uninterrupted and
+        without checkpoints (its first 5 iterations' AUC the JAX
+        package's 4zn constant within 1e-5), then two child processes of
+        this script (``--ckpt-child``) on 4a's Dataset from its binary
+        cache, with a checkpoint a round: the victim, killed by
+        ``fault_inject=kill@iter:CKPT_KILL_AT`` (SIGKILL, return code -9)
+        after its snapshots, and the resumer of its directory, whose model
+        text must be the uninterrupted run's byte for byte; each
+        snapshot's capture ms (the state's copy to the host) and write ms
+        (npz, sha256, fsync, renames, the manifest), and the s/iter with a
+        checkpoint a round (the children's) and without (this run's);
+     4zzc the same parameters with ``supervise=true`` and
+        ``fault_inject=crash@iter:CKPT_CRASH_AT`` in this process: one
+        restart from the snapshot of that iteration, the trees of 4zza's
+        uninterrupted text byte for byte (the parameters the text echoes
+        are this run's); its snapshots and s/iter timed as 4zza's, in this
+        process beside 4zza's uninterrupted run;
+     4zzd a ``ServingEngine`` watching 4zza's directory rolls its newest
+        snapshot in (the guarded roll, its CUDA graphs captured on the
+        poll) and answers CKPT_SERVE_ROWS rows as that snapshot's booster
+        predicts them, bit for bit; then one more iteration of the
+        uninterrupted run saved there under ``ckpt_torn``: the watcher
+        keeps its generation and its answers, and ``load_latest`` falls
+        back to the snapshot before;
+     4zzb frontier growth on CKPT_STREAM_ROWS rows of 4b's data streamed
+        in 4 chunks of packed words with a checkpoint a round:
+        uninterrupted, then a victim sent SIGTERM by
+        ``kill@iter:CKPT_STREAM_KILL_AT:term`` (the callback latches it
+        and writes that iteration's snapshot; the signal then reaches a
+        handler that raises, so the victim runs in this process), then
+        its directory resumed: the scores, bag mask and model text at the
+        resumed run's first iteration the snapshot's bit for bit, the
+        resumed trees the uninterrupted run's under phase 5's frontier
+        rule (the card's f32 sums do not repeat) and its AUC within
+        CKPT_STREAM_AUC_TOL, the word variants launched;
    every path of 4a-4d, 4m-4za, 4zb-4zp, 4zq and 4zy also trains one more
    iteration under torch.profiler and prints its CUDA kernel launches,
    synchronisations and the port's kernels' device time;
@@ -377,9 +416,10 @@ and prints no result line):
 Phases 1-3 and 4a-4d run in this process alone. Then two more processes
 of this script (``--part workloads`` and ``--part compare``, given the
 dense paths 4a-4d for their ratios) share the card with it, so that the
-host-bound paths overlap: this process runs 4q, 4zb-4zf, 4zl-4zn and
-4zq-4zw; ``workloads`` 4e-4h, 4zh-4zk, 4i-4p, 4zo, 4r-4u, their
-prediction extras and 4zx; ``compare`` 4v-4za, 4zg, 4zp, 4zy, 4zz and
+host-bound paths overlap: this process runs 4q, 4zb-4zf, 4zl-4zn,
+4zq-4zv, 4zza, 4zzc and 4zzd (4zza's two child processes too);
+``workloads`` 4e-4h, 4zh-4zk, 4i-4p, 4zo, 4r-4u, their prediction
+extras and 4zx; ``compare`` 4v-4za, 4zg, 4zp, 4zy, 4zz, 4zzb, 4zw and
 phase 5 (4b's trees reach it in a file, FRONTIER_REF, for 4zz). Each
 process sets its own launch counts to 0 just before each path and reads
 them just after; phase 6 sums them. The seconds of the paths from 4q on,
@@ -397,6 +437,7 @@ import json
 import os
 import pickle
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -5533,6 +5574,481 @@ def trees_match(a, b, ties=None, parting: PartingLimits = None,
     return identical
 
 
+# 4zza-4zzd, checkpoints and resilience (Queue 1 #12, #18), in the main
+# process after 4zw: exact growth with float64 histograms on 4a's data (its kernel runs
+# repeat themselves, phase 5), CKPT_ROUNDS iterations, 4zza's victim killed
+# at the dispatch of iteration CKPT_KILL_AT and 4zzc's run crashed at
+# CKPT_CRASH_AT; 4zzb a streamed frontier run on words of
+# CKPT_STREAM_ROWS rows in 4 chunks, sent SIGTERM at the dispatch of
+# iteration CKPT_STREAM_KILL_AT; 4zzd serves CKPT_SERVE_ROWS rows from a
+# snapshot
+CKPT_ROUNDS, CKPT_KILL_AT, CKPT_CRASH_AT = 8, 4, 3
+CKPT_PARAMS = dict(PARAMS, **GROWTH_PARAMS["exact"], gpu_use_dp=True)
+CKPT_STREAM_ROWS, CKPT_STREAM_CHUNK_ROWS = 262_144, 65_536
+CKPT_STREAM_KILL_AT = 3
+CKPT_STREAM_AUC_TOL = 1e-4
+CKPT_SERVE_ROWS = 10_000
+CKPT_CHILD_TIMEOUT_S = 240
+CKPT_DATA = "ckpt_data.bin"     # 4a's Dataset for 4zza's child processes
+
+
+class IterationClock:
+    """Callbacks before and after each iteration that time it on the host,
+    the card synchronised at both ends; the one after runs after the
+    checkpoint callback (order 25), so a snapshot's cost is in the
+    iteration's seconds. With ``manager`` (the checkpoint callback's) each
+    row also has the snapshot's capture ms (the state's copy to the host)
+    and write ms (npz, sha256, fsync and rename, the manifest's too); each
+    row has the launch counts so far, and goes to ``sink`` (an open file)
+    as a JSON line, flushed, so that a killed process leaves its rows."""
+
+    def __init__(self, manager=None, sink=None):
+        self.rows = []
+        clock = {}
+
+        class Before:
+            before_iteration = True
+            order = -50
+
+            def __call__(self, env) -> None:
+                torch.cuda.synchronize()
+                clock["t0"] = time.perf_counter()
+
+        rows = self.rows
+
+        class After:
+            before_iteration = False
+            order = 26
+
+            def __call__(self, env) -> None:
+                torch.cuda.synchronize()
+                row = {"iteration": env.iteration + 1,
+                       "s": time.perf_counter() - clock["t0"]}
+                if manager is not None:
+                    row["capture_ms"] = manager.last_timing["capture_s"] * 1e3
+                    row["write_ms"] = manager.last_timing["write_s"] * 1e3
+                row["launches"] = read_counts()
+                rows.append(row)
+                if sink is not None:
+                    sink.write(json.dumps(row) + "\n")
+                    sink.flush()
+
+        self.callbacks = [Before(), After()]
+
+
+def run_ckpt_child(argv) -> int:
+    """``--ckpt-child victim|resume --dir DIR --log FILE``: a child process
+    of 4zza. It loads 4a's Dataset from CKPT_DATA beside DIR and trains
+    CKPT_PARAMS for CKPT_ROUNDS iterations with a checkpoint a round into
+    DIR, timing each iteration and its snapshot into FILE (IterationClock).
+    The victim has ``fault_inject=kill@iter:CKPT_KILL_AT`` and dies of it;
+    the resumer resumes from DIR and writes its model text to
+    DIR/../resumed_model.txt."""
+    import argparse
+    from lightgbm_tpu_torch import callback as port_callback
+    parser = argparse.ArgumentParser()
+    parser.add_argument("mode", choices=("victim", "resume"))
+    parser.add_argument("--dir", required=True)
+    parser.add_argument("--log", required=True)
+    args = parser.parse_args(argv)
+    global LOG_PREFIX
+    LOG_PREFIX = "[4zza %s] " % args.mode
+    torch.set_num_threads(PART_THREADS)
+    parent = os.path.dirname(os.path.abspath(args.dir))
+    ds = lgb.Dataset(os.path.join(parent, CKPT_DATA))
+    params = dict(CKPT_PARAMS)
+    if args.mode == "victim":
+        params["fault_inject"] = "kill@iter:%d" % CKPT_KILL_AT
+    ckpt = port_callback.checkpoint(args.dir, period=1)
+    with open(args.log, "w") as sink:
+        clock = IterationClock(ckpt.manager, sink)
+        reset_counts()
+        bst = lgb.train(params, ds, num_boost_round=CKPT_ROUNDS,
+                        callbacks=[ckpt] + clock.callbacks,
+                        resume_from=(args.dir if args.mode == "resume"
+                                     else None), verbose_eval=False)
+    log("trained to iteration %d" % bst.current_iteration())
+    with open(os.path.join(parent, "resumed_model.txt"), "w") as f:
+        f.write(bst.model_to_string())
+    return 0
+
+
+def ckpt_child(mode: str, directory: str) -> tuple:
+    """(return code, its IterationClock rows) of a 4zza child process."""
+    log_path = os.path.join(os.path.dirname(directory), mode + ".jsonl")
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--ckpt-child", mode,
+         "--dir", directory, "--log", log_path],
+        env=dict(os.environ, OMP_NUM_THREADS=str(PART_THREADS)),
+        timeout=CKPT_CHILD_TIMEOUT_S)
+    with open(log_path) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    return proc.returncode, rows
+
+
+def sum_counts(*launches) -> dict:
+    return {name: sum(c[name] for c in launches) for name in launches[0]}
+
+
+def f64_launches(label: str, launches: dict, trees=None) -> None:
+    """Raises unless a float64 run launched histogram.cu's f64 variant and
+    no other kernel, and (``trees`` given) once a pass: a root a tree and
+    a split pass a split."""
+    others = {k: v for k, v in launches.items()
+              if v and k != "build_histogram_f64_cuda"}
+    passes = launches["build_histogram_f64_cuda"]
+    want = (None if trees is None else
+            sum(t.num_leaves_actual - 1 for t in trees) + len(trees))
+    if others or passes <= 0 or (want is not None and passes != want):
+        raise AssertionError("path %s: %d f64 histogram passes (want %s), "
+                             "other kernels %s" % (label, passes, want,
+                                                   others))
+
+
+def median_s(rows) -> float:
+    """The median seconds of IterationClock ``rows``: robust to a
+    process's first iteration (its kernels' and caches' warm-up) and to a
+    run's first snapshot (the data profile's bincounts)."""
+    return statistics.median(r["s"] for r in rows)
+
+
+def snapshot_rows(label: str, rows) -> dict:
+    """Logs each snapshot of IterationClock ``rows``; returns them with
+    their medians."""
+    for r in rows:
+        log("path %s: snapshot %d: capture %.3f ms, write %.3f ms, its "
+            "iteration %.3f s" % (label, r["iteration"], r["capture_ms"],
+                                  r["write_ms"], r["s"]))
+    return {"snapshots": [{k: r[k] for k in ("iteration", "capture_ms",
+                                             "write_ms", "s")}
+                          for r in rows],
+            "capture_ms_median": statistics.median(
+                r["capture_ms"] for r in rows),
+            "write_ms_median": statistics.median(r["write_ms"] for r in rows),
+            "s_per_iter_ckpt": median_s(rows)}
+
+
+def model_trees(text: str) -> str:
+    """A model text before its parameters, which echo each run's own."""
+    return text.split("\nparameters:", 1)[0]
+
+
+def drive_kill_and_resume(ds, x, y, tmp: str) -> tuple:
+    """Path 4zza: CKPT_ROUNDS iterations of CKPT_PARAMS in this process
+    with no checkpoint (the uninterrupted run, timed an iteration), then a
+    child process killed by ``fault_inject=kill@iter:CKPT_KILL_AT``
+    (SIGKILL, return code -9) after a snapshot a round, and a second one
+    resuming its directory: its model text must be the uninterrupted
+    run's byte for byte. Prints each snapshot's capture and write ms and
+    the s/iter with checkpoints (the children's) and without (this
+    run's). Returns (the path's result, the uninterrupted booster, its
+    text, the directory)."""
+    from lightgbm_tpu_torch.checkpoint import load_latest
+    ds.save_binary(os.path.join(tmp, CKPT_DATA))
+    clock = IterationClock()
+    reset_counts()
+    golden = lgb.train(CKPT_PARAMS, ds, num_boost_round=CKPT_ROUNDS,
+                       callbacks=clock.callbacks, verbose_eval=False)
+    golden_launches = read_counts()
+    f64_launches("4zza", golden_launches, golden.models)
+    text = golden.model_to_string()
+    auc5 = auc(golden.predict(x, num_iteration=NUM_ITERS), y)
+    want = JAX_F64_METRIC["4zn"]["auc"]
+    if abs(auc5 - want) > F64_AUC_TOL:
+        raise AssertionError("4zza: the first %d iterations' AUC %.10f is "
+                             "not the JAX package's %.10f"
+                             % (NUM_ITERS, auc5, want))
+    directory = os.path.join(tmp, "ckpt_4zza")
+    rc, victim = ckpt_child("victim", directory)
+    if rc != -signal.SIGKILL or [r["iteration"] for r in victim] != list(
+            range(1, CKPT_KILL_AT + 1)):
+        raise AssertionError("4zza: the victim exited %s after iterations "
+                             "%s" % (rc, [r["iteration"] for r in victim]))
+    if load_latest(directory).iteration != CKPT_KILL_AT:
+        raise AssertionError("4zza: the victim's newest snapshot is not "
+                             "iteration %d" % CKPT_KILL_AT)
+    rc, resumed = ckpt_child("resume", directory)
+    if rc != 0 or [r["iteration"] for r in resumed] != list(
+            range(CKPT_KILL_AT + 1, CKPT_ROUNDS + 1)):
+        raise AssertionError("4zza: the resumer exited %s after iterations "
+                             "%s" % (rc, [r["iteration"] for r in resumed]))
+    with open(os.path.join(tmp, "resumed_model.txt")) as f:
+        resumed_text = f.read()
+    if resumed_text != text:
+        raise AssertionError("4zza: the resumed model text is not the "
+                             "uninterrupted run's")
+    for rows in (victim, resumed):
+        f64_launches("4zza", rows[-1]["launches"])
+    log("path 4zza: f64 exact, %d iterations; the victim killed at the "
+        "dispatch of iteration %d (exit %d), resumed from its snapshot %d: "
+        "model text equal to the uninterrupted run's; AUC of the first %d "
+        "iterations %.10f (JAX package %.10f)"
+        % (CKPT_ROUNDS, CKPT_KILL_AT, -signal.SIGKILL, CKPT_KILL_AT,
+           NUM_ITERS, auc5, want))
+    out = dict(snapshot_rows("4zza", victim + resumed),
+               rounds=CKPT_ROUNDS, kill_at=CKPT_KILL_AT,
+               victim_rc=-signal.SIGKILL, model_text_equal=True,
+               auc_5=auc5, s_per_iter_no_ckpt=median_s(clock.rows),
+               no_ckpt_iterations=[r["s"] for r in clock.rows],
+               launches=sum_counts(golden_launches, victim[-1]["launches"],
+                                   resumed[-1]["launches"]))
+    log("path 4zza: median s per iteration %.3f with a checkpoint a round "
+        "(the two children), %.3f without (this process); capture median "
+        "%.3f ms, write median %.3f ms; launches %s"
+        % (out["s_per_iter_ckpt"], out["s_per_iter_no_ckpt"],
+           out["capture_ms_median"], out["write_ms_median"],
+           {k: v for k, v in out["launches"].items() if v}))
+    return out, golden, text, directory
+
+
+def drive_supervised_crash(ds, golden_text: str, no_ckpt_s: float,
+                           tmp: str) -> dict:
+    """Path 4zzc: CKPT_PARAMS with ``supervise=true``,
+    ``fault_inject=crash@iter:CKPT_CRASH_AT`` and a checkpoint a round, in
+    this process: one restart, resumed from snapshot CKPT_CRASH_AT, and
+    the trees of 4zza's uninterrupted text byte for byte (the text up to
+    its parameters, which echo this run's own). Its iterations and
+    snapshots are timed (IterationClock) in the process that timed 4zza's
+    uninterrupted run, ``no_ckpt_s`` a median iteration."""
+    from lightgbm_tpu_torch import callback as port_callback
+    from lightgbm_tpu_torch.obs.registry import get_registry
+    from lightgbm_tpu_torch.resilience import faults
+    restarts = get_registry().counter("lgbm_supervisor_restarts_total")
+    before = restarts.value
+    directory = os.path.join(tmp, "ckpt_4zzc")
+    params = dict(CKPT_PARAMS, checkpoint_dir=directory, checkpoint_period=1,
+                  fault_inject="crash@iter:%d" % CKPT_CRASH_AT,
+                  supervise=True, supervise_backoff_s=0.01,
+                  supervise_backoff_max_s=0.02)
+    # the checkpoint_dir callback, given here to read its manager's times
+    ckpt = port_callback.checkpoint(directory, period=1)
+    clock = IterationClock(ckpt.manager)
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        bst = lgb.train(params, ds, num_boost_round=CKPT_ROUNDS,
+                        callbacks=[ckpt] + clock.callbacks,
+                        verbose_eval=False)
+        train_s = time.perf_counter() - t0
+        fires = faults.active_plan().faults[0].fires
+    finally:
+        faults.clear_plan()
+    launches = read_counts()
+    f64_launches("4zzc", launches)
+    count = int(restarts.value - before)
+    if count != 1 or fires != 1:
+        raise AssertionError("4zzc: %d restarts, the crash fired %d times"
+                             % (count, fires))
+    if model_trees(bst.model_to_string()) != model_trees(golden_text):
+        raise AssertionError("4zzc: the supervised run's trees are not the "
+                             "uninterrupted run's")
+    if [r["iteration"] for r in clock.rows] != list(range(1,
+                                                         CKPT_ROUNDS + 1)):
+        raise AssertionError("4zzc: iterations %s completed"
+                             % [r["iteration"] for r in clock.rows])
+    log("path 4zzc: supervised f64 exact, crashed at the dispatch of "
+        "iteration %d, %d restart, trees equal to 4zza's uninterrupted "
+        "text; %.2f s for %d iterations and the restore; launches %s"
+        % (CKPT_CRASH_AT, count, train_s, CKPT_ROUNDS,
+           {k: v for k, v in launches.items() if v}))
+    out = dict(snapshot_rows("4zzc", clock.rows), restarts=count,
+               crash_at=CKPT_CRASH_AT, trees_equal=True, train_s=train_s,
+               s_per_iter_no_ckpt=no_ckpt_s, launches=launches)
+    log("path 4zzc: median s per iteration %.3f with a checkpoint a round, "
+        "%.3f without (4zza's uninterrupted run, the same process); "
+        "capture median %.3f ms, write median %.3f ms"
+        % (out["s_per_iter_ckpt"], no_ckpt_s, out["capture_ms_median"],
+           out["write_ms_median"]))
+    return out
+
+
+def drive_watcher_and_torn(golden, x, directory: str) -> dict:
+    """Path 4zzd: a ServingEngine on the card watching 4zza's directory
+    rolls its newest snapshot in (the guarded roll, its graphs captured on
+    the poll), and answers CKPT_SERVE_ROWS rows as that snapshot's booster
+    predicts them, bit for bit; then one more iteration of the
+    uninterrupted run is saved there under ``ckpt_torn``: the watcher
+    keeps the generation it serves and ``load_latest`` falls back to the
+    snapshot before."""
+    from lightgbm_tpu_torch.checkpoint import CheckpointManager, load_latest
+    from lightgbm_tpu_torch.resilience import faults
+    from lightgbm_tpu_torch.serving import ServingEngine
+    eng = ServingEngine(device=torch.device("cuda", 0))
+    watcher = eng.registry.watch_dir("4zzd", directory, engine=eng)
+    t0 = time.perf_counter()
+    if not watcher.poll():
+        raise AssertionError("4zzd: the watcher rolled nothing in")
+    roll_s = time.perf_counter() - t0
+    snap_id, model_path = CheckpointManager(directory).latest_model()
+    snap = lgb.Booster(model_file=model_path)
+    rows = x[:CKPT_SERVE_ROWS]
+    want = snap.predict(rows)
+    require_equal(eng.predict("4zzd", rows), want, "4zzd snapshot %d"
+                  % snap_id)
+    if eng.registry.get("4zzd").profile is None:
+        raise AssertionError("4zzd: the snapshot's bundle has no profile")
+    generation = eng.registry.generation("4zzd")
+    reset_counts()
+    golden.update()
+    launches = read_counts()
+    f64_launches("4zzd", launches)
+    faults.install_plan("ckpt_torn@snap:%d" % (CKPT_ROUNDS + 1))
+    try:
+        CheckpointManager(directory).save(golden)
+    finally:
+        faults.clear_plan()
+    if watcher.poll() or eng.registry.generation("4zzd") != generation:
+        raise AssertionError("4zzd: the watcher rolled a torn snapshot in")
+    fallback = (load_latest(directory).iteration,
+                CheckpointManager(directory).latest_model()[0])
+    if fallback != (CKPT_ROUNDS, CKPT_ROUNDS):
+        raise AssertionError("4zzd: load_latest and latest_model give %s, "
+                             "not the snapshot before the torn one"
+                             % (fallback,))
+    require_equal(eng.predict("4zzd", rows), want,
+                  "4zzd after the torn snapshot")
+    log("path 4zzd: the watcher rolled snapshot %d in (%.2f s, its graphs "
+        "captured on the poll), %d rows equal to its booster's predict; "
+        "snapshot %d torn: not rolled, load_latest and the watcher at %d"
+        % (snap_id, roll_s, len(rows), CKPT_ROUNDS + 1, fallback[0]))
+    return {"snapshot": snap_id, "roll_s": roll_s, "rows": len(rows),
+            "torn": CKPT_ROUNDS + 1, "fallback": fallback[0],
+            "launches": launches}
+
+
+class Preempted(Exception):
+    """SIGTERM as an exception: 4zzb's victim runs in this process."""
+
+
+def drive_streamed_resume(x, y, tmp: str) -> dict:
+    """Path 4zzb: frontier growth on CKPT_STREAM_ROWS rows of 4b's data
+    streamed from a .npy memory map in chunks of CKPT_STREAM_CHUNK_ROWS
+    (packed words, the word variants of both kernels), CKPT_ROUNDS
+    iterations with a checkpoint a round: uninterrupted; then a victim
+    sent SIGTERM by ``kill@iter:CKPT_STREAM_KILL_AT:term`` (the callback
+    latches it and writes the snapshot of that iteration before the signal
+    goes on, here to a handler that raises, so the victim runs in this
+    process); then a run resuming its directory, whose scores at its first
+    iteration must be the snapshot's bit for bit and whose model text the
+    snapshot's ``.model.txt``. The card's f32 sums do not repeat, so the
+    resumed trees are held to the uninterrupted run's under phase 5's
+    frontier tie rule (WAVE_PARTING) and its AUC within
+    CKPT_STREAM_AUC_TOL."""
+    from lightgbm_tpu_torch import callback as port_callback
+    from lightgbm_tpu_torch.checkpoint import load_latest
+    from lightgbm_tpu_torch.resilience import faults
+    xs, ys = x[:CKPT_STREAM_ROWS], y[:CKPT_STREAM_ROWS]
+    path = os.path.join(tmp, "ckpt_stream.npy")
+    np.save(path, xs)
+    params = dict(PARAMS, **GROWTH_PARAMS["frontier"],
+                  data_stream_chunk_rows=CKPT_STREAM_CHUNK_ROWS)
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(path, label=ys, params=params).construct()
+    ingest_s = time.perf_counter() - t0
+
+    def run(directory, resume=False, extra=()):
+        reset_counts()
+        bst = lgb.train(params, ds, num_boost_round=CKPT_ROUNDS,
+                        callbacks=[port_callback.checkpoint(directory)]
+                        + list(extra), verbose_eval=False,
+                        resume_from=directory if resume else None)
+        return bst, read_counts()
+
+    golden, golden_launches = run(os.path.join(tmp, "ckpt_4zzb_g"))
+    directory = os.path.join(tmp, "ckpt_4zzb")
+
+    def preempt(signum, frame):
+        raise Preempted()
+    previous = signal.signal(signal.SIGTERM, preempt)
+    faults.install_plan("kill@iter:%d:term" % CKPT_STREAM_KILL_AT)
+    reset_counts()
+    try:
+        run(directory)
+        raise AssertionError("4zzb: the victim was not preempted")
+    except Preempted:
+        victim_launches = read_counts()
+    finally:
+        faults.clear_plan()
+        signal.signal(signal.SIGTERM, previous)
+    handle = load_latest(directory)
+    if handle.iteration != CKPT_STREAM_KILL_AT + 1:
+        raise AssertionError("4zzb: the victim's snapshot is iteration %d"
+                             % handle.iteration)
+    # read now: the resumed run's retention deletes the snapshot's files
+    with open(handle.model_path) as f:
+        snap_text = f.read()
+    restored = {}
+
+    class FirstIteration:
+        before_iteration = True
+        order = -60
+
+        def __call__(self, env) -> None:
+            if not restored:
+                impl = env.model._impl
+                restored["scores"] = impl.scores.cpu().numpy()
+                restored["bag_mask"] = impl._bag_mask.cpu().numpy()
+                restored["text"] = env.model.model_to_string()
+                restored["stream"] = impl._stream is not None
+
+    resumed, launches = run(directory, resume=True,
+                            extra=[FirstIteration()])
+    same = {"scores": np.array_equal(
+                restored["scores"].view(np.uint32),
+                np.asarray(handle.arrays["scores"]).view(np.uint32)),
+            "bag_mask": np.array_equal(restored["bag_mask"],
+                                       handle.arrays["bag_mask"]),
+            "model_text": restored["text"] == snap_text}
+    if not all(same.values()) or not restored["stream"]:
+        raise AssertionError("4zzb: the restored state is not the "
+                             "snapshot's: %s" % same)
+    word_launches("4zzb", launches, (CKPT_ROUNDS - handle.iteration)
+                  * (CKPT_STREAM_ROWS // CKPT_STREAM_CHUNK_ROWS))
+    rows_t = torch.as_tensor(xs, dtype=torch.float64, device="cuda")
+    ties = []
+    identical = trees_match(resumed.models, golden.models, ties,
+                            WAVE_PARTING, None, rows_t)
+    auc_resumed = auc(resumed.predict(xs, raw_score=True), ys)
+    auc_golden = auc(golden.predict(xs, raw_score=True), ys)
+    if abs(auc_resumed - auc_golden) > CKPT_STREAM_AUC_TOL:
+        raise AssertionError("4zzb: the resumed AUC %.6f is more than %g "
+                             "from the uninterrupted run's %.6f" % (
+                                 auc_resumed, CKPT_STREAM_AUC_TOL,
+                                 auc_golden))
+    log("path 4zzb: streamed frontier on words, %d rows in chunks of %d "
+        "(ingest %.2f s); SIGTERM at the dispatch of iteration %d, snapshot "
+        "%d; restored scores, bag mask and model text the snapshot's bit "
+        "for bit; resumed trees %s the uninterrupted run's (%d ties), AUC "
+        "%.8f against %.8f; the resumed run's launches %s"
+        % (CKPT_STREAM_ROWS, CKPT_STREAM_CHUNK_ROWS, ingest_s,
+           CKPT_STREAM_KILL_AT, handle.iteration,
+           "identical to" if identical else "within the tie rule of",
+           len(ties), auc_resumed, auc_golden,
+           {k: v for k, v in launches.items() if v}))
+    return {"rows": CKPT_STREAM_ROWS, "chunk_rows": CKPT_STREAM_CHUNK_ROWS,
+            "ingest_s": ingest_s, "snapshot": handle.iteration,
+            "restored_equal": same, "identical": identical, "ties": ties,
+            "auc": auc_resumed, "auc_uninterrupted": auc_golden,
+            "resumed_launches": launches,
+            "launches": sum_counts(golden_launches, victim_launches,
+                                   launches)}
+
+
+def drive_checkpoint_paths(ds, x, y, tmp: str, t_start: float) -> dict:
+    """Paths 4zza, 4zzc and 4zzd on 4a's data ``x``, ``y``, binned as
+    ``ds`` (the module docstring)."""
+    out = {}
+    log_phase(t_start, "4zza. kill and resume, float64")
+    out["4zza"], golden, text, directory = drive_kill_and_resume(ds, x, y,
+                                                                 tmp)
+    log_phase(t_start, "4zzc. a supervised crash")
+    out["4zzc"] = drive_supervised_crash(
+        ds, text, out["4zza"]["s_per_iter_no_ckpt"], tmp)
+    log_phase(t_start, "4zzd. the serving watcher and a torn snapshot")
+    out["4zzd"] = drive_watcher_and_torn(golden, x, directory)
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, rows, headline):
     """One kernel of the ``kernels`` line: its headline shape's times and
     every shape it was checked at."""
@@ -5559,6 +6075,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script only runs on a GPU",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--ckpt-child"]:
+        return run_ckpt_child(sys.argv[2:])
     if len(sys.argv) > 1:
         return run_part(sys.argv[1:])
     with tempfile.TemporaryDirectory() as tmp:
@@ -5646,9 +6164,9 @@ def run_part(argv) -> int:
 def dense_part(paths: dict, models: dict, extras: dict, ds, x, y, tmp: str,
                t_start: float, procs: dict) -> None:
     """This process's share of phase 4 after 4q, on bench.py's data ``x``,
-    ``y`` binned as ``ds``: 4zb-4zf, 4zl-4zn, 4zq-4zs and 4zt-4zw, added
-    to ``paths`` and ``extras``; between phases it raises if a part has
-    failed (``check_parts``)."""
+    ``y`` binned as ``ds``: 4zb-4zf, 4zl-4zn, 4zq-4zs, 4zt-4zv, 4zza,
+    4zzc and 4zzd, added to ``paths`` and ``extras``; between phases it
+    raises if a part has failed (``check_parts``)."""
     log_phase(t_start, "4zb-4zf. row sampling on the same data")
     # ---- 4zb-4zf. row sampling on the same data ------------------------
     xv, yv = bench_data(VALID_ROWS, seed=1)
@@ -5695,7 +6213,7 @@ def dense_part(paths: dict, models: dict, extras: dict, ds, x, y, tmp: str,
     check_parts(procs)
 
     log_phase(t_start, "4zt. the scikit-learn estimators")
-    # ---- 4zt-4zw. the Python surface and resetting the training data ---
+    # ---- 4zt-4zv. the Python surface ----------------------------------
     paths["4zt"] = drive_sklearn_path(x, y, xv, yv)
     check_parts(procs)
     log_phase(t_start, "4zu. cv")
@@ -5704,8 +6222,8 @@ def dense_part(paths: dict, models: dict, extras: dict, ds, x, y, tmp: str,
     log_phase(t_start, "4zv. the command line")
     paths["4zv"] = drive_cli_path(x, y, tmp)
     check_parts(procs)
-    log_phase(t_start, "4zw. resetting the training data")
-    paths["4zw"] = drive_reset_path(x, y, xv, yv)
+    # ---- 4zza, 4zzc, 4zzd. checkpoints and resilience (#12, #18) -------
+    paths.update(drive_checkpoint_paths(ds, x, y, tmp, t_start))
 
 
 def part_workloads(dense: dict, tmp: str, t_start: float) -> dict:
@@ -5855,9 +6373,9 @@ def part_workloads(dense: dict, tmp: str, t_start: float) -> dict:
 def part_compare(dense: dict, tmp: str, t_start: float) -> dict:
     """Part ``compare``: the ranking and cross-entropy paths 4v-4za, 4zg
     and 4zp, each beside the dense path of its growth mode in ``dense``,
-    the lambdarank gradient at scale, then phase 5 on the first
-    COMPARE_ROWS rows of each workload's data; ``tmp`` is the part's
-    directory."""
+    the lambdarank gradient at scale, 4zy, 4zz, 4zzb and 4zw, then phase 5
+    on the first COMPARE_ROWS rows of each workload's data; ``tmp`` is the
+    part's directory."""
     dev = torch.device("cuda", 0)
     paths = dict(dense)
     log_phase(t_start, "4v-4za. ranking and cross-entropy")
@@ -5871,6 +6389,12 @@ def part_compare(dense: dict, tmp: str, t_start: float) -> dict:
     log_phase(t_start, "4zz. packed bin words in memory")
     # ---- 4zz. packed bin words in memory (Queue 1 #9) ------------------
     paths.update(drive_packed_paths(x, y, dense, load_frontier_ref(tmp)))
+    log_phase(t_start, "4zzb. streamed resume on words")
+    # ---- 4zzb. streamed resume on words (#12) ---------------------------
+    paths["4zzb"] = drive_streamed_resume(x, y, tmp)
+    log_phase(t_start, "4zw. resetting the training data")
+    # ---- 4zw. resetting the training data (#20) -------------------------
+    paths["4zw"] = drive_reset_path(x, y, *bench_data(VALID_ROWS, seed=1))
 
     log_phase(t_start, "5. kernel path against plain path")
     # ---- 5. kernel path against plain path -----------------------------
@@ -6040,7 +6564,8 @@ def run(tmp: str) -> int:
                  "dense, forced splits and CEGB"]["launches"][
                  "build_histogram_leaf_f64_cuda"],
              note="histogram.cu's float64 variant (gpu_use_dp, exact growth: "
-                  "paths 4zn-4zp, 4zr); the JAX package computes this in "
+                  "paths 4zn-4zp, 4zr, 4zv, 4zw, 4zza, 4zzc, 4zzd); the "
+                  "JAX package computes this in "
                   "XLA (core/histogram.py:51 _hist_scatter on the CPU, :34 "
                   "_hist_chunk_matmul on a TPU), not in a Pallas kernel. "
                   "Its hist_for_leaf route (build_histogram_leaf_f64_cuda) "
@@ -6059,7 +6584,7 @@ def run(tmp: str) -> int:
                           word_hist_rows, word_hist_rows[0]),
              note="histogram.cu on packed bin words (tpu_bin_packing; the "
                   "root of every frontier tree on words, once a chunk when "
-                  "streamed: paths 4zy, 4zz), read in place at a row "
+                  "streamed: paths 4zy, 4zz, 4zzb), read in place at a row "
                   "stride of 4 W bytes; the TPU kernel unpacks the words "
                   "in XLA first (histogram_pallas.py:139-143). Each shape "
                   "has the uint8 variant's time on the same codes (u8_ms)"),
@@ -6072,7 +6597,7 @@ def run(tmp: str) -> int:
                  "frontier, streamed"]["launches"],
              note="hist_slots.cu (K=3) on packed bin words: every "
                   "frontier wave on words, once a chunk when streamed "
-                  "(4zy, 4zz); the TPU kernel unpacks them first "
+                  "(4zy, 4zz, 4zzb); the TPU kernel unpacks them first "
                   "(histogram_pallas.py:464-465). u8_ms: the uint8 "
                   "variant on the same codes"),
         kernel_entry("hist_slots6",

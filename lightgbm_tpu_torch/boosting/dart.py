@@ -38,6 +38,29 @@ class DART(GBDT):
         self.tree_weight: List[float] = []
         self.sum_weight = 0.0
 
+    def training_state(self):
+        """GBDT's state and DART's own: the drop RandomState and the tree
+        weights (dart.py:36-57 of the JAX package; JSON keeps each float's
+        shortest repr, so the weights come back bit for bit)."""
+        from ..checkpoint import snapshot as snap_mod
+        meta, arrays = super().training_state()
+        drop_meta, arrays["dart_rng_keys"] = snap_mod.rng_state_split(
+            self._drop_rng)
+        meta["dart"] = {"rng": drop_meta,
+                        "tree_weight": [float(w) for w in self.tree_weight],
+                        "sum_weight": float(self.sum_weight)}
+        return meta, arrays
+
+    def load_training_state(self, meta, arrays) -> None:
+        from ..checkpoint import snapshot as snap_mod
+        super().load_training_state(meta, arrays)
+        d = meta.get("dart")
+        if d is not None and "dart_rng_keys" in arrays:
+            self._drop_rng.set_state(
+                snap_mod.rng_state_join(d["rng"], arrays["dart_rng_keys"]))
+            self.tree_weight = [float(w) for w in d["tree_weight"]]
+            self.sum_weight = float(d["sum_weight"])
+
     def _dropping_trees(self) -> List[int]:
         """The iterations to drop (dart.hpp DroppingTrees:88-139, the JAX
         package's draws)."""

@@ -103,6 +103,7 @@ from ..io.dataset import BinnedDataset
 from ..log import LightGBMError, Log, check, outside_slice
 from ..metrics import Metric
 from ..objectives import ObjectiveFunction
+from ..resilience import faults
 from ..stream.grow_stream import StreamFrontierGrower
 from ..stream.pipeline import ChunkPipeline
 
@@ -291,8 +292,17 @@ class GBDT:
         self.train_data = train_data
         self.objective = objective
         self.train_metrics = metrics or []
+        if config.fault_inject and train_data is not None:
+            # arm the fault plan before any seam can fire; an identical
+            # (spec, seed) re-installed keeps its fire counts across an
+            # in-process supervised restart (gbdt.py:218-223 of the JAX
+            # package, which arms it for predict-only boosters too)
+            faults.install_plan(config.fault_inject, config.fault_seed)
         self.models: List[HostTree] = []
         self.iter_ = 0
+        # the iterations an init model brought (merge_init_models): a
+        # resumed run's budget counts the rest
+        self.num_init_iteration = 0
         self.shrinkage_rate = config.learning_rate
         self._stopped = False
         self.num_class = config.num_class
@@ -605,6 +615,7 @@ class GBDT:
                                   .astype(np.uint32)))
         self.models = merged
         self.iter_ = len(merged) // self.num_tree_per_iteration
+        self.num_init_iteration = self.iter_
 
     def reset_from(self, old: "GBDT") -> None:
         """Carry ``old``'s model over to this GBDT's training set, binned
@@ -695,6 +706,9 @@ class GBDT:
         whether or not GOSS is on. See ``_train_iteration``."""
         if self._stopped:
             return True
+        # the train_dispatch seam (gbdt.py:1506, :2184 of the JAX package):
+        # before the iteration's work, in memory and streamed
+        faults.inject("train_dispatch", iteration=self.iter_)
         sample_mask = self._sample_bagging_mask(self.iter_)
         self._bag_key, goss_key = threefry.split(self._bag_key)
         return self._train_iteration(grad, hess, sample_mask, goss_key)
@@ -725,6 +739,12 @@ class GBDT:
             keys = threefry.split(self._bag_key, block + 1)
             self._bag_key = keys[0]
             for key in keys[1:]:
+                # the seam fires before each iteration of a block, since
+                # the host grows them one at a time here: an iteration
+                # trigger inside a block fires where it says (the JAX
+                # package's fires once a block, at its start, gbdt.py:1902)
+                faults.inject("train_dispatch", iteration=self.iter_,
+                              block_len=block)
                 bag_key, goss_key = threefry.split(key)
                 if bagging and self.iter_ % cfg.bagging_freq == 0:
                     self._draw_bag_mask(bag_key)
@@ -1056,6 +1076,109 @@ class GBDT:
         if not raw_score and self.objective is not None:
             out = np.asarray(self.objective.convert_output(out))
         return out
+
+    # ------------------------------------------------------------ checkpoint
+    @staticmethod
+    def _host_copy(t: torch.Tensor) -> np.ndarray:
+        """A device tensor on the host for a snapshot: one synchronized
+        copy, as the iteration's work that produced it has to finish."""
+        return t.detach().cpu().numpy()
+
+    def _device_copy(self, a, dtype) -> torch.Tensor:
+        return torch.as_tensor(np.array(a, dtype=dtype), device=self.device)
+
+    def training_state(self):
+        """The complete mutable training state as ``(meta, arrays)``, the
+        capture point of ``checkpoint`` (gbdt.py:2023-2075 of the JAX
+        package, under its key names): ``meta`` holds JSON-safe scalars
+        (iteration cursors, RNG cursors, tree shapes, the training data's
+        profile), ``arrays`` numpy payloads (the raw HostTree fields, the
+        float32 scores, the bagging key and mask, the feature-fraction
+        RandomState's keys, each valid set's scores, the CEGB state).
+        Restoring them verbatim, instead of replaying the trees, keeps a
+        resumed run on the uninterrupted run's scores bit for bit."""
+        from ..checkpoint import snapshot as snap_mod
+        meta = {
+            "boosting_type": self.boosting_type,
+            "iteration": int(self.iter_),
+            "num_init_iteration": int(self.num_init_iteration),
+            "stopped": bool(self._stopped),
+            "shrinkage_rate": float(self.shrinkage_rate),
+            "boost_from_average_done": bool(self.boost_from_average_done),
+        }
+        arrays = {
+            "scores": self._host_copy(self.scores),
+            # the key is two 32-bit words however its seed was taken
+            # (random.prng_key, x64 or not): uint32, as the JAX package's
+            "bag_key": np.asarray(self._bag_key, np.uint32),
+            "bag_mask": self._host_copy(self._bag_mask),
+        }
+        meta["ff_rng"], arrays["ff_rng_keys"] = snap_mod.rng_state_split(
+            self._rng)
+        if self.train_data is not None:
+            # the serving side scores drift against this profile; a
+            # snapshot without one still loads
+            try:
+                meta["data_profile"] = \
+                    self.train_data.data_profile().to_json_dict()
+            except Exception as e:  # noqa: BLE001 - the profile is optional
+                Log.warning("data profile capture failed (%s); the snapshot "
+                            "will carry none", e)
+        arrays["init_score_offsets"] = np.asarray(self.init_score_offsets,
+                                                  np.float32)
+        if self._cegb is not None:
+            for j, leaf in enumerate(self._cegb.state):
+                arrays["cegb_%d" % j] = self._host_copy(leaf)
+        for vi, cache in enumerate(self._valid):
+            arrays["valid%d_scores" % vi] = self._host_copy(cache["scores"])
+        meta["trees"], tree_arrays = snap_mod.trees_to_arrays(self.models)
+        arrays.update(tree_arrays)
+        return meta, arrays
+
+    def load_training_state(self, meta, arrays) -> None:
+        """The inverse of ``training_state`` on a driver built with the
+        same config and data (``checkpoint.snapshot.check_compatibility``):
+        every piece goes back as it was saved, each array onto the device
+        with one copy. The trees keep their bins (``threshold_bin``,
+        ``cat_bitset_bin``), from which ``_binned_tree`` rebuilds their
+        replay tables. A valid set the snapshot lacks (added after it) gets
+        the trees replayed into its scores, with a warning."""
+        from ..checkpoint import snapshot as snap_mod
+        self.models = snap_mod.trees_from_arrays(meta["trees"], arrays)
+        self.iter_ = int(meta["iteration"])
+        self.num_init_iteration = int(meta.get("num_init_iteration", 0))
+        self.shrinkage_rate = float(meta["shrinkage_rate"])
+        self.boost_from_average_done = bool(meta["boost_from_average_done"])
+        self._stopped = bool(meta["stopped"])
+        self.scores = self._device_copy(arrays["scores"], np.float32)
+        self._bag_key = tuple(int(w) for w in
+                              np.asarray(arrays["bag_key"]).reshape(-1))
+        self._bag_mask = self._device_copy(arrays["bag_mask"], np.float32)
+        self._rng.set_state(snap_mod.rng_state_join(meta["ff_rng"],
+                                                    arrays["ff_rng_keys"]))
+        if "init_score_offsets" in arrays:
+            self.init_score_offsets = np.array(arrays["init_score_offsets"],
+                                               np.float32)
+        if self._cegb is not None and "cegb_0" in arrays:
+            state = self._cegb.state
+            self._cegb.state = CegbState(*(
+                torch.as_tensor(np.array(arrays["cegb_%d" % j]),
+                                dtype=leaf.dtype, device=self.device)
+                for j, leaf in enumerate(state)))
+            self._cegb.grown = []
+        k = self.num_tree_per_iteration
+        for vi, cache in enumerate(self._valid):
+            key = "valid%d_scores" % vi
+            if key in arrays:
+                cache["scores"] = self._device_copy(arrays[key], np.float32)
+                continue
+            Log.warning(
+                "checkpoint has no scores for validation set %d (added "
+                "after the snapshot was written?); replaying the trees, so "
+                "its eval values may differ in the last ulp", vi)
+            for i, ht in enumerate(self.models):
+                cache["scores"][:, i % k] += self._tree_output(
+                    ht, self._binned_tree(ht), cache["xb"])
 
     @property
     def current_iteration(self) -> int:

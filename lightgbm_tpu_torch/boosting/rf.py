@@ -17,7 +17,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..log import LightGBMError
+from ..log import LightGBMError, Log
 from .gbdt import GBDT
 
 
@@ -46,6 +46,37 @@ class RF(GBDT):
         # divided by the iterations between iterations
         self._score_sum = getattr(self, "scores", None)
         self._valid_sum: Dict[int, torch.Tensor] = {}
+
+    def training_state(self):
+        """GBDT's state and RF's running sums, the training set's and each
+        valid set's: ``scores`` holds only their averages, and dividing
+        back does not give the sums bit for bit."""
+        meta, arrays = super().training_state()
+        if self._score_sum is not None:
+            arrays["rf_score_sum"] = self._host_copy(self._score_sum)
+        for vi, total in self._valid_sum.items():
+            arrays["rf_valid%d_sum" % vi] = self._host_copy(total)
+        return meta, arrays
+
+    def load_training_state(self, meta, arrays) -> None:
+        super().load_training_state(meta, arrays)
+        if "rf_score_sum" not in arrays:
+            # the JAX package's snapshots carry no sums (its rf.py keeps
+            # them outside its training state)
+            Log.warning("checkpoint has no random-forest sums; taking the "
+                        "averaged scores times the iterations, which may "
+                        "differ in the last ulp")
+            it = float(max(self.current_iteration, 1))
+            self._score_sum = self.scores * it
+            self._valid_sum = {vi: cache["scores"] * it
+                               for vi, cache in enumerate(self._valid)}
+            return
+        self._score_sum = self._device_copy(arrays["rf_score_sum"],
+                                            np.float32)
+        self._valid_sum = {
+            vi: self._device_copy(arrays["rf_valid%d_sum" % vi], np.float32)
+            for vi in range(len(self._valid))
+            if "rf_valid%d_sum" % vi in arrays}
 
     def _boost_from_average(self) -> None:
         # the init score goes into each tree (AddBias), not the scores

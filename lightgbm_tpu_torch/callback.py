@@ -6,8 +6,9 @@ that receive a ``CallbackEnv`` before or after each iteration; ``order``
 sequences them, ``before_iteration`` picks the phase, and
 ``EarlyStopException`` unwinds the training loop. This module has
 ``print_evaluation``, ``record_evaluation``, ``reset_parameter`` and
-``early_stopping``; the JAX package's observability and checkpoint
-callbacks raise, naming the ROADMAP item that brings them.
+``early_stopping`` (whose slots a checkpoint saves and restores) and
+``checkpoint``; the JAX package's observability callbacks raise, naming
+the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -177,6 +178,31 @@ class _EarlyStopping:
                 "best_entries": None,
             })
 
+    def get_state(self) -> Optional[List[dict]]:
+        """The slots, JSON-safe, for a checkpoint (callback.py:220-240 of
+        the JAX package); None before the first call or under DART."""
+        if not self.enabled:
+            return None
+        return [{"best": slot["best"],
+                 "bigger_better": slot["bigger_better"],
+                 "best_iter": slot["best_iter"],
+                 "best_entries": ([list(e) for e in slot["best_entries"]]
+                                  if slot["best_entries"] is not None
+                                  else None)}
+                for slot in self.state]
+
+    def set_state(self, state: List[dict]) -> None:
+        """The inverse of ``get_state`` on resume: the callback counts as
+        started, so the first call does not append fresh slots."""
+        self.enabled = True
+        self.state = [{
+            "best": float(slot["best"]),
+            "bigger_better": bool(slot["bigger_better"]),
+            "best_iter": int(slot["best_iter"]),
+            "best_entries": ([tuple(e) for e in slot["best_entries"]]
+                             if slot["best_entries"] is not None else None),
+        } for slot in state]
+
     def _finish(self, slot: dict, reason: str) -> None:
         if self.verbose:
             Log.info("%s Best iteration is:\n[%d]\t%s", reason,
@@ -229,6 +255,12 @@ def health_monitor(*args, **kwargs) -> Callable:
                         "ROADMAP Queue 1 #15")
 
 
-def checkpoint(*args, **kwargs) -> Callable:
-    """The JAX package's checkpoint callback, not ported yet."""
-    raise outside_slice("the checkpoint callback", "ROADMAP Queue 1 #12")
+def checkpoint(directory: str, period: int = 1, keep_last_n: int = 3,
+               on_sigterm: bool = True) -> Callable:
+    """Preemption-safe training snapshots (``checkpoint/``): the complete
+    training state into ``directory`` every ``period`` iterations, at the
+    last one and at the iteration boundary after a SIGTERM; resume with
+    ``train(..., resume_from=directory)``."""
+    from .checkpoint.callback import _Checkpoint
+    return _Checkpoint(directory, period=period, keep_last_n=keep_last_n,
+                       on_sigterm=on_sigterm)

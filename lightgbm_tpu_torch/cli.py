@@ -20,7 +20,9 @@ precedence (Application::LoadParameters, application.cpp:48-81).
 
 Device: LightGBM's ``device_type`` key (alias ``device``). ``cpu`` runs on
 the CPU; anything else, the default included, runs on CUDA and raises when
-CUDA is absent. ``task=refit``, checkpoints, resume, the supervisor and
+CUDA is absent. Training takes ``checkpoint_dir`` (with
+``checkpoint_period`` and ``checkpoint_keep``), ``resume=<dir>`` and
+``supervise=true`` (cli.py:122-147 of the JAX package). ``task=refit`` and
 the raising health monitor are not ported yet: each raises, naming the
 ROADMAP item that brings it.
 """
@@ -101,12 +103,6 @@ def run_train(config: Config, params: Dict) -> None:
 
     if not config.data:
         raise LightGBMError("No training data: pass data=<file>")
-    if config.checkpoint_dir or config.resume:
-        raise outside_slice("checkpoints and resume (checkpoint_dir, "
-                            "resume)", "ROADMAP Queue 1 #12")
-    if config.supervise:
-        raise outside_slice("the supervisor (supervise)",
-                            "ROADMAP Queue 1 #18")
     if config.health_monitor in ("abort", "raise"):
         raise outside_slice("health_monitor=%s" % config.health_monitor,
                             "ROADMAP Queue 1 #15")
@@ -135,6 +131,12 @@ def run_train(config: Config, params: Dict) -> None:
                 env.model.save_model("%s.snapshot_iter_%d" % (out, it))
         snapshot_cb.order = 40
         callbacks.append(snapshot_cb)
+    if config.checkpoint_dir:
+        # full-state snapshots and SIGTERM handling; resume with resume=<dir>
+        from .callback import checkpoint as checkpoint_cb
+        callbacks.append(checkpoint_cb(config.checkpoint_dir,
+                                       period=config.checkpoint_period,
+                                       keep_last_n=config.checkpoint_keep))
 
     booster = engine.train(
         dict(params), train_set,
@@ -144,7 +146,9 @@ def run_train(config: Config, params: Dict) -> None:
         init_model=(config.input_model or None),
         early_stopping_rounds=(config.early_stopping_round
                                if config.early_stopping_round > 0 else None),
-        verbose_eval=False, callbacks=callbacks or None, device=device)
+        verbose_eval=False, callbacks=callbacks or None,
+        resume_from=(config.resume or None),
+        supervise=(config.supervise or None), device=device)
     booster.save_model(config.output_model)
     Log.info("Finished training; model saved to %s", config.output_model)
 

@@ -756,6 +756,11 @@ class Config:
         if self.serving_cascade_margin < 0:
             raise LightGBMError("serving_cascade_margin should be >= 0, "
                                 "got %s" % self.serving_cascade_margin)
+        # fault plans parse here: a mistyped kind fails now, not by never
+        # firing (a kv_* kind, whose seam the port lacks, refuses)
+        if self.fault_inject:
+            from .resilience import faults as _faults
+            _faults.parse_plan(self.fault_inject, self.fault_seed)
         if self.supervise_max_restarts < 0:
             raise LightGBMError("supervise_max_restarts should be >= 0, "
                                 "got %s" % self.supervise_max_restarts)

@@ -14,7 +14,10 @@ trains through ``GBDT.train_many``, so that its bagging and GOSS draws
 follow the same key stream (engine.py:221-229 there). Callbacks run before and
 after each iteration, ``EarlyStopException`` unwinds the loop and sets
 ``best_iteration``, and ``evals_result`` records the history.
-Checkpoints raise, naming the ROADMAP item that brings them.
+Checkpoints (``checkpoint_dir``, ``callback.checkpoint``) snapshot the
+training state; ``resume_from`` puts it back and trains the rest of the
+total on the per-iteration path, and ``supervise`` restarts a crashed run
+from the newest snapshot (engine.py:37-110, :181-213 there).
 
 ``cv`` makes the JAX package's folds index for index (stratified, plain,
 group-aware or the caller's), bins each fold's training rows on their own
@@ -35,7 +38,7 @@ from .basic import Booster, Dataset, _InnerPredictor, _to_2d_float
 from .config import Config
 from .device import DeviceLike, resolve_device
 from .io.parser import parse_file
-from .log import check, outside_slice
+from .log import Log, check
 
 _NUM_ROUND_ALIASES = ("num_boost_round", "num_iterations", "num_iteration",
                       "num_tree", "num_trees", "num_round", "num_rounds",
@@ -71,9 +74,83 @@ def train(params: Dict[str, Any], train_set: Dataset,
           learning_rates: Optional[Union[List[float], Callable]] = None,
           keep_training_booster: bool = False,
           callbacks: Optional[List[Callable]] = None,
+          resume_from: Optional[str] = None,
+          supervise: Optional[bool] = None,
           device: DeviceLike = None) -> Booster:
-    """engine.py:19 — train a Booster on ``device`` (CUDA unless the
-    caller passes ``device="cpu"``)."""
+    """engine.py:22 — train a Booster on ``device`` (CUDA unless the
+    caller passes ``device="cpu"``).
+
+    ``resume_from`` (or ``resume`` in ``params``) is a checkpoint directory
+    to continue from: ``num_boost_round`` stays the total, so a run
+    checkpointed at iteration k trains the remaining ``num_boost_round -
+    k`` rounds, and an empty directory starts fresh. ``checkpoint_dir`` in
+    ``params`` attaches ``callback.checkpoint`` (``checkpoint_period``,
+    ``checkpoint_keep``). ``supervise`` (or ``supervise=true`` in
+    ``params``, which then needs ``checkpoint_dir``) runs under
+    ``resilience.Supervisor``: a crash restarts the run after a backoff,
+    resumed from the newest valid snapshot, up to
+    ``supervise_max_restarts`` times, with a watchdog over the iterations
+    where ``supervise_hang_timeout_s`` is set."""
+    args = dict(num_boost_round=num_boost_round, valid_sets=valid_sets,
+                valid_names=valid_names, fobj=fobj, feval=feval,
+                init_model=init_model, feature_name=feature_name,
+                categorical_feature=categorical_feature,
+                early_stopping_rounds=early_stopping_rounds,
+                evals_result=evals_result, verbose_eval=verbose_eval,
+                learning_rates=learning_rates, callbacks=callbacks,
+                device=device)
+    if supervise is None:
+        supervise = Config(copy.deepcopy(params) if params else {}).supervise
+    if supervise:
+        return _train_supervised(params, train_set, resume_from, args)
+    return _train_once(params, train_set, resume_from=resume_from, **args)
+
+
+def _train_supervised(params, train_set: Dataset, resume_from, args: dict
+                      ) -> Booster:
+    """``train`` under the in-process supervisor (engine.py:68-100 of the
+    JAX package): each attempt after the first resumes from
+    ``checkpoint_dir``."""
+    from .resilience.supervisor import Supervisor, heartbeat_file_callback
+    cfg = Config(copy.deepcopy(params) if params else {})
+    sup = Supervisor(cfg.checkpoint_dir,
+                     max_restarts=cfg.supervise_max_restarts,
+                     backoff_s=cfg.supervise_backoff_s,
+                     backoff_max_s=cfg.supervise_backoff_max_s,
+                     hang_timeout_s=cfg.supervise_hang_timeout_s,
+                     warmup_grace_s=cfg.supervise_warmup_grace_s)
+
+    def attempt(resume, watchdog):
+        cbs = list(args["callbacks"] or [])
+        if watchdog is not None:
+            cbs.append(watchdog.callback())
+        if cfg.supervise_heartbeat_file:
+            cbs.append(heartbeat_file_callback(cfg.supervise_heartbeat_file))
+        return _train_once(params, train_set,
+                           resume_from=(resume if resume is not None
+                                        else resume_from),
+                           **dict(args, callbacks=cbs))
+
+    return sup.run(attempt)
+
+
+def _train_once(params: Dict[str, Any], train_set: Dataset,
+                num_boost_round: int = 100,
+                valid_sets: Optional[List[Dataset]] = None,
+                valid_names: Optional[List[str]] = None,
+                fobj: Optional[Callable] = None,
+                feval: Optional[Callable] = None,
+                init_model: Optional[Union[str, Booster]] = None,
+                feature_name: Union[str, List[str]] = "auto",
+                categorical_feature: Union[str, List] = "auto",
+                early_stopping_rounds: Optional[int] = None,
+                evals_result: Optional[Dict] = None,
+                verbose_eval: Union[bool, int] = True,
+                learning_rates: Optional[Union[List[float], Callable]] = None,
+                callbacks: Optional[List[Callable]] = None,
+                resume_from: Optional[str] = None,
+                device: DeviceLike = None) -> Booster:
+    """One training run (engine.py:99-290 of the JAX package)."""
     params = copy.deepcopy(params) if params else {}
     for alias in _NUM_ROUND_ALIASES:
         if alias in params:
@@ -95,8 +172,6 @@ def train(params: Dict[str, Any], train_set: Dataset,
                              else _InnerPredictor(init_model))
 
     booster = Booster(params=params, train_set=train_set, device=device)
-    if booster.config.checkpoint_dir or booster.config.resume:
-        raise outside_slice("checkpoints and resume", "ROADMAP Queue 1 #12")
     is_valid_contain_train = False
     fused = valid_sets is None and fobj is None
     if valid_sets is not None:
@@ -123,12 +198,39 @@ def train(params: Dict[str, Any], train_set: Dataset,
         cbs.append(callback.record_evaluation(evals_result))
     if learning_rates is not None:
         cbs.append(callback.reset_parameter(learning_rate=learning_rates))
+    # checkpoint_dir attaches the checkpoint callback (the command line's
+    # way; Python callers may pass callback.checkpoint themselves)
+    cfg = booster.config
+    if cfg.checkpoint_dir and not any(getattr(c, "is_checkpoint", False)
+                                      for c in cbs):
+        cbs.append(callback.checkpoint(cfg.checkpoint_dir,
+                                       period=cfg.checkpoint_period,
+                                       keep_last_n=cfg.checkpoint_keep))
     cbs_before, cbs_after = _sorted_callbacks(cbs)
+    # the checkpoint callback reads the loop's state (early stopping) off
+    # the booster when it saves
+    booster._callbacks = cbs_before + cbs_after
+
+    # resume: the driver's and the callbacks' state back, the budget cut
+    # to what the total leaves
+    resumed = False
+    resume_from = resume_from or cfg.resume
+    if resume_from:
+        from . import checkpoint as ckpt_mod
+        handle = ckpt_mod.load_latest(resume_from)
+        if handle is None:
+            Log.info("resume_from=%s: no checkpoint found; starting fresh",
+                     resume_from)
+        else:
+            completed = ckpt_mod.restore(booster, handle,
+                                         cbs_before + cbs_after)
+            num_boost_round = max(num_boost_round - completed, 0)
+            resumed = True
 
     begin = booster.current_iteration()
     end = begin + num_boost_round
     evaluation_result_list = []
-    if fused and not cbs_before and all(
+    if fused and not resumed and not cbs_before and all(
             getattr(c, "only_consumes_evals", False) for c in cbs_after):
         # nothing reads the booster between iterations: the JAX engine's
         # fused loop, and its key stream
@@ -300,6 +402,12 @@ def cv(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100,
         params["metric"] = metrics
     if isinstance(params.get("metric"), str):
         params["metric"] = [params["metric"]]
+    cfg = Config(params)
+    if cfg.checkpoint_dir or cfg.resume or cfg.supervise:
+        # as in the JAX package, whose checkpoint callback passes over a
+        # CVBooster: the folds are not checkpointed or supervised
+        Log.warning("cv keeps no checkpoints and runs unsupervised: "
+                    "checkpoint_dir, resume and supervise apply to train")
 
     check(train_set._binned is None or train_set.data is not None,
           "cv needs the training set's raw rows, which were freed when it "

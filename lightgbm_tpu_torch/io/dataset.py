@@ -198,6 +198,7 @@ class BinnedDataset:
         self.feature_names: List[str] = []
         self.max_bin: int = 255
         self.bin_params: Dict[str, Any] = {}
+        self._data_profile = None      # lazy DataProfile (data_profile)
 
     @classmethod
     def from_matrix(cls, data: np.ndarray, config: Config,
@@ -597,6 +598,17 @@ class BinnedDataset:
             else:
                 infos.append("[%s:%s]" % (repr(m.min_val), repr(m.max_val)))
         return infos
+
+    def data_profile(self):
+        """The per-feature bin occupancy of the training data
+        (``obs.drift.DataProfile``), computed once from the stored matrix
+        and cached: a checkpoint's meta carries it as the reference
+        distribution of train/serve drift (dataset.py:570-579 of the JAX
+        package)."""
+        if self._data_profile is None:
+            from ..obs.drift import DataProfile
+            self._data_profile = DataProfile.from_binned_dataset(self)
+        return self._data_profile
 
     # ------------------------------------------------------------ binary cache
     def save_binary(self, path: str) -> None:

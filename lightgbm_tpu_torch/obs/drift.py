@@ -8,11 +8,12 @@ code), the part serving needs:
   serving side bins raw request values through the exact training
   quantization (``values_to_bins``). JSON-serializable; a bundle reads it
   from the ``snap_N.meta.json`` beside a ``snap_N.model.txt``
-  (``serving/registry.py`` ``_sibling_profile``). The port's boosters
-  write no profile yet (checkpoint metas are ROADMAP Queue 1 #12), so the
-  JAX package's ``from_binned_dataset``/``from_binned_chunks`` are not
-  copied: a bundle of the port's own carries none and reports
-  ``no_profile``, as the JAX package does for a bare model file.
+  (``serving/registry.py`` ``_sibling_profile``). ``from_binned_dataset``
+  builds it from a stored matrix and ``from_binned_chunks`` from a
+  streamed dataset's chunks, the same counts; a checkpoint's meta carries
+  it, so a bundle served from a snapshot has one, while a bundle of a bare
+  model file or a booster carries none and reports ``no_profile``, as in
+  the JAX package.
 - ``psi`` / ``js_divergence``: the two distribution-shift scores over
   matched bin counts, epsilon-smoothed so empty bins never produce
   infinities.
@@ -109,6 +110,64 @@ class DataProfile:
 
     def __len__(self) -> int:
         return len(self.features)
+
+    @staticmethod
+    def _feature_entry(ds, i: int, mapper, counts) -> Dict:
+        j = ds.real_feature_index(i)
+        return {"index": int(j),
+                "name": (ds.feature_names[j] if j < len(ds.feature_names)
+                         else "Column_%d" % j),
+                "mapper": mapper.to_dict(),
+                "counts": [int(c) for c in counts]}
+
+    @staticmethod
+    def _feature_bins(ds, xb: np.ndarray, layout, i: int, mapper
+                      ) -> np.ndarray:
+        """Feature ``i``'s own bins in the stored matrix ``xb``: the EFB
+        bundle offset and the joint-coded pair unpacked, anything outside
+        the feature's range its default bin (``decode_bundle_value`` of
+        the growers), so the counts are the histogram the grower sees."""
+        feat_col, feat_offset, _bundled, pack_div, pack_mod, _ = layout
+        v = xb[:, int(feat_col[i])].astype(np.int64)
+        if int(pack_mod[i]) > 0:
+            v = (v // max(int(pack_div[i]), 1)) % int(pack_mod[i])
+        v = v - int(feat_offset[i])
+        return np.where((v >= 0) & (v < mapper.num_bin), v,
+                        mapper.default_bin)
+
+    @classmethod
+    def from_binned_dataset(cls, ds) -> "DataProfile":
+        """Profile a ``BinnedDataset`` from its stored matrix, one bincount
+        a feature (drift.py:118-142 of the JAX package)."""
+        layout = ds.feature_layout()
+        xb = np.asarray(ds.X_binned)
+        feats = []
+        for i in range(ds.num_features):
+            m = ds.bin_mappers[ds.real_feature_index(i)]
+            counts = np.bincount(cls._feature_bins(ds, xb, layout, i, m),
+                                 minlength=m.num_bin)
+            feats.append(cls._feature_entry(ds, i, m, counts))
+        return cls(feats, num_data=int(ds.num_data))
+
+    @classmethod
+    def from_binned_chunks(cls, ds) -> "DataProfile":
+        """Profile a ``StreamedDataset`` chunk by chunk. Bin counts add up
+        over a partition of the rows, so the counts are those of
+        ``from_binned_dataset`` on the concatenated matrix (drift.py:
+        144-186 of the JAX package, one process)."""
+        layout = ds.feature_layout()
+        mappers = [ds.bin_mappers[ds.real_feature_index(i)]
+                   for i in range(ds.num_features)]
+        counts = [np.zeros(m.num_bin, np.int64) for m in mappers]
+        for xb in ds.chunks:
+            xb = np.asarray(xb)
+            for i, m in enumerate(mappers):
+                counts[i] += np.bincount(
+                    cls._feature_bins(ds, xb, layout, i, m),
+                    minlength=m.num_bin)
+        return cls([cls._feature_entry(ds, i, m, c)
+                    for i, (m, c) in enumerate(zip(mappers, counts))],
+                   num_data=int(ds.num_data))
 
     # ----------------------------------------------------- serialization
     def to_json_dict(self) -> Dict:

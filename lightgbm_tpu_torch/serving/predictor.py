@@ -43,6 +43,7 @@ import torch
 from ..config import SERVING_BACKENDS
 from ..core import tree as tree_mod
 from ..log import LightGBMError, Log, check, outside_slice
+from ..resilience import faults
 from . import traversal as traversal_mod
 from .metrics import ServingMetrics, backend_compile_count, \
     record_graph_capture
@@ -416,6 +417,9 @@ class ServingEngine:
         (per-caller count and queue-inclusive latency) so a fused dispatch
         is not double-counted."""
         t0 = time.perf_counter()
+        # the serve_predict seam: "request" is a dispatched predict, counted
+        # by the plan (a fused queue batch counts once)
+        faults.inject("serve_predict", model=model_id)
         bundle = self.registry.get(model_id)
         X = np.asarray(X, np.float64)
         if X.ndim == 1:

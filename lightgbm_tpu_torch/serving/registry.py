@@ -10,6 +10,10 @@ A bundle lives on one device (its booster's, or the registry's for a
 model file) and keeps the host trees; from them it builds, on first use,
 the flat forest the traversal serves (``flat_for``) and the replay trees
 of ``predict`` (``trees_for``, the ``serving_backend=replay`` path).
+
+``watch_dir`` hot-rolls a checkpoint directory's newest valid snapshot
+(``CheckpointWatcher``); a bundle of a snapshot carries the training data
+profile of the ``.meta.json`` beside its model text.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import numpy as np
 
 from ..core import tree as tree_mod
 from ..device import DeviceLike, resolve_device
-from ..log import LightGBMError, check, outside_slice
+from ..log import LightGBMError, Log, check, outside_slice
 
 
 def _sibling_profile(model_path: str):
@@ -242,17 +246,107 @@ class ModelRegistry:
     def watch_dir(self, model_id: str, checkpoint_dir: str,
                   poll_interval: float = 10.0, start: bool = False,
                   engine=None) -> "CheckpointWatcher":
-        """Hot-roll the newest snapshot of a checkpoint directory: not
-        ported yet (checkpoints are ROADMAP Queue 1 #12)."""
-        return CheckpointWatcher(self, model_id, checkpoint_dir,
-                                 poll_interval, engine=engine)
+        """Hot-roll the newest valid snapshot of a checkpoint directory
+        into this registry under ``model_id`` (registry.py:263-285 of the
+        JAX package). Returns a watcher: ``poll()`` checks once (the first
+        poll registers the current snapshot), ``start=True`` polls every
+        ``poll_interval`` seconds on a daemon thread. The swap is atomic and
+        the replace listeners drop the old generation's predictors.
+
+        With ``engine`` (a ServingEngine) a poll that finds a newer snapshot
+        stages and prewarms it first (``stage_and_prewarm``: on the card
+        its CUDA graphs are captured on the watcher's thread, each under
+        ``capture_error_mode="thread_local"``, and credited to the warm-up
+        floor) and runs the guarded roll's canary checks before the swap
+        commits: live traffic never captures, and a refused snapshot leaves
+        the prior generation serving."""
+        w = CheckpointWatcher(self, model_id, checkpoint_dir, poll_interval,
+                              engine=engine)
+        if start:
+            w.start()
+        return w
 
 
 class CheckpointWatcher:
-    """Polls a checkpoint directory for newer snapshots: not ported yet."""
+    """Polls a checkpoint directory's manifest and rolls newer snapshots in
+    (registry.py:288-395 of the JAX package). A request in flight while a
+    roll commits keeps the bundle it looked up and the predictor entries of
+    that bundle's generation: the cache is keyed by generation, so no
+    request replays an old generation's graph against the new bundle."""
 
     def __init__(self, registry: ModelRegistry, model_id: str,
                  checkpoint_dir: str, poll_interval: float = 10.0,
                  engine=None):
-        raise outside_slice("the checkpoint watcher (CheckpointWatcher, "
-                            "ModelRegistry.watch_dir)", "ROADMAP Queue 1 #12")
+        self.registry = registry
+        self.model_id = model_id
+        self.checkpoint_dir = checkpoint_dir
+        self.poll_interval = float(poll_interval)
+        self.engine = engine
+        self._last_id = -1
+        self._rejected_ids: set = set()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def poll(self) -> bool:
+        """One check: register the newest valid snapshot if it is newer
+        than the last one rolled in. Returns True when it rolled one.
+        Verification falls back as resume does (the manifest's checksums,
+        newest to oldest). With an engine the staged bundle is prewarmed
+        before the swap, and a bundle its guarded roll refuses (canary
+        validation) is remembered and skipped on later polls, the prior
+        generation left serving."""
+        from ..checkpoint.manager import CheckpointManager
+        latest = CheckpointManager(self.checkpoint_dir).latest_model()
+        if latest is None:
+            return False
+        snap_id, model_path = latest
+        if snap_id <= self._last_id or snap_id in self._rejected_ids:
+            return False
+        if self.engine is not None:
+            try:
+                bundle = self.engine.stage_and_prewarm(self.model_id,
+                                                       model_path)
+            except LightGBMError as e:
+                self._rejected_ids.add(snap_id)
+                live = self.model_id in self.registry.ids()
+                Log.warning("serving: snapshot %d REJECTED for model %r "
+                            "(%s); %s", snap_id, self.model_id, e,
+                            "prior generation stays live" if live
+                            else "no prior generation registered")
+                return False
+        else:
+            bundle = self.registry.stage_file(self.model_id, model_path)
+        self.registry.register(bundle, replace=True)
+        self._last_id = snap_id
+        Log.info("serving: hot-rolled snapshot %d from %s into model %r",
+                 snap_id, self.checkpoint_dir, self.model_id)
+        return True
+
+    def arm_drift_refit(self, monitor) -> None:
+        """The JAX package's drift-triggered poll, the refit loop's hook:
+        not ported."""
+        raise outside_slice("CheckpointWatcher.arm_drift_refit (the "
+                            "drift-triggered refit)", "ROADMAP Queue 1 #15")
+
+    def start(self) -> "CheckpointWatcher":
+        if self._thread is not None:
+            return self
+
+        def loop():
+            while not self._stop.wait(self.poll_interval):
+                try:
+                    self.poll()
+                except Exception as e:  # noqa: BLE001 - keep serving alive
+                    Log.warning("checkpoint watcher %r: %s",
+                                self.model_id, e)
+
+        self._thread = threading.Thread(target=loop, daemon=True,
+                                        name="ckpt-watch-%s" % self.model_id)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None

@@ -24,6 +24,12 @@ The JAX package's ``/slo``, ``/traces``, ``/metrics/cluster`` and
 
 stdin mode (``serve_stdin=true``) speaks the same request objects, one
 JSON object per line, and replies one JSON line each.
+
+``checkpoint_dir`` attaches a ``CheckpointWatcher`` to model "default": it
+rolls the directory's newest valid snapshot in at boot and every
+WATCH_POLL_S seconds after, through the guarded roll. ``fault_inject``
+arms its plan (``serve_error``, ``serve_delay`` at each dispatched
+predict, which the breaker counts).
 """
 from __future__ import annotations
 
@@ -42,6 +48,10 @@ from ..resilience.breaker import CircuitBreaker
 from .batching import MicroBatchQueue
 from .metrics import ServingMetrics
 from .predictor import ServingEngine, bucket_sizes
+
+# seconds between the checkpoint watcher's polls (the JAX package's
+# default poll interval)
+WATCH_POLL_S = 10.0
 
 
 def _predictions_payload(model_id: str, out: np.ndarray) -> Dict:
@@ -65,6 +75,7 @@ class ServingApp:
         self.engine = engine
         self.queue = queue if queue is not None else MicroBatchQueue(engine)
         self.breaker = breaker if breaker is not None else CircuitBreaker()
+        self.watcher = None        # serving.registry.CheckpointWatcher
         self.queue.start()
 
     # ------------------------------------------------------------ requests
@@ -113,6 +124,8 @@ class ServingApp:
         return {"models": models}
 
     def close(self) -> None:
+        if self.watcher is not None:
+            self.watcher.stop()
         self.queue.stop()
 
 
@@ -243,8 +256,6 @@ def _metrics_writer(metrics: ServingMetrics, path: str, freq_s: float,
 def _check_slice(config: Config) -> None:
     """Raise ``outside_slice`` for a serving option the port lacks."""
     rules = [
-        (bool(config.fault_inject), "fault_inject (the faults seam)",
-         "ROADMAP Queue 1 #18"),
         (bool(config.obs_trace), "obs_trace (request tracing, /traces)",
          "ROADMAP Queue 1 #15"),
         (config.serve_slo_p99_ms > 0 or config.serve_slo_availability > 0,
@@ -257,8 +268,6 @@ def _check_slice(config: Config) -> None:
         (bool(config.fleet_kv_dir),
          "fleet_kv_dir (the serving fleet, /metrics/cluster)",
          "ROADMAP Queue 1 #15"),
-        (bool(config.checkpoint_dir),
-         "checkpoint_dir (the checkpoint watcher)", "ROADMAP Queue 1 #12"),
     ]
     for bad, what, where in rules:
         if bad:
@@ -268,9 +277,14 @@ def _check_slice(config: Config) -> None:
 def build_app(config: Config) -> ServingApp:
     """Engine + queue from the serve_* config on ``device_type``'s device
     (CUDA unless it says ``cpu``); loads ``input_model`` (if any) under id
-    "default". Tests and embedders register models themselves."""
+    "default", then, with ``checkpoint_dir``, the directory's newest valid
+    snapshot over it and a watcher polling for newer ones. Tests and
+    embedders register models themselves."""
     from ..cli import device_of
     _check_slice(config)
+    if config.fault_inject:
+        from ..resilience import faults
+        faults.install_plan(config.fault_inject, config.fault_seed)
     engine = ServingEngine(
         max_batch=config.serve_max_batch, min_bucket=config.serve_min_bucket,
         num_devices=config.serve_num_devices,
@@ -287,7 +301,7 @@ def build_app(config: Config) -> ServingApp:
         drift_decay=config.obs_drift_decay, device=device_of(config))
     if config.input_model:
         engine.registry.load_file("default", config.input_model)
-    return ServingApp(
+    app = ServingApp(
         engine,
         MicroBatchQueue(engine, deadline_ms=config.serve_deadline_ms,
                         max_queue_rows=config.serve_max_queue_rows,
@@ -295,13 +309,21 @@ def build_app(config: Config) -> ServingApp:
         breaker=CircuitBreaker(
             failure_threshold=config.serve_breaker_failures,
             cooldown_s=config.serve_breaker_cooldown_s))
+    if config.checkpoint_dir:
+        app.watcher = engine.registry.watch_dir(
+            "default", config.checkpoint_dir, poll_interval=WATCH_POLL_S,
+            engine=engine)
+        app.watcher.poll()
+        app.watcher.start()
+    return app
 
 
 def run_server(config: Config, params: Optional[Dict] = None) -> int:
     """cli.py task=serve entry: boot, warm every bucket, serve until EOF
     (stdin mode) or interrupt (HTTP mode)."""
-    if not config.input_model:
-        raise LightGBMError("No model file: pass input_model=<file>")
+    if not config.input_model and not config.checkpoint_dir:
+        raise LightGBMError("No model: pass input_model=<file> or "
+                            "checkpoint_dir=<dir>")
     app = build_app(config)
     engine = app.engine
     if config.serve_warmup:

@@ -46,6 +46,15 @@ class StreamedDataset(BinnedDataset):
     def chunk_row_counts(self) -> List[int]:
         return [int(c.shape[0]) for c in self.chunks]
 
+    def data_profile(self):
+        """The bin-occupancy profile accumulated chunk by chunk, the
+        in-memory profile's counts exactly (sampler.py:65-71 of the JAX
+        package)."""
+        if self._data_profile is None:
+            from ..obs.drift import DataProfile
+            self._data_profile = DataProfile.from_binned_chunks(self)
+        return self._data_profile
+
     def save_binary(self, path: str) -> None:
         raise LightGBMError(
             "save_binary is not supported for streamed datasets "

@@ -257,11 +257,10 @@ REFUSED_CLI = {
     "refit": (["task=refit"], "#15"),
     # task=serve runs (ROADMAP #10); its options outside the slice refuse
     "serve": (["task=serve", "serve_num_devices=2"], "#13"),
-    "serve_fault_inject": (["task=serve", "fault_inject=serve_error@req:5"],
-                           "#18"),
-    "checkpoint_dir": (["checkpoint_dir=ckpt"], "#12"),
-    "resume": (["resume=ckpt"], "#12"),
-    "supervise": (["supervise=true"], "#18"),
+    # the coordination service's faults, whose seam is the device mesh's
+    "fault_inject_kv": (["fault_inject=kv_timeout@round:2"], "#13"),
+    "serve_fault_inject_kv": (["task=serve", "fault_inject=kv_error@calls:1"],
+                              "#13"),
     "health_monitor": (["health_monitor=abort"], "#15"),
 }
 

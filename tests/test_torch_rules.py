@@ -140,7 +140,7 @@ REFUSALS = {
                       "tree_learner": "data"}, "#13"),
     "nibble_pairs": ({"tpu_bin_packing": "nibble", "tree_learner": "data"},
                      "#13"),
-    "checkpoint_callback": ({}, "#12"),
+    "fault_inject_kv": ({"fault_inject": "kv_timeout@round:2"}, "#13"),
     "data_stream_chunk_rows": ({"data_stream_chunk_rows": 100,
                                 "tree_growth": "frontier",
                                 "tree_learner": "data"}, "#13"),
@@ -152,15 +152,16 @@ REFUSALS = {
     # serving options outside the serving slice (#10), refused where the
     # engine or the app is built
     "serve_mesh": ({"serve_num_devices": 2}, "#13"),
-    "serve_fault_inject": ({"fault_inject": "serve_error@req:5"}, "#18"),
+    "serve_fault_inject_kv": ({"fault_inject": "kv_delay@round:1"}, "#13"),
     "serve_obs_trace": ({"obs_trace": True}, "#15"),
     "serve_slo": ({"serve_slo_p99_ms": 5.0}, "#15"),
     "serve_qos": ({"serve_qos_weights": "a:1,b:2"}, "#15"),
     "serve_latency_budget": ({"serve_latency_budget_ms": 5.0,
                               "serving_cascade_trees": 2}, "#15"),
     "serve_fleet": ({"fleet_kv_dir": "fleet"}, "#15"),
-    "serve_checkpoint_dir": ({"checkpoint_dir": "checkpoints"}, "#12"),
-    "serve_watch_dir": ({}, "#12"),
+    # the refit loop's hooks of checkpoints and serving
+    "checkpoint_save_refit": ({}, "#15"),
+    "serve_arm_drift_refit": ({}, "#15"),
 }
 
 
@@ -170,9 +171,13 @@ def _refused_call(kind, params, x, y):
     if kind.startswith("serve_"):
         from lightgbm_tpu_torch.config import Config
         from lightgbm_tpu_torch.serving import ModelRegistry, build_app
-        if kind == "serve_watch_dir":
-            return ModelRegistry(device="cpu").watch_dir("m", "checkpoints")
+        if kind == "serve_arm_drift_refit":
+            return ModelRegistry(device="cpu").watch_dir(
+                "m", "checkpoints").arm_drift_refit(None)
         return build_app(Config(dict(params, device_type="cpu")))
+    if kind == "checkpoint_save_refit":
+        from lightgbm_tpu_torch.checkpoint import CheckpointManager
+        return CheckpointManager("checkpoints").save_refit(None)
     if kind == "cli_task_refit":
         from lightgbm_tpu_torch import cli
         return cli.main(["task=refit", "device_type=cpu"])
@@ -182,11 +187,8 @@ def _refused_call(kind, params, x, y):
         if kind == "booster_refit":
             return bst.refit(x, y)
         return bst.set_network("127.0.0.1:12400")
-    extra = {}
-    if kind == "checkpoint_callback":
-        extra["callbacks"] = [tlgb.callback.checkpoint("checkpoints")]
     return tlgb.train(params, tlgb.Dataset(x, label=y, device="cpu"),
-                      num_boost_round=1, device="cpu", **extra)
+                      num_boost_round=1, device="cpu")
 
 
 @pytest.mark.parametrize("kind", sorted(REFUSALS))

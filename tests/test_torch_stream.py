@@ -16,7 +16,8 @@ predictions within 1e-5). Around them: the chunk sources (array, ``.npy``
 memory map, CSV), the reservoir sample against the two-round file loader
 and the JAX package's ingest (mappers and stored chunks byte for byte),
 the uniform repack and the pipeline's accounting, and the gates and
-refusals (a mesh #13, streamed checkpoints #12).
+refusals (a mesh #13); streamed checkpoints and resume are held in
+tests/test_torch_checkpoint.py.
 """
 import numpy as np
 import pytest
@@ -425,7 +426,6 @@ REFUSED = {
     "sharded_source": "#13",
     "sharded_ingest": "#13",
     "mesh": "#13",
-    "checkpoint": "#12",
 }
 
 
@@ -440,11 +440,6 @@ def test_streamed_refusals_cite_their_roadmap_item(kind, tmp_path):
             ShardedSource(src, rank=0, world=2)
         elif kind == "sharded_ingest":
             ingest(src, Config(dict(BASE)), comm=object())
-        elif kind == "mesh":
+        else:
             _port(dict(BASE, data_stream_chunk_rows=100,
                        tree_learner="data"), x, y, 1)
-        else:
-            tlgb.train(dict(BASE, data_stream_chunk_rows=100,
-                            checkpoint_dir=str(tmp_path / "ck")),
-                       tlgb.Dataset(x, label=y, device="cpu"),
-                       num_boost_round=1, device="cpu")
