@@ -353,6 +353,37 @@ and prints no result line):
         uninterrupted run saved there under ``ckpt_torn``: the watcher
         keeps its generation and its answers, and ``load_latest`` falls
         back to the snapshot before;
+     4zze (the fleet, #15 slice a) 4zza's booster refitted
+        (``fleet.Refitter``) at REFIT_DECAY on 1,000,000 rows of bench.py's
+        data of seed 1 with features 0-3 moved by REFIT_SHIFT, its AUC
+        there held to the JAX package's (JAX_REFIT_AUC) within
+        REFIT_AUC_TOL, against the host loop (``refit_device=false``)
+        within 1e-5 relative and 1e-6, ``decay_rate=1.0`` and the trees'
+        structure byte for byte, a held Refitter's later cycle equal to a
+        one-shot refit; the card's seconds against the host loop's, the
+        routing's ms against the loop's; the same for 4r's 5-class booster
+        on MULTICLASS_ROWS rows, in the workloads part after 4zx;
+     4zzf (workloads, after 4zx) 4m's and 4r's boosters as models a and b
+        of one app built from the config (``serve_qos_weights``,
+        ``serve_qos_quota_rows``, a cascade, ``serve_latency_budget_ms``):
+        QOS_FLOOD_THREADS threads flood a past its quota while b's
+        threads stay within theirs; only a's requests shed, the rows
+        served converge to the weights within QOS_RATIO_TOL; then the
+        autotuner, its budget below the measured p99, walks the margin
+        down a rung a step; every answer the cascade's host emulation at
+        its margin, no capture or cache miss after warmup;
+     4zzg the fleet loop: two replica processes of this script
+        (``--fleet-replica``, ``build_app`` with ``fleet_kv_dir`` and a
+        copy of 4zza's directory taken before 4zzd) under drifted HTTP
+        traffic reach ``drift: warn``; here a refit worker refits the
+        served booster on a window of that traffic and publishes it with
+        the window's profile (``save_refit``); the replicas roll it one at
+        a time (each answer the old or the refitted booster's ``predict``
+        bit for bit, no error, shed or capture after warmup, drift back
+        to ok, ``/stats/cluster`` converged), pass over a torn snapshot
+        and refuse, in the first replica's canary, one with NaN leaves,
+        which the second skips; each replica's roll seconds and the p99
+        during the roll;
      4zzb frontier growth on CKPT_STREAM_ROWS rows of 4b's data streamed
         in 4 chunks of packed words with a checkpoint a round:
         uninterrupted, then a victim sent SIGTERM by
@@ -417,9 +448,9 @@ Phases 1-3 and 4a-4d run in this process alone. Then two more processes
 of this script (``--part workloads`` and ``--part compare``, given the
 dense paths 4a-4d for their ratios) share the card with it, so that the
 host-bound paths overlap: this process runs 4q, 4zb-4zf, 4zl-4zn,
-4zq-4zv, 4zza, 4zzc and 4zzd (4zza's two child processes too);
-``workloads`` 4e-4h, 4zh-4zk, 4i-4p, 4zo, 4r-4u, their prediction
-extras and 4zx; ``compare`` 4v-4za, 4zg, 4zp, 4zy, 4zz, 4zzb, 4zw and
+4zq-4zv, 4zza, 4zzc, 4zzd, 4zze and 4zzg (4zza's two child processes
+and 4zzg's two replicas too); ``workloads`` 4e-4h, 4zh-4zk, 4i-4p, 4zo,
+4r-4u, their prediction extras, 4zx, 4r's refit and 4zzf; ``compare`` 4v-4za, 4zg, 4zp, 4zy, 4zz, 4zzb, 4zw and
 phase 5 (4b's trees reach it in a file, FRONTIER_REF, for 4zz). Each
 process sets its own launch counts to 0 just before each path and reads
 them just after; phase 6 sums them. The seconds of the paths from 4q on,
@@ -6036,17 +6067,654 @@ def drive_streamed_resume(x, y, tmp: str) -> dict:
 
 def drive_checkpoint_paths(ds, x, y, tmp: str, t_start: float) -> dict:
     """Paths 4zza, 4zzc and 4zzd on 4a's data ``x``, ``y``, binned as
-    ``ds`` (the module docstring)."""
+    ``ds``, then 4zze (4zza's booster refitted) and 4zzg (the fleet over a
+    copy of 4zza's directory taken before 4zzd writes there; the module
+    docstring)."""
+    import shutil
     out = {}
     log_phase(t_start, "4zza. kill and resume, float64")
     out["4zza"], golden, text, directory = drive_kill_and_resume(ds, x, y,
                                                                  tmp)
+    fleet_dir = os.path.join(tmp, "fleet_4zzg")
+    shutil.copytree(directory, os.path.join(fleet_dir, "ckpt"))
     log_phase(t_start, "4zzc. a supervised crash")
     out["4zzc"] = drive_supervised_crash(
         ds, text, out["4zza"]["s_per_iter_no_ckpt"], tmp)
     log_phase(t_start, "4zzd. the serving watcher and a torn snapshot")
     out["4zzd"] = drive_watcher_and_torn(golden, x, directory)
+    log_phase(t_start, "4zze. refit of 4zza's booster on a shifted window")
+    # 4zza's model of CKPT_ROUNDS iterations (4zzd trained golden one more)
+    out["4zze"] = drive_refit_path(lgb.Booster(model_str=text))[0]
+    del golden
+    log_phase(t_start, "4zzg. the fleet: drift, refit, a rolling deploy")
+    out["4zzg"] = drive_fleet_path(fleet_dir)
     return out
+
+
+# ---- 4zze-4zzg. refit, QoS and the fleet (#15 slice a) -----------------
+# the refit window: bench.py's rows of another seed with features 0-3
+# shifted by REFIT_SHIFT (a covariate drift of a quarter deviation), the
+# labels of the unshifted rows
+REFIT_SHIFT, REFIT_SHIFTED = 0.25, 4
+REFIT_DECAY = 0.5
+REFIT_LEAF_RTOL, REFIT_LEAF_ATOL = 1e-5, 1e-6
+REFIT_AUC_TOL = 1e-5
+# 4zza's f64 model (CKPT_PARAMS, CKPT_ROUNDS iterations) in the JAX
+# package: its AUC on the training rows, and on the window after the JAX
+# package refitted it there at REFIT_DECAY (154 s on the CPU):
+#   JAX_PLATFORMS=cpu python scripts/jax_reference_auc.py --refit
+JAX_REFIT_TRAIN_AUC = 0.9648963913219922
+JAX_REFIT_AUC = 0.9471359215577544
+# 4zzf: 4m (binary) and 4r (5 classes) on one engine under QoS
+QOS_WEIGHTS = "a=4,b=1"
+QOS_QUOTA_ROWS = 256
+QOS_ROWS = 32                  # rows a request
+QOS_FLOOD_THREADS = 8          # open loop on a, past its quota
+QOS_STEADY_THREADS = 4         # closed loop on b, within its quota
+QOS_SECONDS = 4.0
+# each dispatch of the saturation phase is held this long after the
+# engine's answer: the card answers a batch in about a millisecond, and a
+# dispatch takes every queued request of its model, so without the hold
+# the flooding threads cannot refill a's queue before the next pick, and
+# the queue (work-conserving) serves whichever model has work instead of
+# the weights' share
+QOS_HOLD_S = 0.003
+QOS_RATIO_TOL = 0.1
+QOS_CASCADE_TREES = 2
+QOS_TUNER_RUNGS = 4
+QOS_TUNER_REQUESTS = 30        # fresh samples of one bucket a step
+# 4zzg: two replica processes of build_app over a copy of 4zza's directory
+FLEET_REPLICAS = ("a", "b")
+FLEET_SHIFT = 1.0              # traffic and window: features 0-3 + 1 sd
+FLEET_WINDOW_ROWS = 250_000
+FLEET_PAYLOADS, FLEET_PAYLOAD_ROWS = 32, 64
+FLEET_TRAFFIC_THREADS = 1      # a replica
+FLEET_WAIT_S = 120.0
+
+
+def shifted_window(data, n: int, seed: int, shift: float):
+    """``data(n, seed=seed)`` with features 0..REFIT_SHIFTED-1 moved by
+    ``shift``; the labels are the unshifted rows'."""
+    x, y = data(n, seed=seed)
+    x = np.array(x, copy=True)
+    x[:, :REFIT_SHIFTED] += shift
+    return x, y
+
+
+def live_leaves(models) -> list:
+    return [np.asarray(t.leaf_value[:t.num_leaves_actual], np.float64)
+            for t in models]
+
+
+def tree_structure(models) -> list:
+    out = []
+    for t in models:
+        nn = max(int(t.num_leaves_actual) - 1, 0)
+        out.append(tuple(np.asarray(getattr(t, f)[:nn]).tobytes() for f in
+                         ("split_feature", "threshold", "left_child",
+                          "right_child", "default_left")))
+    return out
+
+
+def drive_refit(label: str, bst, xw, yw) -> tuple:
+    """One refit of ``bst`` on the window ``xw``, ``yw`` at REFIT_DECAY on
+    the card (``fleet.Refitter``), held against the host loop
+    (``refit_device=false``) within REFIT_LEAF_RTOL / REFIT_LEAF_ATOL,
+    ``decay_rate=1.0`` (the leaf tables byte for byte), the trees'
+    structure (byte for byte) and a held Refitter's later cycle against a
+    one-shot refit (bit for bit). Returns (the path's numbers, the
+    refitted booster)."""
+    from lightgbm_tpu_torch.fleet import Refitter, refit_booster
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    held = Refitter(bst)
+    dev = held.refit(xw, yw, decay_rate=REFIT_DECAY)
+    refit_s = time.perf_counter() - t0
+    launches = read_counts()
+    timing = dict(held.last_timing)
+    host_bst = lgb.Booster(model_str=bst.model_to_string())
+    host_bst.config.refit_device = False
+    t0 = time.perf_counter()
+    host = host_bst.refit(xw, yw, decay_rate=REFIT_DECAY)
+    host_s = time.perf_counter() - t0
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(live_leaves(dev.models),
+                                   live_leaves(host.models))):
+        err = np.abs(a - b)
+        if (err > REFIT_LEAF_ATOL + REFIT_LEAF_RTOL * np.abs(b)).any():
+            raise AssertionError("%s: tree %d's refitted leaves %.3g off "
+                                 "the host loop's" % (label, i, err.max()))
+        worst = max(worst, float(err.max()))
+    if tree_structure(dev.models) != tree_structure(bst.models):
+        raise AssertionError("%s: the refit changed a tree's structure"
+                             % label)
+    kept = held.refit(xw, yw, decay_rate=1.0)
+    if not all(np.array_equal(a.leaf_value, b.leaf_value)
+               for a, b in zip(kept.models, bst.models)):
+        raise AssertionError("%s: decay_rate=1.0 changed a leaf" % label)
+    again = held.refit(xw, yw, decay_rate=REFIT_DECAY)
+    shot = refit_booster(bst, xw, yw, decay_rate=REFIT_DECAY)
+    for a, b, c in zip(again.models, shot.models, dev.models):
+        if not (np.array_equal(a.leaf_value, b.leaf_value)
+                and np.array_equal(a.leaf_value, c.leaf_value)):
+            raise AssertionError("%s: a held Refitter's cycle is not the "
+                                 "one-shot refit's bit for bit" % label)
+    log("path %s: %d trees refitted on %d rows at decay %g: %.3f s on the "
+        "card (routing %.2f ms, the loop over iterations %.2f ms) against "
+        "%.3f s for the host loop; leaves within %.3g of the host loop's; "
+        "structure, decay 1.0 and the held refitter equal"
+        % (label, len(bst.models), len(xw), REFIT_DECAY, refit_s,
+           timing["route_s"] * 1e3, timing["loop_s"] * 1e3, host_s, worst))
+    return ({"launches": launches, "rows": len(xw),
+             "trees": len(bst.models), "refit_s": refit_s,
+             "route_ms": timing["route_s"] * 1e3,
+             "loop_ms": timing["loop_s"] * 1e3, "host_s": host_s,
+             "leaf_err_vs_host": worst}, dev)
+
+
+def drive_refit_path(golden) -> tuple:
+    """Path 4zze: ``golden``, 4zza's f64 model of CKPT_ROUNDS iterations,
+    refitted on a window of MAIN_ROWS (``shifted_window`` of bench.py's
+    data, seed 1); its AUC there held to the JAX package's within
+    REFIT_AUC_TOL. Returns (the path's numbers, the refitted booster)."""
+    if golden.current_iteration() != CKPT_ROUNDS:
+        raise AssertionError("4zze: the model has %d iterations, not %d"
+                             % (golden.current_iteration(), CKPT_ROUNDS))
+    x, y = bench_data(MAIN_ROWS)
+    trained = auc(golden.predict(x), y)
+    del x, y
+    if abs(trained - JAX_REFIT_TRAIN_AUC) > F64_AUC_TOL:
+        raise AssertionError("4zze: 4zza's %d-iteration AUC %.10f is not the "
+                             "JAX package's %.10f: the trees parted"
+                             % (CKPT_ROUNDS, trained, JAX_REFIT_TRAIN_AUC))
+    xw, yw = shifted_window(bench_data, MAIN_ROWS, 1, REFIT_SHIFT)
+    out, dev = drive_refit("4zze", golden, xw, yw)
+    before = auc(golden.predict(xw), yw)
+    after = auc(dev.predict(xw), yw)
+    if abs(after - JAX_REFIT_AUC) > REFIT_AUC_TOL:
+        raise AssertionError("4zze: the refitted AUC %.10f is not the JAX "
+                             "package's %.10f" % (after, JAX_REFIT_AUC))
+    log("path 4zze: 4zza's AUC %.10f (JAX package %.10f); on the window "
+        "%.10f before the refit, %.10f after (JAX package %.10f)"
+        % (trained, JAX_REFIT_TRAIN_AUC, before, after, JAX_REFIT_AUC))
+    out.update(auc_train=trained, auc_before=before, auc=after,
+               jax_auc=JAX_REFIT_AUC)
+    return out, dev
+
+
+def drive_multiclass_refit(mc_bst) -> dict:
+    """Path 4zze's k>1 row: 4r's 5-class booster refitted on
+    MULTICLASS_ROWS rows (``shifted_window`` of the multiclass data, seed
+    1)."""
+    xw, yw = shifted_window(multiclass_data, MULTICLASS_ROWS, 1,
+                            REFIT_SHIFT)
+    out, dev = drive_refit("4zze (4r, 5 classes)", mc_bst, xw, yw)
+    out["multi_logloss_before"] = float(np.mean(-np.log(np.maximum(
+        mc_bst.predict(xw)[np.arange(len(yw)), yw.astype(np.int64)],
+        1e-15))))
+    out["multi_logloss"] = float(np.mean(-np.log(np.maximum(
+        dev.predict(xw)[np.arange(len(yw)), yw.astype(np.int64)], 1e-15))))
+    log("path 4zze (4r): multi_logloss on the window %.6f before, %.6f "
+        "after" % (out["multi_logloss_before"], out["multi_logloss"]))
+    return out
+
+
+def drive_qos_path(a_bst, b_bst) -> dict:
+    """Path 4zzf: ``a_bst`` (4m, binary) and ``b_bst`` (4r, 5 classes) as
+    models a and b of one app on the card built from the config
+    (``serve_qos_weights=QOS_WEIGHTS``, ``serve_qos_quota_rows``, a
+    cascade of QOS_CASCADE_TREES iterations, ``serve_latency_budget_ms``).
+    QOS_FLOOD_THREADS threads flood a past its quota while
+    QOS_STEADY_THREADS keep b busy within its own, each dispatch held
+    QOS_HOLD_S so that both stay queued: every shed request is a's, and
+    the rows served converge to a's weight over b's within
+    QOS_RATIO_TOL. Then the budget is set below the measured p99 and the
+    autotuner walks the margin down one rung a step. Every answer is the
+    host emulation of the cascade at the margin it was served at, and no
+    graph is captured after warmup outside the credited retunes."""
+    import threading
+    from lightgbm_tpu_torch import serving
+    from lightgbm_tpu_torch.log import OverloadedError
+    models = {"a": (a_bst, categorical_data(SERVE_ROWS, seed=2)[0]),
+              "b": (b_bst, multiclass_data(SERVE_ROWS, seed=2)[0])}
+    refs = {m: serve_references(b, rows, QOS_CASCADE_TREES)
+            for m, (b, rows) in models.items()}
+    ks = {m: b.num_model_per_iteration() for m, (b, _) in models.items()}
+    convert = {m: b._impl.objective.convert_output
+               for m, (b, _) in models.items()}
+    top = float(np.median(stage1_margins(refs["a"]["first"], 1)))
+    app = serving.build_app(Config({
+        "serve_qos_weights": QOS_WEIGHTS,
+        "serve_qos_quota_rows": QOS_QUOTA_ROWS,
+        "serving_cascade_trees": QOS_CASCADE_TREES,
+        "serving_cascade_margin": top, "serve_latency_budget_ms": 1.0,
+        "serve_qos_tune_interval_s": 3600.0, "serve_deadline_ms": 2.0,
+        "verbosity": -1}))
+    eng, queue, tuner = app.engine, app.queue, app.tuner
+    try:
+        for m, (b, _) in models.items():
+            eng.registry.register(b.as_serving_bundle(m))
+        # transformed outputs: a retune re-warms those entries (the raw
+        # ones would be captured on their first request after it)
+        warmed = eng.warmup(raw_scores=(False,))
+
+        def want(m, lo, n, margin):
+            raw, _ = cascade_emulation(refs[m]["first"][lo:lo + n],
+                                       refs[m][True][lo:lo + n], ks[m],
+                                       margin)
+            return np.asarray(convert[m](raw))
+
+        # ---- QoS under saturation ------------------------------------
+        stop = threading.Event()
+        faults, shed = [], {"a": 0, "b": 0}
+        lock = threading.Lock()
+
+        def flood(i):
+            r = np.random.RandomState(i)
+            futures = []
+            try:
+                while not stop.is_set():
+                    lo = int(r.randint(0, SERVE_ROWS - QOS_ROWS))
+                    try:
+                        futures.append((lo, queue.submit(
+                            "a", models["a"][1][lo:lo + QOS_ROWS])))
+                    except OverloadedError:
+                        with lock:
+                            shed["a"] += 1
+                        time.sleep(0.0005)
+                for lo, f in futures:
+                    require_equal(f.result(timeout=60),
+                                  want("a", lo, QOS_ROWS, top),
+                                  "4zzf a %d rows" % QOS_ROWS)
+            except Exception as e:  # noqa: BLE001 - raised after the join
+                faults.append(e)
+
+        def steady(i):
+            r = np.random.RandomState(100 + i)
+            try:
+                while not stop.is_set():
+                    lo = int(r.randint(0, SERVE_ROWS - QOS_ROWS))
+                    try:
+                        got = queue.predict("b", models["b"][1][
+                            lo:lo + QOS_ROWS])
+                    except OverloadedError:
+                        with lock:
+                            shed["b"] += 1
+                        continue
+                    require_equal(got, want("b", lo, QOS_ROWS, top),
+                                  "4zzf b %d rows" % QOS_ROWS)
+            except Exception as e:  # noqa: BLE001 - raised after the join
+                faults.append(e)
+
+        threads = ([threading.Thread(target=flood, args=(i,))
+                    for i in range(QOS_FLOOD_THREADS)]
+                   + [threading.Thread(target=steady, args=(i,))
+                      for i in range(QOS_STEADY_THREADS)])
+        predict = eng.predict
+
+        def held(*args, **kwargs):
+            out = predict(*args, **kwargs)
+            time.sleep(QOS_HOLD_S)
+            return out
+        eng.predict = held
+        try:
+            for t in threads:
+                t.start()
+            time.sleep(QOS_SECONDS)
+            stop.set()
+            for t in threads:
+                t.join(timeout=120)
+        finally:
+            eng.predict = predict
+        if faults or any(t.is_alive() for t in threads):
+            raise AssertionError("4zzf: %s" % (faults[:3] or "a caller hung"))
+        qos = queue.stats()["qos"]
+        if shed["b"] or qos["b"]["shed"] or not shed["a"] \
+                or qos["a"]["shed"] != shed["a"]:
+            raise AssertionError("4zzf: shed %s, the policy's %s" % (
+                shed, {m: qos[m]["shed"] for m in qos}))
+        ratio = qos["a"]["served_rows"] / qos["b"]["served_rows"]
+        weight = qos["a"]["weight"] / qos["b"]["weight"]
+        if abs(ratio / weight - 1.0) > QOS_RATIO_TOL:
+            raise AssertionError("4zzf: rows served a:b %.3f, weights %.3f"
+                                 % (ratio, weight))
+        log("path 4zzf: %.1f s of saturation, %d of a's requests shed past "
+            "its quota of %d rows, none of b's; rows served a %d, b %d "
+            "(%.3f, weights %.1f)" % (QOS_SECONDS, shed["a"], QOS_QUOTA_ROWS,
+                                      qos["a"]["served_rows"],
+                                      qos["b"]["served_rows"], ratio,
+                                      weight))
+
+        # ---- the autotuner: a budget below the measured p99 ----------
+        rows, nb = models["a"][1], eng.min_bucket
+        for lo in range(0, QOS_TUNER_REQUESTS * nb, nb):
+            require_equal(eng.predict("a", rows[lo:lo + nb]),
+                          want("a", lo, nb, top), "4zzf before the tuner")
+        # the smallest bucket's p99, which every later step judges alone
+        p99 = float(eng.metrics.bucket_latency()[str(nb)]["p99_ms"])
+        tuner.budget_ms = p99 / 10.0
+        tuner.step()       # judges every bucket so far: one rung down
+        margins = [float(eng.cascade_margin)]
+        for _ in range(QOS_TUNER_RUNGS):
+            margin = float(eng.cascade_margin)
+            for lo in range(0, QOS_TUNER_REQUESTS * nb, nb):
+                require_equal(eng.predict("a", rows[lo:lo + nb]),
+                              want("a", lo, nb, margin),
+                              "4zzf at margin %g" % margin)
+            moved = tuner.step()
+            margins.append(float(eng.cascade_margin))
+        if margins != tuner.ladder[1:] + [tuner.ladder[-1]] * 2:
+            raise AssertionError("4zzf: the tuner's margins %s, ladder %s"
+                                 % (margins, tuner.ladder))
+        if moved is not None:
+            raise AssertionError("4zzf: the tuner moved past its last rung")
+        after = {"captures": eng.metrics.recompiles_after_warmup(),
+                 "cache_misses": eng.metrics.cache_misses_after_warmup()}
+        if after["captures"] or after["cache_misses"]:
+            raise AssertionError("4zzf: %s after warmup" % after)
+        log("path 4zzf: p99 %.3f ms, budget %.3f ms: the tuner's margins %s "
+            "(ladder %s, %d retunes); every answer the cascade's emulation "
+            "at its margin; captures and cache misses after warmup %s"
+            % (p99, tuner.budget_ms, margins, tuner.ladder, tuner.retunes,
+               after))
+        return {"launches": {name: 0 for name in read_counts()},
+                "warmed": warmed, "shed": shed, "served_rows": {
+                    m: qos[m]["served_rows"] for m in qos},
+                "ratio": ratio, "p99_ms": p99, "budget_ms": tuner.budget_ms,
+                "margins": margins, "retunes": tuner.retunes,
+                "after_warmup": after}
+    finally:
+        app.close()
+
+
+def fleet_get(base: str, path: str):
+    import urllib.request
+    with urllib.request.urlopen(base + path, timeout=30) as r:
+        body = r.read()
+    return body.decode() if path == "/metrics/cluster" else json.loads(body)
+
+
+def run_fleet_replica(argv) -> int:
+    """``--fleet-replica NAME --dir DIR``: one replica of 4zzg. Builds the
+    app from the config (``checkpoint_dir`` DIR/ckpt, ``fleet_kv_dir``
+    DIR/kv, ``fleet_replica`` NAME), which rolls the directory's newest
+    snapshot in turn with the replicas before it, warms every bucket,
+    serves HTTP on 127.0.0.1 and publishes its address under
+    ``http/NAME`` in the KV; SIGTERM ends it."""
+    import argparse
+    import threading
+    from lightgbm_tpu_torch import serving
+    from lightgbm_tpu_torch.fleet import FileKvClient
+    parser = argparse.ArgumentParser()
+    parser.add_argument("name")
+    parser.add_argument("--dir", required=True)
+    args = parser.parse_args(argv)
+    global LOG_PREFIX
+    LOG_PREFIX = "[4zzg %s] " % args.name
+    torch.set_num_threads(1)
+    cfg = Config({"checkpoint_dir": os.path.join(args.dir, "ckpt"),
+                  "fleet_kv_dir": os.path.join(args.dir, "kv"),
+                  "fleet_replica": args.name,
+                  "fleet_announce_period_s": 0.1, "serve_min_bucket": 16,
+                  "serve_max_batch": 256, "obs_drift_min_rows": 512,
+                  "verbosity": -1})
+    app = serving.build_app(cfg)
+    warmed = app.engine.warmup()
+    server = serving.make_server(app, "127.0.0.1", 0)
+    FileKvClient(cfg.fleet_kv_dir).key_value_set(
+        "http/" + args.name, "http://127.0.0.1:%d" % server.server_address[1])
+    log("serving snapshot %d, %d entries warmed"
+        % (app.watcher._last_id, warmed))
+    signal.signal(signal.SIGTERM, lambda *_: threading.Thread(
+        target=server.shutdown, daemon=True).start())
+    try:
+        server.serve_forever()
+    finally:
+        server.server_close()
+        app.close()
+    return 0
+
+
+def wait_for(pred, timeout_s: float = FLEET_WAIT_S, what: str = ""):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        got = pred()
+        if got:
+            return got
+        time.sleep(0.02)
+    raise AssertionError("4zzg: %s within %.0f s" % (what, timeout_s))
+
+
+class NanLeaves:
+    """A refitted booster whose published model text has tree 0's leaf
+    values replaced by NaN (the model text writer takes finite values
+    only): a snapshot that passes the manifest's checksums and that the
+    guarded roll's canary must refuse."""
+
+    def __init__(self, booster):
+        self._impl = booster._impl
+        lines = booster.model_to_string().split("\n")
+        first = next(i for i, line in enumerate(lines)
+                     if line.startswith("leaf_value="))
+        count = len(lines[first].split("=", 1)[1].split())
+        lines[first] = "leaf_value=" + " ".join(["nan"] * count)
+        self._text = "\n".join(lines)
+
+    def model_to_string(self) -> str:
+        return self._text
+
+
+def drive_fleet_path(workdir: str) -> dict:
+    """Path 4zzg, the fleet loop on the card: two replica processes
+    (``run_fleet_replica``) over ``workdir``'s copy of 4zza's directory;
+    drifted traffic (features 0-3 + FLEET_SHIFT) from FLEET_TRAFFIC_THREADS
+    threads a replica turns both to ``drift: warn``; the refit worker here
+    refits the served booster on a window of that traffic
+    (``fleet.Refitter``) and publishes it with the window's profile
+    (``save_refit``); the replicas roll it one at a time under the traffic.
+    Every answer is the old or the refitted booster's ``predict`` bit for
+    bit, the refitted one's once a replica has announced the roll; nothing
+    is dropped, errored or shed; no graph is captured after warmup; drift
+    returns to ok; ``/stats/cluster`` shows both on the refit. Then a torn
+    snapshot (``ckpt_torn``) is passed over by both (its checksum fails),
+    and one whose leaf table is NaN (``NanLeaves``), which passes the
+    manifest, is refused by the first replica's canary and skipped by the
+    second without staging it."""
+    import threading
+    from lightgbm_tpu_torch.checkpoint import CheckpointManager
+    from lightgbm_tpu_torch.fleet import (FileKvClient, ReplicaAnnouncer,
+                                          Refitter)
+    from lightgbm_tpu_torch.obs.drift import DataProfile
+    from lightgbm_tpu_torch.resilience import faults as port_faults
+    ckpt = os.path.join(workdir, "ckpt")
+    kv = FileKvClient(os.path.join(workdir, "kv"))
+    mgr = CheckpointManager(ckpt)
+    base_id, base_path = mgr.latest_model()
+    old = lgb.Booster(model_file=base_path)
+    xt = shifted_window(bench_data, FLEET_PAYLOADS * FLEET_PAYLOAD_ROWS, 3,
+                        FLEET_SHIFT)[0]
+    payloads = [xt[i * FLEET_PAYLOAD_ROWS:(i + 1) * FLEET_PAYLOAD_ROWS]
+                for i in range(FLEET_PAYLOADS)]
+    bodies = [json.dumps({"model": "default", "data": p.tolist()}).encode()
+              for p in payloads]
+    # one predict over every payload's rows: a row's output does not
+    # depend on the rows beside it
+    old_out = np.split(old.predict(xt), FLEET_PAYLOADS)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    stop = threading.Event()
+    threads = []
+    procs = {name: subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--fleet-replica", name,
+         "--dir", workdir], env=env) for name in FLEET_REPLICAS}
+    try:
+        t0 = time.perf_counter()
+        bases = wait_for(lambda: (
+            {n: kv.try_get("http/" + n) for n in FLEET_REPLICAS}
+            if all(kv.try_get("http/" + n) for n in FLEET_REPLICAS)
+            else None), what="both replicas serving")
+        up_s = time.perf_counter() - t0
+
+        def announced():
+            fleet = ReplicaAnnouncer.read_fleet(kv)
+            return {n: fleet.get(n, {}) for n in FLEET_REPLICAS}
+        if {d.get("snap_id") for d in announced().values()} != {base_id}:
+            raise AssertionError("4zzg: the replicas do not serve snapshot "
+                                 "%d: %s" % (base_id, announced()))
+
+        # ---- drifted traffic --------------------------------------------
+        import urllib.error
+        import urllib.request
+        records, counts = [], {"errors": 0, "shed": 0}
+        lock = threading.Lock()
+
+        def traffic(name, seed):
+            r = np.random.RandomState(seed)
+            while not stop.is_set():
+                i = int(r.randint(FLEET_PAYLOADS))
+                t1 = time.perf_counter()
+                try:
+                    with urllib.request.urlopen(urllib.request.Request(
+                            bases[name] + "/predict", data=bodies[i]),
+                            timeout=60) as resp:
+                        out = json.loads(resp.read())["predictions"]
+                except urllib.error.HTTPError as e:
+                    with lock:
+                        counts["shed" if e.code == 503 else "errors"] += 1
+                    continue
+                except Exception:  # noqa: BLE001 - counted, checked below
+                    with lock:
+                        counts["errors"] += 1
+                    continue
+                t2 = time.perf_counter()
+                with lock:
+                    records.append((name, i, t1, t2, np.asarray(out)))
+        threads += [threading.Thread(target=traffic, args=(n, 10 * j + k),
+                                     daemon=True)
+                    for j, n in enumerate(FLEET_REPLICAS)
+                    for k in range(FLEET_TRAFFIC_THREADS)]
+        for t in threads:
+            t.start()
+        t0 = time.perf_counter()
+        for name in FLEET_REPLICAS:
+            wait_for(lambda: fleet_get(bases[name], "/healthz")["drift"]
+                     == "warn", what="replica %s at drift: warn" % name)
+        warn_s = time.perf_counter() - t0
+
+        # ---- the refit worker ---------------------------------------------
+        t0 = time.perf_counter()
+        xw, yw = shifted_window(bench_data, FLEET_WINDOW_ROWS, 4,
+                                FLEET_SHIFT)
+        refitted = Refitter(old).refit(xw, yw, decay_rate=0.0)
+        new_out = np.split(refitted.predict(xt), FLEET_PAYLOADS)
+        window = lgb.Dataset(xw, label=yw,
+                             params={"verbosity": -1}).construct()
+        entry = mgr.save_refit(
+            refitted, data_profile=DataProfile.from_binned_dataset(
+                window._binned))
+        del window
+        refit_id = int(entry["id"])
+        t_pub = time.perf_counter()
+        worker_s = t_pub - t0
+        rolled = {}
+        for name in FLEET_REPLICAS:
+            wait_for(lambda: announced()[name].get("snap_id") == refit_id,
+                     what="replica %s on snapshot %d" % (name, refit_id))
+            rolled[name] = time.perf_counter()
+        for name in FLEET_REPLICAS:
+            wait_for(lambda: fleet_get(bases[name], "/healthz")["drift"]
+                     == "ok", what="replica %s back at drift: ok" % name)
+
+        # ---- a torn snapshot, then one the canary refuses -------------------
+        port_faults.install_plan("ckpt_torn@snap:%d" % (refit_id + 1))
+        try:
+            mgr.save_refit(refitted)
+        finally:
+            port_faults.clear_plan()
+        bad_id = int(mgr.save_refit(NanLeaves(refitted))["id"])
+        wait_for(lambda: all(bad_id in d.get("rejected", ())
+                             for d in announced().values()),
+                 what="both replicas rejecting snapshot %d" % bad_id)
+        time.sleep(0.5)
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("4zzg: a traffic thread hung")
+
+        # ---- what the fleet did -------------------------------------------
+        stats = {n: fleet_get(bases[n], "/stats") for n in FLEET_REPLICAS}
+        cluster = fleet_get(bases["a"], "/stats/cluster")
+        prom = fleet_get(bases["b"], "/metrics/cluster")
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.terminate()
+        for proc in procs.values():
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    if counts["errors"] or counts["shed"] or len(records) < 100:
+        raise AssertionError("4zzg: %d answers, %s" % (len(records), counts))
+    for name, i, t1, _, got in records:
+        want = [new_out[i]] if t1 > rolled[name] else [old_out[i],
+                                                       new_out[i]]
+        if not any(got.shape == w.shape and np.array_equal(got, w)
+                   for w in want):
+            raise AssertionError("4zzg: replica %s answered payload %d with "
+                                 "neither booster's predict" % (name, i))
+    for name in FLEET_REPLICAS:
+        s = stats[name]
+        if s["recompiles_after_warmup"] or s["errors"] or s["shed"]:
+            raise AssertionError("4zzg: replica %s: %s" % (name, {
+                k: s[k] for k in ("recompiles_after_warmup", "errors",
+                                  "shed")}))
+        if s["replica"]["snap_id"] != refit_id \
+                or bad_id not in s["replica"]["rejected"]:
+            raise AssertionError("4zzg: replica %s announces %s"
+                                 % (name, s["replica"]))
+    rollbacks = {n: stats[n]["rollbacks"] for n in FLEET_REPLICAS}
+    if rollbacks != {"a": 1, "b": 0}:
+        raise AssertionError("4zzg: canary refusals %s (the first replica "
+                             "stages the bad snapshot, the second never)"
+                             % rollbacks)
+    fleet = cluster["fleet"]
+    if (fleet["live"], fleet["snap_id_min"], fleet["snap_id_max"],
+            fleet["rolling"]) != (2, refit_id, refit_id, False):
+        raise AssertionError("4zzg: /stats/cluster %s" % fleet)
+    if "lgbm_fleet_live_replicas 2" not in prom:
+        raise AssertionError("4zzg: /metrics/cluster lacks the live count")
+    served = lgb.Booster(model_file=CheckpointManager(ckpt).latest_model()[1])
+    if tree_structure(served.models) != tree_structure(old.models):
+        raise AssertionError("4zzg: the served trees changed structure")
+    roll_s = {"a": rolled["a"] - t_pub, "b": rolled["b"] - rolled["a"]}
+    during = [t2 - t1 for _, _, t1, t2, _ in records
+              if t_pub <= t1 <= rolled["b"]]
+    p99 = float(np.percentile(np.asarray(during) * 1e3, 99)) if during \
+        else float("nan")
+    steady = [t2 - t1 for _, _, t1, t2, _ in records if t1 > rolled["b"]]
+    log("path 4zzg: replicas up in %.2f s; drift warn after %.2f s of "
+        "traffic; refit worker %.2f s (%d rows); roll of snapshot %d: "
+        "replica a %.3f s after the publication, b %.3f s after a; p99 %.2f "
+        "ms over %d requests during the roll (%.2f ms after it); %d answers, "
+        "0 errors, 0 shed; snapshot %d torn and passed over, snapshot %d "
+        "refused by a's canary and skipped by b; /stats/cluster %s"
+        % (up_s, warn_s, worker_s, FLEET_WINDOW_ROWS, refit_id,
+           roll_s["a"], roll_s["b"], p99, len(during),
+           float(np.percentile(np.asarray(steady) * 1e3, 99)) if steady
+           else float("nan"), len(records), refit_id + 1, bad_id, fleet))
+    return {"launches": {name: 0 for name in read_counts()},
+            "base_snapshot": base_id, "refit_snapshot": refit_id,
+            "rejected_snapshot": bad_id, "answers": len(records),
+            "up_s": up_s, "warn_s": warn_s, "refit_worker_s": worker_s,
+            "roll_s": roll_s, "p99_during_roll_ms": p99,
+            "requests_during_roll": len(during), "cluster": fleet,
+            "rollbacks": rollbacks}
 
 
 def kernel_entry(name, source, replaces, launches, rows, headline):
@@ -6077,6 +6745,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--ckpt-child"]:
         return run_ckpt_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--fleet-replica"]:
+        return run_fleet_replica(sys.argv[2:])
     if len(sys.argv) > 1:
         return run_part(sys.argv[1:])
     with tempfile.TemporaryDirectory() as tmp:
@@ -6364,6 +7034,10 @@ def part_workloads(dense: dict, tmp: str, t_start: float) -> dict:
     log_phase(t_start, "4zx. serving")
     # ---- 4zx. serving: a frontier model, 4m's and 4r's boosters --------
     paths["4zx"] = drive_serving_path(cat_bst, mc_bst, tmp, dev)
+    log_phase(t_start, "4zze (4r). refit of the 5-class booster")
+    paths["4zze_4r"] = drive_multiclass_refit(mc_bst)
+    log_phase(t_start, "4zzf. QoS and the cascade autotuner: 4m and 4r")
+    paths["4zzf"] = drive_qos_path(cat_bst, mc_bst)
     del cat_bst, mc_bst
     return {"paths": {k: v for k, v in paths.items() if k not in dense},
             "extras": extras, "renewal": renewal,

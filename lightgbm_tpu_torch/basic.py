@@ -29,6 +29,7 @@ import json
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
+import torch
 
 from .boosting import create_boosting
 from .boosting.gbdt import HostTree
@@ -893,6 +894,79 @@ class Booster:
               "Cannot serve: no trained model")
         return ModelBundle.from_booster(model_id, self)
 
-    refit = _not_ported("refit", "#15")
+    def refit(self, data, label, decay_rate: float = 0.9, weight=None,
+              group=None, **kwargs) -> "Booster":
+        """Refit the trees' leaf values to new data (basic.py:789-886 of
+        the JAX package; RefitTree, gbdt.cpp:263-286): every split is
+        kept, leaf outputs are re-estimated from the new data's gradients
+        and blended with the old ones by ``decay_rate``.
+
+        Dense input takes the device path on the booster's device
+        (``fleet/refit.py``: one flat-forest routing, then a loop over
+        iterations with fixed-order leaf sums); ``refit_device=false``
+        forces the host loop below. A scipy sparse matrix takes the host
+        loop, densified a row block at a time, never whole. The host loop
+        routes each tree's rows with ``predict``'s replay on the device,
+        sums each leaf's gradients in float64 with ``np.bincount`` and
+        keeps the running scores in float32."""
+        from .fleet.refit import (leaf_outputs, refit_booster,
+                                  refit_metadata, refit_objective,
+                                  refitted_booster)
+        from .core import tree as tree_mod
+
+        obj = refit_objective(self)
+        sparse_in = _is_sparse(data)
+        if not sparse_in and self.config.refit_device:
+            return refit_booster(self, data, label, decay_rate=decay_rate,
+                                 weight=weight, group=group)
+        if sparse_in:
+            data = data.tocsr()
+            n = int(data.shape[0])
+            blk = max(256, (1 << 24) // max(int(data.shape[1]), 1))
+            blocks = [(lo, lambda lo=lo: data[lo:lo + blk].toarray())
+                      for lo in range(0, n, blk)]
+        else:
+            x = _to_2d_float(data)
+            n = x.shape[0]
+            blocks = [(0, lambda: x)]
+        k = self._impl.num_tree_per_iteration
+        models = self._impl.models
+        obj.init(refit_metadata(n, label, weight, group), self.device)
+        cfg = self.config
+        # every tree's leaf of every row, a row block at a time
+        trees = tree_mod.stack_predict_trees(models, self.device)
+        leaves = np.empty((n, len(models)), np.int64)
+        for lo, block in blocks:
+            xb = torch.as_tensor(np.asarray(block(), np.float64),
+                                 device=self.device)
+            for i in range(len(models)):
+                leaves[lo:lo + xb.shape[0], i] = \
+                    tree_mod.tree_leaves(trees, i, xb).cpu().numpy()
+        scores = np.zeros((n, k), np.float32)
+        g = h = None
+        new_leaves = []
+        for i, ht in enumerate(models):
+            c = i % k
+            if c == 0:  # gradients refresh once per boosting iteration
+                st = torch.as_tensor(scores[:, 0] if k == 1 else scores,
+                                     device=self.device)
+                gt, hth = obj.get_gradients(st)
+                g = gt.cpu().numpy().reshape(n, k)
+                h = hth.cpu().numpy().reshape(n, k)
+            nl = int(ht.num_leaves_actual)
+            sg = np.bincount(leaves[:, i], weights=g[:, c].astype(np.float64),
+                             minlength=nl)
+            sh = np.bincount(leaves[:, i], weights=h[:, c].astype(np.float64),
+                             minlength=nl)
+            out = leaf_outputs(sg, sh, cfg.lambda_l1, cfg.lambda_l2,
+                               cfg.max_delta_step,
+                               float(getattr(ht, "shrinkage", 1.0)))
+            old = np.asarray(ht.leaf_value[:nl], np.float64)
+            vals = decay_rate * old + (1.0 - decay_rate) * out
+            new_leaves.append(vals)
+            scores[:, c] += vals.astype(np.float32)[leaves[:, i]]
+        return refitted_booster(self.device, self.model_to_string(), models,
+                                new_leaves)
+
     set_network = _not_ported("set_network", "#13")
     free_network = _not_ported("free_network", "#13")

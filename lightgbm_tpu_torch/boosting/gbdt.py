@@ -158,6 +158,14 @@ def check_slice(cfg: Config) -> None:
     rules = [
         (bool(cfg.obs_modelstats), "obs_modelstats (model statistics)",
          "ROADMAP Queue 1 #15"),
+        # every obs_* option (event file, stats port, Perfetto capture,
+        # distributed spans) acts only under observability != none
+        (cfg.observability != "none",
+         "observability=%s (training telemetry, obs_* options)"
+         % cfg.observability, "ROADMAP Queue 1 #15"),
+        (cfg.health_monitor in ("warn", "abort", "raise"),
+         "health_monitor=%s (the training health monitor)"
+         % cfg.health_monitor, "ROADMAP Queue 1 #15"),
         (cfg.tree_learner != "serial" or bool(cfg.mesh_shape)
          or cfg.num_machines > 1, "a device mesh (tree_learner=%s)"
          % cfg.tree_learner, "ROADMAP Queue 1 #13"),

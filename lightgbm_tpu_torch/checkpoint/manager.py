@@ -7,8 +7,8 @@ manifest and applies retention (the ``keep_last_n`` newest plus the best
 so far by validation metric). ``load_latest`` returns the newest snapshot
 that passes checksum verification, falling back past truncated or corrupt
 tails, or raises when a manifest exists but nothing in it loads (silent
-data loss is never an option). ``save_refit``, the fleet's trees-only
-snapshot, is ROADMAP Queue 1 #15.
+data loss is never an option). ``save_refit`` publishes the fleet's
+trees-only snapshot of a refitted model.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ import os
 import time
 from typing import Any, Dict, Optional, Tuple
 
-from ..log import Log, LightGBMError, outside_slice
+from ..log import Log, LightGBMError
 from .manifest import Manifest
 from . import snapshot as snap_mod
 
@@ -112,10 +112,51 @@ class CheckpointManager:
         return entry
 
     def save_refit(self, target, data_profile=None) -> Dict[str, Any]:
-        """The JAX package's refit snapshot (trees only, shipped by the
-        continuous-training loop to the serving fleet): not ported."""
-        raise outside_slice("CheckpointManager.save_refit (the fleet's "
-                            "refit snapshots)", "ROADMAP Queue 1 #15")
+        """Publish a REFIT snapshot (manager.py:114-158 of the JAX
+        package): trees only (structure and re-estimated leaf values), no
+        resumable training state.
+
+        This is how the continuous-training loop ships a refitted model to
+        the serving fleet: the snapshot takes the next free id, so
+        ``latest_model`` (the CheckpointWatcher's poll target) hot-rolls
+        it, while training resume (``load_latest``) SKIPS it and keeps
+        resuming from the last full training snapshot.
+
+        ``data_profile`` (``obs.drift.DataProfile``, typically of the refit
+        window) rides in the snapshot's meta; the serving side reads it
+        with the model (serving/registry.py), which is what makes the
+        drift scores recover after a refit."""
+        impl = _impl_of(target)
+        if not getattr(impl, "models", None):
+            raise LightGBMError("save_refit: target has no trees")
+        os.makedirs(self.directory, exist_ok=True)
+        manifest = Manifest.load(self.directory) or Manifest(self.directory)
+
+        tree_meta, arrays = snap_mod.trees_to_arrays(impl.models)
+        k = max(int(getattr(impl, "num_tree_per_iteration", 1)), 1)
+        meta: Dict[str, Any] = {
+            "snapshot_version": snap_mod.SNAPSHOT_VERSION,
+            "refit": True,
+            "iteration": len(impl.models) // k,
+            "config_hash": snap_mod.config_hash(impl.config),
+            "unix_time": time.time(),
+            "trees": tree_meta,
+        }
+        if data_profile is not None:
+            meta["data_profile"] = data_profile.to_json_dict()
+
+        snap_id = 1 + max((int(e["id"]) for e in manifest.entries),
+                          default=int(meta["iteration"]) - 1)
+        entry = snap_mod.write_snapshot(self.directory, snap_id, meta,
+                                        arrays, _model_text(target, impl))
+        entry["refit"] = True
+        entry["unix_time"] = meta["unix_time"]
+        manifest.entries = [e for e in manifest.entries
+                            if int(e["id"]) != snap_id]
+        manifest.add_entry(entry)
+        manifest.prune(self.keep_last_n)
+        manifest.save()
+        return entry
 
     @staticmethod
     def _flag_best(manifest: Manifest, entry: Dict[str, Any]) -> None:

@@ -10,6 +10,8 @@ one of the reference's tasks (include/LightGBM/application.h:74):
 - ``task=predict``       - score a file (application.cpp:213-250)
 - ``task=convert_model`` - the model as a standalone C++ if-else scorer
   (gbdt_model_text.cpp:60-243 ModelToIfElse)
+- ``task=refit``         - refit ``input_model``'s leaf values on
+  ``data`` (``refit_decay_rate``; ``Booster.refit``), save the model
 - ``task=serve``         - serve ``input_model`` over HTTP
   (``serve_host``, ``serve_port``) or JSON lines on stdin
   (``serve_stdin=true``): ``serving/server.py`` ``run_server``
@@ -22,9 +24,10 @@ Device: LightGBM's ``device_type`` key (alias ``device``). ``cpu`` runs on
 the CPU; anything else, the default included, runs on CUDA and raises when
 CUDA is absent. Training takes ``checkpoint_dir`` (with
 ``checkpoint_period`` and ``checkpoint_keep``), ``resume=<dir>`` and
-``supervise=true`` (cli.py:122-147 of the JAX package). ``task=refit`` and
-the raising health monitor are not ported yet: each raises, naming the
-ROADMAP item that brings it.
+``supervise=true`` (cli.py:122-147 of the JAX package). Observability
+and the health monitor's actions are not ported yet: training refuses
+them (``boosting/gbdt.py`` ``check_slice``), naming the ROADMAP item
+that brings them.
 """
 from __future__ import annotations
 
@@ -34,8 +37,9 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from .boosting.gbdt import check_slice
 from .config import Config
-from .log import Log, LightGBMError, outside_slice
+from .log import Log, LightGBMError
 
 
 def kv2map(tokens: List[str], strip_comments: bool = False) -> Dict[str, str]:
@@ -103,9 +107,8 @@ def run_train(config: Config, params: Dict) -> None:
 
     if not config.data:
         raise LightGBMError("No training data: pass data=<file>")
-    if config.health_monitor in ("abort", "raise"):
-        raise outside_slice("health_monitor=%s" % config.health_monitor,
-                            "ROADMAP Queue 1 #15")
+    # options outside the port refuse before any file is read
+    check_slice(config)
     device = device_of(config)
     Log.info("Loading train data %s", config.data)
     train_set = _load_file_dataset(config.data, config, params)
@@ -203,7 +206,25 @@ def run_convert_model(config: Config, params: Dict) -> None:
 
 
 def run_refit(config: Config, params: Dict) -> None:
-    raise outside_slice("task=refit (Booster.refit)", "ROADMAP Queue 1 #15")
+    """task=refit (cli.py:204-219 of the JAX package): the model of
+    ``input_model`` refitted on ``data`` (with its ``.weight`` and
+    ``.query`` sidecars) at ``refit_decay_rate``, saved to
+    ``output_model``."""
+    from .basic import Booster
+    from .io import parser as parser_mod
+
+    if not config.input_model:
+        raise LightGBMError("No model file: pass input_model=<file>")
+    if not config.data:
+        raise LightGBMError("No data for refit: pass data=<file>")
+    booster = Booster(model_file=config.input_model, device=device_of(config))
+    x, y, _ = parser_mod.parse_file(config.data, has_header=config.header,
+                                    label_column=config.label_column)
+    refitted = booster.refit(x, y, decay_rate=config.refit_decay_rate,
+                             weight=parser_mod.load_weight_file(config.data),
+                             group=parser_mod.load_query_file(config.data))
+    refitted.save_model(config.output_model)
+    Log.info("Finished refit; model saved to %s", config.output_model)
 
 
 def run_serve(config: Config, params: Dict) -> None:

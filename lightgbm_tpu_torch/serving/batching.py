@@ -21,15 +21,21 @@ deadline: a request still queued past it is expired at dispatch time
 instead of wasting a device pass. ``stop(drain=True)`` (the default)
 closes admission first, finishes the queued work, then joins the worker.
 
-The JAX package's per-model QoS policy and request tracing are not ported
-yet (ROADMAP Queue 1 #15; ``build_app`` refuses their options).
+Multi-model QoS: an optional :class:`fleet.qos.QosPolicy` adds
+per-MODEL admission quotas (only the over-quota model sheds; the rest keep
+being admitted under the engine-wide bound) and replaces the head-of-line
+dispatch pick with weighted-fair queueing: each dispatch serves the queued
+model with the smallest ``rows_served / weight`` virtual time. Without a
+policy the queue picks head-of-line and sheds engine-wide only. The JAX
+package's request tracing is not ported yet (ROADMAP Queue 1 #15;
+``build_app`` refuses its option).
 """
 from __future__ import annotations
 
 import threading
 import time
 from concurrent.futures import Future
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -53,12 +59,13 @@ class MicroBatchQueue:
 
     def __init__(self, engine: ServingEngine, max_rows: Optional[int] = None,
                  deadline_ms: float = 2.0, max_queue_rows: int = 0,
-                 request_timeout_ms: float = 0.0):
+                 request_timeout_ms: float = 0.0, qos=None):
         self.engine = engine
         self.max_rows = int(max_rows) if max_rows else engine.max_batch
         self.deadline_s = max(float(deadline_ms), 0.0) / 1000.0
         self.max_queue_rows = max(int(max_queue_rows), 0)   # 0 = unbounded
         self.request_timeout_s = max(float(request_timeout_ms), 0.0) / 1000.0
+        self.qos = qos                      # fleet.qos.QosPolicy or None
         self._queue: List[_Request] = []
         self._queued_rows = 0
         self._model_rows: Dict[str, int] = {}
@@ -142,6 +149,17 @@ class MicroBatchQueue:
                     "exceed serve_max_queue_rows=%d"
                     % (self._queued_rows, nrows, self.max_queue_rows),
                     retry_after_s=max(self.deadline_s * 2, 0.05))
+            if self.qos is not None and not self.qos.admit(
+                    model_id, self._model_rows.get(model_id, 0), nrows):
+                # per-MODEL shed: only this tenant backs off; every other
+                # model keeps being admitted under the engine-wide bound
+                self.engine.metrics.record_shed()
+                raise OverloadedError(
+                    "model %r over its QoS quota: %d queued rows + %d "
+                    "would exceed quota_rows=%d"
+                    % (model_id, self._model_rows.get(model_id, 0), nrows,
+                       self.qos.quota(model_id)),
+                    retry_after_s=max(self.deadline_s * 2, 0.05))
             self._queue.append(req)
             self._queued_rows += nrows
             self._model_rows[model_id] = \
@@ -156,26 +174,45 @@ class MicroBatchQueue:
         return self.submit(model_id, X, raw_score, num_iteration).result()
 
     def stats(self) -> Dict:
-        """Queue state (the ``queue`` block of /stats)."""
+        """Queue and per-model QoS state (the ``queue`` block of /stats)."""
         with self._cond:
-            return {"queued_requests": len(self._queue),
-                    "queued_rows": self._queued_rows,
-                    "model_rows": dict(self._model_rows)}
+            out: Dict = {"queued_requests": len(self._queue),
+                         "queued_rows": self._queued_rows,
+                         "model_rows": dict(self._model_rows)}
+            if self.qos is not None:
+                out["qos"] = self.qos.snapshot()
+        return out
 
     # ------------------------------------------------------------ worker
+    def _pick_key_locked(self) -> Tuple:
+        """The dispatch key: head-of-line without QoS; with a policy, the
+        oldest key of the queued model with the smallest weighted-fair
+        virtual time (fleet/qos.py)."""
+        if self.qos is None:
+            return self._queue[0].key
+        by_model: Dict[str, int] = {}
+        for r in self._queue:
+            by_model[r.key[0]] = by_model.get(r.key[0], 0) + r.X.shape[0]
+        mid = self.qos.pick(by_model)
+        for r in self._queue:
+            if r.key[0] == mid:
+                return r.key
+        return self._queue[0].key
+
     def _collect(self) -> List[_Request]:
         """Under the lock: wait out the head request's deadline, then take
-        every queued request sharing the head's dispatch key (arrival
+        every queued request sharing the picked dispatch key (arrival
         order preserved within the key)."""
         head = self._queue[0]
-        key = head.key
         deadline = head.t + self.deadline_s
         while self._running and not self._draining:
+            key = self._pick_key_locked()
             rows = sum(r.X.shape[0] for r in self._queue if r.key == key)
             now = time.perf_counter()
             if rows >= self.max_rows or now >= deadline:
                 break
             self._cond.wait(timeout=deadline - now)
+        key = self._pick_key_locked()
         taken = [r for r in self._queue if r.key == key]
         self._queue = [r for r in self._queue if r.key != key]
         nrows = sum(r.X.shape[0] for r in taken)
@@ -185,6 +222,8 @@ class MicroBatchQueue:
             self._model_rows[key[0]] = left
         else:
             self._model_rows.pop(key[0], None)
+        if self.qos is not None:
+            self.qos.account(key[0], nrows)
         self._publish_depth_locked()
         self._cond.notify_all()   # stop(drain=True) waits on queue empty
         return taken

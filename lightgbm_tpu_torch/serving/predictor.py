@@ -270,6 +270,7 @@ class ServingEngine:
         self.drift_min_rows = int(drift_min_rows)
         self.drift_decay = float(drift_decay)
         self._drift: Dict[str, Tuple[int, object]] = {}
+        self._drift_hooks: List = []   # attached to every (future) monitor
         self._health_monitor = None    # lazy HealthMonitor, warn-only
         # atomic re-registration (hot roll): purge this model's entries
         # when its bundle is swapped
@@ -374,6 +375,8 @@ class ServingEngine:
             bundle.profile, model_id=bundle.model_id,
             warn_psi=self.drift_warn_psi, min_rows=self.drift_min_rows,
             decay=self.drift_decay, monitor=self._drift_health())
+        for hook in list(self._drift_hooks):
+            mon.on_drift(hook)
         with self._lock:
             held = self._drift.get(bundle.model_id)
             if held is not None and held[0] == gen:
@@ -381,6 +384,18 @@ class ServingEngine:
             self._drift[bundle.model_id] = (gen, mon)
         register_monitor(mon)
         return mon
+
+    def add_drift_hook(self, hook) -> None:
+        """Subscribe ``hook(report_dict)`` to the ok->warn drift
+        transitions of EVERY model this engine serves: the monitors that
+        exist and those not made yet (they are lazy, one a generation).
+        This is how ``CheckpointWatcher`` arms its refit-trigger poll
+        without knowing which bundle will drift first."""
+        self._drift_hooks.append(hook)
+        with self._lock:
+            monitors = [held[1] for held in self._drift.values()]
+        for mon in monitors:
+            mon.on_drift(hook)
 
     def _drift_health(self):
         """Warn-only HealthMonitor shared by this engine's drift monitors."""

@@ -24,7 +24,7 @@ import numpy as np
 
 from ..core import tree as tree_mod
 from ..device import DeviceLike, resolve_device
-from ..log import LightGBMError, Log, check, outside_slice
+from ..log import LightGBMError, Log, check
 
 
 def _sibling_profile(model_path: str):
@@ -286,6 +286,11 @@ class CheckpointWatcher:
         self._rejected_ids: set = set()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        if engine is not None and hasattr(engine, "add_drift_hook"):
+            # the refit trigger: a drift warn on ANY model this engine
+            # serves polls the directory at once, off the request thread
+            # (arm_drift_refit)
+            engine.add_drift_hook(self._drift_poll)
 
     def poll(self) -> bool:
         """One check: register the newest valid snapshot if it is newer
@@ -323,10 +328,29 @@ class CheckpointWatcher:
         return True
 
     def arm_drift_refit(self, monitor) -> None:
-        """The JAX package's drift-triggered poll, the refit loop's hook:
-        not ported."""
-        raise outside_slice("CheckpointWatcher.arm_drift_refit (the "
-                            "drift-triggered refit)", "ROADMAP Queue 1 #15")
+        """Subscribe this watcher to a DriftMonitor (obs/drift.py): when
+        serving traffic drifts past the warn threshold, poll the checkpoint
+        directory at once, so a snapshot the refit loop has published rolls
+        in without waiting out the poll interval. The hook trains nothing
+        itself. Watchers built with ``engine=`` arm themselves through
+        ``ServingEngine.add_drift_hook``; this is the seam for monitors
+        made outside an engine."""
+        monitor.on_drift(self._drift_poll)
+
+    def _drift_poll(self, report) -> None:
+        """Drift hooks fire on the request thread that crossed the
+        threshold: the poll, which may capture a staged bundle's graphs,
+        runs on its own daemon thread so that request never waits."""
+        t = threading.Thread(target=self._safe_poll, daemon=True,
+                             name="ckpt-drift-poll-%s" % self.model_id)
+        t.start()
+
+    def _safe_poll(self) -> None:
+        try:
+            self.poll()
+        except Exception as e:  # noqa: BLE001 - keep serving alive
+            Log.warning("drift-triggered checkpoint poll %r: %s",
+                        self.model_id, e)
 
     def start(self) -> "CheckpointWatcher":
         if self._thread is not None:

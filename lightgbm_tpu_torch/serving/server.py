@@ -15,21 +15,34 @@ HTTP API:
   GET  /healthz   {"status": "ok", "models": [...], "drift": "ok"|"warn"|
                    "no_profile"|"disabled", "breaker": {...}}
   GET  /stats     the metrics snapshot with the breaker and queue state
+                  (the QoS policy's per-model block), the cascade
+                  autotuner's state and this replica's announced document
+  GET  /metrics/cluster, /stats/cluster   the fleet's merged replica
+                  documents (``fleet_kv_dir``; the local registry and an
+                  empty fleet without one)
   GET  /drift     per-model train/serve drift detail
   GET  /models    registered model ids and shapes
 
-The JAX package's ``/slo``, ``/traces``, ``/metrics/cluster`` and
-``/stats/cluster`` answer as they do there when their options are off
-(``build_app`` refuses the options: ROADMAP Queue 1 #15).
+The JAX package's ``/slo`` and ``/traces`` answer as they do there when
+their options are off (``build_app`` refuses the options: ROADMAP Queue
+1 #15).
 
 stdin mode (``serve_stdin=true``) speaks the same request objects, one
 JSON object per line, and replies one JSON line each.
 
 ``checkpoint_dir`` attaches a ``CheckpointWatcher`` to model "default": it
 rolls the directory's newest valid snapshot in at boot and every
-WATCH_POLL_S seconds after, through the guarded roll. ``fault_inject``
-arms its plan (``serve_error``, ``serve_delay`` at each dispatched
-predict, which the breaker counts).
+WATCH_POLL_S seconds after, through the guarded roll, and at once on a
+drift warn. ``fault_inject`` arms its plan (``serve_error``,
+``serve_delay`` at each dispatched predict, which the breaker counts).
+
+The fleet (``fleet/``), each part optional: ``serve_qos_weights`` /
+``serve_qos_quota_rows`` put a ``QosPolicy`` on the queue;
+``serve_latency_budget_ms`` starts the ``CascadeAutotuner``;
+``fleet_kv_dir`` makes the process a replica named ``fleet_replica`` that
+announces itself every ``fleet_announce_period_s`` and, with
+``checkpoint_dir``, rolls the directory's snapshots in turn with the other
+replicas (``RollingDeployCoordinator``, which then drives the watcher).
 """
 from __future__ import annotations
 
@@ -76,6 +89,10 @@ class ServingApp:
         self.queue = queue if queue is not None else MicroBatchQueue(engine)
         self.breaker = breaker if breaker is not None else CircuitBreaker()
         self.watcher = None        # serving.registry.CheckpointWatcher
+        self.tuner = None          # fleet.qos.CascadeAutotuner
+        self.announcer = None      # fleet.replica.ReplicaAnnouncer
+        self.coordinator = None    # fleet.replica.RollingDeployCoordinator
+        self.cluster = None        # fleet.replica.FleetClusterProvider
         self.queue.start()
 
     # ------------------------------------------------------------ requests
@@ -124,6 +141,9 @@ class ServingApp:
         return {"models": models}
 
     def close(self) -> None:
+        for part in (self.coordinator, self.announcer, self.tuner):
+            if part is not None:
+                part.stop()
         if self.watcher is not None:
             self.watcher.stop()
         self.queue.stop()
@@ -171,12 +191,25 @@ class _Handler(BaseHTTPRequestHandler):
             snap = self.app.engine.metrics.snapshot()
             snap["breaker"] = self.app.breaker.snapshot()
             snap["queue"] = self.app.queue.stats()
+            if self.app.tuner is not None:
+                snap["cascade_autotune"] = self.app.tuner.snapshot()
+            if self.app.announcer is not None:
+                # the whole announced document: what THIS replica tells
+                # the fleet (snap_id, rejections, digest)
+                snap["replica"] = self.app.announcer.state()
             self._reply(200, snap)
-        elif self.path in ("/metrics/prometheus", "/metrics/cluster"):
+        elif self.path == "/metrics/prometheus" or (
+                self.path == "/metrics/cluster" and self.app.cluster is None):
             # without a fleet the cluster view is the local registry
             self._reply_prometheus()
+        elif self.path == "/metrics/cluster":
+            self._reply_raw(200, self.app.cluster.cluster_prometheus()
+                            .encode(),
+                            "text/plain; version=0.0.4; charset=utf-8")
         elif self.path == "/stats/cluster":
-            self._reply(200, {"fleet": {"replicas": 0, "live": 0},
+            self._reply(200, self.app.cluster.cluster_stats()
+                        if self.app.cluster is not None
+                        else {"fleet": {"replicas": 0, "live": 0},
                               "replicas": {}})
         elif self.path == "/metrics":
             self._reply(200, self.app.engine.metrics.snapshot())
@@ -260,14 +293,6 @@ def _check_slice(config: Config) -> None:
          "ROADMAP Queue 1 #15"),
         (config.serve_slo_p99_ms > 0 or config.serve_slo_availability > 0,
          "serve_slo_* (SLO burn rates, /slo)", "ROADMAP Queue 1 #15"),
-        (bool(config.serve_qos_weights) or config.serve_qos_quota_rows > 0,
-         "serve_qos_* (per-model QoS)", "ROADMAP Queue 1 #15"),
-        (config.serve_latency_budget_ms > 0,
-         "serve_latency_budget_ms (the cascade-margin autotuner)",
-         "ROADMAP Queue 1 #15"),
-        (bool(config.fleet_kv_dir),
-         "fleet_kv_dir (the serving fleet, /metrics/cluster)",
-         "ROADMAP Queue 1 #15"),
     ]
     for bad, what, where in rules:
         if bad:
@@ -301,20 +326,50 @@ def build_app(config: Config) -> ServingApp:
         drift_decay=config.obs_drift_decay, device=device_of(config))
     if config.input_model:
         engine.registry.load_file("default", config.input_model)
+    qos = None
+    if config.serve_qos_weights or config.serve_qos_quota_rows:
+        from ..fleet.qos import QosPolicy
+        qos = QosPolicy.from_spec(config.serve_qos_weights,
+                                  config.serve_qos_quota_rows)
     app = ServingApp(
         engine,
         MicroBatchQueue(engine, deadline_ms=config.serve_deadline_ms,
                         max_queue_rows=config.serve_max_queue_rows,
-                        request_timeout_ms=config.serve_request_timeout_ms),
+                        request_timeout_ms=config.serve_request_timeout_ms,
+                        qos=qos),
         breaker=CircuitBreaker(
             failure_threshold=config.serve_breaker_failures,
             cooldown_s=config.serve_breaker_cooldown_s))
+    if config.serve_latency_budget_ms > 0:
+        from ..fleet.qos import CascadeAutotuner
+        app.tuner = CascadeAutotuner(
+            engine, config.serve_latency_budget_ms,
+            interval_s=config.serve_qos_tune_interval_s).start()
     if config.checkpoint_dir:
         app.watcher = engine.registry.watch_dir(
             "default", config.checkpoint_dir, poll_interval=WATCH_POLL_S,
             engine=engine)
-        app.watcher.poll()
-        app.watcher.start()
+        if not config.fleet_kv_dir:
+            app.watcher.poll()
+            app.watcher.start()
+    if config.fleet_kv_dir:
+        from ..fleet.replica import (FileKvClient, FleetClusterProvider,
+                                     ReplicaAnnouncer,
+                                     RollingDeployCoordinator)
+        client = FileKvClient(config.fleet_kv_dir)
+        replica = config.fleet_replica or ("replica-%d" % os.getpid())
+        app.announcer = ReplicaAnnouncer(
+            client, replica, engine=engine, watcher=app.watcher,
+            period_s=config.fleet_announce_period_s).start()
+        if app.watcher is not None:
+            # the coordinator DRIVES the watcher (one replica rolls at a
+            # time): the watcher's own poll thread stays off, and the
+            # first roll waits for the replicas before this one
+            app.coordinator = RollingDeployCoordinator(
+                client, app.announcer, app.watcher)
+            app.coordinator.step()
+            app.coordinator.start()
+        app.cluster = FleetClusterProvider(client)
     return app
 
 

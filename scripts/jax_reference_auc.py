@@ -104,6 +104,14 @@ with ``tpu_batched_part=true``), 5 iterations.
   replays the trees alone, and prints the offsets and how far the
   package's own scores stood from its predictions.
 
+- ``--refit``: chip_smoke's path 4zze: its 4zza model (``CKPT_PARAMS``,
+  float64 histograms, ``CKPT_ROUNDS`` iterations on the binary workload)
+  refitted by ``lightgbm_tpu.fleet.refit_booster`` at ``REFIT_DECAY`` on
+  its window (``chip_smoke.shifted_window``: bench.py's rows of seed 1,
+  features 0-3 moved by ``REFIT_SHIFT``); prints the AUC on the window
+  before and after the refit, and on the training rows of all the
+  iterations and of the first 5 (4zn's constant).
+
 Run ``--cv`` and ``--reset`` with ``--gpu-use-dp``: chip_smoke's
 constants for them are the f64 scatter's (the chunked matmul sums take
 6-30 min a training at 1M rows).
@@ -119,7 +127,7 @@ constants for them are the f64 scatter's (the chunked matmul sums take
         [--other-rate F] [--learning-rate F] [--drop-rate F] \
         [--skip-drop F] [--rounds K] [--constraint monotone|forced|cegb] \
         [--cegb-penalty-split F] [--gpu-use-dp] [--hist-dtype DTYPE] \
-        [--cv | --reset [--more-rounds K]]
+        [--cv | --reset [--more-rounds K] | --refit]
 
 It runs on the CPU backend and prints one JSON line.
 """
@@ -168,6 +176,7 @@ def main() -> int:
     ap.add_argument("--cv", action="store_true")
     ap.add_argument("--reset", action="store_true")
     ap.add_argument("--more-rounds", type=int, default=2)
+    ap.add_argument("--refit", action="store_true")
     args = ap.parse_args()
     multiclass = args.objective in ("multiclass", "multiclassova")
     if args.data == "ranking" and args.objective == "binary":
@@ -186,6 +195,10 @@ def main() -> int:
                   tpu_hist_impl=args.hist_impl,
                   **chip_smoke.GROWTH_PARAMS[args.growth])
     params["boosting"] = args.boosting
+    if args.refit:
+        params.update(chip_smoke.CKPT_PARAMS)
+        args.iters = chip_smoke.CKPT_ROUNDS
+        args.gpu_use_dp = True
     if args.gpu_use_dp:
         params["gpu_use_dp"] = True
     if args.hist_dtype:
@@ -208,7 +221,25 @@ def main() -> int:
             return drops[-1]
         DART._dropping_trees = recorded
     t0 = time.time()
-    if args.cv:
+    if args.refit:
+        from lightgbm_tpu.fleet import refit_booster
+        x, y = chip_smoke.bench_data(args.rows)
+        bst = lgb.train(params, lgb.Dataset(x, label=y),
+                        num_boost_round=args.iters)
+        xw, yw = chip_smoke.shifted_window(chip_smoke.bench_data, args.rows,
+                                           1, chip_smoke.REFIT_SHIFT)
+        refitted = refit_booster(bst, xw, yw,
+                                 decay_rate=chip_smoke.REFIT_DECAY)
+        out.update(refit=True, decay=chip_smoke.REFIT_DECAY,
+                   auc_5=chip_smoke.auc(np.asarray(bst.predict(
+                       x, num_iteration=5), np.float64), y),
+                   auc_train=chip_smoke.auc(np.asarray(bst.predict(x),
+                                                       np.float64), y),
+                   auc_before=chip_smoke.auc(np.asarray(
+                       bst.predict(xw), np.float64), yw),
+                   auc=chip_smoke.auc(np.asarray(refitted.predict(xw),
+                                                 np.float64), yw))
+    elif args.cv:
         x, y = chip_smoke.bench_data(args.rows)
         params["metric"] = "auc"
         res = lgb.cv(params, lgb.Dataset(x, label=y),

@@ -26,6 +26,7 @@ same codes, and frontier training on words launching only them:
 
     python -m pytest tests/test_torch_binpack.py -m cuda --noconftest -q
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import os
 import shutil
 import types

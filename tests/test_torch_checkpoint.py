@@ -28,6 +28,7 @@ tests/test_checkpoint.py and tests/test_stream.py's streamed resume:
 - serving a snapshot: ``watch_dir`` rolls the newest snapshot in, answers
   as its booster's ``predict`` bit for bit, and the bundle has a profile.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import glob
 import os
 import shutil

@@ -33,6 +33,7 @@ package, on the CPU.
 Frontier, batched and batched_part growth under monotone constraints are in
 tests/test_torch_constraints_waves.py.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import json
 
 import jax.numpy as jnp

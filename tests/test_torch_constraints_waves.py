@@ -11,6 +11,7 @@ model monotone on a grid. Each wave's children search within their bounds
 through the shared ``search_children``; the bounds are set by
 ``apply_split_wave``, as the JAX package's wave growers set them.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import numpy as np
 import pytest
 

@@ -18,6 +18,7 @@
   counted. The tasks and keys not ported yet refuse, citing their items,
   and without CUDA the default device raises.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import ctypes
 import os
 import subprocess
@@ -254,7 +255,6 @@ def test_cli_matches_the_jax_package(tmp_path):
 
 
 REFUSED_CLI = {
-    "refit": (["task=refit"], "#15"),
     # task=serve runs (ROADMAP #10); its options outside the slice refuse
     "serve": (["task=serve", "serve_num_devices=2"], "#13"),
     # the coordination service's faults, whose seam is the device mesh's

@@ -37,6 +37,7 @@ tests/test_parity.py does: the JAX GBDT turns x64 on for the whole process
 when f64 is asked for, which would change the dtypes of every later test
 on the worker.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import collections
 import json
 

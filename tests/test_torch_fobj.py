@@ -10,6 +10,7 @@ values and predictions within 1e-5, through every grower, with ``feval``
 and a validation set (tests/test_api.py:83's call), through
 ``Booster.update(fobj=...)``, and through the model text.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import numpy as np
 import pytest
 

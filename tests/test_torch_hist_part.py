@@ -14,6 +14,7 @@ that own a tile are compared; the port writes zeros there.
 The CUDA kernel runs only on a card: tests/test_torch_kernels_cuda.py holds
 it against this plain version there.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

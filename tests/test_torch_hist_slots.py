@@ -13,6 +13,7 @@ row carries, and rows whose slot is past the last one (folded into it).
 The CUDA kernels run only on a card: tests/test_torch_kernels_cuda.py
 holds them against these plain versions there.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -10,6 +10,7 @@ Against the JAX scatter path, which adds in f32 like the port, the bound is
 The CUDA kernel itself runs only on a card: tests/test_torch_kernels_cuda.py
 holds it against the plain version there.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

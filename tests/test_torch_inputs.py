@@ -21,6 +21,7 @@ scipy sparse matrices, text files and the binary dataset cache.
   and float32 fields through float64 bit for bit (the JAX package's
   ``core/pack.py``, one int32 buffer a tree, has nothing left to do).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import numpy as np
 import pytest
 import scipy.sparse as sp

@@ -17,7 +17,9 @@ plain recursion; and the Python surface on its CUDA default: an
 estimator's ``fit``, ``cv``'s boosters and a command-line ``task=train``
 with no ``device_type``, each launching the histogram kernel; and
 out-of-core streaming, its chunks in pinned memory copied ahead of their
-use, through the word variants of both histogram kernels.
+use, through the word variants of both histogram kernels; and the
+fleet: the device refit against the host loop and a held Refitter against
+a one-shot refit, and the queue's per-model QoS shed on a CUDA engine.
 
 These tests need a CUDA device and ``nvcc``: a hand-written CUDA kernel has
 no CPU or interpret mode, so they are marked ``cuda`` and skip without one.
@@ -26,6 +28,7 @@ machine that has only PyTorch:
 
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import os
 import shutil
 
@@ -1441,3 +1444,72 @@ def test_streamed_frontier_on_the_card(cuda_device, tmp_path, packing):
     for ta, tb in zip(memory.models, bst.models):
         assert ta.num_leaves_actual == tb.num_leaves_actual
         np.testing.assert_array_equal(ta.split_feature, tb.split_feature)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective", ["binary", "multiclass"])
+def test_refit_on_the_card_matches_the_host_loop(cuda_device, objective):
+    """The fleet's device refit (``fleet/refit.py``: the flat-forest
+    routing and the fixed-order leaf sums) on the card against the host
+    loop (``refit_device=false``) within 1e-5, and against the same refit
+    on the CPU; a held Refitter's later cycle equal to a one-shot refit
+    bit for bit on the card."""
+    from lightgbm_tpu_torch.fleet import Refitter, refit_booster
+    x, y = _bench_rows(20_000)
+    params = {"objective": objective, "num_leaves": 63, "verbosity": -1}
+    if objective == "multiclass":
+        params["num_class"] = 3
+        y = np.digitize(x[:, 0] + x[:, 1], [-0.5, 0.5]).astype(float)
+    bst = tlgb.train(params, tlgb.Dataset(x, label=y), num_boost_round=6)
+    xw = x + 0.25 * np.random.RandomState(1).randn(*x.shape)
+    held = Refitter(bst)
+    dev = held.refit(xw, y, decay_rate=0.5)
+    text = bst.model_to_string()
+    host_bst = tlgb.Booster(model_str=text)
+    host_bst.config.refit_device = False
+    host = host_bst.refit(xw, y, decay_rate=0.5)
+    cpu = refit_booster(tlgb.Booster(model_str=text, device="cpu"), xw, y,
+                        decay_rate=0.5)
+    for a, b, c in zip(dev.models, host.models, cpu.models):
+        nl = a.num_leaves_actual
+        np.testing.assert_allclose(a.leaf_value[:nl], b.leaf_value[:nl],
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(a.leaf_value[:nl], c.leaf_value[:nl],
+                                   rtol=1e-5, atol=1e-6)
+    again = held.refit(xw, y, decay_rate=0.5)
+    shot = refit_booster(bst, xw, y, decay_rate=0.5)
+    for a, b, c in zip(again.models, shot.models, dev.models):
+        np.testing.assert_array_equal(a.leaf_value, b.leaf_value)
+        np.testing.assert_array_equal(a.leaf_value, c.leaf_value)
+
+
+@pytest.mark.cuda
+def test_qos_sheds_the_model_over_its_quota_on_the_card(cuda_device):
+    """``MicroBatchQueue``'s per-model QoS on a CUDA engine: a request of
+    model a past its quota is shed, b is served, and both answers are
+    ``predict``'s bit for bit."""
+    from lightgbm_tpu_torch import serving
+    from lightgbm_tpu_torch.fleet import QosPolicy
+    from lightgbm_tpu_torch.log import OverloadedError
+    x, y = _bench_rows(5_000)
+    bst = tlgb.train({"objective": "binary", "num_leaves": 31,
+                      "verbosity": -1}, tlgb.Dataset(x, label=y),
+                     num_boost_round=5)
+    eng = serving.ServingEngine(max_batch=256)
+    for mid in ("a", "b"):
+        eng.registry.register(bst.as_serving_bundle(mid))
+    eng.warmup()
+    queue = serving.MicroBatchQueue(eng, qos=QosPolicy(
+        weights={"a": 4.0, "b": 1.0}, quota_rows={"a": 64})).start()
+    try:
+        with pytest.raises(OverloadedError, match="QoS quota"):
+            queue.predict("a", x[:100])
+        np.testing.assert_array_equal(queue.predict("b", x[:100]),
+                                      bst.predict(x[:100]))
+        np.testing.assert_array_equal(queue.predict("a", x[:50]),
+                                      bst.predict(x[:50]))
+        qos = queue.stats()["qos"]
+        assert (qos["a"]["shed"], qos["b"]["shed"]) == (1, 0)
+    finally:
+        queue.stop()
+    assert eng.metrics.recompiles_after_warmup() == 0

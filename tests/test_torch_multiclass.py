@@ -32,6 +32,7 @@
 Frontier, batched and batched_part growth are in
 tests/test_torch_multiclass_waves.py.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

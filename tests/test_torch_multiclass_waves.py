@@ -15,6 +15,7 @@ the JAX package's batched trees: batched_part grows the same trees as
 batched, as chip_smoke.py's dense, bundled and categorical constants of
 the two show.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import pytest
 
 import lightgbm_tpu as jlgb

@@ -4,6 +4,7 @@ Gradients, hessians and the boost-from-average init score agree within
 1e-6. Binning is a copy of the JAX package's code path, so the bin matrix
 is byte-equal and every mapper's upper bounds are equal.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

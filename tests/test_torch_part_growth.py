@@ -16,6 +16,7 @@ the JAX package.
   JAX package.
 - The policy of ``tpu_batched_part`` and ``_local_slot_mask``'s cases.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import collections
 import functools
 

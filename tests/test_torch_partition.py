@@ -8,6 +8,7 @@ leaf_count must be equal, each child must hold the same rows (in the same
 order: both use the scatter placement), and the child histograms agree
 within the bf16 budget of the Pallas kernel, 1e-5 * sum_bin|v| + 1e-7.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -15,6 +15,7 @@ chip_smoke's bundled data at phase 5's 200,000 rows:
   and one whose histograms drop every 4,096th row of what they sum (a
   kernel that loses rows) fails it.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import numpy as np
 import pytest
 import torch

@@ -25,6 +25,7 @@ trees:
   whose margin at a check lies within 1e-5 of the margin; regression (an
   objective that needs accurate prediction) is not early-stopped.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import numpy as np
 import pytest
 import torch

@@ -39,6 +39,7 @@ the port and in the JAX package.
 Frontier, batched and batched_part growth are in
 tests/test_torch_ranking_waves.py.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import os
 
 import jax.numpy as jnp

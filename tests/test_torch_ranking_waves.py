@@ -9,6 +9,7 @@ within 1e-6 relative. Lambdarank runs under each wave grower
 (``tree_batch_splits=4``); xentropy under frontier and weighted xentlambda
 under batched, as chip_smoke.py's paths 4z and 4za run them.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import pytest
 
 from test_torch_ranking import assert_ranking_parity, train_both

@@ -32,6 +32,7 @@ either split from tree 1 on. The multi-tree checks use alpha=0.75, whose
 gradients (0.25, -0.75) sum exactly; alpha=0.9 is held in tree 0 here and
 at full size by chip_smoke.py.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import collections
 
 import jax.numpy as jnp

@@ -13,6 +13,7 @@ row order. Frontier growth is in tests/test_torch_regression_frontier.py
 (the JAX package's frontier program takes ~11 s to compile on the CPU, so
 the two files share the time).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import numpy as np
 import pytest
 

@@ -9,6 +9,7 @@ and all of them.
 The CUDA kernel runs only on a card: tests/test_torch_kernels_cuda.py holds
 it against this plain version there.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -23,9 +23,11 @@ cases belong to #13 and to tests/test_torch_serving.py):
   keeps serving, also through the checkpoint watcher, which remembers the
   refusal; ``build_app`` with ``checkpoint_dir`` serves the newest snapshot
   and ``fault_inject=serve_error`` reaches the breaker;
-- what still refuses, citing its item: ``KvHeartbeat`` (#13),
-  ``save_refit`` and ``arm_drift_refit`` (#15).
+- what still refuses, citing its item: ``KvHeartbeat`` (#13);
+  ``save_refit`` and ``arm_drift_refit`` are ported with the fleet
+  (tests/test_torch_fleet.py).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import os
 import re
 import sys
@@ -379,9 +381,3 @@ def test_build_app_watches_and_injects(tmp_path):
 def test_refusals_cite_their_items(tmp_path):
     with pytest.raises(NotImplementedError, match="#13"):
         KvHeartbeat(namespace="x")
-    with pytest.raises(NotImplementedError, match="#15"):
-        CheckpointManager(str(tmp_path)).save_refit(None)
-    watcher = ServingEngine(device="cpu").registry.watch_dir(
-        "m", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="#15"):
-        watcher.arm_drift_refit(None)

@@ -8,6 +8,7 @@
   JAX package's ``Booster`` and ``Dataset`` exists on the port's, ported
   or refusing the same way.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import ast
 import os
 import subprocess
@@ -67,6 +68,25 @@ def test_the_scan_covers_the_serving_layers():
                    "obs/registry.py", "obs/drift.py", "obs/health.py",
                    "resilience/breaker.py"):
         assert os.path.join("lightgbm_tpu_torch", module) in scanned
+
+
+def test_the_scan_covers_the_fleet_package():
+    """The fleet (#15 slice a) keeps its own copies of the JAX package's
+    fleet/qos.py and fleet/replica.py."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for module in ("fleet/__init__.py", "fleet/refit.py", "fleet/qos.py",
+                   "fleet/replica.py"):
+        assert os.path.join("lightgbm_tpu_torch", module) in scanned
+
+
+def test_the_jax_fleets_public_names_resolve_on_the_port():
+    """Every name of ``lightgbm_tpu.fleet.__all__`` is one of the port's
+    fleet package."""
+    import lightgbm_tpu.fleet as jfleet
+    import lightgbm_tpu_torch.fleet as tfleet
+    missing = [n for n in jfleet.__all__ if not hasattr(tfleet, n)]
+    assert not missing, missing
+    assert sorted(tfleet.__all__) == sorted(jfleet.__all__)
 
 
 def test_the_scan_covers_the_stream_package_and_the_words():
@@ -144,24 +164,21 @@ REFUSALS = {
     "data_stream_chunk_rows": ({"data_stream_chunk_rows": 100,
                                 "tree_growth": "frontier",
                                 "tree_learner": "data"}, "#13"),
-    # methods of the JAX package's Booster the port lacks, and the command
-    # line's task that needs one of them
-    "booster_refit": ({}, "#15"),
+    # methods of the JAX package's Booster the port lacks
     "booster_set_network": ({}, "#13"),
-    "cli_task_refit": ({}, "#15"),
+    # training telemetry and the training health monitor's actions: the
+    # port used to accept them and do nothing with them
+    "observability": ({"observability": "basic"}, "#15"),
+    "observability_full": ({"observability": "full",
+                            "obs_event_file": "events.jsonl"}, "#15"),
+    "health_monitor": ({"health_monitor": "raise"}, "#15"),
+    "health_monitor_warn": ({"health_monitor": "warn"}, "#15"),
     # serving options outside the serving slice (#10), refused where the
     # engine or the app is built
     "serve_mesh": ({"serve_num_devices": 2}, "#13"),
     "serve_fault_inject_kv": ({"fault_inject": "kv_delay@round:1"}, "#13"),
     "serve_obs_trace": ({"obs_trace": True}, "#15"),
     "serve_slo": ({"serve_slo_p99_ms": 5.0}, "#15"),
-    "serve_qos": ({"serve_qos_weights": "a:1,b:2"}, "#15"),
-    "serve_latency_budget": ({"serve_latency_budget_ms": 5.0,
-                              "serving_cascade_trees": 2}, "#15"),
-    "serve_fleet": ({"fleet_kv_dir": "fleet"}, "#15"),
-    # the refit loop's hooks of checkpoints and serving
-    "checkpoint_save_refit": ({}, "#15"),
-    "serve_arm_drift_refit": ({}, "#15"),
 }
 
 
@@ -170,22 +187,11 @@ def _refused_call(kind, params, x, y):
     params = dict(params, objective="binary", verbosity=-1)
     if kind.startswith("serve_"):
         from lightgbm_tpu_torch.config import Config
-        from lightgbm_tpu_torch.serving import ModelRegistry, build_app
-        if kind == "serve_arm_drift_refit":
-            return ModelRegistry(device="cpu").watch_dir(
-                "m", "checkpoints").arm_drift_refit(None)
+        from lightgbm_tpu_torch.serving import build_app
         return build_app(Config(dict(params, device_type="cpu")))
-    if kind == "checkpoint_save_refit":
-        from lightgbm_tpu_torch.checkpoint import CheckpointManager
-        return CheckpointManager("checkpoints").save_refit(None)
-    if kind == "cli_task_refit":
-        from lightgbm_tpu_torch import cli
-        return cli.main(["task=refit", "device_type=cpu"])
     if kind.startswith("booster_"):
         bst = tlgb.train(params, tlgb.Dataset(x, label=y, device="cpu"),
                          num_boost_round=1, device="cpu")
-        if kind == "booster_refit":
-            return bst.refit(x, y)
         return bst.set_network("127.0.0.1:12400")
     return tlgb.train(params, tlgb.Dataset(x, label=y, device="cpu"),
                       num_boost_round=1, device="cpu")
@@ -408,8 +414,8 @@ def test_outside_the_slice_raises(option):
 def test_every_jax_method_is_ported_or_refuses(cls):
     """Each public method of the JAX package's class exists on the port's;
     one the port has not ported raises ``outside_slice`` citing its ROADMAP
-    item, never ``AttributeError``. Only the Booster's refit (#15) and
-    network setup (#13) still refuse."""
+    item, never ``AttributeError``. Only the Booster's network setup (#13)
+    still refuses."""
     import lightgbm_tpu as jlgb
     x, y = _data()
     ds = tlgb.Dataset(x, label=y, device="cpu")
@@ -428,7 +434,7 @@ def test_every_jax_method_is_ported_or_refuses(cls):
                 method()
             refusing.append(name)
     assert refusing == ([] if cls == "Dataset" else [
-        "free_network", "refit", "set_network"])
+        "free_network", "set_network"])
 
 
 def test_the_jax_packages_public_names_resolve_on_the_port():

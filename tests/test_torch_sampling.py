@@ -37,6 +37,7 @@ package.
 Frontier, batched and batched_part growth are in
 tests/test_torch_sampling_waves.py.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import jax
 import numpy as np
 import pytest

@@ -11,6 +11,7 @@ every tree splits and keeps tests/test_torch_slice.py's f32 tie rule, and
 raw predictions are within 1e-5 of the port's training scores and of the
 JAX model's.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import pytest
 
 from test_torch_sampling import MODES, assert_mode_parity, train_both

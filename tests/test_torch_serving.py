@@ -19,6 +19,7 @@
   ``python -m lightgbm_tpu_torch task=serve device_type=cpu`` in a
   subprocess.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import io
 import json
 import os

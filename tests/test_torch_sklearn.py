@@ -21,6 +21,7 @@ pickling, the Dataset's fields and subsets, and plotting (ROADMAP Queue 1
 - ``Dataset``: the fields set before and after binning, ``get_field``,
   ``set_reference`` and ``subset``, against the JAX package's.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import importlib.util
 import pickle
 import sys

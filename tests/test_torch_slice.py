@@ -9,6 +9,7 @@ gain tie may flip a split: they follow the tie rule of
 tests/test_parity.py. Raw predictions agree within 1e-4, and models cross
 between the packages through the model text and through numpy arrays.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import collections
 
 import numpy as np

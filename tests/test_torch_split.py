@@ -6,6 +6,7 @@ threshold and default_left must be equal; gain and outputs agree to 1e-5
 relative (both sides compute in float32, with prefix sums in another
 order).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -19,6 +19,7 @@ the uniform repack and the pipeline's accounting, and the gates and
 refusals (a mesh #13); streamed checkpoints and resume are held in
 tests/test_torch_checkpoint.py.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import numpy as np
 import pytest
 import torch

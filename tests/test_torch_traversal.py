@@ -21,6 +21,7 @@ same trees:
   (a root whose left child is a leaf) is traversed to its full depth, and
   the traversal and replay backends of the engine give equal outputs.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import numpy as np
 import pytest
 import torch

@@ -26,6 +26,7 @@ The contract:
   a loaded tree lacks; ROADMAP Queue 3), so the port's valid scores there
   are held against its own raw-value predictions.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import re
 
 import numpy as np

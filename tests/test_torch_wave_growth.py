@@ -17,6 +17,7 @@ never binds (tests/test_grow_frontier.py's golden data, which has no
 near-ties). The ranking of a wave keeps ``lax.top_k``'s order among equal
 gains, which the node numbering follows.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread a worker)
 import collections
 
 import jax
