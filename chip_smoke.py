@@ -395,6 +395,29 @@ and prints no result line):
         resumed trees the uninterrupted run's under phase 5's frontier
         rule (the card's f32 sums do not repeat) and its AUC within
         CKPT_STREAM_AUC_TOL, the word variants launched;
+     4zzh training observability (compare, after 4zw, on 4b's data):
+        exact f64 at ``observability=full`` with an event file, the stats
+        port, model statistics, the flight recorder, a 2-iteration
+        Perfetto window and a throughput SLO, while a thread scrapes
+        ``/metrics``: its trees the ``none`` run's byte for byte, the
+        iteration counter rising in the scrapes, ``/roofline``'s shares
+        at most 1, the Chrome trace naming histogram.cu's kernels, one
+        ``iteration`` record an iteration, ``ModelStats.importance`` equal
+        to ``feature_importance``; then frontier f32 OBS_ROUNDS rounds at
+        none, basic and full in turns (twice each): the launches the
+        trees' waves need at every level (none's where the trees are
+        none's), the trees none's under the frontier rule as none's own
+        second run is (from a tree that parts on, the AUC), s/iter,
+        launches and syncs an iteration; then NaN gradients at iteration
+        OBS_NAN_AT: ``raise`` under full at that iteration, under basic
+        after the block's one fetch, ``warn`` not aborted, a flight dump
+        naming each raise;
+     4zzi serving observability (workloads, after 4zx): 4zx's model
+        served with ``obs_trace`` at sample 1.0 and both SLOs beside the
+        same app without them, OBS_SERVE_REQUESTS HTTP requests each with
+        a trace header: every answer ``predict``'s bit for bit, every
+        trace a full span tree under its inbound ID, no capture after
+        warmup, ``/slo`` answering; p50/p99 with and without tracing;
    every path of 4a-4d, 4m-4za, 4zb-4zp, 4zq and 4zy also trains one more
    iteration under torch.profiler and prints its CUDA kernel launches,
    synchronisations and the port's kernels' device time;
@@ -450,8 +473,8 @@ dense paths 4a-4d for their ratios) share the card with it, so that the
 host-bound paths overlap: this process runs 4q, 4zb-4zf, 4zl-4zn,
 4zq-4zv, 4zza, 4zzc, 4zzd, 4zze and 4zzg (4zza's two child processes
 and 4zzg's two replicas too); ``workloads`` 4e-4h, 4zh-4zk, 4i-4p, 4zo,
-4r-4u, their prediction extras, 4zx, 4r's refit and 4zzf; ``compare`` 4v-4za, 4zg, 4zp, 4zy, 4zz, 4zzb, 4zw and
-phase 5 (4b's trees reach it in a file, FRONTIER_REF, for 4zz). Each
+4r-4u, their prediction extras, 4zx, 4zzi, 4r's refit and 4zzf;
+``compare`` 4v-4za, 4zg, 4zp, 4zy, 4zz, 4zzb, 4zw, 4zzh and phase 5 (4b's trees reach it in a file, FRONTIER_REF, for 4zz). Each
 process sets its own launch counts to 0 just before each path and reads
 them just after; phase 6 sums them. The seconds of the paths from 4q on,
 and the bundled and categorical kernel rows, are taken while the three
@@ -3472,6 +3495,7 @@ def drive_serving_path(cat_bst, mc_bst, tmp: str, dev) -> dict:
         dict(PARAMS, **GROWTH_PARAMS["frontier"]), ds, rounds=SERVE_ROUNDS)
     del ds
     check_path_launches("4zx", "frontier", bst, launches, steps)
+    bst.save_model(os.path.join(tmp, SERVE_MODEL))     # 4zzi serves it
     log("path 4zx: binning %.2f s, %d frontier iterations in %.2f s (%.3f s "
         "each), launches %s" % (binning_s, SERVE_ROUNDS, train_s,
                                 train_s / SERVE_ROUNDS, launches))
@@ -4912,12 +4936,15 @@ def word_launches(label: str, launches: dict, rounds: int) -> None:
 
 
 def held_to(label: str, bst, ref_models: list, what: str,
-            rows: torch.Tensor, auc_now, auc_ref) -> list:
+            rows: torch.Tensor, auc_now, auc_ref,
+            regrow_gain_rel: float = None) -> list:
     """``bst``'s trees against ``ref_models`` (``what``'s) under phase 5's
-    frontier rule (WAVE_PARTING); where they part at a tie, the two AUCs
-    within AUC_TOLERANCE. Returns the ties."""
+    frontier rule (WAVE_PARTING, with ``trees_match``'s
+    ``regrow_gain_rel``); where they part at a tie, the two AUCs within
+    AUC_TOLERANCE. Returns the ties."""
     ties = []
-    trees_match(bst.models, ref_models, ties, WAVE_PARTING, None, rows)
+    trees_match(bst.models, ref_models, ties, WAVE_PARTING, regrow_gain_rel,
+                rows)
     if any(t["after_parting_tie"] for t in ties) \
             and abs(auc_now - auc_ref) > AUC_TOLERANCE:
         raise AssertionError("path %s parted from %s at a tie and its AUC "
@@ -6717,6 +6744,467 @@ def drive_fleet_path(workdir: str) -> dict:
             "rollbacks": rollbacks}
 
 
+# 4zzh and 4zzi, observability (Queue 1 #15 slice b). 4zzh in part
+# compare after 4zw on 4b's data: frontier OBS_ROUNDS rounds at each level
+# in turns; exact f64 (4zza's repeatable path) OBS_F64_ROUNDS rounds at
+# full with every training telemetry option, against its none run; NaN
+# gradients at iteration OBS_NAN_AT on OBS_NAN_ROWS rows. 4zzi in part
+# workloads after 4zx: 4zx's frontier model served with request tracing
+# and both SLOs, OBS_SERVE_REQUESTS HTTP requests beside the same engine
+# without tracing
+OBS_LEVELS = ("none", "basic", "full")
+# the frontier runs' order: each level twice, in turns (ABCCBA)
+OBS_TURNS = OBS_LEVELS + OBS_LEVELS[::-1]
+OBS_ROUNDS, OBS_F64_ROUNDS, OBS_PROFILED = 10, 5, 3
+OBS_NAN_ROWS, OBS_NAN_AT, OBS_NAN_ROUNDS = 200_000, 2, 5
+OBS_SERVE_REQUESTS = 300
+OBS_SERVE_SIZES = (1, 16, 256)
+SERVE_MODEL = "serve_binary.model.txt"    # 4zx's frontier model, in tmp
+
+
+def profiled_block(bst, rounds: int = OBS_PROFILED) -> dict:
+    """``rounds`` more iterations of ``bst`` through ``train_many`` (the
+    fused loop, in blocks at basic) under torch.profiler: CUDA kernel
+    launches and synchronisations an iteration, counted as
+    ``iteration_counts`` counts them."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        bst._impl.train_many(rounds)
+        torch.cuda.synchronize()
+    events = collections.Counter(
+        e.name() for e in prof.profiler.kineto_results.events())
+    return {"launches_per_iter": sum(events[n] for n in (
+                "cudaLaunchKernel", "cuLaunchKernel",
+                "cudaLaunchKernelExC")) / rounds,
+            "syncs_per_iter": sum(events[n] for n in (
+                "cudaStreamSynchronize", "cudaDeviceSynchronize")) / rounds}
+
+
+def frontier_waves(models) -> int:
+    """The slot-kernel passes frontier growth makes for ``models``: one a
+    wave, and a tree of depth d takes d waves (``node_waves``)."""
+    return sum(int(node_waves(t, int(t.num_leaves_actual) - 1).max()) + 1
+               for t in models if t.num_leaves_actual > 1)
+
+
+def nan_gradients_at(bst, at: int) -> list:
+    """Make ``bst``'s objective return NaN gradients (one row in seven) at
+    iteration ``at`` of the fused loop; returns the list of iterations
+    whose gradients it computed."""
+    impl = bst._impl
+    real = impl.objective.get_gradients
+    calls = []
+
+    def poisoned(scores):
+        grad, hess = real(scores)
+        if len(calls) == at:
+            grad = grad.clone()
+            grad[::7] = float("nan")
+        calls.append(len(calls))
+        return grad, hess
+    impl.objective.get_gradients = poisoned
+    return calls
+
+
+def nan_fobj(at: int, calls: list):
+    """The logistic objective (``logistic_fobj``) with NaN gradients, one
+    row in seven, at its call ``at``."""
+    def fobj(preds, train_data):
+        grad, hess = logistic_fobj(preds, train_data)
+        if len(calls) == at:
+            grad = np.array(grad, np.float32)
+            grad[::7] = np.nan
+        calls.append(len(calls))
+        return grad, hess
+    return fobj
+
+
+def events_of(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def drive_nan_paths(x, y, tmp: str) -> dict:
+    """4zzh's NaN gradients at iteration OBS_NAN_AT on OBS_NAN_ROWS rows,
+    frontier: under full with ``health_monitor=raise`` a custom objective's
+    NaN raises at that iteration (its iteration events end there); under
+    basic the fused loop's NaN raises after the block's one fetch (the
+    stump ends the block: the port stops at a tree with no split, as
+    LightGBM does); with ``warn`` the run goes on to that stop, not
+    aborted; each raise leaves a flight-recorder dump that names it."""
+    xs, ys = x[:OBS_NAN_ROWS], y[:OBS_NAN_ROWS]
+    base = dict(PARAMS, **GROWTH_PARAMS["frontier"], obs_flight_recorder=64)
+    out = {}
+    for level, action in (("full", "raise"), ("basic", "raise"),
+                          ("basic", "warn")):
+        label = "%s %s" % (level, action)
+        ev = os.path.join(tmp, "nan_%s_%s.jsonl" % (level, action))
+        params = dict(base, observability=level, health_monitor=action,
+                      obs_event_file=ev)
+        ds = lgb.Dataset(xs, label=ys, params=params)
+        err, calls, bst = None, [], None
+        try:
+            if level == "full":
+                bst = lgb.train(params, ds, OBS_NAN_ROUNDS,
+                                fobj=nan_fobj(OBS_NAN_AT, calls))
+            else:
+                # the fused loop as engine.train runs it, its objective
+                # poisoned
+                bst = lgb.Booster(params=params, train_set=ds)
+                calls = nan_gradients_at(bst, OBS_NAN_AT)
+                try:
+                    bst._impl.train_many(OBS_NAN_ROUNDS)
+                finally:
+                    bst._impl.obs.release()
+        except port_gbdt.LightGBMError as e:
+            err = e
+        records = events_of(ev)
+        dispatch = [(r["event"], r["iteration"], r["count"]) for r in records
+                    if r["event"] in ("iteration", "block")]
+        health = [(r["iteration"], r["kind"]) for r in records
+                  if r["event"] == "health"]
+        dump = ev + ".0.crash.jsonl"
+        reason = (events_of(dump)[0]["reason"] if os.path.exists(dump)
+                  else None)
+        log("path 4zzh NaN %s: the objective ran iterations %s, dispatch "
+            "events %s, health %s, raised %r, flight dump %s"
+            % (label, calls, dispatch, health, str(err) if err else None,
+               reason))
+        want_health = [(OBS_NAN_AT, "zero_gain_wave"),
+                       (OBS_NAN_AT, "nonfinite_gradient")]
+        if calls != list(range(OBS_NAN_AT + 1)) or health != want_health:
+            raise AssertionError("4zzh NaN %s: calls %s, health %s"
+                                 % (label, calls, health))
+        if action == "raise":
+            want_dispatch = ([("iteration", i, 1)
+                              for i in range(OBS_NAN_AT + 1)]
+                             if level == "full"
+                             else [("block", 0, OBS_NAN_AT + 1)])
+            said = "non-finite gradient/hessian at iteration %d" % OBS_NAN_AT
+            if err is None or said not in str(err) \
+                    or dispatch != want_dispatch:
+                raise AssertionError("4zzh NaN %s: raised %r after %s"
+                                     % (label, err, dispatch))
+            if reason != "health:nonfinite_gradient":
+                raise AssertionError("4zzh NaN %s: flight dump %r"
+                                     % (label, reason))
+        else:
+            anomalies = bst._impl.obs.monitor.anomaly_count()
+            if err is not None or anomalies < 1 \
+                    or bst.current_iteration() != OBS_NAN_AT:
+                raise AssertionError("4zzh NaN warn: raised %r, %d "
+                                     "anomalies, %d iterations kept"
+                                     % (err, anomalies,
+                                        bst.current_iteration()))
+        out[label] = {"calls": calls, "dispatch": dispatch,
+                      "raised": str(err) if err else None,
+                      "flight_dump_reason": reason}
+    return out
+
+
+def drive_observability_path(ds, x, y, tmp: str) -> dict:
+    """Path 4zzh: training observability on 4b's data ``ds`` (``x``,
+    ``y``): frontier at each of OBS_LEVELS in turns, OBS_ROUNDS rounds,
+    with the launch counts set to 0 just before and read just after (the
+    kernels' launches those the trees' waves need at every level, and
+    ``none``'s where the trees are ``none``'s; the trees ``none``'s under
+    WAVE_PARTING), then OBS_PROFILED more iterations of each under the
+    profiler for launches and syncs an iteration; then exact f64 at full
+    with the event file, the stats port, model statistics, the flight
+    recorder, a 2-iteration Perfetto window and a throughput SLO, while a
+    thread scrapes ``/metrics`` (the model text's trees equal the none
+    run's byte for byte; ``/roofline``'s shares at most 1; the Chrome
+    trace names the histogram kernel; one ``iteration`` record an
+    iteration; ``ModelStats.importance`` equal to ``feature_importance``);
+    then the NaN paths (``drive_nan_paths``)."""
+    import threading
+    import urllib.request
+    from lightgbm_tpu_torch.obs.costmodel import get_cost_model
+    out = {"frontier": {}}
+    # ---- exact f64 at full, every training telemetry option ------------
+    f64 = dict(CKPT_PARAMS)
+    # the cost model's entries and the train_iter spans are this run's:
+    # the first at full in this process, the model cleared just before
+    get_cost_model().clear()
+    ev = os.path.join(tmp, "obs_events.jsonl")
+    perfetto_dir = os.path.join(tmp, "obs_perfetto")
+    full = dict(f64, observability="full", obs_event_file=ev,
+                obs_stats_port=0, obs_modelstats=True,
+                obs_flight_recorder=256, obs_perfetto_dir=perfetto_dir,
+                obs_perfetto_start=1, obs_perfetto_iters=2,
+                train_slo_rows_per_sec=1.0)
+    ref, ref_s, ref_launches, _ = train_counted(f64, ds,
+                                                rounds=OBS_F64_ROUNDS)
+    seen, port_box, stop = [], {}, threading.Event()
+
+    def scraper():
+        while not stop.is_set():
+            port = port_box.get("port")
+            if port is not None:
+                text = urllib.request.urlopen(
+                    "http://127.0.0.1:%d/metrics" % port,
+                    timeout=30).read().decode()
+                for line in text.splitlines():
+                    if line.startswith("lgbm_train_iterations_total "):
+                        seen.append(float(line.split()[1]))
+            stop.wait(0.05)
+
+    def note_port(env):
+        port_box.setdefault("port", env.model._impl.obs.stats.port)
+    note_port.order = 1
+    thread = threading.Thread(target=scraper, daemon=True)
+    thread.start()
+    try:
+        bst, full_s, full_launches, _ = train_counted(
+            full, ds, rounds=OBS_F64_ROUNDS, callbacks=[note_port])
+        time.sleep(0.2)
+    finally:
+        stop.set()
+        thread.join(timeout=30)
+    obs = bst._impl.obs
+    try:
+        roof = json.loads(urllib.request.urlopen(
+            "http://127.0.0.1:%d/roofline" % obs.stats.port,
+            timeout=30).read())
+        slo = json.loads(urllib.request.urlopen(
+            "http://127.0.0.1:%d/slo" % obs.stats.port, timeout=30).read())
+    finally:
+        obs.stats.stop()
+    same_text = model_trees(bst.model_to_string()) == \
+        model_trees(ref.model_to_string())
+    shares = {r["phase"]: {k: r.get(k) for k in ("calls", "seconds",
+                                                   "bytes_per_call",
+                                                   "bytes_per_s",
+                                                   "membw_util", "mfu")}
+              for r in roof["rows"]}
+    over = [p for p, r in shares.items()
+            if (r["membw_util"] or 0) > 1.0 or (r["mfu"] or 0) > 1.0]
+    records = events_of(ev)
+    iters = [r["iteration"] for r in records if r["event"] == "iteration"]
+    (trace_file,) = os.listdir(perfetto_dir)
+    trace_path = os.path.join(perfetto_dir, trace_file)
+    trace_mb = os.path.getsize(trace_path) / 2 ** 20
+    with open(trace_path) as f:
+        # the event names, read without building the trace's objects
+        names = set(re.findall(r'"name":\s*"([^"]*)"', f.read()))
+    hist_kernels = sorted(n for n in names if "hist_" in n and "kernel" in n)
+    stats = bst._impl._modelstats
+    importance_equal = all(
+        np.array_equal(stats.importance(kind), bst.feature_importance(kind))
+        for kind in ("split", "gain"))
+    rising = len(set(seen)) >= 2 and seen == sorted(seen)
+    log("path 4zzh exact f64 on %s: none %.3f s, full %.3f s per iteration "
+        "(%d rounds); launches none %s, full %s; model text's trees equal "
+        "none's: %s; /metrics scraped %d times during training, "
+        "lgbm_train_iterations_total %s; /roofline on %s, peaks %s: %s; "
+        "/slo %s; Chrome trace %s (%.1f MB, %d names), the histogram "
+        "kernels in it %s; iteration records %s; importance equal to "
+        "feature_importance: %s" % (
+            card_line(), ref_s / OBS_F64_ROUNDS, full_s / OBS_F64_ROUNDS,
+            OBS_F64_ROUNDS, {k: v for k, v in ref_launches.items() if v},
+            {k: v for k, v in full_launches.items() if v}, same_text,
+            len(seen), sorted(set(seen)), roof["device_kind"],
+            roof["peaks"], shares, sorted(slo["slos"]), trace_file,
+            trace_mb, len(names), hist_kernels[:4], iters,
+            importance_equal))
+    if not same_text:
+        raise AssertionError("4zzh: the full run's trees differ from none's")
+    if not rising:
+        raise AssertionError("4zzh: /metrics showed iterations %s" % seen)
+    if over or not shares or roof["peaks"] is None:
+        raise AssertionError("4zzh: /roofline shares %s (peaks %s)"
+                             % (shares, roof["peaks"]))
+    if not hist_kernels or "train_iter" not in names:
+        raise AssertionError("4zzh: the Chrome trace names no histogram "
+                             "kernel or no train_iter")
+    if iters != list(range(OBS_F64_ROUNDS)):
+        raise AssertionError("4zzh: iteration records %s" % iters)
+    if not importance_equal:
+        raise AssertionError("4zzh: ModelStats.importance differs from "
+                             "feature_importance")
+    out["exact_f64"] = {"none_s_per_iter": ref_s / OBS_F64_ROUNDS,
+                        "full_s_per_iter": full_s / OBS_F64_ROUNDS,
+                        "scraped": sorted(set(seen)), "roofline": shares,
+                        "peaks": roof["peaks"], "slo": sorted(slo["slos"]),
+                        "trace_kernels": hist_kernels, "trace_mb": trace_mb}
+
+    # ---- frontier at each level, in turns -------------------------------
+    params = dict(PARAMS, **GROWTH_PARAMS["frontier"])
+    runs, turns = {}, []
+    for level in OBS_TURNS:
+        bst, train_s, launches, _ = train_counted(
+            dict(params, observability=level), ds, rounds=OBS_ROUNDS)
+        turns.append(launches)
+        waves = frontier_waves(bst.models)
+        if launches["build_histogram_cuda"] != len(bst.models) \
+                or launches["build_histogram_slots_cuda"] != waves:
+            raise AssertionError("4zzh %s: launches %s for %d trees of %d "
+                                 "waves" % (level, launches, len(bst.models),
+                                            waves))
+        if level in runs:      # the second turn: its time only
+            out["frontier"][level]["s_per_iter"].append(train_s / OBS_ROUNDS)
+            if level == "none":    # the control of the trees' comparison
+                runs["none 2"] = (bst, launches)
+                out["frontier"]["none"]["control_auc"] = auc(
+                    bst.predict(x, raw_score=True), y)
+            continue
+        runs[level] = (bst, launches)
+        out["frontier"][level] = {
+            "s_per_iter": [train_s / OBS_ROUNDS], "launches": launches,
+            "waves": waves, "auc": auc(bst.predict(x, raw_score=True), y)}
+    # the card's f32 sums do not repeat, so two runs of one level may part
+    # at a gain tie (as 4zzb's resume and phase 5 may): the first tree that
+    # differs must part within the frontier rule, and the trees after it grow on
+    # other scores (regrow_gain_rel 0: no tree of more substituted splits
+    # is let through), from where the forests are held to their AUC.
+    # none's second turn against its first is the control
+    rows = torch.as_tensor(x, dtype=torch.float64, device="cuda")
+    none_bst = runs["none"][0]
+    for level in OBS_LEVELS:
+        bst, launches = runs[level] if level != "none" else runs["none 2"]
+        res = out["frontier"][level]
+        res["ties"] = held_to("4zzh %s" % level, bst, none_bst.models,
+                              "none", rows,
+                              res["control_auc" if level == "none"
+                                  else "auc"],
+                              out["frontier"]["none"]["auc"],
+                              regrow_gain_rel=0.0)
+        if not res["ties"] and launches != runs["none"][1]:
+            raise AssertionError("4zzh %s: the trees are none's, the "
+                                 "launches %s against %s"
+                                 % (level, launches, runs["none"][1]))
+    del rows
+    for level in OBS_LEVELS:
+        res = out["frontier"][level]
+        res.update(profiled_block(runs[level][0]))
+        log("path 4zzh frontier %s on %s: %s s per iteration over %d rounds "
+            "(two turns), launches %s (%d waves), train AUC %.6f; %d more "
+            "iterations under the profiler: %.1f CUDA launches and %.2f "
+            "syncs an iteration" % (
+                level, card_line(),
+                ", ".join("%.4f" % v for v in res["s_per_iter"]), OBS_ROUNDS,
+                {k: v for k, v in res["launches"].items() if v},
+                res["waves"], res["auc"], OBS_PROFILED,
+                res["launches_per_iter"], res["syncs_per_iter"]))
+    del runs, none_bst, bst
+    launches_total = sum_counts(*turns)
+    out["nan"] = drive_nan_paths(x, y, tmp)
+
+    out["launches"] = sum_counts(launches_total, ref_launches, full_launches)
+    return out
+
+
+def drive_traced_serving_path(tmp: str, dev) -> dict:
+    """Path 4zzi: 4zx's frontier model (SERVE_MODEL in ``tmp``) served
+    through HTTP by two apps on the card, one with ``obs_trace=true``,
+    ``obs_trace_sample=1.0``, ``serve_slo_p99_ms`` and
+    ``serve_slo_availability``, one without; OBS_SERVE_REQUESTS requests
+    of OBS_SERVE_SIZES rows to each in turns, the traced ones with an
+    ``x-lgbm-trace`` header: every response ``predict``'s bit for bit,
+    every trace kept under its inbound ID as a full tree (request,
+    queue_wait, batch, predict, device_dispatch, device_wait) in the
+    event file and the newest in ``/traces``, no graph captured after
+    warmup, ``/slo`` answering; p50/p99 of each app."""
+    import threading
+    import urllib.request
+    from lightgbm_tpu_torch import serving
+    from lightgbm_tpu_torch.obs.reqtrace import TRACE_HEADER
+    path = os.path.join(tmp, SERVE_MODEL)
+    bst = lgb.Booster(model_file=path)
+    rows = bench_data(SERVE_ROWS, seed=1)[0]
+    want = bst.predict(rows)
+    ev = os.path.join(tmp, "serve_traces.jsonl")
+    apps, servers = {}, []
+    try:
+        for name, extra in (("traced", {
+                "obs_trace": True, "obs_trace_sample": 1.0,
+                "obs_trace_slow_ms": 1e9, "obs_event_file": ev,
+                "serve_slo_p99_ms": 50.0, "serve_slo_availability": 0.999}),
+                ("plain", {})):
+            app = serving.build_app(Config(dict(extra, input_model=path)))
+            app.engine.warmup()
+            srv = serving.make_server(app, "127.0.0.1", 0)
+            threading.Thread(target=srv.serve_forever, daemon=True).start()
+            servers.append(srv)
+            apps[name] = (app, srv.server_address[1])
+        c0 = serving.backend_compile_count()
+        lat = {"traced": [], "plain": []}
+        sent = []
+        for i in range(OBS_SERVE_REQUESTS):
+            n = OBS_SERVE_SIZES[i % len(OBS_SERVE_SIZES)]
+            lo = (i * 997) % (SERVE_ROWS - n + 1)
+            body = json.dumps({"model": "default",
+                               "data": rows[lo:lo + n].tolist()}).encode()
+            for name in ("traced", "plain"):
+                headers = {}
+                if name == "traced":
+                    tid = "%016x" % (0x4a11 * 1_000_003 + i)
+                    headers[TRACE_HEADER] = tid + "-00ab"
+                    sent.append(tid)
+                t0 = time.perf_counter()
+                rep = json.loads(urllib.request.urlopen(
+                    urllib.request.Request(
+                        "http://127.0.0.1:%d/predict" % apps[name][1],
+                        data=body, headers=headers), timeout=120).read())
+                lat[name].append((time.perf_counter() - t0) * 1e3)
+                require_equal(rep["predictions"], want[lo:lo + n],
+                              "4zzi %s %d rows" % (name, n))
+        # the process-wide count after both engines' warmups (each
+        # engine's own floor would read the other's warmup as its own)
+        captures = serving.backend_compile_count() - c0
+
+        def get(path_):
+            return json.loads(urllib.request.urlopen(
+                "http://127.0.0.1:%d%s" % (apps["traced"][1], path_),
+                timeout=60).read())
+        recent = get("/traces")["traces"]
+        slo = get("/slo")
+    finally:
+        for srv in servers:
+            srv.shutdown()
+            srv.server_close()
+        for app, _ in apps.values():
+            app.close()
+    trees = {}
+    for r in events_of(ev):
+        if r["event"] == "span":
+            trees.setdefault(r["trace"], []).append(r)
+    want_names = ["batch", "device_dispatch", "device_wait", "predict",
+                  "queue_wait", "request"]
+    broken = [t for t in sent
+              if sorted(s["name"] for s in trees.get(t, ())) != want_names
+              or not any(s["name"] == "request" and s["parent"] == "00ab"
+                         for s in trees[t])]
+    summary = {name: serving.latency_summary(v) for name, v in lat.items()}
+    log("path 4zzi on %s: %d requests of %s rows to each app, all equal to "
+        "predict; traced p50 %.3f ms p99 %.3f ms, untraced p50 %.3f ms p99 "
+        "%.3f ms; %d traces in the event file (%d not a full tree), the "
+        "newest %d in /traces; graphs captured after warmup %d; /slo %s"
+        % (card_line(), OBS_SERVE_REQUESTS, OBS_SERVE_SIZES,
+           summary["traced"]["p50_ms"], summary["traced"]["p99_ms"],
+           summary["plain"]["p50_ms"], summary["plain"]["p99_ms"],
+           len(trees), len(broken), len(recent), captures,
+           {k: (v["burning"], v["observed"])
+            for k, v in slo["slos"].items()}))
+    if broken or len(trees) != len(sent):
+        raise AssertionError("4zzi: %d of %d traces are not full trees"
+                             % (len(broken), len(sent)))
+    if [t["trace"] for t in recent] != sent[-len(recent):] or not recent:
+        raise AssertionError("4zzi: /traces holds %s"
+                             % [t["trace"] for t in recent][:5])
+    if captures:
+        raise AssertionError("4zzi: %d graphs captured after warmup"
+                             % captures)
+    if sorted(slo["slos"]) != ["serve_availability", "serve_p99"]:
+        raise AssertionError("4zzi: /slo answered %s" % slo)
+    return {"launches": {name: 0 for name in read_counts()},
+            "requests": OBS_SERVE_REQUESTS, "latency_ms": summary,
+            "traces": len(trees), "recent": len(recent),
+            "captures_after_warmup": captures,
+            "slo": {k: v["burning"] for k, v in slo["slos"].items()}}
+
+
 def kernel_entry(name, source, replaces, launches, rows, headline):
     """One kernel of the ``kernels`` line: its headline shape's times and
     every shape it was checked at."""
@@ -7034,6 +7522,8 @@ def part_workloads(dense: dict, tmp: str, t_start: float) -> dict:
     log_phase(t_start, "4zx. serving")
     # ---- 4zx. serving: a frontier model, 4m's and 4r's boosters --------
     paths["4zx"] = drive_serving_path(cat_bst, mc_bst, tmp, dev)
+    log_phase(t_start, "4zzi. serving observability: 4zx's frontier model")
+    paths["4zzi"] = drive_traced_serving_path(tmp, dev)
     log_phase(t_start, "4zze (4r). refit of the 5-class booster")
     paths["4zze_4r"] = drive_multiclass_refit(mc_bst)
     log_phase(t_start, "4zzf. QoS and the cascade autotuner: 4m and 4r")
@@ -7069,6 +7559,11 @@ def part_compare(dense: dict, tmp: str, t_start: float) -> dict:
     log_phase(t_start, "4zw. resetting the training data")
     # ---- 4zw. resetting the training data (#20) -------------------------
     paths["4zw"] = drive_reset_path(x, y, *bench_data(VALID_ROWS, seed=1))
+    log_phase(t_start, "4zzh. training observability")
+    # ---- 4zzh. training observability (#15 slice b) ---------------------
+    ds = lgb.Dataset(x, label=y, params=PARAMS).construct()
+    paths["4zzh"] = drive_observability_path(ds, x, y, tmp)
+    del ds
 
     log_phase(t_start, "5. kernel path against plain path")
     # ---- 5. kernel path against plain path -----------------------------

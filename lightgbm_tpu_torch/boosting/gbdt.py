@@ -72,6 +72,18 @@ frontier; config.py refuses the rest). Replays of the training rows
 (rollback, a reset, DART) unpack the words; a streamed booster refuses
 them and custom gradients, as the JAX package does.
 
+Observability (``obs/``): ``self.obs`` is the booster's ``TrainingObs``.
+Under ``observability=none`` with no health action the loop adds no
+launch, sync or allocation. Otherwise each iteration builds its health
+vector on the device (``obs/health.py`` ``health_vec``, from the gradients
+and whether a tree split, plus the frontier grower's waves and non-finite
+gains): ``basic`` keeps ``train_many``'s blocks and fetches a block's rows
+once at its end, with a ``train_block`` span and a ``block`` event;
+``full`` dispatches one iteration at a time, with a ``train_iter`` span,
+an ``iteration`` event and one fetch an iteration (the JAX package's
+granularity, gbdt.py:1512-1583 and :1905-1960 there). ``obs_modelstats``
+feeds ``obs/modelstats.py`` from the host trees of every grower.
+
 Every option outside the slice raises ``NotImplementedError`` from
 ``check_slice`` before anything is built, naming the ROADMAP item that
 brings it: the port never builds a different tree than the one asked for.
@@ -80,6 +92,7 @@ from __future__ import annotations
 
 import copy
 import functools
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -93,7 +106,7 @@ from ..core.grow_batched import grow_tree_batched
 from ..core.grow_batched_part import grow_tree_batched_part
 from ..core.binpack import (pack_words_np, resolve_bin_packing,
                             unpack_words, words_per_row)
-from ..core.grow_frontier import grow_tree_frontier
+from ..core.grow_frontier import GrowerHealth, grow_tree_frontier
 from ..core.histogram import HIST_IMPLS
 from ..core.renew import renew_leaf_values
 from ..core.split import FeatureMeta, SplitParams
@@ -103,6 +116,8 @@ from ..io.dataset import BinnedDataset
 from ..log import LightGBMError, Log, check, outside_slice
 from ..metrics import Metric
 from ..objectives import ObjectiveFunction
+from ..obs.health import health_vec
+from ..obs.runtime import TrainingObs
 from ..resilience import faults
 from ..stream.grow_stream import StreamFrontierGrower
 from ..stream.pipeline import ChunkPipeline
@@ -156,16 +171,11 @@ class HostTree:
 def check_slice(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for any option outside the slice."""
     rules = [
-        (bool(cfg.obs_modelstats), "obs_modelstats (model statistics)",
-         "ROADMAP Queue 1 #15"),
-        # every obs_* option (event file, stats port, Perfetto capture,
-        # distributed spans) acts only under observability != none
-        (cfg.observability != "none",
-         "observability=%s (training telemetry, obs_* options)"
-         % cfg.observability, "ROADMAP Queue 1 #15"),
-        (cfg.health_monitor in ("warn", "abort", "raise"),
-         "health_monitor=%s (the training health monitor)"
-         % cfg.health_monitor, "ROADMAP Queue 1 #15"),
+        # the cross-process telemetry (DistributedObs): one process is the
+        # JAX package's auto, which is off
+        (cfg.obs_distributed == "on",
+         "obs_distributed=on (cross-process telemetry)",
+         "ROADMAP Queue 1 #13"),
         (cfg.tree_learner != "serial" or bool(cfg.mesh_shape)
          or cfg.num_machines > 1, "a device mesh (tree_learner=%s)"
          % cfg.tree_learner, "ROADMAP Queue 1 #13"),
@@ -324,6 +334,8 @@ class GBDT:
         # each valid set's binned matrix and running scores on the device
         self._valid: List[Dict[str, torch.Tensor]] = []
         self._stream = None           # a streamed training set's pipeline
+        self.obs = TrainingObs.disabled()
+        self._modelstats = None
         if train_data is not None:
             self._setup_train(train_data)
 
@@ -397,6 +409,18 @@ class GBDT:
                                            cegb=self._cegb)
         if self._stream is not None:
             self._grow = StreamFrontierGrower(self._stream)
+        # built once the options are known to train: it may start a server,
+        # a thread and the kernels' launch accounting
+        self.obs = TrainingObs.from_config(cfg, device=dev)
+        # the growers that count waves for the health vector
+        self._reports_waves = (self._grow is grow_tree_frontier
+                               or self._stream is not None)
+        self._health = None     # the last iteration's health vector
+        if cfg.obs_modelstats:
+            from ..obs.modelstats import ModelStats
+            self._modelstats = ModelStats(
+                ds.num_total_features, feature_names=ds.feature_names,
+                registry=self.obs.registry, events=self.obs.events)
         self._init_scores_provided = ds.metadata.init_score is not None
         self.scores = torch.as_tensor(self._initial_scores(ds), device=dev)
         self.boost_from_average_done = False
@@ -719,7 +743,39 @@ class GBDT:
         faults.inject("train_dispatch", iteration=self.iter_)
         sample_mask = self._sample_bagging_mask(self.iter_)
         self._bag_key, goss_key = threefry.split(self._bag_key)
-        return self._train_iteration(grad, hess, sample_mask, goss_key)
+        obs = self.obs
+        if not obs.fetches_health:
+            return self._train_iteration(grad, hess, sample_mask, goss_key)
+        # one iteration observed: its span, one fetch of its health row,
+        # its event (gbdt.py:2190-2250 of the JAX package)
+        it = self.iter_
+        t0 = time.perf_counter()
+        obs.perfetto_step(it, it + 1)
+        with obs.span("train_iter", iteration=it), \
+                obs.iteration_scope("train_iter"):
+            stopped = self._train_iteration(grad, hess, sample_mask,
+                                            goss_key)
+            t_disp = time.perf_counter()
+            hrow = self._health.cpu().numpy()[None]     # the one fetch
+        t_done = time.perf_counter()
+        self._observed(it, 1, hrow, t0, t_disp, t_done, obs.per_iteration)
+        return stopped
+
+    def _observed(self, start: int, count: int, rows: np.ndarray,
+                  t0: float, t_disp: float, t_done: float,
+                  record_hbm: bool) -> None:
+        """Account a dispatch of ``count`` iterations from ``start`` whose
+        health ``rows`` were fetched between ``t_disp`` and ``t_done``
+        (with the device memory where ``record_hbm``), then check them,
+        which may raise."""
+        obs = self.obs
+        if obs.enabled:
+            obs.dispatch_done(start, count, t_done - t0, health_rows=rows,
+                              busy_s=t_disp - t0, wait_s=t_done - t_disp)
+            obs.account_rows(self.num_data * count)
+            if record_hbm:
+                obs.record_hbm()
+        obs.check_health(rows, start, booster=self)
 
     def train_many(self, num_iters: int) -> bool:
         """``num_iters`` iterations with the keys of the JAX package's fused
@@ -732,35 +788,69 @@ class GBDT:
         the host in between, take the per-iteration stream. Returns True
         when training has stopped."""
         if self.boosting_type not in ("gbdt", "goss") \
-                or self._stream is not None:
+                or self._stream is not None or self.obs.per_iteration:
             # streamed growth, too, takes the per-iteration key stream, as
-            # the JAX package never fuses it (gbdt.py:1870-1876 there)
+            # the JAX package never fuses it (gbdt.py:1870-1876 there), and
+            # so does observability=full, which wants a span, an event and
+            # health flags an iteration (:1877 there)
             for _ in range(num_iters):
                 if self.train_one_iter():
                     return True
             return False
-        cfg = self.config
-        bagging = cfg.bagging_freq > 0 and 0.0 < cfg.bagging_fraction < 1.0
         done = 0
         while done < num_iters and not self._stopped:
             block = min(num_iters - done, TRAIN_BLOCK)
             keys = threefry.split(self._bag_key, block + 1)
             self._bag_key = keys[0]
-            for key in keys[1:]:
-                # the seam fires before each iteration of a block, since
-                # the host grows them one at a time here: an iteration
-                # trigger inside a block fires where it says (the JAX
-                # package's fires once a block, at its start, gbdt.py:1902)
-                faults.inject("train_dispatch", iteration=self.iter_,
-                              block_len=block)
-                bag_key, goss_key = threefry.split(key)
-                if bagging and self.iter_ % cfg.bagging_freq == 0:
-                    self._draw_bag_mask(bag_key)
-                if self._train_iteration(None, None, self._bag_mask,
-                                         goss_key):
+            if not self.obs.fetches_health:
+                if self._train_block(keys[1:], block, None)[1]:
                     return True
+                done += block
+                continue
+            # a block observed: its health rows in one device buffer,
+            # fetched once at its end, then one span, one event
+            # (gbdt.py:1905-1960 of the JAX package)
+            start = self.iter_
+            t0 = time.perf_counter()
+            rows = torch.empty((block, 4), dtype=torch.float32,
+                               device=self.device)
+            with self.obs.span("train_block", start_iter=start,
+                               count=block):
+                ran, stopped = self._train_block(keys[1:], block, rows)
+                t_disp = time.perf_counter()
+                hrows = rows[:ran].cpu().numpy()       # the one fetch
+            self._observed(start, ran, hrows, t0, t_disp,
+                           time.perf_counter(), True)
+            if stopped:
+                return True
             done += block
         return self._stopped
+
+    def _train_block(self, keys, block: int,
+                     rows: Optional[torch.Tensor]):
+        """The iterations of one block of ``train_many`` from their
+        ``keys``; each one's health vector goes into row i of ``rows``
+        where given. Returns (iterations run, whether training
+        stopped)."""
+        cfg = self.config
+        bagging = cfg.bagging_freq > 0 and 0.0 < cfg.bagging_fraction < 1.0
+        for i, key in enumerate(keys):
+            # the seam fires before each iteration of a block, since the
+            # host grows them one at a time here: an iteration trigger
+            # inside a block fires where it says (the JAX package's fires
+            # once a block, at its start, gbdt.py:1902)
+            faults.inject("train_dispatch", iteration=self.iter_,
+                          block_len=block)
+            bag_key, goss_key = threefry.split(key)
+            if bagging and self.iter_ % cfg.bagging_freq == 0:
+                self._draw_bag_mask(bag_key)
+            stopped = self._train_iteration(None, None, self._bag_mask,
+                                            goss_key)
+            if rows is not None:
+                rows[i] = self._health
+            if stopped:
+                return i + 1, True
+        return len(keys), False
 
     def _objective_gradients(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """[K, N] gradients and hessians of the objective at the current
@@ -825,14 +915,41 @@ class GBDT:
         grad, hess, sample_mask = self._row_sample(grad, hess, sample_mask,
                                                    goss_key)
         feature_mask = self._sample_feature_mask()
-        grown = [self._grow(self.xb, grad[c], hess[c], sample_mask,
-                            self.feature_meta, feature_mask,
-                            self.grow_params) for c in range(k)]
+        observe = self.obs.fetches_health
+        healths = ([GrowerHealth(self.device) for _ in range(k)]
+                   if observe and self._reports_waves else None)
+        # a streamed iteration's trace: one child a class's tree, one under
+        # it a sweep (gbdt.py:1512-1583 of the JAX package)
+        tspan = (self.obs.trace_iter(self.iter_) if self._stream is not None
+                 else None)
+        grown = []
+        for c in range(k):
+            kw = {} if healths is None else {"health": healths[c]}
+            if tspan:
+                cspan = tspan.child("tree", cls=c)
+                kw["trace_span"] = cspan
+            grown.append(self._grow(self.xb, grad[c], hess[c], sample_mask,
+                                    self.feature_meta, feature_mask,
+                                    self.grow_params, **kw))
+            if tspan:
+                cspan.end()
+        if tspan is not None:
+            tspan.finish("ok")
         if self._cegb is not None:
             # every class grew from the iteration's CEGB state; what the
             # class trees bought merges for the next iteration
             self._cegb.merge()
-        if all(tree.num_leaves <= 1 for tree, _ in grown):
+        any_split = any(tree.num_leaves > 1 for tree, _ in grown)
+        if observe:
+            # the iteration's health row, on the device
+            grower_health = None
+            if healths is not None:
+                # the waves are host counts: fills on the card, no copy
+                grower_health = torch.stack([torch.stack((
+                    torch.full((), float(h.waves), device=self.device),
+                    h.bad_gain)) for h in healths])
+            self._health = health_vec(grad, hess, any_split, grower_health)
+        if not any_split:
             Log.warning("Stopped training because there are no more leaves "
                         "that meet the split requirements")
             if not self.models:
@@ -872,6 +989,9 @@ class GBDT:
                     ht.leaf_value += float(init)
                     ht.internal_value += float(init)
         self.models.extend(host_trees)
+        if self._modelstats is not None:
+            self._modelstats.ingest_iteration(host_trees,
+                                              len(self.models) // k - 1)
         self.iter_ += 1
         return False
 
@@ -1191,6 +1311,32 @@ class GBDT:
     @property
     def current_iteration(self) -> int:
         return len(self.models) // self.num_tree_per_iteration
+
+    def enable_health_monitor(self, action: str = "warn") -> None:
+        """Arm health monitoring (``callback.health_monitor``): from the
+        next iteration on, each builds its health vector on the device and
+        the host checks it (gbdt.py:2144-2160 of the JAX package, which
+        also rebuilds its compiled step; the port has none to rebuild)."""
+        self.obs.arm_health(action)
+
+    def extract_cost_model(self, force: bool = False
+                           ) -> Dict[str, Dict[str, float]]:
+        """The cost model's entries (``obs/costmodel.py``): per kernel, the
+        bytes and additions per launch of every launch accounted under
+        ``observability=basic|full``, and per training span, the kernels'
+        bytes and additions over its count. They land as
+        ``lgbm_costmodel_*`` gauges and feed ``GET /roofline``.
+
+        Pull-based, as the JAX package's (gbdt.py:1776-1800 there):
+        nothing in the training loop calls this, and with observability
+        off it returns ``{}`` unless ``force=True``."""
+        if not (force or self.obs.enabled):
+            return {}
+        from ..obs.costmodel import (attribute_spans, get_cost_model,
+                                     span_wall_times)
+        cm = get_cost_model()
+        attribute_spans(span_wall_times(self.obs.registry), cm)
+        return cm.entries()
 
     def feature_importance(self, importance_type: str = "split",
                            iteration: Optional[int] = None) -> np.ndarray:

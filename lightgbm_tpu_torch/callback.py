@@ -5,17 +5,17 @@ python-package/lightgbm/callback.py contract): factories return callables
 that receive a ``CallbackEnv`` before or after each iteration; ``order``
 sequences them, ``before_iteration`` picks the phase, and
 ``EarlyStopException`` unwinds the training loop. This module has
-``print_evaluation``, ``record_evaluation``, ``reset_parameter`` and
-``early_stopping`` (whose slots a checkpoint saves and restores) and
-``checkpoint``; the JAX package's observability callbacks raise, naming
-the ROADMAP item that brings them.
+``print_evaluation``, ``record_evaluation``, ``export_eval_metrics`` (the
+``lgbm_eval_metric`` gauges, which ``engine.train`` attaches to every run),
+``reset_parameter``, ``early_stopping`` (whose slots a checkpoint saves
+and restores), ``health_monitor`` and ``checkpoint``.
 """
 from __future__ import annotations
 
 import collections
 from typing import Any, Callable, Dict, List, Optional
 
-from .log import Log, outside_slice
+from .log import Log
 
 # Parameters that would change the model's shape mid-training; resetting
 # them is refused (the reference refuses the same set).
@@ -103,6 +103,47 @@ def record_evaluation(eval_result: Dict[str, Dict[str, List[float]]]
                         % type(eval_result).__name__)
     eval_result.clear()
     return _RecordEvaluation(eval_result)
+
+
+class _ExportEvalMetrics:
+    """Publish each iteration's eval tuples as ``lgbm_eval_metric``
+    gauges, the registry series that train-time scrapers (the stats
+    server's ``/metrics``, serving's ``/metrics/prometheus``) watch for
+    loss curves (lightgbm_tpu/callback.py:103-140). ``only_consumes_evals``
+    keeps the engine on its fused loop when nothing is evaluated."""
+
+    before_iteration = False
+    order = 15
+    only_consumes_evals = True
+
+    def __init__(self, registry=None):
+        self._reg = registry
+        self._gauges: Dict[tuple, Any] = {}
+
+    def __call__(self, env: CallbackEnv) -> None:
+        if not env.evaluation_result_list:
+            return
+        if self._reg is None:
+            from .obs.registry import get_registry
+            self._reg = get_registry()
+        for entry in env.evaluation_result_list:
+            data_name, metric_name, value = entry[0], entry[1], entry[2]
+            g = self._gauges.get((data_name, metric_name))
+            if g is None:
+                g = self._reg.gauge(
+                    "lgbm_eval_metric",
+                    "Latest evaluation metric value, per dataset and "
+                    "metric, updated every evaluated iteration.",
+                    {"dataset": str(data_name), "metric": str(metric_name)})
+                self._gauges[(data_name, metric_name)] = g
+            g.set(float(value))
+
+
+def export_eval_metrics(registry=None) -> Callable:
+    """Stream eval results into the process metrics registry as
+    ``lgbm_eval_metric{dataset=,metric=}`` gauges (attached automatically
+    by ``engine.train``; pass explicitly to ``cv`` or custom loops)."""
+    return _ExportEvalMetrics(registry)
 
 
 class _ResetParameter:
@@ -243,16 +284,33 @@ def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
     return _EarlyStopping(stopping_rounds, first_metric_only, verbose)
 
 
-def export_eval_metrics(registry=None) -> Callable:
-    """The JAX package's metrics-registry export, not ported yet."""
-    raise outside_slice("the export_eval_metrics callback (observability)",
-                        "ROADMAP Queue 1 #15")
+class _HealthMonitor:
+    """Arms health monitoring on the booster (lightgbm_tpu/callback.py:
+    290-320). It runs before an iteration, so its presence also keeps the
+    engine off the fused loop: each iteration is checked as it ends."""
+
+    before_iteration = True
+    order = 5
+
+    def __init__(self, action: str = "warn"):
+        self.action = action
+        self._armed = False
+
+    def __call__(self, env) -> None:
+        if self._armed:
+            return
+        impl = getattr(env.model, "_impl", env.model)
+        impl.enable_health_monitor(self.action)
+        self._armed = True
 
 
-def health_monitor(*args, **kwargs) -> Callable:
-    """The JAX package's device health monitor, not ported yet."""
-    raise outside_slice("the health_monitor callback (observability)",
-                        "ROADMAP Queue 1 #15")
+def health_monitor(action: str = "warn") -> Callable:
+    """Watch training health (non-finite grad/hess, stump iterations,
+    non-finite frontier gains) through the health vector each iteration
+    builds on the device (``obs/health.py``). ``action``: ``warn`` logs
+    and counts; ``abort`` checkpoints into ``checkpoint_dir`` (when
+    configured) then raises; ``raise`` raises at once."""
+    return _HealthMonitor(action)
 
 
 def checkpoint(directory: str, period: int = 1, keep_last_n: int = 3,

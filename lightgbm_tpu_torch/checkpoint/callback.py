@@ -17,9 +17,11 @@ trees are on the host): the snapshot is written, then the previous handler
 is restored and the signal raised again, so the process still dies as a
 SIGTERM'd one (exit 143, or -15 seen from a parent).
 
-The JAX callback wraps each save in a trace span (``obs/trace``); the port
-has no tracing yet (ROADMAP Queue 1 #15), so a save has none. Its counter
-goes to the port's metrics registry.
+Each save runs in a ``checkpoint_save`` span of the booster's telemetry
+(``obs/trace.py``; a no-op under ``observability=none``) and counts in the
+metrics registry. On SIGTERM the latch flushes the booster's event stream
+and dumps its flight recorder (``obs.crash_flush("sigterm")``) before it
+re-delivers the signal.
 """
 from __future__ import annotations
 
@@ -110,8 +112,9 @@ class _Checkpoint:
             es = self._early_stopping_state(env)
             if es is not None:
                 train_loop["early_stopping"] = es
-            self.manager.save(env.model, train_loop=train_loop,
-                              eval_entry=eval_entry)
+            with env.model._impl.obs.span("checkpoint_save", iteration=it):
+                self.manager.save(env.model, train_loop=train_loop,
+                                  eval_entry=eval_entry)
             from ..obs.registry import get_registry
             get_registry().counter(
                 "lgbm_checkpoint_saves_total",
@@ -120,6 +123,10 @@ class _Checkpoint:
             Log.warning("checkpoint: SIGTERM received; snapshot saved at "
                         "iteration %d in %s; exiting", it,
                         self.manager.directory)
+            # fsync the event stream and dump the flight recorder while the
+            # training state is coherent; _resign() re-delivers SIGTERM to
+            # the previous handler (the recorder's, whose dump has latched)
+            env.model._impl.obs.crash_flush("sigterm")
             self._resign()
 
 

@@ -24,10 +24,10 @@ Device: LightGBM's ``device_type`` key (alias ``device``). ``cpu`` runs on
 the CPU; anything else, the default included, runs on CUDA and raises when
 CUDA is absent. Training takes ``checkpoint_dir`` (with
 ``checkpoint_period`` and ``checkpoint_keep``), ``resume=<dir>`` and
-``supervise=true`` (cli.py:122-147 of the JAX package). Observability
-and the health monitor's actions are not ported yet: training refuses
-them (``boosting/gbdt.py`` ``check_slice``), naming the ROADMAP item
-that brings them.
+``supervise=true`` (cli.py:122-147 of the JAX package), the
+``observability`` and ``obs_*`` keys, and ``health_monitor=abort|raise``,
+which attaches ``callback.health_monitor`` so that each iteration is
+checked as it ends (cli.py:129-134 there).
 """
 from __future__ import annotations
 
@@ -140,6 +140,12 @@ def run_train(config: Config, params: Dict) -> None:
         callbacks.append(checkpoint_cb(config.checkpoint_dir,
                                        period=config.checkpoint_period,
                                        keep_last_n=config.checkpoint_keep))
+    if config.health_monitor in ("abort", "raise"):
+        # escalating actions want each iteration checked as it ends: the
+        # callback runs before an iteration, which keeps the loop off its
+        # fused blocks
+        from .callback import health_monitor
+        callbacks.append(health_monitor(config.health_monitor))
 
     booster = engine.train(
         dict(params), train_set,
@@ -154,6 +160,10 @@ def run_train(config: Config, params: Dict) -> None:
         supervise=(config.supervise or None), device=device)
     booster.save_model(config.output_model)
     Log.info("Finished training; model saved to %s", config.output_model)
+    obs = booster._impl.obs
+    if obs.enabled and obs.monitor is not None:
+        Log.info("Telemetry: %d health anomalies (%d reports)",
+                 obs.monitor.anomaly_count(), len(obs.monitor.reports))
 
 
 def run_predict(config: Config, params: Dict) -> None:

@@ -271,18 +271,18 @@ _PARAMS: List[Tuple[str, type, Any, List[str]]] = [
     ("serving_cascade_trees", int, 0, ["serve_cascade_trees"]),
     ("serving_cascade_margin", float, 10.0, ["serve_cascade_margin"]),
     ("serving_quantize_leaves", bool, False, ["serve_quantize_leaves"]),
-    # ---- observability (lightgbm_tpu.obs; docs/Observability.md) ----
-    # none: zero instrumentation (default). basic: fused blocks kept,
-    # per-block spans/events/health (<3% overhead, bench-verified).
-    # full: per-iteration dispatch with true spans, health within one
-    # iteration, Perfetto window capture, per-iteration HBM accounting.
+    # ---- observability (obs/, boosting/gbdt.py) ----
+    # none: no instrumentation (default). basic: train_many's blocks kept,
+    # a span, an event and one health fetch a block. full: one iteration
+    # at a time with a span, an event and a health fetch each, the
+    # Perfetto window, device memory every iteration.
     ("observability", str, "none", ["obs", "observability_level"]),
     # JSON-lines event stream (spans, iterations, health); "" = off
     ("obs_event_file", str, "", ["obs_events", "observability_event_file"]),
     # training stats HTTP endpoint: -1 = off, 0 = OS-assigned port
     ("obs_stats_port", int, -1, ["obs_metrics_port"]),
-    # jax.profiler Perfetto capture (observability=full): directory,
-    # first iteration and iteration count of the capture window
+    # torch.profiler capture (observability=full) written as a Chrome
+    # trace: directory, first iteration and iteration count of the window
     ("obs_perfetto_dir", str, "", ["obs_trace_dir"]),
     ("obs_perfetto_start", int, 0, []),
     ("obs_perfetto_iters", int, 0, []),       # 0 = no capture
@@ -292,8 +292,8 @@ _PARAMS: List[Tuple[str, type, Any, List[str]]] = [
      ["health_monitor_action", "obs_health"]),
     # ---- distributed obs (obs/distributed.py) ----
     # cross-process metric federation + straggler detection: auto = armed
-    # whenever observability is on AND jax.process_count() > 1; on forces
-    # it even single-process (degenerate local view); off disables
+    # whenever observability is on across several processes (off on the
+    # port's one process); on refuses (ROADMAP Queue 1 #13); off disables
     ("obs_distributed", str, "auto", []),
     # warn when max/median per-process block wall time crosses this
     # ratio (routed through HealthMonitor, warn-only); 0 disables

@@ -51,13 +51,15 @@ sequential growth is that run.
 
 Streamed growth (``stream/grow_stream.py``) runs the same wave over chunks
 from ``frontier_state``. Not ported: ``wave_hist_entry`` and
-``wave_fused_entry`` (the JAX cost model's pricing entries), the learners of
-a device mesh, and the health and model-statistics accumulators
-(``obs_modelstats`` raises).
+``wave_fused_entry`` (the JAX cost model's pricing entries) and the
+learners of a device mesh. The JAX package's model-statistics accumulator
+is not needed: ``obs/modelstats.py`` reads the host trees. Its health
+accumulator is ``GrowerHealth``: the waves counted on the host, where the
+loop is, and the non-finite committed gain kept as a device max.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -66,6 +68,25 @@ from .grow_batched import (WavePlan, apply_split_wave, scatter_child_best,
                            search_children, wave_plan, wave_route)
 from .histogram import hist_slots, stack_vals
 from .split import BestSplit, FeatureMeta
+
+
+class GrowerHealth:
+    """What one frontier tree reports to the health vector
+    (``obs/health.py``): ``waves`` run, counted on the host, and
+    ``bad_gain``, a float32 device scalar that becomes 1 when a wave
+    commits a non-finite gain (the JAX package's ``(waves,
+    nonfinite_gain)`` carry)."""
+
+    def __init__(self, device: torch.device):
+        self.waves = 0
+        self.bad_gain = torch.zeros((), dtype=torch.float32, device=device)
+
+    def commit(self, gain: torch.Tensor) -> None:
+        """One wave committing the splits of ``gain`` [k]."""
+        self.waves += 1
+        torch.maximum(self.bad_gain,
+                      (~torch.isfinite(gain)).any().to(torch.float32),
+                      out=self.bad_gain)
 
 
 class FrontierState(NamedTuple):
@@ -151,10 +172,12 @@ def frontier_state(tree: DeviceTree, best: BestSplit,
 def grow_tree_frontier(xb: torch.Tensor, grad: torch.Tensor,
                        hess: torch.Tensor, sample_mask: torch.Tensor,
                        meta: FeatureMeta, feature_mask: torch.Tensor,
-                       params: GrowParams
+                       params: GrowParams,
+                       health: Optional[GrowerHealth] = None
                        ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree in frontier waves; returns (tree on the host, per-row
-    leaf id on the device), as ``grow.grow_tree``."""
+    leaf id on the device), as ``grow.grow_tree``. ``health``, where
+    given, counts the waves and the non-finite committed gains."""
     l = params.num_leaves
     vals = stack_vals(grad, hess, sample_mask)                # [N, 3]
     s = root_state(xb, vals, meta, feature_mask, params)
@@ -176,5 +199,7 @@ def grow_tree_frontier(xb: torch.Tensor, grad: torch.Tensor,
         s = s._replace(leaf_id=leaf_id)
         wave_commit(s, plan, nl, left_small, hist_small, meta, params,
                     feature_mask)
+        if health is not None:
+            health.commit(plan.cur.gain)
         nl += k
     return tree_to_host(s.tree, nl), s.leaf_id

@@ -726,3 +726,84 @@ def partition_bytes(n: int, c: int, row_tile: int) -> int:
     """Bytes the in-tile partition must move: every row read and written
     once, its go-left byte read, one int32 count a tile written."""
     return 2 * n * c + n + 4 * (n // row_tile)
+
+
+# ------------------------------------------------------------ accounting
+def _hist_launch_costs(args) -> Tuple[float, float]:
+    """(bytes, additions) of one histogram.cu launch from its arguments
+    (xb, vals, out, n, f, ld, num_bins, k, dtype index, ...)."""
+    n, f, ld, num_bins, k, dtype_idx = args[3:9]
+    elem = HIST_DTYPES[dtype_idx].itemsize
+    return hist_bytes(n, f, num_bins, k, elem, ld), n * f * k
+
+
+def _slots_launch_costs(args) -> Tuple[float, float]:
+    """(bytes, additions) of one hist_slots.cu launch (xb, slot, vals, sel,
+    ints, out, n, f, ld, num_bins, n_slots, k, ...), every row counted as
+    active: which rows are lives on the card."""
+    n, f, ld, num_bins, n_slots, k = args[6:12]
+    return slot_hist_bytes(n, n, f, num_bins, k, n_slots, ld), n * f * k
+
+
+def _part_launch_costs(args) -> Tuple[float, float]:
+    """(bytes, additions) of one hist_part.cu launch (xb_fm, sel, vals3,
+    tile_slot, ints, out, Np, f, num_bins, n_slots, row_tile, tiles, ...),
+    every tile counted as active."""
+    np_, f, num_bins, n_slots, row_tile, tiles = args[6:12]
+    return (part_hist_bytes(tiles, tiles, row_tile, f, num_bins, n_slots),
+            np_ * f * 6)
+
+
+# loader -> (its launch function, the cost-model entry, its costs)
+_ACCOUNTED = {
+    "_hist_lib": ("lgbt_hist_launch", HIST_LIBRARY[1][0], _hist_launch_costs),
+    "_slots_lib": ("lgbt_hist_slots_launch", SLOTS_LIBRARY[1][0],
+                   _slots_launch_costs),
+    "_part_lib": ("lgbt_hist_part_launch", PART_LIBRARY[1][0],
+                  _part_launch_costs),
+}
+
+
+class _CountingLib:
+    """A loaded kernel library whose launch function records each launch's
+    bytes and additions in a cost model before it launches."""
+
+    def __init__(self, lib, launch: str, entry: str, costs, cost_model):
+        self._lib = lib
+        fn = getattr(lib, launch)
+
+        def counted(*args):
+            cost_model.record_launch(entry, *costs(args))
+            return fn(*args)
+        setattr(self, launch, counted)
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+
+def account_launches(cost_model):
+    """Record every launch of histogram.cu, hist_slots.cu and hist_part.cu
+    in ``cost_model`` (``obs/costmodel.py``) until the returned function is
+    called. The libraries' loaders are swapped for counting ones, so
+    without this call a wrapper does no accounting work at all. A second
+    call while one is active changes nothing and returns a no-op."""
+    g = globals()
+    if any(isinstance(g[name], functools.partial) for name in _ACCOUNTED):
+        return lambda: None
+    originals = {name: g[name] for name in _ACCOUNTED}
+
+    def counting_loader(load, launch, entry, costs, cache):
+        lib = load()
+        if cache.get("lib") is not lib:
+            cache["lib"] = lib
+            cache["counting"] = _CountingLib(lib, launch, entry, costs,
+                                             cost_model)
+        return cache["counting"]
+
+    for name, (launch, entry, costs) in _ACCOUNTED.items():
+        g[name] = functools.partial(counting_loader, originals[name], launch,
+                                    entry, costs, {})
+
+    def stop() -> None:
+        g.update(originals)
+    return stop

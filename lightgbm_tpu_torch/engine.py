@@ -13,7 +13,12 @@ that read evaluation results, which such a run has none of), the port
 trains through ``GBDT.train_many``, so that its bagging and GOSS draws
 follow the same key stream (engine.py:221-229 there). Callbacks run before and
 after each iteration, ``EarlyStopException`` unwinds the loop and sets
-``best_iteration``, and ``evals_result`` records the history.
+``best_iteration``, and ``evals_result`` records the history. Every run
+exports its evaluations as ``lgbm_eval_metric`` gauges
+(``callback.export_eval_metrics``, unless the caller passed one), a crash
+in the loop flushes the booster's event stream and flight recorder and
+carries the dump's path on the exception (``flight_dump_path``), and the
+end of the run flushes its telemetry (engine.py:174-178, :262-285 there).
 Checkpoints (``checkpoint_dir``, ``callback.checkpoint``) snapshot the
 training state; ``resume_from`` puts it back and trains the rest of the
 total on the per-iteration path, and ``supervise`` restarts a crashed run
@@ -196,6 +201,11 @@ def _train_once(params: Dict[str, Any], train_set: Dataset,
         cbs.append(callback.print_evaluation(verbose_eval))
     if evals_result is not None:
         cbs.append(callback.record_evaluation(evals_result))
+    # every evaluated iteration also lands in the process metrics registry
+    # (lgbm_eval_metric gauges) for the stats endpoints; it only consumes
+    # evaluations, so a run without them still takes the fused loop
+    if not any(isinstance(c, callback._ExportEvalMetrics) for c in cbs):
+        cbs.append(callback.export_eval_metrics())
     if learning_rates is not None:
         cbs.append(callback.reset_parameter(learning_rate=learning_rates))
     # checkpoint_dir attaches the checkpoint callback (the command line's
@@ -228,9 +238,51 @@ def _train_once(params: Dict[str, Any], train_set: Dataset,
             resumed = True
 
     begin = booster.current_iteration()
+    try:
+        evaluation_result_list = _boost(
+            booster, params, num_boost_round, fobj, feval,
+            fused and not resumed, is_valid_contain_train, cbs_before,
+            cbs_after)
+    except callback.EarlyStopException:
+        raise
+    except Exception as train_err:
+        # the crash path: the event stream fsynced, the flight recorder
+        # dumped, and its path carried to the supervisor or the operator
+        obs = booster._impl.obs
+        if not getattr(train_err, "flight_dump_path", None):
+            try:
+                dump = obs.crash_flush("train-exception: %s: %s"
+                                       % (type(train_err).__name__,
+                                          train_err))
+                if dump:
+                    train_err.flight_dump_path = dump
+            except Exception:   # the dump must never mask the crash
+                pass
+        obs.release()
+        raise
+
+    booster.best_score = collections.defaultdict(dict)
+    for data_name, eval_name, score, _ in evaluation_result_list or []:
+        booster.best_score[data_name][eval_name] = score
+    if booster.best_iteration <= 0:
+        booster.best_iteration = booster.current_iteration()
+    obs = booster._impl.obs
+    if obs.enabled:
+        # flush the event stream and close any open profiler window; the
+        # stats endpoint stays up for post-train scrapes
+        obs.finish()
+    return booster
+
+
+def _boost(booster: Booster, params, num_boost_round: int, fobj, feval,
+           fusable: bool, is_valid_contain_train: bool, cbs_before,
+           cbs_after) -> list:
+    """The boosting loop (engine.py:211-246 of the JAX package): returns
+    the last evaluation results (the best ones after an early stop)."""
+    begin = booster.current_iteration()
     end = begin + num_boost_round
     evaluation_result_list = []
-    if fused and not resumed and not cbs_before and all(
+    if fusable and not cbs_before and all(
             getattr(c, "only_consumes_evals", False) for c in cbs_after):
         # nothing reads the booster between iterations: the JAX engine's
         # fused loop, and its key stream
@@ -258,13 +310,7 @@ def _train_once(params: Dict[str, Any], train_set: Dataset,
             break
         if stopped:
             break
-
-    booster.best_score = collections.defaultdict(dict)
-    for data_name, eval_name, score, _ in evaluation_result_list or []:
-        booster.best_score[data_name][eval_name] = score
-    if booster.best_iteration <= 0:
-        booster.best_iteration = booster.current_iteration()
-    return booster
+    return evaluation_result_list
 
 
 class CVBooster:

@@ -12,11 +12,12 @@ The port's own copy of ``lightgbm_tpu/resilience/supervisor.py``:
 
 - :class:`Supervisor`: the in-process restart loop behind
   ``train(supervise=True)``: on a crash or a watchdog abort it records the
-  flight-dump path the engine attached to the exception (the port has no
-  flight recorder yet, ROADMAP Queue 1 #15, so there is none and the
-  message goes without it), sleeps a bounded exponential backoff and
-  re-runs the attempt with ``resume_from=checkpoint_dir``: the resumed run
-  ends where the uninterrupted one would.
+  flight-dump path the engine attached to the exception (the booster's
+  flight recorder, ``obs_flight_recorder`` beside ``obs_event_file``, when
+  observability is on; a run without one carries none and the message
+  goes without it), sleeps a bounded exponential backoff and re-runs the
+  attempt with ``resume_from=checkpoint_dir``: the resumed run ends where
+  the uninterrupted one would. An exhausted budget names the last dump.
 
 - :class:`ProcessSupervisor`: the same loop one level up: the trainer is a
   child process (``ProcessSupervisor.train_cli`` runs the port's own

@@ -26,9 +26,14 @@ per-MODEL admission quotas (only the over-quota model sheds; the rest keep
 being admitted under the engine-wide bound) and replaces the head-of-line
 dispatch pick with weighted-fair queueing: each dispatch serves the queued
 model with the smallest ``rows_served / weight`` virtual time. Without a
-policy the queue picks head-of-line and sheds engine-wide only. The JAX
-package's request tracing is not ported yet (ROADMAP Queue 1 #15;
-``build_app`` refuses its option).
+policy the queue picks head-of-line and sheds engine-wide only.
+
+Request tracing (``obs_trace``, ``obs/reqtrace.py``): with a tracer, each
+admitted request gets a root span (an inbound ``x-lgbm-trace`` header
+continues its trace) and a ``queue_wait`` child; a dispatch makes ONE
+``batch`` span linked from every coalesced request, with the QoS pick and
+the engine's ``predict`` pass as children. Spans are host objects around
+the engine's call, never inside a captured graph.
 """
 from __future__ import annotations
 
@@ -44,14 +49,16 @@ from .predictor import ServingEngine
 
 
 class _Request:
-    __slots__ = ("key", "X", "future", "t", "deadline")
+    __slots__ = ("key", "X", "future", "t", "deadline", "span", "qspan")
 
-    def __init__(self, key, X, future, timeout_s=0.0):
+    def __init__(self, key, X, future, timeout_s=0.0, span=None, qspan=None):
         self.key = key
         self.X = X
         self.future = future
         self.t = time.perf_counter()
         self.deadline = self.t + timeout_s if timeout_s > 0 else None
+        self.span = span        # trace root (obs/reqtrace.py) or None
+        self.qspan = qspan      # open queue_wait child span or None
 
 
 class MicroBatchQueue:
@@ -59,13 +66,15 @@ class MicroBatchQueue:
 
     def __init__(self, engine: ServingEngine, max_rows: Optional[int] = None,
                  deadline_ms: float = 2.0, max_queue_rows: int = 0,
-                 request_timeout_ms: float = 0.0, qos=None):
+                 request_timeout_ms: float = 0.0, qos=None, tracer=None):
         self.engine = engine
         self.max_rows = int(max_rows) if max_rows else engine.max_batch
         self.deadline_s = max(float(deadline_ms), 0.0) / 1000.0
         self.max_queue_rows = max(int(max_queue_rows), 0)   # 0 = unbounded
         self.request_timeout_s = max(float(request_timeout_ms), 0.0) / 1000.0
         self.qos = qos                      # fleet.qos.QosPolicy or None
+        self.tracer = tracer                # obs.reqtrace.RequestTracer/None
+        self._last_pick = None              # QoS decision for the batch span
         self._queue: List[_Request] = []
         self._queued_rows = 0
         self._model_rows: Dict[str, int] = {}
@@ -116,6 +125,8 @@ class MicroBatchQueue:
             self._publish_depth_locked()
         for r in leftovers:
             r.future.set_exception(LightGBMError("serving queue stopped"))
+            if r.span is not None:
+                r.span.finish("error", error="serving queue stopped")
 
     # ------------------------------------------------------------ submit
     def _publish_depth_locked(self) -> None:
@@ -123,16 +134,46 @@ class MicroBatchQueue:
         self.engine.metrics.set_queue_rows(self._queued_rows)
 
     def submit(self, model_id: str, X, raw_score: bool = False,
-               num_iteration: Optional[int] = None) -> "Future":
+               num_iteration: Optional[int] = None,
+               trace=None) -> "Future":
         """Enqueue one request; the Future resolves to the same array
         ``engine.predict`` would return for it alone. Sheds with
-        OverloadedError when admission would exceed ``max_queue_rows``."""
+        OverloadedError when admission would exceed ``max_queue_rows``.
+
+        ``trace`` is an optional inbound ``x-lgbm-trace`` header value (or
+        a parsed ``(trace_id, parent_span_id)``): with a tracer, the
+        request's trace ROOT is minted here, where its life starts, so a
+        shed or a refused admission is recorded on the trace before the
+        error propagates."""
         X = np.asarray(X, np.float64)
         if X.ndim == 1:
             X = X.reshape(1, -1)
         fut: Future = Future()
+        span = qspan = None
+        if self.tracer is not None and self.tracer.enabled:
+            span = self.tracer.start_trace("request", ctx=trace,
+                                           model=str(model_id),
+                                           rows=int(X.shape[0]))
+            qspan = span.child("queue_wait")
         req = _Request((model_id, bool(raw_score), num_iteration), X, fut,
-                       self.request_timeout_s)
+                       self.request_timeout_s, span, qspan)
+        try:
+            self._admit(req, model_id)
+        except OverloadedError as e:
+            # finish OUTSIDE the queue lock: a kept shed-trace writes to
+            # the event stream, which must not serialize admissions
+            if span is not None:
+                span.finish("shed", error=str(e))
+            raise
+        except Exception as e:
+            if span is not None:
+                span.finish("error", error=str(e))
+            raise
+        return fut
+
+    def _admit(self, req: _Request, model_id: str) -> None:
+        """Queue ``req`` under the lock, or raise: not started, draining,
+        or over the engine-wide or the model's bound (shed)."""
         with self._cond:
             if not self._running:
                 raise LightGBMError("MicroBatchQueue.submit before start()")
@@ -140,7 +181,7 @@ class MicroBatchQueue:
                 raise LightGBMError(
                     "serving queue is draining (shutting down); "
                     "request rejected")
-            nrows = X.shape[0]
+            nrows = req.X.shape[0]
             if self.max_queue_rows and \
                     self._queued_rows + nrows > self.max_queue_rows:
                 self.engine.metrics.record_shed()
@@ -166,12 +207,13 @@ class MicroBatchQueue:
                 self._model_rows.get(model_id, 0) + nrows
             self._publish_depth_locked()
             self._cond.notify_all()
-        return fut
 
     def predict(self, model_id: str, X, raw_score: bool = False,
-                num_iteration: Optional[int] = None) -> np.ndarray:
+                num_iteration: Optional[int] = None,
+                trace=None) -> np.ndarray:
         """Blocking convenience wrapper around submit()."""
-        return self.submit(model_id, X, raw_score, num_iteration).result()
+        return self.submit(model_id, X, raw_score, num_iteration,
+                           trace=trace).result()
 
     def stats(self) -> Dict:
         """Queue and per-model QoS state (the ``queue`` block of /stats)."""
@@ -194,6 +236,9 @@ class MicroBatchQueue:
         for r in self._queue:
             by_model[r.key[0]] = by_model.get(r.key[0], 0) + r.X.shape[0]
         mid = self.qos.pick(by_model)
+        # remember the decision for the batch span: which tenant the
+        # weighted-fair virtual time elected, over what queue composition
+        self._last_pick = {"picked": mid, "queued_rows": dict(by_model)}
         for r in self._queue:
             if r.key[0] == mid:
                 return r.key
@@ -252,6 +297,9 @@ class MicroBatchQueue:
                             % ((now - r.t) * 1000.0,
                                self.request_timeout_s * 1000.0),
                             retry_after_s=max(self.deadline_s * 2, 0.05)))
+                        if r.span is not None:
+                            r.qspan.end("shed")
+                            r.span.finish("shed", error="expired in queue")
                     else:
                         live.append(r)
                 batch = live
@@ -260,12 +308,35 @@ class MicroBatchQueue:
 
     def _dispatch(self, batch: List[_Request]) -> None:
         model_id, raw_score, num_iteration = batch[0].key
+        bspan = pspan = None
+        spans = [r.span for r in batch if r.span is not None]
+        if spans:
+            # queue_wait ends when the batch leaves the queue; the batch
+            # span is ONE span linked from every coalesced request, with
+            # the QoS election and the engine pass as children
+            for r in batch:
+                if r.qspan is not None:
+                    r.qspan.end()
+            bspan = self.tracer.batch_span(
+                "batch", spans, model=str(model_id), requests=len(batch),
+                rows=int(sum(r.X.shape[0] for r in batch)))
+            pick = self._last_pick
+            if pick is not None:
+                bspan.child("qos_pick", picked=pick["picked"],
+                            queued_rows=pick["queued_rows"]).end()
+            pspan = bspan.child("predict", model=str(model_id))
         try:
             X = (batch[0].X if len(batch) == 1
                  else np.concatenate([r.X for r in batch], axis=0))
+            # _span travels only when tracing minted one: engines that
+            # wrap or stand in for ServingEngine never see the keyword
+            kw = {"_span": pspan} if pspan is not None else {}
             out = self.engine.predict(model_id, X, raw_score=raw_score,
                                       num_iteration=num_iteration,
-                                      _record_request=False)
+                                      _record_request=False, **kw)
+            if pspan is not None:
+                pspan.end()
+                bspan.end()
             done = time.perf_counter()
             lo = 0
             for r in batch:
@@ -274,9 +345,17 @@ class MicroBatchQueue:
                 # per-CALLER accounting: latency includes the coalescing
                 # wait (what the caller actually observed)
                 self.engine.metrics.record_request(r.X.shape[0], done - r.t)
+                if r.span is not None:
+                    r.span.finish(
+                        "ok", latency_ms=round((done - r.t) * 1000.0, 3))
                 lo = hi
         except Exception as e:  # noqa: BLE001 - delivered to each caller
+            if pspan is not None:
+                pspan.end("error", error=str(e))
+                bspan.end("error")
             self.engine.metrics.record_error()
             for r in batch:
                 if not r.future.done():
                     r.future.set_exception(e)
+                if r.span is not None:
+                    r.span.finish("error", error=str(e))

@@ -179,28 +179,35 @@ class _BucketPredictor:
         g2.replay()
         return out2
 
-    def raw_scores(self, xc: np.ndarray) -> np.ndarray:
+    def raw_scores(self, xc: np.ndarray, span=None) -> np.ndarray:
         """[rows, K] float32 raw scores of the chunk ``xc`` [rows, F]
-        (rows <= bucket), padded with zero rows to the bucket."""
+        (rows <= bucket), padded with zero rows to the bucket. ``span``
+        (a request trace span, optional) gets a ``device_dispatch`` child
+        around the copy in and the replay and a ``device_wait`` child
+        around the copy back: host spans around the graph, never in it."""
         rows = xc.shape[0]
         xt = torch.from_numpy(np.ascontiguousarray(xc, np.float64))
         if self.device.type != "cuda":
+            dspan = span.child("device_dispatch", bucket=self.bucket) \
+                if span is not None else None
             x = torch.zeros((self.bucket, self.num_features),
                             dtype=torch.float64, device=self.device)
             x[:rows] = xt
-            return self.eager(x)[:rows].numpy()
+            return _fetch(self.eager(x)[:rows], span, dspan, self.bucket)
         with self._lock:
             if self._graphs is None:
                 self._capture()
+            dspan = span.child("device_dispatch", bucket=self.bucket) \
+                if span is not None else None
             self._x[:rows].copy_(xt)
             if rows < self.bucket:
                 self._x[rows:].zero_()
-            return self.replay()[:rows].cpu().numpy()
+            return _fetch(self.replay()[:rows], span, dspan, self.bucket)
 
-    def __call__(self, xc: np.ndarray) -> np.ndarray:
+    def __call__(self, xc: np.ndarray, span=None) -> np.ndarray:
         """The chunk's outputs as ``GBDT.predict`` gives them: float64,
         [rows] for one tree an iteration, [rows, K] for K."""
-        out = self.raw_scores(xc).astype(np.float64)
+        out = self.raw_scores(xc, span).astype(np.float64)
         if self._avg_iters:
             out = out / self._avg_iters
         if self.k == 1:
@@ -208,6 +215,19 @@ class _BucketPredictor:
         if self._convert is not None:
             out = np.asarray(self._convert(out))
         return out
+
+
+def _fetch(out: torch.Tensor, span, dspan, bucket: int) -> np.ndarray:
+    """``out`` on the host; with a trace ``span``, its ``device_dispatch``
+    child ``dspan`` ends here and a ``device_wait`` child covers the
+    copy back."""
+    if span is None:
+        return out.cpu().numpy()
+    dspan.end()
+    wspan = span.child("device_wait", bucket=bucket)
+    host = out.cpu().numpy()
+    wspan.end()
+    return host
 
 
 class ServingEngine:
@@ -425,12 +445,15 @@ class ServingEngine:
     # ------------------------------------------------------------ predict
     def predict(self, model_id: str, X, raw_score: bool = False,
                 num_iteration: Optional[int] = None,
-                _record_request: bool = True) -> np.ndarray:
+                _record_request: bool = True, _span=None) -> np.ndarray:
         """Serve one request: ``Booster.predict``'s output on the same
         rows, bit for bit, for any request size. ``_record_request=False``
         is for the micro-batch queue, which accounts its callers itself
         (per-caller count and queue-inclusive latency) so a fused dispatch
-        is not double-counted."""
+        is not double-counted. ``_span`` is an optional trace span
+        (``obs/reqtrace.py``): each bucket pass gets its
+        ``device_dispatch`` and ``device_wait`` children; the graphs
+        replayed are the same with it or without."""
         t0 = time.perf_counter()
         # the serve_predict seam: "request" is a dispatched predict, counted
         # by the plan (a fused queue batch counts once)
@@ -445,6 +468,11 @@ class ServingEngine:
                   "model %r expects %d features, request has %d"
                   % (model_id, bundle.num_features, X.shape[1]))
         iters = bundle.effective_iterations(num_iteration)
+        if _span is not None and self.cascade_trees > 0:
+            # the cascade's stages run inside the graphs; the trace records
+            # the configuration they were captured with
+            _span.annotate(cascade_trees=self.cascade_trees,
+                           cascade_margin=self.cascade_margin)
         n = X.shape[0]
         outs = []
         for lo in range(0, n, self.max_batch):
@@ -452,7 +480,7 @@ class ServingEngine:
             b = bucket_rows(xc.shape[0], self.min_bucket, self.max_batch)
             entry = self._predictor(bundle, b, raw_score, iters)
             t1 = time.perf_counter()
-            outs.append(entry(xc))
+            outs.append(entry(xc, _span))
             self.metrics.record_batch(b)
             self.metrics.record_bucket_latency(
                 b, (time.perf_counter() - t1) * 1000.0)

@@ -21,11 +21,20 @@ HTTP API:
                   documents (``fleet_kv_dir``; the local registry and an
                   empty fleet without one)
   GET  /drift     per-model train/serve drift detail
+  GET  /slo       burn-rate verdicts per declared SLO (obs/slo.py):
+                  {"slos": {...}}, or {"status": "disabled"} without one
+  GET  /traces    the recently KEPT request traces (tail sampling) with
+                  their span records; obs_trace=true only, else empty
   GET  /models    registered model ids and shapes
 
-The JAX package's ``/slo`` and ``/traces`` answer as they do there when
-their options are off (``build_app`` refuses the options: ROADMAP Queue
-1 #15).
+POST /predict honors an inbound ``x-lgbm-trace: <trace_id>[-<span_id>]``
+header (obs/reqtrace.py), so fleet peers and load generators keep one
+trace id across hops. ``obs_trace`` traces each request (one root span a
+request, its queue wait, the batch that carried it, the engine pass and
+its copies around the graph's replay; ``obs_trace_sample``,
+``obs_trace_slow_ms``; kept spans also go to ``obs_event_file``);
+``serve_slo_p99_ms`` (with ``serve_slo_target``) and
+``serve_slo_availability`` declare the SLOs ``/slo`` judges.
 
 stdin mode (``serve_stdin=true``) speaks the same request objects, one
 JSON object per line, and replies one JSON line each.
@@ -55,8 +64,9 @@ from typing import Dict, Optional
 import numpy as np
 
 from ..config import Config
-from ..log import LightGBMError, Log, OverloadedError, outside_slice
+from ..log import LightGBMError, Log, OverloadedError
 from ..obs.registry import get_registry
+from ..obs.reqtrace import TRACE_HEADER
 from ..resilience.breaker import CircuitBreaker
 from .batching import MicroBatchQueue
 from .metrics import ServingMetrics
@@ -93,10 +103,13 @@ class ServingApp:
         self.announcer = None      # fleet.replica.ReplicaAnnouncer
         self.coordinator = None    # fleet.replica.RollingDeployCoordinator
         self.cluster = None        # fleet.replica.FleetClusterProvider
+        self.tracer = None         # obs.reqtrace.RequestTracer
+        self.slo = None            # obs.slo.SloEngine
+        self.trace_events = None   # EventStream owned by build_app
         self.queue.start()
 
     # ------------------------------------------------------------ requests
-    def handle_predict(self, req: Dict) -> Dict:
+    def handle_predict(self, req: Dict, trace: Optional[str] = None) -> Dict:
         model_id = req.get("model", "")
         if not model_id:
             ids = self.engine.registry.ids()
@@ -122,7 +135,7 @@ class ServingApp:
         try:
             out = self.queue.predict(
                 model_id, X, raw_score=bool(req.get("raw_score", False)),
-                num_iteration=req.get("num_iteration"))
+                num_iteration=req.get("num_iteration"), trace=trace)
         except OverloadedError:
             raise          # admission shed: not an engine failure
         except Exception:
@@ -146,7 +159,11 @@ class ServingApp:
                 part.stop()
         if self.watcher is not None:
             self.watcher.stop()
+        if self.slo is not None:
+            self.slo.stop()
         self.queue.stop()
+        if self.trace_events is not None:
+            self.trace_events.close()
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -217,9 +234,12 @@ class _Handler(BaseHTTPRequestHandler):
             from ..obs.drift import drift_snapshot
             self._reply(200, drift_snapshot())
         elif self.path == "/slo":
-            self._reply(200, {"status": "disabled", "slos": {}})
+            self._reply(200, self.app.slo.status() if self.app.slo is not None
+                        else {"status": "disabled", "slos": {}})
         elif self.path == "/traces":
-            self._reply(200, {"traces": []})
+            # the most recent KEPT traces (tail sampling), newest last
+            self._reply(200, {"traces": self.app.tracer.recent_traces()
+                              if self.app.tracer is not None else []})
         elif self.path == "/models":
             self._reply(200, self.app.handle_models())
         else:
@@ -232,7 +252,10 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             length = int(self.headers.get("Content-Length", "0"))
             req = json.loads(self.rfile.read(length) or b"{}")
-            self._reply(200, self.app.handle_predict(req))
+            # an inbound trace context continues the caller's trace; an
+            # absent or malformed header mints a fresh one
+            self._reply(200, self.app.handle_predict(
+                req, trace=self.headers.get(TRACE_HEADER)))
         except OverloadedError as e:
             # shed (bounded admission) or breaker-open: 503 + Retry-After
             self._reply(503, {"error": str(e),
@@ -286,19 +309,6 @@ def _metrics_writer(metrics: ServingMetrics, path: str, freq_s: float,
     return t
 
 
-def _check_slice(config: Config) -> None:
-    """Raise ``outside_slice`` for a serving option the port lacks."""
-    rules = [
-        (bool(config.obs_trace), "obs_trace (request tracing, /traces)",
-         "ROADMAP Queue 1 #15"),
-        (config.serve_slo_p99_ms > 0 or config.serve_slo_availability > 0,
-         "serve_slo_* (SLO burn rates, /slo)", "ROADMAP Queue 1 #15"),
-    ]
-    for bad, what, where in rules:
-        if bad:
-            raise outside_slice(what, where)
-
-
 def build_app(config: Config) -> ServingApp:
     """Engine + queue from the serve_* config on ``device_type``'s device
     (CUDA unless it says ``cpu``); loads ``input_model`` (if any) under id
@@ -306,7 +316,6 @@ def build_app(config: Config) -> ServingApp:
     snapshot over it and a watcher polling for newer ones. Tests and
     embedders register models themselves."""
     from ..cli import device_of
-    _check_slice(config)
     if config.fault_inject:
         from ..resilience import faults
         faults.install_plan(config.fault_inject, config.fault_seed)
@@ -331,15 +340,51 @@ def build_app(config: Config) -> ServingApp:
         from ..fleet.qos import QosPolicy
         qos = QosPolicy.from_spec(config.serve_qos_weights,
                                   config.serve_qos_quota_rows)
+    tracer = trace_events = None
+    if config.obs_trace:
+        from ..obs.reqtrace import RequestTracer
+        from ..obs.trace import EventStream
+        if config.obs_event_file:
+            trace_events = EventStream(
+                config.obs_event_file,
+                static_fields={"source": "serve",
+                               "replica": config.fleet_replica or ""})
+        tracer = RequestTracer(events=trace_events,
+                               slow_ms=config.obs_trace_slow_ms,
+                               sample=config.obs_trace_sample,
+                               seed=config.seed)
     app = ServingApp(
         engine,
         MicroBatchQueue(engine, deadline_ms=config.serve_deadline_ms,
                         max_queue_rows=config.serve_max_queue_rows,
                         request_timeout_ms=config.serve_request_timeout_ms,
-                        qos=qos),
+                        qos=qos, tracer=tracer),
         breaker=CircuitBreaker(
             failure_threshold=config.serve_breaker_failures,
             cooldown_s=config.serve_breaker_cooldown_s))
+    app.tracer = tracer
+    app.trace_events = trace_events
+    if config.serve_slo_p99_ms > 0 or config.serve_slo_availability > 0:
+        from ..obs.slo import SloEngine
+        slo = SloEngine(fast_window_s=config.slo_fast_window_s,
+                        slow_window_s=config.slo_slow_window_s,
+                        burn_warn=config.slo_burn_warn,
+                        monitor=engine._drift_health())
+        if config.serve_slo_p99_ms > 0:
+            slo.add_latency_slo(
+                "serve_p99", "lgbm_serving_request_latency_ms",
+                threshold_ms=config.serve_slo_p99_ms,
+                objective=config.serve_slo_target,
+                description="fraction of requests under serve_slo_p99_ms")
+        if config.serve_slo_availability > 0:
+            slo.add_availability_slo(
+                "serve_availability", "lgbm_serving_requests_total",
+                bad=["lgbm_serving_errors_total",
+                     "lgbm_serving_shed_total",
+                     "lgbm_serving_request_timeouts_total"],
+                objective=config.serve_slo_availability,
+                description="requests neither errored, shed nor expired")
+        app.slo = slo.start(config.slo_tick_s)
     if config.serve_latency_budget_ms > 0:
         from ..fleet.qos import CascadeAutotuner
         app.tuner = CascadeAutotuner(

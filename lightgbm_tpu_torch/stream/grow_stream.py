@@ -30,13 +30,14 @@ ROADMAP Queue 1 #13.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..core.grow import GrowParams, TreeArrays, root_from_hist, tree_to_host
 from ..core.grow_batched import wave_plan, wave_route
-from ..core.grow_frontier import frontier_state, wave_commit, wave_slots
+from ..core.grow_frontier import (GrowerHealth, frontier_state, wave_commit,
+                                  wave_slots)
 from ..core.histogram import hist_slots, hist_tile_vals, stack_vals
 from ..core.split import FeatureMeta
 from .pipeline import ChunkPipeline
@@ -55,8 +56,16 @@ class StreamFrontierGrower:
 
     def __call__(self, xb, grad: torch.Tensor, hess: torch.Tensor,
                  sample_mask: torch.Tensor, meta: FeatureMeta,
-                 feature_mask: torch.Tensor, params: GrowParams
+                 feature_mask: torch.Tensor, params: GrowParams,
+                 health: Optional[GrowerHealth] = None, trace_span=None
                  ) -> Tuple[TreeArrays, torch.Tensor]:
+        """Grow one tree. ``health`` (``core/grow_frontier.py``
+        ``GrowerHealth``, optional) counts the waves and the non-finite
+        committed gains; ``trace_span`` (``obs/reqtrace.py``, optional)
+        gets one child a sweep over the chunks: the root's, then each
+        wave's, as the JAX package's streamed grower gives them. Both are
+        host bookkeeping: the launches are the same with them or
+        without."""
         pipe = self.pipeline
         r = pipe.chunk_rows
         n = grad.shape[0]
@@ -67,6 +76,9 @@ class StreamFrontierGrower:
         if pipe.num_padded > n:
             vals = torch.cat([vals, vals.new_zeros((pipe.num_padded - n,
                                                     3))])
+        tspan = trace_span if trace_span else None
+        if tspan is not None:
+            rspan = tspan.child("root_sweep", chunks=pipe.num_chunks)
         # the root's histogram, summed over the chunks
         hist_root = None
         for i, xc in pipe.sweep():
@@ -76,6 +88,8 @@ class StreamFrontierGrower:
             hist_root = part if hist_root is None else hist_root + part
         tree, best = root_from_hist(hist_root, root, meta, feature_mask,
                                     params)
+        if tspan is not None:
+            rspan.end()
         s = frontier_state(tree, best, hist_root, pipe.num_padded, params)
         with_cat = bool(params.split.cat_features)
         nl = 1
@@ -85,6 +99,9 @@ class StreamFrontierGrower:
                 break
             k = min(live, l - nl)
             plan = wave_plan(s.best, nl, k)
+            if tspan is not None:
+                wspan = tspan.child("wave", wave=self.waves,
+                                    chunks=pipe.num_chunks)
             hist_small = None
             for i, xc in pipe.sweep():
                 rows = slice(i * r, (i + 1) * r)
@@ -100,6 +117,10 @@ class StreamFrontierGrower:
                 s.leaf_id[rows] = leaf_id
             wave_commit(s, plan, nl, left_small, hist_small, meta, params,
                         feature_mask)
+            if health is not None:
+                health.commit(plan.cur.gain)
+            if tspan is not None:
+                wspan.end()
             nl += k
             self.waves += 1
         self.trees_grown += 1

@@ -261,15 +261,29 @@ REFUSED_CLI = {
     "fault_inject_kv": (["fault_inject=kv_timeout@round:2"], "#13"),
     "serve_fault_inject_kv": (["task=serve", "fault_inject=kv_error@calls:1"],
                               "#13"),
-    "health_monitor": (["health_monitor=abort"], "#15"),
+    # refused until the health monitor came (#15): it now acts, and a NaN
+    # label's gradients abort the run from the monitor
+    "health_monitor": (["health_monitor=abort", "objective=regression"],
+                       None),
 }
 
 
 @pytest.mark.parametrize("what", sorted(REFUSED_CLI))
-def test_cli_refusals_cite_their_items(what, tmp_path):
+def test_cli_refusals_cite_their_items(what, tmp_path, capsys):
     tokens, item = REFUSED_CLI[what]
     data = tmp_path / "train.csv"
-    _write_csv(data, *_binary(200))
+    x, y = _binary(200)
+    if item is None:
+        y[5] = np.nan
+        _write_csv(data, x, y)
+        assert tcli.main(["task=train", "data=%s" % data, "header=true",
+                          "device_type=cpu", "num_trees=3",
+                          "output_model=%s" % (tmp_path / "m.txt")]
+                         + tokens) == 1
+        assert "training aborted by health monitor: non-finite gradient" \
+            "/hessian at iteration 0" in capsys.readouterr().err
+        return
+    _write_csv(data, x, y)
     with pytest.raises(NotImplementedError,
                        match=r"\(ROADMAP Queue 1 %s\)$" % item):
         tcli.main(["data=%s" % data, "header=true", "device_type=cpu",

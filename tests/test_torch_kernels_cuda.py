@@ -19,7 +19,10 @@ with no ``device_type``, each launching the histogram kernel; and
 out-of-core streaming, its chunks in pinned memory copied ahead of their
 use, through the word variants of both histogram kernels; and the
 fleet: the device refit against the host loop and a held Refitter against
-a one-shot refit, and the queue's per-model QoS shed on a CUDA engine.
+a one-shot refit, and the queue's per-model QoS shed on a CUDA engine; and
+observability: ``basic``'s kernel launches equal to ``none``'s over one
+block, the health vector on the card, the device-memory gauge and the
+Perfetto window's Chrome trace naming a port kernel.
 
 These tests need a CUDA device and ``nvcc``: a hand-written CUDA kernel has
 no CPU or interpret mode, so they are marked ``cuda`` and skip without one.
@@ -1513,3 +1516,72 @@ def test_qos_sheds_the_model_over_its_quota_on_the_card(cuda_device):
     finally:
         queue.stop()
     assert eng.metrics.recompiles_after_warmup() == 0
+
+
+def _obs_data(n=20_000, seed=0):
+    r = np.random.RandomState(seed)
+    x = r.randn(n, 10)
+    return x, (x[:, 0] + 0.5 * r.randn(n) > 0).astype(np.float64)
+
+
+def _launches():
+    return {w.__name__: w.launches for w in (
+        kernels.build_histogram_cuda, kernels.build_histogram_slots_cuda)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("growth", ["exact", "frontier"])
+def test_basic_observability_launches_what_none_does(cuda_device, growth):
+    """One block of train_many (8 iterations) at observability=basic
+    launches each kernel as often as at none."""
+    x, y = _obs_data()
+    ds = tlgb.Dataset(x, label=y, free_raw_data=False)
+    counts = {}
+    for level in ("none", "basic"):
+        for w in (kernels.build_histogram_cuda,
+                  kernels.build_histogram_slots_cuda):
+            w.launches = 0
+        tlgb.train({"objective": "binary", "verbosity": -1,
+                    "tree_growth": growth, "observability": level}, ds, 8)
+        counts[level] = _launches()
+    assert counts["basic"] == counts["none"]
+    assert counts["none"]["build_histogram_cuda"] >= 8
+
+
+@pytest.mark.cuda
+def test_health_vec_stays_on_the_card(cuda_device):
+    from lightgbm_tpu_torch.obs.health import health_vec
+    g = torch.ones(1000, device=cuda_device)
+    h = torch.ones(1000, device=cuda_device)
+    g[7] = float("nan")
+    hv = health_vec(g, h, True, torch.tensor([[3.0, 0.0]],
+                                             device=cuda_device))
+    assert hv.device.type == "cuda"
+    assert hv.cpu().tolist() == [1.0, 0.0, 0.0, 3.0]
+
+
+@pytest.mark.cuda
+def test_record_hbm_reads_the_allocator(cuda_device):
+    from lightgbm_tpu_torch.obs.registry import get_registry
+    x, y = _obs_data(5_000)
+    tlgb.train({"objective": "binary", "verbosity": -1,
+                "observability": "basic"}, tlgb.Dataset(x, label=y), 2)
+    gauge = get_registry().gauge("lgbm_train_device_bytes_in_use")
+    assert gauge.value > 0
+
+
+@pytest.mark.cuda
+def test_perfetto_window_names_a_port_kernel(cuda_device, tmp_path):
+    import json
+    x, y = _obs_data(5_000)
+    out = tmp_path / "trace"
+    tlgb.train({"objective": "binary", "verbosity": -1,
+                "observability": "full", "obs_perfetto_dir": str(out),
+                "obs_perfetto_start": 1, "obs_perfetto_iters": 2},
+               tlgb.Dataset(x, label=y), 4)
+    (name,) = os.listdir(out)
+    with open(out / name) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    assert "train_iter" in names
+    assert any("hist" in n and "kernel" in n for n in names), sorted(
+        n for n in names if "kernel" in n)[:20]

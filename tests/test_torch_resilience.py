@@ -10,7 +10,7 @@ cases belong to #13 and to tests/test_torch_serving.py):
 - the watchdog's warm-up grace and its firing (the abort event, then
   ``WatchdogAbort`` at the next seam), the heartbeat file, the
   supervisor's retries, its exhaustion (the message without a flight-dump
-  suffix: the port has no flight recorder, #15) and its need of a
+  suffix when the run keeps no flight recorder) and its need of a
   checkpoint directory, ``ProcessSupervisor`` on a trivial child and its
   budget, ``ckpt_torn`` breaking the sha and the manifest falling back;
 - the options ``train`` used to accept and ignore: ``fault_inject=

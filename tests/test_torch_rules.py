@@ -139,13 +139,16 @@ OUTSIDE_SLICE = {
     # f64 histograms are in the slice; on a device mesh they are not
     "gpu_use_dp": ({"gpu_use_dp": True, "tree_learner": "data"}, None),
     # frontier, batched and partitioned batched growth are in the slice, as
-    # are packed bin words; model statistics on either wave grower are not
+    # are packed bin words and model statistics; the cross-process
+    # telemetry beside them is not
     "tree_growth_frontier": ({"tree_growth": "frontier",
                               "tpu_bin_packing": "byte",
-                              "obs_modelstats": True}, None),
+                              "obs_modelstats": True,
+                              "obs_distributed": "on"}, None),
     "tree_growth_batched": ({"tree_growth": "batched",
                              "tpu_batched_part": "true",
-                             "obs_modelstats": True}, None),
+                             "obs_modelstats": True,
+                             "obs_distributed": "on"}, None),
     "mesh": ({"tree_learner": "data"}, None),
     "pallas_impl": ({"tpu_hist_impl": "pallas"}, None),
 }
@@ -166,19 +169,114 @@ REFUSALS = {
                                 "tree_learner": "data"}, "#13"),
     # methods of the JAX package's Booster the port lacks
     "booster_set_network": ({}, "#13"),
-    # training telemetry and the training health monitor's actions: the
-    # port used to accept them and do nothing with them
-    "observability": ({"observability": "basic"}, "#15"),
-    "observability_full": ({"observability": "full",
-                            "obs_event_file": "events.jsonl"}, "#15"),
-    "health_monitor": ({"health_monitor": "raise"}, "#15"),
-    "health_monitor_warn": ({"health_monitor": "warn"}, "#15"),
+    # the cross-process telemetry (DistributedObs); one process is off
+    "obs_distributed": ({"obs_distributed": "on",
+                         "observability": "basic"}, "#13"),
     # serving options outside the serving slice (#10), refused where the
     # engine or the app is built
     "serve_mesh": ({"serve_num_devices": 2}, "#13"),
     "serve_fault_inject_kv": ({"fault_inject": "kv_delay@round:1"}, "#13"),
-    "serve_obs_trace": ({"obs_trace": True}, "#15"),
-    "serve_slo": ({"serve_slo_p99_ms": 5.0}, "#15"),
+}
+
+
+def _nan_fobj(preds, data):
+    """Logistic gradients, one in seven NaN."""
+    p = 1.0 / (1.0 + np.exp(-preds))
+    grad = (p - data.get_label()).astype(np.float32)
+    grad[::7] = np.nan
+    return grad, np.maximum(p * (1 - p), 1e-3).astype(np.float32)
+
+
+def _events(path):
+    import json
+    with open(path) as f:
+        return [json.loads(line)["event"] for line in f]
+
+
+def _acts_observability(tmp_path, x, y):
+    ev = str(tmp_path / "events.jsonl")
+    tlgb.train({"objective": "binary", "verbosity": -1,
+                "observability": "basic", "obs_event_file": ev},
+               tlgb.Dataset(x, label=y, device="cpu"), num_boost_round=3,
+               device="cpu")
+    assert _events(ev).count("block") == 1
+
+
+def _acts_observability_full(tmp_path, x, y):
+    ev = str(tmp_path / "events.jsonl")
+    tlgb.train({"objective": "binary", "verbosity": -1,
+                "observability": "full", "obs_event_file": ev},
+               tlgb.Dataset(x, label=y, device="cpu"), num_boost_round=3,
+               device="cpu")
+    assert _events(ev).count("iteration") == 3
+
+
+def _acts_health_monitor(tmp_path, x, y):
+    with pytest.raises(tlgb.basic.LightGBMError, match="health monitor"):
+        tlgb.train({"verbosity": -1, "health_monitor": "raise"},
+                   tlgb.Dataset(x, label=y, device="cpu"), num_boost_round=3,
+                   fobj=_nan_fobj, device="cpu")
+
+
+def _acts_health_monitor_warn(tmp_path, x, y):
+    bst = tlgb.train({"verbosity": -1, "health_monitor": "warn"},
+                     tlgb.Dataset(x, label=y, device="cpu"),
+                     num_boost_round=3, fobj=_nan_fobj, device="cpu")
+    assert bst._impl.obs.monitor.anomaly_count() >= 1
+
+
+def _serving_app(params, x, y):
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.serving import build_app
+    bst = tlgb.train({"objective": "binary", "verbosity": -1},
+                     tlgb.Dataset(x, label=y, device="cpu"),
+                     num_boost_round=2, device="cpu")
+    app = build_app(Config(dict(params, device_type="cpu")))
+    app.engine.registry.register(bst.as_serving_bundle("m"))
+    return app
+
+
+def _acts_serve_obs_trace(tmp_path, x, y):
+    app = _serving_app({"obs_trace": True, "obs_trace_sample": 1.0}, x, y)
+    try:
+        app.handle_predict({"model": "m", "data": x[:2].tolist()},
+                           trace="00ab12")
+        traces = app.tracer.recent_traces()
+    finally:
+        app.close()
+    assert [t["trace"] for t in traces] == ["00ab12"]
+
+
+def _acts_serve_slo(tmp_path, x, y):
+    import json
+    import threading
+    import urllib.request
+    from lightgbm_tpu_torch.serving import make_server
+    app = _serving_app({"serve_slo_p99_ms": 5.0}, x, y)
+    server = make_server(app, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = "http://127.0.0.1:%d/slo" % server.server_address[1]
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            body = json.loads(resp.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        app.close()
+    assert list(body["slos"]) == ["serve_p99"]
+
+
+# options the port refused until its observability layers came (ROADMAP
+# Queue 1 #15): each keeps its case, which now checks that it acts
+NOW_ACT = {
+    "observability": _acts_observability,
+    "observability_full": _acts_observability_full,
+    "health_monitor": _acts_health_monitor,
+    "health_monitor_warn": _acts_health_monitor_warn,
+    "serve_obs_trace": _acts_serve_obs_trace,
+    "serve_slo": _acts_serve_slo,
 }
 
 
@@ -197,10 +295,13 @@ def _refused_call(kind, params, x, y):
                       num_boost_round=1, device="cpu")
 
 
-@pytest.mark.parametrize("kind", sorted(REFUSALS))
-def test_refusals_cite_their_roadmap_item(kind):
-    params, item = REFUSALS[kind]
+@pytest.mark.parametrize("kind", sorted(set(REFUSALS) | set(NOW_ACT)))
+def test_refusals_cite_their_roadmap_item(kind, tmp_path):
     x, y = _data()
+    if kind in NOW_ACT:
+        NOW_ACT[kind](tmp_path, x, y)
+        return
+    params, item = REFUSALS[kind]
     if kind == "nibble_pairs":
         x = _small_pair_data(x)
     with pytest.raises(NotImplementedError,

@@ -164,8 +164,10 @@ def test_frontier_split_set_is_exact_growths_without_a_cap():
     ({"tpu_batched_part": "true", "tree_learner": "data"}, "batched"),
     ({"tpu_bin_packing": "byte", "tree_learner": "data"}, "frontier"),
     ({"tpu_bin_packing": "nibble", "tree_learner": "data"}, "frontier"),
-    ({"obs_modelstats": True}, "frontier"),
-    ({"obs_modelstats": True}, "batched"),
+    # model statistics train on every grower; beside the cross-process
+    # telemetry (#13) they refuse with it
+    ({"obs_modelstats": True, "obs_distributed": "on"}, "frontier"),
+    ({"obs_modelstats": True, "obs_distributed": "on"}, "batched"),
 ])
 def test_options_outside_the_slice_raise(option, growth):
     x, y = make_binary(n=300, f=4)
