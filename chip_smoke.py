@@ -418,6 +418,25 @@ and prints no result line):
         a trace header: every answer ``predict``'s bit for bit, every
         trace a full span tree under its inbound ID, no capture after
         warmup, ``/slo`` answering; p50/p99 with and without tracing;
+     4zzj distributed learners (#13 slice a, #14; main, last): two rank
+        processes of this script (``--dist-rank``), each loading the
+        whole of 4a's data and keeping its block of rows, join a
+        ``torch.distributed`` group over gloo (two ranks on one card take
+        gloo by the group's rule, CUDA tensors crossing through pinned
+        host memory) and train NUM_ITERS
+        rounds of 4a's parameters under DIST_RUNS: (a) exact float64
+        data-parallel, node for node with 4zza's trees (a located tie the
+        one exception), AUC within F64_AUC_TOL of the 4zn constant; (b)
+        frontier with the reduce-scatter learner, with the all-reduce one
+        and voting at ``top_k`` = the feature count, each held to 4b's
+        trees under phase 5's frontier rule and AUC; (c) voting at
+        ``top_k=3``, its train logloss non-increasing within 1e-6 and
+        ending within 10% of 4b's drop; (d) feature-parallel exact f32
+        and (e) data-parallel batched_part, held to 4a's and 4d's trees
+        under the same rule and AUC; both ranks' model digests equal,
+        each run's kernels launched on both ranks; s/iter at 2 ranks
+        against 1, all-reduce ms a split, payload a wave (by the JAX
+        package's rule and as received) and the transport;
    every path of 4a-4d, 4m-4za, 4zb-4zp, 4zq and 4zy also trains one more
    iteration under torch.profiler and prints its CUDA kernel launches,
    synchronisations and the port's kernels' device time;
@@ -471,8 +490,8 @@ Phases 1-3 and 4a-4d run in this process alone. Then two more processes
 of this script (``--part workloads`` and ``--part compare``, given the
 dense paths 4a-4d for their ratios) share the card with it, so that the
 host-bound paths overlap: this process runs 4q, 4zb-4zf, 4zl-4zn,
-4zq-4zv, 4zza, 4zzc, 4zzd, 4zze and 4zzg (4zza's two child processes
-and 4zzg's two replicas too); ``workloads`` 4e-4h, 4zh-4zk, 4i-4p, 4zo,
+4zq-4zv, 4zza, 4zzc, 4zzd, 4zze, 4zzg and 4zzj (4zza's two child
+processes, 4zzg's two replicas and 4zzj's two ranks too); ``workloads`` 4e-4h, 4zh-4zk, 4i-4p, 4zo,
 4r-4u, their prediction extras, 4zx, 4zzi, 4r's refit and 4zzf;
 ``compare`` 4v-4za, 4zg, 4zp, 4zy, 4zz, 4zzb, 4zw, 4zzh and phase 5 (4b's trees reach it in a file, FRONTIER_REF, for 4zz). Each
 process sets its own launch counts to 0 just before each path and reads
@@ -6092,16 +6111,20 @@ def drive_streamed_resume(x, y, tmp: str) -> dict:
                                    launches)}
 
 
-def drive_checkpoint_paths(ds, x, y, tmp: str, t_start: float) -> dict:
+def drive_checkpoint_paths(ds, x, y, tmp: str, t_start: float,
+                           refs: dict) -> dict:
     """Paths 4zza, 4zzc and 4zzd on 4a's data ``x``, ``y``, binned as
     ``ds``, then 4zze (4zza's booster refitted) and 4zzg (the fleet over a
     copy of 4zza's directory taken before 4zzd writes there; the module
-    docstring)."""
+    docstring). 4zza's first NUM_ITERS trees go in ``refs`` (4zzj's
+    reference)."""
+    import copy
     import shutil
     out = {}
     log_phase(t_start, "4zza. kill and resume, float64")
     out["4zza"], golden, text, directory = drive_kill_and_resume(ds, x, y,
                                                                  tmp)
+    refs["4zza"] = copy.deepcopy(golden.models[:NUM_ITERS])
     fleet_dir = os.path.join(tmp, "fleet_4zzg")
     shutil.copytree(directory, os.path.join(fleet_dir, "ckpt"))
     log_phase(t_start, "4zzc. a supervised crash")
@@ -7205,6 +7228,292 @@ def drive_traced_serving_path(tmp: str, dev) -> dict:
             "slo": {k: v["burning"] for k, v in slo["slos"].items()}}
 
 
+# ---- 4zzj. distributed learners (#13 slice a, #14) ----------------------
+# two rank processes of this script (``--dist-rank R``) on cuda:0, each
+# loading the whole of 4a's data and keeping its row block, joined in a
+# torch.distributed group over gloo (two ranks on one card are not NCCL's,
+# scripts/nccl_two_ranks.py: the group's rule takes gloo). Each run trains
+# NUM_ITERS rounds on 4a's parameters; its label,
+# its options over PARAMS, the learner it must take, and what it is held
+# to (the single-process trees of ``refs`` and a train AUC)
+DIST_RANKS = 2
+DIST_TIMEOUT_S = 480
+DIST_RUNS = {
+    "a": (dict(GROWTH_PARAMS["exact"], tree_learner="data",
+               gpu_use_dp=True), "psum"),
+    "b_rs": (dict(GROWTH_PARAMS["frontier"], tree_learner="data",
+                  tpu_frontier_rs=True), "data_rs"),
+    "b_psum": (dict(GROWTH_PARAMS["frontier"], tree_learner="data",
+                    tpu_frontier_rs=False), "psum"),
+    "b_voting": (dict(GROWTH_PARAMS["frontier"], tree_learner="voting",
+                      top_k=NUM_FEATURES), "voting"),
+    "c": (dict(GROWTH_PARAMS["frontier"], tree_learner="voting", top_k=3,
+               metric="binary_logloss"), "voting"),
+    "d": (dict(GROWTH_PARAMS["exact"], tree_learner="feature"), "feature"),
+    "e": (dict(GROWTH_PARAMS["batched_part"], tree_learner="data"), "psum"),
+}
+# each run's single-process reference: trees (``refs``), JAX AUC, and the
+# single-process path whose s/iter it is set against
+DIST_REFERENCE = {
+    "a": ("4zza", JAX_F64_METRIC["4zn"]["auc"], F64_AUC_TOL),
+    "b_rs": ("frontier", JAX_REFERENCE_AUC["frontier"], AUC_TOLERANCE),
+    "b_psum": ("frontier", JAX_REFERENCE_AUC["frontier"], AUC_TOLERANCE),
+    "b_voting": ("frontier", JAX_REFERENCE_AUC["frontier"], AUC_TOLERANCE),
+    "c": ("frontier", None, None),
+    "d": ("exact", JAX_REFERENCE_AUC["exact"], AUC_TOLERANCE),
+    "e": ("batched_part", JAX_REFERENCE_AUC["batched_part"], AUC_TOLERANCE),
+}
+DIST_KERNELS = {
+    "a": ("build_histogram_f64_cuda",),
+    "b_rs": PATH_KERNELS["frontier"], "b_psum": PATH_KERNELS["frontier"],
+    "b_voting": PATH_KERNELS["frontier"], "c": PATH_KERNELS["frontier"],
+    "d": PATH_KERNELS["exact"], "e": PATH_KERNELS["batched_part"],
+}
+# (c), PV-Tree with top_k=3, is held to the JAX package's documented
+# approximation (tests/test_parallel_learners.py:198-234): its train
+# logloss never rises by more than this, and ends within this share of the
+# single-process run's drop of it
+VOTING_RISE_TOL, VOTING_DROP_REL = 1e-6, 0.1
+
+
+def binary_logloss(y: np.ndarray, p: np.ndarray) -> float:
+    p = np.clip(np.asarray(p, np.float64), 1e-15, 1 - 1e-15)
+    return float(-np.mean(y * np.log(p) + (1 - y) * np.log(1 - p)))
+
+
+def reference_forests(models: dict, x, y) -> dict:
+    """4zzj's single-process references from phase 4's boosters: the first
+    NUM_ITERS trees of 4a, 4b and 4d (each booster has one more, from its
+    profiled iteration), and 4b's train logloss after each iteration."""
+    import copy
+    refs = {g: copy.deepcopy(models[g].models[:NUM_ITERS])
+            for g in ("exact", "frontier", "batched_part")}
+    refs["frontier_logloss"] = [
+        binary_logloss(y, models["frontier"].predict(x, num_iteration=i))
+        for i in range(1, NUM_ITERS + 1)]
+    return refs
+
+
+def run_dist_rank(argv) -> int:
+    """``--dist-rank R --dir D --port P``: rank R of 4zzj. Loads the whole
+    of 4a's data, then trains each of DIST_RUNS in a group of DIST_RANKS
+    processes (``num_machines``, ``machines`` with the rendezvous at
+    127.0.0.1:P, the rank from ``LIGHTGBM_TPU_RANK``), each run's launch
+    counts set to 0 just before and read just after; writes each run's
+    result to D/rank_R.json and rank 0 each run's trees to D/trees_L.pkl."""
+    import argparse
+    parser = argparse.ArgumentParser()
+    parser.add_argument("rank", type=int)
+    parser.add_argument("--dir", required=True)
+    parser.add_argument("--port", type=int, required=True)
+    args = parser.parse_args(argv)
+    global LOG_PREFIX
+    LOG_PREFIX = "[4zzj rank %d] " % args.rank
+    os.environ["LIGHTGBM_TPU_RANK"] = str(args.rank)
+    torch.set_num_threads(2)
+    x, y = bench_data(MAIN_ROWS)
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(x, label=y, params=PARAMS).construct()
+    log("binning: %.2f s for %d x %d" % (time.perf_counter() - t0,
+                                         *x.shape))
+    from lightgbm_tpu_torch.parallel import network
+    machines = "127.0.0.1:%d,127.0.0.1:0" % args.port
+    out = {}
+    for label, (extra, _) in DIST_RUNS.items():
+        params = dict(PARAMS, **extra, num_machines=DIST_RANKS,
+                      machines=machines)
+        kw = {"valid_sets": [ds], "evals_result": {},
+              "verbose_eval": False} if label == "c" else {}
+        if network.group() is not None:
+            network.group().counter.reset()
+        bst, train_s, launches, steps = train_counted(params, ds, **kw)
+        impl = bst._impl
+        comm = impl._comm
+        res = {"train_s": train_s, "s_per_iter": train_s / NUM_ITERS,
+               "launches": launches, "steps": steps,
+               "learner": impl._dist.kind if impl._dist else None,
+               "world": comm.world, "num_data": impl.num_data,
+               "backend": comm.backend, "digests": bst.model_digests,
+               "counter": comm.counter.summary(),
+               "splits": int(sum(t.num_leaves_actual - 1
+                                 for t in bst.models)),
+               "auc": auc(bst.predict(x), y)}
+        if label == "c":
+            # the training set is valid set 0 here (named valid_0)
+            res["logloss"] = next(iter(kw["evals_result"].values()))[
+                "binary_logloss"]
+        if args.rank == 0:
+            with open(os.path.join(args.dir, "trees_%s.pkl" % label),
+                      "wb") as f:
+                pickle.dump(bst.models, f)
+        log("run %s: %.3f s per iteration, AUC %.6f, learner %s over %s, "
+            "%d collectives, %.1f ms in them"
+            % (label, res["s_per_iter"], res["auc"], res["learner"],
+               res["backend"], sum(res["counter"]["calls"].values()),
+               res["counter"]["seconds"] * 1e3))
+        out[label] = res
+        del bst
+    network.free()
+    with open(os.path.join(args.dir, "rank_%d.json" % args.rank), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(flag: str, directory: str, timeout_s: float) -> list:
+    """Start DIST_RANKS processes of this script with ``flag R --dir
+    directory --port P`` and wait for them; returns their exit codes, None
+    for one still running at ``timeout_s`` (then killed)."""
+    port = free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), flag, str(r), "--dir",
+         directory, "--port", str(port)], env=env)
+        for r in range(DIST_RANKS)]
+    t0 = time.perf_counter()
+    rcs = []
+    try:
+        for p in procs:
+            try:
+                rcs.append(p.wait(timeout=max(
+                    timeout_s - (time.perf_counter() - t0), 1.0)))
+            except subprocess.TimeoutExpired:
+                rcs.append(None)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    return rcs
+
+
+def drive_distributed_path(x, y, refs: dict, paths: dict, tmp: str) -> dict:
+    """Path 4zzj: the runs of DIST_RUNS in two rank processes over gloo,
+    each checked: both ranks' model digests equal, the learner, the transport,
+    the path's kernels launched on both ranks; (a) node for node with
+    4zza's single-process float64 trees (a tie under phase 5's rule the one
+    exception), its AUC within F64_AUC_TOL of the 4zn constant; (b) and
+    (d)-(e) held to the single-process trees under phase 5's frontier rule
+    and their AUC within AUC_TOLERANCE of the JAX constants; (c) the
+    documented PV-Tree approximation. Prints the s/iter at two ranks
+    against one, the all-reduce ms a split, the payload a wave and the
+    transport."""
+    directory = os.path.join(tmp, "dist_4zzj")
+    os.mkdir(directory)
+    rcs = run_ranks("--dist-rank", directory, DIST_TIMEOUT_S)
+    if rcs != [0] * DIST_RANKS:
+        raise AssertionError("4zzj: the rank processes exited %s (None: "
+                             "still running at %d s)" % (rcs, DIST_TIMEOUT_S))
+    ranks = []
+    for r in range(DIST_RANKS):
+        with open(os.path.join(directory, "rank_%d.json" % r)) as f:
+            ranks.append(json.load(f))
+    rows = torch.as_tensor(x, dtype=torch.float64, device="cuda")
+    launches = {w.__name__: 0 for w in COUNTED}
+    out = {"runs": {}}
+    for label, (extra, learner) in DIST_RUNS.items():
+        runs = [rk[label] for rk in ranks]
+        ref_name, want_auc, auc_tol = DIST_REFERENCE[label]
+        for rk, res in enumerate(runs):
+            if res["learner"] != learner or res["world"] != DIST_RANKS \
+                    or res["backend"] != "gloo":
+                raise AssertionError(
+                    "4zzj %s rank %d: learner %s over %d ranks (%s)"
+                    % (label, rk, res["learner"], res["world"],
+                       res["backend"]))
+            if len(set(res["digests"])) != 1 \
+                    or res["digests"] != runs[0]["digests"]:
+                raise AssertionError("4zzj %s: the ranks' model digests "
+                                     "differ: %s" % (label, res["digests"]))
+            for name in DIST_KERNELS[label]:
+                if res["launches"][name] <= 0:
+                    raise AssertionError("4zzj %s rank %d never launched %s"
+                                         % (label, rk, name))
+            for name, n in res["launches"].items():
+                launches[name] += n
+        with open(os.path.join(directory, "trees_%s.pkl" % label),
+                  "rb") as f:
+            trees = pickle.load(f)
+        got_auc = runs[0]["auc"]
+        ties = []
+        if label == "c":
+            lv, ls = runs[0]["logloss"], refs["frontier_logloss"]
+            if not (all(b <= a + VOTING_RISE_TOL for a, b in zip(lv, lv[1:]))
+                    and abs(lv[-1] - ls[-1])
+                    < VOTING_DROP_REL * (ls[0] - ls[-1])):
+                raise AssertionError(
+                    "4zzj c: voting top_k=3 logloss %s against the single "
+                    "process's %s" % (lv, ls))
+        else:
+            trees_match(trees, refs[ref_name], ties, WAVE_PARTING, None,
+                        rows)
+            if label == "a" and ties and ties[0]["parting_tie"] is None:
+                # float64 sums leave no f32 tie: only a located one
+                raise AssertionError("4zzj a: the trees differ from 4zza's "
+                                     "without a tie under phase 5's rule")
+            if abs(got_auc - want_auc) > auc_tol:
+                raise AssertionError("4zzj %s: AUC %.10f is more than %g "
+                                     "from %.10f" % (label, got_auc,
+                                                     auc_tol, want_auc))
+        one = (paths["4zza"]["s_per_iter_no_ckpt"] if label == "a"
+               else paths[ref_name]["s_per_iter"])
+        counter = runs[0]["counter"]
+        reduce_s = counter["op_seconds"].get("all_reduce", 0.0)
+        waves = counter["waves"]
+        moved = counter["waves_moved"]
+        res = {"s_per_iter": [rk["s_per_iter"] for rk in runs],
+               "s_per_iter_one_process": one, "auc": got_auc,
+               "learner": learner, "ties": len(ties),
+               "parting_ties": sum(1 for t in ties
+                                   if t["after_parting_tie"]),
+               "splits": runs[0]["splits"],
+               "all_reduce_ms_per_split": reduce_s * 1e3 / max(
+                   runs[0]["splits"], 1),
+               "collective_ms_per_split": counter["seconds"] * 1e3 / max(
+                   runs[0]["splits"], 1),
+               "collective_ms": counter["seconds"] * 1e3,
+               "calls": counter["calls"], "payload": counter["payload"],
+               "moved": counter["moved"],
+               "payload_per_wave": (sum(waves) / len(waves)
+                                    if waves else None),
+               "moved_per_wave": (sum(moved) / len(moved)
+                                  if moved else None),
+               "staged": counter["staged"],
+               "emulated_rs": counter["emulated_rs"],
+               "transport": runs[0]["backend"]}
+        if label == "c":
+            res["logloss"] = runs[0]["logloss"]
+        out["runs"][label] = res
+        log("path 4zzj %s (%s): %.3f s per iteration at 2 ranks (%s) "
+            "against %.3f at 1; AUC %.10f; %d trees like the single "
+            "process's but %d (%d at a parting tie); all-reduce %.3f ms a "
+            "split, collectives %.3f ms a split (%d splits), %.1f ms in %s "
+            "collectives; payload %s floats (transport received %s)%s; "
+            "transport %s (%d staged "
+            "through host memory, %d reduce-scatters as all-reduces)"
+            % (label, learner, max(res["s_per_iter"]),
+               ", ".join("%.3f" % s for s in res["s_per_iter"]), one,
+               got_auc, NUM_ITERS, res["ties"], res["parting_ties"],
+               res["all_reduce_ms_per_split"],
+               res["collective_ms_per_split"], res["splits"],
+               res["collective_ms"], counter["calls"], counter["payload"],
+               counter["moved"],
+               "" if not waves else
+               ", %.0f a wave by the JAX package's rule, %.0f received, "
+               "over %d waves" % (res["payload_per_wave"],
+                                  res["moved_per_wave"], len(waves)),
+               res["transport"], res["staged"], res["emulated_rs"]))
+    out["launches"] = launches
+    out["serial_logloss"] = refs["frontier_logloss"]
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, rows, headline):
     """One kernel of the ``kernels`` line: its headline shape's times and
     every shape it was checked at."""
@@ -7235,6 +7544,8 @@ def main() -> int:
         return run_ckpt_child(sys.argv[2:])
     if sys.argv[1:2] == ["--fleet-replica"]:
         return run_fleet_replica(sys.argv[2:])
+    if sys.argv[1:2] == ["--dist-rank"]:
+        return run_dist_rank(sys.argv[2:])
     if len(sys.argv) > 1:
         return run_part(sys.argv[1:])
     with tempfile.TemporaryDirectory() as tmp:
@@ -7320,7 +7631,7 @@ def run_part(argv) -> int:
 
 
 def dense_part(paths: dict, models: dict, extras: dict, ds, x, y, tmp: str,
-               t_start: float, procs: dict) -> None:
+               t_start: float, procs: dict, refs: dict) -> None:
     """This process's share of phase 4 after 4q, on bench.py's data ``x``,
     ``y`` binned as ``ds``: 4zb-4zf, 4zl-4zn, 4zq-4zs, 4zt-4zv, 4zza,
     4zzc and 4zzd, added to ``paths`` and ``extras``; between phases it
@@ -7381,7 +7692,11 @@ def dense_part(paths: dict, models: dict, extras: dict, ds, x, y, tmp: str,
     paths["4zv"] = drive_cli_path(x, y, tmp)
     check_parts(procs)
     # ---- 4zza, 4zzc, 4zzd. checkpoints and resilience (#12, #18) -------
-    paths.update(drive_checkpoint_paths(ds, x, y, tmp, t_start))
+    paths.update(drive_checkpoint_paths(ds, x, y, tmp, t_start, refs))
+    check_parts(procs)
+    log_phase(t_start, "4zzj. distributed learners: two rank processes")
+    # ---- 4zzj. distributed learners (#13 slice a, #14) ------------------
+    paths["4zzj"] = drive_distributed_path(x, y, refs, paths, tmp)
 
 
 def part_workloads(dense: dict, tmp: str, t_start: float) -> dict:
@@ -7677,13 +7992,15 @@ def run(tmp: str) -> int:
     models, extras = {}, {}
     paths = {g: drive_path(g, ds, x, y, models) for g in GROWTH_PARAMS}
     paths["exact"]["binning_s"] = binning_s
+    refs = reference_forests(models, x, y)
     save_frontier_ref(models["frontier"], tmp)
     procs = start_parts(paths, tmp, t_start)
     try:
         log_phase(t_start, "4q. a custom objective")
         paths["4q"] = drive_fobj_path(ds, x, y)
         check_parts(procs)
-        dense_part(paths, models, extras, ds, x, y, tmp, t_start, procs)
+        dense_part(paths, models, extras, ds, x, y, tmp, t_start, procs,
+                   refs)
         del ds
         results = join_parts(procs, t_start)
     finally:

@@ -12,7 +12,9 @@ numerical and categorical features, with EFB bundles and packed
 small-feature pairs, from dense arrays, DataFrames, scipy sparse
 matrices, text files and the binary cache; with float32 or float64
 histograms, bagging, GOSS, DART and RF, monotone constraints, forced
-splits and CEGB; on one device, with leaf-wise exact, frontier-wave or
+splits and CEGB; on one device or over ranks (data-, voting- and
+feature-parallel learners, ``parallel/``), with leaf-wise exact,
+frontier-wave or
 top-K batched growth (``tree_growth``; batched also over rows kept
 grouped by leaf with ``tpu_batched_part=true``); with validation sets,
 early stopping, learning-rate schedules, continued training and a swap of

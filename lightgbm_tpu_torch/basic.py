@@ -4,7 +4,9 @@ The port of ``lightgbm_tpu/basic.py`` (``Dataset`` :83, ``Booster`` :441;
 the reference's python-package/lightgbm/basic.py) for the slice's
 arguments. A ``Dataset`` holds the raw matrix until ``construct()`` bins it
 on the host (a validation set with the training set's mappers, through
-``reference``); a ``Booster`` trains on, or predicts from, one device, and
+``reference``); a ``Booster`` trains on, or predicts from, one device (or
+trains over the ranks of ``tree_learner``, ``mesh_shape``,
+``num_machines`` and ``set_network``), and
 evaluates its training and validation sets. A pandas ``DataFrame``'s
 ``category`` columns are categorical features coded by the training
 frame's category order, which the model text keeps in its
@@ -465,7 +467,8 @@ class _InnerPredictor:
 
 
 class Booster:
-    """Booster in LightGBM (basic.py:1578), on one device."""
+    """Booster in LightGBM (basic.py:1578), on one device or rank 0 of a
+    group of thread ranks, or a process's rank."""
 
     def __init__(self, params: Optional[Dict[str, Any]] = None,
                  train_set: Optional[Dataset] = None,
@@ -810,11 +813,17 @@ class Booster:
 
     def model_to_string(self, num_iteration: Optional[int] = None,
                         start_iteration: int = 0) -> str:
+        return self._model_text(self._impl, num_iteration, start_iteration)
+
+    def _model_text(self, impl, num_iteration: Optional[int] = None,
+                    start_iteration: int = 0) -> str:
+        """``model_to_string`` of ``impl``: this booster's GBDT or, under
+        thread ranks, a peer rank's."""
         if num_iteration is None:
             num_iteration = self.best_iteration if self.best_iteration > 0 \
                 else -1
         out = model_text.model_to_string(
-            self._impl, self._feature_names(), self._feature_infos(),
+            impl, self._feature_names(), self._feature_infos(),
             num_iteration=num_iteration, start_iteration=start_iteration,
             parameters=param_dict_to_str(self.params))
         # the reference's python package appends this sidecar line, so raw
@@ -968,5 +977,22 @@ class Booster:
         return refitted_booster(self.device, self.model_to_string(), models,
                                 new_leaves)
 
-    set_network = _not_ported("set_network", "#13")
-    free_network = _not_ported("free_network", "#13")
+    def set_network(self, machines, local_listen_port: int = 12400,
+                    listen_time_out: int = 120,
+                    num_machines: int = 1) -> "Booster":
+        """Join this process to a rank group of ``num_machines`` processes
+        (basic.py:997-1005 of the JAX package; ``parallel/network.py``
+        ``init``): the first entry of ``machines`` is the rendezvous, the
+        rank ``LIGHTGBM_TPU_RANK``. A training built after it learns over
+        the group."""
+        from .parallel import network
+        network.init(machines=machines, local_listen_port=local_listen_port,
+                     time_out=listen_time_out, num_machines=num_machines,
+                     device=self.device)
+        return self
+
+    def free_network(self) -> "Booster":
+        """Leave the rank group (basic.py:1007-1010 of the JAX package)."""
+        from .parallel import network
+        network.free()
+        return self

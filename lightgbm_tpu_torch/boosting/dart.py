@@ -32,8 +32,9 @@ class DART(GBDT):
     boosting_type = "dart"
 
     def __init__(self, config, train_data, objective, metrics=None,
-                 device: torch.device = torch.device("cpu")):
-        super().__init__(config, train_data, objective, metrics, device)
+                 device: torch.device = torch.device("cpu"), comm=None):
+        super().__init__(config, train_data, objective, metrics, device,
+                         comm)
         self._drop_rng = np.random.RandomState(config.drop_seed)
         self.tree_weight: List[float] = []
         self.sum_weight = 0.0

@@ -9,7 +9,8 @@ carry their query groups in their metadata, which lambdarank and the
 ranking metrics read), numerical and categorical features stored as the
 JAX package stores them (EFB bundles and packed small-feature pairs share
 columns),
-one device, and the growth modes of ``tree_growth``: leaf-wise ``exact``
+one device or a group of ranks, and the growth modes of ``tree_growth``:
+leaf-wise ``exact``
 (``core/grow.py``), ``frontier`` waves (``core/grow_frontier.py``) and
 top-K ``batched`` steps (``core/grow_batched.py``, or
 ``core/grow_batched_part.py`` over rows kept grouped by leaf with
@@ -84,6 +85,18 @@ an ``iteration`` event and one fetch an iteration (the JAX package's
 granularity, gbdt.py:1512-1583 and :1905-1960 there). ``obs_modelstats``
 feeds ``obs/modelstats.py`` from the host trees of every grower.
 
+Rank groups (``parallel/``, ``_setup_mesh``): under ``mesh_shape=[P]``
+the booster is rank 0 of P thread ranks, each a GBDT of its own rows (its
+``_peers``), which train together (``_on_ranks``); under ``num_machines >
+1`` it is the process's rank of a ``torch.distributed`` group. Each rank
+keeps its block of the rows padded to a multiple of P (all rows and its
+columns under feature-parallel), its objective's rows (``pad_to``) and
+its scores; bagging and GOSS draw over every row from the serial key and
+each rank keeps its block; train metrics read every rank's scores
+(``_gather_attr``); valid sets are whole on every rank. The growers take
+the rank's learner (``_dist``). The combinations the JAX package refuses
+on a mesh raise its ``LightGBMError`` (``_distributed``).
+
 Every option outside the slice raises ``NotImplementedError`` from
 ``check_slice`` before anything is built, naming the ROADMAP item that
 brings it: the port never builds a different tree than the one asked for.
@@ -92,6 +105,8 @@ from __future__ import annotations
 
 import copy
 import functools
+import hashlib
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -115,9 +130,13 @@ from ..io.binning import BinType
 from ..io.dataset import BinnedDataset
 from ..log import LightGBMError, Log, check, outside_slice
 from ..metrics import Metric
-from ..objectives import ObjectiveFunction
+from ..objectives import ObjectiveFunction, create_objective
 from ..obs.health import health_vec
 from ..obs.runtime import TrainingObs
+from ..parallel import mesh as mesh_mod
+from ..parallel import network
+from ..parallel.learners import (Distributed, FeatureContext,
+                                 local_split_params, slice_meta)
 from ..resilience import faults
 from ..stream.grow_stream import StreamFrontierGrower
 from ..stream.pipeline import ChunkPipeline
@@ -175,14 +194,62 @@ def check_slice(cfg: Config) -> None:
         # JAX package's auto, which is off
         (cfg.obs_distributed == "on",
          "obs_distributed=on (cross-process telemetry)",
-         "ROADMAP Queue 1 #13"),
-        (cfg.tree_learner != "serial" or bool(cfg.mesh_shape)
-         or cfg.num_machines > 1, "a device mesh (tree_learner=%s)"
-         % cfg.tree_learner, "ROADMAP Queue 1 #13"),
+         "ROADMAP Queue 1 #13 slice b"),
+        # chunks across ranks (the sharded pipeline and grower)
+        (cfg.data_stream_chunk_rows > 0 and (
+            cfg.tree_learner != "serial" or bool(cfg.mesh_shape)
+            or cfg.num_machines > 1),
+         "streamed training with tree_learner=%s" % cfg.tree_learner,
+         "ROADMAP Queue 1 #13 slice b"),
     ]
     for bad, what, where in rules:
         if bad:
             raise outside_slice(what, where)
+
+
+# objectives whose gradient or leaf renewal reads rows beyond its own: a
+# query straddles the ranks' row blocks, a percentile needs every row
+RANKING_OBJECTIVES = ("lambdarank", "rank_xendcg")
+
+
+def check_mesh_slice(cfg: Config, objective, streamed: bool) -> None:
+    """Raise ``NotImplementedError`` for what a rank group does not take
+    yet (ROADMAP Queue 1 #13 slice b)."""
+    name = getattr(objective, "name", "")
+    rules = [
+        (name in RANKING_OBJECTIVES,
+         "objective=%s on a rank group (its queries straddle the ranks' "
+         "rows)" % name),
+        (hasattr(objective, "renew_percentile"),
+         "objective=%s on a rank group (its leaf renewal takes a global "
+         "percentile)" % name),
+        (streamed, "streamed training on a rank group"),
+    ]
+    for bad, what in rules:
+        if bad:
+            raise outside_slice(what, "ROADMAP Queue 1 #13 slice b")
+
+
+def _pad_feature_meta(meta: FeatureMeta, fpad: int) -> FeatureMeta:
+    """``fpad`` more features of one bin, which the search never takes,
+    for an even split of the columns (``_pad_feature_meta``, gbdt.py:97
+    of the JAX package); the stored layout stays the identity."""
+    if fpad <= 0:
+        return meta
+    f = meta.num_bin.shape[0]
+    fill = {"num_bin": 1, "penalty": 1.0, "pack_div": 1}
+    out = {}
+    for name, v in zip(FeatureMeta._fields, meta):
+        if v is None:
+            out[name] = None
+        elif name == "col":
+            out[name] = torch.cat([v, torch.arange(f, f + fpad,
+                                                   device=v.device)])
+        else:
+            out[name] = torch.cat([v, torch.full((fpad,), fill.get(name, 0),
+                                                 dtype=v.dtype,
+                                                 device=v.device)])
+    return FeatureMeta(**out)
 
 
 def hist_dtype(cfg: Config) -> str:
@@ -198,13 +265,21 @@ def hist_dtype(cfg: Config) -> str:
     return "f64" if cfg.gpu_use_dp else "f32"
 
 
-def batched_part_on(cfg: Config) -> bool:
+def batched_part_on(cfg: Config, meshed: bool = False) -> bool:
     """The JAX package's policy for partitioned batched growth
-    (gbdt.py:587-609 there, one device): ``true`` turns it on under
+    (gbdt.py:587-609 there): ``true`` turns it on under
     ``tree_growth=batched``; ``auto`` and ``false`` leave it off; under
-    ``exact`` or ``frontier`` the option is ignored."""
-    return cfg.tree_growth == "batched" and cfg.tpu_batched_part in ("true",
-                                                                     "1")
+    ``exact`` or ``frontier`` the option is ignored. On a rank group
+    (``meshed``) only the data-parallel learner partitions its rows; any
+    other keeps the unpartitioned step, with the JAX package's warning."""
+    on = cfg.tree_growth == "batched" and cfg.tpu_batched_part in ("true",
+                                                                   "1")
+    if on and meshed and cfg.tree_learner != "data":
+        Log.warning("tpu_batched_part=true is unsupported here (vmapped "
+                    "multiclass or GSPMD mesh path); using the unpartitioned "
+                    "batched step")
+        return False
+    return on
 
 
 def resolve_hist_impl(cfg: Config) -> str:
@@ -304,7 +379,7 @@ class GBDT:
     def __init__(self, config: Config, train_data: Optional[BinnedDataset],
                  objective: Optional[ObjectiveFunction],
                  metrics: Optional[List[Metric]] = None,
-                 device: torch.device = torch.device("cpu")):
+                 device: torch.device = torch.device("cpu"), comm=None):
         self.config = config
         self.device = device
         self.train_data = train_data
@@ -336,17 +411,29 @@ class GBDT:
         self._stream = None           # a streamed training set's pipeline
         self.obs = TrainingObs.disabled()
         self._modelstats = None
+        # a rank group (parallel/): this rank's endpoint (``comm`` for a
+        # thread rank that its leader builds), its axis and row block, and
+        # under thread ranks the leader's peers (each a GBDT of its own
+        # rank) or a peer's leader
+        self._comm = comm
+        self._peers: List["GBDT"] = []
+        self._leader: Optional["GBDT"] = None
+        self._dist: Optional[Distributed] = None
+        self._axis = mesh_mod.DATA_AXIS
+        self._layout = None
         if train_data is not None:
             self._setup_train(train_data)
 
     def _setup_train(self, ds: BinnedDataset) -> None:
         cfg = self.config
         check_slice(cfg)
-        dev = self.device
-        self.num_data = ds.num_data
         hdt = hist_dtype(cfg)
+        endpoints = self._setup_mesh(ds, hdt)
+        dev = self.device
+        self.num_data = self._layout.num_local
         self._stream, word_packed_cols = self._setup_bins(ds, hdt)
-        self.feature_meta = _feature_meta(ds, cfg, dev)
+        self.feature_meta = _pad_feature_meta(_feature_meta(ds, cfg, dev),
+                                              self._col_pad)
         # histograms span the stored columns' bins, the split search the
         # features' (gbdt.py:482-483 of the JAX package)
         self.num_bins = max(ds.max_col_bins(), 2)
@@ -355,6 +442,8 @@ class GBDT:
         self._cat_words = category_words(ds)
         if self.objective is not None:
             self.objective.init(ds.metadata, dev)
+            if self._comm is not None:
+                self.objective.pad_to(self._layout)
         for m in self.train_metrics:
             m.init(ds.metadata, ds.num_data)
         self.grow_params = GrowParams(
@@ -375,8 +464,9 @@ class GBDT:
             hist_impl=resolve_hist_impl(cfg), hist_dtype=hdt,
             batch_splits=cfg.tree_batch_splits,
             batched_pack=bool(cfg.tpu_batched_pack),
-            batched_part=batched_part_on(cfg) and hdt == "f32",
-            with_efb=ds.has_bundles or ds.has_packed,
+            batched_part=(batched_part_on(cfg, self._comm is not None)
+                          and hdt == "f32"),
+            with_efb=(ds.has_bundles or ds.has_packed) and self._comm is None,
             num_feat_bins=num_feat_bins,
             pack_j=int(pack_partner.max(initial=1)),
             packed_features=tuple(int(i) for i in np.nonzero(pack_mod)[0]),
@@ -409,12 +499,18 @@ class GBDT:
                                            cegb=self._cegb)
         if self._stream is not None:
             self._grow = StreamFrontierGrower(self._stream)
+        self._dist = self._distributed(ds, hdt)
+        if self._dist is not None:
+            self._grow = functools.partial(self._grow, dist=self._dist)
         # built once the options are known to train: it may start a server,
-        # a thread and the kernels' launch accounting
-        self.obs = TrainingObs.from_config(cfg, device=dev)
+        # a thread and the kernels' launch accounting (a thread rank's peer
+        # keeps none: its leader observes)
+        self.obs = (TrainingObs.disabled() if self._is_peer
+                    else TrainingObs.from_config(cfg, device=dev))
         # the growers that count waves for the health vector
-        self._reports_waves = (self._grow is grow_tree_frontier
-                               or self._stream is not None)
+        self._reports_waves = (cfg.tree_growth == "frontier"
+                               and hdt == "f32" and self._forced is None
+                               and self._cegb is None)
         self._health = None     # the last iteration's health vector
         if cfg.obs_modelstats:
             from ..obs.modelstats import ModelStats
@@ -422,7 +518,9 @@ class GBDT:
                 ds.num_total_features, feature_names=ds.feature_names,
                 registry=self.obs.registry, events=self.obs.events)
         self._init_scores_provided = ds.metadata.init_score is not None
-        self.scores = torch.as_tensor(self._initial_scores(ds), device=dev)
+        self.scores = torch.as_tensor(
+            mesh_mod.rows_of(self._initial_scores(ds), self._layout),
+            device=dev)
         self.boost_from_average_done = False
         self._rng = np.random.RandomState(cfg.feature_fraction_seed)
         # bagging (gbdt.py:786-807 of the JAX package): the threefry key and
@@ -434,8 +532,10 @@ class GBDT:
         f64 = self.grow_params.hist_dtype == "f64"
         self._bag_key = threefry.prng_key(cfg.bagging_seed, x64=f64)
         self._draw_dtype = torch.float64 if f64 else torch.float32
-        self._bag_mask = torch.ones(ds.num_data, dtype=torch.float32,
-                                    device=dev)
+        # rows padded for an even row split carry mask 0 everywhere
+        self._row_valid = self._local_rows(torch.ones(
+            ds.num_data, dtype=torch.float32, device=dev))
+        self._bag_mask = self._row_valid
         self._row_group, self._num_groups = None, 0
         qb = ds.metadata.query_boundaries
         if qb is not None and getattr(self.objective, "name",
@@ -454,6 +554,185 @@ class GBDT:
             rw = obj.label_weight if obj.name == "mape" else obj.weights
             self._renew_weight = (torch.ones_like(obj.label) if rw is None
                                   else rw)
+        if endpoints:
+            self._make_peers(ds, endpoints)
+
+    # ------------------------------------------------------------ rank group
+    @property
+    def _is_peer(self) -> bool:
+        """Whether this booster is a thread rank's peer (rank > 0)."""
+        return (self._comm is not None and self._comm.rank > 0
+                and isinstance(self._comm, network.ThreadGroup))
+
+    def _setup_mesh(self, ds: BinnedDataset, hdt: str) -> list:
+        """The rank group of this training (``parallel/mesh.py``): sets
+        ``_comm``, ``_axis``, ``_layout`` (the rank's rows), ``_col_pad``
+        and the device, and makes the mesh refusals of the JAX package
+        (gbdt.py:376-640 there). Returns the peers' endpoints a thread
+        leader has still to build, else []."""
+        cfg = self.config
+        endpoints = []
+        self._col_pad = 0
+        self._frontier_rs = False
+        if self._comm is None:
+            plan = mesh_mod.build_mesh(cfg, self.device, network.group())
+            if plan is not None and plan.kind == "processes":
+                if network.group() is None:
+                    network.init(cfg.machines, cfg.local_listen_port,
+                                 cfg.time_out, cfg.num_machines,
+                                 device=self.device)
+                self._comm = network.group()
+            elif plan is not None:
+                group = network.ThreadGroup.group(plan.world, plan.devices)
+                self._comm, endpoints = group[0], group[1:]
+        if self._comm is None:
+            self._layout = mesh_mod.row_layout(ds.num_data, 1, 0,
+                                               mesh_mod.DATA_AXIS)
+            return endpoints
+        comm = self._comm
+        self.device = comm.device
+        self._axis = mesh_mod.axis_of(cfg.tree_learner)
+        check_mesh_slice(cfg, self.objective,
+                         bool(getattr(ds, "is_streamed", False)))
+        if ds.has_bundles or ds.has_packed:
+            raise LightGBMError(
+                "EFB bundles / nbit-packed columns are not yet supported "
+                "with a device mesh; set enable_bundle=false and "
+                "enable_nbit_packing=false for distributed training")
+        self._layout = mesh_mod.row_layout(ds.num_data, comm.world,
+                                           comm.rank, self._axis)
+        # the frontier's reduce-scatter tiles the feature axis over the
+        # ranks, so the columns divide by them (gbdt.py:449-461 there)
+        self._frontier_rs = (cfg.tree_growth == "frontier"
+                             and cfg.tree_learner == "data"
+                             and self._axis == mesh_mod.DATA_AXIS
+                             and bool(cfg.tpu_frontier_rs) and hdt == "f32")
+        if self._frontier_rs:
+            self._col_pad = mesh_mod.col_pad(ds.num_columns, comm.world)
+        return endpoints
+
+    def _distributed(self, ds: BinnedDataset, hdt: str
+                     ) -> Optional[Distributed]:
+        """The learner of this rank's trees (``parallel/learners.py``), and
+        the combinations the JAX package refuses (gbdt.py:539-565 there)."""
+        cfg = self.config
+        constrained = self._forced is not None or self._cegb is not None
+        if cfg.tree_growth in ("batched", "frontier") and (
+                cfg.tree_learner == "feature" or (
+                    cfg.tree_learner == "voting"
+                    and cfg.tree_growth != "frontier")):
+            raise LightGBMError(
+                "tree_growth=%s does not support tree_learner=%s (serial "
+                "and data always work; voting needs tree_growth=frontier)"
+                % (cfg.tree_growth, cfg.tree_learner))
+        if self._comm is None:
+            return None
+        if cfg.tree_learner == "voting" and constrained:
+            raise LightGBMError("forced splits / CEGB are not supported "
+                                "with the voting-parallel tree learner")
+        comm = self._comm
+        if self._axis == mesh_mod.FEATURE_AXIS:
+            # the JAX package's explicit feature-parallel learner takes
+            # f32 and no order-dependent extras; otherwise every rank
+            # grows the serial tree on its replicated rows
+            if hdt != "f32" or constrained:
+                return None
+            return Distributed(comm, "feature",
+                               feature=self._feature_context(ds))
+        if cfg.tree_learner == "voting":
+            return Distributed(comm, "voting", top_k=cfg.top_k)
+        return Distributed(comm, "data_rs" if self._frontier_rs else "psum")
+
+    def _feature_context(self, ds: BinnedDataset) -> FeatureContext:
+        """This rank's columns under feature-parallel: the bin-balanced
+        assignment of gbdt.py:928-975 of the JAX package."""
+        meta = self.feature_meta
+        # the rank's columns in index order: its search's ties then go to
+        # the lowest feature, as the serial search's do
+        cols = sorted(mesh_mod.assign_columns(
+            meta.num_bin.tolist(), self._comm.world)[self._comm.rank])
+        idx = torch.as_tensor(cols, dtype=torch.int64, device=self.device)
+        return FeatureContext(
+            xb_local=self.xb.index_select(1, idx).contiguous(),
+            meta_local=slice_meta(meta, idx), global_of_local=idx,
+            sp_local=local_split_params(self.grow_params.split, cols))
+
+    def _make_peers(self, ds: BinnedDataset, endpoints: list) -> None:
+        """A thread leader's peers: a booster of this class for each other
+        rank, on its device, with an objective of its own."""
+        for ep in endpoints:
+            peer = type(self)(self.config, ds, create_objective(self.config),
+                              [], ep.device, comm=ep)
+            peer._leader = self
+            self._peers.append(peer)
+
+    def _on_ranks(self, fn):
+        """``fn(booster)`` on this booster and, at once, on each thread peer
+        (their collectives meet); returns this booster's result. A rank that
+        fails aborts the group and its error is raised."""
+        if not self._peers:
+            return fn(self)
+        ranks = [self] + self._peers
+        out, err = [None] * len(ranks), [None] * len(ranks)
+
+        def run(i):
+            try:
+                out[i] = fn(ranks[i])
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                err[i] = e
+                ranks[i]._comm.abort()
+
+        threads = [threading.Thread(target=run, args=(i,), daemon=True)
+                   for i in range(1, len(ranks))]
+        for t in threads:
+            t.start()
+        run(0)
+        for t in threads:
+            t.join()
+        failed = [i for i, e in enumerate(err) if e is not None]
+        if failed:
+            culprit = self._comm._shared.get("aborted_by")
+            raise err[culprit if culprit in failed else failed[0]]
+        return out[0]
+
+    def _local_rows(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's block of a tensor over every real row along
+        ``dim`` (padding rows zero); itself serially."""
+        lay = self._layout
+        if lay is None or (lay.num_padded == lay.num_local
+                           and t.shape[dim] == lay.num_local):
+            return t
+        pad = lay.num_padded - t.shape[dim]
+        if pad > 0:
+            shape = list(t.shape)
+            shape[dim] = pad
+            t = torch.cat([t, t.new_zeros(shape)], dim=dim)
+        return t.narrow(dim, lay.begin, lay.num_local)
+
+    def _global_rows(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The real rows of every rank's ``t`` (its rows on ``dim``), in row
+        order, by an all-gather that every rank calls; itself serially or
+        on the feature axis."""
+        if self._comm is None or self._axis == mesh_mod.FEATURE_AXIS:
+            return t
+        full = torch.cat(list(self._comm.all_gather(t.contiguous())
+                              .unbind(0)), dim=dim)
+        return full.narrow(dim, 0, self._layout.num_data)
+
+    def _gather_attr(self, get, dim: int = 0) -> torch.Tensor:
+        """``get(booster)`` (rows on ``dim``) over every real row: every
+        rank all-gathers its block (``_global_rows``), thread ranks at
+        once through ``_on_ranks``."""
+        return self._on_ranks(lambda g: g._global_rows(get(g), dim))
+
+    def check_model_agreement(self, text_of) -> List[str]:
+        """Every rank's sha256 of its model text ``text_of(gbdt)``, rank
+        ordered (``network.check_model_agreement``, on every rank at
+        once); raises ``LightGBMError`` where two differ."""
+        if self._comm is None:
+            return []
+        return self._on_ranks(lambda g: network.check_model_agreement(
+            hashlib.sha256(text_of(g).encode()).hexdigest(), g._comm))
 
     def _setup_bins(self, ds: BinnedDataset, hdt: str
                     ) -> Tuple[Optional[ChunkPipeline], int]:
@@ -487,6 +766,17 @@ class GBDT:
             self.xb = None
             return pipe, (pipe.num_cols if pipe.packed else 0)
         xb = ds.X_binned
+        if self._comm is not None:
+            # a rank's block of rows, the columns padded for the
+            # reduce-scatter; bin words stay off, as the JAX package's mesh
+            # learners shard the plain matrix (gbdt.py:631-649 there)
+            if self._col_pad:
+                xb = np.concatenate([xb, np.zeros((xb.shape[0], self._col_pad),
+                                                  xb.dtype)], axis=1)
+            self.xb = torch.as_tensor(
+                np.ascontiguousarray(mesh_mod.rows_of(xb, self._layout)),
+                device=dev)
+            return None, 0
         if cfg.tree_growth == "frontier" and hdt == "f32" and mode != "none":
             Log.info("bin packing: %d uint8 columns stored as %d int32 "
                      "words a row on the device (tpu_bin_packing=%s)",
@@ -559,6 +849,7 @@ class GBDT:
         if not coupled and not lazy and cfg.cegb_penalty_split <= 0:
             return None
         f = len(ds.used_features)
+        n = self.num_data if lazy else 0
         coupled_arr = np.zeros(f, np.float32)
         lazy_arr = np.zeros(f, np.float32)
         for i, real in enumerate(ds.used_features):
@@ -575,8 +866,7 @@ class GBDT:
             coupled_penalty=torch.as_tensor(coupled_arr, device=dev),
             lazy_penalty=torch.as_tensor(lazy_arr, device=dev),
             feature_used=torch.zeros(f, dtype=torch.bool, device=dev),
-            row_used=torch.zeros((f, ds.num_data if lazy else 0),
-                                 dtype=torch.uint8, device=dev)))
+            row_used=torch.zeros((f, n), dtype=torch.uint8, device=dev)))
 
     def _initial_scores(self, ds: BinnedDataset) -> np.ndarray:
         """[N, K] float32 scores from the data's init score, zeros without
@@ -645,9 +935,10 @@ class GBDT:
                 np.bitwise_or.at(ht.cat_bitset_bin[i], bins >> 5,
                                  (np.uint32(1) << (bins & 31)
                                   .astype(np.uint32)))
-        self.models = merged
-        self.iter_ = len(merged) // self.num_tree_per_iteration
-        self.num_init_iteration = self.iter_
+        for g in [self] + self._peers:
+            g.models = copy.deepcopy(merged) if g is not self else merged
+            g.iter_ = len(merged) // self.num_tree_per_iteration
+            g.num_init_iteration = g.iter_
 
     def reset_from(self, old: "GBDT") -> None:
         """Carry ``old``'s model over to this GBDT's training set, binned
@@ -660,7 +951,16 @@ class GBDT:
         offsets to the scores once more, which the port does not copy
         (ROADMAP Queue 3). Everything else starts over, as it does there;
         the scores are replaced, not updated in place, so RF's running
-        training sums start over too."""
+        training sums start over too. Thread ranks take their old rank's
+        trees."""
+        olds = [old] + old._peers
+        if len(olds) != 1 + len(self._peers):
+            raise LightGBMError("the new training set's rank group differs "
+                                "from the old one's")
+        ranks = [self] + self._peers
+        self._on_ranks(lambda g: g._reset_from(olds[ranks.index(g)]))
+
+    def _reset_from(self, old: "GBDT") -> None:
         self.models = copy.deepcopy(old.models)
         self.iter_ = old.iter_
         self.init_score_offsets = np.array(old.init_score_offsets,
@@ -704,6 +1004,8 @@ class GBDT:
             mask[:] = False
             mask[self._rng.choice(f, max(1, int(f * frac)),
                                   replace=False)] = True
+        # columns padded for a rank group are never usable
+        mask = np.concatenate([mask, np.zeros(self._col_pad, bool)])
         return torch.as_tensor(mask, device=self.device)
 
     def _draw_bag_mask(self, key) -> None:
@@ -711,12 +1013,15 @@ class GBDT:
         query) in the bag where its uniform is below ``bagging_fraction``
         (gbdt.cpp:180-241)."""
         n = (self._num_groups if self._row_group is not None
-             else self.num_data)
+             else self._layout.num_data)
         u = threefry.uniform(key, n, self.device, self._draw_dtype)
         if self._row_group is not None:
             u = u[self._row_group]
-        self._bag_mask = (u < draw_bound(self.config.bagging_fraction,
-                                         u.dtype)).to(torch.float32)
+        # a rank draws over every row, as one device does, and keeps its
+        # block (padding rows out)
+        self._bag_mask = self._local_rows(
+            (u < draw_bound(self.config.bagging_fraction,
+                            u.dtype)).to(torch.float32))
 
     def _sample_bagging_mask(self, iter_idx: int) -> torch.Tensor:
         """The bagging mask of iteration ``iter_idx`` on the per-iteration
@@ -735,7 +1040,14 @@ class GBDT:
         """One boosting iteration on the per-iteration key stream: the
         bagging mask of this iteration, then a split of the key whose
         second half is GOSS's (gbdt.py:2208-2211 of the JAX package), taken
-        whether or not GOSS is on. See ``_train_iteration``."""
+        whether or not GOSS is on. See ``_train_iteration``. Thread ranks
+        run it together."""
+        rate = self.shrinkage_rate
+        return self._on_ranks(
+            lambda g: g._train_one_iter(grad, hess, rate))
+
+    def _train_one_iter(self, grad, hess, rate: float) -> bool:
+        self.shrinkage_rate = rate
         if self._stopped:
             return True
         # the train_dispatch seam (gbdt.py:1506, :2184 of the JAX package):
@@ -786,15 +1098,22 @@ class GBDT:
         refreshes inside the block on the bagging schedule. The host still
         grows one iteration at a time. DART and RF, whose iterations need
         the host in between, take the per-iteration stream. Returns True
-        when training has stopped."""
+        when training has stopped. Thread ranks run it together."""
+        rate = self.shrinkage_rate
+        return self._on_ranks(lambda g: g._train_many(num_iters, rate))
+
+    def _train_many(self, num_iters: int, rate: float) -> bool:
+        self.shrinkage_rate = rate
+        # a thread rank's peer takes its leader's key stream
+        per_iteration = (self._leader or self).obs.per_iteration
         if self.boosting_type not in ("gbdt", "goss") \
-                or self._stream is not None or self.obs.per_iteration:
+                or self._stream is not None or per_iteration:
             # streamed growth, too, takes the per-iteration key stream, as
             # the JAX package never fuses it (gbdt.py:1870-1876 there), and
             # so does observability=full, which wants a span, an event and
             # health flags an iteration (:1877 there)
             for _ in range(num_iters):
-                if self.train_one_iter():
+                if self._train_one_iter(None, None, self.shrinkage_rate):
                     return True
             return False
         done = 0
@@ -881,7 +1200,9 @@ class GBDT:
         has stopped (no class's tree could split).
 
         ``grad`` and ``hess`` (K * N values of a custom objective,
-        class-major, on the host or the device) take the objective's place
+        class-major, on the host or the device; under a rank group every
+        row's, of which each rank takes its block) take the objective's
+        place
         (gbdt.py:2165-2206 of the JAX package): they go to the device as
         float32 once, before the trees' kernels, and neither boost from
         average nor leaf renewal runs on this path. Without an objective
@@ -908,7 +1229,8 @@ class GBDT:
         self._boost_from_average()
         k = self.num_tree_per_iteration
         if external:
-            grad, hess = (self.device_gradients(a, name)
+            grad, hess = (self._local_rows(self.device_gradients(a, name),
+                                           dim=1)
                           for a, name in ((grad, "grad"), (hess, "hess")))
         else:
             grad, hess = self._objective_gradients()
@@ -1001,7 +1323,7 @@ class GBDT:
         the reference's python package takes it) or an [N, K] array, one
         blocking copy from the host, none for a tensor there already
         (gbdt.py:2197-2205 of the JAX package)."""
-        n, k = self.num_data, self.num_tree_per_iteration
+        n, k = self._layout.num_data, self.num_tree_per_iteration
         if not isinstance(values, torch.Tensor):
             values = torch.from_numpy(np.ascontiguousarray(values,
                                                            np.float32))
@@ -1104,7 +1426,10 @@ class GBDT:
     def rollback_one_iter(self) -> None:
         """GBDT::RollbackOneIter (gbdt.cpp:414-430): drop the last
         iteration's trees, one a class, and take their output back out of
-        the training and valid scores."""
+        the training and valid scores (on every thread rank)."""
+        self._on_ranks(GBDT._rollback_one_iter)
+
+    def _rollback_one_iter(self) -> None:
         if not self.models:
             return
         xb = self.training_rows("rollback_one_iter")
@@ -1123,7 +1448,7 @@ class GBDT:
     def scores_of(self, data_idx: int) -> np.ndarray:
         """Raw scores on the host, [N] for one class and [N, K] for K: the
         training set's (0) or valid set ``data_idx - 1``'s."""
-        scores = (self.scores if data_idx == 0
+        scores = (self._gather_attr(lambda g: g.scores) if data_idx == 0
                   else self._valid[data_idx - 1]["scores"])
         if self.num_tree_per_iteration == 1:
             scores = scores[:, 0]
@@ -1307,6 +1632,43 @@ class GBDT:
             for i, ht in enumerate(self.models):
                 cache["scores"][:, i % k] += self._tree_output(
                     ht, self._binned_tree(ht), cache["xb"])
+
+    def _row_tensors(self):
+        """(snapshot key, tensor, rows dim) of the state kept a row:
+        under a rank group each rank holds its block of them."""
+        out = [("scores", self.scores, 0), ("bag_mask", self._bag_mask, 0)]
+        if self._cegb is not None:
+            out.append(("cegb_3", self._cegb.state.row_used, 1))
+        return out
+
+    def global_training_state(self):
+        """``training_state`` with the per-row state over every real row,
+        the layout a one-device snapshot has: every rank all-gathers its
+        blocks (a process rank calls it on every rank)."""
+        meta, arrays = self.training_state()
+        if self._comm is None or self._axis == mesh_mod.FEATURE_AXIS:
+            return meta, arrays
+        for name, _, dim in self._row_tensors():
+            arrays[name] = self._host_copy(self._gather_attr(
+                lambda g: {k: v for k, v, _ in g._row_tensors()}[name], dim))
+        return meta, arrays
+
+    def load_rank_states(self, meta, arrays) -> None:
+        """``load_training_state`` of a snapshot over every row (as
+        ``global_training_state`` writes it) on each rank, each taking its
+        block of the per-row state."""
+        if self._comm is None or self._axis == mesh_mod.FEATURE_AXIS:
+            self._on_ranks(lambda g: g.load_training_state(meta, arrays))
+            return
+
+        def one(g):
+            local = dict(arrays)
+            for name, _, dim in g._row_tensors():
+                if name in local:
+                    local[name] = g._local_rows(torch.as_tensor(
+                        np.asarray(local[name])), dim).numpy()
+            g.load_training_state(meta, local)
+        self._on_ranks(one)
 
     @property
     def current_iteration(self) -> int:

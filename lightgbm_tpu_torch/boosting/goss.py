@@ -30,18 +30,26 @@ def goss_counts(n: int, top_rate: float, other_rate: float
 
 def goss_multipliers(grad: torch.Tensor, hess: torch.Tensor, key,
                      top_rate: float, other_rate: float,
-                     draw_dtype: torch.dtype = torch.float32
-                     ) -> torch.Tensor:
+                     draw_dtype: torch.dtype = torch.float32,
+                     every_row=None, own_rows=None) -> torch.Tensor:
     """[N] float32 multipliers of GOSS for [K, N] ``grad`` and ``hess``: 1
     for the top rows, the amplification for the sampled rest, 0 for the
     rows left out. The rest's uniforms are of ``draw_dtype`` (float64 under
-    f64 histograms, as ``GBDT._draw_dtype``)."""
-    n = grad.shape[1]
-    top_cnt, other_cnt = goss_counts(n, top_rate, other_rate)
+    f64 histograms, as ``GBDT._draw_dtype``).
+
+    A rank of a group holds a block of the rows: ``every_row(t)`` gives
+    the ranks' ``|g h|`` over every real row (an all-gather), from which
+    the threshold and the counts are the serial ones, and ``own_rows(u)``
+    the rank's block of the uniforms drawn over every row."""
     gh = (grad * hess).abs().sum(dim=0)
-    thr = torch.topk(gh, top_cnt).values[-1]
+    gh_all = gh if every_row is None else every_row(gh)
+    n = gh_all.shape[0]
+    top_cnt, other_cnt = goss_counts(n, top_rate, other_rate)
+    thr = torch.topk(gh_all, top_cnt).values[-1]
     is_top = gh >= thr
     u = threefry.uniform(key, n, grad.device, draw_dtype)
+    if own_rows is not None:
+        u = own_rows(u)
     keep_other = ~is_top & (u < draw_bound(other_cnt / max(n - top_cnt, 1),
                                            draw_dtype))
     amplify = as_f32((n - top_cnt) / other_cnt)
@@ -56,13 +64,13 @@ class GOSS(GBDT):
     boosting_type = "goss"
 
     def __init__(self, config, train_data, objective, metrics=None,
-                 device: torch.device = torch.device("cpu")):
+                 device: torch.device = torch.device("cpu"), comm=None):
         if config.bagging_freq > 0 and config.bagging_fraction != 1.0:
             raise LightGBMError("Cannot use bagging in GOSS")
         if not (config.top_rate > 0.0 and config.other_rate > 0.0):
             raise LightGBMError("GOSS needs top_rate > 0 and other_rate > 0")
         super().__init__(config, train_data, objective, metrics,
-                         device)
+                         device, comm)
 
     def goss_active(self, iter_idx: int) -> bool:
         """Whether iteration ``iter_idx`` samples: not in the first
@@ -72,7 +80,11 @@ class GOSS(GBDT):
     def _row_sample(self, grad, hess, sample_mask, goss_key):
         if not self.goss_active(self.iter_):
             return grad, hess, sample_mask
-        mult = goss_multipliers(grad, hess, goss_key, self.config.top_rate,
-                                self.config.other_rate, self._draw_dtype)
+        meshed = self._comm is not None
+        mult = goss_multipliers(
+            grad * self._row_valid if meshed else grad, hess, goss_key,
+            self.config.top_rate, self.config.other_rate, self._draw_dtype,
+            self._global_rows if meshed else None,
+            self._local_rows if meshed else None)
         return (grad * mult, hess * mult,
                 sample_mask * (mult > 0).to(torch.float32))

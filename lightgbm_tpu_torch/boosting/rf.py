@@ -28,13 +28,13 @@ class RF(GBDT):
     average_output = True
 
     def __init__(self, config, train_data, objective, metrics=None,
-                 device: torch.device = torch.device("cpu")):
+                 device: torch.device = torch.device("cpu"), comm=None):
         if not (config.bagging_freq > 0
                 and 0.0 < config.bagging_fraction < 1.0):
             raise LightGBMError("Random forest needs bagging_freq > 0 and "
                                 "bagging_fraction in (0, 1)")
         super().__init__(config, train_data, objective, metrics,
-                         device)
+                         device, comm)
         self.shrinkage_rate = 1.0
         # the gradients are the objective's at its init score: no renewal
         # (the JAX package renews only on its objective's own gradients)
@@ -57,6 +57,11 @@ class RF(GBDT):
         for vi, total in self._valid_sum.items():
             arrays["rf_valid%d_sum" % vi] = self._host_copy(total)
         return meta, arrays
+
+    def _row_tensors(self):
+        return super()._row_tensors() + (
+            [("rf_score_sum", self._score_sum, 0)]
+            if self._score_sum is not None else [])
 
     def load_training_state(self, meta, arrays) -> None:
         super().load_training_state(meta, arrays)

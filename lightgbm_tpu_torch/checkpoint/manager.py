@@ -76,7 +76,7 @@ class CheckpointManager:
         """
         impl = _impl_of(target)
         t0 = time.perf_counter()
-        meta, arrays = impl.training_state()
+        meta, arrays = impl.global_training_state()
         t1 = time.perf_counter()
         os.makedirs(self.directory, exist_ok=True)
         manifest = Manifest.load(self.directory) or Manifest(self.directory)

@@ -48,7 +48,7 @@ def restore(booster, handle: SnapshotHandle,
             "checkpoint was written by boosting=%s but this run uses "
             "boosting=%s" % (meta.get("boosting_type"), impl.boosting_type))
     snap_mod.check_compatibility(meta, booster.config, impl.train_data)
-    impl.load_training_state(meta, handle.arrays)
+    impl.load_rank_states(meta, handle.arrays)
 
     loop = meta.get("train_loop") or {}
     history = loop.get("eval_history") or {}

@@ -293,7 +293,7 @@ _PARAMS: List[Tuple[str, type, Any, List[str]]] = [
     # ---- distributed obs (obs/distributed.py) ----
     # cross-process metric federation + straggler detection: auto = armed
     # whenever observability is on across several processes (off on the
-    # port's one process); on refuses (ROADMAP Queue 1 #13); off disables
+    # port's one process); on refuses (ROADMAP Queue 1 #13 slice b); off disables
     ("obs_distributed", str, "auto", []),
     # warn when max/median per-process block wall time crosses this
     # ratio (routed through HealthMonitor, warn-only); 0 disables

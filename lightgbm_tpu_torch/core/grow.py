@@ -1,6 +1,7 @@
 """Leaf-wise (best-first) tree growth.
 
-The port of ``lightgbm_tpu/core/grow.py`` ``grow_tree`` for one device with
+The port of ``lightgbm_tpu/core/grow.py`` ``grow_tree`` for a device or a
+rank of a group (``dist``: the learners of ``parallel/learners.py``) with
 the row partition (SerialTreeLearner::Train, serial_tree_learner.cpp:
 169-233, and Tree::Split, tree.cpp:49-67 of the reference). The root
 (``root_split``, shared with the wave growers) takes one histogram over all
@@ -62,6 +63,7 @@ import torch
 from .histogram import hist_tile_vals, stack_vals
 from .partition import (hist_for_leaf, init_partition,
                         leaf_id_from_partition, partition_and_hist)
+from ..parallel.learners import make_learner
 from .split import (BestSplit, CAT_WORDS, FeatureMeta, K_EPSILON,
                     K_MIN_SCORE, MISSING_NAN, MISSING_ZERO, SplitParams,
                     calculate_leaf_output, device_index, find_best_split,
@@ -399,35 +401,58 @@ def decode_bundle_value(v: torch.Tensor, offset: torch.Tensor,
     return torch.where((vv >= 0) & (vv < num_bin), vv, default_bin)
 
 
-def root_split(xb: torch.Tensor, vals: torch.Tensor, meta: FeatureMeta,
-               feature_mask: torch.Tensor, params: GrowParams,
-               cegb: CegbState = None):
+def root_split(xb: torch.Tensor, vals: torch.Tensor, params: GrowParams,
+               learner, cegb: CegbState = None):
     """The root of a tree, shared by every grower: returns the empty
     device tree with leaf 0 set, the best-split table with the root's best
     split (CEGB-penalised where ``cegb`` is given), and the root histogram
-    over the stored columns [C, B, 3]."""
-    root = vals.sum(dim=0)                                   # (g, h, count)
-    hist_root = hist_tile_vals(xb, vals, params.num_bins, params.hist_impl,
-                               params.plain_sums, params.word_packed_cols)
+    over the stored columns [C, B, 3]. The ``learner`` (``tree_learner``)
+    sums the totals over a rank group's ranks and reduces the histogram (a
+    block of the columns under data_rs); ``xb`` is what the rank
+    histograms (its own columns under feature-parallel)."""
+    root = learner.sums(vals.sum(dim=0))                     # (g, h, count)
+    hist_root = learner.reduce(hist_tile_vals(
+        xb, vals, params.num_bins, params.hist_impl, params.plain_sums,
+        params.word_packed_cols))
     pen = None
     if cegb is not None:
         unpaid = None
         if params.with_cegb_lazy:
-            unpaid = (vals[None, :, 2] * (1.0 - cegb.row_used.to(
-                vals.dtype))).sum(dim=1)[None]
+            unpaid = learner.sums((vals[None, :, 2] * (1.0 - cegb.row_used.to(
+                vals.dtype))).sum(dim=1)[None])
         pen = cegb_gain_penalty(params, cegb, root[2:3], unpaid)
-    tree, best = root_from_hist(hist_root, root, meta, feature_mask, params,
-                                pen)
+    tree, best = root_from_hist(hist_root, root, params, learner, pen)
     return tree, best, hist_root
 
 
+def serial_search(meta: FeatureMeta, feature_mask: torch.Tensor,
+                  params: GrowParams):
+    """The one-device split search of a batch of leaves, the learners'
+    ``search``: column histograms expanded to per-feature views, then
+    ``find_best_split``."""
+    def search(hist, sg, sh, cnt, mn=None, mx=None, pen=None):
+        return find_best_split(expand_hist(hist, sg, sh, cnt, meta, params),
+                               meta, params.split, sg, sh, cnt,
+                               feature_mask, mn, mx, pen)
+    return search
+
+
+def tree_learner(dist, meta: FeatureMeta, feature_mask: torch.Tensor,
+                 params: GrowParams):
+    """The learner of one tree (``parallel/learners.py``): the serial
+    search on one device, whose sums and reductions are identities, or a
+    rank group's learner under ``dist``."""
+    return make_learner(dist, serial_search(meta, feature_mask, params),
+                        meta, params.split, feature_mask)
+
+
 def root_from_hist(hist_root: torch.Tensor, root: torch.Tensor,
-                   meta: FeatureMeta, feature_mask: torch.Tensor,
-                   params: GrowParams, gain_penalty=None):
+                   params: GrowParams, learner, gain_penalty=None):
     """The empty device tree with leaf 0 set and the best-split table with
-    the root's best split, from the root's histogram [C, B, 3] and its
-    (g, h, count) totals ``root`` [3] (a streamed tree sums its root
-    histogram over the chunks first, ``stream/grow_stream.py``)."""
+    the root's best split by ``learner``, from the root's histogram
+    [C, B, 3] and its (g, h, count) totals ``root`` [3] (a streamed tree
+    sums its root histogram over the chunks first,
+    ``stream/grow_stream.py``)."""
     l = params.num_leaves
     sp = params.split
     dev = hist_root.device
@@ -437,11 +462,8 @@ def root_from_hist(hist_root: torch.Tensor, root: torch.Tensor,
     tree.leaf_weight[0] = root[1]
     tree.leaf_count[0] = root[2]
     best = _empty_best(l, dev, root.dtype)
-    b0 = find_best_split(
-        expand_hist(hist_root[None], root[0:1], root[1:2], root[2:3], meta,
-                    params),
-        meta, sp, root[0:1], root[1:2], root[2:3], feature_mask,
-        gain_penalty=gain_penalty)
+    b0 = learner.best(hist_root[None], root[0:1], root[1:2], root[2:3],
+                      pen=gain_penalty)
     _set_best(best, slice(0, 1), b0)
     return tree, best
 
@@ -525,8 +547,8 @@ def forced_split_info(hist_col: torch.Tensor, feature: torch.Tensor,
 def grow_tree(xb: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               sample_mask: torch.Tensor, meta: FeatureMeta,
               feature_mask: torch.Tensor, params: GrowParams,
-              forced: ForcedSplits = None, cegb: Cegb = None
-              ) -> Tuple[TreeArrays, torch.Tensor]:
+              forced: ForcedSplits = None, cegb: Cegb = None,
+              dist=None) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one leaf-wise tree; returns (tree on the host, per-row leaf id
     on the device).
 
@@ -539,6 +561,14 @@ def grow_tree(xb: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     first steps as the forced-splits file says; ``cegb`` holds the CEGB
     state the tree starts from, which it does not modify: the tree works
     on a copy and leaves it in ``cegb.grown``.
+
+    ``dist`` (``parallel.learners.Distributed``) grows the tree of a rank
+    group: the rank partitions its own rows (``partition_on_mesh``), and
+    the root totals, the fused two-child histograms, a forced leaf's
+    histogram and CEGB's unpaid counts go through the learner
+    (``lightgbm_tpu/core/grow.py:515-681`` of the JAX package); under
+    feature-parallel every rank holds every row and histograms its own
+    columns (``dist.feature.xb_local``).
     """
     n = xb.shape[0]
     l = params.num_leaves
@@ -548,6 +578,9 @@ def grow_tree(xb: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     hdt = torch.float64 if params.hist_dtype == "f64" else torch.float32
 
     vals = stack_vals(grad.to(hdt), hess.to(hdt), sample_mask.to(hdt))
+    lrn = tree_learner(dist, meta, feature_mask, params)
+    xb_hist = (dist.feature.xb_local if dist is not None
+               and dist.feature is not None else xb)
     state = None
     if cegb is not None:
         state = cegb.state._replace(
@@ -555,7 +588,7 @@ def grow_tree(xb: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
             row_used=cegb.state.row_used.clone())
     # split values stay on the device; the structure is host ints, which
     # replace the device tree's structure fields when the tree is done
-    tree, best, _ = root_split(xb, vals, meta, feature_mask, params, state)
+    tree, best, _ = root_split(xb_hist, vals, params, lrn, state)
     left_child = np.full(l - 1, -1, np.int32)
     right_child = np.full(l - 1, -1, np.int32)
     split_leaf = np.full(l - 1, -1, np.int32)
@@ -586,10 +619,10 @@ def grow_tree(xb: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         in_forced = t < num_forced
         if in_forced:
             fleaf = forced.leaf[t]
-            hist_f = hist_for_leaf(part, slot_ids[fleaf:fleaf + 1],
-                                   int(known_begin[fleaf]),
-                                   int(known_count[fleaf]), xb, vals, b,
-                                   params.hist_impl, params.plain_sums)
+            hist_f = lrn.reduce(hist_for_leaf(
+                part, slot_ids[fleaf:fleaf + 1], int(known_begin[fleaf]),
+                int(known_count[fleaf]), xb, vals, b, params.hist_impl,
+                params.plain_sums))
             fcur, use_forced = forced_split_info(
                 hist_f, forced_feature[t], forced_threshold[t], meta, params)
             leaf_t = torch.where(use_forced, slot_ids[fleaf:fleaf + 1],
@@ -642,7 +675,8 @@ def grow_tree(xb: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
 
         part, hist_left, hist_right = partition_and_hist(
             part, leaf, right_leaf, begin, count, xb, vals, go_left_rows, b,
-            params.hist_impl, params.plain_sums)
+            params.hist_impl, params.plain_sums, xb_hist)
+        ch_hist = lrn.reduce(torch.stack([hist_left, hist_right]))
 
         # ---- tree bookkeeping (Tree::Split, tree.cpp:49-67) -------------
         node = t
@@ -710,8 +744,8 @@ def grow_tree(xb: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                     1, rows).to(mask.dtype))                  # [F, count]
                 is_left = (torch.arange(count, device=dev)
                            < part.leaf_count[leaf:leaf + 1])
-                unpaid = torch.stack([(w * is_left).sum(dim=1),
-                                      (w * ~is_left).sum(dim=1)])
+                unpaid = lrn.sums(torch.stack([(w * is_left).sum(dim=1),
+                                               (w * ~is_left).sum(dim=1)]))
             pen = cegb_gain_penalty(params, state, torch.stack(
                 [cur.left_count, cur.right_count]), unpaid)
 
@@ -719,10 +753,7 @@ def grow_tree(xb: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         ch_g = torch.stack([cur.left_sum_grad, cur.right_sum_grad])
         ch_h = torch.stack([cur.left_sum_hess, cur.right_sum_hess])
         ch_c = torch.stack([cur.left_count, cur.right_count])
-        b2 = find_best_split(
-            expand_hist(torch.stack([hist_left, hist_right]), ch_g, ch_h,
-                        ch_c, meta, params),
-            meta, sp, ch_g, ch_h, ch_c, feature_mask, ch_min, ch_max, pen)
+        b2 = lrn.best(ch_hist, ch_g, ch_h, ch_c, ch_min, ch_max, pen)
         if 0 < params.max_depth <= depth:
             b2 = b2._replace(gain=torch.full_like(b2.gain, K_MIN_SCORE))
         _set_best(best, children, b2)

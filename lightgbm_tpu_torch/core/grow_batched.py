@@ -1,7 +1,8 @@
 """Batched growth: split the top-K leaves of the frontier per step.
 
 The port of ``lightgbm_tpu/core/grow_batched.py`` (``tree_growth=batched``)
-for one device, categorical features included, and the wave bookkeeping
+for a device or a data-parallel rank (``dist``), categorical features
+included, and the wave bookkeeping
 that it shares with the frontier grower
 (``core/grow_frontier.py``): ``wave_plan``, ``wave_route``,
 ``interleave_lr``, ``apply_split_wave``, ``search_children`` and
@@ -51,11 +52,11 @@ import torch
 
 from .binpack import gather_code_columns
 from .grow import (DeviceTree, GrowParams, TreeArrays, _bin_go_left,
-                   decode_bundle_value, expand_hist,
-                   propagate_monotone_bounds, root_split, tree_to_host)
+                   decode_bundle_value, propagate_monotone_bounds,
+                   root_split, tree_learner, tree_to_host)
 from .histogram import hist_slots, hist_slots6, stack_vals
 from .split import (BestSplit, CAT_WORDS, FeatureMeta, K_MIN_SCORE,
-                    calculate_leaf_output, find_best_split)
+                    calculate_leaf_output)
 
 
 def rank_leaves(gain: torch.Tensor, count: int) -> torch.Tensor:
@@ -214,14 +215,15 @@ def apply_split_wave(tree: DeviceTree, leaf_min: torch.Tensor,
     return interleave_lr(depth_ok, depth_ok)
 
 
-def search_children(ch_hist: torch.Tensor, plan: WavePlan, ch_ok, meta,
-                    params: GrowParams, feature_mask, leaf_min: torch.Tensor,
-                    leaf_max: torch.Tensor) -> BestSplit:
+def search_children(ch_hist: torch.Tensor, plan: WavePlan, ch_ok,
+                    params: GrowParams, leaf_min: torch.Tensor,
+                    leaf_max: torch.Tensor, learner) -> BestSplit:
     """Best splits of the 2K children's column histograms [2K, C, B, 3]
-    (interleaved), expanded to per-feature views first, in one batched
-    search, each child within its output bounds (``leaf_min``,
-    ``leaf_max`` [L], as ``apply_split_wave`` set them) where monotone
-    constraints are on; a child past ``max_depth`` gets gain -inf (JAX
+    (interleaved) by the tree's ``learner`` (``grow.tree_learner``: on one
+    device expanded to per-feature views first), in one batched search,
+    each child within its output bounds (``leaf_min``, ``leaf_max`` [L],
+    as ``apply_split_wave`` set them) where monotone constraints are on; a
+    child past ``max_depth`` gets gain -inf (JAX
     ``core/grow_batched.py:142-150, 285-290``)."""
     cur = plan.cur
     sg = interleave_lr(cur.left_sum_grad, cur.right_sum_grad)
@@ -232,9 +234,7 @@ def search_children(ch_hist: torch.Tensor, plan: WavePlan, ch_ok, meta,
         ch_min, ch_max = (interleave_lr(b.index_select(0, plan.gleaf),
                                         b.index_select(0, plan.right_leaf))
                           for b in (leaf_min, leaf_max))
-    b2k = find_best_split(expand_hist(ch_hist, sg, sh, cnt, meta, params),
-                          meta, params.split, sg, sh, cnt, feature_mask,
-                          ch_min, ch_max)
+    b2k = learner.best(ch_hist, sg, sh, cnt, ch_min, ch_max)
     return b2k._replace(gain=torch.where(ch_ok, b2k.gain, K_MIN_SCORE))
 
 
@@ -251,11 +251,13 @@ def scatter_child_best(best: BestSplit, b2k: BestSplit, gleaf: torch.Tensor,
 def grow_tree_batched(xb: torch.Tensor, grad: torch.Tensor,
                       hess: torch.Tensor, sample_mask: torch.Tensor,
                       meta: FeatureMeta, feature_mask: torch.Tensor,
-                      params: GrowParams
+                      params: GrowParams, dist=None
                       ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree, splitting up to ``params.batch_splits`` frontier
     leaves per step; returns (tree on the host, per-row leaf id on the
-    device), as ``grow.grow_tree``."""
+    device), as ``grow.grow_tree``. Under a rank group's ``dist`` (psum,
+    data-parallel) the root and every step's slot histograms are
+    all-reduced (JAX ``core/grow_batched.py``'s psum)."""
     n, c = xb.shape
     l = params.num_leaves
     b = params.num_bins
@@ -264,7 +266,8 @@ def grow_tree_batched(xb: torch.Tensor, grad: torch.Tensor,
     kb = max(1, min(params.batch_splits, l - 1))
 
     vals = stack_vals(grad, hess, sample_mask)                # [N, 3]
-    tree, best, _ = root_split(xb, vals, meta, feature_mask, params)
+    lrn = tree_learner(dist, meta, feature_mask, params)
+    tree, best, _ = root_split(xb, vals, params, lrn)
     leaf_min = torch.full((l,), float("-inf"), device=dev)
     leaf_max = torch.full((l,), float("inf"), device=dev)
     leaf_id = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -286,20 +289,22 @@ def grow_tree_batched(xb: torch.Tensor, grad: torch.Tensor,
             ch_hist = hist_slots(xb, torch.where(active, slot, -1)
                                  .to(torch.int32), vals, b, 2 * k,
                                  params.hist_impl, params.plain_sums)
+            ch_hist = lrn.reduce(ch_hist)
         else:
             h6 = hist_slots6(xb, torch.where(active, rs, -1).to(torch.int32),
                              go_left.to(torch.float32), vals, b, k,
                              params.hist_impl,
                              params.plain_sums)              # [k, C, B, 6]
+            h6 = lrn.reduce(h6)
             ch_hist = torch.stack([h6[..., :3], h6[..., 3:]],
                                   dim=1).reshape(2 * k, c, b, 3)
 
         ch_ok = apply_split_wave(tree, leaf_min, leaf_max, plan.cur,
                                  plan.gleaf, plan.node, plan.right_leaf, nl,
                                  meta, sp, params.max_depth)
-        scatter_child_best(best, search_children(ch_hist, plan, ch_ok, meta,
-                                                 params, feature_mask,
-                                                 leaf_min, leaf_max),
+        scatter_child_best(best, search_children(ch_hist, plan, ch_ok,
+                                                 params, leaf_min, leaf_max,
+                                                 lrn),
                            plan.gleaf, plan.right_leaf)
         nl += k
     return tree_to_host(tree, nl), leaf_id

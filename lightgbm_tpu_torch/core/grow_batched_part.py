@@ -1,7 +1,8 @@
 """Partitioned batched growth: the top-K leaves per step over rows kept
 grouped by leaf (``tree_growth=batched`` with ``tpu_batched_part=true``).
 
-The port of ``lightgbm_tpu/core/grow_batched_part.py`` for one device,
+The port of ``lightgbm_tpu/core/grow_batched_part.py`` for a device or a
+data-parallel rank, which partitions its own rows (``dist``),
 categorical features included. The algorithm is batched growth's
 (``core/grow_batched.py``: the same ranking, node numbering, wave commit,
 routing and child search, which this module reuses); only the layout of
@@ -41,7 +42,8 @@ from typing import Tuple
 
 import torch
 
-from .grow import GrowParams, TreeArrays, root_split, tree_to_host
+from .grow import (GrowParams, TreeArrays, root_split, tree_learner,
+                   tree_to_host)
 from .grow_batched import (_route_rows_gather, apply_split_wave,
                            scatter_child_best, search_children, wave_plan)
 from .histogram import hist_part_tiles, stack_vals
@@ -71,11 +73,14 @@ def _part_capacity(n: int, num_leaves: int, tile: int) -> int:
 def grow_tree_batched_part(xb: torch.Tensor, grad: torch.Tensor,
                            hess: torch.Tensor, sample_mask: torch.Tensor,
                            meta: FeatureMeta, feature_mask: torch.Tensor,
-                           params: GrowParams
+                           params: GrowParams, dist=None
                            ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree as ``grow_tree_batched`` does over the partitioned
     layout; returns (tree on the host, per-row leaf id on the device, in
-    the original row order)."""
+    the original row order). Under a rank group's ``dist`` (psum,
+    data-parallel) each rank partitions its own rows and the root and part
+    histograms are all-reduced (JAX ``core/grow_batched_part.py:126,
+    162-164, 247, 262``)."""
     n, c = xb.shape
     l = params.num_leaves
     b = params.num_bins
@@ -87,7 +92,8 @@ def grow_tree_batched_part(xb: torch.Tensor, grad: torch.Tensor,
     i64 = dict(dtype=torch.int64, device=dev)
 
     vals = stack_vals(grad, hess, sample_mask)                # [N, 3]
-    tree, best, _ = root_split(xb, vals, meta, feature_mask, params)
+    lrn = tree_learner(dist, meta, feature_mask, params)
+    tree, best, _ = root_split(xb, vals, params, lrn)
     leaf_min = torch.full((l,), float("-inf"), device=dev)
     leaf_max = torch.full((l,), float("inf"), device=dev)
 
@@ -163,7 +169,8 @@ def grow_tree_batched_part(xb: torch.Tensor, grad: torch.Tensor,
         # on one device; it is the mask a data-parallel shard needs before
         # its histograms are summed across devices
         keep2 = _local_slot_mask(slot_at, k).repeat_interleave(2)
-        ch_hist = torch.where(keep2[:, None, None, None], ch_hist, 0.0)
+        ch_hist = lrn.reduce(torch.where(keep2[:, None, None, None], ch_hist,
+                                         0.0))
 
         # ---- apply the permutation (DataPartition::Split) ---------------
         perm = torch.full((np_cap + 1,), np_cap - 1, **i64)
@@ -180,9 +187,9 @@ def grow_tree_batched_part(xb: torch.Tensor, grad: torch.Tensor,
         ch_ok = apply_split_wave(tree, leaf_min, leaf_max, plan.cur, gleaf,
                                  plan.node, right_leaf, nl, meta, sp,
                                  params.max_depth)
-        scatter_child_best(best, search_children(ch_hist, plan, ch_ok, meta,
-                                                 params, feature_mask,
-                                                 leaf_min, leaf_max),
+        scatter_child_best(best, search_children(ch_hist, plan, ch_ok,
+                                                 params, leaf_min, leaf_max,
+                                                 lrn),
                            gleaf, right_leaf)
         nl += k
 

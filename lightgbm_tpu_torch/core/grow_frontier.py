@@ -1,7 +1,8 @@
 """Frontier-wave growth: O(depth) passes over the rows per tree.
 
 The port of ``lightgbm_tpu/core/grow_frontier.py`` (``tree_growth=frontier``)
-for one device, one class, the serial learner, categorical features and
+for a device or a rank of a group (``dist``: the psum, data_rs and voting
+learners of ``parallel/learners.py``), one class, categorical features and
 packed bin words included (``tpu_bin_packing``: the stored matrix as int32
 words, ``core/binpack.py``, which both histogram kernels read in place and
 routing gathers one code a row from). Each wave splits every frontier leaf whose
@@ -51,8 +52,8 @@ sequential growth is that run.
 
 Streamed growth (``stream/grow_stream.py``) runs the same wave over chunks
 from ``frontier_state``. Not ported: ``wave_hist_entry`` and
-``wave_fused_entry`` (the JAX cost model's pricing entries) and the
-learners of a device mesh. The JAX package's model-statistics accumulator
+``wave_fused_entry`` (the JAX cost model's pricing entries). The JAX
+package's model-statistics accumulator
 is not needed: ``obs/modelstats.py`` reads the host trees. Its health
 accumulator is ``GrowerHealth``: the waves counted on the host, where the
 loop is, and the non-finite committed gain kept as a device max.
@@ -63,7 +64,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .grow import DeviceTree, GrowParams, TreeArrays, root_split, tree_to_host
+from .grow import (DeviceTree, GrowParams, TreeArrays, root_split,
+                   tree_learner, tree_to_host)
 from .grow_batched import (WavePlan, apply_split_wave, scatter_child_best,
                            search_children, wave_plan, wave_route)
 from .histogram import hist_slots, stack_vals
@@ -123,11 +125,11 @@ def derive_child_hists(parent_hist: torch.Tensor, hist_small: torch.Tensor,
 
 def wave_commit(s: FrontierState, plan: WavePlan, num_leaves: int,
                 left_small: torch.Tensor, hist_small: torch.Tensor,
-                meta: FeatureMeta, params: GrowParams,
-                feature_mask: torch.Tensor) -> None:
+                meta: FeatureMeta, params: GrowParams, learner) -> None:
     """Everything after the wave's pass over the rows, in place: children
     from the pool, pool update, tree bookkeeping, and the 2K children's
-    best splits."""
+    best splits by the tree's ``learner`` (``grow.tree_learner``), from the
+    learner-reduced ``hist_small``."""
     hist_left, hist_right, ch_hist = derive_child_hists(
         s.hist_pool.index_select(0, plan.gleaf), hist_small, left_small)
     # the left child keeps the parent's leaf, the right child its new leaf
@@ -137,18 +139,17 @@ def wave_commit(s: FrontierState, plan: WavePlan, num_leaves: int,
                              plan.gleaf, plan.node, plan.right_leaf,
                              num_leaves, meta, params.split,
                              params.max_depth)
-    scatter_child_best(s.best, search_children(ch_hist, plan, ch_ok, meta,
-                                               params, feature_mask,
-                                               s.leaf_min, s.leaf_max),
+    scatter_child_best(s.best, search_children(ch_hist, plan, ch_ok, params,
+                                               s.leaf_min, s.leaf_max,
+                                               learner),
                        plan.gleaf, plan.right_leaf)
 
 
-def root_state(xb: torch.Tensor, vals: torch.Tensor, meta: FeatureMeta,
-               feature_mask: torch.Tensor,
-               params: GrowParams) -> FrontierState:
+def root_state(xb: torch.Tensor, vals: torch.Tensor, params: GrowParams,
+               learner) -> FrontierState:
     """The state before the first wave: the root split, and the pool
-    holding the root's histogram."""
-    tree, best, hist_root = root_split(xb, vals, meta, feature_mask, params)
+    holding the root's (learner-reduced) histogram."""
+    tree, best, hist_root = root_split(xb, vals, params, learner)
     return frontier_state(tree, best, hist_root, xb.shape[0], params)
 
 
@@ -173,14 +174,24 @@ def grow_tree_frontier(xb: torch.Tensor, grad: torch.Tensor,
                        hess: torch.Tensor, sample_mask: torch.Tensor,
                        meta: FeatureMeta, feature_mask: torch.Tensor,
                        params: GrowParams,
-                       health: Optional[GrowerHealth] = None
-                       ) -> Tuple[TreeArrays, torch.Tensor]:
+                       health: Optional[GrowerHealth] = None,
+                       dist=None) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree in frontier waves; returns (tree on the host, per-row
     leaf id on the device), as ``grow.grow_tree``. ``health``, where
-    given, counts the waves and the non-finite committed gains."""
+    given, counts the waves and the non-finite committed gains.
+
+    ``dist`` (``parallel.learners.Distributed``) grows the tree of a rank
+    group through its three seams (JAX ``parallel/learners.py``): the root
+    reduce, the wave reduce of the slot histograms and the children's
+    best splits, by the psum, data_rs or voting learner; the group's
+    payload counter keeps a tally a wave."""
     l = params.num_leaves
     vals = stack_vals(grad, hess, sample_mask)                # [N, 3]
-    s = root_state(xb, vals, meta, feature_mask, params)
+    lrn = tree_learner(dist, meta, feature_mask, params)
+    counter = None if dist is None else dist.comm.counter
+    if counter is not None:
+        counter.wave_end()
+    s = root_state(xb, vals, params, lrn)
 
     nl = 1
     while nl < l:
@@ -188,6 +199,8 @@ def grow_tree_frontier(xb: torch.Tensor, grad: torch.Tensor,
         if live == 0:
             break
         k = min(live, l - nl)
+        if counter is not None:
+            counter.wave_mark(k)
         plan = wave_plan(s.best, nl, k)
         leaf_id, active, rs, go_left = wave_route(
             xb, s.leaf_id, plan, meta, params.with_efb,
@@ -197,9 +210,11 @@ def grow_tree_frontier(xb: torch.Tensor, grad: torch.Tensor,
                                 params.hist_impl, params.plain_sums,
                                 params.word_packed_cols)      # [k, C, B, 3]
         s = s._replace(leaf_id=leaf_id)
-        wave_commit(s, plan, nl, left_small, hist_small, meta, params,
-                    feature_mask)
+        wave_commit(s, plan, nl, left_small, lrn.reduce(hist_small), meta,
+                    params, lrn)
         if health is not None:
             health.commit(plan.cur.gain)
         nl += k
+    if counter is not None:
+        counter.wave_end()
     return tree_to_host(s.tree, nl), s.leaf_id

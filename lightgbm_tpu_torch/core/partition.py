@@ -44,7 +44,8 @@ def partition_and_hist(part: RowPartition, leaf: int, right_leaf: int,
                        vals: torch.Tensor,
                        go_left_from_rows: Callable[[torch.Tensor],
                                                    torch.Tensor],
-                       num_bins: int, impl: str, sums: str = "running"
+                       num_bins: int, impl: str, sums: str = "running",
+                       xb_hist: torch.Tensor = None
                        ) -> Tuple[RowPartition, torch.Tensor, torch.Tensor]:
     """Split ``leaf`` (rows ``order[begin:begin + count]``) into ``leaf``
     and ``right_leaf`` and price both children in the same pass.
@@ -53,14 +54,26 @@ def partition_and_hist(part: RowPartition, leaf: int, right_leaf: int,
     every row; ``go_left_from_rows(rows [count, F]) -> bool [count]`` is
     the split decision on the gathered bin bytes. The partition is updated
     in place. Returns (part, hist_left [F, B, 3], hist_right [F, B, 3]).
+
+    ``xb_hist`` (default ``xb``) is the matrix the histograms read, a
+    rank's own columns under feature-parallel. A leaf without rows here
+    (a rank's shard may hold none) prices both children at zero.
     """
+    xb_hist = xb if xb_hist is None else xb_hist
+    if count == 0:
+        part.leaf_begin[right_leaf] = begin
+        part.leaf_count[right_leaf] = 0
+        zero = vals.new_zeros((xb_hist.shape[1], num_bins, 3))
+        return part, zero, zero.clone()
     idx = part.order[begin:begin + count]
     rows = xb.index_select(0, idx)                           # [count, F]
     v = vals.index_select(0, idx)                            # [count, 3]
     go_left = go_left_from_rows(rows)
     is_l = go_left.to(v.dtype)[:, None]
     v6 = torch.cat([v * is_l, v * (1.0 - is_l)], dim=1)      # [count, 6]
-    hist = hist_tile_vals(rows, v6, num_bins, impl, sums)
+    hist = hist_tile_vals(rows if xb_hist is xb
+                          else xb_hist.index_select(0, idx), v6, num_bins,
+                          impl, sums)
 
     # left rows keep their order from the front of the range; right rows
     # fill it from the end backwards (the JAX scatter placement)
@@ -90,7 +103,11 @@ def hist_for_leaf(part: RowPartition, leaf: torch.Tensor, begin: int,
     those outside the leaf's own range (``leaf_begin``, ``leaf_count`` on
     the device) add zeros, so the host need not read the leaf's range. One
     K=3 pass (``hist_leaf_vals``: histogram.cu's kernel on the card).
+    An empty range (a rank's shard may hold none of the leaf's rows)
+    gives zeros.
     """
+    if count == 0:
+        return vals.new_zeros((xb.shape[1], num_bins, 3))
     idx = part.order[begin:begin + count]
     rows = xb.index_select(0, idx)                           # [count, F]
     v = vals.index_select(0, idx)                            # [count, 3]

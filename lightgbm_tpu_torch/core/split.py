@@ -220,10 +220,10 @@ def per_feature_split_numerical(hist: torch.Tensor, meta: FeatureMeta,
     """FindBestThresholdNumerical for every feature at once.
 
     hist [..., F, B, 3]; sum_grad, sum_hess, num_data [...] leaf totals;
-    feature_mask [F] bool; min_constraint, max_constraint [...] each
-    leaf's output bounds (None: unbounded). Threshold t means left = bins
-    <= t. Under ``params.with_monotone`` a split against its feature's
-    ``meta.monotone`` gets gain 0.
+    feature_mask [F] (or [..., F]) bool; min_constraint, max_constraint
+    [...] each leaf's output bounds (None: unbounded). Threshold t means
+    left = bins <= t. Under ``params.with_monotone`` a split against its
+    feature's ``meta.monotone`` gets gain 0.
     """
     b = hist.shape[-2]
     dev = hist.device
@@ -500,7 +500,7 @@ def per_feature_split_categorical(hist: torch.Tensor, meta: FeatureMeta,
     gain, lg, lh, lc, lo, ro = (torch.where(use_onehot, o, v)
                                 for o, v in zip(onehot, sub))
     member = torch.where(use_onehot[:, None], member1, member2)
-    usable = (feature_mask.index_select(0, cf)
+    usable = (feature_mask.index_select(-1, cf)
               & (meta.num_bin.index_select(0, cf) > 1))
     out_gain = torch.where(
         usable & torch.isfinite(gain),

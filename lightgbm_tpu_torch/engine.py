@@ -3,7 +3,8 @@
 The port of ``lightgbm_tpu/engine.py`` ``train`` (:22, its ``_train_once``
 :99-290; the reference's python-package/lightgbm/engine.py:19, boost loop
 :211-236) and ``cv`` (:289-489 there; the reference's engine.py:336):
-``train`` trains on one device with validation sets, ``feval``, callbacks,
+``train`` trains on one device (or a group of ranks, whose model digests
+it checks at the end) with validation sets, ``feval``, callbacks,
 early stopping, learning-rate schedules, continued training from an
 ``init_model``, custom objectives (``fobj``, which sets
 ``objective="none"``), categorical features and row sampling (bagging,
@@ -271,6 +272,11 @@ def _train_once(params: Dict[str, Any], train_set: Dataset,
         # flush the event stream and close any open profiler window; the
         # stats endpoint stays up for post-train scrapes
         obs.finish()
+    if booster._impl._comm is not None:
+        # every rank must hold the same model (network.py:277-310 of the
+        # JAX package): a difference is a real divergence, never a tie
+        booster.model_digests = booster._impl.check_model_agreement(
+            booster._model_text)
     return booster
 
 

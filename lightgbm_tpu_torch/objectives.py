@@ -54,6 +54,25 @@ class ObjectiveFunction:
         self.weights = (None if self._weight_np is None
                         else torch.as_tensor(self._weight_np, device=device))
 
+    def pad_to(self, layout) -> None:
+        """Keep a rank's block of rows (``pad_to``, objectives.py:58-100 of
+        the JAX package): every tensor attribute over the training rows is
+        padded with zeros to ``layout.num_padded`` rows and cut to the
+        rank's ``[begin, end)`` (``parallel/mesh.py`` ``RowLayout``). The
+        host copies (``_label_np`` and the like) keep every row, so
+        ``boost_from_score`` reads the full labels on every rank. Padding
+        rows carry mask 0 wherever the gradients are used."""
+        n0 = layout.num_data
+        pad = layout.num_padded - n0
+        for name, val in list(self.__dict__.items()):
+            if not (isinstance(val, torch.Tensor) and val.dim() >= 1
+                    and val.shape[0] == n0):
+                continue
+            if pad > 0:
+                val = torch.cat([val, val.new_zeros((pad,)
+                                                    + tuple(val.shape[1:]))])
+            setattr(self, name, val[layout.begin:layout.end].contiguous())
+
     def _apply_weights(self, grad: torch.Tensor, hess: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.weights is not None:

@@ -23,7 +23,7 @@ layer shared by training, checkpointing and serving:
 - ``server``: the training stats HTTP endpoint.
 - ``distributed``: process identity, straggler skew, metric merging and
   the crash-dumping flight recorder. The JAX package's ``DistributedObs``
-  needs several processes (ROADMAP Queue 1 #13).
+  needs several processes (ROADMAP Queue 1 #13 slice b).
 - ``modelstats``: split-gain statistics and streaming importance from the
   host trees.
 - ``drift``: train/serve drift monitors.

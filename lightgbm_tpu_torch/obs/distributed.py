@@ -15,7 +15,7 @@ only:
 
 The JAX package's ``DistributedObs`` (the once-per-block allgather, the
 per-wave stall attribution and the cluster cache) needs several processes
-and comes with ROADMAP Queue 1 #13; ``obs_distributed=on`` refuses.
+and comes with ROADMAP Queue 1 #13 slice b; ``obs_distributed=on`` refuses.
 """
 from __future__ import annotations
 

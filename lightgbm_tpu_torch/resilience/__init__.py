@@ -12,7 +12,7 @@ serving overload protection, the port of ``lightgbm_tpu/resilience/``.
   front-ends (503 with Retry-After, a half-open probe).
 
 The coordination-service seams (``kv_*`` faults, ``KvHeartbeat``) belong to
-the device mesh, ROADMAP Queue 1 #13, and refuse.
+the device mesh, ROADMAP Queue 1 #13 slice b, and refuse.
 """
 from .breaker import CircuitBreaker
 from .faults import (FaultPlan, WatchdogAbort, active_plan, clear_plan,

@@ -33,7 +33,7 @@ The catalog (kind -> injection point -> effect):
 memory and streamed; ``ckpt_write`` after a snapshot's files are written;
 ``serve_predict`` at each dispatched serving predict. The JAX package's
 ``kv_*`` kinds fire at its coordination-service seams, which the port has
-not yet (the device mesh, ROADMAP Queue 1 #13): a plan naming one raises
+not yet (ROADMAP Queue 1 #13 slice b): a plan naming one raises
 instead of arming a fault that could never fire.
 
 ``hang`` blocks host Python: the in-process ``Supervisor``'s watchdog wakes
@@ -144,7 +144,7 @@ class FaultPlan:
             raise outside_slice("fault_inject kind %r (its %s seam is the "
                                 "coordination service's)"
                                 % (kind, FAULT_KINDS[kind]),
-                                "ROADMAP Queue 1 #13")
+                                "ROADMAP Queue 1 #13 slice b")
         parts = trigger.split(":")
         if len(parts) < 2 or not parts[0]:
             raise LightGBMError(

@@ -31,7 +31,7 @@ The port's own copy of ``lightgbm_tpu/resilience/supervisor.py``:
 
 The JAX package's ``KvHeartbeat`` keeps per-rank leases in the
 coordination service's key-value store, which belongs to the device mesh
-(ROADMAP Queue 1 #13): it refuses here.
+(ROADMAP Queue 1 #13 slice b): it refuses here.
 """
 from __future__ import annotations
 
@@ -333,4 +333,5 @@ class KvHeartbeat:
 
     def __init__(self, *args, **kwargs):
         raise outside_slice("KvHeartbeat (per-rank leases in the "
-                            "coordination service)", "ROADMAP Queue 1 #13")
+                            "coordination service)",
+                            "ROADMAP Queue 1 #13 slice b")

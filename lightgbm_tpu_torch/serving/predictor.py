@@ -253,7 +253,7 @@ class ServingEngine:
                  device=None):
         if num_devices != 1:
             raise outside_slice("serve_num_devices=%d (the serving mesh)"
-                                % num_devices, "ROADMAP Queue 1 #13")
+                                % num_devices, "ROADMAP Queue 1 #13 slice b")
         check(max_batch >= 1 and min_bucket >= 1,
               "serve_max_batch and serve_min_bucket must be >= 1")
         check(backend in SERVING_BACKENDS,

@@ -19,8 +19,8 @@ The port of ``lightgbm_tpu/stream/`` (``data_stream_chunk_rows > 0``):
 
 The user's entry stays ``Dataset`` and ``train``. A device mesh
 (``ShardedSource`` over several processes, the sharded pipeline and
-grower) is ROADMAP Queue 1 #13, and with it a sharded streamed resume; a
-streamed booster checkpoints and resumes as an in-memory one does (its
+grower) is ROADMAP Queue 1 #13 slice b, and with it a sharded streamed
+resume; a streamed booster checkpoints and resumes as an in-memory one does (its
 fingerprint hashes the uint8 code chunks, ``checkpoint/snapshot.py``).
 """
 from .source import ArraySource, ChunkSource, CsvSource, NpyMmapSource

@@ -26,7 +26,7 @@ histogram channel, and their leaf ids are never read.
   subtraction and the commit (``wave_commit``), as in memory.
 
 The JAX package's ``shard_map`` wrappers (chunks across a device mesh) are
-ROADMAP Queue 1 #13.
+ROADMAP Queue 1 #13 slice b.
 """
 from __future__ import annotations
 
@@ -34,7 +34,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..core.grow import GrowParams, TreeArrays, root_from_hist, tree_to_host
+from ..core.grow import (GrowParams, TreeArrays, root_from_hist, tree_learner,
+                         tree_to_host)
 from ..core.grow_batched import wave_plan, wave_route
 from ..core.grow_frontier import (GrowerHealth, frontier_state, wave_commit,
                                   wave_slots)
@@ -86,8 +87,8 @@ class StreamFrontierGrower:
                                   params.num_bins, params.hist_impl,
                                   params.plain_sums, packed)
             hist_root = part if hist_root is None else hist_root + part
-        tree, best = root_from_hist(hist_root, root, meta, feature_mask,
-                                    params)
+        lrn = tree_learner(None, meta, feature_mask, params)
+        tree, best = root_from_hist(hist_root, root, params, lrn)
         if tspan is not None:
             rspan.end()
         s = frontier_state(tree, best, hist_root, pipe.num_padded, params)
@@ -116,7 +117,7 @@ class StreamFrontierGrower:
                     else hist_small + part
                 s.leaf_id[rows] = leaf_id
             wave_commit(s, plan, nl, left_small, hist_small, meta, params,
-                        feature_mask)
+                        lrn)
             if health is not None:
                 health.commit(plan.cur.gain)
             if tspan is not None:

@@ -26,7 +26,7 @@ chunk i is row i * R + r; rows past ``num_data`` are masked off by the
 grower (mask 0). With ``packed`` the host chunks are int32 words, four
 codes each (``core/binpack.py``), the kernels' word layout; ``num_cols``
 stays the stored column count C. ``ShardedChunkPipeline`` (a mesh) is
-ROADMAP Queue 1 #13.
+ROADMAP Queue 1 #13 slice b.
 """
 from __future__ import annotations
 

@@ -14,7 +14,7 @@ chunks (~N * C bytes) and one float chunk, and the card what
 ``pipeline.ChunkPipeline`` copies there.
 
 Sharded ingest over several processes (``comm``, a ``ShardedSource`` of
-world > 1) is ROADMAP Queue 1 #13.
+world > 1) is ROADMAP Queue 1 #13 slice b.
 """
 from __future__ import annotations
 
@@ -89,10 +89,10 @@ def ingest(source: ChunkSource, config,
     ``sample_stride > 0`` samples every k-th row in round 1 instead of the
     reservoir (at most ``bin_construct_sample_cnt`` rows, the earliest
     kept). ``comm`` (sharded ingest across processes) refuses: ROADMAP
-    Queue 1 #13."""
+    Queue 1 #13 slice b."""
     if comm is not None or int(getattr(source, "shard_world", 1) or 1) > 1:
         raise outside_slice("sharded streamed ingest (comm, ShardedSource)",
-                            "ROADMAP Queue 1 #13")
+                            "ROADMAP Queue 1 #13 slice b")
     sample_cnt = int(config.bin_construct_sample_cnt)
     rng = np.random.RandomState(config.data_random_seed)
     picker = _systematic_sample(int(sample_stride)) if sample_stride > 0 \

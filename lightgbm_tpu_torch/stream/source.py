@@ -22,7 +22,7 @@ Backends:
 Every backend checks what it is given (shape, float dtype, label length)
 when it is built or on its first chunk, and raises a ``LightGBMError``
 naming the problem. ``ShardedSource`` (one process's rows of a device
-mesh) takes one process only: several are ROADMAP Queue 1 #13.
+mesh) takes one process only: several are ROADMAP Queue 1 #13 slice b.
 """
 from __future__ import annotations
 
@@ -174,7 +174,7 @@ def shard_offsets(total_rows: int, world: int) -> List[int]:
 class ShardedSource(ChunkSource):
     """One rank's contiguous row block of an inner ``ChunkSource``; the port
     takes world 1 only (the whole source), a mesh being ROADMAP Queue 1
-    #13.
+    #13 slice b.
 
     Wraps any restartable source and yields only the rows in
     ``[offsets[rank], offsets[rank+1])``, re-chunked to the inner
@@ -194,7 +194,7 @@ class ShardedSource(ChunkSource):
         if int(world) > 1:
             raise outside_slice("sharded streamed ingest over %d processes "
                                 "(ShardedSource)" % int(world),
-                                "ROADMAP Queue 1 #13")
+                                "ROADMAP Queue 1 #13 slice b")
         self.inner = inner
         self.chunk_rows = inner.chunk_rows
         self.shard_rank = int(rank)

@@ -256,11 +256,11 @@ def test_cli_matches_the_jax_package(tmp_path):
 
 REFUSED_CLI = {
     # task=serve runs (ROADMAP #10); its options outside the slice refuse
-    "serve": (["task=serve", "serve_num_devices=2"], "#13"),
+    "serve": (["task=serve", "serve_num_devices=2"], "#13 slice b"),
     # the coordination service's faults, whose seam is the device mesh's
-    "fault_inject_kv": (["fault_inject=kv_timeout@round:2"], "#13"),
+    "fault_inject_kv": (["fault_inject=kv_timeout@round:2"], "#13 slice b"),
     "serve_fault_inject_kv": (["task=serve", "fault_inject=kv_error@calls:1"],
-                              "#13"),
+                              "#13 slice b"),
     # refused until the health monitor came (#15): it now acts, and a NaN
     # label's gradients abort the run from the monitor
     "health_monitor": (["health_monitor=abort", "objective=regression"],

@@ -22,7 +22,9 @@ fleet: the device refit against the host loop and a held Refitter against
 a one-shot refit, and the queue's per-model QoS shed on a CUDA engine; and
 observability: ``basic``'s kernel launches equal to ``none``'s over one
 block, the health vector on the card, the device-memory gauge and the
-Perfetto window's Chrome trace naming a port kernel.
+Perfetto window's Chrome trace naming a port kernel; and rank groups: two
+thread ranks on one card refuse, and two process ranks on ``cuda:0``
+all-reduce a histogram over gloo bit for bit.
 
 These tests need a CUDA device and ``nvcc``: a hand-written CUDA kernel has
 no CPU or interpret mode, so they are marked ``cuda`` and skip without one.
@@ -1585,3 +1587,55 @@ def test_perfetto_window_names_a_port_kernel(cuda_device, tmp_path):
     assert "train_iter" in names
     assert any("hist" in n and "kernel" in n for n in names), sorted(
         n for n in names if "kernel" in n)[:20]
+
+
+@pytest.mark.cuda
+def test_two_thread_ranks_on_one_card_refuse(cuda_device):
+    from lightgbm_tpu_torch.log import LightGBMError
+    from lightgbm_tpu_torch.parallel import network
+    with pytest.raises(LightGBMError, match="a card each"):
+        network.ThreadGroup.group(2, ["cuda:0", "cuda:0"])
+    if torch.cuda.device_count() > 1:
+        pytest.skip("the host has a card for each rank")
+    r = np.random.RandomState(0)
+    x = r.randn(500, 4)
+    with pytest.raises(LightGBMError, match="needs 2 devices"):
+        tlgb.train({"objective": "binary", "tree_learner": "data",
+                    "mesh_shape": [2], "verbosity": -1},
+                   tlgb.Dataset(x, label=(x[:, 0] > 0).astype(float)), 1)
+
+
+@pytest.mark.cuda
+def test_two_process_ranks_all_reduce_a_histogram_over_gloo(cuda_device,
+                                                            tmp_path):
+    import socket
+    import subprocess
+    import sys
+    here = os.path.dirname(os.path.abspath(__file__))
+    # build the library once here, not in two ranks at once
+    kernels.build_histogram_cuda(
+        torch.zeros((8, 6), dtype=torch.uint8, device=cuda_device),
+        torch.zeros((8, 3), device=cuda_device), 32)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = str(tmp_path / "rank")
+    env = dict(os.environ, MP_TEST_PORT=str(port), MP_TEST_OUT=out,
+               MP_TEST_MODE="hist", PYTHONPATH=os.path.dirname(here))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(here, "_torch_mp_worker.py")],
+        env=dict(env, LIGHTGBM_TPU_RANK=str(r))) for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=180) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert rcs == [0, 0]
+    ranks = [np.load("%s.%d.npz" % (out, r)) for r in range(2)]
+    want = ranks[0]["own"] + ranks[1]["own"]
+    for got in ranks:
+        assert str(got["backend"]) == "gloo" and int(got["staged"]) >= 1
+        np.testing.assert_array_equal(got["summed"].view(np.uint32),
+                                      want.view(np.uint32))

@@ -79,6 +79,15 @@ def test_the_scan_covers_the_fleet_package():
         assert os.path.join("lightgbm_tpu_torch", module) in scanned
 
 
+def test_the_scan_covers_the_parallel_package():
+    """The distributed learners (#13 slice a) keep their own copies of the
+    JAX package's parallel/ modules."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for module in ("parallel/__init__.py", "parallel/network.py",
+                   "parallel/mesh.py", "parallel/learners.py"):
+        assert os.path.join("lightgbm_tpu_torch", module) in scanned
+
+
 def test_the_jax_fleets_public_names_resolve_on_the_port():
     """Every name of ``lightgbm_tpu.fleet.__all__`` is one of the port's
     fleet package."""
@@ -136,8 +145,10 @@ def _data(n=400):
 
 
 OUTSIDE_SLICE = {
-    # f64 histograms are in the slice; on a device mesh they are not
-    "gpu_use_dp": ({"gpu_use_dp": True, "tree_learner": "data"}, None),
+    # f64 histograms train on a rank group; a percentile renewal there
+    # does not (ROADMAP Queue 1 #13 slice b)
+    "gpu_use_dp": ({"gpu_use_dp": True, "tree_learner": "data",
+                    "mesh_shape": [2], "objective": "quantile"}, None),
     # frontier, batched and partitioned batched growth are in the slice, as
     # are packed bin words and model statistics; the cross-process
     # telemetry beside them is not
@@ -149,7 +160,10 @@ OUTSIDE_SLICE = {
                              "tpu_batched_part": "true",
                              "obs_modelstats": True,
                              "obs_distributed": "on"}, None),
-    "mesh": ({"tree_learner": "data"}, None),
+    # a rank group trains (#13 slice a); a ranking objective, whose
+    # queries straddle the ranks' rows, does not yet
+    "mesh": ({"tree_learner": "data", "mesh_shape": [2],
+              "objective": "lambdarank"}, None),
     "pallas_impl": ({"tpu_hist_impl": "pallas"}, None),
 }
 
@@ -157,25 +171,27 @@ OUTSIDE_SLICE = {
 # refusals raised while the data are binned or the options checked, each
 # citing the ROADMAP Queue 1 item that brings what it refuses
 REFUSALS = {
-    # packed words, dataset-wide pairing and streaming train on one device
-    # (#9, #11); on a device mesh they refuse with it
-    "packed_words": ({"tree_growth": "frontier", "tpu_bin_packing": "byte",
-                      "tree_learner": "data"}, "#13"),
-    "nibble_pairs": ({"tpu_bin_packing": "nibble", "tree_learner": "data"},
-                     "#13"),
-    "fault_inject_kv": ({"fault_inject": "kv_timeout@round:2"}, "#13"),
+    # streaming trains on one device (#11); over a rank group it refuses
+    "fault_inject_kv": ({"fault_inject": "kv_timeout@round:2"},
+                        "#13 slice b"),
     "data_stream_chunk_rows": ({"data_stream_chunk_rows": 100,
                                 "tree_growth": "frontier",
-                                "tree_learner": "data"}, "#13"),
-    # methods of the JAX package's Booster the port lacks
-    "booster_set_network": ({}, "#13"),
+                                "tree_learner": "data"}, "#13 slice b"),
     # the cross-process telemetry (DistributedObs); one process is off
     "obs_distributed": ({"obs_distributed": "on",
-                         "observability": "basic"}, "#13"),
+                         "observability": "basic"}, "#13 slice b"),
     # serving options outside the serving slice (#10), refused where the
     # engine or the app is built
-    "serve_mesh": ({"serve_num_devices": 2}, "#13"),
-    "serve_fault_inject_kv": ({"fault_inject": "kv_delay@round:1"}, "#13"),
+    "serve_mesh": ({"serve_num_devices": 2}, "#13 slice b"),
+    "serve_fault_inject_kv": ({"fault_inject": "kv_delay@round:1"},
+                              "#13 slice b"),
+    # what a rank group does not take yet (#13 slice a trains the rest)
+    "mesh_lambdarank": ({"objective": "lambdarank", "tree_learner": "data",
+                         "mesh_shape": [2]}, "#13 slice b"),
+    "mesh_renewal": ({"objective": "regression_l1", "tree_learner": "data",
+                      "mesh_shape": [2]}, "#13 slice b"),
+    "mesh_2d": ({"tree_learner": "data", "mesh_shape": [2, 2]},
+                "#13 slice b"),
 }
 
 
@@ -268,9 +284,49 @@ def _acts_serve_slo(tmp_path, x, y):
     assert list(body["slos"]) == ["serve_p99"]
 
 
+def _acts_packed_words(tmp_path, x, y):
+    # a rank group shards the plain matrix, as the JAX package's mesh
+    # learners do: bin words stay off
+    bst = tlgb.train({"objective": "binary", "verbosity": -1,
+                      "tree_growth": "frontier", "tpu_bin_packing": "byte",
+                      "tree_learner": "data", "mesh_shape": [2]},
+                     tlgb.Dataset(x, label=y, device="cpu"),
+                     num_boost_round=2, device="cpu")
+    assert bst._impl.xb.dtype == torch.uint8
+    assert bst._impl.grow_params.word_packed_cols == 0
+    assert bst._impl._dist.kind == "data_rs"
+
+
+def _acts_nibble_pairs(tmp_path, x, y):
+    # the dataset pairs small features with the serial learner only
+    x = _small_pair_data(x)
+    bst = tlgb.train({"objective": "binary", "verbosity": -1,
+                      "tpu_bin_packing": "nibble", "tree_learner": "data",
+                      "mesh_shape": [2]},
+                     tlgb.Dataset(x, label=y, device="cpu"),
+                     num_boost_round=2, device="cpu")
+    assert not bst._impl.train_data.has_packed
+    assert bst._impl._comm.world == 2
+
+
+def _acts_booster_set_network(tmp_path, x, y):
+    # one machine is a no-op, as in the JAX package
+    from lightgbm_tpu_torch.parallel import network
+    bst = tlgb.train({"objective": "binary", "verbosity": -1},
+                     tlgb.Dataset(x, label=y, device="cpu"),
+                     num_boost_round=1, device="cpu")
+    assert bst.set_network("127.0.0.1:12400") is bst
+    assert network.group() is None and network.num_machines() == 1
+    assert bst.free_network() is bst
+
+
 # options the port refused until its observability layers came (ROADMAP
-# Queue 1 #15): each keeps its case, which now checks that it acts
+# Queue 1 #15), and until rank groups came (#13 slice a): each keeps its
+# case, which now checks that it acts
 NOW_ACT = {
+    "packed_words": _acts_packed_words,
+    "nibble_pairs": _acts_nibble_pairs,
+    "booster_set_network": _acts_booster_set_network,
     "observability": _acts_observability,
     "observability_full": _acts_observability_full,
     "health_monitor": _acts_health_monitor,
@@ -282,7 +338,7 @@ NOW_ACT = {
 
 def _refused_call(kind, params, x, y):
     """The call that ``kind`` refuses."""
-    params = dict(params, objective="binary", verbosity=-1)
+    params = dict({"objective": "binary"}, **params, verbosity=-1)
     if kind.startswith("serve_"):
         from lightgbm_tpu_torch.config import Config
         from lightgbm_tpu_torch.serving import build_app
@@ -515,8 +571,8 @@ def test_outside_the_slice_raises(option):
 def test_every_jax_method_is_ported_or_refuses(cls):
     """Each public method of the JAX package's class exists on the port's;
     one the port has not ported raises ``outside_slice`` citing its ROADMAP
-    item, never ``AttributeError``. Only the Booster's network setup (#13)
-    still refuses."""
+    item, never ``AttributeError``. None refuses since the Booster's
+    network setup came (#13 slice a)."""
     import lightgbm_tpu as jlgb
     x, y = _data()
     ds = tlgb.Dataset(x, label=y, device="cpu")
@@ -534,8 +590,7 @@ def test_every_jax_method_is_ported_or_refuses(cls):
                                match=r"\(ROADMAP Queue 1 #\d+\)$"):
                 method()
             refusing.append(name)
-    assert refusing == ([] if cls == "Dataset" else [
-        "free_network", "set_network"])
+    assert refusing == []
 
 
 def test_the_jax_packages_public_names_resolve_on_the_port():

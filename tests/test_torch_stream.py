@@ -424,9 +424,9 @@ def test_streamed_rollback_input_grads_and_replays_refused():
 
 
 REFUSED = {
-    "sharded_source": "#13",
-    "sharded_ingest": "#13",
-    "mesh": "#13",
+    "sharded_source": "#13 slice b",
+    "sharded_ingest": "#13 slice b",
+    "mesh": "#13 slice b",
 }
 
 

@@ -161,11 +161,16 @@ def test_frontier_split_set_is_exact_growths_without_a_cap():
 
 
 @pytest.mark.parametrize("option,growth", [
-    ({"tpu_batched_part": "true", "tree_learner": "data"}, "batched"),
-    ({"tpu_bin_packing": "byte", "tree_learner": "data"}, "frontier"),
-    ({"tpu_bin_packing": "nibble", "tree_learner": "data"}, "frontier"),
+    # the growers train on a rank group (#13 slice a); beside what a rank
+    # group does not take yet (#13 slice b) they refuse with it
+    ({"tpu_batched_part": "true", "tree_learner": "data",
+      "fault_inject": "kv_timeout@round:2"}, "batched"),
+    ({"tpu_bin_packing": "byte", "tree_learner": "data",
+      "data_stream_chunk_rows": 100}, "frontier"),
+    ({"tpu_bin_packing": "nibble", "tree_learner": "data",
+      "obs_distributed": "on"}, "frontier"),
     # model statistics train on every grower; beside the cross-process
-    # telemetry (#13) they refuse with it
+    # telemetry (#13 slice b) they refuse with it
     ({"obs_modelstats": True, "obs_distributed": "on"}, "frontier"),
     ({"obs_modelstats": True, "obs_distributed": "on"}, "batched"),
 ])
